@@ -1,0 +1,237 @@
+// Shared tile core of the port's two block-product kernels (fused_spmm.cu,
+// patch_spmm.cu): gather -> per-block GEMM tile -> atomic scatter-add.
+//
+// One thread block owns one (stored block b, 64-row output tile, column tile
+// of TR right-hand-side columns).  It walks the contraction in stages of KT:
+// each stage stages a [64, KT] tile of the block's operator (V or V^T),
+// stored transposed so a thread's eight output rows are contiguous, and the
+// gathered [KT, TR] rows of x in shared memory, then accumulates with IEEE
+// fma in T (float or double; no TF32 anywhere).  The next stage's global
+// loads are issued into registers before the current stage computes, so
+// their latency overlaps the FMAs.  For TR >= 32 each thread
+// holds an 8 x TR/32 register tile.  The finished tile is added into y with
+// atomicAdd: thread blocks run concurrently, and blocks of a population may
+// share output rows, so every write to y is an atomic add into the zeroed
+// output the wrapper allocated.  The summation order across blocks
+// therefore varies from run to run.
+//
+// Row mapping is a functor per side: ChunkMap (row i of slot b lives at
+// tab[b, i / C] * C + i % C) and WindowMap (row start[b] + i).  A gathered
+// row outside [0, x_rows) reads zero and a scattered row outside
+// [0, y_rows) is dropped: sentinel and padded lanes need no padded buffers,
+// and a bad table cannot write outside y.
+//
+// MIRROR (TR <= 32) adds the transposed contribution of the same
+// shared-memory tile (y[in rows] += A^T x[out rows]), one read of V feeding
+// two products.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace bst {
+
+constexpr int kThreads = 256;  // threads per block
+constexpr int kMT = 64;        // output rows per block
+constexpr int kPad = 4;        // row padding of the transposed A tile
+
+// contraction depth per shared-memory stage, by column-tile width
+template <int TR>
+__host__ __device__ constexpr int stage_depth() {
+  return TR == 1 ? 64 : (TR == 32 ? 32 : 16);
+}
+
+// column-tile width for r right-hand-side columns
+inline int column_tile(int r, bool mirror) {
+  if (r == 1) return 1;
+  if (r <= 32 || mirror) return 32;
+  return r <= 64 ? 64 : 128;
+}
+
+struct ChunkMap {
+  const int* tab;
+  int per;  // chunks per slot (row stride of the table)
+  int C;
+  __device__ __forceinline__ long long operator()(int b, int i) const {
+    return (long long)tab[(long long)b * per + i / C] * C + i % C;
+  }
+};
+
+struct WindowMap {
+  const int* start;
+  __device__ __forceinline__ long long operator()(int b, int i) const {
+    return (long long)start[b] + i;
+  }
+};
+
+// A = V (TRANS false, [mp, kp]) or V^T (TRANS true, [kp, mp]) of slot b.
+// grid: x = nslots * ceil(M / kMT), y = ceil(r / TR); block: kThreads.
+template <typename T, int TR, bool TRANS, bool MIRROR, class OutMap,
+          class InMap>
+__device__ __forceinline__ void tile_product(
+    const T* __restrict__ vals, int mp, int kp, OutMap out_row,
+    InMap in_row, const T* __restrict__ x, long long x_rows,
+    T* __restrict__ y, long long y_rows, int r) {
+  static_assert(TR == 1 || TR == 32 || TR == 64 || TR == 128,
+                "column tile is 1, 32, 64 or 128");
+  static_assert(!MIRROR || TR <= 32, "mirror pass takes column tiles <= 32");
+  constexpr int KT = stage_depth<TR>();
+  const int M = TRANS ? kp : mp;  // output extent of A
+  const int K = TRANS ? mp : kp;  // contraction extent
+  const int mtiles = (M + kMT - 1) / kMT;
+  const int b = blockIdx.x / mtiles;
+  const int m0 = (blockIdx.x % mtiles) * kMT;
+  const int c0 = blockIdx.y * TR;
+  const int t = threadIdx.x;
+  const T* V = vals + (long long)b * mp * kp;
+
+  __shared__ __align__(16) T At[KT][kMT + kPad];  // At[k][m] = A[m0 + m][k0 + k]
+  __shared__ T Xs[KT][TR];
+  __shared__ T Xr[MIRROR ? kMT : 1][TR];
+
+  auto load_x = [&](long long row, int c) -> T {
+    return (row >= 0 && row < x_rows && c0 + c < r) ? x[row * r + c0 + c]
+                                                    : T(0);
+  };
+  auto add_y = [&](long long row, int c, T v) {
+    if (row >= 0 && row < y_rows && c0 + c < r) atomicAdd(&y[row * r + c0 + c], v);
+  };
+
+  if constexpr (MIRROR) {
+    for (int idx = t; idx < kMT * TR; idx += kThreads) {
+      const int mi = idx / TR, c = idx % TR;
+      Xr[mi][c] = (m0 + mi < M) ? load_x(out_row(b, m0 + mi), c) : T(0);
+    }
+  }
+
+  // TR >= 32: thread (lane cl, row group rg) owns rows rg*8 .. rg*8+7 and
+  // columns cl + 32 j
+  constexpr int CJ = TR >= 32 ? TR / 32 : 1;
+  constexpr int RI = 8;
+  const int cl = t % 32, rg = t / 32;
+  T acc[TR == 1 ? 1 : RI][CJ];
+#pragma unroll
+  for (int i = 0; i < (TR == 1 ? 1 : RI); ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) acc[i][j] = T(0);
+
+  // Stage A[m0:m0+kMT, k0:k0+KT] and the gathered x rows through registers:
+  // element idx of the A tile is (a_m, a_k), chosen so neighbouring threads
+  // read neighbouring addresses of V in both orientations.
+  constexpr int NA = kMT * KT / kThreads;
+  constexpr int NX = (KT * TR + kThreads - 1) / kThreads;
+  static_assert(NA * kThreads == kMT * KT, "A tile must split evenly");
+  auto a_m = [](int idx) { return TRANS ? idx % kMT : idx / KT; };
+  auto a_k = [](int idx) { return TRANS ? idx / kMT : idx % KT; };
+  T ra[NA], rx[NX];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int q = 0; q < NA; ++q) {
+      const int idx = t + q * kThreads;
+      const int m = m0 + a_m(idx), k = k0 + a_k(idx);
+      ra[q] = (m < M && k < K)
+                  ? (TRANS ? V[(long long)k * kp + m] : V[(long long)m * kp + k])
+                  : T(0);
+    }
+#pragma unroll
+    for (int q = 0; q < NX; ++q) {
+      const int idx = t + q * kThreads;
+      const int k = k0 + idx / TR;
+      rx[q] = (idx < KT * TR && k < K) ? load_x(in_row(b, k), idx % TR) : T(0);
+    }
+  };
+  fetch(0);
+
+  for (int k0 = 0; k0 < K; k0 += KT) {
+#pragma unroll
+    for (int q = 0; q < NA; ++q) {
+      const int idx = t + q * kThreads;
+      At[a_k(idx)][a_m(idx)] = ra[q];
+    }
+#pragma unroll
+    for (int q = 0; q < NX; ++q) {
+      const int idx = t + q * kThreads;
+      if (idx < KT * TR) Xs[idx / TR][idx % TR] = rx[q];
+    }
+    __syncthreads();
+    // issue the next stage's global loads; they land while this stage computes
+    if (k0 + KT < K) fetch(k0 + KT);
+
+    if constexpr (TR == 1) {
+      const int mi = t % kMT, kq = t / kMT;  // four quarters of the stage
+#pragma unroll
+      for (int j = 0; j < KT / 4; ++j) {
+        const int kj = kq * (KT / 4) + j;
+        acc[0][0] = fma(At[kj][mi], Xs[kj][0], acc[0][0]);
+      }
+    } else {
+#pragma unroll 4
+      for (int kj = 0; kj < KT; ++kj) {
+        T a[RI], bx[CJ];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) a[i] = At[kj][rg * RI + i];
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) bx[j] = Xs[kj][cl + 32 * j];
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int j = 0; j < CJ; ++j) acc[i][j] = fma(a[i], bx[j], acc[i][j]);
+      }
+    }
+
+    if constexpr (MIRROR) {
+      // this stage's transposed contribution: yt[kj] = sum_mi A[mi][kj] xr[mi]
+      if constexpr (TR == 1) {
+        constexpr int G = kThreads / KT;  // row groups
+        constexpr int ROWS = kMT / G;
+        __shared__ T Red[G][KT];
+        const int kj = t % KT, g = t / KT;
+        T s = T(0);
+#pragma unroll
+        for (int j = 0; j < ROWS; ++j)
+          s = fma(At[kj][g * ROWS + j], Xr[g * ROWS + j][0], s);
+        Red[g][kj] = s;
+        __syncthreads();
+        if (t < KT && k0 + t < K) {
+          T tot = T(0);
+#pragma unroll
+          for (int gg = 0; gg < G; ++gg) tot += Red[gg][t];
+          add_y(in_row(b, k0 + t), 0, tot);
+        }
+      } else {
+        constexpr int RG = kThreads / TR;
+        const int c = t % TR, kg = t / TR;
+#pragma unroll
+        for (int i = 0; i < KT / RG; ++i) {
+          const int kj = kg + RG * i;
+          T s = T(0);
+          for (int mi = 0; mi < kMT; ++mi) s = fma(At[kj][mi], Xr[mi][c], s);
+          if (k0 + kj < K) add_y(in_row(b, k0 + kj), c, s);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if constexpr (TR == 1) {
+    __shared__ T Part[4][kMT];
+    const int mi = t % kMT, kq = t / kMT;
+    Part[kq][mi] = acc[0][0];
+    __syncthreads();
+    if (t < kMT && m0 + t < M) {
+      const T s = Part[0][t] + Part[1][t] + Part[2][t] + Part[3][t];
+      add_y(out_row(b, m0 + t), 0, s);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int m = m0 + rg * RI + i;
+      if (m < M) {
+        const long long row = out_row(b, m);
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) add_y(row, cl + 32 * j, acc[i][j]);
+      }
+    }
+  }
+}
+
+}  // namespace bst

@@ -1,0 +1,195 @@
+"""General block-sparse format: dense blocks at arbitrary index lists.
+
+Counterpart of ``blocksparse_tpu/formats/block_sparse.py``: dense blocks
+placed at arbitrary -- possibly non-contiguous, possibly overlapping --
+row/column index lists inside an (M, N) matrix.  Overlapping blocks sum.
+
+The host layout (``core/layout.py``) packs the blocks into shape buckets;
+the buckets are staged on the operator's ``device`` at construction.  A
+product routes as the JAX package's ``_apply`` does, minus the TPU-only
+routes (split-complex, strip, panel):
+
+  1. f32, r > 1, a merged-patch plan exists and ``patch_wins`` -> the patch
+     SpMM (kernel B2);
+  2. otherwise ``apply_operand``: chunked buckets -> kernel B1, element
+     buckets -> the torch-op engine.
+
+Real float32/float64 only in this slice; complex dtypes raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..core import schedule as sched
+from ..core.layout import BlockLayout, build_layout
+from ..core.operator import LinearOperator
+from ..ops.dispatch import apply_operand, patch_eligible, patch_wins
+
+__all__ = ["BlockSparseMatrix"]
+
+_PRECISIONS = ("highest", "high", None)
+_DTYPES = {np.dtype(np.float32): torch.float32,
+           np.dtype(np.float64): torch.float64}
+
+
+def _np_dtype(dtype):
+    if dtype is None:
+        return None
+    if isinstance(dtype, torch.dtype):
+        return torch.empty(0, dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
+
+
+class BlockSparseMatrix(LinearOperator):
+    """General block-sparse matrix (format 1).
+
+    ``precision``: "highest" | "high" | None, kept for parity with the JAX
+    package.  Every tier currently runs in full IEEE precision (see
+    ``ops/kernels/fused_spmm.py``).
+    """
+
+    def __init__(
+        self,
+        blocks: Sequence[np.ndarray],
+        rowindices: Sequence[np.ndarray],
+        colindices: Sequence[np.ndarray],
+        shape: tuple[int, int] | None = None,
+        *,
+        device="cpu",
+        dtype=None,
+        precision: str | None = "highest",
+        schedule: str = sched.SERIAL,
+    ):
+        if shape is None:
+            raise ValueError("shape=(nrows, ncols) is required")
+        if precision not in _PRECISIONS:
+            raise ValueError(
+                f"unknown precision {precision!r}; expected one of {_PRECISIONS}")
+        self._schedule = sched.normalize_schedule(schedule)
+        self._precision = precision
+        self._layout = build_layout(blocks, rowindices, colindices, shape,
+                                    dtype=_np_dtype(dtype))
+        np_dt = np.dtype(self._layout.buckets[0].values.dtype
+                         if self._layout.buckets
+                         else (_np_dtype(dtype) or np.float64))
+        if np_dt not in _DTYPES:
+            raise NotImplementedError(
+                f"dtype {np_dt} is not ported yet: this slice takes float32 "
+                "and float64 (complex: ROADMAP)")
+        self._dtype = _DTYPES[np_dt]
+        # resolve "cuda" to the concrete device the tensors land on
+        self._device = torch.empty(0, device=device).device
+        self._buckets = tuple(self._stage(b) for b in self._layout.buckets)
+        all_ids = tuple(range(self._layout.nblocks))
+        self._colors = (all_ids,) if all_ids else ()
+        self._patch = None
+
+    def _stage(self, b):
+        def dev(a):
+            return None if a is None else torch.from_numpy(
+                np.ascontiguousarray(a)).to(self._device)
+        return (dev(b.values), dev(b.row_idx), dev(b.col_idx),
+                dev(b.row_chunk_idx), dev(b.col_chunk_idx))
+
+    # -- properties ---------------------------------------------------------
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self._layout.nrows, self._layout.ncols)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self._dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def precision(self):
+        return self._precision
+
+    @property
+    def layout(self) -> BlockLayout:
+        return self._layout
+
+    @property
+    def schedule(self) -> str:
+        return self._schedule
+
+    @property
+    def nblocks(self) -> int:
+        return self._layout.nblocks
+
+    @property
+    def nnz(self) -> int:
+        """Logical nnz: sum of unpadded block areas."""
+        return self._layout.nnz
+
+    # -- reference API parity ----------------------------------------------
+    def eachblockindex(self):
+        return range(self._layout.nblocks)
+
+    def block(self, i: int) -> np.ndarray:
+        """Unpadded dense block ``i`` (host copy of the construction values)."""
+        return self._layout.extract_block(i)
+
+    def blockrowindices(self, i: int) -> np.ndarray:
+        return self._layout.rowindices[i]
+
+    def blockcolindices(self, i: int) -> np.ndarray:
+        return self._layout.colindices[i]
+
+    def colors(self) -> tuple[tuple[int, ...], ...]:
+        """Serial schedule: one color holding every block."""
+        return self._colors
+
+    def transposecolors(self) -> tuple[tuple[int, ...], ...]:
+        return self._colors
+
+    # -- compute ------------------------------------------------------------
+    def _patch_for(self):
+        """Lazy merged-patch plan and its device tensors; None if ineligible
+        (non-contiguous lists or non-f32).  Transpose products reuse the same
+        plan with the gather/scatter roles swapped."""
+        if self._patch is None:
+            from ..core.patch import build_patch_plan
+            from ..ops.patch_engine import patch_device_arrays
+
+            plan = build_patch_plan(self._layout)
+            self._patch = (plan, None if plan is None
+                           else patch_device_arrays(plan, self._device))
+        return None if self._patch[0] is None else self._patch
+
+    def _apply(self, x, transpose: bool, conj: bool):
+        if x.device != self._device:
+            raise ValueError(
+                f"operand on {x.device}, operator on {self._device}; move one "
+                "of them explicitly")
+        if x.dtype != self._dtype:
+            raise TypeError(f"operand dtype {x.dtype} != operator dtype "
+                            f"{self._dtype}")
+        out_len = self.shape[1] if transpose else self.shape[0]
+        r = 1 if x.ndim == 1 else x.shape[1]
+        if r > 1 and patch_eligible(x, self._dtype):
+            entry = self._patch_for()
+            if entry is not None and patch_wins(entry[0],
+                                                [(self._layout, 1)], r):
+                from ..ops.patch_engine import patch_apply
+
+                return patch_apply(entry[0], entry[1], x, transpose=transpose)
+        # conj is a no-op for the real dtypes this slice admits
+        return apply_operand(self._buckets, self._layout, out_len, x,
+                             transpose=transpose)
+
+    def __repr__(self):
+        m, n = self.shape
+        return (
+            f"BlockSparseMatrix({m}x{n}, {self.nblocks} blocks, "
+            f"{len(self._buckets)} buckets, nnz={self.nnz}, dtype={self.dtype}, "
+            f"device={self._device}, schedule={self._schedule!r})"
+        )

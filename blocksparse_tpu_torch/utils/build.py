@@ -1,0 +1,139 @@
+"""Build and load the port's CUDA kernels.
+
+``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, at first kernel use (never at import), into
+``blocksparse_tpu_torch/_build/``.  The library's name carries a hash of the
+sources and flags, so an edit to any source rebuilds it.  It is loaded with
+ctypes; every entry point returns the ``cudaError_t`` of its launch.
+
+A missing ``nvcc`` or a failed build raises with the compiler's output:
+there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+__all__ = ["load_library", "build_info", "check", "launch"]
+
+_PKG = Path(__file__).resolve().parents[1]
+_SRC_DIR = _PKG / "csrc"
+_BUILD_DIR = _PKG / "_build"
+_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib = None
+_info: dict = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    # vals, out_tab, in_tab, x, y, nb, mp, kp, C, r, x_rows, y_rows, mode, stream
+    "bst_fused_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P),
+    "bst_fused_spmm_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P),
+    # vals, cc, rs, x, y, nb, MP, KP, r, x_rows, y_rows, transpose, stream
+    "bst_patch_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in /usr/local/cuda/bin); the CUDA "
+        "kernels of blocksparse_tpu_torch cannot be built"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(_SRC_DIR.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for p in sorted(_SRC_DIR.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(so: Path) -> None:
+    nvcc = _nvcc()
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    _info["build_s"] = time.perf_counter() - t0
+    _info["compiler_output"] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, so)
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built from ``csrc/`` if needed."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        so = _BUILD_DIR / f"libbst_kernels_{_digest()}.so"
+        _info["library"] = str(so)
+        if so.exists():
+            _info.setdefault("build_s", 0.0)
+        else:
+            _build(so)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.bst_error_string.argtypes = (ctypes.c_int,)
+        lib.bst_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def build_info() -> dict:
+    """Library path, build seconds (0.0 when reused) and compiler output."""
+    return dict(_info)
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel entry point reported a CUDA error."""
+    if err != 0:
+        msg = load_library().bst_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call entry point ``name`` with ``args`` and the current stream of
+    ``device`` (a CUDA device), with ``device`` current; raise on error."""
+    fn = getattr(load_library(), name)
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    check(err, name)
