@@ -1,11 +1,13 @@
 """blocksparse_tpu_torch: the PyTorch / CUDA port of blocksparse_tpu.
 
-The first slice of the port: the general :class:`BlockSparseMatrix` and its
-lazy operator algebra (``@``, ``.T``, ``.H``, ``axpby``, composition) on
-torch tensors, with the block products running in two hand-written CUDA
-kernels for Hopper (``csrc/``): the chunk-table kernel (SpMV and SpMM of
-chunked buckets) and the merged-patch SpMM kernel (f32, r > 1).  On CPU
-tensors the same routes run the kernels' plain PyTorch versions.
+The general :class:`BlockSparseMatrix` and the half-stored
+:class:`SymmetricBlockMatrix`, with their lazy operator algebra (``@``,
+``.T``, ``.H``, ``axpby``, composition) on torch tensors, DSATUR coloring
+and the colored gather-round plan.  The block products run in hand-written
+CUDA kernels for Hopper (``csrc/``): the chunk-table kernel (SpMV and SpMM
+of chunked buckets, plain or symmetric), the merged-patch SpMM kernel
+(f32, r > 1) and its symmetric counterpart.  On CPU tensors the same
+routes run the kernels' plain PyTorch versions.
 
 The JAX package ``blocksparse_tpu`` is the reference; this package imports
 neither it nor jax.
@@ -30,8 +32,9 @@ from .core.operator import (
     SumOperator,
     TransposeOperator,
 )
-from .core.schedule import SERIAL, isserial
+from .core.schedule import COLORED, SERIAL, isserial
 from .formats.block_sparse import BlockSparseMatrix
+from .formats.symmetric import SymmetricBlockMatrix
 from .interop.convert import from_reference
 from .interop.scipy_io import rowcolvals, to_scipy
 
@@ -39,6 +42,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "BlockSparseMatrix",
+    "SymmetricBlockMatrix",
     "rowindices",
     "colindices",
     "eachblockindex",
@@ -56,6 +60,7 @@ __all__ = [
     "BlockLayout",
     "build_layout",
     "SERIAL",
+    "COLORED",
     "isserial",
     "rowcolvals",
     "to_scipy",

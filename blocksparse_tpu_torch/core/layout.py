@@ -123,9 +123,12 @@ class Bucket:
         return bool(np.all(self.row_start >= 0) and np.all(self.col_start >= 0))
 
 
-@dataclass(frozen=True)
+@dataclass(frozen=True, eq=False)
 class BlockLayout:
-    """Complete host-side layout for one block-sparse operand."""
+    """Complete host-side layout for one block-sparse operand.
+
+    Compared and hashed by identity: plan caches (``ops/colored.py``) key
+    on the layout object an operator holds."""
 
     nrows: int
     ncols: int

@@ -5,8 +5,8 @@ at its default plan bias ("auto"); ``tests/test_torch_layout.py`` holds the
 two bit-identical.  The plan's shape choices (canvas search, grid group
 ``G``) are the JAX package's, kept as they are so the port's kernel
 consumes the very plan the reference kernel consumed.  Not carried: the
-forced-canvas and "throughput" options, the transposed-diagonal plan and
-the one-hot row tables of the r = 1 TPU path.
+forced-canvas and "throughput" options and the one-hot row tables of the
+r = 1 TPU path.
 
 Contiguous-range blocks are merged into **patch slots**:
 
@@ -84,7 +84,8 @@ class PatchPlan:
 
 
 def build_patch_plan(layout: BlockLayout,
-                     extra_layout: BlockLayout | None = None):
+                     extra_layout: BlockLayout | None = None,
+                     transpose_main: bool = False):
     """Build a PatchPlan from one layout (or a diag+offdiag pair).
 
     ``extra_layout``: when given, ``layout`` is the DIAGONAL operand and
@@ -92,6 +93,12 @@ def build_patch_plan(layout: BlockLayout,
     both merge into one plan whose off-diagonal chunks are mirror-counted.
     Returns None when ineligible (non-f32 values, any non-contiguous index
     list, or no nonempty block).
+
+    ``transpose_main``: embed the transpose of ``layout``'s blocks (indices
+    swapped).  Used for S^T = D^T + O + O^T: the off-diagonal pair is
+    transpose-invariant, only the diagonal operand transposes.  Plain
+    operands do not need it -- their transpose swaps the gather/scatter
+    roles over the same plan.
     """
     dts = [b.values.dtype for b in layout.buckets]
     if extra_layout is not None:
@@ -101,7 +108,7 @@ def build_patch_plan(layout: BlockLayout,
 
     entries = []   # (block values f32, row_start, col_start, mirrored)
 
-    def collect(lay: BlockLayout, mirrored: bool) -> bool:
+    def collect(lay: BlockLayout, mirrored: bool, transposed: bool) -> bool:
         for i in range(lay.nblocks):
             r = lay.rowindices[i]
             c = lay.colindices[i]
@@ -110,17 +117,21 @@ def build_patch_plan(layout: BlockLayout,
             if not (is_contiguous(r) and is_contiguous(c)):
                 return False
             blk = np.asarray(lay.extract_block(i), np.float32)
+            if transposed:
+                blk, r, c = blk.T, c, r
             entries.append((blk, int(r[0]), int(c[0]), mirrored))
         return True
 
-    if not collect(layout, False):
+    if not collect(layout, False, transpose_main):
         return None
-    if extra_layout is not None and not collect(extra_layout, True):
+    if extra_layout is not None and not collect(extra_layout, True, False):
         return None
     if not entries:
         return None
 
     nrows, ncols = layout.nrows, layout.ncols
+    if transpose_main:
+        nrows, ncols = ncols, nrows
     NC = -(-ncols // CC)
     NR = -(-nrows // CR)
     logical = sum(b.shape[0] * b.shape[1] for b, _, _, _ in entries)

@@ -1,9 +1,16 @@
 """Execution-plan ("scheduler") choice carried by the operator.
 
-Counterpart of ``blocksparse_tpu/core/schedule.py``.  Only ``"serial"`` runs
-in the port so far: every block is one color, and the CUDA kernels resolve
-write conflicts with atomics.  ``"colored"`` (race-free colored launch
-rounds) is queued on the ROADMAP's coloring item and raises here.
+Counterpart of ``blocksparse_tpu/core/schedule.py``:
+
+  SERIAL   -- one color holding every block; the element engine scatters
+              with ``index_add_`` and the CUDA kernels add with atomics.
+  COLORED  -- conflict-free colors from DSATUR (``coloring/``); the element
+              engine may run the scatter-free colored gather rounds
+              (``ops/colored.py``), whose result depends on the coloring
+              being right.  The CUDA kernels still add with atomics: using
+              the colors as their launch schedule is later work (ROADMAP A8).
+
+The JAX package's ``"auto"`` is not carried.
 """
 
 from __future__ import annotations
@@ -13,15 +20,12 @@ __all__ = ["SERIAL", "COLORED", "isserial", "normalize_schedule"]
 SERIAL = "serial"
 COLORED = "colored"
 
+_VALID = (SERIAL, COLORED)
+
 
 def normalize_schedule(s: str) -> str:
-    if s == COLORED:
-        raise NotImplementedError(
-            "schedule='colored' is not ported yet (ROADMAP: coloring); "
-            "use schedule='serial'"
-        )
-    if s != SERIAL:
-        raise ValueError(f"unknown schedule {s!r}; expected {SERIAL!r}")
+    if s not in _VALID:
+        raise ValueError(f"unknown schedule {s!r}; expected one of {_VALID}")
     return s
 
 

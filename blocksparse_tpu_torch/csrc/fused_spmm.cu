@@ -39,10 +39,13 @@ __global__ void __launch_bounds__(bst::kThreads)
                                           x_rows, y, y_rows, r);
 }
 
+// The mirror pass exists for column tiles <= 32 only: a symmetric launch
+// with a wider tile is refused, not silently skipped.
 template <typename T, int TR>
-void launch(dim3 grid, cudaStream_t s, int mode, const T* vals,
-            const int* out_tab, const int* in_tab, const T* x, T* y, int mp,
-            int kp, int C, int r, long long x_rows, long long y_rows) {
+cudaError_t launch(dim3 grid, cudaStream_t s, int mode, const T* vals,
+                   const int* out_tab, const int* in_tab, const T* x, T* y,
+                   int mp, int kp, int C, int r, long long x_rows,
+                   long long y_rows) {
   if (mode == 0)
     fused_spmm_kernel<T, TR, false, false><<<grid, bst::kThreads, 0, s>>>(
         vals, out_tab, in_tab, x, y, mp, kp, C, r, x_rows, y_rows);
@@ -52,6 +55,9 @@ void launch(dim3 grid, cudaStream_t s, int mode, const T* vals,
   else if constexpr (TR <= 32)
     fused_spmm_kernel<T, TR, false, true><<<grid, bst::kThreads, 0, s>>>(
         vals, out_tab, in_tab, x, y, mp, kp, C, r, x_rows, y_rows);
+  else
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 // mode: 0 forward, 1 transpose, 2 symmetric.  y must be zeroed.
@@ -66,9 +72,10 @@ int run(const T* vals, const int* out_tab, const int* in_tab, const T* x,
   const int tr = bst::column_tile(r, mode == 2);
   const dim3 grid(nb * ((M + bst::kMT - 1) / bst::kMT), (r + tr - 1) / tr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BST_LAUNCH(TRV)                                                     \
-  launch<T, TRV>(grid, s, mode, vals, out_tab, in_tab, x, y, mp, kp, C, r, \
-                 x_rows, y_rows)
+  cudaError_t err;
+#define BST_LAUNCH(TRV)                                                   \
+  err = launch<T, TRV>(grid, s, mode, vals, out_tab, in_tab, x, y, mp, kp, \
+                       C, r, x_rows, y_rows)
   switch (tr) {
     case 1: BST_LAUNCH(1); break;
     case 32: BST_LAUNCH(32); break;
@@ -76,6 +83,7 @@ int run(const T* vals, const int* out_tab, const int* in_tab, const T* x,
     default: BST_LAUNCH(128); break;
   }
 #undef BST_LAUNCH
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,86 @@
+// Sentinel-aware element gather and scatter-add on Hopper (kernel B9 of the
+// port).
+//
+// Replaces blocksparse_tpu/ops/pallas/mask_select.py::_gather_kernel and
+// ::_scatter_kernel (launched from mask_gather / mask_scatter_add), the
+// gather and scatter-add of the element engine (bucket_apply) for f32
+// vectors:
+//   gather   out[e] = x[idx[e]]        idx[e] >= n reads 0
+//   scatter  y[idx[e]] += v[e]         idx[e] >= out_len is dropped
+// which is the layout's sentinel convention (core/layout.py: padded lanes
+// carry the index n or out_len).  A negative index, which no layout makes,
+// is treated the same way, so no index reaches outside x or y.
+//
+// What bounds it on the card: each index moves 4 bytes of index, 4 of value
+// and one random 4-byte access into x or y; x and y (at most a few hundred
+// KB for the element buckets) stay in the 50 MB L2, so the kernels are bound
+// by the streamed index and value bytes and by the launch itself.  The TPU
+// kernels turned each random access into one-hot matrix products because
+// the TPU has no fast scalar gather; on the GPU a thread per element does
+// the access directly: one thread per index, neighbouring threads on
+// neighbouring indices (coalesced index and value streams), a grid-stride
+// loop.
+//
+// Race-freedom: indices repeat (blocks share rows), so the scatter adds with
+// fp32 atomicAdd into the output the wrapper zeroed; the summation order
+// varies between runs.  The TPU kernel summed in a fixed order through its
+// sequential grid.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr long long kMaxBlocks = 132LL * 16;  // 16 blocks per SM, then stride
+
+__global__ void __launch_bounds__(kThreads)
+    mask_gather_kernel(const float* __restrict__ x, long long n,
+                       const int* __restrict__ idx, long long K,
+                       float* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < K;
+       e += stride) {
+    const int i = idx[e];
+    out[e] = (i >= 0 && i < n) ? __ldg(x + i) : 0.0f;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    mask_scatter_kernel(const float* __restrict__ v,
+                        const int* __restrict__ idx, long long K,
+                        float* __restrict__ y, long long out_len) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < K;
+       e += stride) {
+    const int i = idx[e];
+    if (i >= 0 && i < out_len) atomicAdd(y + i, v[e]);
+  }
+}
+
+dim3 grid_for(long long K) {
+  const long long blocks = (K + kThreads - 1) / kThreads;
+  return dim3((unsigned)(blocks < kMaxBlocks ? blocks : kMaxBlocks));
+}
+
+}  // namespace
+
+// out: [K].  x: [n].
+extern "C" int bst_mask_gather_f32(const float* x, long long n, const int* idx,
+                                   long long K, float* out, void* stream) {
+  if (n < 0 || K < 0) return (int)cudaErrorInvalidValue;
+  if (K == 0) return 0;
+  mask_gather_kernel<<<grid_for(K), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(x, n, idx, K, out);
+  return (int)cudaGetLastError();
+}
+
+// y: [out_len], zeroed by the caller (the kernel adds into it).
+extern "C" int bst_mask_scatter_add_f32(const float* v, const int* idx,
+                                        long long K, float* y,
+                                        long long out_len, void* stream) {
+  if (out_len < 0 || K < 0) return (int)cudaErrorInvalidValue;
+  if (K == 0 || out_len == 0) return 0;
+  mask_scatter_kernel<<<grid_for(K), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(v, idx, K, y,
+                                                             out_len);
+  return (int)cudaGetLastError();
+}

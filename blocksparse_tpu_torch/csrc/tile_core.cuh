@@ -23,7 +23,11 @@
 //
 // MIRROR (TR <= 32) adds the transposed contribution of the same
 // shared-memory tile (y[in rows] += A^T x[out rows]), one read of V feeding
-// two products.
+// two products.  Two row predicates restrict the mirrored product: mir_out
+// selects the out rows whose x enters it, mir_in the in rows it adds into.
+// B1 mirrors every row (AllRows); B3 mirrors only the leading chunks that
+// hold stored off-diagonal blocks (ChunkPrefix), so the diagonal blocks
+// that share its slots get no spurious transpose.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -63,14 +67,28 @@ struct WindowMap {
   }
 };
 
+// Mirror predicates: does row i of slot b take part in the mirrored product?
+struct AllRows {
+  __device__ __forceinline__ bool operator()(int, int) const { return true; }
+};
+
+struct ChunkPrefix {  // row i lies in one of slot b's first lead[b] C-chunks
+  const int* lead;
+  int C;
+  __device__ __forceinline__ bool operator()(int b, int i) const {
+    return i / C < lead[b];
+  }
+};
+
 // A = V (TRANS false, [mp, kp]) or V^T (TRANS true, [kp, mp]) of slot b.
 // grid: x = nslots * ceil(M / kMT), y = ceil(r / TR); block: kThreads.
 template <typename T, int TR, bool TRANS, bool MIRROR, class OutMap,
-          class InMap>
+          class InMap, class MirIn = AllRows, class MirOut = AllRows>
 __device__ __forceinline__ void tile_product(
     const T* __restrict__ vals, int mp, int kp, OutMap out_row,
     InMap in_row, const T* __restrict__ x, long long x_rows,
-    T* __restrict__ y, long long y_rows, int r) {
+    T* __restrict__ y, long long y_rows, int r, MirIn mir_in = MirIn(),
+    MirOut mir_out = MirOut()) {
   static_assert(TR == 1 || TR == 32 || TR == 64 || TR == 128,
                 "column tile is 1, 32, 64 or 128");
   static_assert(!MIRROR || TR <= 32, "mirror pass takes column tiles <= 32");
@@ -99,7 +117,9 @@ __device__ __forceinline__ void tile_product(
   if constexpr (MIRROR) {
     for (int idx = t; idx < kMT * TR; idx += kThreads) {
       const int mi = idx / TR, c = idx % TR;
-      Xr[mi][c] = (m0 + mi < M) ? load_x(out_row(b, m0 + mi), c) : T(0);
+      Xr[mi][c] = (m0 + mi < M && mir_out(b, m0 + mi))
+                      ? load_x(out_row(b, m0 + mi), c)
+                      : T(0);
     }
   }
 
@@ -191,7 +211,7 @@ __device__ __forceinline__ void tile_product(
           s = fma(At[kj][g * ROWS + j], Xr[g * ROWS + j][0], s);
         Red[g][kj] = s;
         __syncthreads();
-        if (t < KT && k0 + t < K) {
+        if (t < KT && k0 + t < K && mir_in(b, k0 + t)) {
           T tot = T(0);
 #pragma unroll
           for (int gg = 0; gg < G; ++gg) tot += Red[gg][t];
@@ -205,7 +225,8 @@ __device__ __forceinline__ void tile_product(
           const int kj = kg + RG * i;
           T s = T(0);
           for (int mi = 0; mi < kMT; ++mi) s = fma(At[kj][mi], Xr[mi][c], s);
-          if (k0 + kj < K) add_y(in_row(b, k0 + kj), c, s);
+          if (k0 + kj < K && mir_in(b, k0 + kj))
+            add_y(in_row(b, k0 + kj), c, s);
         }
       }
     }

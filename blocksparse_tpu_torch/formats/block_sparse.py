@@ -12,7 +12,9 @@ routes (split-complex, strip, panel):
   1. f32, r > 1, a merged-patch plan exists and ``patch_wins`` -> the patch
      SpMM (kernel B2);
   2. otherwise ``apply_operand``: chunked buckets -> kernel B1, element
-     buckets -> the torch-op engine.
+     buckets -> the torch-op engine (colored gather rounds under
+     ``schedule="colored"``, with ``colors`` forward and
+     ``transposecolors`` for transpose products).
 
 Real float32/float64 only in this slice; complex dtypes raise
 ``NotImplementedError``.
@@ -25,6 +27,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import coloring
 from ..core import schedule as sched
 from ..core.layout import BlockLayout, build_layout
 from ..core.operator import LinearOperator
@@ -37,12 +40,48 @@ _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.float64): torch.float64}
 
 
+def _colors_tuple(colors) -> tuple[tuple[int, ...], ...]:
+    return tuple(tuple(int(b) for b in group) for group in colors)
+
+
 def _np_dtype(dtype):
     if dtype is None:
         return None
     if isinstance(dtype, torch.dtype):
         return torch.empty(0, dtype=dtype).numpy().dtype
     return np.dtype(dtype)
+
+
+def _torch_dtype(layouts, dtype) -> torch.dtype:
+    """The operator's dtype: its first stored bucket's, else ``dtype``, else
+    float64; real float32/float64 only in this slice."""
+    vals = [b.values.dtype for lay in layouts for b in lay.buckets]
+    np_dt = np.dtype(vals[0] if vals else (_np_dtype(dtype) or np.float64))
+    if np_dt not in _DTYPES:
+        raise NotImplementedError(
+            f"dtype {np_dt} is not ported yet: this slice takes float32 "
+            "and float64 (complex: ROADMAP)")
+    return _DTYPES[np_dt]
+
+
+def _check_operand(x: torch.Tensor, device, dtype) -> None:
+    if x.device != device:
+        raise ValueError(
+            f"operand on {x.device}, operator on {device}; move one of them "
+            "explicitly")
+    if x.dtype != dtype:
+        raise TypeError(f"operand dtype {x.dtype} != operator dtype {dtype}")
+
+
+def _stage(layout: BlockLayout, device) -> tuple:
+    """Per bucket: (values, row_idx, col_idx, row_chunk, col_chunk) on
+    ``device`` (the chunk tables None for element buckets)."""
+    def dev(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(device)
+    return tuple((dev(b.values), dev(b.row_idx), dev(b.col_idx),
+                  dev(b.row_chunk_idx), dev(b.col_chunk_idx))
+                 for b in layout.buckets)
 
 
 class BlockSparseMatrix(LinearOperator):
@@ -74,27 +113,19 @@ class BlockSparseMatrix(LinearOperator):
         self._precision = precision
         self._layout = build_layout(blocks, rowindices, colindices, shape,
                                     dtype=_np_dtype(dtype))
-        np_dt = np.dtype(self._layout.buckets[0].values.dtype
-                         if self._layout.buckets
-                         else (_np_dtype(dtype) or np.float64))
-        if np_dt not in _DTYPES:
-            raise NotImplementedError(
-                f"dtype {np_dt} is not ported yet: this slice takes float32 "
-                "and float64 (complex: ROADMAP)")
-        self._dtype = _DTYPES[np_dt]
+        self._dtype = _torch_dtype([self._layout], dtype)
         # resolve "cuda" to the concrete device the tensors land on
         self._device = torch.empty(0, device=device).device
-        self._buckets = tuple(self._stage(b) for b in self._layout.buckets)
-        all_ids = tuple(range(self._layout.nblocks))
-        self._colors = (all_ids,) if all_ids else ()
+        self._buckets = _stage(self._layout, self._device)
+        if sched.isserial(self._schedule):
+            all_ids = tuple(range(self._layout.nblocks))
+            self._colors = self._tcolors = (all_ids,) if all_ids else ()
+        else:
+            self._colors = _colors_tuple(
+                coloring.color_blocks(self._layout.rowindices))
+            self._tcolors = _colors_tuple(
+                coloring.color_blocks(self._layout.colindices))
         self._patch = None
-
-    def _stage(self, b):
-        def dev(a):
-            return None if a is None else torch.from_numpy(
-                np.ascontiguousarray(a)).to(self._device)
-        return (dev(b.values), dev(b.row_idx), dev(b.col_idx),
-                dev(b.row_chunk_idx), dev(b.col_chunk_idx))
 
     # -- properties ---------------------------------------------------------
     @property
@@ -145,11 +176,12 @@ class BlockSparseMatrix(LinearOperator):
         return self._layout.colindices[i]
 
     def colors(self) -> tuple[tuple[int, ...], ...]:
-        """Serial schedule: one color holding every block."""
+        """Row-conflict colors; one color holding every block when serial."""
         return self._colors
 
     def transposecolors(self) -> tuple[tuple[int, ...], ...]:
-        return self._colors
+        """Column-conflict colors; one color holding every block when serial."""
+        return self._tcolors
 
     # -- compute ------------------------------------------------------------
     def _patch_for(self):
@@ -166,13 +198,7 @@ class BlockSparseMatrix(LinearOperator):
         return None if self._patch[0] is None else self._patch
 
     def _apply(self, x, transpose: bool, conj: bool):
-        if x.device != self._device:
-            raise ValueError(
-                f"operand on {x.device}, operator on {self._device}; move one "
-                "of them explicitly")
-        if x.dtype != self._dtype:
-            raise TypeError(f"operand dtype {x.dtype} != operator dtype "
-                            f"{self._dtype}")
+        _check_operand(x, self._device, self._dtype)
         out_len = self.shape[1] if transpose else self.shape[0]
         r = 1 if x.ndim == 1 else x.shape[1]
         if r > 1 and patch_eligible(x, self._dtype):
@@ -183,8 +209,11 @@ class BlockSparseMatrix(LinearOperator):
 
                 return patch_apply(entry[0], entry[1], x, transpose=transpose)
         # conj is a no-op for the real dtypes this slice admits
+        colors = None
+        if not sched.isserial(self._schedule):
+            colors = self._tcolors if transpose else self._colors
         return apply_operand(self._buckets, self._layout, out_len, x,
-                             transpose=transpose)
+                             transpose=transpose, colors=colors)
 
     def __repr__(self):
         m, n = self.shape

@@ -1,0 +1,208 @@
+"""Symmetric block-sparse format: off-diagonal blocks stored once.
+
+Counterpart of ``blocksparse_tpu/formats/symmetric.py``.  Diagonal blocks
+sit at ``diagonalindices``; each off-diagonal block is stored once and
+applied twice, as it is to ``y[rowindices]`` and transposed to
+``y[colindices]``, so the matrix is
+
+    S = D + O + O^T        (O = off-diagonal blocks at (rows, cols))
+
+and S^T = D^T + O + O^T: only the diagonal pass transposes.  For the real
+dtypes of this slice the conjugate flag changes nothing.
+
+As in the JAX package, all four color sets are computed at construction
+whatever the schedule, and the default schedule is "colored".  A product
+routes as the JAX package's ``_apply`` does, minus its TPU-only routes
+(split-complex, strip, panel):
+
+  1. f32, r > 1, a symmetric patch plan exists and ``patch_wins`` -> the
+     symmetric patch SpMM (kernel B3) on the plan for S or, with the
+     transposed diagonal embedded, for S^T;
+  2. otherwise ``apply_symmetric``: chunked off-diagonal buckets -> kernel
+     B1 in symmetric mode, element off-diagonal buckets -> the torch-op
+     engine's one-read symmetric pass (colored gather rounds over
+     ``fusedcolors`` where they win), the diagonal -> ``apply_operand``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .. import coloring
+from ..core import schedule as sched
+from ..core.layout import build_layout
+from ..core.operator import LinearOperator
+from ..ops.dispatch import apply_symmetric, patch_eligible, patch_wins
+from .block_sparse import (_PRECISIONS, _check_operand, _colors_tuple,
+                           _np_dtype, _stage, _torch_dtype)
+
+__all__ = ["SymmetricBlockMatrix"]
+
+
+class SymmetricBlockMatrix(LinearOperator):
+    """Symmetric block-sparse matrix (format 2).
+
+    ``granularity``: "pow2" only (the port's ``build_layout`` carries the
+    JAX package's default bucketing alone).  ``precision``: kept for
+    parity; every tier runs in full IEEE precision.
+    """
+
+    def __init__(
+        self,
+        diagonals: Sequence[np.ndarray],
+        diagonalindices: Sequence[np.ndarray],
+        offdiagonals: Sequence[np.ndarray],
+        rowindices: Sequence[np.ndarray],
+        colindices: Sequence[np.ndarray],
+        shape: tuple[int, int] | None = None,
+        *,
+        device="cpu",
+        dtype=None,
+        precision: str | None = "highest",
+        schedule: str = sched.COLORED,
+        granularity="pow2",
+    ):
+        if shape is None:
+            raise ValueError("shape=(nrows, ncols) is required")
+        if shape[0] != shape[1]:
+            raise ValueError(f"symmetric matrix must be square, got {shape}")
+        if precision not in _PRECISIONS:
+            raise ValueError(
+                f"unknown precision {precision!r}; expected one of {_PRECISIONS}")
+        if granularity != "pow2":
+            raise NotImplementedError(
+                f"granularity {granularity!r} is not ported; the port "
+                "buckets at the JAX package's default, 'pow2'")
+        self._schedule = sched.normalize_schedule(schedule)
+        self._precision = precision
+        self._dlayout = build_layout(diagonals, diagonalindices,
+                                     diagonalindices, shape,
+                                     dtype=_np_dtype(dtype))
+        self._olayout = build_layout(offdiagonals, rowindices, colindices,
+                                     shape, dtype=_np_dtype(dtype))
+        self._dtype = _torch_dtype([self._dlayout, self._olayout], dtype)
+        self._device = torch.empty(0, device=device).device
+        self._dbuckets = _stage(self._dlayout, self._device)
+        self._obuckets = _stage(self._olayout, self._device)
+        self._dcolors = _colors_tuple(
+            coloring.color_blocks(self._dlayout.rowindices))
+        self._ocolors = _colors_tuple(
+            coloring.color_blocks(self._olayout.rowindices))
+        self._tocolors = _colors_tuple(
+            coloring.color_blocks(self._olayout.colindices))
+        # union row+col conflicts: the one-read pass scatters into both
+        self._fused_colors = _colors_tuple(coloring.color_blocks(
+            [np.concatenate([r, c]) for r, c in
+             zip(self._olayout.rowindices, self._olayout.colindices)]))
+        self._patch = {}
+
+    # -- properties ---------------------------------------------------------
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self._dlayout.nrows, self._dlayout.ncols)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self._dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def precision(self):
+        return self._precision
+
+    @property
+    def schedule(self) -> str:
+        return self._schedule
+
+    @property
+    def ndiagonals(self) -> int:
+        return self._dlayout.nblocks
+
+    @property
+    def noffdiagonals(self) -> int:
+        return self._olayout.nblocks
+
+    @property
+    def nnz(self) -> int:
+        """Logical nnz, off-diagonals counted twice."""
+        return self._dlayout.nnz + 2 * self._olayout.nnz
+
+    # -- reference API parity ----------------------------------------------
+    def diagonal(self, i: int) -> np.ndarray:
+        return self._dlayout.extract_block(i)
+
+    def offdiagonal(self, i: int) -> np.ndarray:
+        return self._olayout.extract_block(i)
+
+    def diagonalindices(self, i: int) -> np.ndarray:
+        return self._dlayout.rowindices[i]
+
+    def blockrowindices(self, i: int) -> np.ndarray:
+        return self._olayout.rowindices[i]
+
+    def blockcolindices(self, i: int) -> np.ndarray:
+        return self._olayout.colindices[i]
+
+    def diagonalcolors(self):
+        return self._dcolors
+
+    def offdiagonalcolors(self):
+        return self._ocolors
+
+    def transposeoffdiagonalcolors(self):
+        return self._tocolors
+
+    def fusedcolors(self):
+        """Colors on the union of row+col index sets (the one-read pass)."""
+        return self._fused_colors
+
+    # -- compute ------------------------------------------------------------
+    def _patch_for(self, transpose: bool):
+        """Lazy symmetric merged-patch plan for S (``transpose`` False) or
+        S^T (the transposed diagonal embedded) and its device tensors; None
+        if ineligible (non-contiguous lists or non-f32)."""
+        if transpose not in self._patch:
+            from ..core.patch import build_patch_plan
+            from ..ops.patch_engine import patch_device_arrays
+
+            plan = build_patch_plan(self._dlayout, extra_layout=self._olayout,
+                                    transpose_main=transpose)
+            self._patch[transpose] = (
+                plan, None if plan is None
+                else patch_device_arrays(plan, self._device))
+        entry = self._patch[transpose]
+        return None if entry[0] is None else entry
+
+    def _apply(self, x, transpose: bool, conj: bool):
+        _check_operand(x, self._device, self._dtype)
+        r = 1 if x.ndim == 1 else x.shape[1]
+        if r > 1 and patch_eligible(x, self._dtype):
+            entry = self._patch_for(transpose)
+            if entry is not None and patch_wins(
+                    entry[0], [(self._dlayout, 1), (self._olayout, 2)], r):
+                from ..ops.patch_engine import patch_apply
+
+                # the plan embeds S or S^T; it is applied as it is
+                return patch_apply(entry[0], entry[1], x)
+        # conj is a no-op for the real dtypes this slice admits
+        colored = not sched.isserial(self._schedule)
+        return apply_symmetric(
+            self._dbuckets, self._dlayout, self._obuckets, self._olayout,
+            self.shape[0], x, transpose=transpose,
+            diag_colors=self._dcolors if colored else None,
+            fused_colors=self._fused_colors if colored else None)
+
+    def __repr__(self):
+        m, n = self.shape
+        return (
+            f"SymmetricBlockMatrix({m}x{n}, {self.ndiagonals} diagonal + "
+            f"{self.noffdiagonals} off-diagonal blocks, nnz={self.nnz}, "
+            f"dtype={self.dtype}, device={self._device}, "
+            f"schedule={self._schedule!r})"
+        )

@@ -18,6 +18,7 @@ from ..core.operator import (
     TransposeOperator,
 )
 from ..formats.block_sparse import BlockSparseMatrix
+from ..formats.symmetric import SymmetricBlockMatrix
 
 __all__ = ["rowcolvals", "to_scipy"]
 
@@ -45,11 +46,23 @@ def rowcolvals(A: LinearOperator):
         r, c, v = rowcolvals(A.op)
         alpha = A.alpha.item() if hasattr(A.alpha, "item") else A.alpha
         return r, c, alpha * v
-    if not isinstance(A, BlockSparseMatrix):
+    if isinstance(A, SymmetricBlockMatrix):
+        # the reference's order: off-diagonals, transposed off-diagonals,
+        # diagonals
+        offs = range(A.noffdiagonals)
+        parts = ([_block_triplets(A.blockrowindices(i), A.blockcolindices(i),
+                                  A.offdiagonal(i)) for i in offs]
+                 + [_block_triplets(A.blockcolindices(i), A.blockrowindices(i),
+                                    A.offdiagonal(i).T) for i in offs]
+                 + [_block_triplets(A.diagonalindices(i),
+                                    A.diagonalindices(i), A.diagonal(i))
+                    for i in range(A.ndiagonals)])
+    elif isinstance(A, BlockSparseMatrix):
+        parts = [_block_triplets(A.blockrowindices(i), A.blockcolindices(i),
+                                 A.block(i))
+                 for i in range(A.nblocks)]
+    else:
         raise TypeError(f"rowcolvals: unsupported operator type {type(A).__name__}")
-    parts = [_block_triplets(A.blockrowindices(i), A.blockcolindices(i),
-                             A.block(i))
-             for i in range(A.nblocks)]
     if not parts:
         return (np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64),
                 np.zeros(0))

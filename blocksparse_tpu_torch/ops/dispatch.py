@@ -5,11 +5,21 @@ Counterpart of ``blocksparse_tpu/ops/dispatch.py``:
   - every chunked (``chunk > 1``) real bucket goes to the chunk-table kernel
     B1 (``ops/kernels/fused_spmm.py``): its CUDA kernel for a CUDA tensor,
     its plain version for a CPU tensor;
-  - element buckets (``chunk == 1``) go to the torch-op engine
-    (``ops/torch_spmv.bucket_apply``), as the JAX package sent them to XLA.
+  - element buckets (``chunk == 1``) go to the element engine
+    (``ops/torch_spmv.bucket_apply``), whose gathers and scatter-adds of an
+    f32 SpMV run kernel B9 (``ops/kernels/mask_select.py``), as the JAX
+    package sent them to its mask-select kernels; under
+    ``schedule="colored"`` the scatter-adds become the colored gather rounds
+    (``ops/colored.py``) where ``colored_wins`` holds.
+
+``apply_symmetric`` does the same for S = D + O + O^T: each chunked
+off-diagonal bucket goes to B1 in its symmetric mode (both contributions
+from one read of the values), the element off-diagonal buckets to the
+element engine's symmetric pass, and the diagonal to ``apply_operand``.
 
 The JAX package's TPU guards (chunk >= 8, the scalar-memory table cap, bf16
-alignment, the on-chip memory budget) have no counterpart here.  Not ported
+alignment, the on-chip memory budget, and the mask-select kernels' operand
+cap n <= 32768 and 4096-index minimum) have no counterpart here.  Not ported
 (ROADMAP): strip/panel routing, the auto policy and its environment knobs.
 """
 
@@ -17,10 +27,12 @@ from __future__ import annotations
 
 import torch
 
+from .colored import build_colored_plan, colored_wins
 from .kernels.fused_spmm import fused_apply
 from .torch_spmv import bucket_apply
 
-__all__ = ["apply_operand", "patch_eligible", "patch_wins"]
+__all__ = ["apply_operand", "apply_symmetric", "element_plan",
+           "patch_eligible", "patch_wins"]
 
 # The bucket engines of the JAX package re-stream values per 128-column RHS
 # slice, the patch mono-kernel per 256 columns; one bucket launch costs about
@@ -41,7 +53,8 @@ def patch_wins(plan, layouts_reads, r: int = 1) -> bool:
 
     This is the rule measured on the TPU v5e the JAX package was tuned on,
     awaiting measurement on the H100; it is kept so the flagship routes as
-    on the TPU.  At r == 1 the patch path is not taken.
+    on the TPU.  At r == 1 the patch path is not taken, as in the JAX
+    package outside its ``BST_PATCH=always`` override.
     """
     if plan is None or r <= 1:
         return False
@@ -54,27 +67,89 @@ def patch_wins(plan, layouts_reads, r: int = 1) -> bool:
     return plan.value_bytes * -(-r // _PATCH_R_SLICE) < 2 * bucket
 
 
+def element_plan(layout, elem_ids, out_len: int, colors, device, *,
+                 transpose: bool, symmetric: bool):
+    """The colored plan that the element buckets ``elem_ids`` of ``layout``
+    run under, or None (scatter-add): a plan needs ``colors`` and a win of
+    ``colored_wins``."""
+    if colors is None:
+        return None
+    hosts = [layout.buckets[i] for i in elem_ids]
+    n_entries = sum(hb.nblocks * (hb.mp + hb.kp if symmetric
+                                  else (hb.kp if transpose else hb.mp))
+                    for hb in hosts)
+    if not colored_wins(len(colors), out_len, n_entries):
+        return None
+    return build_colored_plan(layout, colors, out_len, transpose,
+                              tuple(elem_ids), symmetric=symmetric,
+                              device=device)
+
+
+def _element_pass(layout, elem, elem_ids, out_len, x, *, transpose,
+                  symmetric, colors):
+    """The element buckets ``elem`` (positions ``elem_ids`` in ``layout``)
+    through the element engine, as colored gather rounds when ``colors``
+    are given and the plan wins."""
+    plan = element_plan(layout, elem_ids, out_len, colors, x.device,
+                        transpose=transpose, symmetric=symmetric)
+    return bucket_apply(elem, out_len, x, transpose=transpose,
+                        symmetric=symmetric, colored_plan=plan, mask_gs=True)
+
+
 def apply_operand(dev_buckets, layout, out_len: int, x: torch.Tensor, *,
-                  transpose: bool = False) -> torch.Tensor:
+                  transpose: bool = False, colors=None) -> torch.Tensor:
     """Apply a bucketed operand with per-bucket routing.
 
     ``dev_buckets``: per bucket ``(values, row_idx, col_idx, row_chunk,
     col_chunk)`` tensors (the chunk tables are None for element buckets).
     Values are real (float32/float64), so there is no conjugate mode.
+    ``colors``: the color sets (tuple of tuples of block ids) when the
+    operator's schedule is "colored", else None.
     """
     y = None
-    elem = []
-    for hb, (vals, ridx, cidx, rc, cc) in zip(layout.buckets, dev_buckets):
+    elem, elem_ids = [], []
+    for bid, (hb, (vals, ridx, cidx, rc, cc)) in enumerate(
+            zip(layout.buckets, dev_buckets)):
         if hb.chunk > 1:
             part = fused_apply(vals, rc, cc, hb.chunk, x, out_len,
                                transpose=transpose)
             y = part if y is None else y + part
         else:
             elem.append((vals, ridx, cidx))
+            elem_ids.append(bid)
     if elem:
-        part = bucket_apply(elem, out_len, x, transpose=transpose)
+        part = _element_pass(layout, elem, elem_ids, out_len, x,
+                             transpose=transpose, symmetric=False,
+                             colors=colors)
         y = part if y is None else y + part
     if y is None:
         shape = (out_len,) if x.ndim == 1 else (out_len, x.shape[1])
         y = x.new_zeros(shape)
+    return y
+
+
+def apply_symmetric(diag_buckets, diag_layout, off_buckets, off_layout,
+                    n: int, x: torch.Tensor, *, transpose: bool = False,
+                    diag_colors=None, fused_colors=None) -> torch.Tensor:
+    """Symmetric operand S = D + O + O^T (O the stored off-diagonals).
+
+    The off-diagonal pair is transpose-invariant and reads each stored
+    block once for both of its contributions; only the diagonal pass
+    honors ``transpose``.  ``fused_colors`` (union row+col conflicts) and
+    ``diag_colors`` drive the colored gather rounds of the element engine.
+    """
+    y = apply_operand(diag_buckets, diag_layout, n, x, transpose=transpose,
+                      colors=diag_colors)
+    elem, elem_ids = [], []
+    for bid, (hb, (vals, ridx, cidx, rc, cc)) in enumerate(
+            zip(off_layout.buckets, off_buckets)):
+        if hb.chunk > 1:
+            y = y + fused_apply(vals, rc, cc, hb.chunk, x, n, symmetric=True)
+        else:
+            elem.append((vals, ridx, cidx))
+            elem_ids.append(bid)
+    if elem:
+        y = y + _element_pass(off_layout, elem, elem_ids, n, x,
+                              transpose=False, symmetric=True,
+                              colors=fused_colors)
     return y

@@ -16,7 +16,8 @@ fp32/fp64 FMA, with no TF32, which meets the ``"highest"`` tolerance.
 Faster tiers are later work.
 
 Routing: a CPU tensor takes :func:`chunked_block_apply_plain`; a CUDA tensor
-launches the kernel or raises.  ``LAUNCHES`` counts kernel launches.
+launches the kernel or raises.  ``LAUNCHES`` counts kernel launches,
+``SYM_LAUNCHES`` those of them in the symmetric mode.
 """
 
 from __future__ import annotations
@@ -27,9 +28,10 @@ from ...utils import build
 from ..torch_spmv import chunk_rows, chunked_bucket_apply, gather_rows
 
 __all__ = ["chunked_block_apply", "chunked_block_apply_plain", "fused_apply",
-           "LAUNCHES"]
+           "LAUNCHES", "SYM_LAUNCHES"]
 
 LAUNCHES = 0
+SYM_LAUNCHES = 0
 
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2}
 
@@ -70,7 +72,7 @@ def chunked_block_apply(vals, row_chunk, col_chunk, chunk: int, x,
                         out_len: int, *, transpose: bool = False,
                         symmetric: bool = False) -> torch.Tensor:
     """Fused chunk-granular block product: [out_len] or [out_len, r]."""
-    global LAUNCHES
+    global LAUNCHES, SYM_LAUNCHES
     if symmetric and transpose:
         raise ValueError(
             "symmetric fused pass is transpose-invariant; use transpose=False")
@@ -104,6 +106,7 @@ def chunked_block_apply(vals, row_chunk, col_chunk, chunk: int, x,
                      kp, chunk, r, n_in, out_len,
                      _MODES[(transpose, symmetric)])
         LAUNCHES += 1
+        SYM_LAUNCHES += symmetric
     return y[:, 0] if vec else y
 
 

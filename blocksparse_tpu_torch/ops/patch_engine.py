@@ -1,12 +1,21 @@
-"""Merged-patch SpMM (r > 1): CUDA kernel B2, its plain version, its autograd.
+"""Merged-patch SpMM (r > 1): CUDA kernels B2 and B3, plain versions, autograd.
 
 Counterpart of the r > 1 part of ``blocksparse_tpu/ops/patch_engine.py``.
-The kernel (``csrc/patch_spmm.cu``) replaces ``_kern_fwd`` / ``_kern_tr``:
+Kernel B2 (``csrc/patch_spmm.cu``) replaces ``_kern_fwd`` / ``_kern_tr``:
 
   forward    Y[rs[b] : rs[b] + MP] += V_b @ concat_j X[cc[b, j]*32 : +32]
   transpose  the 32-row chunks cc[b, j] of Y += V_b^T @ X[rs[b] : rs[b] + MP]
 
 The transpose product swaps the gather/scatter roles over the same storage.
+
+Kernel B3 (``csrc/patch_sym.cu``) replaces ``_kern_mir``, the product of a
+symmetric plan (S = D + O + O^T, off-diagonals stored once): the forward
+product, plus from the same read of V_b the mirrored ``V_b^T @ X[window]``
+added into the column chunks ``j < mk[b]`` (the chunks that hold stored
+off-diagonal blocks).  Its ``adjoint`` mode is the transpose of that map,
+which the backward pass runs for dX.  A symmetric plan is
+transpose-invariant in its off-diagonal pair; S^T is the plan built with
+``transpose_main=True`` (``core/patch.py``).
 
 Buffers: the JAX wrapper padded X and Y to ``(NC + 1) * 32`` and
 ``(NR + MC) * 8`` rows and cut Y afterwards.  Here X and Y keep their true
@@ -21,8 +30,8 @@ the summation order varies from run to run.
 Precision: all tiers run in IEEE fp32 FMA (no TF32), which meets the
 ``"highest"`` tolerance; faster tiers are later work.
 
-Not ported yet (ROADMAP): the symmetric fused kernel ``_kern_mir`` (B3),
-the r = 1 one-read kernels (B7) and the one-hot SpMV engine.
+Not ported yet (ROADMAP): the r = 1 one-read kernels (B7) and the one-hot
+SpMV engine.
 """
 
 from __future__ import annotations
@@ -35,9 +44,11 @@ from .torch_spmv import chunk_rows, gather_rows, scatter_rows
 
 __all__ = ["patch_device_arrays", "patch_apply", "patch_spmm",
            "patch_spmm_plain", "bucket_spmm", "bucket_spmm_plain",
-           "LAUNCHES"]
+           "bucket_spmm_sym", "bucket_spmm_sym_plain", "LAUNCHES",
+           "SYM_LAUNCHES"]
 
-LAUNCHES = 0
+LAUNCHES = 0       # kernel B2
+SYM_LAUNCHES = 0   # kernel B3
 
 
 def patch_device_arrays(plan: PatchPlan, device) -> tuple:
@@ -67,13 +78,11 @@ def bucket_spmm_plain(vals, cc, rs, X, n_out: int, *,
     return scatter_rows(n_out, win, yp)
 
 
-def bucket_spmm(vals, cc, rs, X, n_out: int, *,
-                transpose: bool = False) -> torch.Tensor:
-    """Y [n_out, r] = one patch bucket applied to X [n_in, r].
-
-    The kernel takes float32 (the plan's dtype); the plain CPU path takes
-    any floating dtype."""
-    global LAUNCHES
+def _check_bucket(vals, cc, rs, X, *extra) -> bool:
+    """Validate one bucket's tensors (``extra``: further int32 tables);
+    True when the kernel is to run (CUDA tensors), False for the plain
+    version (CPU tensors)."""
+    tables = (cc, rs, *extra)
     if vals.ndim != 3 or vals.shape[2] % CC:
         raise ValueError(f"vals must be [nb, MP, KP] with KP % {CC} == 0, "
                          f"got {tuple(vals.shape)}")
@@ -85,17 +94,31 @@ def bucket_spmm(vals, cc, rs, X, n_out: int, *,
         raise ValueError(f"X must be [n, r], got {tuple(X.shape)}")
     if X.dtype != vals.dtype:
         raise TypeError(f"X dtype {X.dtype} != values dtype {vals.dtype}")
-    devs = {t.device for t in (vals, cc, rs, X)}
+    devs = {t.device for t in (vals, X, *tables)}
     if len(devs) != 1:
         raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
     if X.device.type == "cpu":
-        return bucket_spmm_plain(vals, cc, rs, X, n_out, transpose=transpose)
+        return False
     if X.device.type != "cuda":
         raise ValueError(f"no kernel for device {X.device}")
     if vals.dtype != torch.float32:
-        raise TypeError(f"the patch SpMM kernel is float32, got {vals.dtype}")
-    if cc.dtype != torch.int32 or rs.dtype != torch.int32:
-        raise TypeError(f"cc/rs must be int32, got {cc.dtype}, {rs.dtype}")
+        raise TypeError(f"the patch SpMM kernels are float32, got {vals.dtype}")
+    if any(t.dtype != torch.int32 for t in tables):
+        raise TypeError(f"plan tables must be int32, got "
+                        f"{[t.dtype for t in tables]}")
+    return True
+
+
+def bucket_spmm(vals, cc, rs, X, n_out: int, *,
+                transpose: bool = False) -> torch.Tensor:
+    """Y [n_out, r] = one patch bucket applied to X [n_in, r].
+
+    The kernel takes float32 (the plan's dtype); the plain CPU path takes
+    any floating dtype."""
+    global LAUNCHES
+    if not _check_bucket(vals, cc, rs, X):
+        return bucket_spmm_plain(vals, cc, rs, X, n_out, transpose=transpose)
+    nb, MP, KP = vals.shape
     X = X.contiguous()
     vals, cc, rs = vals.contiguous(), cc.contiguous(), rs.contiguous()
     n_in, r = X.shape
@@ -106,6 +129,87 @@ def bucket_spmm(vals, cc, rs, X, n_out: int, *,
                      nb, MP, KP, r, n_in, n_out, int(transpose))
         LAUNCHES += 1
     return Y
+
+
+def _mirror_rows(cc, mk):
+    """[nb, KP] chunk rows of the mirrored product: column-chunk rows
+    for chunks j < mk[b], an out-of-range row (dropped / read as zero)
+    elsewhere."""
+    cols = chunk_rows(cc, CC)
+    j = torch.arange(cols.shape[1], device=cc.device) // CC
+    return torch.where(j[None, :] < mk.long()[:, None], cols,
+                       torch.iinfo(torch.int64).max // 2)
+
+
+def bucket_spmm_sym_plain(vals, cc, rs, mk, X, *,
+                          adjoint: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of kernel B3 for one bucket of a symmetric
+    plan; X and the result are [n, r]."""
+    n, MP = X.shape[0], vals.shape[1]
+    win, cols, mir = _window_rows(rs, MP), chunk_rows(cc, CC), _mirror_rows(cc, mk)
+    if adjoint:   # (F + M)^T = F^T + M^T: roles of the two passes swap
+        yt = torch.einsum("bmk,bmr->bkr", vals, gather_rows(X, win))
+        yp = torch.einsum("bmk,bkr->bmr", vals, gather_rows(X, mir))
+        return scatter_rows(n, cols, yt) + scatter_rows(n, win, yp)
+    yp = torch.einsum("bmk,bkr->bmr", vals, gather_rows(X, cols))
+    yt = torch.einsum("bmk,bmr->bkr", vals, gather_rows(X, win))
+    return scatter_rows(n, win, yp) + scatter_rows(n, mir, yt)
+
+
+def bucket_spmm_sym(vals, cc, rs, mk, X, *,
+                    adjoint: bool = False) -> torch.Tensor:
+    """Y [n, r] = one bucket of a symmetric plan applied to X [n, r] (its
+    transpose when ``adjoint``): kernel B3 for CUDA tensors, its plain
+    version for CPU tensors."""
+    global SYM_LAUNCHES
+    if tuple(mk.shape) != tuple(rs.shape):
+        raise ValueError(f"mk {tuple(mk.shape)} does not match rs "
+                         f"{tuple(rs.shape)}")
+    if not _check_bucket(vals, cc, rs, X, mk):
+        return bucket_spmm_sym_plain(vals, cc, rs, mk, X, adjoint=adjoint)
+    X = X.contiguous()
+    vals, cc = vals.contiguous(), cc.contiguous()
+    rs, mk = rs.contiguous(), mk.contiguous()
+    nb, MP, KP = vals.shape
+    n, r = X.shape
+    Y = torch.zeros((n, r), dtype=torch.float32, device=X.device)
+    if nb and r and n:
+        build.launch("bst_patch_sym_f32", X.device, vals.data_ptr(),
+                     cc.data_ptr(), rs.data_ptr(), mk.data_ptr(), X.data_ptr(),
+                     Y.data_ptr(), nb, MP, KP, r, n, int(adjoint))
+        SYM_LAUNCHES += 1
+    return Y
+
+
+class _PatchSpmmSym(torch.autograd.Function):
+    """Exact cotangents of kernel B3 (mirrors the ``"mir"`` branch of the
+    JAX package's ``patch_engine._spmm_vjp_bwd``): dX is the same kernel
+    in its adjoint mode, dvals is torch ops on the gathered rows."""
+
+    @staticmethod
+    def forward(ctx, vals, cc, rs, mk, X, adjoint):
+        ctx.save_for_backward(vals, cc, rs, mk, X)
+        ctx.adjoint = adjoint
+        return bucket_spmm_sym(vals, cc, rs, mk, X, adjoint=adjoint)
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, cc, rs, mk, X = ctx.saved_tensors
+        g = g.contiguous()
+        dvals = dX = None
+        if ctx.needs_input_grad[4]:
+            dX = _PatchSpmmSym.apply(vals, cc, rs, mk, g, not ctx.adjoint)
+        if ctx.needs_input_grad[0]:
+            win = _window_rows(rs, vals.shape[1])
+            cols, mir = chunk_rows(cc, CC), _mirror_rows(cc, mk)
+            # d<g, F X + M X>/dV with F, M the forward and mirrored passes;
+            # the adjoint map swaps which of g and X sits on which side
+            a, b = (X, g) if ctx.adjoint else (g, X)
+            dvals = (torch.einsum("bmr,bkr->bmk", gather_rows(a, win),
+                                  gather_rows(b, cols))
+                     + torch.einsum("bmr,bkr->bmk", gather_rows(b, win),
+                                    gather_rows(a, mir)))
+        return dvals, None, None, None, dX, None
 
 
 class _PatchSpmm(torch.autograd.Function):
@@ -139,19 +243,23 @@ class _PatchSpmm(torch.autograd.Function):
 
 
 def _n_out(plan: PatchPlan, transpose: bool) -> int:
-    if plan.symmetric:
-        raise NotImplementedError(
-            "symmetric patch plans need the fused mirror kernel, which is not "
-            "ported yet (ROADMAP: B3)")
+    if plan.symmetric and transpose:
+        raise ValueError(
+            "a symmetric plan is applied as it is; S^T is the plan built "
+            "with transpose_main=True")
     return plan.ncols if transpose else plan.nrows
 
 
 def patch_spmm(plan: PatchPlan, dev, X, *, transpose: bool = False):
-    """Y = A @ X (A^T @ X when ``transpose``); X: [n, r] f32."""
+    """Y = A @ X (A^T @ X when ``transpose``); X: [n, r] f32.  A symmetric
+    plan runs kernel B3, any other B2."""
     n_out = _n_out(plan, transpose)
     Y = None
-    for vals, cc, rs, _mk in dev:
-        part = _PatchSpmm.apply(vals, cc, rs, X, n_out, transpose)
+    for vals, cc, rs, mk in dev:
+        if plan.symmetric:
+            part = _PatchSpmmSym.apply(vals, cc, rs, mk, X, False)
+        else:
+            part = _PatchSpmm.apply(vals, cc, rs, X, n_out, transpose)
         Y = part if Y is None else Y + part
     if Y is None:
         return X.new_zeros((n_out, X.shape[1]))
@@ -163,8 +271,12 @@ def patch_spmm_plain(plan: PatchPlan, dev, X, *, transpose: bool = False):
     package's ``patch_spmm_xla``), on any device."""
     n_out = _n_out(plan, transpose)
     Y = X.new_zeros((n_out, X.shape[1]))
-    for vals, cc, rs, _mk in dev:
-        Y = Y + bucket_spmm_plain(vals, cc, rs, X, n_out, transpose=transpose)
+    for vals, cc, rs, mk in dev:
+        if plan.symmetric:
+            Y = Y + bucket_spmm_sym_plain(vals, cc, rs, mk, X)
+        else:
+            Y = Y + bucket_spmm_plain(vals, cc, rs, X, n_out,
+                                      transpose=transpose)
     return Y
 
 

@@ -12,9 +12,10 @@ scattered row index at or past ``out_len`` lands in the dropped slot
 tables name, so merged row windows that run past the last row need no
 padded buffers.
 
-Not ported yet (ROADMAP): the mask-select gather/scatter, the colored
-gather-round plan, the sorted-segment scatter and the one-hot multi-bucket
-chain of the JAX engine.
+``bucket_apply(..., mask_gs=True)`` sends the gathers and scatter-adds of
+an f32 SpMV through kernel B9 (``ops/kernels/mask_select.py``), as the JAX
+engine sent them to its mask-select kernels.  Not ported yet (ROADMAP): the
+sorted-segment scatter and the one-hot multi-bucket chain of the JAX engine.
 """
 
 from __future__ import annotations
@@ -50,22 +51,69 @@ def scatter_rows(out_len: int, idx: torch.Tensor,
 
 
 def bucket_apply(buckets, out_len: int, x: torch.Tensor, *,
-                 transpose: bool = False) -> torch.Tensor:
+                 transpose: bool = False, symmetric: bool = False,
+                 colored_plan=None, mask_gs: bool = False) -> torch.Tensor:
     """Apply element buckets ``(values, row_idx, col_idx)`` to x ([n] or [n, r]).
 
     In transpose mode the two index tables swap roles and each block's values
     are used transposed -- a flag flip, no data movement.
+
+    ``symmetric``: each block adds its forward contribution into its rows
+    and its transposed contribution ``V^T x[rows]`` into its columns, from
+    the same values (the one-read pass over the stored off-diagonals);
+    needs ``out_len == x.shape[0]``, and ``transpose`` is ignored (the pair
+    is transpose-invariant).
+
+    ``colored_plan``: ``(tables, total)`` from ``ops/colored.py``.  The
+    scatter-adds are replaced by one dense gather per color over the
+    flattened contributions -- all forward parts, then (symmetric) all
+    mirror parts, the order the tables assume.
+
+    ``mask_gs``: for an f32 SpMV (r == 1), every gather and scatter-add goes
+    through kernel B9 (its plain version for CPU tensors); otherwise, and
+    when False, they are torch indexing ops.
     """
     vec = x.ndim == 1
     xm = x[:, None] if vec else x
-    y = xm.new_zeros((out_len, xm.shape[1]))
+    r = xm.shape[1]
+    transpose = transpose and not symmetric
+    mask = mask_gs and r == 1 and xm.dtype == torch.float32
+    if mask:
+        from .kernels.mask_select import gather_apply, scatter_apply
+
+    def gather(idx):
+        if mask:
+            return gather_apply(xm[:, 0], idx)[..., None]
+        return gather_rows(xm, idx)
+
+    def scatter(idx, upd):
+        if mask:
+            return scatter_apply(upd.reshape(-1), idx.reshape(-1),
+                                 out_len)[:, None]
+        return scatter_rows(out_len, idx, upd)
+
+    y = xm.new_zeros((out_len, r))
+    fwd, mirror = [], []
     for vals, ridx, cidx in buckets:
         if transpose:
-            yp = torch.einsum("bmk,bmr->bkr", vals, gather_rows(xm, ridx))
-            y = y + scatter_rows(out_len, cidx, yp)
+            yp = torch.einsum("bmk,bmr->bkr", vals, gather(ridx))
+            fwd.append((cidx, yp))
         else:
-            yp = torch.einsum("bmk,bkr->bmr", vals, gather_rows(xm, cidx))
-            y = y + scatter_rows(out_len, ridx, yp)
+            yp = torch.einsum("bmk,bkr->bmr", vals, gather(cidx))
+            fwd.append((ridx, yp))
+        if symmetric:
+            yt = torch.einsum("bmk,bmr->bkr", vals, gather(ridx))
+            mirror.append((cidx, yt))
+    parts = fwd + mirror
+    if colored_plan is None:
+        for idx, upd in parts:
+            y = y + scatter(idx, upd)
+        return y[:, 0] if vec else y
+    tables, _total = colored_plan
+    contrib = torch.cat([upd.reshape(-1, r) for _, upd in parts]
+                        + [xm.new_zeros((1, r))])
+    for t in tables:
+        y = y + contrib[t]
     return y[:, 0] if vec else y
 
 

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, at first kernel use (never at import), into
+``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a`` -- one ``nvcc`` per
+source, all started together -- and linked into one shared library with a
+plain C interface, at first kernel use (never at import), into
 ``blocksparse_tpu_torch/_build/``.  The library's name carries a hash of the
 sources and flags, so an edit to any source rebuilds it.  It is loaded with
 ctypes; every entry point returns the ``cudaError_t`` of its launch.
@@ -29,7 +30,7 @@ _PKG = Path(__file__).resolve().parents[1]
 _SRC_DIR = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -44,6 +45,12 @@ _SIGNATURES = {
     "bst_fused_spmm_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P),
     # vals, cc, rs, x, y, nb, MP, KP, r, x_rows, y_rows, transpose, stream
     "bst_patch_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P),
+    # vals, cc, rs, mk, x, y, nb, MP, KP, r, n, adjoint, stream
+    "bst_patch_sym_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P),
+    # x, n, idx, K, out, stream
+    "bst_mask_gather_f32": (_P, _L, _P, _L, _P, _P),
+    # v, idx, K, y, out_len, stream
+    "bst_mask_scatter_add_f32": (_P, _P, _L, _P, _L, _P),
 }
 
 
@@ -75,18 +82,30 @@ def _digest() -> str:
 def _build(so: Path) -> None:
     nvcc = _nvcc()
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [so.with_name(f"{tag}.{src.stem}.o") for src in _sources()]
+    tmp = so.with_name(f"{tag}.so.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmds = [[nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    steps = [(cmd, proc.communicate()[0], proc.returncode)
+             for cmd, proc in zip(cmds, procs)]
+    if all(rc == 0 for _, _, rc in steps):
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        steps.append((link, proc.stdout + proc.stderr, proc.returncode))
     _info["build_s"] = time.perf_counter() - t0
-    _info["compiler_output"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    _info["compiler_output"] = "".join(out for _, out, _ in steps)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    failed = [(cmd, out, rc) for cmd, out, rc in steps if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+        cmd, out, rc = failed[0]
+        raise RuntimeError(f"nvcc failed (exit {rc}): {' '.join(cmd)}\n{out}")
     os.replace(tmp, so)
 
 

@@ -7,7 +7,10 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
 
   1. each kernel against its plain PyTorch version on the card (B1: forward,
      transpose, symmetric x f32/f64 x r in {1, 64, 200}; B2: forward,
-     transpose x r in {64, 128, 300});
+     transpose x r in {64, 128, 300}; B3: symmetric and adjoint x r in
+     {32, 64, 128, 300} on the symmetric plans of a small fixture, built
+     with transpose_main False and True; B9: element gather and scatter-add
+     with duplicate and sentinel indices);
   2. the flagship operator (4096^2, 200 contiguous 64x64 f32 blocks, r = 64):
      each kernel against its plain version at the flagship's shapes, then
      the main path once with the launch counters reset -- A @ X, A @ x,
@@ -18,7 +21,25 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      values): SpMV and SpMM at r = 128 against the float64 plain version,
      median CUDA-event times of the kernel route and the plain route, eager
      and replayed from a CUDA graph (the latter without host launch
-     overhead).
+     overhead);
+  4. the symmetric flagship (the config-2 recipe: 4096^2, 48 diagonal + 160
+     off-diagonal contiguous f32 blocks, nonsymmetric diagonal blocks):
+     B1's symmetric pass and B3 against their plain versions at its shapes,
+     then the symmetric main path once with the launch counters reset --
+     S @ X (r = 64), S @ x, S.T @ x, S.T @ X, S.H @ X, axpby, (S @ S) @ x --
+     each against a float64 scipy oracle, B3 required on every r > 1
+     product and B1 on every r = 1 product (its symmetric mode once per
+     chunked off-diagonal bucket), and the gradients of S @ X and S @ x
+     against S^T w;
+  5. the symmetric real size (the config-2 recipe x8: n = 32768, 384
+     diagonal + 4096 off-diagonal blocks): construction time split into
+     layout, coloring and plan, B9 against its plain version on every
+     element off-diagonal bucket, SpMV (B1 per chunked bucket, B9 per
+     element-bucket gather and scatter) and SpMM at r = 128 (B3) against the
+     float64 plain route, the SpMV's gradient (B9's backward) against
+     S^T w, both routes timed eager and from a CUDA graph, and
+     the SpMV's device time split into its parts (diagonal, B1's symmetric
+     pass, the element pass through B9 and through torch ops).
 
 Tolerances: |kernel - reference| <= tol * max(1, max|reference|) with tol
 1e-5 for f32 and 1e-12 for f64; the kernels add into their outputs with
@@ -45,12 +66,16 @@ if not torch.cuda.is_available():
 
 import blocksparse_tpu_torch as bt  # noqa: E402
 from blocksparse_tpu_torch.core.layout import build_layout  # noqa: E402
+from blocksparse_tpu_torch.core.patch import CC  # noqa: E402
+from blocksparse_tpu_torch.formats import symmetric as symmetric_format  # noqa: E402
 from blocksparse_tpu_torch.ops import patch_engine  # noqa: E402
-from blocksparse_tpu_torch.ops.dispatch import patch_wins  # noqa: E402
-from blocksparse_tpu_torch.ops.kernels import fused_spmm  # noqa: E402
+from blocksparse_tpu_torch.ops.dispatch import (  # noqa: E402
+    apply_operand, element_plan, patch_wins)
+from blocksparse_tpu_torch.ops.kernels import fused_spmm, mask_select  # noqa: E402
 from blocksparse_tpu_torch.ops.torch_spmv import bucket_apply  # noqa: E402
 from blocksparse_tpu_torch.utils import build  # noqa: E402
-from blocksparse_tpu_torch.utils.testmatrices import random_block_sparse  # noqa: E402
+from blocksparse_tpu_torch.utils.testmatrices import (  # noqa: E402
+    random_block_sparse, random_symmetric)
 
 DEV = torch.device("cuda", 0)
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -59,6 +84,11 @@ B1_SRC = "blocksparse_tpu_torch/csrc/fused_spmm.cu"
 B2_SRC = "blocksparse_tpu_torch/csrc/patch_spmm.cu"
 B1_REPLACES = "blocksparse_tpu/ops/pallas/fused_spmm.py:81"
 B2_REPLACES = "blocksparse_tpu/ops/patch_engine.py:329"
+B3_SRC = "blocksparse_tpu_torch/csrc/patch_sym.cu"
+B3_REPLACES = "blocksparse_tpu/ops/patch_engine.py:345"
+B9_SRC = "blocksparse_tpu_torch/csrc/mask_select.cu"
+B9_GATHER_REPLACES = "blocksparse_tpu/ops/pallas/mask_select.py:70"
+B9_SCATTER_REPLACES = "blocksparse_tpu/ops/pallas/mask_select.py:82"
 
 
 class SmokeFailure(RuntimeError):
@@ -88,11 +118,47 @@ def rel_check(name: str, got: torch.Tensor, ref, tol: float) -> float:
 
 def reset_counts() -> None:
     fused_spmm.LAUNCHES = 0
+    fused_spmm.SYM_LAUNCHES = 0
     patch_engine.LAUNCHES = 0
+    patch_engine.SYM_LAUNCHES = 0
+    mask_select.GATHER_LAUNCHES = 0
+    mask_select.SCATTER_LAUNCHES = 0
 
 
 def counts() -> dict:
-    return {"B1": fused_spmm.LAUNCHES, "B2": patch_engine.LAUNCHES}
+    """Kernel launches since the last reset ("B1 sym": those of B1 in its
+    symmetric mode, also counted under "B1")."""
+    return {"B1": fused_spmm.LAUNCHES, "B1 sym": fused_spmm.SYM_LAUNCHES,
+            "B2": patch_engine.LAUNCHES, "B3": patch_engine.SYM_LAUNCHES,
+            "B9 gather": mask_select.GATHER_LAUNCHES,
+            "B9 scatter": mask_select.SCATTER_LAUNCHES}
+
+
+def plain_buckets(layout, buckets, x, out_len, dtype, *, transpose=False,
+                  symmetric=False) -> torch.Tensor:
+    """Bucketed operand through the plain versions only (serial scatter)."""
+    y = x.new_zeros((out_len,) + tuple(x.shape[1:]))
+    elem = []
+    for hb, (v, ri, ci, rc, cc) in zip(layout.buckets, buckets):
+        if hb.chunk > 1:
+            y = y + fused_spmm.chunked_block_apply_plain(
+                v.to(dtype), rc, cc, hb.chunk, x, out_len,
+                transpose=transpose, symmetric=symmetric)
+        else:
+            elem.append((v.to(dtype), ri, ci))
+    if elem:
+        y = y + bucket_apply(elem, out_len, x, transpose=transpose,
+                             symmetric=symmetric)
+    return y
+
+
+def plain_patch(entry, layouts_reads, x, r, dtype, transpose=False):
+    """The patch route's plain version when the operator would take it."""
+    if entry is None or not patch_wins(entry[0], layouts_reads, r):
+        return None
+    plan, dev = entry
+    dev = [(v.to(dtype), cc, rs, mk) for v, cc, rs, mk in dev]
+    return patch_engine.patch_spmm_plain(plan, dev, x, transpose=transpose)
 
 
 def plain_route(A: bt.BlockSparseMatrix, x: torch.Tensor, *, transpose=False,
@@ -103,24 +169,61 @@ def plain_route(A: bt.BlockSparseMatrix, x: torch.Tensor, *, transpose=False,
     x = x.to(dtype)
     r = 1 if x.ndim == 1 else x.shape[1]
     if r > 1 and A.dtype == torch.float32:
-        entry = A._patch_for()
-        if entry is not None and patch_wins(entry[0], [(A.layout, 1)], r):
-            plan, dev = entry
-            dev = [(v.to(dtype), cc, rs, mk) for v, cc, rs, mk in dev]
-            return patch_engine.patch_spmm_plain(plan, dev, x,
-                                                 transpose=transpose)
+        y = plain_patch(A._patch_for(), [(A.layout, 1)], x, r, dtype,
+                        transpose)
+        if y is not None:
+            return y
     out_len = A.shape[1] if transpose else A.shape[0]
-    y = x.new_zeros((out_len,) + tuple(x.shape[1:]))
-    elem = []
-    for hb, (v, ri, ci, rc, cc) in zip(A.layout.buckets, A._buckets):
-        if hb.chunk > 1:
-            y = y + fused_spmm.chunked_block_apply_plain(
-                v.to(dtype), rc, cc, hb.chunk, x, out_len, transpose=transpose)
-        else:
-            elem.append((v.to(dtype), ri, ci))
-    if elem:
-        y = y + bucket_apply(elem, out_len, x, transpose=transpose)
-    return y
+    return plain_buckets(A.layout, A._buckets, x, out_len, dtype,
+                         transpose=transpose)
+
+
+def plain_route_sym(S: bt.SymmetricBlockMatrix, x: torch.Tensor, *,
+                    transpose=False, dtype=None) -> torch.Tensor:
+    """S's main-path route with every kernel replaced by its plain version."""
+    dtype = dtype or S.dtype
+    x = x.to(dtype)
+    r = 1 if x.ndim == 1 else x.shape[1]
+    if r > 1 and S.dtype == torch.float32:
+        y = plain_patch(S._patch_for(transpose),
+                        [(S._dlayout, 1), (S._olayout, 2)], x, r, dtype)
+        if y is not None:
+            return y
+    n = S.shape[0]
+    return (plain_buckets(S._dlayout, S._dbuckets, x, n, dtype,
+                          transpose=transpose)
+            + plain_buckets(S._olayout, S._obuckets, x, n, dtype,
+                            symmetric=True))
+
+
+def elem_ids(layout) -> list:
+    return [i for i, b in enumerate(layout.buckets) if b.chunk == 1]
+
+
+def b9_per_spmv(S: bt.SymmetricBlockMatrix, transpose: bool) -> tuple:
+    """(gathers, scatters) of B9 in one f32 r = 1 product of S: one gather
+    per diagonal element bucket and two per off-diagonal one (forward and
+    mirror); as many scatter-adds, unless that pass runs its colored plan."""
+    n = S.shape[0]
+    d_ids, o_ids = elem_ids(S._dlayout), elem_ids(S._olayout)
+    scatters = 0
+    if d_ids and element_plan(S._dlayout, d_ids, n, S.diagonalcolors(), DEV,
+                              transpose=transpose, symmetric=False) is None:
+        scatters += len(d_ids)
+    if o_ids and element_plan(S._olayout, o_ids, n, S.fusedcolors(), DEV,
+                              transpose=False, symmetric=True) is None:
+        scatters += 2 * len(o_ids)
+    return len(d_ids) + 2 * len(o_ids), scatters
+
+
+def element_pass(S: bt.SymmetricBlockMatrix, x, mask_gs: bool):
+    """S's element off-diagonal buckets as the main path runs them, through
+    B9 (``mask_gs``) or through torch indexing ops."""
+    ids = elem_ids(S._olayout)
+    plan = element_plan(S._olayout, ids, S.shape[0], S.fusedcolors(), DEV,
+                        transpose=False, symmetric=True)
+    return bucket_apply([S._obuckets[i][:3] for i in ids], S.shape[0], x,
+                        symmetric=True, colored_plan=plan, mask_gs=mask_gs)
 
 
 def median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -157,6 +260,27 @@ def graph_ms(fn) -> float:
     require(float((out - ref).abs().max()) <= TOL[ref.dtype] * scale,
             "CUDA-graph replay disagrees with the eager product")
     return median_ms(graph.replay)
+
+
+def time_routes(label, kern, plain, nbytes, flops, card):
+    """Median CUDA-event times of a kernel route and its plain route, eager
+    (plain, kernel, kernel, plain) and replayed from a CUDA graph."""
+    p1, k1, k2, p2 = (median_ms(plain), median_ms(kern), median_ms(kern),
+                      median_ms(plain))
+    k_ms, p_ms = min(k1, k2), min(p1, p2)
+    k_dev, p_dev = graph_ms(kern), graph_ms(plain)
+    print(f"  {label}: kernel route {k1:.4f} / {k2:.4f} ms, plain route "
+          f"{p1:.4f} / {p2:.4f} ms (median of 25 CUDA-event repeats); "
+          f"kernel {nbytes / (k_ms * 1e-3) / 1e9:.1f} GB/s "
+          f"= {100 * nbytes / (k_ms * 1e-3) / HBM_BYTES_PER_S:.1f}% of "
+          f"3.35 TB/s, {flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s [{card}]")
+    print(f"  {label}: CUDA-graph replay (no host launch overhead) kernel "
+          f"route {k_dev:.4f} ms = {nbytes / (k_dev * 1e-3) / 1e9:.1f} "
+          f"GB/s = {100 * nbytes / (k_dev * 1e-3) / HBM_BYTES_PER_S:.1f}% "
+          f"of 3.35 TB/s, {flops / (k_dev * 1e-3) / 1e12:.2f} TFLOP/s; "
+          f"plain route {p_dev:.4f} ms; device idle share of the eager "
+          f"kernel route {max(0.0, 1 - k_dev / k_ms):.2f} [{card}]")
+    return k_ms, p_ms, k_dev, p_dev
 
 
 def contiguous_operator(n, nblocks, bs, seed, value_seed, device):
@@ -236,6 +360,44 @@ def phase1():
             err = rel_check(f"B2 {'transpose' if tr else 'forward'} r={r}",
                             got, ref, TOL[torch.float32])
             errs["B2"] = max(errs["B2"], err)
+    errs["B3"] = 0.0
+    d, di, o, ri, ci, shape = random_symmetric(
+        3, n=1024, ngroups=12, noffdiag=20, dtype=np.float32, contiguous=True)
+    S = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape, device=DEV)
+    for tm in (False, True):
+        plan, dev = S._patch_for(tm)
+        vals, cc, rs, mk = dev[0]
+        print(f"  symmetric patch plan (transpose_main={tm}): "
+              f"{plan.buckets[0].nb} slots of {plan.buckets[0].MP}x"
+              f"{plan.buckets[0].KP}, {int(mk.sum())} mirrored chunks")
+        for r in (32, 64, 128, 300):
+            X = torch.randn((shape[0], r), generator=gen).to(DEV)
+            for adj in (False, True):
+                got = patch_engine.bucket_spmm_sym(vals, cc, rs, mk, X, adjoint=adj)
+                ref = patch_engine.bucket_spmm_sym_plain(vals, cc, rs, mk, X,
+                                                         adjoint=adj)
+                torch.cuda.synchronize()
+                err = rel_check(f"B3 {'adjoint' if adj else 'symmetric'} "
+                                f"transpose_main={tm} r={r}", got, ref,
+                                TOL[torch.float32])
+                errs["B3"] = max(errs["B3"], err)
+    errs["B9 gather"] = errs["B9 scatter"] = 0.0
+    rng = np.random.default_rng(12)
+    for n, K in ((32768, 1 << 20), (1000, 50000)):
+        idx = rng.integers(0, n, K).astype(np.int32)
+        idx[::7] = n  # the layout's sentinel
+        x = torch.randn(n, generator=gen).to(DEV)
+        v = torch.randn(K, generator=gen).to(DEV)
+        ti = torch.from_numpy(idx).to(DEV)
+        for kind, got, ref in (
+                ("gather", mask_select.mask_gather(x, ti),
+                 mask_select.mask_gather_plain(x, ti)),
+                ("scatter", mask_select.mask_scatter_add(v, ti, n),
+                 mask_select.mask_scatter_add_plain(v, ti, n))):
+            torch.cuda.synchronize()
+            err = rel_check(f"B9 {kind} n={n} K={K}", got, ref,
+                            TOL[torch.float32])
+            errs[f"B9 {kind}"] = max(errs[f"B9 {kind}"], err)
     return errs
 
 
@@ -338,31 +500,278 @@ def phase3(card: str):
     rel_check("SpMM r=128 vs float64 plain", Y,
               plain_route(A, X, dtype=torch.float64), TOL[torch.float32])
     plan = A._patch_for()[0]
-    times = {}
-    for label, kern, plain, nbytes, flops in (
-            ("SpMV", lambda: A @ x, lambda: plain_route(A, x), value_bytes,
-             2 * value_bytes // 4),
-            ("SpMM r=128", lambda: A @ X, lambda: plain_route(A, X),
-             plan.value_bytes, 2 * plan.value_bytes // 4 * 128)):
-        # plain, kernel, kernel, plain: both orders in one call
-        p1, k1, k2, p2 = (median_ms(plain), median_ms(kern), median_ms(kern),
-                          median_ms(plain))
-        k_ms, p_ms = min(k1, k2), min(p1, p2)
-        k_dev, p_dev = graph_ms(kern), graph_ms(plain)
-        times[label] = (k_ms, p_ms, k_dev, p_dev)
-        print(f"  {label}: kernel route {k1:.4f} / {k2:.4f} ms, plain route "
-              f"{p1:.4f} / {p2:.4f} ms (median of 25 CUDA-event repeats); "
-              f"kernel {nbytes / (k_ms * 1e-3) / 1e9:.1f} GB/s "
-              f"= {100 * nbytes / (k_ms * 1e-3) / HBM_BYTES_PER_S:.1f}% of "
-              f"3.35 TB/s, {flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s "
-              f"[{card}]")
-        print(f"  {label}: CUDA-graph replay (no host launch overhead) kernel "
-              f"route {k_dev:.4f} ms = {nbytes / (k_dev * 1e-3) / 1e9:.1f} "
-              f"GB/s = {100 * nbytes / (k_dev * 1e-3) / HBM_BYTES_PER_S:.1f}% "
-              f"of 3.35 TB/s, {flops / (k_dev * 1e-3) / 1e12:.2f} TFLOP/s; "
-              f"plain route {p_dev:.4f} ms; device idle share of the eager "
-              f"kernel route {max(0.0, 1 - k_dev / k_ms):.2f} [{card}]")
-    return times
+    return {
+        "SpMV": time_routes("SpMV", lambda: A @ x, lambda: plain_route(A, x),
+                            value_bytes, 2 * value_bytes // 4, card),
+        "SpMM r=128": time_routes(
+            "SpMM r=128", lambda: A @ X, lambda: plain_route(A, X),
+            plan.value_bytes, 2 * plan.value_bytes // 4 * 128, card),
+    }
+
+
+# -- phase 4 -------------------------------------------------------------------
+
+def value_bytes_of(*layouts) -> int:
+    return sum(int(b.values.nbytes) for lay in layouts for b in lay.buckets)
+
+
+def n_chunked(*layouts) -> int:
+    return sum(b.chunk > 1 for lay in layouts for b in lay.buckets)
+
+
+def phase4():
+    print("phase 4: symmetric flagship 4096^2, 48 diagonal + 160 off-diagonal "
+          "f32 blocks (config-2 recipe), r=64")
+    d, di, o, ri, ci, shape = random_symmetric(
+        8, n=4096, ngroups=48, noffdiag=160, dtype=np.float32, contiguous=True)
+    S = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape, device=DEV)
+    Ssc = bt.to_scipy(S).astype(np.float64)
+    require(abs(Ssc - Ssc.T).max() > 1e-3, "fixture must have S^T != S")
+    print(f"  {S}; {value_bytes_of(S._dlayout, S._olayout) / 1e6:.1f} MB of "
+          f"bucket values")
+    rng = np.random.default_rng(9)
+    Xn = rng.standard_normal((4096, 64)).astype(np.float32)
+    xn = rng.standard_normal(4096).astype(np.float32)
+    yn = rng.standard_normal(4096).astype(np.float32)
+    X, x, y = (torch.from_numpy(a).to(DEV) for a in (Xn, xn, yn))
+    reads = [(S._dlayout, 1), (S._olayout, 2)]
+    for tm in (False, True):
+        require(patch_wins(S._patch_for(tm)[0], reads, 64),
+                "symmetric flagship r=64 must take the patch route")
+
+    # kernels against their plain versions at the flagship's shapes
+    errs = {"B1": 0.0, "B3": 0.0}
+    for hb, (v, _ri, _ci, rc, cc) in zip(S._olayout.buckets, S._obuckets):
+        if hb.chunk > 1:
+            got = fused_spmm.chunked_block_apply(v, rc, cc, hb.chunk, x, 4096,
+                                                 symmetric=True)
+            ref = fused_spmm.chunked_block_apply_plain(v, rc, cc, hb.chunk, x,
+                                                       4096, symmetric=True)
+            torch.cuda.synchronize()
+            errs["B1"] = max(errs["B1"], rel_check(
+                f"B1 symmetric bucket {hb.mp}x{hb.kp} nb={hb.nblocks} "
+                f"C={hb.chunk} r=1", got, ref, TOL[torch.float32]))
+    for tm in (False, True):
+        vals, cc, rs, mk = S._patch_for(tm)[1][0]
+        for adj in (False, True):
+            got = patch_engine.bucket_spmm_sym(vals, cc, rs, mk, X, adjoint=adj)
+            ref = patch_engine.bucket_spmm_sym_plain(vals, cc, rs, mk, X,
+                                                     adjoint=adj)
+            torch.cuda.synchronize()
+            errs["B3"] = max(errs["B3"], rel_check(
+                f"B3 {'adjoint' if adj else 'symmetric'} transpose_main={tm} "
+                f"r=64", got, ref, TOL[torch.float32]))
+
+    # the symmetric main path, counted
+    x64, X64, y64 = (a.astype(np.float64) for a in (xn, Xn, yn))
+    # (name, product, reference, kernel, applications of S, transpose)
+    products = [
+        ("S @ X", lambda: S @ X, Ssc @ X64, "B3", 1, False),
+        ("S @ x", lambda: S @ x, Ssc @ x64, "B1", 1, False),
+        ("S.T @ x", lambda: S.T @ x, Ssc.T @ x64, "B1", 1, True),
+        ("S.T @ X", lambda: S.T @ X, Ssc.T @ X64, "B3", 1, True),
+        ("S.H @ X", lambda: S.H @ X, Ssc.T @ X64, "B3", 1, True),
+        ("S.axpby(x, y, 2.0, 0.5)", lambda: S.axpby(x, y, 2.0, 0.5),
+         2.0 * (Ssc @ x64) + 0.5 * y64, "B1", 1, False),
+        ("(S @ S) @ x", lambda: (S @ S) @ x, Ssc @ (Ssc @ x64), "B1", 2,
+         False),
+    ]
+    # every chunked bucket is one B1 launch per r = 1 product; each chunked
+    # off-diagonal bucket is one launch of B1's symmetric mode
+    per_spmv, per_sym = n_chunked(S._dlayout, S._olayout), n_chunked(S._olayout)
+    require(per_sym > 0, "no chunked off-diagonal bucket")
+    reset_counts()
+    outs = []
+    for name, fn, _ref, kernel, k, tr in products:
+        before = counts()
+        outs.append(fn())
+        grown = {key: counts()[key] - before[key] for key in before}
+        require(grown[kernel] > 0, f"{name}: kernel {kernel} was not launched")
+        if kernel == "B1":
+            want = {"B1": k * per_spmv, "B1 sym": k * per_sym,
+                    "B9 gather": k * b9_per_spmv(S, tr)[0],
+                    "B9 scatter": k * b9_per_spmv(S, tr)[1]}
+            got = {key: grown[key] for key in want}
+            require(got == want, f"{name}: launches {got}, expected {want}")
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"  main-path launches: {launches} ({per_spmv} chunked buckets per "
+          f"r = 1 product, {per_sym} of them in B1's symmetric mode; "
+          f"{len(elem_ids(S._dlayout)) + len(elem_ids(S._olayout))} element "
+          f"buckets)")
+    for (name, _fn, ref, *_), out in zip(products, outs):
+        rel_check(f"{name} vs float64 scipy", out, ref, TOL[torch.float32])
+
+    # gradients: B3's backward runs its adjoint mode, B1's symmetric pass is
+    # its own adjoint
+    Wn = rng.standard_normal((4096, 64)).astype(np.float32)
+    W = torch.from_numpy(Wn).to(DEV)
+    for name, r in (("d(W . S @ X)/dX", 64), ("d(w . S @ x)/dx", 1)):
+        before = counts()
+        Xg = (X if r > 1 else x).clone().requires_grad_()
+        Wr = W if r > 1 else W[:, 0]
+        (Wr * (S @ Xg)).sum().backward()
+        ref = Ssc.T @ (Wn if r > 1 else Wn[:, 0]).astype(np.float64)
+        rel_check(name, Xg.grad, ref, TOL[torch.float32])
+        grown = {k: counts()[k] - before[k] for k in before}
+        require(grown["B3"] >= 2 if r > 1 else grown["B1 sym"] >= 2 * per_sym,
+                f"{name}: backward did not run the kernel ({grown})")
+    return errs, launches
+
+
+# -- phase 5 -------------------------------------------------------------------
+
+def phase5(card: str):
+    print("phase 5: symmetric real size n=32768, 384 diagonal + 4096 "
+          "off-diagonal f32 blocks (config-2 recipe x8)")
+    d, di, o, ri, ci, shape = random_symmetric(
+        8, n=32768, ngroups=384, noffdiag=4096, dtype=np.float32,
+        contiguous=True)
+    # split the constructor's host time by wrapping the functions it calls
+    spent = {"layout": 0.0, "coloring": 0.0}
+
+    def timed(key, fn):
+        def wrapped(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return wrapped
+
+    orig_layout = symmetric_format.build_layout
+    orig_color = symmetric_format.coloring.color_blocks
+    symmetric_format.build_layout = timed("layout", orig_layout)
+    symmetric_format.coloring.color_blocks = timed("coloring", orig_color)
+    try:
+        t0 = time.perf_counter()
+        S = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape, device=DEV)
+        torch.cuda.synchronize()
+        t_ctor = time.perf_counter() - t0
+    finally:
+        symmetric_format.build_layout = orig_layout
+        symmetric_format.coloring.color_blocks = orig_color
+    t0 = time.perf_counter()
+    plan, dev = S._patch_for(False)
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t0
+    hb = plan.buckets[0]
+    mirrored = int((hb.mirror_kc.astype(np.int64) * CC * hb.MP).sum())
+    chunks = [b.chunk for b in S._olayout.buckets]
+    stored = (S._dlayout.nnz + S._olayout.nnz) * 4
+    print(f"  {S}; {stored / 1e6:.1f} MB of stored logical values, "
+          f"{value_bytes_of(S._dlayout, S._olayout) / 1e6:.1f} MB of bucket "
+          f"values; {len(S._dlayout.buckets)} diagonal + {len(chunks)} "
+          f"off-diagonal buckets (chunks {min(chunks)}-{max(chunks)}, "
+          f"{n_chunked(S._olayout)} chunked); {len(S.fusedcolors())} fused "
+          f"colors")
+    print(f"  symmetric patch plan: {hb.nb} slots of {hb.MP}x{hb.KP}, "
+          f"{plan.value_bytes / 1e6:.1f} MB")
+    print(f"  construction on the host: constructor {t_ctor:.2f} s (layout "
+          f"{spent['layout']:.2f} s, coloring {spent['coloring']:.2f} s for "
+          f"four colorings, staging to the card "
+          f"{t_ctor - spent['layout'] - spent['coloring']:.2f} s), symmetric "
+          f"patch plan {t_plan:.2f} s (built at the first r > 1 product)")
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    x = torch.randn(shape[0], generator=gen).to(DEV)
+    X = torch.randn((shape[0], 128), generator=gen).to(DEV)
+
+    # B9 against its plain version on every element off-diagonal bucket
+    errs = {"B9 gather": 0.0, "B9 scatter": 0.0}
+    for i in elem_ids(S._olayout):
+        _v, ridx, cidx, _rc, _cc = S._obuckets[i]
+        for idx in (ridx, cidx):
+            v = torch.randn(idx.numel(), generator=gen).to(DEV)
+            for kind, got, ref in (
+                    ("gather", mask_select.mask_gather(x, idx),
+                     mask_select.mask_gather_plain(x, idx)),
+                    ("scatter", mask_select.mask_scatter_add(v, idx, shape[0]),
+                     mask_select.mask_scatter_add_plain(v, idx, shape[0]))):
+                err = float((got - ref).abs().max())
+                limit = TOL[torch.float32] * max(1.0, float(ref.abs().max()))
+                require(err <= limit, f"B9 {kind} bucket {i}: error {err:.3e} "
+                        f"above {limit:.3e}")
+                errs[f"B9 {kind}"] = max(errs[f"B9 {kind}"], err)
+    print(f"  B9 on the {len(elem_ids(S._olayout))} element off-diagonal "
+          f"buckets (row and column tables): max_abs_err gather "
+          f"{errs['B9 gather']:.3e}, scatter {errs['B9 scatter']:.3e} (tol "
+          f"1e-5 x max(1, max|ref|) per call)")
+
+    reset_counts()
+    y = S @ x
+    Y = S @ X
+    torch.cuda.synchronize()
+    launched = counts()
+    print(f"  launches: SpMV + SpMM r=128 -> {launched}")
+    gathers, scatters = b9_per_spmv(S, False)
+    want = {"B1": n_chunked(S._dlayout, S._olayout),
+            "B1 sym": n_chunked(S._olayout), "B2": 0, "B3": 1,
+            "B9 gather": gathers, "B9 scatter": scatters}
+    require(launched == want and gathers > 0 and scatters > 0,
+            f"real-size products: launches {launched}, expected {want}")
+    rel_check("SpMV vs float64 plain", y,
+              plain_route_sym(S, x, dtype=torch.float64), TOL[torch.float32])
+    rel_check("SpMM r=128 vs float64 plain", Y,
+              plain_route_sym(S, X, dtype=torch.float64), TOL[torch.float32])
+    # the SpMV's backward: each B9 gather's adjoint is a B9 scatter-add and
+    # the other way round
+    w = torch.randn(shape[0], generator=gen).to(DEV)
+    before = counts()
+    xg = x.clone().requires_grad_()
+    (w * (S @ xg)).sum().backward()
+    rel_check("d(w . S @ x)/dx vs float64 plain S^T w", xg.grad,
+              plain_route_sym(S, w, transpose=True, dtype=torch.float64),
+              TOL[torch.float32])
+    grown = {k: counts()[k] - before[k] for k in ("B9 gather", "B9 scatter")}
+    require(grown == {"B9 gather": gathers + scatters,
+                      "B9 scatter": gathers + scatters},
+            f"SpMV and its backward: B9 launches {grown}, expected "
+            f"{gathers + scatters} of each")
+    nbytes = value_bytes_of(S._dlayout, S._olayout)
+    flops = 2 * sum(int(b.values.size) for b in S._dlayout.buckets) + \
+        4 * sum(int(b.values.size) for b in S._olayout.buckets)
+    times = {
+        "SpMV": time_routes("symmetric SpMV", lambda: S @ x,
+                            lambda: plain_route_sym(S, x), nbytes, flops,
+                            card),
+        "SpMM r=128": time_routes(
+            "symmetric SpMM r=128", lambda: S @ X,
+            lambda: plain_route_sym(S, X), plan.value_bytes,
+            2 * 128 * (int(hb.vals.size) + mirrored), card),
+    }
+
+    # the SpMV's parts, each replayed from its own CUDA graph
+    n = shape[0]
+    chunked = [(hb_, S._obuckets[i]) for i, hb_ in
+               enumerate(S._olayout.buckets) if hb_.chunk > 1]
+
+    def b1_symmetric_pass():
+        y_ = x.new_zeros(n)
+        for hb_, (v, _ri, _ci, rc, cc) in chunked:
+            y_ = y_ + fused_spmm.chunked_block_apply(v, rc, cc, hb_.chunk, x,
+                                                     n, symmetric=True)
+        return y_
+
+    parts = {
+        "diagonal": lambda: apply_operand(S._dbuckets, S._dlayout, n, x,
+                                          colors=S.diagonalcolors()),
+        f"B1 symmetric pass ({len(chunked)} chunked buckets)":
+            b1_symmetric_pass,
+        f"element pass through B9 ({len(elem_ids(S._olayout))} buckets)":
+            lambda: element_pass(S, x, True),
+        "element pass through torch ops": lambda: element_pass(S, x, False),
+    }
+    split = {name: graph_ms(fn) for name, fn in parts.items()}
+    print("  symmetric SpMV split, CUDA-graph replay: " + ", ".join(
+        f"{name} {ms:.4f} ms" for name, ms in split.items()) + f" [{card}]")
+    elem_values = [S._olayout.buckets[i].values
+                   for i in elem_ids(S._olayout)]
+    times["element pass"] = time_routes(
+        "element pass", lambda: element_pass(S, x, True),
+        lambda: element_pass(S, x, False),
+        sum(int(v.nbytes) for v in elem_values),
+        4 * sum(int(v.size) for v in elem_values), card)
+    return times, errs, launched
 
 
 def main() -> None:
@@ -391,6 +800,8 @@ def main() -> None:
     errs1 = phase1()
     errs2, launches = phase2()
     times = phase3(card)
+    errs4, launches4 = phase4()
+    sym_times, errs5, launches5 = phase5(card)
 
     summary = {"kernels": [
         {"name": "fused_spmm (B1)", "route": "cuda", "source": B1_SRC,
@@ -398,7 +809,13 @@ def main() -> None:
          "max_abs_err": errs2["B1"], "max_abs_err_phase1": errs1["B1"],
          "ms": times["SpMV"][0], "plain_ms": times["SpMV"][1],
          "graph_ms": times["SpMV"][2], "plain_graph_ms": times["SpMV"][3],
-         "timed": "A @ x, n=8192, 2000 x 128x128 f32", "card": card},
+         "timed": "A @ x, n=8192, 2000 x 128x128 f32", "card": card,
+         "launches_symmetric": launches4["B1 sym"],
+         "max_abs_err_symmetric": errs4["B1"],
+         "sym_ms": sym_times["SpMV"][0], "sym_plain_ms": sym_times["SpMV"][1],
+         "sym_graph_ms": sym_times["SpMV"][2],
+         "sym_plain_graph_ms": sym_times["SpMV"][3],
+         "sym_timed": "S @ x, n=32768, 384 + 4096 f32 blocks (symmetric)"},
         {"name": "patch_spmm (B2)", "route": "cuda", "source": B2_SRC,
          "replaces": B2_REPLACES, "launches": launches["B2"],
          "max_abs_err": errs2["B2"], "max_abs_err_phase1": errs1["B2"],
@@ -406,6 +823,29 @@ def main() -> None:
          "graph_ms": times["SpMM r=128"][2],
          "plain_graph_ms": times["SpMM r=128"][3],
          "timed": "A @ X, n=8192, 2000 x 128x128 f32, r=128", "card": card},
+        {"name": "patch_sym (B3)", "route": "cuda", "source": B3_SRC,
+         "replaces": B3_REPLACES, "launches": launches4["B3"],
+         "max_abs_err": errs4["B3"], "max_abs_err_phase1": errs1["B3"],
+         "ms": sym_times["SpMM r=128"][0],
+         "plain_ms": sym_times["SpMM r=128"][1],
+         "graph_ms": sym_times["SpMM r=128"][2],
+         "plain_graph_ms": sym_times["SpMM r=128"][3],
+         "timed": "S @ X, n=32768, 384 + 4096 f32 blocks (symmetric), r=128",
+         "card": card},
+    ] + [
+        {"name": f"mask_select {kind} (B9)", "route": "cuda", "source": B9_SRC,
+         "replaces": rep_, "launches": launches5[f"B9 {kind}"],
+         "max_abs_err": errs5[f"B9 {kind}"],
+         "max_abs_err_phase1": errs1[f"B9 {kind}"],
+         "ms": sym_times["element pass"][0],
+         "plain_ms": sym_times["element pass"][1],
+         "graph_ms": sym_times["element pass"][2],
+         "plain_graph_ms": sym_times["element pass"][3],
+         "timed": "element pass of S @ x (its gathers and scatter-adds "
+                  "through B9 vs torch ops), n=32768 (symmetric)",
+         "card": card}
+        for kind, rep_ in (("gather", B9_GATHER_REPLACES),
+                           ("scatter", B9_SCATTER_REPLACES))
     ]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

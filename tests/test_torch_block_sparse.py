@@ -205,8 +205,8 @@ def test_device_dtype_and_unported_options_raise():
     with pytest.raises(NotImplementedError, match="complex"):
         bt.BlockSparseMatrix([b.astype(np.complex128) for b in blocks], rows,
                              cols, shape)
-    with pytest.raises(NotImplementedError, match="colored"):
-        bt.BlockSparseMatrix(blocks, rows, cols, shape, schedule="colored")
+    with pytest.raises(ValueError, match="schedule"):
+        bt.BlockSparseMatrix(blocks, rows, cols, shape, schedule="auto")
     with pytest.raises(ValueError, match="precision"):
         bt.BlockSparseMatrix(blocks, rows, cols, shape, precision="fast")
 

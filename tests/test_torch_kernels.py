@@ -17,12 +17,15 @@ import jax.numpy as jnp
 from blocksparse_tpu.core.layout import build_layout as jax_build_layout
 from blocksparse_tpu.core.patch import build_patch_plan as jax_build_patch_plan
 from blocksparse_tpu.ops import patch_engine as jax_patch
+from blocksparse_tpu.ops.pallas import mask_select as jax_mask
 from blocksparse_tpu.ops.pallas.fused_spmm import chunked_block_apply as jax_cba
+from blocksparse_tpu.ops.xla_spmv import bucket_apply as jax_bucket_apply
 
 from blocksparse_tpu_torch.core.layout import build_layout
 from blocksparse_tpu_torch.core.patch import build_patch_plan
 from blocksparse_tpu_torch.ops import patch_engine
-from blocksparse_tpu_torch.ops.kernels import fused_spmm
+from blocksparse_tpu_torch.ops.kernels import fused_spmm, mask_select
+from blocksparse_tpu_torch.ops.torch_spmv import bucket_apply
 from blocksparse_tpu_torch.utils import build
 from blocksparse_tpu_torch.utils.testmatrices import random_block_sparse
 
@@ -171,6 +174,90 @@ def test_wrappers_refuse_other_devices_and_bad_inputs():
         patch_engine.bucket_spmm(pv, pcc, prs, X.double(), shape[0])
 
 
+def mask_inputs(n, K, seed):
+    """f32 x [n], int32 indices [K // 8, 8] with duplicates and sentinels."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(n).astype(np.float32)
+    idx = rng.integers(0, n, K).astype(np.int32)
+    idx[::7] = n          # the layout's sentinel
+    idx[3::11] = n + 5    # past it: also reads 0 / drops
+    return x, idx.reshape(K // 8, 8)
+
+
+@pytest.mark.parametrize("n,K", [(300, 4096), (1000, 9000)])
+def test_mask_plain_vs_jax_interpret(n, K):
+    x, idx = mask_inputs(n, K, seed=n)
+    t = torch.from_numpy
+    want = jax_mask.mask_gather(jnp.asarray(x), jnp.asarray(idx),
+                                interpret=True)
+    got = mask_select.mask_gather_plain(t(x), t(idx))
+    assert got.shape == idx.shape
+    assert relerr(got.numpy(), want) <= TOL[np.float32]
+    v = np.random.default_rng(n + 1).standard_normal(K).astype(np.float32)
+    want = jax_mask.mask_scatter_add(jnp.asarray(v), jnp.asarray(idx), n,
+                                     interpret=True)
+    got_s = mask_select.mask_scatter_add_plain(t(v), t(idx), n)
+    assert relerr(got_s.numpy(), want) <= TOL[np.float32]
+    # the wrappers take the plain versions for CPU tensors, launching nothing
+    before = (mask_select.GATHER_LAUNCHES, mask_select.SCATTER_LAUNCHES)
+    assert torch.equal(mask_select.mask_gather(t(x), t(idx)), got)
+    assert torch.equal(mask_select.mask_scatter_add(t(v), t(idx), n), got_s)
+    assert (mask_select.GATHER_LAUNCHES,
+            mask_select.SCATTER_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_element_engine_mask_route_vs_jax(transpose, symmetric):
+    """bucket_apply with the B9 route against the JAX element engine with
+    its mask-select kernels in interpret mode: one bucket with 4096-index
+    tables (the JAX engine takes its kernels there) and one below that."""
+    n = 400
+    rng = np.random.default_rng(35)
+    elem = []
+    for nb, mp, kp in ((64, 64, 64), (3, 8, 16)):
+        ridx = rng.integers(0, n, (nb, mp)).astype(np.int32)
+        cidx = rng.integers(0, n, (nb, kp)).astype(np.int32)
+        ridx[:, -1] = n   # sentinel lanes of the padded tile
+        cidx[:, -2:] = n
+        vals = rng.standard_normal((nb, mp, kp)).astype(np.float32)
+        elem.append((vals, ridx, cidx))
+    x = rng.standard_normal(n).astype(np.float32)
+    want = jax_bucket_apply([tuple(map(jnp.asarray, e)) for e in elem], n,
+                            jnp.asarray(x), transpose=transpose,
+                            symmetric=symmetric, mask_gs="interpret",
+                            precision="highest")
+    t = torch.from_numpy
+    got = bucket_apply([tuple(map(t, e)) for e in elem], n, t(x),
+                       transpose=transpose, symmetric=symmetric,
+                       mask_gs=True)
+    assert relerr(got.numpy(), want) <= TOL[np.float32]
+
+
+def test_mask_gradcheck():
+    x, idx = mask_inputs(40, 64, seed=37)
+    t = torch.from_numpy
+    xg = t(x).double().requires_grad_()
+    v = torch.randn(64, dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda a: mask_select.gather_apply(a, t(idx)), (xg,))
+    assert torch.autograd.gradcheck(
+        lambda a: mask_select.scatter_apply(a, t(idx).reshape(-1), 40), (v,))
+
+
+def test_mask_wrappers_refuse_bad_inputs():
+    x, idx = mask_inputs(40, 64, seed=38)
+    t = torch.from_numpy
+    with pytest.raises(ValueError, match="no kernel for device"):
+        mask_select.mask_gather(t(x).to("meta"), t(idx).to("meta"))
+    with pytest.raises(ValueError, match="different devices"):
+        mask_select.mask_gather(t(x), t(idx).to("meta"))
+    with pytest.raises(ValueError, match="1-D"):
+        mask_select.mask_gather(t(x)[:, None], t(idx))
+    with pytest.raises(ValueError, match="elements"):
+        mask_select.mask_scatter_add(t(x), t(idx), 40)
+
+
 def test_build_needs_nvcc(monkeypatch, tmp_path):
     """No nvcc: the build raises instead of falling back."""
     monkeypatch.setattr(build, "_lib", None)
@@ -186,4 +273,5 @@ def test_build_digest_tracks_sources():
     d = build._digest()
     assert d == build._digest() and len(d) == 16
     names = {p.name for p in build._sources()}
-    assert {"fused_spmm.cu", "patch_spmm.cu"} <= names
+    assert {"fused_spmm.cu", "patch_spmm.cu", "patch_sym.cu",
+            "mask_select.cu"} <= names

@@ -165,16 +165,32 @@ def test_patch_plan_bit_identical(kind):
     assert_same_plan(mine, ref)
 
 
-def test_patch_plan_symmetric_bit_identical():
+@pytest.mark.parametrize("transpose_main", [False, True])
+def test_patch_plan_symmetric_bit_identical(transpose_main):
     d, di, o, ri, ci, shape = tm.random_symmetric(
         8, n=320, ngroups=6, noffdiag=8, dtype=np.float32, contiguous=True)
     mine_d, mine_o = build_layout(d, di, di, shape), build_layout(o, ri, ci, shape)
     ref_d = jax_build_layout(d, di, di, shape, granularity="pow2")
     ref_o = jax_build_layout(o, ri, ci, shape, granularity="pow2")
-    mine = build_patch_plan(mine_d, extra_layout=mine_o)
+    mine = build_patch_plan(mine_d, extra_layout=mine_o,
+                            transpose_main=transpose_main)
     assert mine.symmetric and mine.buckets[0].mirror_kc.any()
-    assert_same_plan(mine, jax_build_patch_plan(ref_d, extra_layout=ref_o,
-                                                optimize="auto"))
+    assert_same_plan(mine, jax_build_patch_plan(
+        ref_d, extra_layout=ref_o, transpose_main=transpose_main,
+        optimize="auto"))
+
+
+def test_patch_plan_transpose_main_rectangular():
+    """transpose_main on a plain rectangular operand: the plan of A^T."""
+    blocks, rows, cols, shape = fixture("contiguous")
+    blocks = [b.astype(np.float32) for b in blocks]
+    mine = build_patch_plan(build_layout(blocks, rows, cols, shape),
+                            transpose_main=True)
+    ref = jax_build_patch_plan(
+        jax_build_layout(blocks, rows, cols, shape, granularity="pow2"),
+        transpose_main=True, optimize="auto")
+    assert (mine.nrows, mine.ncols) == (shape[1], shape[0])
+    assert_same_plan(mine, ref)
 
 
 def test_patch_plan_rejects_f64_and_scattered():
