@@ -1,13 +1,16 @@
 """blocksparse_tpu_torch: the PyTorch / CUDA port of blocksparse_tpu.
 
-The general :class:`BlockSparseMatrix` and the half-stored
-:class:`SymmetricBlockMatrix`, with their lazy operator algebra (``@``,
-``.T``, ``.H``, ``axpby``, composition) on torch tensors, DSATUR coloring
-and the colored gather-round plan.  The block products run in hand-written
-CUDA kernels for Hopper (``csrc/``): the chunk-table kernel (SpMV and SpMM
-of chunked buckets, plain or symmetric), the merged-patch SpMM kernel
-(f32, r > 1) and its symmetric counterpart.  On CPU tensors the same
-routes run the kernels' plain PyTorch versions.
+The general :class:`BlockSparseMatrix`, the half-stored
+:class:`SymmetricBlockMatrix` and the CSR-of-blocks
+:class:`VariableBlockCompressedRowStorage`, with their lazy operator
+algebra (``@``, ``.T``, ``.H``, ``axpby``, composition) on torch tensors,
+DSATUR coloring and the colored gather-round plan.  The block products run
+in hand-written CUDA kernels for Hopper (``csrc/``): the chunk-table kernel
+(SpMV and SpMM of chunked buckets, plain or symmetric), the merged-patch
+SpMM kernel (f32, r > 1) and its symmetric counterpart, the element gather
+and scatter-add, and the one-launch stream SpMV kernels over panel and slab
+plans (f32, r = 1).  On CPU tensors the same routes run the kernels' plain
+PyTorch versions.
 
 The JAX package ``blocksparse_tpu`` is the reference; this package imports
 neither it nor jax.
@@ -35,6 +38,7 @@ from .core.operator import (
 from .core.schedule import COLORED, SERIAL, isserial
 from .formats.block_sparse import BlockSparseMatrix
 from .formats.symmetric import SymmetricBlockMatrix
+from .formats.vbcrs import VariableBlockCompressedRowStorage
 from .interop.convert import from_reference
 from .interop.scipy_io import rowcolvals, to_scipy
 
@@ -43,6 +47,7 @@ __version__ = "0.1.0"
 __all__ = [
     "BlockSparseMatrix",
     "SymmetricBlockMatrix",
+    "VariableBlockCompressedRowStorage",
     "rowindices",
     "colindices",
     "eachblockindex",

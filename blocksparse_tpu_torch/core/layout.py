@@ -1,10 +1,11 @@
 """Host-side block layout engine: shape bucketing, padding, index tables.
 
 numpy copy of ``build_layout`` from ``blocksparse_tpu/core/layout.py`` at
-its format default (power-of-two bucket keys, automatic chunking, k-merge);
-the port cannot import the JAX package, whose ``__init__`` imports jax.
+its format defaults (automatic chunking, k-merge) with both bucket-key
+policies (power-of-two keys or ``(gm, gk)`` multiples); the port cannot
+import the JAX package, whose ``__init__`` imports jax.
 ``tests/test_torch_layout.py`` holds the two bit-identical.  The JAX
-package's other bucketing options, sparse (scipy) input blocks and its
+package's ``chunk``/``merge`` options, sparse (scipy) input blocks and its
 optional native packer are not carried.
 
 Dense blocks are packed into a small number of *shape buckets*.  Every
@@ -410,13 +411,17 @@ def build_layout(
     colindices: Sequence[np.ndarray],
     shape: tuple[int, int],
     *,
+    granularity="pow2",
     dtype=None,
 ) -> BlockLayout:
     """Bucket ``blocks`` by padded shape and build SoA index tables.
 
-    Bucket keys are the next power of two per dim: the number of buckets
-    (= kernel launches per product) stays at log^2 while wasting at most
-    ~2x area per dim.
+    granularity: the bucket-key policy.
+      - "pow2" (the formats' default): the next power of two per dim; the
+        number of buckets (= kernel launches per product) stays at log^2
+        while wasting at most ~2x area per dim.
+      - (gm, gk): each dim rounded up to these multiples; (1, 1) buckets by
+        exact shape.
 
     Chunking: per bucket of contiguous-range blocks, the largest C in
     CHUNK_CANDIDATES whose offset-padding keeps the tile area within 2x of
@@ -434,6 +439,16 @@ def build_layout(
     if not (len(rowindices) == len(colindices) == n):
         raise ValueError("blocks, rowindices, colindices must have equal length")
     blocks = [np.asarray(b) for b in blocks]
+
+    if granularity == "pow2":
+        key_of = lambda m, k: (pow2_ceil(m), pow2_ceil(k))
+    else:
+        if (isinstance(granularity, str) or len(granularity) != 2
+                or min(int(g) for g in granularity) < 1):
+            raise ValueError(
+                f"granularity must be 'pow2' or (gm, gk) >= 1, got {granularity!r}")
+        gm, gk = granularity
+        key_of = lambda m, k: (round_up(max(m, 1), gm), round_up(max(k, 1), gk))
 
     rlists, clists = [], []
     if dtype is None:
@@ -457,7 +472,7 @@ def build_layout(
             raise ValueError(f"block {i} col indices out of range [0, {ncols})")
         rlists.append(np.ascontiguousarray(ri, dtype=np.int32))
         clists.append(np.ascontiguousarray(ci, dtype=np.int32))
-        key = (pow2_ceil(b.shape[0]), pow2_ceil(b.shape[1]))
+        key = key_of(b.shape[0], b.shape[1])
         groups.setdefault(key, []).append(i)
 
     # contiguity computed once per index list (hot at production block counts)

@@ -1,0 +1,117 @@
+// Panel SpMV on Hopper (kernel B5 of the port).
+//
+// Replaces blocksparse_tpu/ops/pallas/panel_spmv.py::_pkern_plain and
+// ::_pkern_mirror (launched from _launch) together with the x gather and the
+// mirror map-back around them.  The operand is the panel plan of
+// core/panel.py: vals [S*TS, 8, 128] in the K-merged panel space,
+// rid8 / cid8 [S*TS] (row chunk - b8[s], RW = padding; compact chunk, CW =
+// padding), segid [S, CW*4] and, for mirror plans, otgt [S, CW*4].
+//
+//   plain   y[(b8[s] + rid8)*8 + m] += sum_k V[m, k] * x[lane k]
+//   mirror  additionally y[lane k] += sum_m V[m, k] * x[(b8[s] + rid8)*8 + m]
+//           for lanes whose segment has a mirror target
+//
+// where lane k of compact chunk c in slab s reads segment
+// seg = segid[s, c*4 + k/32]: x[(seg % NC32)*32 + k%32 + g(seg / NC32)]
+// with g the segment grid's shift, 0 for the sentinel seg == NG*NC32 and
+// for indices >= ncols (the JAX gather rolls x and wraps the last segment
+// to its front; the plan holds zero values on those lanes, so reading 0
+// there is the same product and never reads out of bounds).  Mirror sums
+// go to the same formula with otgt in place of segid (-1 = dropped: the
+// diagonal blocks' and the padding's segments), rows >= nrows dropped --
+// the JAX wrapper's one-hot map-back [S*CW*4, NG*NC32] and its per-grid
+// pad-left, with no one-hot on the device.
+//
+// What bounds it on the card: every value is read once for 2 flops (4 in a
+// mirror plan), so it is bound by the bytes of vals; x and the id tables
+// are small and stay in L2.  The design (tile_stream.cuh): one warp per
+// run of tiles, float4 streaming loads, row sums carried in registers
+// across tiles of one row chunk, fp32 atomicAdd into a zeroed y.
+#include <cuda_runtime.h>
+
+#include "tile_stream.cuh"
+
+namespace {
+
+struct PanelGeo {
+  const int* rid8;
+  const int* cid8;
+  const int* segid;
+  const int* otgt;
+  const int* b8;
+  long long grids;  // 5 bits per used grid's shift
+  int CW, RW, NC32, ngrids;
+  long long ncols, nrows;
+
+  __device__ __forceinline__ long long row_chunk(int s, long long T) const {
+    const int r = __ldg(rid8 + T);
+    return r >= RW ? -1 : (long long)__ldg(b8 + s) + r;
+  }
+  __device__ __forceinline__ long long seg_base(int seg) const {
+    const int gi = seg / NC32;
+    return (long long)(seg % NC32) * 32 + ((grids >> (5 * gi)) & 31);
+  }
+  __device__ __forceinline__ void load_x(int s, long long T, int lane,
+                                         const float* __restrict__ x,
+                                         float (&xv)[4]) const {
+    const int c = __ldg(cid8 + T);
+    const int seg = __ldg(segid + ((long long)s * CW + c) * 4 + lane / 8);
+    const long long base =
+        seg < ngrids * NC32 ? seg_base(seg) + (4 * lane) % 32 : ncols;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      xv[j] = base + j < ncols ? __ldg(x + base + j) : 0.f;
+  }
+  __device__ __forceinline__ float mirror_weight(int, long long) const {
+    return 1.f;
+  }
+  __device__ __forceinline__ void mirror_add(int s, long long T, int lane,
+                                             const float (&yt)[4],
+                                             float* __restrict__ y) const {
+    const int c = __ldg(cid8 + T);
+    const int tgt = __ldg(otgt + ((long long)s * CW + c) * 4 + lane / 8);
+    if (tgt < 0) return;
+    const long long base = seg_base(tgt) + (4 * lane) % 32;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (base + j < nrows) atomicAdd(y + base + j, yt[j]);
+  }
+};
+
+template <bool MIRROR>
+__global__ void __launch_bounds__(bst::kStreamThreads)
+    panel_spmv_kernel(const float* __restrict__ vals, PanelGeo geo,
+                      const float* __restrict__ x, float* __restrict__ y,
+                      long long ntiles, int TS, int tpw) {
+  bst::stream_tiles<MIRROR>(vals, ntiles, TS, geo, x, y, geo.nrows, tpw);
+}
+
+}  // namespace
+
+// y must be zeroed ([nrows] f32); otgt may be null unless mirror.
+extern "C" int bst_panel_spmv_f32(const float* vals, const int* rid8,
+                                  const int* cid8, const int* segid,
+                                  const int* otgt, const int* b8,
+                                  const float* x, float* y, long long ntiles,
+                                  int TS, int CW, int RW, int NC32,
+                                  int ngrids, long long grids,
+                                  long long ncols, long long nrows,
+                                  int mirror, int tpw, void* stream) {
+  if (TS <= 0 || CW <= 0 || RW <= 0 || NC32 <= 0 || ngrids <= 0 ||
+      ngrids > 8 || tpw <= 0 || (mirror && otgt == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (ntiles <= 0 || nrows <= 0) return 0;
+  const PanelGeo geo{rid8, cid8, segid, otgt, b8, grids, CW, RW, NC32,
+                     ngrids, ncols, nrows};
+  const long long warps = (ntiles + tpw - 1) / tpw;
+  const int per_block = bst::kStreamThreads / 32;
+  const unsigned blocks = (unsigned)((warps + per_block - 1) / per_block);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mirror)
+    panel_spmv_kernel<true><<<blocks, bst::kStreamThreads, 0, s>>>(
+        vals, geo, x, y, ntiles, TS, tpw);
+  else
+    panel_spmv_kernel<false><<<blocks, bst::kStreamThreads, 0, s>>>(
+        vals, geo, x, y, ntiles, TS, tpw);
+  return (int)cudaGetLastError();
+}

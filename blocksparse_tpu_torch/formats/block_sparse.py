@@ -4,14 +4,17 @@ Counterpart of ``blocksparse_tpu/formats/block_sparse.py``: dense blocks
 placed at arbitrary -- possibly non-contiguous, possibly overlapping --
 row/column index lists inside an (M, N) matrix.  Overlapping blocks sum.
 
-The host layout (``core/layout.py``) packs the blocks into shape buckets;
-the buckets are staged on the operator's ``device`` at construction.  A
-product routes as the JAX package's ``_apply`` does, minus the TPU-only
-routes (split-complex, strip, panel):
+The host layout (``core/layout.py``) packs the blocks into shape buckets
+(``granularity``: "pow2" or ``(gm, gk)``); the buckets are staged on the
+operator's ``device`` at construction.  A product routes as the JAX
+package's ``_apply`` does, minus its split-complex route:
 
   1. f32, r > 1, a merged-patch plan exists and ``patch_wins`` -> the patch
      SpMM (kernel B2);
-  2. otherwise ``apply_operand``: chunked buckets -> kernel B1, element
+  2. f32, r = 1 -> the stream route (``formats/stream.py``) where
+     ``stream_plan_choice`` picks the panel plan (kernel B5) or the slab
+     plan (kernel B8) for A or A^T;
+  3. otherwise ``apply_operand``: chunked buckets -> kernel B1, element
      buckets -> the torch-op engine (colored gather rounds under
      ``schedule="colored"``, with ``colors`` forward and
      ``transposecolors`` for transpose products).
@@ -31,7 +34,9 @@ from .. import coloring
 from ..core import schedule as sched
 from ..core.layout import BlockLayout, build_layout
 from ..core.operator import LinearOperator
-from ..ops.dispatch import apply_operand, patch_eligible, patch_wins
+from ..ops.dispatch import (apply_operand, patch_eligible, patch_wins,
+                            strip_eligible)
+from .stream import StreamRouted
 
 __all__ = ["BlockSparseMatrix"]
 
@@ -84,12 +89,13 @@ def _stage(layout: BlockLayout, device) -> tuple:
                  for b in layout.buckets)
 
 
-class BlockSparseMatrix(LinearOperator):
+class BlockSparseMatrix(StreamRouted, LinearOperator):
     """General block-sparse matrix (format 1).
 
     ``precision``: "highest" | "high" | None, kept for parity with the JAX
     package.  Every tier currently runs in full IEEE precision (see
-    ``ops/kernels/fused_spmm.py``).
+    ``ops/kernels/fused_spmm.py``).  ``granularity``: the bucket keys,
+    "pow2" or ``(gm, gk)`` (see ``core/layout.build_layout``).
     """
 
     def __init__(
@@ -103,6 +109,7 @@ class BlockSparseMatrix(LinearOperator):
         dtype=None,
         precision: str | None = "highest",
         schedule: str = sched.SERIAL,
+        granularity="pow2",
     ):
         if shape is None:
             raise ValueError("shape=(nrows, ncols) is required")
@@ -112,6 +119,7 @@ class BlockSparseMatrix(LinearOperator):
         self._schedule = sched.normalize_schedule(schedule)
         self._precision = precision
         self._layout = build_layout(blocks, rowindices, colindices, shape,
+                                    granularity=granularity,
                                     dtype=_np_dtype(dtype))
         self._dtype = _torch_dtype([self._layout], dtype)
         # resolve "cuda" to the concrete device the tensors land on
@@ -126,6 +134,7 @@ class BlockSparseMatrix(LinearOperator):
             self._tcolors = _colors_tuple(
                 coloring.color_blocks(self._layout.colindices))
         self._patch = None
+        self._stream = {}
 
     # -- properties ---------------------------------------------------------
     @property
@@ -209,6 +218,10 @@ class BlockSparseMatrix(LinearOperator):
 
                 return patch_apply(entry[0], entry[1], x, transpose=transpose)
         # conj is a no-op for the real dtypes this slice admits
+        if strip_eligible(x, self._dtype):
+            y = self._stream_apply(x, transpose)
+            if y is not None:
+                return y
         colors = None
         if not sched.isserial(self._schedule):
             colors = self._tcolors if transpose else self._colors

@@ -12,13 +12,17 @@ dtypes of this slice the conjugate flag changes nothing.
 
 As in the JAX package, all four color sets are computed at construction
 whatever the schedule, and the default schedule is "colored".  A product
-routes as the JAX package's ``_apply`` does, minus its TPU-only routes
-(split-complex, strip, panel):
+routes as the JAX package's ``_apply`` does, minus its split-complex route:
 
   1. f32, r > 1, a symmetric patch plan exists and ``patch_wins`` -> the
      symmetric patch SpMM (kernel B3) on the plan for S or, with the
      transposed diagonal embedded, for S^T;
-  2. otherwise ``apply_symmetric``: chunked off-diagonal buckets -> kernel
+  2. f32, r = 1 -> the stream route (``formats/stream.py``) where
+     ``stream_plan_choice`` picks the symmetric panel plan (kernel B5:
+     fused with the mirror pass, or expanded) or the unified slab plan
+     (kernel B8 with its mirror pass), each for S or, with the transposed
+     diagonal, for S^T;
+  3. otherwise ``apply_symmetric``: chunked off-diagonal buckets -> kernel
      B1 in symmetric mode, element off-diagonal buckets -> the torch-op
      engine's one-read symmetric pass (colored gather rounds over
      ``fusedcolors`` where they win), the diagonal -> ``apply_operand``.
@@ -35,19 +39,23 @@ from .. import coloring
 from ..core import schedule as sched
 from ..core.layout import build_layout
 from ..core.operator import LinearOperator
-from ..ops.dispatch import apply_symmetric, patch_eligible, patch_wins
+from ..core.strip import plan_symmetric
+from ..ops.dispatch import (apply_symmetric, patch_eligible, patch_wins,
+                            strip_eligible)
+from ..ops.panel_router import panel_plan_sym
 from .block_sparse import (_PRECISIONS, _check_operand, _colors_tuple,
                            _np_dtype, _stage, _torch_dtype)
+from .stream import StreamRouted
 
 __all__ = ["SymmetricBlockMatrix"]
 
 
-class SymmetricBlockMatrix(LinearOperator):
+class SymmetricBlockMatrix(StreamRouted, LinearOperator):
     """Symmetric block-sparse matrix (format 2).
 
-    ``granularity``: "pow2" only (the port's ``build_layout`` carries the
-    JAX package's default bucketing alone).  ``precision``: kept for
-    parity; every tier runs in full IEEE precision.
+    ``granularity``: the bucket keys, "pow2" or ``(gm, gk)`` (see
+    ``core/layout.build_layout``).  ``precision``: kept for parity; every
+    tier runs in full IEEE precision.
     """
 
     def __init__(
@@ -72,17 +80,15 @@ class SymmetricBlockMatrix(LinearOperator):
         if precision not in _PRECISIONS:
             raise ValueError(
                 f"unknown precision {precision!r}; expected one of {_PRECISIONS}")
-        if granularity != "pow2":
-            raise NotImplementedError(
-                f"granularity {granularity!r} is not ported; the port "
-                "buckets at the JAX package's default, 'pow2'")
         self._schedule = sched.normalize_schedule(schedule)
         self._precision = precision
         self._dlayout = build_layout(diagonals, diagonalindices,
                                      diagonalindices, shape,
+                                     granularity=granularity,
                                      dtype=_np_dtype(dtype))
         self._olayout = build_layout(offdiagonals, rowindices, colindices,
-                                     shape, dtype=_np_dtype(dtype))
+                                     shape, granularity=granularity,
+                                     dtype=_np_dtype(dtype))
         self._dtype = _torch_dtype([self._dlayout, self._olayout], dtype)
         self._device = torch.empty(0, device=device).device
         self._dbuckets = _stage(self._dlayout, self._device)
@@ -98,6 +104,7 @@ class SymmetricBlockMatrix(LinearOperator):
             [np.concatenate([r, c]) for r, c in
              zip(self._olayout.rowindices, self._olayout.colindices)]))
         self._patch = {}
+        self._stream = {}
 
     # -- properties ---------------------------------------------------------
     @property
@@ -179,6 +186,19 @@ class SymmetricBlockMatrix(LinearOperator):
         entry = self._patch[transpose]
         return None if entry[0] is None else entry
 
+    def _build_panel(self, transpose: bool):
+        return panel_plan_sym(self._dlayout, self._olayout,
+                              transpose_diag=transpose)
+
+    def _build_strip(self, transpose: bool):
+        return plan_symmetric(self._dlayout, self._olayout,
+                              transpose_diag=transpose)
+
+    def _stream_reads(self):
+        # the bucket route reads each stored off-diagonal twice in the JAX
+        # package's cost model; the fused streams read it once
+        return [(self._dlayout, 1), (self._olayout, 2)]
+
     def _apply(self, x, transpose: bool, conj: bool):
         _check_operand(x, self._device, self._dtype)
         r = 1 if x.ndim == 1 else x.shape[1]
@@ -191,6 +211,10 @@ class SymmetricBlockMatrix(LinearOperator):
                 # the plan embeds S or S^T; it is applied as it is
                 return patch_apply(entry[0], entry[1], x)
         # conj is a no-op for the real dtypes this slice admits
+        if strip_eligible(x, self._dtype):
+            y = self._stream_apply(x, transpose)
+            if y is not None:
+                return y
         colored = not sched.isserial(self._schedule)
         return apply_symmetric(
             self._dbuckets, self._dlayout, self._obuckets, self._olayout,

@@ -1,0 +1,269 @@
+"""VBCRS: variable-block compressed row storage (CSR of blocks).
+
+Counterpart of ``blocksparse_tpu/formats/vbcrs.py``: blocks occupy
+contiguous row and column ranges given by their start indices (the block's
+shape gives the extent); blocks are sorted by (row start, col start) and
+grouped into block rows by ``rowptr``.  ``from_block_sparse`` and
+``from_symmetric`` convert the other formats (the symmetric one expands
+each diagonal block once and each off-diagonal twice, as it is and
+transposed).  Construction validates contiguity unless ``check=False``.
+
+A product routes as the JAX package's ``_apply`` does, minus its
+split-complex route:
+
+  1. f32, r > 1, a merged-patch plan exists and ``patch_wins`` -> the patch
+     SpMM (kernel B2);
+  2. f32, r = 1 -> the stream route (``formats/stream.py``) where
+     ``stream_plan_choice`` picks the panel plan (kernel B5) or the slab
+     plan (kernel B8) for V or V^T;
+  3. otherwise ``apply_operand``: chunked buckets -> kernel B1, element
+     buckets -> the element engine.
+
+As in the JAX package the schedule is recorded but no color sets are built:
+both schedules run the same routes.  Real float32/float64 only; complex
+dtypes raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ..core import schedule as sched
+from ..core.layout import BlockLayout, build_layout, is_contiguous
+from ..core.operator import LinearOperator
+from ..ops.dispatch import (apply_operand, patch_eligible, patch_wins,
+                            strip_eligible)
+from .block_sparse import (_PRECISIONS, BlockSparseMatrix, _check_operand,
+                           _np_dtype, _stage, _torch_dtype)
+from .stream import StreamRouted
+
+__all__ = ["VariableBlockCompressedRowStorage"]
+
+
+def _as_start(idx, blocklen: int, axis: str, i: int, check: bool) -> int:
+    """Accept either a scalar start index or a full contiguous index list."""
+    a = np.asarray(idx)
+    if a.ndim == 0:
+        return int(a)
+    a = a.ravel()
+    if check:
+        if not is_contiguous(a):
+            raise ValueError(
+                f"block {i}: {axis} indices must be a contiguous range for VBCRS"
+            )
+        if a.size != blocklen:
+            raise ValueError(
+                f"block {i}: {axis} index list length {a.size} != block extent {blocklen}"
+            )
+    return int(a[0]) if a.size else 0
+
+
+class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
+    """CSR of blocks with variable block sizes and contiguous ranges
+    (format 3).
+
+    ``granularity``: the bucket keys, "pow2" or ``(gm, gk)`` (see
+    ``core/layout.build_layout``).  ``precision``: kept for parity; every
+    tier runs in full IEEE precision.
+    """
+
+    def __init__(
+        self,
+        blocks: Sequence[np.ndarray],
+        rowindices: Sequence,
+        colindices: Sequence,
+        shape: tuple[int, int] | None = None,
+        *,
+        device="cpu",
+        dtype=None,
+        precision: str | None = "highest",
+        schedule: str = sched.SERIAL,
+        granularity="pow2",
+        check: bool = True,
+    ):
+        if shape is None:
+            raise ValueError("shape=(nrows, ncols) is required")
+        if precision not in _PRECISIONS:
+            raise ValueError(
+                f"unknown precision {precision!r}; expected one of {_PRECISIONS}")
+        self._schedule = sched.normalize_schedule(schedule)
+        self._precision = precision
+        n = len(blocks)
+        blocks = [np.asarray(b.toarray()) if hasattr(b, "toarray")
+                  else np.asarray(b) for b in blocks]
+        rstarts = np.array(
+            [_as_start(rowindices[i], blocks[i].shape[0], "row", i, check)
+             for i in range(n)], dtype=np.int64)
+        cstarts = np.array(
+            [_as_start(colindices[i], blocks[i].shape[1], "col", i, check)
+             for i in range(n)], dtype=np.int64)
+
+        # sort blocks by (row, col) and build rowptr in one pass
+        perm = np.lexsort((cstarts, rstarts))
+        blocks = [blocks[i] for i in perm]
+        rstarts, cstarts = rstarts[perm], cstarts[perm]
+        rowptr, blockrow_starts = [0], []
+        for i in range(n):
+            if i == 0 or rstarts[i] != rstarts[i - 1]:
+                if i:
+                    rowptr.append(i)
+                blockrow_starts.append(int(rstarts[i]))
+        rowptr.append(n)
+        self._rowptr = tuple(rowptr)
+        self._blockrow_starts = tuple(blockrow_starts)
+        self._row_starts = tuple(int(v) for v in rstarts)
+        self._col_starts = tuple(int(v) for v in cstarts)
+
+        rlists = [np.arange(r, r + b.shape[0]) for r, b in zip(rstarts, blocks)]
+        clists = [np.arange(c, c + b.shape[1]) for c, b in zip(cstarts, blocks)]
+        self._layout = build_layout(blocks, rlists, clists, shape,
+                                    granularity=granularity,
+                                    dtype=_np_dtype(dtype))
+        self._dtype = _torch_dtype([self._layout], dtype)
+        self._device = torch.empty(0, device=device).device
+        self._buckets = _stage(self._layout, self._device)
+        self._patch = None
+        self._stream = {}
+
+    # -- converters ---------------------------------------------------------
+    @classmethod
+    def from_block_sparse(cls, bsm, *, schedule=None, granularity="pow2",
+                          **kwargs):
+        """Convert a BlockSparseMatrix (blocks must have contiguous ranges);
+        ``kwargs`` (``device``, ``dtype``, ...) go to the constructor, the
+        device defaulting to ``bsm``'s."""
+        n = bsm.nblocks
+        kwargs.setdefault("device", bsm.device)
+        return cls(
+            [bsm.block(i) for i in range(n)],
+            [bsm.blockrowindices(i) for i in range(n)],
+            [bsm.blockcolindices(i) for i in range(n)],
+            bsm.shape,
+            schedule=schedule if schedule is not None else bsm.schedule,
+            granularity=granularity, **kwargs,
+        )
+
+    @classmethod
+    def from_symmetric(cls, sbm, *, schedule=None, granularity="pow2",
+                       **kwargs):
+        """Expand a SymmetricBlockMatrix: diagonals once, off-diagonals twice
+        (as they are and transposed)."""
+        blocks, rows, cols = [], [], []
+        for i in range(sbm.ndiagonals):
+            blocks.append(sbm.diagonal(i))
+            rows.append(sbm.diagonalindices(i))
+            cols.append(sbm.diagonalindices(i))
+        for i in range(sbm.noffdiagonals):
+            o = sbm.offdiagonal(i)
+            r, c = sbm.blockrowindices(i), sbm.blockcolindices(i)
+            blocks += [o, o.T]
+            rows += [r, c]
+            cols += [c, r]
+        kwargs.setdefault("device", sbm.device)
+        return cls(
+            blocks, rows, cols, sbm.shape,
+            schedule=schedule if schedule is not None else sbm.schedule,
+            granularity=granularity, **kwargs,
+        )
+
+    # -- properties ---------------------------------------------------------
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self._layout.nrows, self._layout.ncols)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self._dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def precision(self):
+        return self._precision
+
+    @property
+    def layout(self) -> BlockLayout:
+        return self._layout
+
+    @property
+    def schedule(self) -> str:
+        return self._schedule
+
+    @property
+    def nblocks(self) -> int:
+        return self._layout.nblocks
+
+    @property
+    def nblockrows(self) -> int:
+        return len(self._rowptr) - 1
+
+    @property
+    def rowptr(self) -> tuple[int, ...]:
+        return self._rowptr
+
+    @property
+    def blockrow_starts(self) -> tuple[int, ...]:
+        return self._blockrow_starts
+
+    @property
+    def nnz(self) -> int:
+        """Dense extents of all blocks."""
+        return self._layout.nnz
+
+    # -- reference API parity ----------------------------------------------
+    def eachblockindex(self):
+        return range(self.nblocks)
+
+    def block(self, i: int) -> np.ndarray:
+        """Dense block ``i`` (host copy of the construction values)."""
+        return self._layout.extract_block(i)
+
+    def blockrowindices(self, i: int) -> np.ndarray:
+        return self._layout.rowindices[i]
+
+    def blockcolindices(self, i: int) -> np.ndarray:
+        return self._layout.colindices[i]
+
+    def row_start(self, i: int) -> int:
+        return self._row_starts[i]
+
+    def col_start(self, i: int) -> int:
+        return self._col_starts[i]
+
+    # -- compute ------------------------------------------------------------
+    # the lazy merged-patch plan of the general format, on the same fields
+    # (VBCRS ranges are contiguous by construction: only f32 gates it)
+    _patch_for = BlockSparseMatrix._patch_for
+
+    def _apply(self, x, transpose: bool, conj: bool):
+        _check_operand(x, self._device, self._dtype)
+        out_len = self.shape[1] if transpose else self.shape[0]
+        r = 1 if x.ndim == 1 else x.shape[1]
+        if r > 1 and patch_eligible(x, self._dtype):
+            entry = self._patch_for()
+            if entry is not None and patch_wins(entry[0],
+                                                [(self._layout, 1)], r):
+                from ..ops.patch_engine import patch_apply
+
+                return patch_apply(entry[0], entry[1], x, transpose=transpose)
+        # conj is a no-op for the real dtypes this slice admits
+        if strip_eligible(x, self._dtype):
+            y = self._stream_apply(x, transpose)
+            if y is not None:
+                return y
+        return apply_operand(self._buckets, self._layout, out_len, x,
+                             transpose=transpose)
+
+    def __repr__(self):
+        m, n = self.shape
+        return (
+            f"VariableBlockCompressedRowStorage({m}x{n}, {self.nblocks} blocks "
+            f"in {self.nblockrows} block rows, nnz={self.nnz}, "
+            f"dtype={self.dtype}, device={self._device}, "
+            f"schedule={self._schedule!r})"
+        )

@@ -19,6 +19,7 @@ from ..core.operator import (
 )
 from ..formats.block_sparse import BlockSparseMatrix
 from ..formats.symmetric import SymmetricBlockMatrix
+from ..formats.vbcrs import VariableBlockCompressedRowStorage
 
 __all__ = ["rowcolvals", "to_scipy"]
 
@@ -57,7 +58,7 @@ def rowcolvals(A: LinearOperator):
                  + [_block_triplets(A.diagonalindices(i),
                                     A.diagonalindices(i), A.diagonal(i))
                     for i in range(A.ndiagonals)])
-    elif isinstance(A, BlockSparseMatrix):
+    elif isinstance(A, (BlockSparseMatrix, VariableBlockCompressedRowStorage)):
         parts = [_block_triplets(A.blockrowindices(i), A.blockcolindices(i),
                                  A.block(i))
                  for i in range(A.nblocks)]

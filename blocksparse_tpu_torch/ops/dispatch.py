@@ -1,6 +1,15 @@
-"""Per-bucket routing of a bucketed operand to its engine.
+"""Routing of a product to its engine.
 
-Counterpart of ``blocksparse_tpu/ops/dispatch.py``:
+Counterpart of ``blocksparse_tpu/ops/dispatch.py``.  A format's ``_apply``
+tries, in the JAX package's order:
+
+  1. the patch route (f32, r > 1, ``patch_wins``): kernels B2 / B3;
+  2. the stream route (f32 operator and operand, r = 1,
+     ``strip_eligible``): ``stream_plan_choice`` weighs the panel plan
+     (``core/panel.py``, kernel B5), the slab plan (``core/strip.py``,
+     kernel B8) and the bucket engines by bytes streamed, and the chosen
+     plan runs in one launch;
+  3. the bucket route, ``apply_operand`` / ``apply_symmetric`` here:
 
   - every chunked (``chunk > 1``) real bucket goes to the chunk-table kernel
     B1 (``ops/kernels/fused_spmm.py``): its CUDA kernel for a CUDA tensor,
@@ -17,10 +26,13 @@ off-diagonal bucket goes to B1 in its symmetric mode (both contributions
 from one read of the values), the element off-diagonal buckets to the
 element engine's symmetric pass, and the diagonal to ``apply_operand``.
 
-The JAX package's TPU guards (chunk >= 8, the scalar-memory table cap, bf16
+The rules (``patch_wins``, ``stream_plan_choice``, the planners' costs) are
+the JAX package's, measured on a TPU v5e and kept so the port routes as it
+does; re-measuring them on the H100 is queued (ROADMAP D).  The JAX
+package's TPU guards (chunk >= 8, the scalar-memory table cap, bf16
 alignment, the on-chip memory budget, and the mask-select kernels' operand
-cap n <= 32768 and 4096-index minimum) have no counterpart here.  Not ported
-(ROADMAP): strip/panel routing, the auto policy and its environment knobs.
+cap n <= 32768 and 4096-index minimum) and its environment knobs have no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -32,7 +44,8 @@ from .kernels.fused_spmm import fused_apply
 from .torch_spmv import bucket_apply
 
 __all__ = ["apply_operand", "apply_symmetric", "element_plan",
-           "patch_eligible", "patch_wins"]
+           "patch_eligible", "patch_wins", "strip_eligible",
+           "stream_plan_choice"]
 
 # The bucket engines of the JAX package re-stream values per 128-column RHS
 # slice, the patch mono-kernel per 256 columns; one bucket launch costs about
@@ -65,6 +78,44 @@ def patch_wins(plan, layouts_reads, r: int = 1) -> bool:
         for l, rd in layouts_reads
     )
     return plan.value_bytes * -(-r // _PATCH_R_SLICE) < 2 * bucket
+
+
+def strip_eligible(x: torch.Tensor, dtype: torch.dtype) -> bool:
+    """Static pre-check for the stream route: f32 operator and operand and
+    a vector operand (r = 1)."""
+    return (dtype == torch.float32 and x.dtype == torch.float32
+            and x.ndim == 1)
+
+
+def stream_plan_choice(pplan, splan, layouts_reads) -> str | None:
+    """'panel' | 'strip' | None: the cheapest total stream wins.
+
+    ``pplan`` / ``splan``: the panel and slab plans, or None where the
+    operand has none.  The JAX package's rule verbatim, with its
+    ``BST_PANEL``/``BST_STRIP`` modes fixed at "auto": each plan costs its
+    tile and aux bytes plus one launch tax; the bucket engines cost their
+    padded bytes per value read (``layouts_reads``: [(layout, reads)],
+    symmetric off-diagonals read twice), scattered buckets charged up to
+    3x by chunk width.
+    """
+    cands = []
+    if pplan is not None:
+        cands.append((pplan.tile_bytes + pplan.aux_bytes + _STRIP_TAX,
+                      "panel"))
+    if splan is not None:
+        cands.append((splan.tile_bytes + splan.aux_bytes + _STRIP_TAX,
+                      "strip"))
+    if not cands:
+        return None
+
+    def bucket_cost(b):
+        pb = b.nblocks * b.mp * b.kp * 4
+        return pb if b.all_contiguous else pb * min(3.0, 1.0 + 4.0 / b.chunk)
+
+    bucket = sum(sum(bucket_cost(b) for b in lay.buckets) * rd
+                 for lay, rd in layouts_reads)
+    bytes_, which = min(cands)
+    return which if bytes_ - _STRIP_TAX < bucket else None
 
 
 def element_plan(layout, elem_ids, out_len: int, colors, device, *,

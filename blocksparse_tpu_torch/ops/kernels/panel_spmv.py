@@ -1,0 +1,185 @@
+"""Panel SpMV: CUDA kernel B5, its plain version, its autograd.
+
+The kernel (``csrc/panel_spmv.cu``) replaces
+``blocksparse_tpu/ops/pallas/panel_spmv.py::_pkern_plain`` and
+``::_pkern_mirror`` with the x gather and mirror map-back of its ``_launch``:
+one launch streams a panel plan (``core/panel.py``) and returns y = A @ x;
+a mirror plan also adds each stored off-diagonal's transposed product from
+the same read of its values.
+
+Device tensors (:func:`panel_device_arrays`): the values, the per-tile row
+and compact-chunk ids, the segment table and, for mirror plans, the
+per-segment map-back target ``otgt`` (the JAX package's one-hot ``omap`` is
+never built).  The shift grids travel as one packed integer.
+
+Race-freedom: warps add their row sums and mirrored sums into a zeroed
+output with fp32 ``atomicAdd`` (``csrc/tile_stream.cuh``); the summation
+order varies from run to run.  ``tiles_per_warp`` moves sums between
+registers and atomics without changing the product.
+
+Routing: a CPU tensor takes :func:`panel_apply_plain`; a CUDA tensor
+launches the kernel or raises.  ``LAUNCHES`` counts kernel launches,
+``MIRROR_LAUNCHES`` those of them on a mirror plan.
+
+Gradient: :func:`panel_apply` wraps the product in an autograd Function
+whose backward runs the plain version's autograd on the same tables (the
+JAX VJP likewise differentiates its XLA forward), giving dx and, where the
+values require it, dvals.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...core.panel import NSEG, SEG, PanelPlan
+from ...core.strip import CC, RC
+from ...utils import build
+
+__all__ = ["panel_device_arrays", "panel_spmv", "panel_apply_plain",
+           "panel_apply", "LAUNCHES", "MIRROR_LAUNCHES"]
+
+LAUNCHES = 0
+MIRROR_LAUNCHES = 0
+
+
+def panel_device_arrays(plan: PanelPlan, device) -> tuple:
+    """(vals [S*TS, 8, 128] f32, rid8 [S*TS], cid8 [S*TS], segid [S*CW*4],
+    otgt [S*CW*4] or None, b8 [S]) on ``device``, ids int32."""
+    def flat(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a).reshape(-1)).to(device)
+    vals = torch.from_numpy(np.ascontiguousarray(plan.vals)).to(device)
+    return (vals, flat(plan.rid8), flat(plan.cid8), flat(plan.segid),
+            flat(plan.otgt), flat(plan.b8))
+
+
+def _lane_index(plan: PanelPlan, seg: torch.Tensor, limit: int):
+    """x / y index of every lane for a segment table ``seg`` [S, CW*4]
+    (entries >= NG*NC32 or < 0 are dropped); ``limit`` for dropped lanes
+    and indices >= ``limit``."""
+    ng, nc32 = len(plan.grids_used), plan.NC32
+    seg = seg.view(plan.S, plan.CW * NSEG).long()
+    live = (seg >= 0) & (seg < ng * nc32)
+    seg = torch.where(live, seg, 0)
+    base = (seg % nc32) * SEG
+    for gi, g in enumerate(plan.grids_used):    # device ops only: capturable
+        if g:
+            base = base + (seg // nc32 == gi) * g
+    lane = torch.arange(SEG, device=seg.device)
+    idx = (base[..., None] + lane).view(plan.S, plan.CW, CC)
+    live = live[..., None].expand(-1, -1, SEG).reshape(plan.S, plan.CW, CC)
+    return torch.where(live & (idx < limit), idx, limit)
+
+
+def _rows(plan, rid8, b8):
+    """Output row of every tile row [S, TS, 8]; padding tiles and rows past
+    nrows at ``nrows``."""
+    rid = rid8.view(plan.S, plan.TS).long()
+    rows = ((b8.long()[:, None] + rid) * RC)[..., None] + torch.arange(
+        RC, device=rid.device)
+    ok = (rid < plan.RW)[..., None] & (rows < plan.nrows)
+    return torch.where(ok, rows, plan.nrows)
+
+
+def panel_apply_plain(plan: PanelPlan, dev, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the same tables, y = A @ x in
+    ``x``'s dtype."""
+    vals, rid8, cid8, segid, otgt, b8 = dev
+    S, TS, CW = plan.S, plan.TS, plan.CW
+    V = vals.to(x.dtype).view(S, TS, RC, CC)
+    xe = torch.cat([x, x.new_zeros(1)])
+    xs = xe[_lane_index(plan, segid, plan.ncols)]              # [S, CW, 128]
+    xs = torch.cat([xs, xs.new_zeros(S, 1, CC)], dim=1)        # CW = padding
+    cid = cid8.view(S, TS).long()[..., None].expand(-1, -1, CC)
+    yf = torch.einsum("stmk,stk->stm", V, torch.gather(xs, 1, cid))
+    rows = _rows(plan, rid8, b8)
+    y = x.new_zeros(plan.nrows + 1).index_add(0, rows.reshape(-1),
+                                              yf.reshape(-1))
+    if plan.mirror:
+        yt = torch.einsum("stmk,stm->stk", V, xe[rows])
+        ym = x.new_zeros(S, CW + 1, CC).scatter_add(1, cid, yt)[:, :CW]
+        y = y.index_add(0, _lane_index(plan, otgt, plan.nrows).reshape(-1),
+                        ym.reshape(-1))
+    return y[:plan.nrows]
+
+
+def _check(plan: PanelPlan, dev, x: torch.Tensor) -> None:
+    if x.ndim != 1 or x.shape[0] != plan.ncols:
+        raise ValueError(
+            f"panel plan takes x of shape ({plan.ncols},), got {tuple(x.shape)}")
+    if plan.mirror and dev[4] is None:
+        raise ValueError("mirror plan staged without its otgt table")
+    devs = {t.device for t in dev if t is not None} | {x.device}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
+
+
+def _default_tpw(ntiles: int) -> int:
+    """Tiles per warp: about four thousand warps in flight, 1-16 tiles each."""
+    return max(1, min(16, ntiles // 4096))
+
+
+def panel_spmv(plan: PanelPlan, dev, x: torch.Tensor, *,
+               tiles_per_warp: int | None = None) -> torch.Tensor:
+    """y = A @ x for a panel plan: kernel B5 on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    global LAUNCHES, MIRROR_LAUNCHES
+    _check(plan, dev, x)
+    if x.device.type == "cpu":
+        return panel_apply_plain(plan, dev, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    vals, rid8, cid8, segid, otgt, b8 = dev
+    if x.dtype != torch.float32 or vals.dtype != torch.float32:
+        raise TypeError(f"panel kernel takes float32, got {x.dtype}/{vals.dtype}")
+    for name, t in (("rid8", rid8), ("cid8", cid8), ("segid", segid),
+                    ("otgt", otgt), ("b8", b8)):
+        if t is not None and (t.dtype != torch.int32 or not t.is_contiguous()):
+            raise TypeError(f"{name} must be contiguous int32")
+    if len(plan.grids_used) > 8 or any(not 0 <= g < 32 for g in plan.grids_used):
+        raise ValueError(f"grid shifts {plan.grids_used} do not pack")
+    grids = sum(g << (5 * i) for i, g in enumerate(plan.grids_used))
+    ntiles = plan.S * plan.TS
+    tpw = tiles_per_warp or _default_tpw(ntiles)
+    x = x.contiguous()
+    y = torch.zeros(plan.nrows, dtype=torch.float32, device=x.device)
+    mirror = plan.mirror
+    build.launch("bst_panel_spmv_f32", x.device, vals.data_ptr(),
+                 rid8.data_ptr(), cid8.data_ptr(), segid.data_ptr(),
+                 otgt.data_ptr() if mirror else None, b8.data_ptr(),
+                 x.data_ptr(), y.data_ptr(), ntiles, plan.TS, plan.CW,
+                 plan.RW, plan.NC32, len(plan.grids_used), grids, plan.ncols,
+                 plan.nrows, int(mirror), tpw)
+    LAUNCHES += 1
+    MIRROR_LAUNCHES += mirror
+    return y
+
+
+class _PanelApply(torch.autograd.Function):
+    """Forward: :func:`panel_spmv`.  Backward: the plain version's autograd
+    on the same tables (dx = A^T g, and dvals where asked)."""
+
+    @staticmethod
+    def forward(ctx, vals, x, plan, rest):
+        ctx.save_for_backward(vals, x)
+        ctx.plan, ctx.rest = plan, rest
+        return panel_spmv(plan, (vals,) + rest, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, x = ctx.saved_tensors
+        need = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            v = vals.detach().requires_grad_(need[0])
+            xx = x.detach().requires_grad_(need[1])
+            y = panel_apply_plain(ctx.plan, (v,) + ctx.rest, xx)
+            wrt = [t for t, n in zip((v, xx), need) if n]
+            got = iter(torch.autograd.grad(y, wrt, g))
+        return (next(got) if need[0] else None,
+                next(got) if need[1] else None, None, None)
+
+
+def panel_apply(plan: PanelPlan, dev, x: torch.Tensor) -> torch.Tensor:
+    """:func:`panel_spmv` with autograd in ``x`` and the plan's values."""
+    return _PanelApply.apply(dev[0], x, plan, tuple(dev[1:]))

@@ -51,6 +51,14 @@ _SIGNATURES = {
     "bst_mask_gather_f32": (_P, _L, _P, _L, _P, _P),
     # v, idx, K, y, out_len, stream
     "bst_mask_scatter_add_f32": (_P, _P, _L, _P, _L, _P),
+    # vals, rid8, cid8, segid, otgt, b8, x, y, ntiles, TS, CW, RW, NC32,
+    # ngrids, grids, ncols, nrows, mirror, tpw, stream
+    "bst_panel_spmv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                           _I, _I, _L, _L, _L, _I, _I, _P),
+    # vals, rid8, cid, flag, b8, x, y, ntiles, TS, RW, ncols, nrows, mirror,
+    # tpw, stream
+    "bst_slab_spmv_f32": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I,
+                          _I, _P),
 }
 
 

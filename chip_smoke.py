@@ -8,38 +8,44 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
   1. each kernel against its plain PyTorch version on the card (B1: forward,
      transpose, symmetric x f32/f64 x r in {1, 64, 200}; B2: forward,
      transpose x r in {64, 128, 300}; B3: symmetric and adjoint x r in
-     {32, 64, 128, 300} on the symmetric plans of a small fixture, built
-     with transpose_main False and True; B9: element gather and scatter-add
-     with duplicate and sentinel indices);
+     {32, 64, 128, 300}; B9: element gather and scatter-add with duplicate
+     and sentinel indices; B5: plain, transposed, fused mirror plans with
+     shifted grids and a plan whose last segment runs past ncols; B8: plain
+     and mirror slab plans), plus the duality check of B5 and B8: the
+     kernel with one tile per warp (every row sum an atomic add) against
+     the kernel with 16 (sums carried in registers);
   2. the flagship operator (4096^2, 200 contiguous 64x64 f32 blocks, r = 64):
-     each kernel against its plain version at the flagship's shapes, then
-     the main path once with the launch counters reset -- A @ X, A @ x,
-     A.T @ x, A.H @ X, A.axpby(x, y, 2.0, 0.5), (A @ A) @ x -- each checked
-     against a float64 scipy oracle, and the gradients of A @ X and A @ x
-     (backward passes through the kernels) against A^T w;
-  3. the real size (n = 8192, 2000 contiguous 128x128 f32 blocks, 131 MB of
-     values): SpMV and SpMM at r = 128 against the float64 plain version,
-     median CUDA-event times of the kernel route and the plain route, eager
-     and replayed from a CUDA graph (the latter without host launch
-     overhead);
-  4. the symmetric flagship (the config-2 recipe: 4096^2, 48 diagonal + 160
-     off-diagonal contiguous f32 blocks, nonsymmetric diagonal blocks):
-     B1's symmetric pass and B3 against their plain versions at its shapes,
-     then the symmetric main path once with the launch counters reset --
-     S @ X (r = 64), S @ x, S.T @ x, S.T @ X, S.H @ X, axpby, (S @ S) @ x --
-     each against a float64 scipy oracle, B3 required on every r > 1
-     product and B1 on every r = 1 product (its symmetric mode once per
-     chunked off-diagonal bucket), and the gradients of S @ X and S @ x
-     against S^T w;
-  5. the symmetric real size (the config-2 recipe x8: n = 32768, 384
-     diagonal + 4096 off-diagonal blocks): construction time split into
-     layout, coloring and plan, B9 against its plain version on every
-     element off-diagonal bucket, SpMV (B1 per chunked bucket, B9 per
-     element-bucket gather and scatter) and SpMM at r = 128 (B3) against the
-     float64 plain route, the SpMV's gradient (B9's backward) against
-     S^T w, both routes timed eager and from a CUDA graph, and
-     the SpMV's device time split into its parts (diagonal, B1's symmetric
-     pass, the element pass through B9 and through torch ops).
+     kernels against plain versions at its shapes, then the main path once
+     with the counters reset (A @ X, A @ x, A.T @ x, A.H @ X, axpby,
+     (A @ A) @ x; its r = 1 products stay on the bucket route, B1, as the
+     JAX decision says) against float64 scipy, and gradients;
+  3. the real size (n = 8192, 2000 contiguous 128x128 f32 blocks): SpMV
+     through the stream route (one B5 launch) and SpMM r = 128 (B2)
+     against the float64 plain route, the bucket route (B1) driven
+     explicitly, all timed eager and replayed from a CUDA graph;
+  4. the symmetric flagship (config-2 recipe, 4096^2, 48 diagonal + 160
+     off-diagonal blocks): B1's symmetric pass and B3 against their plain
+     versions, the main path with exact counts (B3 on every r > 1 product,
+     one B5 launch on the fused mirror plan per r = 1 product), the bucket
+     route (B1 symmetric, B9) driven explicitly, and gradients;
+  5. the symmetric real size (config-2 recipe x8, n = 32768): construction
+     split (layout, coloring, panel plan, slab plan, patch plan), B9 against
+     its plain version on every element bucket, SpMV through B5 (expanded
+     plan) and SpMM r = 128 (B3) against the float64 plain route, the bucket
+     route (B1 + B9, exact counts, and its gradient through B9), all timed
+     eager and from a CUDA graph, and the bucket route's device time split;
+  6. the VBCRS flagship (config-3 recipe, n = 4096, seed 9, granularity
+     (8, 128)): B5 against its plain version, V @ x, V.T @ x, V.H @ X
+     (r = 64), axpby and (V @ V) @ x against float64 scipy with exact
+     counts, and the gradient of V @ x;
+  7. the VBCRS real size (the same recipe at n = 32768): construction split
+     (layout, panel plan, slab plan), SpMV through B5, the bucket route (B1)
+     and the plain route, eager and graph, and B8 on the operand's slab plan
+     against its plain version, timed;
+  8. the slab route's main path: a BSM the JAX decision sends to the slab
+     plan (n = 8192, 4000 aligned 64x128 f32 blocks and one block whose rows
+     run at stride 4, which the panel planner refuses): A @ x and axpby
+     through B8 against the float64 bucket route, timed.
 
 Tolerances: |kernel - reference| <= tol * max(1, max|reference|) with tol
 1e-5 for f32 and 1e-12 for f64; the kernels add into their outputs with
@@ -66,12 +72,18 @@ if not torch.cuda.is_available():
 
 import blocksparse_tpu_torch as bt  # noqa: E402
 from blocksparse_tpu_torch.core.layout import build_layout  # noqa: E402
+from blocksparse_tpu_torch.core.panel import (  # noqa: E402
+    _layout_entries, build_panel_plan, panel_plan_from_layout)
 from blocksparse_tpu_torch.core.patch import CC  # noqa: E402
+from blocksparse_tpu_torch.core.strip import (  # noqa: E402
+    plan_from_layout, plan_symmetric)
 from blocksparse_tpu_torch.formats import symmetric as symmetric_format  # noqa: E402
+from blocksparse_tpu_torch.formats import vbcrs as vbcrs_format  # noqa: E402
 from blocksparse_tpu_torch.ops import patch_engine  # noqa: E402
 from blocksparse_tpu_torch.ops.dispatch import (  # noqa: E402
-    apply_operand, element_plan, patch_wins)
-from blocksparse_tpu_torch.ops.kernels import fused_spmm, mask_select  # noqa: E402
+    apply_operand, apply_symmetric, element_plan, patch_wins)
+from blocksparse_tpu_torch.ops.kernels import (  # noqa: E402
+    fused_spmm, mask_select, panel_spmv, slab_spmv)
 from blocksparse_tpu_torch.ops.torch_spmv import bucket_apply  # noqa: E402
 from blocksparse_tpu_torch.utils import build  # noqa: E402
 from blocksparse_tpu_torch.utils.testmatrices import (  # noqa: E402
@@ -89,6 +101,11 @@ B3_REPLACES = "blocksparse_tpu/ops/patch_engine.py:345"
 B9_SRC = "blocksparse_tpu_torch/csrc/mask_select.cu"
 B9_GATHER_REPLACES = "blocksparse_tpu/ops/pallas/mask_select.py:70"
 B9_SCATTER_REPLACES = "blocksparse_tpu/ops/pallas/mask_select.py:82"
+B5_SRC = "blocksparse_tpu_torch/csrc/panel_spmv.cu"
+B5_REPLACES = "blocksparse_tpu/ops/pallas/panel_spmv.py:85"
+B8_SRC = "blocksparse_tpu_torch/csrc/slab_spmv.cu"
+B8_REPLACES = "blocksparse_tpu/ops/pallas/slab_spmv.py:85"
+STREAM_KERNEL = {"panel": "B5", "strip": "B8", None: "B1"}
 
 
 class SmokeFailure(RuntimeError):
@@ -123,15 +140,74 @@ def reset_counts() -> None:
     patch_engine.SYM_LAUNCHES = 0
     mask_select.GATHER_LAUNCHES = 0
     mask_select.SCATTER_LAUNCHES = 0
+    for mod in (panel_spmv, slab_spmv):
+        mod.LAUNCHES = 0
+        mod.MIRROR_LAUNCHES = 0
 
 
 def counts() -> dict:
     """Kernel launches since the last reset ("B1 sym": those of B1 in its
-    symmetric mode, also counted under "B1")."""
+    symmetric mode, also counted under "B1"; "B5 mirror" and "B8 mirror"
+    those on a mirror plan)."""
     return {"B1": fused_spmm.LAUNCHES, "B1 sym": fused_spmm.SYM_LAUNCHES,
             "B2": patch_engine.LAUNCHES, "B3": patch_engine.SYM_LAUNCHES,
             "B9 gather": mask_select.GATHER_LAUNCHES,
-            "B9 scatter": mask_select.SCATTER_LAUNCHES}
+            "B9 scatter": mask_select.SCATTER_LAUNCHES,
+            "B5": panel_spmv.LAUNCHES,
+            "B5 mirror": panel_spmv.MIRROR_LAUNCHES,
+            "B8": slab_spmv.LAUNCHES, "B8 mirror": slab_spmv.MIRROR_LAUNCHES}
+
+
+def grown_since(before: dict) -> dict:
+    now = counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def stream_kernel(op, transpose=False) -> str:
+    """The kernel an f32 r = 1 product of ``op`` runs: B5, B8 or B1."""
+    return STREAM_KERNEL[op._stream_entry(transpose)[0]]
+
+
+def stream_want(op, transpose=False, k=1) -> dict:
+    """Exact launches of k f32 r = 1 products through the stream route."""
+    choice, plan, _ = op._stream_entry(transpose)
+    name = STREAM_KERNEL[choice]
+    return {"B1": 0, "B1 sym": 0, "B9 gather": 0, "B9 scatter": 0,
+            "B5": k * (name == "B5"), "B8": k * (name == "B8"),
+            "B5 mirror": k * (name == "B5" and plan.mirror),
+            "B8 mirror": k * (name == "B8" and plan.mirror)}
+
+
+def plain_stream(op, x, transpose=False):
+    """The stream route's plain version, or None where ``op`` takes the
+    bucket route."""
+    choice, plan, dev = op._stream_entry(transpose)
+    if choice == "panel":
+        return panel_spmv.panel_apply_plain(plan, dev, x)
+    if choice == "strip":
+        return slab_spmv.slab_apply_plain(plan, dev, x)
+    return None
+
+
+def bucket_route(A, x, transpose=False):
+    """A BSM's or VBCRS's bucket route, driven explicitly (B1 for chunked
+    buckets)."""
+    out_len = A.shape[1] if transpose else A.shape[0]
+    colors = None
+    if isinstance(A, bt.BlockSparseMatrix) and not bt.isserial(A.schedule):
+        colors = A.transposecolors() if transpose else A.colors()
+    return apply_operand(A._buckets, A.layout, out_len, x,
+                         transpose=transpose, colors=colors)
+
+
+def bucket_route_sym(S, x, transpose=False):
+    """S's bucket route, driven explicitly (B1 symmetric mode, B9)."""
+    colored = not bt.isserial(S.schedule)
+    return apply_symmetric(
+        S._dbuckets, S._dlayout, S._obuckets, S._olayout, S.shape[0], x,
+        transpose=transpose,
+        diag_colors=S.diagonalcolors() if colored else None,
+        fused_colors=S.fusedcolors() if colored else None)
 
 
 def plain_buckets(layout, buckets, x, out_len, dtype, *, transpose=False,
@@ -161,16 +237,21 @@ def plain_patch(entry, layouts_reads, x, r, dtype, transpose=False):
     return patch_engine.patch_spmm_plain(plan, dev, x, transpose=transpose)
 
 
-def plain_route(A: bt.BlockSparseMatrix, x: torch.Tensor, *, transpose=False,
+def plain_route(A, x: torch.Tensor, *, transpose=False,
                 dtype=None) -> torch.Tensor:
-    """A's main-path route with every kernel replaced by its plain version,
-    optionally in another dtype (the float64 reference on the card)."""
+    """A's (BSM or VBCRS) main-path route with every kernel replaced by its
+    plain version, optionally in another dtype (the float64 reference on
+    the card)."""
     dtype = dtype or A.dtype
     x = x.to(dtype)
     r = 1 if x.ndim == 1 else x.shape[1]
     if r > 1 and A.dtype == torch.float32:
         y = plain_patch(A._patch_for(), [(A.layout, 1)], x, r, dtype,
                         transpose)
+        if y is not None:
+            return y
+    if r == 1 and A.dtype == torch.float32:
+        y = plain_stream(A, x, transpose)
         if y is not None:
             return y
     out_len = A.shape[1] if transpose else A.shape[0]
@@ -189,6 +270,17 @@ def plain_route_sym(S: bt.SymmetricBlockMatrix, x: torch.Tensor, *,
                         [(S._dlayout, 1), (S._olayout, 2)], x, r, dtype)
         if y is not None:
             return y
+    if r == 1 and S.dtype == torch.float32:
+        y = plain_stream(S, x, transpose)
+        if y is not None:
+            return y
+    return plain_buckets_sym(S, x, transpose=transpose, dtype=dtype)
+
+
+def plain_buckets_sym(S, x, *, transpose=False, dtype=None) -> torch.Tensor:
+    """S's bucket route through the plain versions only."""
+    dtype = dtype or S.dtype
+    x = x.to(dtype)
     n = S.shape[0]
     return (plain_buckets(S._dlayout, S._dbuckets, x, n, dtype,
                           transpose=transpose)
@@ -398,6 +490,74 @@ def phase1():
             err = rel_check(f"B9 {kind} n={n} K={K}", got, ref,
                             TOL[torch.float32])
             errs[f"B9 {kind}"] = max(errs[f"B9 {kind}"], err)
+    errs.update(stream_kernels_vs_plain(gen))
+    return errs
+
+
+def check_stream_kernel(name, kernel, plain, plan, dev, x, errs):
+    """One stream kernel against its plain version, and its duality check:
+    one tile per warp (every row sum an atomic add) against 16 (sums
+    carried in registers across a row chunk's tiles)."""
+    ref = plain(plan, dev, x)
+    one = kernel(plan, dev, x, tiles_per_warp=1)
+    many = kernel(plan, dev, x, tiles_per_warp=16)
+    auto = kernel(plan, dev, x)
+    torch.cuda.synchronize()
+    key = name.split()[0]
+    for label, got in (("tpw=1", one), ("tpw=16", many), ("auto", auto)):
+        errs[key] = max(errs[key], rel_check(f"{name} {label} vs plain", got,
+                                             ref, TOL[torch.float32]))
+    errs[f"{key} duality"] = max(errs[f"{key} duality"], rel_check(
+        f"{name} duality: tpw=1 vs tpw=16", one, many, TOL[torch.float32]))
+
+
+def stream_kernels_vs_plain(gen):
+    """B5 and B8 on small plans: plain, transposed, fused mirror with
+    shifted grids, a last segment past ncols; slab plain and mirror."""
+    errs = {"B5": 0.0, "B5 duality": 0.0, "B8": 0.0, "B8 duality": 0.0}
+    blocks, rows, cols, shape = random_block_sparse(
+        11, shape=(600, 600), nblocks=30, max_block=60, dtype=np.float32,
+        contiguous=True)
+    lay = build_layout(blocks, rows, cols, shape)
+    d, di, o, ri, ci, shp = random_symmetric(
+        13, n=700, ngroups=14, noffdiag=26, dtype=np.float32, contiguous=True)
+    dl, ol = build_layout(d, di, di, shp), build_layout(o, ri, ci, shp)
+    fused = (_layout_entries(dl, transpose=False)
+             + [(b, r, c, True) for b, r, c, _ in
+                _layout_entries(ol, transpose=False)])
+    rng = np.random.default_rng(23)
+    wrap = [(rng.standard_normal((40, 30)).astype(np.float32),
+             np.arange(0, 40), np.arange(980, 1010), False),
+            (rng.standard_normal((24, 100)).astype(np.float32),
+             np.arange(40, 64), np.arange(300, 400), False)]
+    plans = {
+        "plain": panel_plan_from_layout(lay),
+        "transposed": panel_plan_from_layout(lay, transpose=True),
+        "fused mirror": build_panel_plan(fused, shp, mirror=True),
+        "wrap": build_panel_plan(wrap, (64, 1010)),
+    }
+    require(plans["fused mirror"].mirror and
+            len(plans["fused mirror"].grids_used) > 1,
+            "the fused plan must mirror on shifted grids")
+    require(20 in plans["wrap"].grids_used, "the wrap plan must use grid 20")
+    for label, plan in plans.items():
+        dev = panel_spmv.panel_device_arrays(plan, DEV)
+        x = torch.randn(plan.ncols, generator=gen).to(DEV)
+        check_stream_kernel(
+            f"B5 {label} (S={plan.S} TS={plan.TS} CW={plan.CW} grids="
+            f"{plan.grids_used})", panel_spmv.panel_spmv,
+            panel_spmv.panel_apply_plain, plan, dev, x, errs)
+    splans = {"plain": plan_from_layout(lay),
+              "transposed": plan_from_layout(lay, transpose=True),
+              "mirror": plan_symmetric(dl, ol),
+              "mirror, transposed diagonal": plan_symmetric(
+                  dl, ol, transpose_diag=True)}
+    for label, plan in splans.items():
+        dev = slab_spmv.plan_device_arrays(plan, DEV)
+        x = torch.randn(plan.ncols, generator=gen).to(DEV)
+        check_stream_kernel(f"B8 {label} (S={plan.S} TS={plan.TS})",
+                            slab_spmv.slab_spmv, slab_spmv.slab_apply_plain,
+                            plan, dev, x, errs)
     return errs
 
 
@@ -416,6 +576,9 @@ def phase2():
     print(f"  {A}")
     plan, dev = A._patch_for()
     require(patch_wins(plan, [(A.layout, 1)], 64), "flagship r=64 must take the patch route")
+    require(stream_kernel(A) == stream_kernel(A, True) == "B1",
+            "the flagship's r = 1 products stay on the bucket route (the "
+            "JAX decision)")
 
     # kernels against their plain versions at the flagship's shapes
     errs = {"B1": 0.0, "B2": 0.0}
@@ -478,12 +641,55 @@ def phase2():
 
 # -- phase 3 -------------------------------------------------------------------
 
+def describe(plan) -> str:
+    if plan is None:
+        return "none"
+    kind = "mirror" if plan.mirror else "plain"
+    extra = (f", CW {plan.CW}, RW {plan.RW}, grids {plan.grids_used}"
+             if hasattr(plan, "CW") else "")
+    return (f"{plan.S} slabs x {plan.TS} tiles{extra}, {kind}, "
+            f"{plan.tile_bytes / 1e6:.1f} MB + {plan.aux_bytes / 1e6:.2f} MB "
+            f"aux (as the JAX package counts it)")
+
+
+def stream_setup(op, transpose=False) -> dict:
+    """Build ``op``'s host panel and slab plans and stage the chosen one,
+    timed (the operator does this at its first f32 r = 1 product)."""
+    t0 = time.perf_counter()
+    pplan = op._panel_for(transpose)
+    t1 = time.perf_counter()
+    splan = op._strip_for(transpose)
+    t2 = time.perf_counter()
+    choice = op._stream_entry(transpose)[0]
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    print(f"  panel plan: {describe(pplan)}, {t1 - t0:.2f} s on the host")
+    print(f"  slab plan: {describe(splan)}, {t2 - t1:.2f} s on the host")
+    print(f"  stream route decision: {choice} ({STREAM_KERNEL[choice]}); "
+          f"staging {t3 - t2:.2f} s")
+    return {"panel_s": t1 - t0, "strip_s": t2 - t1, "stage_s": t3 - t2}
+
+
+def stream_bytes(op, transpose=False) -> int:
+    """Bytes a stream kernel reads per product: values and staged ids."""
+    dev = op._stream_entry(transpose)[2]
+    return sum(t.numel() * t.element_size() for t in dev if t is not None)
+
+
+def require_counts(name, got: dict, want: dict) -> None:
+    sub = {k: got[k] for k in want}
+    require(sub == want, f"{name}: launches {sub}, expected {want}")
+
+
 def phase3(card: str):
     print("phase 3: real size n=8192, 2000 x 128x128 f32 (config-1 recipe)")
     A, vrng = contiguous_operator(8192, 2000, 128, seed=7, value_seed=7 + 7777,
                                   device=DEV)
     value_bytes = sum(int(b.values.nbytes) for b in A.layout.buckets)
     print(f"  {A}; {value_bytes / 1e6:.1f} MB of bucket values")
+    setup = stream_setup(A)
+    require(stream_kernel(A) == "B5",
+            "the real-size SpMV takes the panel route (the JAX decision)")
     gen = torch.Generator(device="cpu").manual_seed(9)
     x = torch.randn(8192, generator=gen).to(DEV)
     X = torch.randn((8192, 128), generator=gen).to(DEV)
@@ -493,19 +699,37 @@ def phase3(card: str):
     torch.cuda.synchronize()
     launched = counts()
     print(f"  launches: SpMV + SpMM r=128 -> {launched}")
-    require(launched["B1"] > 0 and launched["B2"] > 0,
-            f"real-size products skipped a kernel: {launched}")
-    rel_check("SpMV vs float64 plain", y, plain_route(A, x, dtype=torch.float64),
-              TOL[torch.float32])
+    require_counts("SpMV + SpMM r=128", launched, stream_want(A))
+    require(launched["B2"] > 0, f"SpMM r=128 skipped B2: {launched}")
+    rel_check("SpMV (B5) vs float64 plain", y,
+              plain_route(A, x, dtype=torch.float64), TOL[torch.float32])
     rel_check("SpMM r=128 vs float64 plain", Y,
               plain_route(A, X, dtype=torch.float64), TOL[torch.float32])
+    # the bucket route, driven explicitly: one B1 launch per chunked bucket
+    before = counts()
+    yb = bucket_route(A, x)
+    torch.cuda.synchronize()
+    require_counts("bucket-route SpMV", grown_since(before),
+                   {"B1": n_chunked(A.layout), "B5": 0, "B8": 0})
+    rel_check("bucket-route SpMV (B1) vs float64 plain", yb,
+              plain_buckets(A.layout, A._buckets, x.double(), 8192,
+                            torch.float64), TOL[torch.float32])
     plan = A._patch_for()[0]
+    splan = A._stream_entry(False)[1]
     return {
-        "SpMV": time_routes("SpMV", lambda: A @ x, lambda: plain_route(A, x),
-                            value_bytes, 2 * value_bytes // 4, card),
+        "SpMV": time_routes(
+            "SpMV, stream route (B5)", lambda: A @ x,
+            lambda: plain_route(A, x), stream_bytes(A),
+            2 * splan.tile_bytes // 4, card),
+        "SpMV bucket": time_routes(
+            "SpMV, bucket route (B1)", lambda: bucket_route(A, x),
+            lambda: plain_buckets(A.layout, A._buckets, x, 8192,
+                                  torch.float32),
+            value_bytes, 2 * value_bytes // 4, card),
         "SpMM r=128": time_routes(
             "SpMM r=128", lambda: A @ X, lambda: plain_route(A, X),
             plan.value_bytes, 2 * plan.value_bytes // 4 * 128, card),
+        "setup": setup, "launches": launched["B5"],
     }
 
 
@@ -519,7 +743,7 @@ def n_chunked(*layouts) -> int:
     return sum(b.chunk > 1 for lay in layouts for b in lay.buckets)
 
 
-def phase4():
+def phase4(card: str):
     print("phase 4: symmetric flagship 4096^2, 48 diagonal + 160 off-diagonal "
           "f32 blocks (config-2 recipe), r=64")
     d, di, o, ri, ci, shape = random_symmetric(
@@ -562,48 +786,61 @@ def phase4():
                 f"B3 {'adjoint' if adj else 'symmetric'} transpose_main={tm} "
                 f"r=64", got, ref, TOL[torch.float32]))
 
-    # the symmetric main path, counted
+    # the symmetric main path, counted: r > 1 through B3, r = 1 through
+    # the stream route (the fused mirror panel plan, one B5 launch)
+    setup = stream_setup(S)
+    stream_setup(S, transpose=True)
+    require(stream_kernel(S) == stream_kernel(S, True) == "B5" and
+            S._stream_entry(False)[1].mirror,
+            "the symmetric flagship's r = 1 products take the fused mirror "
+            "panel plan (the JAX decision)")
     x64, X64, y64 = (a.astype(np.float64) for a in (xn, Xn, yn))
     # (name, product, reference, kernel, applications of S, transpose)
     products = [
         ("S @ X", lambda: S @ X, Ssc @ X64, "B3", 1, False),
-        ("S @ x", lambda: S @ x, Ssc @ x64, "B1", 1, False),
-        ("S.T @ x", lambda: S.T @ x, Ssc.T @ x64, "B1", 1, True),
+        ("S @ x", lambda: S @ x, Ssc @ x64, "B5", 1, False),
+        ("S.T @ x", lambda: S.T @ x, Ssc.T @ x64, "B5", 1, True),
         ("S.T @ X", lambda: S.T @ X, Ssc.T @ X64, "B3", 1, True),
         ("S.H @ X", lambda: S.H @ X, Ssc.T @ X64, "B3", 1, True),
         ("S.axpby(x, y, 2.0, 0.5)", lambda: S.axpby(x, y, 2.0, 0.5),
-         2.0 * (Ssc @ x64) + 0.5 * y64, "B1", 1, False),
-        ("(S @ S) @ x", lambda: (S @ S) @ x, Ssc @ (Ssc @ x64), "B1", 2,
+         2.0 * (Ssc @ x64) + 0.5 * y64, "B5", 1, False),
+        ("(S @ S) @ x", lambda: (S @ S) @ x, Ssc @ (Ssc @ x64), "B5", 2,
          False),
     ]
-    # every chunked bucket is one B1 launch per r = 1 product; each chunked
-    # off-diagonal bucket is one launch of B1's symmetric mode
-    per_spmv, per_sym = n_chunked(S._dlayout, S._olayout), n_chunked(S._olayout)
-    require(per_sym > 0, "no chunked off-diagonal bucket")
     reset_counts()
     outs = []
     for name, fn, _ref, kernel, k, tr in products:
         before = counts()
         outs.append(fn())
-        grown = {key: counts()[key] - before[key] for key in before}
+        grown = grown_since(before)
         require(grown[kernel] > 0, f"{name}: kernel {kernel} was not launched")
-        if kernel == "B1":
-            want = {"B1": k * per_spmv, "B1 sym": k * per_sym,
-                    "B9 gather": k * b9_per_spmv(S, tr)[0],
-                    "B9 scatter": k * b9_per_spmv(S, tr)[1]}
-            got = {key: grown[key] for key in want}
-            require(got == want, f"{name}: launches {got}, expected {want}")
+        if kernel == "B5":
+            require_counts(name, grown, stream_want(S, tr, k))
     torch.cuda.synchronize()
     launches = counts()
-    print(f"  main-path launches: {launches} ({per_spmv} chunked buckets per "
-          f"r = 1 product, {per_sym} of them in B1's symmetric mode; "
-          f"{len(elem_ids(S._dlayout)) + len(elem_ids(S._olayout))} element "
-          f"buckets)")
+    print(f"  main-path launches: {launches}")
     for (name, _fn, ref, *_), out in zip(products, outs):
         rel_check(f"{name} vs float64 scipy", out, ref, TOL[torch.float32])
 
-    # gradients: B3's backward runs its adjoint mode, B1's symmetric pass is
-    # its own adjoint
+    # the bucket route, driven explicitly: every chunked bucket is one B1
+    # launch, each chunked off-diagonal bucket in B1's symmetric mode
+    per_spmv, per_sym = n_chunked(S._dlayout, S._olayout), n_chunked(S._olayout)
+    require(per_sym > 0, "no chunked off-diagonal bucket")
+    for tr in (False, True):
+        before = counts()
+        yb = bucket_route_sym(S, x, transpose=tr)
+        torch.cuda.synchronize()
+        gathers, scatters = b9_per_spmv(S, tr)
+        require_counts(f"bucket-route S{'.T' if tr else ''} @ x",
+                       grown_since(before),
+                       {"B1": per_spmv, "B1 sym": per_sym, "B5": 0,
+                        "B9 gather": gathers, "B9 scatter": scatters})
+        rel_check(f"bucket-route S{'.T' if tr else ''} @ x (B1 symmetric) vs "
+                  f"float64 scipy", yb, (Ssc.T if tr else Ssc) @ x64,
+                  TOL[torch.float32])
+
+    # gradients: B3's backward runs its adjoint mode; B5's backward is the
+    # plain version's autograd on the same plan
     Wn = rng.standard_normal((4096, 64)).astype(np.float32)
     W = torch.from_numpy(Wn).to(DEV)
     for name, r in (("d(W . S @ X)/dX", 64), ("d(w . S @ x)/dx", 1)):
@@ -613,9 +850,22 @@ def phase4():
         (Wr * (S @ Xg)).sum().backward()
         ref = Ssc.T @ (Wn if r > 1 else Wn[:, 0]).astype(np.float64)
         rel_check(name, Xg.grad, ref, TOL[torch.float32])
-        grown = {k: counts()[k] - before[k] for k in before}
-        require(grown["B3"] >= 2 if r > 1 else grown["B1 sym"] >= 2 * per_sym,
-                f"{name}: backward did not run the kernel ({grown})")
+        grown = grown_since(before)
+        require(grown["B3"] >= 2 if r > 1 else grown["B5 mirror"] == 1,
+                f"{name}: the product did not run the kernel ({grown})")
+    launches["setup"] = setup
+    mplan = S._stream_entry(False)[1]
+    vbytes = value_bytes_of(S._dlayout, S._olayout)
+    launches["times"] = {
+        "SpMV": time_routes(
+            "symmetric flagship SpMV, stream route (B5 mirror)",
+            lambda: S @ x, lambda: plain_route_sym(S, x), stream_bytes(S),
+            4 * mplan.tile_bytes // 4, card),
+        "SpMV bucket": time_routes(
+            "symmetric flagship SpMV, bucket route (B1 symmetric)",
+            lambda: bucket_route_sym(S, x), lambda: plain_buckets_sym(S, x),
+            vbytes, 2 * vbytes // 4, card),
+    }
     return errs, launches
 
 
@@ -697,50 +947,79 @@ def phase5(card: str):
           f"{errs['B9 gather']:.3e}, scatter {errs['B9 scatter']:.3e} (tol "
           f"1e-5 x max(1, max|ref|) per call)")
 
+    setup = stream_setup(S)
+    require(stream_kernel(S) == "B5" and not S._stream_entry(False)[1].mirror,
+            "the symmetric real-size SpMV takes the expanded panel plan (the "
+            "JAX decision)")
     reset_counts()
     y = S @ x
     Y = S @ X
     torch.cuda.synchronize()
     launched = counts()
     print(f"  launches: SpMV + SpMM r=128 -> {launched}")
-    gathers, scatters = b9_per_spmv(S, False)
-    want = {"B1": n_chunked(S._dlayout, S._olayout),
-            "B1 sym": n_chunked(S._olayout), "B2": 0, "B3": 1,
-            "B9 gather": gathers, "B9 scatter": scatters}
-    require(launched == want and gathers > 0 and scatters > 0,
-            f"real-size products: launches {launched}, expected {want}")
-    rel_check("SpMV vs float64 plain", y,
+    require_counts("real-size SpMV + SpMM r=128", launched,
+                   dict(stream_want(S), B2=0, B3=1))
+    rel_check("SpMV (B5) vs float64 plain", y,
               plain_route_sym(S, x, dtype=torch.float64), TOL[torch.float32])
     rel_check("SpMM r=128 vs float64 plain", Y,
               plain_route_sym(S, X, dtype=torch.float64), TOL[torch.float32])
-    # the SpMV's backward: each B9 gather's adjoint is a B9 scatter-add and
-    # the other way round
     w = torch.randn(shape[0], generator=gen).to(DEV)
-    before = counts()
     xg = x.clone().requires_grad_()
     (w * (S @ xg)).sum().backward()
-    rel_check("d(w . S @ x)/dx vs float64 plain S^T w", xg.grad,
-              plain_route_sym(S, w, transpose=True, dtype=torch.float64),
+    rel_check("d(w . S @ x)/dx through B5 vs float64 plain S^T w", xg.grad,
+              plain_buckets_sym(S, w, transpose=True, dtype=torch.float64),
               TOL[torch.float32])
-    grown = {k: counts()[k] - before[k] for k in ("B9 gather", "B9 scatter")}
+
+    # the bucket route, driven explicitly: B1 per chunked bucket, B9 per
+    # element-bucket gather and scatter
+    gathers, scatters = b9_per_spmv(S, False)
+    require(gathers > 0 and scatters > 0, "no element bucket")
+    reset_counts()
+    yb = bucket_route_sym(S, x)
+    torch.cuda.synchronize()
+    bucket_launched = counts()
+    require_counts("bucket-route SpMV", bucket_launched,
+                   {"B1": n_chunked(S._dlayout, S._olayout),
+                    "B1 sym": n_chunked(S._olayout), "B5": 0,
+                    "B9 gather": gathers, "B9 scatter": scatters})
+    rel_check("bucket-route SpMV (B1 + B9) vs float64 plain", yb,
+              plain_buckets_sym(S, x, dtype=torch.float64),
+              TOL[torch.float32])
+    # its backward: each B9 gather's adjoint is a B9 scatter-add and the
+    # other way round
+    before = counts()
+    xg = x.clone().requires_grad_()
+    (w * bucket_route_sym(S, xg)).sum().backward()
+    rel_check("d(w . bucket route S @ x)/dx vs float64 plain S^T w", xg.grad,
+              plain_buckets_sym(S, w, transpose=True, dtype=torch.float64),
+              TOL[torch.float32])
+    grown = {k: v for k, v in grown_since(before).items()
+             if k in ("B9 gather", "B9 scatter")}
     require(grown == {"B9 gather": gathers + scatters,
                       "B9 scatter": gathers + scatters},
-            f"SpMV and its backward: B9 launches {grown}, expected "
-            f"{gathers + scatters} of each")
+            f"bucket-route SpMV and its backward: B9 launches {grown}, "
+            f"expected {gathers + scatters} of each")
     nbytes = value_bytes_of(S._dlayout, S._olayout)
     flops = 2 * sum(int(b.values.size) for b in S._dlayout.buckets) + \
         4 * sum(int(b.values.size) for b in S._olayout.buckets)
+    splan = S._stream_entry(False)[1]
     times = {
-        "SpMV": time_routes("symmetric SpMV", lambda: S @ x,
-                            lambda: plain_route_sym(S, x), nbytes, flops,
-                            card),
+        "SpMV": time_routes(
+            "symmetric SpMV, stream route (B5)", lambda: S @ x,
+            lambda: plain_route_sym(S, x), stream_bytes(S),
+            2 * splan.tile_bytes // 4, card),
+        "SpMV bucket": time_routes(
+            "symmetric SpMV, bucket route (B1 + B9)",
+            lambda: bucket_route_sym(S, x),
+            lambda: plain_buckets_sym(S, x), nbytes, flops, card),
         "SpMM r=128": time_routes(
             "symmetric SpMM r=128", lambda: S @ X,
             lambda: plain_route_sym(S, X), plan.value_bytes,
             2 * 128 * (int(hb.vals.size) + mirrored), card),
+        "setup": setup, "launches": launched["B5"],
     }
 
-    # the SpMV's parts, each replayed from its own CUDA graph
+    # the bucket route's parts, each replayed from its own CUDA graph
     n = shape[0]
     chunked = [(hb_, S._obuckets[i]) for i, hb_ in
                enumerate(S._olayout.buckets) if hb_.chunk > 1]
@@ -762,7 +1041,7 @@ def phase5(card: str):
         "element pass through torch ops": lambda: element_pass(S, x, False),
     }
     split = {name: graph_ms(fn) for name, fn in parts.items()}
-    print("  symmetric SpMV split, CUDA-graph replay: " + ", ".join(
+    print("  symmetric bucket-route SpMV split, CUDA-graph replay: " + ", ".join(
         f"{name} {ms:.4f} ms" for name, ms in split.items()) + f" [{card}]")
     elem_values = [S._olayout.buckets[i].values
                    for i in elem_ids(S._olayout)]
@@ -771,7 +1050,257 @@ def phase5(card: str):
         lambda: element_pass(S, x, False),
         sum(int(v.nbytes) for v in elem_values),
         4 * sum(int(v.size) for v in elem_values), card)
-    return times, errs, launched
+    return times, errs, bucket_launched
+
+
+# -- phase 6 -------------------------------------------------------------------
+
+def config3_blocks(n: int, seed: int = 9):
+    """The config-3 recipe (``bench.py::build_config3``): a contiguous
+    partition into groups of 16-128, six random block columns per block
+    row, f32 values from ``seed + 7777``.  (blocks, row starts, col starts)."""
+    rng = np.random.default_rng(seed)
+    vrng = np.random.default_rng(seed + 7777)
+    bounds = [0]
+    while bounds[-1] < n:
+        bounds.append(min(n, bounds[-1] + int(rng.integers(16, 129))))
+    groups = [(bounds[i], bounds[i + 1] - bounds[i])
+              for i in range(len(bounds) - 1)]
+    blocks, rs, cs = [], [], []
+    for r0, h in groups:
+        for gj in rng.choice(len(groups), size=min(6, len(groups)),
+                             replace=False):
+            c0, w = groups[int(gj)]
+            blocks.append(vrng.standard_normal((h, w)).astype(np.float32))
+            rs.append(r0)
+            cs.append(c0)
+    return blocks, rs, cs
+
+
+def phase6():
+    print("phase 6: VBCRS flagship, config-3 recipe n=4096 (seed 9, "
+          "granularity (8, 128)), r=64")
+    blocks, rs, cs = config3_blocks(4096)
+    V = bt.VariableBlockCompressedRowStorage(
+        blocks, rs, cs, (4096, 4096), granularity=(8, 128), device=DEV)
+    Vsc = bt.to_scipy(V).astype(np.float64)
+    print(f"  {V}; {V.nnz * 4 / 1e6:.1f} MB of logical values, "
+          f"{value_bytes_of(V.layout) / 1e6:.1f} MB in "
+          f"{len(V.layout.buckets)} buckets")
+    setup = stream_setup(V)
+    stream_setup(V, transpose=True)
+    require(stream_kernel(V) == "B5",
+            "the config-3 SpMV takes the panel route (the JAX decision)")
+    rng = np.random.default_rng(9)
+    xn, yn = (rng.standard_normal(4096).astype(np.float32) for _ in range(2))
+    Xn = rng.standard_normal((4096, 64)).astype(np.float32)
+    x, y, X = (torch.from_numpy(a).to(DEV) for a in (xn, yn, Xn))
+    x64, y64, X64 = (a.astype(np.float64) for a in (xn, yn, Xn))
+
+    errs = {"B5": 0.0, "B5 duality": 0.0}
+    for tr in (False, True):
+        choice, plan, dev = V._stream_entry(tr)
+        if choice == "panel":
+            check_stream_kernel(
+                f"B5 V{'.T' if tr else ''} ({describe(plan)})",
+                panel_spmv.panel_spmv, panel_spmv.panel_apply_plain, plan,
+                dev, x, errs)
+
+    spmm = "B2" if patch_wins(V._patch_for()[0], [(V.layout, 1)], 64) else "B1"
+    # (name, product, reference, transpose of its stream product or None
+    # for r > 1, applications of V)
+    products = [
+        ("V @ x", lambda: V @ x, Vsc @ x64, False, 1),
+        ("V.T @ x", lambda: V.T @ x, Vsc.T @ x64, True, 1),
+        ("V.H @ X", lambda: V.H @ X, Vsc.T @ X64, None, 0),
+        ("V.axpby(x, y, 2.0, 0.5)", lambda: V.axpby(x, y, 2.0, 0.5),
+         2.0 * (Vsc @ x64) + 0.5 * y64, False, 1),
+        ("(V @ V) @ x", lambda: (V @ V) @ x, Vsc @ (Vsc @ x64), False, 2),
+    ]
+    reset_counts()
+    outs = []
+    for name, fn, _ref, tr, k in products:
+        before = counts()
+        outs.append(fn())
+        grown = grown_since(before)
+        if tr is None:
+            require(grown[spmm] > 0, f"{name}: kernel {spmm} was not launched")
+        else:
+            require_counts(name, grown, stream_want(V, tr, k))
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"  main-path launches: {launches} (V.H @ X through {spmm})")
+    for (name, _fn, ref, *_), out in zip(products, outs):
+        rel_check(f"{name} vs float64 scipy", out, ref, TOL[torch.float32])
+    wn = rng.standard_normal(4096).astype(np.float32)
+    before = counts()
+    xg = x.clone().requires_grad_()
+    (torch.from_numpy(wn).to(DEV) * (V @ xg)).sum().backward()
+    rel_check("d(w . V @ x)/dx vs float64 scipy V^T w", xg.grad,
+              Vsc.T @ wn.astype(np.float64), TOL[torch.float32])
+    require(grown_since(before)["B5"] == 1, "the gradient's product skipped B5")
+    launches["setup"] = setup
+    return errs, launches
+
+
+# -- phase 7 -------------------------------------------------------------------
+
+def phase7(card: str):
+    print("phase 7: VBCRS real size, config-3 recipe n=32768 (seed 9, "
+          "granularity (8, 128))")
+    blocks, rs, cs = config3_blocks(32768)
+    spent = {"layout": 0.0}
+    orig_layout = vbcrs_format.build_layout
+
+    def timed_layout(*a, **k):
+        t = time.perf_counter()
+        try:
+            return orig_layout(*a, **k)
+        finally:
+            spent["layout"] += time.perf_counter() - t
+
+    vbcrs_format.build_layout = timed_layout
+    try:
+        t0 = time.perf_counter()
+        V = bt.VariableBlockCompressedRowStorage(
+            blocks, rs, cs, (32768, 32768), granularity=(8, 128), device=DEV)
+        torch.cuda.synchronize()
+        t_ctor = time.perf_counter() - t0
+    finally:
+        vbcrs_format.build_layout = orig_layout
+    logical = V.nnz * 4
+    padded = value_bytes_of(V.layout)
+    print(f"  {V}; {logical / 1e6:.1f} MB of logical values, "
+          f"{padded / 1e6:.1f} MB in {len(V.layout.buckets)} buckets "
+          f"({n_chunked(V.layout)} chunked)")
+    print(f"  construction on the host: constructor {t_ctor:.2f} s (layout "
+          f"{spent['layout']:.2f} s, sort and staging "
+          f"{t_ctor - spent['layout']:.2f} s)")
+    setup = stream_setup(V)
+    require(stream_kernel(V) == "B5",
+            "the config-3 real-size SpMV takes the panel route (the JAX "
+            "decision)")
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    x = torch.randn(32768, generator=gen).to(DEV)
+    reset_counts()
+    y = V @ x
+    torch.cuda.synchronize()
+    launched = counts()
+    print(f"  launches: SpMV -> {launched}")
+    require_counts("real-size SpMV", launched, stream_want(V))
+    ref = plain_buckets(V.layout, V._buckets, x.double(), 32768, torch.float64)
+    rel_check("SpMV (B5) vs float64 plain bucket route", y, ref,
+              TOL[torch.float32])
+    rel_check("SpMV (B5) vs float64 plain stream route", y,
+              plain_route(V, x, dtype=torch.float64), TOL[torch.float32])
+    before = counts()
+    yb = bucket_route(V, x)
+    torch.cuda.synchronize()
+    require_counts("bucket-route SpMV", grown_since(before),
+                   {"B1": n_chunked(V.layout), "B5": 0, "B8": 0})
+    rel_check("bucket-route SpMV (B1) vs float64 plain", yb, ref,
+              TOL[torch.float32])
+
+    errs = {"B5": 0.0, "B5 duality": 0.0, "B8": 0.0, "B8 duality": 0.0}
+    _, pplan, pdev = V._stream_entry(False)
+    check_stream_kernel("B5 at the real size", panel_spmv.panel_spmv,
+                        panel_spmv.panel_apply_plain, pplan, pdev, x, errs)
+    splan = V._strip_for(False)
+    t0 = time.perf_counter()
+    sdev = slab_spmv.plan_device_arrays(splan, DEV)
+    torch.cuda.synchronize()
+    print(f"  slab plan staged in {time.perf_counter() - t0:.2f} s (B8 wins "
+          f"no route decision here; it is timed on this operand's plan)")
+    check_stream_kernel("B8 at the real size", slab_spmv.slab_spmv,
+                        slab_spmv.slab_apply_plain, splan, sdev, x, errs)
+    rel_check("B8 vs float64 plain bucket route",
+              slab_spmv.slab_spmv(splan, sdev, x), ref, TOL[torch.float32])
+    sbytes = sum(t.numel() * t.element_size() for t in sdev)
+    times = {
+        "SpMV": time_routes(
+            "VBCRS SpMV, stream route (B5)", lambda: V @ x,
+            lambda: plain_route(V, x), stream_bytes(V),
+            2 * pplan.tile_bytes // 4, card),
+        "SpMV bucket": time_routes(
+            "VBCRS SpMV, bucket route (B1)", lambda: bucket_route(V, x),
+            lambda: plain_buckets(V.layout, V._buckets, x, 32768,
+                                  torch.float32),
+            padded, 2 * padded // 4, card),
+        "B8": time_routes(
+            "B8 on the slab plan", lambda: slab_spmv.slab_spmv(splan, sdev, x),
+            lambda: slab_spmv.slab_apply_plain(splan, sdev, x), sbytes,
+            2 * splan.tile_bytes // 4, card),
+        "setup": setup, "launches": launched["B5"],
+    }
+    for key in ("SpMV", "SpMV bucket"):
+        eager, _, graph, _ = times[key]
+        print(f"  {key}: {logical / (graph * 1e-3) / 1e9:.1f} GB/s of logical "
+              f"values from the graph replay ({logical / 1e6:.1f} MB), "
+              f"{logical / (eager * 1e-3) / 1e9:.1f} GB/s eager [{card}]")
+    return times, errs
+
+
+# -- phase 8 -------------------------------------------------------------------
+
+def strided_operator(n: int, nblocks: int, seed: int, device):
+    """nblocks aligned 64x128 f32 blocks (positions drawn with repeats, so
+    some overlap and sum) and one 64x128 block whose rows run at stride 4."""
+    rng = np.random.default_rng(seed)
+    blocks, rows, cols = [], [], []
+    for _ in range(nblocks):
+        r0 = int(rng.integers(0, n // 64)) * 64
+        c0 = int(rng.integers(0, n // 128)) * 128
+        blocks.append(rng.standard_normal((64, 128)).astype(np.float32))
+        rows.append(np.arange(r0, r0 + 64))
+        cols.append(np.arange(c0, c0 + 128))
+    r0, c0 = int(rng.integers(0, n - 256)), int(rng.integers(0, n // 128)) * 128
+    blocks.append(rng.standard_normal((64, 128)).astype(np.float32))
+    rows.append(r0 + 4 * np.arange(64))
+    cols.append(np.arange(c0, c0 + 128))
+    return bt.BlockSparseMatrix(blocks, rows, cols, (n, n), device=device)
+
+
+def phase8(card: str):
+    print("phase 8: the slab route, n=8192, 4000 aligned 64x128 f32 blocks + "
+          "one block with rows at stride 4")
+    A = strided_operator(8192, 4000, 3, DEV)
+    print(f"  {A}; {value_bytes_of(A.layout) / 1e6:.1f} MB of bucket values")
+    setup = stream_setup(A)
+    require(stream_kernel(A) == "B8",
+            "this operand's SpMV takes the slab route (the JAX decision)")
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    x = torch.randn(8192, generator=gen).to(DEV)
+    y = torch.randn(8192, generator=gen).to(DEV)
+    errs = {"B8": 0.0, "B8 duality": 0.0}
+    _, plan, dev = A._stream_entry(False)
+    check_stream_kernel("B8 at this operand's plan", slab_spmv.slab_spmv,
+                        slab_spmv.slab_apply_plain, plan, dev, x, errs)
+    reset_counts()
+    out = A @ x
+    out2 = A.axpby(x, y, 2.0, 0.5)
+    torch.cuda.synchronize()
+    launched = counts()
+    print(f"  main-path launches: A @ x + axpby -> {launched}")
+    require_counts("A @ x + axpby", launched, stream_want(A, False, 2))
+    ref = plain_buckets(A.layout, A._buckets, x.double(), 8192, torch.float64)
+    rel_check("A @ x (B8) vs float64 plain bucket route", out, ref,
+              TOL[torch.float32])
+    rel_check("A.axpby(x, y, 2.0, 0.5) (B8) vs float64 plain bucket route",
+              out2, 2.0 * ref + 0.5 * y.double(), TOL[torch.float32])
+    times = {
+        "SpMV": time_routes(
+            "slab-route SpMV (B8)", lambda: A @ x, lambda: plain_route(A, x),
+            stream_bytes(A), 2 * plan.tile_bytes // 4, card),
+        "SpMV bucket": time_routes(
+            "bucket-route SpMV (B1 + element engine)",
+            lambda: bucket_route(A, x),
+            lambda: plain_buckets(A.layout, A._buckets, x, 8192,
+                                  torch.float32),
+            value_bytes_of(A.layout), 2 * value_bytes_of(A.layout) // 4,
+            card),
+        "setup": setup, "launches": launched["B8"],
+    }
+    return times, errs
 
 
 def main() -> None:
@@ -797,25 +1326,51 @@ def main() -> None:
         print(f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers "
               f"per thread, {spills} bytes of spill stores in all")
 
-    errs1 = phase1()
-    errs2, launches = phase2()
-    times = phase3(card)
-    errs4, launches4 = phase4()
-    sym_times, errs5, launches5 = phase5(card)
+    wall = {}
+
+    def run(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        wall[name] = time.perf_counter() - t
+        print(f"  [{name}: {wall[name]:.1f} s wall]")
+        return out
+
+    errs1 = run("phase 1", phase1)
+    errs2, launches = run("phase 2", phase2)
+    times = run("phase 3", phase3, card)
+    errs4, launches4 = run("phase 4", phase4, card)
+    sym_times, errs5, launches5 = run("phase 5", phase5, card)
+    errs6, launches6 = run("phase 6", phase6)
+    v_times, errs7 = run("phase 7", phase7, card)
+    slab_times, errs8 = run("phase 8", phase8, card)
+    print("phase wall times: " + ", ".join(f"{k} {v:.1f} s"
+                                           for k, v in wall.items()))
+    b5_launches = {"BSM real size (phase 3)": times["launches"],
+                   "symmetric flagship (phase 4)": launches4["B5"],
+                   "symmetric real size (phase 5)": sym_times["launches"],
+                   "VBCRS flagship (phase 6)": launches6["B5"],
+                   "VBCRS real size (phase 7)": v_times["launches"]}
+    require(all(b5_launches.values()), f"a main path skipped B5: {b5_launches}")
 
     summary = {"kernels": [
         {"name": "fused_spmm (B1)", "route": "cuda", "source": B1_SRC,
          "replaces": B1_REPLACES, "launches": launches["B1"],
          "max_abs_err": errs2["B1"], "max_abs_err_phase1": errs1["B1"],
-         "ms": times["SpMV"][0], "plain_ms": times["SpMV"][1],
-         "graph_ms": times["SpMV"][2], "plain_graph_ms": times["SpMV"][3],
-         "timed": "A @ x, n=8192, 2000 x 128x128 f32", "card": card,
-         "launches_symmetric": launches4["B1 sym"],
+         "ms": times["SpMV bucket"][0], "plain_ms": times["SpMV bucket"][1],
+         "graph_ms": times["SpMV bucket"][2],
+         "plain_graph_ms": times["SpMV bucket"][3],
+         "timed": "bucket route of A @ x, n=8192, 2000 x 128x128 f32",
+         "card": card, "launches_symmetric": launches5["B1 sym"],
          "max_abs_err_symmetric": errs4["B1"],
-         "sym_ms": sym_times["SpMV"][0], "sym_plain_ms": sym_times["SpMV"][1],
-         "sym_graph_ms": sym_times["SpMV"][2],
-         "sym_plain_graph_ms": sym_times["SpMV"][3],
-         "sym_timed": "S @ x, n=32768, 384 + 4096 f32 blocks (symmetric)"},
+         "sym_ms": sym_times["SpMV bucket"][0],
+         "sym_plain_ms": sym_times["SpMV bucket"][1],
+         "sym_graph_ms": sym_times["SpMV bucket"][2],
+         "sym_plain_graph_ms": sym_times["SpMV bucket"][3],
+         "sym_timed": "bucket route of S @ x, n=32768, 384 + 4096 f32 blocks "
+                      "(symmetric)",
+         "vbcrs_ms": v_times["SpMV bucket"][0],
+         "vbcrs_graph_ms": v_times["SpMV bucket"][2],
+         "vbcrs_timed": "bucket route of V @ x, config 3, n=32768"},
         {"name": "patch_spmm (B2)", "route": "cuda", "source": B2_SRC,
          "replaces": B2_REPLACES, "launches": launches["B2"],
          "max_abs_err": errs2["B2"], "max_abs_err_phase1": errs1["B2"],
@@ -846,6 +1401,43 @@ def main() -> None:
          "card": card}
         for kind, rep_ in (("gather", B9_GATHER_REPLACES),
                            ("scatter", B9_SCATTER_REPLACES))
+    ] + [
+        {"name": "panel_spmv (B5)", "route": "cuda", "source": B5_SRC,
+         "replaces": B5_REPLACES, "launches": sum(b5_launches.values()),
+         "launches_by_path": b5_launches,
+         "launches_mirror": launches4["B5 mirror"],
+         "max_abs_err": max(errs6["B5"], errs7["B5"]),
+         "max_abs_err_phase1": errs1["B5"],
+         "max_abs_err_duality": max(errs1["B5 duality"], errs6["B5 duality"],
+                                    errs7["B5 duality"]),
+         "ms": v_times["SpMV"][0], "plain_ms": v_times["SpMV"][1],
+         "graph_ms": v_times["SpMV"][2], "plain_graph_ms": v_times["SpMV"][3],
+         "timed": "V @ x, config-3 VBCRS n=32768 (panel plan)", "card": card,
+         "bsm_ms": times["SpMV"][0], "bsm_plain_ms": times["SpMV"][1],
+         "bsm_graph_ms": times["SpMV"][2],
+         "bsm_plain_graph_ms": times["SpMV"][3],
+         "sym_ms": sym_times["SpMV"][0], "sym_plain_ms": sym_times["SpMV"][1],
+         "sym_graph_ms": sym_times["SpMV"][2],
+         "sym_plain_graph_ms": sym_times["SpMV"][3],
+         "mirror_ms": launches4["times"]["SpMV"][0],
+         "mirror_plain_ms": launches4["times"]["SpMV"][1],
+         "mirror_graph_ms": launches4["times"]["SpMV"][2],
+         "mirror_plain_graph_ms": launches4["times"]["SpMV"][3],
+         "mirror_timed": "S @ x, symmetric flagship (fused mirror plan)"},
+        {"name": "slab_spmv (B8)", "route": "cuda", "source": B8_SRC,
+         "replaces": B8_REPLACES, "launches": slab_times["launches"],
+         "max_abs_err": max(errs7["B8"], errs8["B8"]),
+         "max_abs_err_phase1": errs1["B8"],
+         "max_abs_err_duality": max(errs1["B8 duality"], errs7["B8 duality"],
+                                    errs8["B8 duality"]),
+         "ms": slab_times["SpMV"][0], "plain_ms": slab_times["SpMV"][1],
+         "graph_ms": slab_times["SpMV"][2],
+         "plain_graph_ms": slab_times["SpMV"][3],
+         "timed": "A @ x, n=8192 strided-row BSM (slab plan)", "card": card,
+         "vbcrs_ms": v_times["B8"][0], "vbcrs_plain_ms": v_times["B8"][1],
+         "vbcrs_graph_ms": v_times["B8"][2],
+         "vbcrs_plain_graph_ms": v_times["B8"][3],
+         "vbcrs_timed": "config-3 VBCRS n=32768 slab plan"},
     ]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -129,6 +129,23 @@ def test_layout_bit_identical_more_seeds(seed):
     assert_same_layout(mine, ref)
 
 
+@pytest.mark.parametrize("granularity", [(8, 128), (1, 1), (32, 32)])
+@pytest.mark.parametrize("kind", ["contiguous", "mixed"])
+def test_layout_bit_identical_tuple_granularity(kind, granularity):
+    """(gm, gk) bucket keys, as the config-3 recipe's (8, 128)."""
+    blocks, rows, cols, shape = fixture(kind)
+    mine = build_layout(blocks, rows, cols, shape, granularity=granularity)
+    ref = jax_build_layout(blocks, rows, cols, shape, granularity=granularity)
+    assert_same_layout(mine, ref)
+
+
+def test_layout_rejects_bad_granularity():
+    blocks, rows, cols, shape = fixture("contiguous")
+    for bad in ("exact", (8,), (0, 4)):
+        with pytest.raises(ValueError, match="granularity"):
+            build_layout(blocks, rows, cols, shape, granularity=bad)
+
+
 def random_block_sparse_mixed(seed):
     b1, r1, c1, shape = tm.random_block_sparse(
         seed, shape=(448, 320), nblocks=10, max_block=70, dtype=np.float64,
@@ -224,3 +241,29 @@ def test_testmatrices_same_arrays(name, kwargs):
     assert len(fm) == len(fr)
     for a, b in zip(fm, fr):
         assert_same_array(a, b, name)
+
+
+def test_formats_take_tuple_granularity():
+    """BSM, SBM and VBCRS pass ``granularity`` to their layouts as the JAX
+    formats do."""
+    import blocksparse_tpu as bst
+    import blocksparse_tpu_torch as bt
+
+    g = (8, 128)
+    blocks, rows, cols, shape = fixture("contiguous")
+    assert_same_layout(
+        bt.BlockSparseMatrix(blocks, rows, cols, shape, granularity=g).layout,
+        bst.BlockSparseMatrix(blocks, rows, cols, shape, granularity=g).layout)
+    d, di, o, ri, ci, shape = tm.random_symmetric(
+        8, n=320, ngroups=6, noffdiag=8, dtype=np.float64, contiguous=True)
+    P = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape, granularity=g)
+    J = bst.SymmetricBlockMatrix(d, di, o, ri, ci, shape, granularity=g)
+    assert_same_layout(P._dlayout, J._dlayout)
+    assert_same_layout(P._olayout, J._olayout)
+    blocks, rs, cs, shape = tm.random_vbcrs(13, shape=(160, 140),
+                                            nrowgroups=5, ncolgroups=6)
+    assert_same_layout(
+        bt.VariableBlockCompressedRowStorage(blocks, rs, cs, shape,
+                                             granularity=g).layout,
+        bst.VariableBlockCompressedRowStorage(blocks, rs, cs, shape,
+                                              granularity=g).layout)

@@ -388,8 +388,8 @@ def test_zero_blocks_and_bad_inputs():
     args = fixture("contiguous")
     with pytest.raises(ValueError, match="square"):
         bt.SymmetricBlockMatrix(*args[:5], (288, 290))
-    with pytest.raises(NotImplementedError, match="granularity"):
-        bt.SymmetricBlockMatrix(*args, granularity=(32, 32))
+    with pytest.raises(ValueError, match="granularity"):
+        bt.SymmetricBlockMatrix(*args, granularity="exact")
     with pytest.raises(NotImplementedError, match="complex"):
         bt.SymmetricBlockMatrix(*fixture("contiguous", np.complex128))
     with pytest.raises(ValueError, match="precision"):
