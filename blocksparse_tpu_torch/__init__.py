@@ -9,8 +9,10 @@ in hand-written CUDA kernels for Hopper (``csrc/``): the chunk-table kernel
 (SpMV and SpMM of chunked buckets, plain or symmetric), the merged-patch
 SpMM kernel (f32, r > 1) and its symmetric counterpart, the element gather
 and scatter-add, and the one-launch stream SpMV kernels over panel and slab
-plans (f32, r = 1).  On CPU tensors the same routes run the kernels' plain
-PyTorch versions.
+plans (f32, r = 1), and the batched products of P same-structure operators
+in one launch (:func:`batched_mm`, :func:`batched_mv`).  Operators live on
+the card unless the caller passes ``device="cpu"``; on CPU tensors the same
+routes run the kernels' plain PyTorch versions.
 
 The JAX package ``blocksparse_tpu`` is the reference; this package imports
 neither it nor jax.
@@ -40,6 +42,7 @@ from .formats.block_sparse import BlockSparseMatrix
 from .formats.symmetric import SymmetricBlockMatrix
 from .formats.vbcrs import VariableBlockCompressedRowStorage
 from .interop.convert import from_reference
+from .ops.batched import batched_mm, batched_mv
 from .interop.scipy_io import rowcolvals, to_scipy
 
 __version__ = "0.1.0"
@@ -70,4 +73,6 @@ __all__ = [
     "rowcolvals",
     "to_scipy",
     "from_reference",
+    "batched_mm",
+    "batched_mv",
 ]

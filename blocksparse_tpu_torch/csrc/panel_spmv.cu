@@ -1,4 +1,4 @@
-// Panel SpMV on Hopper (kernel B5 of the port).
+// Panel SpMV on Hopper (kernels B5 and B6 of the port).
 //
 // Replaces blocksparse_tpu/ops/pallas/panel_spmv.py::_pkern_plain and
 // ::_pkern_mirror (launched from _launch) together with the x gather and the
@@ -27,6 +27,16 @@
 // are small and stay in L2.  The design (tile_stream.cuh): one warp per
 // run of tiles, float4 streaming loads, row sums carried in registers
 // across tiles of one row chunk, fp32 atomicAdd into a zeroed y.
+//
+// Kernel B6, bst_panel_spmv_batched_f32, is the same product for P
+// operators that share one panel plan's id tables and differ in their values
+// (vals [P, S*TS, 8, 128], x [P, ncols], y [P, nrows]).  It replaces
+// blocksparse_tpu/ops/pallas/panel_spmv.py::_pkern_plain_b and
+// ::_pkern_mirror_b together with _launch_batched's x gather and mirror
+// map-back: blockIdx.y = p offsets the values, x and y of product p, and the
+// tile core runs unchanged, so one launch streams all P value planes (bound
+// by their bytes, as B5) and races are settled as in B5: fp32 atomicAdd into
+// the zeroed y, products never sharing an entry of y.
 #include <cuda_runtime.h>
 
 #include "tile_stream.cuh"
@@ -86,6 +96,18 @@ __global__ void __launch_bounds__(bst::kStreamThreads)
   bst::stream_tiles<MIRROR>(vals, ntiles, TS, geo, x, y, geo.nrows, tpw);
 }
 
+template <bool MIRROR>
+__global__ void __launch_bounds__(bst::kStreamThreads)
+    panel_spmv_batched_kernel(const float* __restrict__ vals, PanelGeo geo,
+                              const float* __restrict__ x,
+                              float* __restrict__ y, long long ntiles, int TS,
+                              int tpw) {
+  const long long p = blockIdx.y;
+  bst::stream_tiles<MIRROR>(vals + p * ntiles * bst::kTileElems, ntiles, TS,
+                            geo, x + p * geo.ncols, y + p * geo.nrows,
+                            geo.nrows, tpw);
+}
+
 }  // namespace
 
 // y must be zeroed ([nrows] f32); otgt may be null unless mirror.
@@ -112,6 +134,32 @@ extern "C" int bst_panel_spmv_f32(const float* vals, const int* rid8,
         vals, geo, x, y, ntiles, TS, tpw);
   else
     panel_spmv_kernel<false><<<blocks, bst::kStreamThreads, 0, s>>>(
+        vals, geo, x, y, ntiles, TS, tpw);
+  return (int)cudaGetLastError();
+}
+
+// P products over one plan's tables; y must be zeroed ([P, nrows] f32).
+extern "C" int bst_panel_spmv_batched_f32(
+    const float* vals, const int* rid8, const int* cid8, const int* segid,
+    const int* otgt, const int* b8, const float* x, float* y, int P,
+    long long ntiles, int TS, int CW, int RW, int NC32, int ngrids,
+    long long grids, long long ncols, long long nrows, int mirror, int tpw,
+    void* stream) {
+  if (TS <= 0 || CW <= 0 || RW <= 0 || NC32 <= 0 || ngrids <= 0 ||
+      ngrids > 8 || tpw <= 0 || P > 65535 || (mirror && otgt == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (P <= 0 || ntiles <= 0 || nrows <= 0) return 0;
+  const PanelGeo geo{rid8, cid8, segid, otgt, b8, grids, CW, RW, NC32,
+                     ngrids, ncols, nrows};
+  const long long warps = (ntiles + tpw - 1) / tpw;
+  const int per_block = bst::kStreamThreads / 32;
+  const dim3 grid((unsigned)((warps + per_block - 1) / per_block), P);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mirror)
+    panel_spmv_batched_kernel<true><<<grid, bst::kStreamThreads, 0, s>>>(
+        vals, geo, x, y, ntiles, TS, tpw);
+  else
+    panel_spmv_batched_kernel<false><<<grid, bst::kStreamThreads, 0, s>>>(
         vals, geo, x, y, ntiles, TS, tpw);
   return (int)cudaGetLastError();
 }

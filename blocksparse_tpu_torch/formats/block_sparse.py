@@ -69,6 +69,18 @@ def _torch_dtype(layouts, dtype) -> torch.dtype:
     return _DTYPES[np_dt]
 
 
+def _resolve_device(device) -> torch.device:
+    """The concrete device an operator's tensors land on ("cuda" resolves
+    to the current card).  A CUDA device with no card present raises: the
+    CPU is used only when the caller asks for it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card is available; operators are built on the card "
+            "unless the caller passes device='cpu'")
+    return torch.empty(0, device=device).device
+
+
 def _check_operand(x: torch.Tensor, device, dtype) -> None:
     if x.device != device:
         raise ValueError(
@@ -92,6 +104,8 @@ def _stage(layout: BlockLayout, device) -> tuple:
 class BlockSparseMatrix(StreamRouted, LinearOperator):
     """General block-sparse matrix (format 1).
 
+    ``device``: where the operator's tensors live, the card ("cuda") unless
+    the caller passes another (``"cpu"`` runs the kernels' plain versions).
     ``precision``: "highest" | "high" | None, kept for parity with the JAX
     package.  Every tier currently runs in full IEEE precision (see
     ``ops/kernels/fused_spmm.py``).  ``granularity``: the bucket keys,
@@ -105,7 +119,7 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
         colindices: Sequence[np.ndarray],
         shape: tuple[int, int] | None = None,
         *,
-        device="cpu",
+        device="cuda",
         dtype=None,
         precision: str | None = "highest",
         schedule: str = sched.SERIAL,
@@ -116,14 +130,13 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
         if precision not in _PRECISIONS:
             raise ValueError(
                 f"unknown precision {precision!r}; expected one of {_PRECISIONS}")
+        self._device = _resolve_device(device)
         self._schedule = sched.normalize_schedule(schedule)
         self._precision = precision
         self._layout = build_layout(blocks, rowindices, colindices, shape,
                                     granularity=granularity,
                                     dtype=_np_dtype(dtype))
         self._dtype = _torch_dtype([self._layout], dtype)
-        # resolve "cuda" to the concrete device the tensors land on
-        self._device = torch.empty(0, device=device).device
         self._buckets = _stage(self._layout, self._device)
         if sched.isserial(self._schedule):
             all_ids = tuple(range(self._layout.nblocks))

@@ -68,6 +68,12 @@ class StreamRouted:
             return None, None, None
         return self._cached(("route", transpose), build)
 
+    def _staged_panel(self, transpose: bool):
+        """The device tensors of the panel plan for A (or A^T) where the
+        stream route has staged it, else None (nothing is built here)."""
+        entry = self._stream.get(("route", transpose))
+        return entry[2] if entry is not None and entry[0] == "panel" else None
+
     def _stream_apply(self, x, transpose: bool):
         """The product through the chosen stream plan, or None."""
         choice, plan, dev = self._stream_entry(transpose)

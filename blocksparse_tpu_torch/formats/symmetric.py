@@ -44,7 +44,7 @@ from ..ops.dispatch import (apply_symmetric, patch_eligible, patch_wins,
                             strip_eligible)
 from ..ops.panel_router import panel_plan_sym
 from .block_sparse import (_PRECISIONS, _check_operand, _colors_tuple,
-                           _np_dtype, _stage, _torch_dtype)
+                           _np_dtype, _resolve_device, _stage, _torch_dtype)
 from .stream import StreamRouted
 
 __all__ = ["SymmetricBlockMatrix"]
@@ -53,6 +53,7 @@ __all__ = ["SymmetricBlockMatrix"]
 class SymmetricBlockMatrix(StreamRouted, LinearOperator):
     """Symmetric block-sparse matrix (format 2).
 
+    ``device``: the card ("cuda") unless the caller passes another.
     ``granularity``: the bucket keys, "pow2" or ``(gm, gk)`` (see
     ``core/layout.build_layout``).  ``precision``: kept for parity; every
     tier runs in full IEEE precision.
@@ -67,7 +68,7 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
         colindices: Sequence[np.ndarray],
         shape: tuple[int, int] | None = None,
         *,
-        device="cpu",
+        device="cuda",
         dtype=None,
         precision: str | None = "highest",
         schedule: str = sched.COLORED,
@@ -80,6 +81,7 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
         if precision not in _PRECISIONS:
             raise ValueError(
                 f"unknown precision {precision!r}; expected one of {_PRECISIONS}")
+        self._device = _resolve_device(device)
         self._schedule = sched.normalize_schedule(schedule)
         self._precision = precision
         self._dlayout = build_layout(diagonals, diagonalindices,
@@ -90,7 +92,6 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
                                      shape, granularity=granularity,
                                      dtype=_np_dtype(dtype))
         self._dtype = _torch_dtype([self._dlayout, self._olayout], dtype)
-        self._device = torch.empty(0, device=device).device
         self._dbuckets = _stage(self._dlayout, self._device)
         self._obuckets = _stage(self._olayout, self._device)
         self._dcolors = _colors_tuple(

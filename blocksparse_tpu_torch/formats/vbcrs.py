@@ -37,7 +37,7 @@ from ..core.operator import LinearOperator
 from ..ops.dispatch import (apply_operand, patch_eligible, patch_wins,
                             strip_eligible)
 from .block_sparse import (_PRECISIONS, BlockSparseMatrix, _check_operand,
-                           _np_dtype, _stage, _torch_dtype)
+                           _np_dtype, _resolve_device, _stage, _torch_dtype)
 from .stream import StreamRouted
 
 __all__ = ["VariableBlockCompressedRowStorage"]
@@ -65,6 +65,7 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
     """CSR of blocks with variable block sizes and contiguous ranges
     (format 3).
 
+    ``device``: the card ("cuda") unless the caller passes another.
     ``granularity``: the bucket keys, "pow2" or ``(gm, gk)`` (see
     ``core/layout.build_layout``).  ``precision``: kept for parity; every
     tier runs in full IEEE precision.
@@ -77,7 +78,7 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
         colindices: Sequence,
         shape: tuple[int, int] | None = None,
         *,
-        device="cpu",
+        device="cuda",
         dtype=None,
         precision: str | None = "highest",
         schedule: str = sched.SERIAL,
@@ -89,6 +90,7 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
         if precision not in _PRECISIONS:
             raise ValueError(
                 f"unknown precision {precision!r}; expected one of {_PRECISIONS}")
+        self._device = _resolve_device(device)
         self._schedule = sched.normalize_schedule(schedule)
         self._precision = precision
         n = len(blocks)
@@ -123,7 +125,6 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
                                     granularity=granularity,
                                     dtype=_np_dtype(dtype))
         self._dtype = _torch_dtype([self._layout], dtype)
-        self._device = torch.empty(0, device=device).device
         self._buckets = _stage(self._layout, self._device)
         self._patch = None
         self._stream = {}

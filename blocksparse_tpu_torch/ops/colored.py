@@ -99,9 +99,10 @@ def plan_tables(layout, colors, out_len: int, transpose: bool,
 @lru_cache(maxsize=64)
 def build_colored_plan(layout, colors, out_len: int, transpose: bool,
                        bucket_sel: tuple[int, ...], symmetric: bool = False,
-                       device=torch.device("cpu")):
+                       *, device):
     """``(tables, total)`` with the tables as int64 tensors on ``device``
-    (the ``colored_plan`` argument of ``bucket_apply``), or None.  Cached:
+    (the ``colored_plan`` argument of ``bucket_apply``; no default: the
+    caller names the operand's device), or None.  Cached:
     the layout is keyed by identity, ``colors`` and ``bucket_sel`` must be
     tuples."""
     plan = plan_tables(layout, colors, out_len, transpose, bucket_sel,

@@ -1,4 +1,4 @@
-"""Panel SpMV: CUDA kernel B5, its plain version, its autograd.
+"""Panel SpMV: CUDA kernels B5 and B6, their plain versions, their autograd.
 
 The kernel (``csrc/panel_spmv.cu``) replaces
 ``blocksparse_tpu/ops/pallas/panel_spmv.py::_pkern_plain`` and
@@ -7,24 +7,35 @@ one launch streams a panel plan (``core/panel.py``) and returns y = A @ x;
 a mirror plan also adds each stored off-diagonal's transposed product from
 the same read of its values.
 
+Kernel B6 (``bst_panel_spmv_batched_f32``, same source) replaces
+``::_pkern_plain_b`` and ``::_pkern_mirror_b`` with the gather and map-back
+of ``_launch_batched``: P operators that share one plan's id tables and
+differ in their values (stacked [P, S*TS, 8, 128]) applied to x [P, ncols]
+in one launch, the grid's second dimension picking the product.  The JAX
+package's ``_gather_xs_batched`` and its ``_BATCHED_GATHER_ROWS`` switch
+work around XLA's gather and have no counterpart.
+
 Device tensors (:func:`panel_device_arrays`): the values, the per-tile row
 and compact-chunk ids, the segment table and, for mirror plans, the
 per-segment map-back target ``otgt`` (the JAX package's one-hot ``omap`` is
-never built).  The shift grids travel as one packed integer.
+never built); :func:`panel_id_tables` stages the tables alone.  The shift
+grids travel as one packed integer.
 
 Race-freedom: warps add their row sums and mirrored sums into a zeroed
 output with fp32 ``atomicAdd`` (``csrc/tile_stream.cuh``); the summation
 order varies from run to run.  ``tiles_per_warp`` moves sums between
 registers and atomics without changing the product.
 
-Routing: a CPU tensor takes :func:`panel_apply_plain`; a CUDA tensor
-launches the kernel or raises.  ``LAUNCHES`` counts kernel launches,
-``MIRROR_LAUNCHES`` those of them on a mirror plan.
+Routing: a CPU tensor takes the plain version (:func:`panel_apply_plain`,
+:func:`panel_apply_batched_plain`); a CUDA tensor launches the kernel or
+raises.  ``LAUNCHES`` counts B5's launches, ``MIRROR_LAUNCHES`` those of them
+on a mirror plan; ``BATCHED_LAUNCHES`` and ``BATCHED_MIRROR_LAUNCHES`` count
+B6's the same way.
 
-Gradient: :func:`panel_apply` wraps the product in an autograd Function
-whose backward runs the plain version's autograd on the same tables (the
-JAX VJP likewise differentiates its XLA forward), giving dx and, where the
-values require it, dvals.
+Gradient: :func:`panel_apply` and :func:`panel_apply_batched` wrap the
+product in an autograd Function whose backward runs the plain version's
+autograd on the same tables (the JAX VJPs likewise differentiate their XLA
+forward), giving dx and, where the values require it, dvals.
 """
 
 from __future__ import annotations
@@ -36,22 +47,31 @@ from ...core.panel import NSEG, SEG, PanelPlan
 from ...core.strip import CC, RC
 from ...utils import build
 
-__all__ = ["panel_device_arrays", "panel_spmv", "panel_apply_plain",
-           "panel_apply", "LAUNCHES", "MIRROR_LAUNCHES"]
+__all__ = ["panel_device_arrays", "panel_id_tables", "panel_spmv",
+           "panel_apply_plain", "panel_apply", "panel_spmv_batched",
+           "panel_apply_batched_plain", "panel_apply_batched", "LAUNCHES",
+           "MIRROR_LAUNCHES", "BATCHED_LAUNCHES", "BATCHED_MIRROR_LAUNCHES"]
 
-LAUNCHES = 0
+LAUNCHES = 0                  # kernel B5
 MIRROR_LAUNCHES = 0
+BATCHED_LAUNCHES = 0          # kernel B6
+BATCHED_MIRROR_LAUNCHES = 0
 
 
-def panel_device_arrays(plan: PanelPlan, device) -> tuple:
-    """(vals [S*TS, 8, 128] f32, rid8 [S*TS], cid8 [S*TS], segid [S*CW*4],
-    otgt [S*CW*4] or None, b8 [S]) on ``device``, ids int32."""
+def panel_id_tables(plan: PanelPlan, device) -> tuple:
+    """(rid8 [S*TS], cid8 [S*TS], segid [S*CW*4], otgt [S*CW*4] or None,
+    b8 [S]) int32 on ``device``."""
     def flat(a):
         return None if a is None else torch.from_numpy(
             np.ascontiguousarray(a).reshape(-1)).to(device)
-    vals = torch.from_numpy(np.ascontiguousarray(plan.vals)).to(device)
-    return (vals, flat(plan.rid8), flat(plan.cid8), flat(plan.segid),
+    return (flat(plan.rid8), flat(plan.cid8), flat(plan.segid),
             flat(plan.otgt), flat(plan.b8))
+
+
+def panel_device_arrays(plan: PanelPlan, device) -> tuple:
+    """(vals [S*TS, 8, 128] f32,) + :func:`panel_id_tables` on ``device``."""
+    vals = torch.from_numpy(np.ascontiguousarray(plan.vals)).to(device)
+    return (vals,) + panel_id_tables(plan, device)
 
 
 def _lane_index(plan: PanelPlan, seg: torch.Tensor, limit: int):
@@ -108,11 +128,29 @@ def _check(plan: PanelPlan, dev, x: torch.Tensor) -> None:
     if x.ndim != 1 or x.shape[0] != plan.ncols:
         raise ValueError(
             f"panel plan takes x of shape ({plan.ncols},), got {tuple(x.shape)}")
+    _check_tables(plan, dev, x)
+
+
+def _check_tables(plan: PanelPlan, dev, x: torch.Tensor) -> None:
     if plan.mirror and dev[4] is None:
         raise ValueError("mirror plan staged without its otgt table")
     devs = {t.device for t in dev if t is not None} | {x.device}
     if len(devs) != 1:
         raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
+
+
+def _kernel_args(plan: PanelPlan, dev, x: torch.Tensor) -> int:
+    """Check what the kernels take; returns the packed shift grids."""
+    vals, rid8, cid8, segid, otgt, b8 = dev
+    if x.dtype != torch.float32 or vals.dtype != torch.float32:
+        raise TypeError(f"panel kernel takes float32, got {x.dtype}/{vals.dtype}")
+    for name, t in (("rid8", rid8), ("cid8", cid8), ("segid", segid),
+                    ("otgt", otgt), ("b8", b8)):
+        if t is not None and (t.dtype != torch.int32 or not t.is_contiguous()):
+            raise TypeError(f"{name} must be contiguous int32")
+    if len(plan.grids_used) > 8 or any(not 0 <= g < 32 for g in plan.grids_used):
+        raise ValueError(f"grid shifts {plan.grids_used} do not pack")
+    return sum(g << (5 * i) for i, g in enumerate(plan.grids_used))
 
 
 def _default_tpw(ntiles: int) -> int:
@@ -130,16 +168,8 @@ def panel_spmv(plan: PanelPlan, dev, x: torch.Tensor, *,
         return panel_apply_plain(plan, dev, x)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
+    grids = _kernel_args(plan, dev, x)
     vals, rid8, cid8, segid, otgt, b8 = dev
-    if x.dtype != torch.float32 or vals.dtype != torch.float32:
-        raise TypeError(f"panel kernel takes float32, got {x.dtype}/{vals.dtype}")
-    for name, t in (("rid8", rid8), ("cid8", cid8), ("segid", segid),
-                    ("otgt", otgt), ("b8", b8)):
-        if t is not None and (t.dtype != torch.int32 or not t.is_contiguous()):
-            raise TypeError(f"{name} must be contiguous int32")
-    if len(plan.grids_used) > 8 or any(not 0 <= g < 32 for g in plan.grids_used):
-        raise ValueError(f"grid shifts {plan.grids_used} do not pack")
-    grids = sum(g << (5 * i) for i, g in enumerate(plan.grids_used))
     ntiles = plan.S * plan.TS
     tpw = tiles_per_warp or _default_tpw(ntiles)
     x = x.contiguous()
@@ -183,3 +213,87 @@ class _PanelApply(torch.autograd.Function):
 def panel_apply(plan: PanelPlan, dev, x: torch.Tensor) -> torch.Tensor:
     """:func:`panel_spmv` with autograd in ``x`` and the plan's values."""
     return _PanelApply.apply(dev[0], x, plan, tuple(dev[1:]))
+
+
+# -- kernel B6: P operators over one plan's tables ----------------------------
+
+def panel_apply_batched_plain(plan: PanelPlan, tables, vals_b: torch.Tensor,
+                              xb: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel B6: :func:`panel_apply_plain` of each
+    product's values and x over the shared ``tables``
+    (:func:`panel_id_tables`), stacked [P, nrows]."""
+    return torch.stack([panel_apply_plain(plan, (vals_b[p],) + tuple(tables),
+                                          xb[p])
+                        for p in range(xb.shape[0])])
+
+
+def panel_spmv_batched(plan: PanelPlan, tables, vals_b: torch.Tensor,
+                       xb: torch.Tensor, *,
+                       tiles_per_warp: int | None = None) -> torch.Tensor:
+    """y [P, nrows], y[p] = A_p @ xb[p] for the P operators whose values
+    ``vals_b`` [P, S*TS, 8, 128] share the plan's ``tables``: kernel B6 on
+    CUDA tensors, the plain version on CPU tensors."""
+    global BATCHED_LAUNCHES, BATCHED_MIRROR_LAUNCHES
+    tables = tuple(tables)
+    P = xb.shape[0]
+    if xb.ndim != 2 or xb.shape[1] != plan.ncols:
+        raise ValueError(f"panel plan takes xb of shape (P, {plan.ncols}), "
+                         f"got {tuple(xb.shape)}")
+    if tuple(vals_b.shape) != (P,) + tuple(plan.vals.shape):
+        raise ValueError(f"vals_b {tuple(vals_b.shape)} does not stack "
+                         f"{P} planes of {tuple(plan.vals.shape)}")
+    dev = (vals_b,) + tables
+    _check_tables(plan, dev, xb)
+    if xb.device.type == "cpu":
+        return panel_apply_batched_plain(plan, tables, vals_b, xb)
+    if xb.device.type != "cuda":
+        raise ValueError(f"no kernel for device {xb.device}")
+    grids = _kernel_args(plan, dev, xb)
+    rid8, cid8, segid, otgt, b8 = tables
+    ntiles = plan.S * plan.TS
+    tpw = tiles_per_warp or _default_tpw(P * ntiles)
+    xb, vals_b = xb.contiguous(), vals_b.contiguous()
+    y = torch.zeros((P, plan.nrows), dtype=torch.float32, device=xb.device)
+    mirror = plan.mirror
+    if P:
+        build.launch("bst_panel_spmv_batched_f32", xb.device,
+                     vals_b.data_ptr(), rid8.data_ptr(), cid8.data_ptr(),
+                     segid.data_ptr(), otgt.data_ptr() if mirror else None,
+                     b8.data_ptr(), xb.data_ptr(), y.data_ptr(), P, ntiles,
+                     plan.TS, plan.CW, plan.RW, plan.NC32,
+                     len(plan.grids_used), grids, plan.ncols, plan.nrows,
+                     int(mirror), tpw)
+        BATCHED_LAUNCHES += 1
+        BATCHED_MIRROR_LAUNCHES += mirror
+    return y
+
+
+class _PanelApplyBatched(torch.autograd.Function):
+    """Forward: :func:`panel_spmv_batched`.  Backward: the plain version's
+    autograd on the same tables (dx = A_p^T g[p], and dvals where asked)."""
+
+    @staticmethod
+    def forward(ctx, vals_b, xb, plan, tables):
+        ctx.save_for_backward(vals_b, xb)
+        ctx.plan, ctx.tables = plan, tables
+        return panel_spmv_batched(plan, tables, vals_b, xb)
+
+    @staticmethod
+    def backward(ctx, g):
+        vals_b, xb = ctx.saved_tensors
+        need = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            v = vals_b.detach().requires_grad_(need[0])
+            xx = xb.detach().requires_grad_(need[1])
+            y = panel_apply_batched_plain(ctx.plan, ctx.tables, v, xx)
+            wrt = [t for t, n in zip((v, xx), need) if n]
+            got = iter(torch.autograd.grad(y, wrt, g))
+        return (next(got) if need[0] else None,
+                next(got) if need[1] else None, None, None)
+
+
+def panel_apply_batched(plan: PanelPlan, tables, vals_b: torch.Tensor,
+                        xb: torch.Tensor) -> torch.Tensor:
+    """:func:`panel_spmv_batched` with autograd in ``xb`` and the stacked
+    values."""
+    return _PanelApplyBatched.apply(vals_b, xb, plan, tuple(tables))

@@ -55,6 +55,13 @@ _SIGNATURES = {
     # ngrids, grids, ncols, nrows, mirror, tpw, stream
     "bst_panel_spmv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                            _I, _I, _L, _L, _L, _I, _I, _P),
+    # vals, cc, rs, x, y, P, nb, MP, KP, r, x_rows, y_rows, transpose, stream
+    "bst_batched_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
+                             _I, _P),
+    # as bst_panel_spmv_f32 with P after y
+    "bst_panel_spmv_batched_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
+                                   _I, _I, _I, _I, _I, _L, _L, _L, _I, _I,
+                                   _P),
     # vals, rid8, cid, flag, b8, x, y, ntiles, TS, RW, ncols, nrows, mirror,
     # tpw, stream
     "bst_slab_spmv_f32": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I,

@@ -13,9 +13,13 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      shifted grids and a plan whose last segment runs past ncols; B8: plain
      and mirror slab plans), plus the duality check of B5 and B8: the
      kernel with one tile per warp (every row sum an atomic add) against
-     the kernel with 16 (sums carried in registers);
+     the kernel with 16 (sums carried in registers); B4: forward and
+     transpose, P in {2, 4} x r in {8, 64, 128, 264}, and against P launches
+     of B2; B6: on B5's panel plans, P in {2, 5}, at 1 against 16 tiles per
+     warp and against P launches of B5;
   2. the flagship operator (4096^2, 200 contiguous 64x64 f32 blocks, r = 64):
-     kernels against plain versions at its shapes, then the main path once
+     a constructor without ``device=`` lands on the card; kernels against
+     plain versions at its shapes, then the main path once
      with the counters reset (A @ X, A @ x, A.T @ x, A.H @ X, axpby,
      (A @ A) @ x; its r = 1 products stay on the bucket route, B1, as the
      JAX decision says) against float64 scipy, and gradients;
@@ -45,7 +49,23 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
   8. the slab route's main path: a BSM the JAX decision sends to the slab
      plan (n = 8192, 4000 aligned 64x128 f32 blocks and one block whose rows
      run at stride 4, which the panel planner refuses): A @ x and axpby
-     through B8 against the float64 bucket route, timed.
+     through B8 against the float64 bucket route, timed;
+  9. the batched products (bench.py's batches: one structure, values from
+     seeds 100+i / 200+i / 300+i): ``batched_mm`` on the config-4 recipe
+     (config-1 structure, n = 4096, P = 4, r = 128) and on the config-3
+     recipe (n = 4096, P = 4), one B4 launch each, and its gradient; at the
+     real size (phase 3's recipe, P = 4, r = 128) timed beside the loop of
+     four B2 launches; ``batched_mv`` on the config-2 (fused mirror plan)
+     and config-3 recipes at n = 4096, P = 16, one B6 launch each, timed
+     beside the loop of 16 B5 launches, and its gradient; above the
+     24 MB/product cap (config 3 at n = 32768, P = 4) the batch loops (four
+     B5 launches) and B6 is driven directly on the stacked plan, timed.
+
+Every timed kernel also gets its bound -- the larger of its logical bytes
+(stored values, operands and results, each once) over 3.35 TB/s and its
+fp32 operations over 67 TFLOP/s -- and the time of one PyTorch call that
+computes the same function (a CSR product through torch.sparse, or
+index_select / index_add_), which the port never calls.
 
 Tolerances: |kernel - reference| <= tol * max(1, max|reference|) with tol
 1e-5 for f32 and 1e-12 for f64; the kernels add into their outputs with
@@ -79,11 +99,11 @@ from blocksparse_tpu_torch.core.strip import (  # noqa: E402
     plan_from_layout, plan_symmetric)
 from blocksparse_tpu_torch.formats import symmetric as symmetric_format  # noqa: E402
 from blocksparse_tpu_torch.formats import vbcrs as vbcrs_format  # noqa: E402
-from blocksparse_tpu_torch.ops import patch_engine  # noqa: E402
+from blocksparse_tpu_torch.ops import batched, patch_engine  # noqa: E402
 from blocksparse_tpu_torch.ops.dispatch import (  # noqa: E402
     apply_operand, apply_symmetric, element_plan, patch_wins)
 from blocksparse_tpu_torch.ops.kernels import (  # noqa: E402
-    fused_spmm, mask_select, panel_spmv, slab_spmv)
+    batched_spmm, fused_spmm, mask_select, panel_spmv, slab_spmv)
 from blocksparse_tpu_torch.ops.torch_spmv import bucket_apply  # noqa: E402
 from blocksparse_tpu_torch.utils import build  # noqa: E402
 from blocksparse_tpu_torch.utils.testmatrices import (  # noqa: E402
@@ -91,7 +111,9 @@ from blocksparse_tpu_torch.utils.testmatrices import (  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+TOL32 = TOL[torch.float32]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOPS_PER_S = 67e12   # H100 SXM data sheet, fp32 outside the tensor cores
 B1_SRC = "blocksparse_tpu_torch/csrc/fused_spmm.cu"
 B2_SRC = "blocksparse_tpu_torch/csrc/patch_spmm.cu"
 B1_REPLACES = "blocksparse_tpu/ops/pallas/fused_spmm.py:81"
@@ -105,6 +127,9 @@ B5_SRC = "blocksparse_tpu_torch/csrc/panel_spmv.cu"
 B5_REPLACES = "blocksparse_tpu/ops/pallas/panel_spmv.py:85"
 B8_SRC = "blocksparse_tpu_torch/csrc/slab_spmv.cu"
 B8_REPLACES = "blocksparse_tpu/ops/pallas/slab_spmv.py:85"
+B4_SRC = "blocksparse_tpu_torch/csrc/batched_spmm.cu"
+B4_REPLACES = "blocksparse_tpu/ops/batched.py:46"
+B6_REPLACES = "blocksparse_tpu/ops/pallas/panel_spmv.py:305"
 STREAM_KERNEL = {"panel": "B5", "strip": "B8", None: "B1"}
 
 
@@ -117,8 +142,8 @@ def require(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def rel_check(name: str, got: torch.Tensor, ref, tol: float) -> float:
-    """Max |got - ref| against tol * max(1, max|ref|); returns the abs error."""
+def abs_err(name: str, got: torch.Tensor, ref, tol: float) -> tuple:
+    """(max |got - ref|, tol * max(1, max|ref|)); raises past the limit."""
     ref = torch.as_tensor(np.asarray(ref)) if not isinstance(ref, torch.Tensor) else ref
     got64 = got.detach().double().cpu()
     ref64 = ref.detach().double().cpu()
@@ -127,10 +152,69 @@ def rel_check(name: str, got: torch.Tensor, ref, tol: float) -> float:
     require(bool(torch.isfinite(got64).all()), f"{name}: non-finite output")
     err = float((got64 - ref64).abs().max()) if got64.numel() else 0.0
     scale = max(1.0, float(ref64.abs().max()) if ref64.numel() else 1.0)
-    print(f"  {name}: max_abs_err {err:.3e}  limit {tol * scale:.3e} "
-          f"(tol {tol:g} x {scale:.3g})")
     require(err <= tol * scale, f"{name}: error {err:.3e} above {tol * scale:.3e}")
+    return err, tol * scale
+
+
+def rel_check(name: str, got: torch.Tensor, ref, tol: float) -> float:
+    """Max |got - ref| against tol * max(1, max|ref|); returns the abs error."""
+    err, limit = abs_err(name, got, ref, tol)
+    print(f"  {name}: max_abs_err {err:.3e}  limit {limit:.3e} (tol {tol:g})")
     return err
+
+
+def batch_check(name: str, out: torch.Tensor, refs, tol: float = TOL32) -> float:
+    """Each product of a batch against its reference (rel_check's rule per
+    product), in one line; returns the largest abs error."""
+    require(out.shape[0] == len(refs), f"{name}: {out.shape[0]} products, "
+            f"{len(refs)} references")
+    got = [abs_err(f"{name} [{p}]", out[p], ref, tol)
+           for p, ref in enumerate(refs)]
+    err = max(e for e, _ in got)
+    print(f"  {name}: {len(refs)} products, max_abs_err {err:.3e}, smallest "
+          f"limit {min(lim for _, lim in got):.3e} (tol {tol:g})")
+    return err
+
+
+def bound(nbytes: float, flops: float) -> tuple:
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    the larger of nbytes over 3.35 TB/s and fp32 flops over 67 TFLOP/s."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def csr_on_card(ops) -> torch.Tensor:
+    """The operators (symmetric ones expanded) block-diagonally in one f32
+    CSR tensor on the card, duplicates summed: the operand of the library
+    call that the kernels are timed beside."""
+    rows, cols, vals = [], [], []
+    r0 = c0 = 0
+    for op in ops:
+        r, c, v = bt.rowcolvals(op)
+        rows.append(torch.from_numpy(r).to(DEV) + r0)
+        cols.append(torch.from_numpy(c).to(DEV) + c0)
+        vals.append(torch.from_numpy(np.asarray(v, np.float32)).to(DEV))
+        r0, c0 = r0 + op.shape[0], c0 + op.shape[1]
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]),
+                                  torch.cat(vals), (r0, c0)).coalesce()
+    return coo.to_sparse_csr()
+
+
+def library_ms(label: str, call, kernel_out: torch.Tensor, card: str) -> float:
+    """Median CUDA-event time of one PyTorch call computing what a kernel
+    computes, its result held against the kernel's."""
+    rel_check(f"{label}: library call vs kernel", call(), kernel_out, TOL32)
+    ms = median_ms(call)
+    print(f"  {label}: library call {ms:.4f} ms [{card}]")
+    return ms
+
+
+def logical_nnz(op) -> int:
+    """Stored values of a format (a symmetric off-diagonal once)."""
+    if hasattr(op, "_dlayout"):
+        return op._dlayout.nnz + op._olayout.nnz
+    return op.nnz
 
 
 def reset_counts() -> None:
@@ -143,19 +227,24 @@ def reset_counts() -> None:
     for mod in (panel_spmv, slab_spmv):
         mod.LAUNCHES = 0
         mod.MIRROR_LAUNCHES = 0
+    batched_spmm.LAUNCHES = 0
+    panel_spmv.BATCHED_LAUNCHES = 0
+    panel_spmv.BATCHED_MIRROR_LAUNCHES = 0
 
 
 def counts() -> dict:
     """Kernel launches since the last reset ("B1 sym": those of B1 in its
-    symmetric mode, also counted under "B1"; "B5 mirror" and "B8 mirror"
-    those on a mirror plan)."""
+    symmetric mode, also counted under "B1"; "B5 mirror", "B6 mirror" and
+    "B8 mirror" those on a mirror plan)."""
     return {"B1": fused_spmm.LAUNCHES, "B1 sym": fused_spmm.SYM_LAUNCHES,
             "B2": patch_engine.LAUNCHES, "B3": patch_engine.SYM_LAUNCHES,
             "B9 gather": mask_select.GATHER_LAUNCHES,
             "B9 scatter": mask_select.SCATTER_LAUNCHES,
             "B5": panel_spmv.LAUNCHES,
             "B5 mirror": panel_spmv.MIRROR_LAUNCHES,
-            "B8": slab_spmv.LAUNCHES, "B8 mirror": slab_spmv.MIRROR_LAUNCHES}
+            "B8": slab_spmv.LAUNCHES, "B8 mirror": slab_spmv.MIRROR_LAUNCHES,
+            "B4": batched_spmm.LAUNCHES, "B6": panel_spmv.BATCHED_LAUNCHES,
+            "B6 mirror": panel_spmv.BATCHED_MIRROR_LAUNCHES}
 
 
 def grown_since(before: dict) -> dict:
@@ -441,6 +530,7 @@ def phase1():
                              cols, shape, device=DEV)
     plan, dev = A._patch_for()
     vals, cc, rs, _mk = dev[0]
+    patch_bucket = (vals, cc, rs, shape[0])
     print(f"  patch plan: {plan.buckets[0].nb} slots of "
           f"{plan.buckets[0].MP}x{plan.buckets[0].KP}")
     for r in (64, 128, 300):
@@ -490,7 +580,9 @@ def phase1():
             err = rel_check(f"B9 {kind} n={n} K={K}", got, ref,
                             TOL[torch.float32])
             errs[f"B9 {kind}"] = max(errs[f"B9 {kind}"], err)
-    errs.update(stream_kernels_vs_plain(gen))
+    stream_errs, panel_plans = stream_kernels_vs_plain(gen)
+    errs.update(stream_errs)
+    errs.update(batched_kernels_vs_plain(gen, patch_bucket, panel_plans))
     return errs
 
 
@@ -513,7 +605,8 @@ def check_stream_kernel(name, kernel, plain, plan, dev, x, errs):
 
 def stream_kernels_vs_plain(gen):
     """B5 and B8 on small plans: plain, transposed, fused mirror with
-    shifted grids, a last segment past ncols; slab plain and mirror."""
+    shifted grids, a last segment past ncols; slab plain and mirror.
+    Returns the errors and the panel plans."""
     errs = {"B5": 0.0, "B5 duality": 0.0, "B8": 0.0, "B8 duality": 0.0}
     blocks, rows, cols, shape = random_block_sparse(
         11, shape=(600, 600), nblocks=30, max_block=60, dtype=np.float32,
@@ -558,6 +651,58 @@ def stream_kernels_vs_plain(gen):
         check_stream_kernel(f"B8 {label} (S={plan.S} TS={plan.TS})",
                             slab_spmv.slab_spmv, slab_spmv.slab_apply_plain,
                             plan, dev, x, errs)
+    return errs, plans
+
+
+def batched_kernels_vs_plain(gen, patch_bucket, panel_plans):
+    """B4 on phase 1's patch plan and B6 on its panel plans: P products
+    whose values are the plan's own scaled entry by entry (padding stays
+    zero), against the plain versions, and the duality checks: B4 against
+    P launches of B2, B6 at 1 against 16 tiles per warp and against P
+    launches of B5."""
+    errs = {"B4": 0.0, "B4 duality": 0.0, "B6": 0.0, "B6 duality": 0.0}
+    vals, cc, rs, n = patch_bucket
+
+    def planes(v, P):
+        return v[None] * torch.randn((P,) + tuple(v.shape), generator=gen).to(DEV)
+
+    for P in (2, 4):
+        vals_b = planes(vals, P)
+        for r in (8, 64, 128, 264):
+            X = torch.randn((P, n, r), generator=gen).to(DEV)
+            for tr in (False, True):
+                name = f"B4 {'transpose' if tr else 'forward'} P={P} r={r}"
+                got = batched_spmm.batched_spmm(vals_b, cc, rs, X, n, transpose=tr)
+                ref = batched_spmm.batched_spmm_plain(vals_b, cc, rs, X, n,
+                                                      transpose=tr)
+                loop = torch.stack([patch_engine.bucket_spmm(
+                    vals_b[p], cc, rs, X[p], n, transpose=tr) for p in range(P)])
+                torch.cuda.synchronize()
+                errs["B4"] = max(errs["B4"], rel_check(
+                    f"{name} vs plain", got, ref, TOL32))
+                errs["B4 duality"] = max(errs["B4 duality"], rel_check(
+                    f"{name} vs {P} B2 launches", got, loop, TOL32))
+    for label, plan in panel_plans.items():
+        tables = panel_spmv.panel_id_tables(plan, DEV)
+        for P in (2, 5):
+            vals_b = planes(torch.from_numpy(plan.vals).to(DEV), P)
+            xb = torch.randn((P, plan.ncols), generator=gen).to(DEV)
+            name = f"B6 {label} P={P}"
+            ref = panel_spmv.panel_apply_batched_plain(plan, tables, vals_b, xb)
+            runs = {f"tpw={t or 'auto'}": panel_spmv.panel_spmv_batched(
+                plan, tables, vals_b, xb, tiles_per_warp=t) for t in (1, 16, None)}
+            loop = torch.stack([panel_spmv.panel_spmv(plan, (vals_b[p],) + tables,
+                                                      xb[p]) for p in range(P)])
+            torch.cuda.synchronize()
+            for key, got in runs.items():
+                errs["B6"] = max(errs["B6"], rel_check(
+                    f"{name} {key} vs plain", got, ref, TOL32))
+            errs["B6 duality"] = max(
+                errs["B6 duality"],
+                rel_check(f"{name} duality: tpw=1 vs tpw=16", runs["tpw=1"],
+                          runs["tpw=16"], TOL32),
+                rel_check(f"{name} vs {P} B5 launches", runs["tpw=auto"], loop,
+                          TOL32))
     return errs
 
 
@@ -574,6 +719,11 @@ def phase2():
     X, x, y = (torch.from_numpy(a).to(DEV) for a in (Xn, xn, yn))
     S = bt.to_scipy(A).astype(np.float64)
     print(f"  {A}")
+    # a constructor called without device= builds on the card
+    A_default = bt.from_reference(A)
+    require(A_default.device.type == "cuda",
+            f"a constructor without device= built on {A_default.device}")
+    print(f"  without device=: {A_default.device}")
     plan, dev = A._patch_for()
     require(patch_wins(plan, [(A.layout, 1)], 64), "flagship r=64 must take the patch route")
     require(stream_kernel(A) == stream_kernel(A, True) == "B1",
@@ -716,7 +866,18 @@ def phase3(card: str):
                             torch.float64), TOL[torch.float32])
     plan = A._patch_for()[0]
     splan = A._stream_entry(False)[1]
+    csr = csr_on_card([A])
+    nnz = A.nnz
+    library = {
+        "SpMV": library_ms("SpMV, torch.mv on the CSR matrix",
+                           lambda: torch.mv(csr, x), y, card),
+        "SpMM r=128": library_ms("SpMM r=128, CSR matrix @ X",
+                                 lambda: csr @ X, Y, card)}
+    bounds = {"SpMV": bound(nnz * 4 + 2 * 8192 * 4, 2 * nnz),
+              "SpMM r=128": bound(nnz * 4 + 2 * 8192 * 128 * 4,
+                                  2 * nnz * 128)}
     return {
+        "library": library, "bound": bounds,
         "SpMV": time_routes(
             "SpMV, stream route (B5)", lambda: A @ x,
             lambda: plain_route(A, x), stream_bytes(A),
@@ -871,6 +1032,41 @@ def phase4(card: str):
 
 # -- phase 5 -------------------------------------------------------------------
 
+def b9_single_calls(S, x, gen, card) -> dict:
+    """B9's gather and scatter-add on the largest index table of S's element
+    buckets, timed beside their plain versions and beside one PyTorch call
+    each (index_select on x with its sentinel zero appended; index_add_
+    into a zeroed vector with the dropped slot)."""
+    n = x.shape[0]
+    idx = max((t for i in elem_ids(S._olayout) for t in S._obuckets[i][1:3]),
+              key=lambda t: t.numel()).reshape(-1).contiguous()
+    v = torch.randn(idx.numel(), generator=gen).to(DEV)
+    x_ext = torch.cat([x, x.new_zeros(1)])
+    K, used = idx.numel(), int(torch.unique(idx[idx < n]).numel())
+    calls = {
+        "gather": (lambda: mask_select.mask_gather(x, idx),
+                   lambda: mask_select.mask_gather_plain(x, idx),
+                   lambda: torch.index_select(x_ext, 0, idx),
+                   bound(2 * K * 4 + used * 4, 0)),
+        "scatter": (lambda: mask_select.mask_scatter_add(v, idx, n),
+                    lambda: mask_select.mask_scatter_add_plain(v, idx, n),
+                    lambda: torch.zeros(n + 1, device=DEV).index_add_(
+                        0, idx, v)[:n],
+                    bound(2 * K * 4 + n * 4, K)),
+    }
+    out = {}
+    for kind, (kern, plain, lib, bnd) in calls.items():
+        label = f"B9 {kind}, one call on {K} indices (n={n})"
+        p1, k1, k2, p2 = (median_ms(plain), median_ms(kern), median_ms(kern),
+                          median_ms(plain))
+        print(f"  {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
+              f"{p2:.4f} ms, bound {bnd[0] * 1e3:.3f} us ({bnd[1]}) [{card}]")
+        out[kind] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                     "library_ms": library_ms(label, lib, kern(), card),
+                     "bound": bnd}
+    return out
+
+
 def phase5(card: str):
     print("phase 5: symmetric real size n=32768, 384 diagonal + 4096 "
           "off-diagonal f32 blocks (config-2 recipe x8)")
@@ -946,6 +1142,7 @@ def phase5(card: str):
           f"buckets (row and column tables): max_abs_err gather "
           f"{errs['B9 gather']:.3e}, scatter {errs['B9 scatter']:.3e} (tol "
           f"1e-5 x max(1, max|ref|) per call)")
+    b9_single = b9_single_calls(S, x, gen, card)
 
     setup = stream_setup(S)
     require(stream_kernel(S) == "B5" and not S._stream_entry(False)[1].mirror,
@@ -1016,8 +1213,14 @@ def phase5(card: str):
             "symmetric SpMM r=128", lambda: S @ X,
             lambda: plain_route_sym(S, X), plan.value_bytes,
             2 * 128 * (int(hb.vals.size) + mirrored), card),
-        "setup": setup, "launches": launched["B5"],
+        "setup": setup, "launches": launched["B5"], "B9 single": b9_single,
     }
+    csr = csr_on_card([S])
+    times["library"] = {"SpMM r=128": library_ms(
+        "symmetric SpMM r=128, expanded CSR matrix @ X", lambda: csr @ X, Y,
+        card)}
+    times["bound"] = {"SpMM r=128": bound(
+        logical_nnz(S) * 4 + 2 * shape[0] * 128 * 4, 2 * S.nnz * 128)}
 
     # the bucket route's parts, each replayed from its own CUDA graph
     n = shape[0]
@@ -1055,12 +1258,14 @@ def phase5(card: str):
 
 # -- phase 6 -------------------------------------------------------------------
 
-def config3_blocks(n: int, seed: int = 9):
+def config3_blocks(n: int, seed: int = 9, value_seed: int | None = None):
     """The config-3 recipe (``bench.py::build_config3``): a contiguous
     partition into groups of 16-128, six random block columns per block
-    row, f32 values from ``seed + 7777``.  (blocks, row starts, col starts)."""
+    row, f32 values from ``seed + 7777`` (or ``value_seed``).  (blocks, row
+    starts, col starts)."""
     rng = np.random.default_rng(seed)
-    vrng = np.random.default_rng(seed + 7777)
+    vrng = np.random.default_rng(seed + 7777 if value_seed is None
+                                 else value_seed)
     bounds = [0]
     while bounds[-1] < n:
         bounds.append(min(n, bounds[-1] + int(rng.integers(16, 129))))
@@ -1232,6 +1437,11 @@ def phase7(card: str):
             2 * splan.tile_bytes // 4, card),
         "setup": setup, "launches": launched["B5"],
     }
+    csr = csr_on_card([V])
+    times["library"] = {"SpMV": library_ms(
+        "VBCRS SpMV, torch.mv on the CSR matrix", lambda: torch.mv(csr, x), y,
+        card)}
+    times["bound"] = {"SpMV": bound(V.nnz * 4 + 2 * 32768 * 4, 2 * V.nnz)}
     for key in ("SpMV", "SpMV bucket"):
         eager, _, graph, _ = times[key]
         print(f"  {key}: {logical / (graph * 1e-3) / 1e9:.1f} GB/s of logical "
@@ -1300,7 +1510,294 @@ def phase8(card: str):
             card),
         "setup": setup, "launches": launched["B8"],
     }
+    csr = csr_on_card([A])
+    times["library"] = {"SpMV": library_ms(
+        "slab-route SpMV, torch.mv on the CSR matrix",
+        lambda: torch.mv(csr, x), out, card)}
+    times["bound"] = {"SpMV": bound(A.nnz * 4 + 2 * 8192 * 4, 2 * A.nnz)}
     return times, errs
+
+
+# -- phase 9 -------------------------------------------------------------------
+
+def config1_operators(n: int, nblocks: int, bs: int, P: int) -> list:
+    """bench.py's config-1 / config-4 batch: one structure (seed 7), values
+    from seed 7 + 7777 for the first operator and 100 + i for the others."""
+    return [contiguous_operator(n, nblocks, bs, seed=7,
+                                value_seed=100 + i if i else 7 + 7777,
+                                device=DEV)[0] for i in range(P)]
+
+
+def config2_operators(P: int) -> list:
+    """bench.py's config-2 batch: the symmetric recipe (seed 8, n = 4096),
+    values rerolled from seed 200 + i after the first operator, diagonal
+    blocks symmetrized as bench.py does."""
+    d, di, o, ri, ci, shape = random_symmetric(
+        8, n=4096, ngroups=48, noffdiag=160, dtype=np.float32, contiguous=True)
+    ops = []
+    for i in range(P):
+        dd, oo = d, o
+        if i:
+            vr = np.random.default_rng(200 + i)
+            dd = []
+            for blk in d:
+                b = vr.standard_normal(blk.shape)
+                dd.append(((b + b.T) / 2).astype(np.float32))
+            oo = [vr.standard_normal(b.shape).astype(np.float32) for b in o]
+        ops.append(bt.SymmetricBlockMatrix(dd, di, oo, ri, ci, shape,
+                                           device=DEV))
+    return ops
+
+
+def config3_operators(n: int, P: int) -> list:
+    """bench.py's config-3 batch: one structure (seed 9), values from seed
+    9 + 7777 for the first operator and 300 + i for the others."""
+    ops = []
+    for i in range(P):
+        blocks, rs, cs = config3_blocks(n, value_seed=300 + i if i else None)
+        ops.append(bt.VariableBlockCompressedRowStorage(
+            blocks, rs, cs, (n, n), granularity=(8, 128), device=DEV))
+    return ops
+
+
+def scipy_refs(ops, X: torch.Tensor) -> list:
+    """float64 scipy products ops[p] @ X[p] (X on the host)."""
+    return [bt.to_scipy(op).astype(np.float64) @ X[p].double().numpy()
+            for p, op in enumerate(ops)]
+
+
+def scipy_grads(ops, W: torch.Tensor) -> list:
+    """float64 scipy ops[p]^T @ W[p]: the gradient of sum(W * batch)."""
+    return [bt.to_scipy(op).astype(np.float64).T @ W[p].double().numpy()
+            for p, op in enumerate(ops)]
+
+
+def time_batch(label, routes: dict, nbytes, flops, card) -> dict:
+    """Median CUDA-event times of the routes of one batch, eager in the
+    order given and then reversed (the lower of the two kept), and replayed
+    from a CUDA graph; the library call eager only."""
+    names = list(routes)
+    eager = {name: [] for name in names}
+    for name in names + names[::-1]:
+        eager[name].append(median_ms(routes[name]))
+    out = {}
+    for name in names:
+        ms = min(eager[name])
+        graph = graph_ms(routes[name]) if name != "library" else None
+        out[name] = (ms, graph)
+        rate = (f", {nbytes / (graph * 1e-3) / 1e9:.1f} GB/s = "
+                f"{100 * nbytes / (graph * 1e-3) / HBM_BYTES_PER_S:.1f}% of "
+                f"3.35 TB/s, {flops / (graph * 1e-3) / 1e12:.2f} TFLOP/s "
+                f"(graph)" if graph else "")
+        print(f"  {label}, {name}: eager {eager[name][0]:.4f} / "
+              f"{eager[name][1]:.4f} ms"
+              + (f", graph {graph:.4f} ms" if graph else "") + rate
+              + f" [{card}]")
+    return out
+
+
+def batched_mm_step(label, ops, gen, want_b2_loop: bool):
+    """One batched_mm batch on the main path: exactly one B4 launch and no
+    other, each product against float64 scipy, and the gradient in Xs
+    (B4 forward and in its transpose mode)."""
+    P, n = len(ops), ops[0].shape[1]
+    require(batched._stacked_entry(ops) is not None,
+            f"{label}: the batch must take B4 (the JAX decision)")
+    X = torch.randn((P, n, 128), generator=gen)
+    Xd = X.to(DEV)
+    reset_counts()
+    Y = bt.batched_mm(ops, Xd)
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"  batched_mm {label}: launches {got}")
+    require_counts(f"batched_mm {label}", got,
+                   {"B4": 1, "B1": 0, "B2": 0, "B3": 0, "B5": 0, "B6": 0})
+    err = batch_check(f"batched_mm {label} P={P} r=128 vs float64 scipy", Y,
+                      scipy_refs(ops, X))
+    W = torch.randn((P, n, 128), generator=gen)
+    Xg = Xd.clone().requires_grad_()
+    before = counts()
+    (W.to(DEV) * bt.batched_mm(ops, Xg)).sum().backward()
+    torch.cuda.synchronize()
+    require_counts(f"gradient of batched_mm {label}", grown_since(before),
+                   {"B4": 2, "B2": 0})
+    batch_check(f"d(W . batched_mm {label})/dXs vs float64 scipy A_p^T W_p",
+                Xg.grad, scipy_grads(ops, W))
+    if want_b2_loop:
+        before = counts()
+        torch.stack([op @ Xd[p] for p, op in enumerate(ops)])
+        require_counts(f"loop of {label}", grown_since(before),
+                       {"B2": P, "B4": 0})
+    return got["B4"], err
+
+
+def batched_mv_step(label, ops, gen, card):
+    """One batched_mv batch on the main path: exactly one B6 launch (a
+    mirror launch for a fused mirror plan) and no B5, each product against
+    float64 scipy, its gradient in xs, and its times beside the loop of P
+    B5 launches, B6's plain version and the library call."""
+    P, n = len(ops), ops[0].shape[1]
+    t0 = time.perf_counter()
+    entry = batched._stacked_panel_entry(ops)
+    torch.cuda.synchronize()
+    t_stack = time.perf_counter() - t0
+    require(entry is not None, f"{label}: the batch must take B6 (the JAX "
+            f"decision)")
+    plan, tables, vals_b = entry
+    print(f"  batched_mv {label}: P={P}, plan {describe(plan)}; host plans "
+          f"and stacking {t_stack:.2f} s, {vals_b.numel() * 4 / 1e6:.1f} MB "
+          f"of stacked values")
+    x = torch.randn((P, n), generator=gen)
+    xd = x.to(DEV)
+    reset_counts()
+    y = bt.batched_mv(ops, xd)
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"  batched_mv {label}: launches {got}")
+    require_counts(f"batched_mv {label}", got,
+                   {"B6": 1, "B6 mirror": int(plan.mirror), "B5": 0, "B1": 0,
+                    "B8": 0, "B9 gather": 0})
+    err = batch_check(f"batched_mv {label} P={P} vs float64 scipy", y,
+                      scipy_refs(ops, x))
+    w = torch.randn((P, n), generator=gen)
+    xg = xd.clone().requires_grad_()
+    before = counts()
+    (w.to(DEV) * bt.batched_mv(ops, xg)).sum().backward()
+    torch.cuda.synchronize()
+    require_counts(f"gradient of batched_mv {label}", grown_since(before),
+                   {"B6": 1, "B5": 0})
+    batch_check(f"d(w . batched_mv {label})/dxs vs float64 scipy A_p^T w_p",
+                xg.grad, scipy_grads(ops, w))
+    before = counts()
+    torch.stack([op @ xd[p] for p, op in enumerate(ops)])
+    torch.cuda.synchronize()
+    require_counts(f"loop of {label}", grown_since(before), {"B5": P, "B6": 0})
+    csr = csr_on_card(ops)
+    nnz = sum(logical_nnz(op) for op in ops)
+    flops = 2 * sum(op.nnz for op in ops)
+    nbytes = nnz * 4 + 2 * P * n * 4
+    times = time_batch(f"batched_mv {label}", {
+        "B6": lambda: bt.batched_mv(ops, xd),
+        "loop": lambda: torch.stack([op @ xd[p] for p, op in enumerate(ops)]),
+        "plain": lambda: panel_spmv.panel_apply_batched_plain(
+            plan, tables, vals_b, xd),
+    }, nbytes, flops, card)
+    times["library"] = library_ms(
+        f"batched_mv {label}, torch.mv on the block-diagonal CSR matrix",
+        lambda: torch.mv(csr, xd.reshape(-1)), y.reshape(-1), card)
+    times["bound"] = bound(nbytes, flops)
+    times["stack_s"] = t_stack
+    return got, err, times
+
+
+def phase9(card: str):
+    print("phase 9: batched products (bench.py's batches: one structure, "
+          "values from seeds 100+i / 200+i / 300+i)")
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    out = {"errs": {"B4": 0.0, "B6": 0.0}, "launches": {}}
+    errs, launches = out["errs"], out["launches"]
+
+    # 9.1 batched_mm at r = 128, one B4 launch per batch
+    for key, label, ops in (
+            ("config 4", "config 4 (n=4096, 200 x 64x64 BSM)",
+             config1_operators(4096, 200, 64, 4)),
+            ("config 3", "config 3 (n=4096, VBCRS)", config3_operators(4096, 4))):
+        launches[f"B4 {key}"], err = batched_mm_step(label, ops, gen,
+                                                      key == "config 4")
+        errs["B4"] = max(errs["B4"], err)
+
+    # 9.2 batched_mm at the real size, timed
+    print("  batched_mm real size: n=8192, 2000 x 128x128 f32 (config-1 "
+          "recipe), P=4, r=128")
+    ops = config1_operators(8192, 2000, 128, 4)
+    (P, n), r = (len(ops), ops[0].shape[1]), 128
+    t0 = time.perf_counter()
+    plan, vals_b, cc, rs = batched._stacked_entry(ops)
+    torch.cuda.synchronize()
+    out["mm stack_s"] = time.perf_counter() - t0
+    print(f"  patch plans and stacking {out['mm stack_s']:.2f} s: "
+          f"{plan.buckets[0].nb} slots of {plan.buckets[0].MP}x"
+          f"{plan.buckets[0].KP} per product, {vals_b.numel() * 4 / 1e6:.1f} "
+          f"MB stacked")
+    X = torch.randn((P, n, r), generator=gen).to(DEV)
+    reset_counts()
+    Y = bt.batched_mm(ops, X)
+    torch.cuda.synchronize()
+    got = counts()
+    require_counts("batched_mm real size", got, {"B4": 1, "B2": 0, "B1": 0})
+    launches["B4 real size"] = got["B4"]
+    errs["B4"] = max(errs["B4"], batch_check(
+        "batched_mm real size vs float64 plain route", Y,
+        [plain_route(op, X[p], dtype=torch.float64)
+         for p, op in enumerate(ops)]))
+    before = counts()
+    loop_out = torch.stack([op @ X[p] for p, op in enumerate(ops)])
+    torch.cuda.synchronize()
+    require_counts("loop of the real size", grown_since(before),
+                   {"B2": P, "B4": 0})
+    batch_check("batched_mm real size vs the loop of B2 launches", Y,
+                list(loop_out))
+    nnz = sum(op.nnz for op in ops)
+    nbytes, flops = nnz * 4 + 2 * P * n * r * 4, 2 * nnz * r
+    csr = csr_on_card(ops)
+    times = time_batch("batched_mm real size", {
+        "B4": lambda: bt.batched_mm(ops, X),
+        "loop": lambda: torch.stack([op @ X[p] for p, op in enumerate(ops)]),
+        "plain": lambda: batched_spmm.batched_spmm_plain(vals_b, cc, rs, X, n),
+    }, nbytes, flops, card)
+    times["library"] = library_ms(
+        "batched_mm real size, block-diagonal CSR matrix @ stacked X",
+        lambda: csr @ X.reshape(P * n, r), Y.reshape(P * n, r), card)
+    times["bound"] = bound(nbytes, flops)
+    out["mm"] = times
+    del csr, vals_b, X, Y, loop_out, ops
+
+    # 9.3 batched_mv at P = 16, one B6 launch per batch
+    for key, label, ops in (
+            ("config 2", "config 2 (n=4096, symmetric)", config2_operators(16)),
+            ("config 3", "config 3 (n=4096, VBCRS)", config3_operators(4096, 16))):
+        got, err, times = batched_mv_step(label, ops, gen, card)
+        launches[f"B6 {key}"] = got["B6"]
+        launches[f"B6 mirror {key}"] = got["B6 mirror"]
+        errs["B6"] = max(errs["B6"], err)
+        out[f"mv {key}"] = times
+    require(launches["B6 mirror config 2"] == 1,
+            "the config-2 batch must run B6 on the fused mirror plan")
+
+    # 9.4 above the cap: the batch loops; B6 driven directly on the stack
+    print("  above the cap: config 3 at n=32768, P=4")
+    ops = config3_operators(32768, 4)
+    P, n = len(ops), ops[0].shape[1]
+    x = torch.randn((P, n), generator=gen)
+    xd = x.to(DEV)
+    reset_counts()
+    y = bt.batched_mv(ops, xd)
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"  batched_mv above the cap: launches {got}")
+    plans = [op._panel_for(False) for op in ops]
+    require(plans[0].tile_bytes > batched._BATCHED_PANEL_TILE_CAP,
+            "the n=32768 panel plan must exceed the batched cap")
+    require_counts("batched_mv above the cap", got, {"B5": P, "B6": 0})
+    refs = scipy_refs(ops, x)
+    batch_check("batched_mv above the cap (loop) vs float64 scipy", y, refs)
+    t0 = time.perf_counter()
+    plan, tables, vals_b = batched._panel_stack(ops, plans)
+    torch.cuda.synchronize()
+    t_stack = time.perf_counter() - t0
+    print(f"  stacked plan past the cap: {describe(plan)} per product, "
+          f"{vals_b.numel() * 4 / 1e6:.1f} MB stacked in {t_stack:.2f} s")
+    direct = panel_spmv.panel_spmv_batched(plan, tables, vals_b, xd)
+    errs["B6"] = max(errs["B6"], batch_check(
+        "B6 on the stacked plan past the cap vs float64 scipy", direct, refs))
+    nnz = sum(op.nnz for op in ops)
+    capped = time_batch("B6 past the cap", {
+        "B6": lambda: panel_spmv.panel_spmv_batched(plan, tables, vals_b, xd),
+        "loop": lambda: torch.stack([op @ xd[p] for p, op in enumerate(ops)]),
+    }, nnz * 4 + 2 * P * n * 4, 2 * nnz, card)
+    capped["bound"] = bound(nnz * 4 + 2 * P * n * 4, 2 * nnz)
+    out["mv capped"] = capped
+    return out
 
 
 def main() -> None:
@@ -1343,6 +1840,7 @@ def main() -> None:
     errs6, launches6 = run("phase 6", phase6)
     v_times, errs7 = run("phase 7", phase7, card)
     slab_times, errs8 = run("phase 8", phase8, card)
+    batch = run("phase 9", phase9, card)
     print("phase wall times: " + ", ".join(f"{k} {v:.1f} s"
                                            for k, v in wall.items()))
     b5_launches = {"BSM real size (phase 3)": times["launches"],
@@ -1351,7 +1849,19 @@ def main() -> None:
                    "VBCRS flagship (phase 6)": launches6["B5"],
                    "VBCRS real size (phase 7)": v_times["launches"]}
     require(all(b5_launches.values()), f"a main path skipped B5: {b5_launches}")
+    b4_launches = {k: v for k, v in batch["launches"].items()
+                   if k.startswith("B4")}
+    b6_launches = {k: v for k, v in batch["launches"].items()
+                   if k.startswith("B6") and "mirror" not in k}
+    require(all(b4_launches.values()) and all(b6_launches.values()),
+            f"a batched main path skipped its kernel: {batch['launches']}")
 
+    def measured(bnd, lib):
+        """The keys every kernel entry carries beside its times."""
+        return {"bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib}
+
+    mm, mv2, mv3 = batch["mm"], batch["mv config 2"], batch["mv config 3"]
+    capped = batch["mv capped"]
     summary = {"kernels": [
         {"name": "fused_spmm (B1)", "route": "cuda", "source": B1_SRC,
          "replaces": B1_REPLACES, "launches": launches["B1"],
@@ -1370,14 +1880,17 @@ def main() -> None:
                       "(symmetric)",
          "vbcrs_ms": v_times["SpMV bucket"][0],
          "vbcrs_graph_ms": v_times["SpMV bucket"][2],
-         "vbcrs_timed": "bucket route of V @ x, config 3, n=32768"},
+         "vbcrs_timed": "bucket route of V @ x, config 3, n=32768",
+         **measured(times["bound"]["SpMV"], times["library"]["SpMV"])},
         {"name": "patch_spmm (B2)", "route": "cuda", "source": B2_SRC,
          "replaces": B2_REPLACES, "launches": launches["B2"],
          "max_abs_err": errs2["B2"], "max_abs_err_phase1": errs1["B2"],
          "ms": times["SpMM r=128"][0], "plain_ms": times["SpMM r=128"][1],
          "graph_ms": times["SpMM r=128"][2],
          "plain_graph_ms": times["SpMM r=128"][3],
-         "timed": "A @ X, n=8192, 2000 x 128x128 f32, r=128", "card": card},
+         "timed": "A @ X, n=8192, 2000 x 128x128 f32, r=128", "card": card,
+         **measured(times["bound"]["SpMM r=128"],
+                    times["library"]["SpMM r=128"])},
         {"name": "patch_sym (B3)", "route": "cuda", "source": B3_SRC,
          "replaces": B3_REPLACES, "launches": launches4["B3"],
          "max_abs_err": errs4["B3"], "max_abs_err_phase1": errs1["B3"],
@@ -1386,19 +1899,26 @@ def main() -> None:
          "graph_ms": sym_times["SpMM r=128"][2],
          "plain_graph_ms": sym_times["SpMM r=128"][3],
          "timed": "S @ X, n=32768, 384 + 4096 f32 blocks (symmetric), r=128",
-         "card": card},
+         "card": card, **measured(sym_times["bound"]["SpMM r=128"],
+                                  sym_times["library"]["SpMM r=128"])},
     ] + [
         {"name": f"mask_select {kind} (B9)", "route": "cuda", "source": B9_SRC,
          "replaces": rep_, "launches": launches5[f"B9 {kind}"],
          "max_abs_err": errs5[f"B9 {kind}"],
          "max_abs_err_phase1": errs1[f"B9 {kind}"],
-         "ms": sym_times["element pass"][0],
-         "plain_ms": sym_times["element pass"][1],
-         "graph_ms": sym_times["element pass"][2],
-         "plain_graph_ms": sym_times["element pass"][3],
-         "timed": "element pass of S @ x (its gathers and scatter-adds "
-                  "through B9 vs torch ops), n=32768 (symmetric)",
-         "card": card}
+         "ms": sym_times["B9 single"][kind]["ms"],
+         "plain_ms": sym_times["B9 single"][kind]["plain_ms"],
+         "timed": "one call on the largest index table of the symmetric real "
+                  "size's element buckets (n=32768)",
+         "card": card,
+         **measured(sym_times["B9 single"][kind]["bound"],
+                    sym_times["B9 single"][kind]["library_ms"]),
+         "pass_ms": sym_times["element pass"][0],
+         "pass_plain_ms": sym_times["element pass"][1],
+         "pass_graph_ms": sym_times["element pass"][2],
+         "pass_plain_graph_ms": sym_times["element pass"][3],
+         "pass_timed": "element pass of S @ x (its gathers and scatter-adds "
+                       "through B9 vs torch ops), n=32768 (symmetric)"}
         for kind, rep_ in (("gather", B9_GATHER_REPLACES),
                            ("scatter", B9_SCATTER_REPLACES))
     ] + [
@@ -1423,7 +1943,8 @@ def main() -> None:
          "mirror_plain_ms": launches4["times"]["SpMV"][1],
          "mirror_graph_ms": launches4["times"]["SpMV"][2],
          "mirror_plain_graph_ms": launches4["times"]["SpMV"][3],
-         "mirror_timed": "S @ x, symmetric flagship (fused mirror plan)"},
+         "mirror_timed": "S @ x, symmetric flagship (fused mirror plan)",
+         **measured(v_times["bound"]["SpMV"], v_times["library"]["SpMV"])},
         {"name": "slab_spmv (B8)", "route": "cuda", "source": B8_SRC,
          "replaces": B8_REPLACES, "launches": slab_times["launches"],
          "max_abs_err": max(errs7["B8"], errs8["B8"]),
@@ -1437,7 +1958,44 @@ def main() -> None:
          "vbcrs_ms": v_times["B8"][0], "vbcrs_plain_ms": v_times["B8"][1],
          "vbcrs_graph_ms": v_times["B8"][2],
          "vbcrs_plain_graph_ms": v_times["B8"][3],
-         "vbcrs_timed": "config-3 VBCRS n=32768 slab plan"},
+         "vbcrs_timed": "config-3 VBCRS n=32768 slab plan",
+         **measured(slab_times["bound"]["SpMV"],
+                    slab_times["library"]["SpMV"])},
+        {"name": "batched_spmm (B4)", "route": "cuda", "source": B4_SRC,
+         "replaces": B4_REPLACES, "launches": sum(b4_launches.values()),
+         "launches_by_path": b4_launches,
+         "max_abs_err": batch["errs"]["B4"], "max_abs_err_phase1": errs1["B4"],
+         "max_abs_err_duality": errs1["B4 duality"],
+         "ms": mm["B4"][0], "plain_ms": mm["plain"][0],
+         "graph_ms": mm["B4"][1], "plain_graph_ms": mm["plain"][1],
+         "loop_ms": mm["loop"][0], "loop_graph_ms": mm["loop"][1],
+         "timed": "batched_mm, P=4 x (n=8192, 2000 x 128x128 f32), r=128 "
+                  "(loop: 4 B2 launches)",
+         "card": card, **measured(mm["bound"], mm["library"])},
+        {"name": "panel_spmv_batched (B6)", "route": "cuda", "source": B5_SRC,
+         "replaces": B6_REPLACES, "launches": sum(b6_launches.values()),
+         "launches_by_path": b6_launches,
+         "launches_mirror": batch["launches"]["B6 mirror config 2"],
+         "max_abs_err": batch["errs"]["B6"], "max_abs_err_phase1": errs1["B6"],
+         "max_abs_err_duality": errs1["B6 duality"],
+         "ms": mv3["B6"][0], "plain_ms": mv3["plain"][0],
+         "graph_ms": mv3["B6"][1], "plain_graph_ms": mv3["plain"][1],
+         "loop_ms": mv3["loop"][0], "loop_graph_ms": mv3["loop"][1],
+         "timed": "batched_mv, P=16 x config-3 VBCRS n=4096 (loop: 16 B5 "
+                  "launches)",
+         "card": card, **measured(mv3["bound"], mv3["library"]),
+         "mirror_ms": mv2["B6"][0], "mirror_plain_ms": mv2["plain"][0],
+         "mirror_graph_ms": mv2["B6"][1], "mirror_plain_graph_ms": mv2["plain"][1],
+         "mirror_loop_ms": mv2["loop"][0], "mirror_loop_graph_ms": mv2["loop"][1],
+         "mirror_bound_ms": mv2["bound"][0], "mirror_library_ms": mv2["library"],
+         "mirror_timed": "batched_mv, P=16 x config-2 symmetric n=4096 (fused "
+                         "mirror plan)",
+         "capped_ms": capped["B6"][0], "capped_graph_ms": capped["B6"][1],
+         "capped_loop_ms": capped["loop"][0],
+         "capped_loop_graph_ms": capped["loop"][1],
+         "capped_bound_ms": capped["bound"][0],
+         "capped_timed": "B6 driven on the stacked plan, P=4 x config-3 VBCRS "
+                         "n=32768, above the 24 MB cap (the batch loops)"},
     ]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

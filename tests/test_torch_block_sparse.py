@@ -66,7 +66,7 @@ def operators(kind, dtype=np.float64):
     A_xla = bst.BlockSparseMatrix(blocks, rows, cols, shape, backend="xla")
     A_pi = bst.BlockSparseMatrix(blocks, rows, cols, shape,
                                  backend="pallas-interpret")
-    P = bt.BlockSparseMatrix(blocks, rows, cols, shape)
+    P = bt.BlockSparseMatrix(blocks, rows, cols, shape, device="cpu")
     return A_xla, A_pi, P, bst.to_scipy(A_xla)
 
 
@@ -169,7 +169,7 @@ def test_gradient_through_patch_route_f32():
 
 
 def test_zero_blocks_and_todense():
-    P = bt.BlockSparseMatrix([], [], [], (5, 7))
+    P = bt.BlockSparseMatrix([], [], [], (5, 7), device="cpu")
     A = bst.BlockSparseMatrix([], [], [], (5, 7))
     x = np.arange(7.0)
     got = P @ torch.from_numpy(x)
@@ -199,21 +199,49 @@ def test_device_dtype_and_unported_options_raise():
     assert M.device.type == "meta"
     with pytest.raises(ValueError, match="operand on cpu, operator on meta"):
         M @ torch.zeros(shape[1], dtype=torch.float64)
-    P = bt.BlockSparseMatrix(blocks, rows, cols, shape)
+    P = bt.BlockSparseMatrix(blocks, rows, cols, shape, device="cpu")
     with pytest.raises(TypeError, match="dtype"):
         P @ torch.zeros(shape[1], dtype=torch.float32)
     with pytest.raises(NotImplementedError, match="complex"):
         bt.BlockSparseMatrix([b.astype(np.complex128) for b in blocks], rows,
-                             cols, shape)
+                             cols, shape, device="cpu")
     with pytest.raises(ValueError, match="schedule"):
-        bt.BlockSparseMatrix(blocks, rows, cols, shape, schedule="auto")
+        bt.BlockSparseMatrix(blocks, rows, cols, shape, schedule="auto",
+                             device="cpu")
     with pytest.raises(ValueError, match="precision"):
-        bt.BlockSparseMatrix(blocks, rows, cols, shape, precision="fast")
+        bt.BlockSparseMatrix(blocks, rows, cols, shape, precision="fast",
+                             device="cpu")
+
+
+@pytest.mark.parametrize("fmt", ["general", "symmetric", "vbcrs"])
+def test_formats_default_to_the_card(fmt, monkeypatch):
+    """Without ``device=`` an operator is built on the card; with no card
+    present that raises instead of building a CPU operator."""
+    from blocksparse_tpu_torch.utils.testmatrices import random_symmetric
+
+    blocks, rows, cols, shape = population("contiguous")
+    ctor = {
+        "general": lambda **kw: bt.BlockSparseMatrix(blocks, rows, cols,
+                                                     shape, **kw),
+        "symmetric": lambda **kw: bt.SymmetricBlockMatrix(*random_symmetric(
+            3, n=256, ngroups=8, noffdiag=10, dtype=np.float64,
+            contiguous=True), **kw),
+        "vbcrs": lambda **kw: bt.VariableBlockCompressedRowStorage(
+            [np.ones((4, 6))], [8], [2], (16, 16), **kw),
+    }[fmt]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA card.*device='cpu'"):
+            ctor(**kw)
+    if fmt == "general":
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            bt.from_reference(ctor(device="cpu"))
+    assert ctor(device="cpu").device == torch.device("cpu")
 
 
 def test_from_reference_and_accessors():
     A_xla, _, _, S = operators("scattered")
-    P = bt.from_reference(A_xla, dtype=np.float64)
+    P = bt.from_reference(A_xla, dtype=np.float64, device="cpu")
     assert P.shape == A_xla.shape and P.nblocks == A_xla.nblocks
     assert bt.nnz(P) == bst.nnz(A_xla) == bt.nnz(P.H)
     assert (bt.to_scipy(P) != S).nnz == 0

@@ -137,7 +137,8 @@ def test_symmetric_colored_plan_tables_match_jax():
     ref_l = jax_build_layout(o, ri, ci, shape, granularity="pow2")
     P = bt.SymmetricBlockMatrix(*random_symmetric(3, n=256, ngroups=10,
                                                   noffdiag=14,
-                                                  dtype=np.float64))
+                                                  dtype=np.float64),
+                                                  device="cpu")
     sel = element_ids(mine_l)
     mine = plan_tables(mine_l, P.fusedcolors(), shape[0], False, sel, True)
     assert mine is not None
@@ -156,7 +157,7 @@ def colored_product(layout, dev_buckets, colors, out_len, x, transpose=False,
     sel = element_ids(layout)
     assert len(sel) == len(layout.buckets)   # the plan covers every block
     plan = build_colored_plan(layout, tuple(colors), out_len, transpose,
-                              sel, symmetric=symmetric)
+                              sel, symmetric=symmetric, device=x.device)
     assert plan is not None
     elem = [(v, ri, ci) for i, (v, ri, ci, _, _) in enumerate(dev_buckets)
             if i in sel]
@@ -174,7 +175,8 @@ def test_broken_coloring_detected():
             np.array([14, 16, 21, 30, 41, 52, 63, 74])]  # overlap 14, 16
     cols = [np.array([0, 3, 5, 7, 9, 11, 13, 15]),
             np.array([30, 33, 35, 37, 39, 41, 43, 45])]
-    P = bt.BlockSparseMatrix(blocks, rows, cols, (n, n), schedule="colored")
+    P = bt.BlockSparseMatrix(blocks, rows, cols, (n, n), schedule="colored",
+                             device="cpu")
     A = bst.BlockSparseMatrix(blocks, rows, cols, (n, n), schedule="colored",
                               backend="xla")
     assert P.colors() == A.colors() and len(P.colors()) >= 2
@@ -194,8 +196,9 @@ def test_colored_schedule_vs_serial_bsm():
     colored plan run directly."""
     rng = np.random.default_rng(1)
     blocks, rows, cols, shape = scattered_fixture(rng)
-    P_col = bt.BlockSparseMatrix(blocks, rows, cols, shape, schedule="colored")
-    P_ser = bt.BlockSparseMatrix(blocks, rows, cols, shape)
+    P_col = bt.BlockSparseMatrix(blocks, rows, cols, shape, schedule="colored",
+                                 device="cpu")
+    P_ser = bt.BlockSparseMatrix(blocks, rows, cols, shape, device="cpu")
     A_col = bst.BlockSparseMatrix(blocks, rows, cols, shape,
                                   schedule="colored", backend="xla")
     assert P_col.schedule == bt.COLORED
@@ -220,8 +223,8 @@ def test_symmetric_fused_colors_plan():
     """The one-read symmetric pass as gather rounds over fusedcolors."""
     d, di, o, ri, ci, shape = random_symmetric(3, n=256, ngroups=10,
                                                noffdiag=14, dtype=np.float64)
-    P = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape)
-    off = bt.BlockSparseMatrix(o, ri, ci, shape)
+    P = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape, device="cpu")
+    off = bt.BlockSparseMatrix(o, ri, ci, shape, device="cpu")
     S = bt.to_scipy(off)
     x = np.random.default_rng(2).standard_normal(shape[0])
     got = colored_product(P._olayout, P._obuckets, P.fusedcolors(), shape[0],

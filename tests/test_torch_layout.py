@@ -252,11 +252,13 @@ def test_formats_take_tuple_granularity():
     g = (8, 128)
     blocks, rows, cols, shape = fixture("contiguous")
     assert_same_layout(
-        bt.BlockSparseMatrix(blocks, rows, cols, shape, granularity=g).layout,
+        bt.BlockSparseMatrix(blocks, rows, cols, shape, granularity=g,
+                             device="cpu").layout,
         bst.BlockSparseMatrix(blocks, rows, cols, shape, granularity=g).layout)
     d, di, o, ri, ci, shape = tm.random_symmetric(
         8, n=320, ngroups=6, noffdiag=8, dtype=np.float64, contiguous=True)
-    P = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape, granularity=g)
+    P = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape, granularity=g,
+                                device="cpu")
     J = bst.SymmetricBlockMatrix(d, di, o, ri, ci, shape, granularity=g)
     assert_same_layout(P._dlayout, J._dlayout)
     assert_same_layout(P._olayout, J._olayout)
@@ -264,6 +266,7 @@ def test_formats_take_tuple_granularity():
                                             nrowgroups=5, ncolgroups=6)
     assert_same_layout(
         bt.VariableBlockCompressedRowStorage(blocks, rs, cs, shape,
-                                             granularity=g).layout,
+                                             granularity=g,
+                                             device="cpu").layout,
         bst.VariableBlockCompressedRowStorage(blocks, rs, cs, shape,
                                               granularity=g).layout)

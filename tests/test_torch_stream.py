@@ -389,7 +389,7 @@ def test_recipe_decisions_equal_jax():
     the fused (mirror) panel plan, in both packages."""
     blocks, rows, cols, shape = flagship_bsm()
     J = bst.BlockSparseMatrix(blocks, rows, cols, shape, backend="xla")
-    P = bt.BlockSparseMatrix(blocks, rows, cols, shape)
+    P = bt.BlockSparseMatrix(blocks, rows, cols, shape, device="cpu")
     jl = J.layout
     jp, js = jpanel.panel_plan_from_layout(jl), jstrip.plan_from_layout(jl)
     assert jax_choice((jp, None), (js, None), [(jl, 1)]) is None
@@ -399,7 +399,8 @@ def test_recipe_decisions_equal_jax():
     J = bst.VariableBlockCompressedRowStorage(blocks, rs, cs, shape,
                                               granularity=(8, 128))
     V = bt.VariableBlockCompressedRowStorage(blocks, rs, cs, shape,
-                                             granularity=(8, 128))
+                                             granularity=(8, 128),
+                                             device="cpu")
     jl = J.layout
     jp, js = jpanel.panel_plan_from_layout(jl), jstrip.plan_from_layout(jl)
     assert jax_choice((jp, None), (js, None), [(jl, 1)]) == "panel"
@@ -409,7 +410,7 @@ def test_recipe_decisions_equal_jax():
     args = jtm.random_symmetric(8, n=4096, ngroups=48, noffdiag=160,
                                 dtype=np.float32, contiguous=True)
     J = bst.SymmetricBlockMatrix(*args, backend="xla")
-    S = bt.SymmetricBlockMatrix(*args)
+    S = bt.SymmetricBlockMatrix(*args, device="cpu")
     jp = jpanel.panel_plan_symmetric(J._dlayout, J._olayout)
     js = jstrip.plan_symmetric(J._dlayout, J._olayout)
     assert jax_choice((jp, None), (js, None),
@@ -634,7 +635,7 @@ def expected(choice):
                                   "shifted"])
 def test_bsm_routes_like_jax(kind, transpose):
     blocks, rows, cols, shape = GENERAL[kind]()
-    P = bt.BlockSparseMatrix(blocks, rows, cols, shape)
+    P = bt.BlockSparseMatrix(blocks, rows, cols, shape, device="cpu")
     jl = jax_build_layout(blocks, rows, cols, shape, granularity="pow2")
     jp = jpanel.panel_plan_from_layout(jl, transpose=transpose)
     js = jstrip.plan_from_layout(jl, transpose=transpose)
@@ -651,7 +652,8 @@ def test_bsm_routes_like_jax(kind, transpose):
     X = np.stack([x, x[::-1]], axis=1).copy()
     _, ran = routed(lambda: op @ torch.from_numpy(X))
     assert ran == []
-    P64 = bt.BlockSparseMatrix(blocks, rows, cols, shape, dtype=np.float64)
+    P64 = bt.BlockSparseMatrix(blocks, rows, cols, shape, dtype=np.float64,
+                               device="cpu")
     y64, ran = routed(lambda: (P64.T if transpose else P64)
                       @ torch.from_numpy(x.astype(np.float64)))
     assert ran == [] and relerr(y64, S @ x.astype(np.float64)) <= 1e-13
@@ -661,7 +663,7 @@ def test_bsm_routes_like_jax(kind, transpose):
 @pytest.mark.parametrize("kind", ["fused", "strip unified", "diagonal only"])
 def test_symmetric_routes_like_jax(kind, transpose):
     d, di, o, ri, ci, shape = SYMMETRIC[kind]()
-    P = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape)
+    P = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape, device="cpu")
     (jd, jo), _, S = symmetric(kind)
     jp = jpanel.panel_plan_symmetric(jd, jo, transpose_diag=transpose)
     js = jstrip.plan_symmetric(jd, jo, transpose_diag=transpose)
@@ -679,7 +681,7 @@ def test_symmetric_routes_like_jax(kind, transpose):
 
 def test_stream_plans_are_lazy_and_staged_once():
     blocks, rows, cols, shape = GENERAL["vbcrs 16"]()
-    P = bt.BlockSparseMatrix(blocks, rows, cols, shape)
+    P = bt.BlockSparseMatrix(blocks, rows, cols, shape, device="cpu")
     assert P._stream == {}
     P @ torch.from_numpy(np.ones((shape[1], 2), np.float32))
     assert P._stream == {}          # r > 1 builds no stream plan
@@ -695,12 +697,13 @@ def test_stream_plans_are_lazy_and_staged_once():
 def test_gradients_through_the_stream_route():
     """VBCRS and S: d(w . A @ x)/dx through the stream route = A^T w."""
     blocks, rs, cs, shape = jtm.random_vbcrs(16, dtype=np.float32)
-    V = bt.VariableBlockCompressedRowStorage(blocks, rs, cs, shape)
+    V = bt.VariableBlockCompressedRowStorage(blocks, rs, cs, shape,
+                                             device="cpu")
     Sv = bst.to_scipy(bst.VariableBlockCompressedRowStorage(
         [b.astype(np.float64) for b in blocks], rs, cs, shape))
     assert V._stream_entry(False)[0] is not None
     d, di, o, ri, ci, sshape = SYMMETRIC["fused"]()
-    Sy = bt.SymmetricBlockMatrix(d, di, o, ri, ci, sshape)
+    Sy = bt.SymmetricBlockMatrix(d, di, o, ri, ci, sshape, device="cpu")
     Ss = symmetric("fused")[2]
     assert Sy._stream_entry(False)[0] is not None
     for op, S in ((V, Sv), (Sy, Ss)):

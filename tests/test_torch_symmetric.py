@@ -65,7 +65,7 @@ def operators(kind, dtype=np.float64, schedule="colored", pallas=False):
     cached, since building the JAX operators dominates the run time."""
     args = fixture(kind, dtype)
     J = bst.SymmetricBlockMatrix(*args, backend="xla", schedule=schedule)
-    P = bt.SymmetricBlockMatrix(*args, schedule=schedule)
+    P = bt.SymmetricBlockMatrix(*args, schedule=schedule, device="cpu")
     Jp = (bst.SymmetricBlockMatrix(*args, backend="pallas-interpret",
                                    schedule=schedule) if pallas else None)
     return J, Jp, P, bst.to_scipy(J)
@@ -336,7 +336,7 @@ def test_accessors_match_jax(schedule):
 
 def test_from_reference_carries_symmetric():
     J, _, _, S = operators("scattered")
-    P = bt.from_reference(J, schedule="serial")
+    P = bt.from_reference(J, schedule="serial", device="cpu")
     assert isinstance(P, bt.SymmetricBlockMatrix)
     assert P.schedule == bt.SERIAL and P.fusedcolors() == J.fusedcolors()
     for mine, ref in zip(bt.rowcolvals(P), bst.rowcolvals(J)):
@@ -351,7 +351,8 @@ def test_from_reference_carries_symmetric():
 
 
 def test_symmetric_diagonals_give_a_symmetric_matrix():
-    P = bt.SymmetricBlockMatrix(*fixture("contiguous", symmetric_diag=True))
+    P = bt.SymmetricBlockMatrix(*fixture("contiguous", symmetric_diag=True),
+                                device="cpu")
     S = bt.to_scipy(P).toarray()
     assert relerr(S, S.T) <= TOL64
     y = torch.from_numpy(np.random.default_rng(60).standard_normal(P.shape[0]))
@@ -372,29 +373,31 @@ def test_unsorted_index_lists():
         o2.append(b[pr][:, pc])
         ri2.append(np.asarray(r)[pr])
         ci2.append(np.asarray(c)[pc])
-    S = bt.to_scipy(bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape))
+    S = bt.to_scipy(bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape,
+                                            device="cpu"))
     for schedule in ("serial", "colored"):
         P = bt.SymmetricBlockMatrix(d2, di2, o2, ri2, ci2, shape,
-                                    schedule=schedule)
+                                    schedule=schedule, device="cpu")
         x = np.random.default_rng(61).standard_normal(shape[0])
         assert relerr(P @ torch.from_numpy(x), S @ x) <= TOL64
         assert relerr(P.T @ torch.from_numpy(x), S.T @ x) <= TOL64
 
 
 def test_zero_blocks_and_bad_inputs():
-    P = bt.SymmetricBlockMatrix([], [], [], [], [], (6, 6))
+    P = bt.SymmetricBlockMatrix([], [], [], [], [], (6, 6), device="cpu")
     got = P @ torch.arange(6.0, dtype=torch.float64)
     assert got.shape == (6,) and not got.any()
     args = fixture("contiguous")
     with pytest.raises(ValueError, match="square"):
-        bt.SymmetricBlockMatrix(*args[:5], (288, 290))
+        bt.SymmetricBlockMatrix(*args[:5], (288, 290), device="cpu")
     with pytest.raises(ValueError, match="granularity"):
-        bt.SymmetricBlockMatrix(*args, granularity="exact")
+        bt.SymmetricBlockMatrix(*args, granularity="exact", device="cpu")
     with pytest.raises(NotImplementedError, match="complex"):
-        bt.SymmetricBlockMatrix(*fixture("contiguous", np.complex128))
+        bt.SymmetricBlockMatrix(*fixture("contiguous", np.complex128),
+                                device="cpu")
     with pytest.raises(ValueError, match="precision"):
-        bt.SymmetricBlockMatrix(*args, precision="fast")
-    P = bt.SymmetricBlockMatrix(*args)
+        bt.SymmetricBlockMatrix(*args, precision="fast", device="cpu")
+    P = bt.SymmetricBlockMatrix(*args, device="cpu")
     with pytest.raises(TypeError, match="dtype"):
         P @ torch.zeros(288, dtype=torch.float32)
     with pytest.raises(ValueError, match="operand length"):

@@ -44,7 +44,8 @@ def build(seed=3, dtype=np.float64, schedule="serial"):
     """(port VBCRS, JAX VBCRS (xla), float64 scipy oracle, inputs)."""
     blocks, rs, cs, shape = random_vbcrs(seed, dtype=dtype)
     kw = dict(schedule=schedule, granularity=(32, 32))
-    V = bt.VariableBlockCompressedRowStorage(blocks, rs, cs, shape, **kw)
+    V = bt.VariableBlockCompressedRowStorage(blocks, rs, cs, shape, **kw,
+                                             device="cpu")
     J = bst.VariableBlockCompressedRowStorage(blocks, rs, cs, shape,
                                               backend="xla", **kw)
     S = bst.to_scipy(bst.VariableBlockCompressedRowStorage(
@@ -122,7 +123,8 @@ def test_port_matches_jax_pallas_interpret_f32():
     blocks, rs, cs, shape = jtm.random_vbcrs(16, dtype=np.float32)
     J = bst.VariableBlockCompressedRowStorage(blocks, rs, cs, shape,
                                               backend="pallas-interpret")
-    V = bt.VariableBlockCompressedRowStorage(blocks, rs, cs, shape)
+    V = bt.VariableBlockCompressedRowStorage(blocks, rs, cs, shape,
+                                             device="cpu")
     x = np.random.default_rng(73).standard_normal(shape[1]).astype(np.float32)
     got = V @ torch.from_numpy(x)
     assert V._stream_entry(False)[0] == "panel"
@@ -152,7 +154,7 @@ def test_cross_format_vs_block_sparse():
     V, _, _, (blocks, rs, cs, shape) = build()
     rows = [np.arange(r, r + b.shape[0]) for r, b in zip(rs, blocks)]
     cols = [np.arange(c, c + b.shape[1]) for c, b in zip(cs, blocks)]
-    B = bt.BlockSparseMatrix(blocks, rows, cols, shape)
+    B = bt.BlockSparseMatrix(blocks, rows, cols, shape, device="cpu")
     x = torch.from_numpy(np.random.default_rng(74).standard_normal(shape[1]))
     assert relerr(B @ x, V @ x) <= TOL[np.float64]
     V2 = bt.VariableBlockCompressedRowStorage.from_block_sparse(B)
@@ -164,7 +166,7 @@ def test_cross_format_vs_block_sparse():
 def test_from_symmetric_expansion():
     d, di, o, ri, ci, shape = random_symmetric(
         5, n=600, ngroups=20, noffdiag=30, dtype=np.float64, contiguous=True)
-    S_op = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape)
+    S_op = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape, device="cpu")
     V = bt.VariableBlockCompressedRowStorage.from_symmetric(S_op)
     x = torch.from_numpy(np.random.default_rng(75).standard_normal(shape[1]))
     assert relerr(V @ x, S_op @ x) <= TOL[np.float64]
@@ -178,31 +180,35 @@ def test_contiguity_validation():
     blocks = [np.ones((2, 2))]
     with pytest.raises(ValueError, match="contiguous range"):
         bt.VariableBlockCompressedRowStorage(
-            blocks, [np.array([0, 2])], [np.array([0, 1])], (4, 4))
+            blocks, [np.array([0, 2])], [np.array([0, 1])], (4, 4),
+            device="cpu")
     with pytest.raises(ValueError, match="index list length 3 != block "
                                          "extent 2"):
         bt.VariableBlockCompressedRowStorage(
-            blocks, [np.array([0, 1])], [np.array([0, 1, 2])], (4, 4))
+            blocks, [np.array([0, 1])], [np.array([0, 1, 2])], (4, 4),
+            device="cpu")
     # check=False takes the first index as the start, as the JAX package
     v0 = bt.VariableBlockCompressedRowStorage(
-        blocks, [np.array([1, 3])], [0], (4, 4), check=False)
+        blocks, [np.array([1, 3])], [0], (4, 4), check=False, device="cpu")
     assert v0.row_start(0) == 1
     # scalar starts and full ranges both accepted
-    v1 = bt.VariableBlockCompressedRowStorage(blocks, [0], [1], (4, 4))
+    v1 = bt.VariableBlockCompressedRowStorage(blocks, [0], [1], (4, 4),
+                                              device="cpu")
     v2 = bt.VariableBlockCompressedRowStorage(
-        blocks, [np.array([0, 1])], [np.array([1, 2])], (4, 4))
+        blocks, [np.array([0, 1])], [np.array([1, 2])], (4, 4), device="cpu")
     assert relerr(v1.todense(), v2.todense()) == 0
     with pytest.raises(ValueError, match="shape"):
-        bt.VariableBlockCompressedRowStorage(blocks, [0], [0])
+        bt.VariableBlockCompressedRowStorage(blocks, [0], [0], device="cpu")
 
 
 def test_unsorted_input_blocks():
     blocks, rs, cs, shape = random_vbcrs(7)
     perm = np.random.default_rng(76).permutation(len(blocks))
-    V1 = bt.VariableBlockCompressedRowStorage(blocks, rs, cs, shape)
+    V1 = bt.VariableBlockCompressedRowStorage(blocks, rs, cs, shape,
+                                              device="cpu")
     V2 = bt.VariableBlockCompressedRowStorage(
         [blocks[i] for i in perm], [rs[i] for i in perm],
-        [cs[i] for i in perm], shape)
+        [cs[i] for i in perm], shape, device="cpu")
     assert V1.rowptr == V2.rowptr
     x = torch.from_numpy(np.random.default_rng(77).standard_normal(shape[1]))
     assert relerr(V1 @ x, V2 @ x) <= TOL[np.float64]
@@ -219,12 +225,12 @@ def test_repr_interop_and_empty():
     assert relerr(bt.to_scipy(V).toarray(), S.toarray()) == 0
     r, c, v = bt.rowcolvals(V)
     assert r.size == c.size == v.size == V.nnz
-    P = bt.from_reference(J, granularity=(32, 32))
+    P = bt.from_reference(J, granularity=(32, 32), device="cpu")
     assert isinstance(P, bt.VariableBlockCompressedRowStorage)
     assert P.rowptr == V.rowptr
     x = torch.from_numpy(np.random.default_rng(78).standard_normal(1200))
     assert relerr(P @ x, V @ x) == 0
-    E = bt.VariableBlockCompressedRowStorage([], [], [], (5, 4))
+    E = bt.VariableBlockCompressedRowStorage([], [], [], (5, 4), device="cpu")
     assert E.nblocks == 0 and E.rowptr == (0, 0)
     assert not (E @ torch.zeros(4, dtype=torch.float64)).any()
 
@@ -238,10 +244,11 @@ def test_bad_operands_and_options():
     blocks, rs, cs, shape = random_vbcrs(3)
     with pytest.raises(ValueError, match="precision"):
         bt.VariableBlockCompressedRowStorage(blocks, rs, cs, shape,
-                                             precision="fast")
+                                             precision="fast", device="cpu")
     with pytest.raises(NotImplementedError, match="complex"):
         bt.VariableBlockCompressedRowStorage(
-            [b.astype(np.complex128) for b in blocks], rs, cs, shape)
+            [b.astype(np.complex128) for b in blocks], rs, cs, shape,
+            device="cpu")
 
 
 def test_gradient_matches_transpose_f64_and_f32():
