@@ -9,11 +9,13 @@ The host layout (``core/layout.py``) packs the blocks into shape buckets
 operator's ``device`` at construction.  A product routes as the JAX
 package's ``_apply`` does, minus its split-complex route:
 
-  1. f32, r > 1, a merged-patch plan exists and ``patch_wins`` -> the patch
-     SpMM (kernel B2);
+  1. f32, a merged-patch plan exists and ``patch_wins`` -> the patch
+     route: the SpMM kernel B2 for r > 1, the SpMV kernel B7 for r = 1
+     (``patch="always"`` only);
   2. f32, r = 1 -> the stream route (``formats/stream.py``) where
-     ``stream_plan_choice`` picks the panel plan (kernel B5) or the slab
-     plan (kernel B8) for A or A^T;
+     ``stream_plan_choice`` picks the panel plan (kernel B5, or B10 on the
+     v2 plan under ``panel="v2"``) or the slab plan (kernel B8) for A or
+     A^T;
   3. otherwise ``apply_operand``: chunked buckets -> kernel B1, element
      buckets -> the torch-op engine (colored gather rounds under
      ``schedule="colored"``, with ``colors`` forward and
@@ -34,8 +36,8 @@ from .. import coloring
 from ..core import schedule as sched
 from ..core.layout import BlockLayout, build_layout
 from ..core.operator import LinearOperator
-from ..ops.dispatch import (apply_operand, patch_eligible, patch_wins,
-                            strip_eligible)
+from ..ops.dispatch import (apply_operand, check_route_options,
+                            patch_eligible, patch_wins, strip_eligible)
 from .stream import StreamRouted
 
 __all__ = ["BlockSparseMatrix"]
@@ -110,6 +112,10 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
     package.  Every tier currently runs in full IEEE precision (see
     ``ops/kernels/fused_spmm.py``).  ``granularity``: the bucket keys,
     "pow2" or ``(gm, gk)`` (see ``core/layout.build_layout``).
+    ``patch``: "auto" (the route decision), "always" (every f32 product
+    takes the patch route where a plan exists, r = 1 included) or "never"
+    -- the JAX package's ``BST_PATCH``.  ``panel``: "v1" or "v2", the panel
+    plans the stream route builds -- the JAX package's ``BST_PANEL_IMPL``.
     """
 
     def __init__(
@@ -124,12 +130,16 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
         precision: str | None = "highest",
         schedule: str = sched.SERIAL,
         granularity="pow2",
+        patch: str = "auto",
+        panel: str = "v1",
     ):
         if shape is None:
             raise ValueError("shape=(nrows, ncols) is required")
         if precision not in _PRECISIONS:
             raise ValueError(
                 f"unknown precision {precision!r}; expected one of {_PRECISIONS}")
+        check_route_options(patch, panel)
+        self._patch_mode, self._panel = patch, panel
         self._device = _resolve_device(device)
         self._schedule = sched.normalize_schedule(schedule)
         self._precision = precision
@@ -173,6 +183,16 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
     @property
     def schedule(self) -> str:
         return self._schedule
+
+    @property
+    def patch(self) -> str:
+        """The ``patch=`` option: "auto", "always" or "never"."""
+        return self._patch_mode
+
+    @property
+    def panel(self) -> str:
+        """The ``panel=`` option: "v1" or "v2"."""
+        return self._panel
 
     @property
     def nblocks(self) -> int:
@@ -223,10 +243,10 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
         _check_operand(x, self._device, self._dtype)
         out_len = self.shape[1] if transpose else self.shape[0]
         r = 1 if x.ndim == 1 else x.shape[1]
-        if r > 1 and patch_eligible(x, self._dtype):
+        if patch_eligible(x, self._dtype, self._patch_mode):
             entry = self._patch_for()
-            if entry is not None and patch_wins(entry[0],
-                                                [(self._layout, 1)], r):
+            if entry is not None and patch_wins(
+                    entry[0], [(self._layout, 1)], r, self._patch_mode):
                 from ..ops.patch_engine import patch_apply
 
                 return patch_apply(entry[0], entry[1], x, transpose=transpose)
@@ -246,5 +266,6 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
         return (
             f"BlockSparseMatrix({m}x{n}, {self.nblocks} blocks, "
             f"{len(self._buckets)} buckets, nnz={self.nnz}, dtype={self.dtype}, "
-            f"device={self._device}, schedule={self._schedule!r})"
+            f"device={self._device}, schedule={self._schedule!r}, "
+            f"patch={self._patch_mode!r}, panel={self._panel!r})"
         )

@@ -5,31 +5,35 @@ the JAX package's formats do.  The host plans (``core/panel.py``,
 ``core/strip.py``) are built at the first such product and cached per
 transpose; ``ops/dispatch.stream_plan_choice`` picks panel, slab or None
 (the bucket route) from the host plans alone, and only the chosen plan is
-staged on the operator's device.  The panel plan runs kernel B5
-(``ops/kernels/panel_spmv.py``), the slab plan kernel B8
+staged on the operator's device.  The panel plan is built by the
+operator's ``panel`` option (``ops/panel_router.py``) and runs kernel B5
+(``ops/kernels/panel_spmv.py``) or, for a v2 plan, kernel B10
+(``ops/kernels/panel2_spmv.py``); the slab plan runs kernel B8
 (``ops/kernels/slab_spmv.py``).
 """
 
 from __future__ import annotations
 
+from ..core.panel import PanelPlan
 from ..core.strip import plan_from_layout
 from ..ops.dispatch import stream_plan_choice
-from ..ops.kernels.panel_spmv import panel_device_arrays
 from ..ops.kernels.slab_spmv import plan_device_arrays, slab_apply
-from ..ops.panel_router import panel_plan_general, panel_run
+from ..ops.panel_router import panel_arrays, panel_plan_general, panel_run
 
 __all__ = ["StreamRouted"]
 
 
 class StreamRouted:
-    """Mixin for an operator with ``_device`` and an empty dict ``_stream``.
+    """Mixin for an operator with ``_device``, ``_panel`` (the ``panel=``
+    option) and an empty dict ``_stream``.
 
     The plans and bucket-route reads default to one general layout,
     ``_layout`` (BSM, VBCRS); the symmetric format overrides
     ``_build_panel``, ``_build_strip`` and ``_stream_reads``."""
 
     def _build_panel(self, transpose: bool):
-        return panel_plan_general(self._layout, transpose=transpose)
+        return panel_plan_general(self._layout, transpose=transpose,
+                                  impl=self._panel)
 
     def _build_strip(self, transpose: bool):
         return plan_from_layout(self._layout, transpose=transpose)
@@ -61,7 +65,7 @@ class StreamRouted:
                                         self._stream_reads())
             if choice == "panel":
                 plan = self._panel_for(transpose)
-                return choice, plan, panel_device_arrays(plan, self._device)
+                return choice, plan, panel_arrays(plan, self._device)
             if choice == "strip":
                 plan = self._strip_for(transpose)
                 return choice, plan, plan_device_arrays(plan, self._device)
@@ -69,10 +73,13 @@ class StreamRouted:
         return self._cached(("route", transpose), build)
 
     def _staged_panel(self, transpose: bool):
-        """The device tensors of the panel plan for A (or A^T) where the
+        """The device tensors of the v1 panel plan for A (or A^T) where the
         stream route has staged it, else None (nothing is built here)."""
         entry = self._stream.get(("route", transpose))
-        return entry[2] if entry is not None and entry[0] == "panel" else None
+        if entry is None or entry[0] != "panel" or not isinstance(
+                entry[1], PanelPlan):
+            return None
+        return entry[2]
 
     def _stream_apply(self, x, transpose: bool):
         """The product through the chosen stream plan, or None."""

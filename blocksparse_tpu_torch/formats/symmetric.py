@@ -14,14 +14,15 @@ As in the JAX package, all four color sets are computed at construction
 whatever the schedule, and the default schedule is "colored".  A product
 routes as the JAX package's ``_apply`` does, minus its split-complex route:
 
-  1. f32, r > 1, a symmetric patch plan exists and ``patch_wins`` -> the
-     symmetric patch SpMM (kernel B3) on the plan for S or, with the
-     transposed diagonal embedded, for S^T;
+  1. f32, a symmetric patch plan exists and ``patch_wins`` -> the
+     symmetric patch route on the plan for S or, with the transposed
+     diagonal embedded, for S^T: kernel B3 for r > 1, kernel B7's one-read
+     mode for r = 1 (``patch="always"`` only);
   2. f32, r = 1 -> the stream route (``formats/stream.py``) where
-     ``stream_plan_choice`` picks the symmetric panel plan (kernel B5:
-     fused with the mirror pass, or expanded) or the unified slab plan
-     (kernel B8 with its mirror pass), each for S or, with the transposed
-     diagonal, for S^T;
+     ``stream_plan_choice`` picks the symmetric panel plan (kernel B5, or
+     B10 under ``panel="v2"``: fused with the mirror pass, or expanded) or
+     the unified slab plan (kernel B8 with its mirror pass), each for S or,
+     with the transposed diagonal, for S^T;
   3. otherwise ``apply_symmetric``: chunked off-diagonal buckets -> kernel
      B1 in symmetric mode, element off-diagonal buckets -> the torch-op
      engine's one-read symmetric pass (colored gather rounds over
@@ -40,11 +41,12 @@ from ..core import schedule as sched
 from ..core.layout import build_layout
 from ..core.operator import LinearOperator
 from ..core.strip import plan_symmetric
-from ..ops.dispatch import (apply_symmetric, patch_eligible, patch_wins,
-                            strip_eligible)
+from ..ops.dispatch import (apply_symmetric, check_route_options,
+                            patch_eligible, patch_wins, strip_eligible)
 from ..ops.panel_router import panel_plan_sym
-from .block_sparse import (_PRECISIONS, _check_operand, _colors_tuple,
-                           _np_dtype, _resolve_device, _stage, _torch_dtype)
+from .block_sparse import (_PRECISIONS, BlockSparseMatrix, _check_operand,
+                           _colors_tuple, _np_dtype, _resolve_device, _stage,
+                           _torch_dtype)
 from .stream import StreamRouted
 
 __all__ = ["SymmetricBlockMatrix"]
@@ -56,7 +58,9 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
     ``device``: the card ("cuda") unless the caller passes another.
     ``granularity``: the bucket keys, "pow2" or ``(gm, gk)`` (see
     ``core/layout.build_layout``).  ``precision``: kept for parity; every
-    tier runs in full IEEE precision.
+    tier runs in full IEEE precision.  ``patch`` ("auto" | "always" |
+    "never") and ``panel`` ("v1" | "v2"): the route options of
+    :class:`BlockSparseMatrix`.
     """
 
     def __init__(
@@ -73,6 +77,8 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
         precision: str | None = "highest",
         schedule: str = sched.COLORED,
         granularity="pow2",
+        patch: str = "auto",
+        panel: str = "v1",
     ):
         if shape is None:
             raise ValueError("shape=(nrows, ncols) is required")
@@ -81,6 +87,8 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
         if precision not in _PRECISIONS:
             raise ValueError(
                 f"unknown precision {precision!r}; expected one of {_PRECISIONS}")
+        check_route_options(patch, panel)
+        self._patch_mode, self._panel = patch, panel
         self._device = _resolve_device(device)
         self._schedule = sched.normalize_schedule(schedule)
         self._precision = precision
@@ -127,6 +135,9 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
     @property
     def schedule(self) -> str:
         return self._schedule
+
+    patch = BlockSparseMatrix.patch
+    panel = BlockSparseMatrix.panel
 
     @property
     def ndiagonals(self) -> int:
@@ -189,7 +200,7 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
 
     def _build_panel(self, transpose: bool):
         return panel_plan_sym(self._dlayout, self._olayout,
-                              transpose_diag=transpose)
+                              transpose_diag=transpose, impl=self._panel)
 
     def _build_strip(self, transpose: bool):
         return plan_symmetric(self._dlayout, self._olayout,
@@ -203,10 +214,11 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
     def _apply(self, x, transpose: bool, conj: bool):
         _check_operand(x, self._device, self._dtype)
         r = 1 if x.ndim == 1 else x.shape[1]
-        if r > 1 and patch_eligible(x, self._dtype):
+        if patch_eligible(x, self._dtype, self._patch_mode):
             entry = self._patch_for(transpose)
             if entry is not None and patch_wins(
-                    entry[0], [(self._dlayout, 1), (self._olayout, 2)], r):
+                    entry[0], [(self._dlayout, 1), (self._olayout, 2)], r,
+                    self._patch_mode):
                 from ..ops.patch_engine import patch_apply
 
                 # the plan embeds S or S^T; it is applied as it is
@@ -229,5 +241,6 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
             f"SymmetricBlockMatrix({m}x{n}, {self.ndiagonals} diagonal + "
             f"{self.noffdiagonals} off-diagonal blocks, nnz={self.nnz}, "
             f"dtype={self.dtype}, device={self._device}, "
-            f"schedule={self._schedule!r})"
+            f"schedule={self._schedule!r}, patch={self._patch_mode!r}, "
+            f"panel={self._panel!r})"
         )

@@ -11,11 +11,12 @@ transposed).  Construction validates contiguity unless ``check=False``.
 A product routes as the JAX package's ``_apply`` does, minus its
 split-complex route:
 
-  1. f32, r > 1, a merged-patch plan exists and ``patch_wins`` -> the patch
-     SpMM (kernel B2);
+  1. f32, a merged-patch plan exists and ``patch_wins`` -> the patch
+     route: kernel B2 for r > 1, kernel B7 for r = 1 (``patch="always"``
+     only);
   2. f32, r = 1 -> the stream route (``formats/stream.py``) where
-     ``stream_plan_choice`` picks the panel plan (kernel B5) or the slab
-     plan (kernel B8) for V or V^T;
+     ``stream_plan_choice`` picks the panel plan (kernel B5, or B10 under
+     ``panel="v2"``) or the slab plan (kernel B8) for V or V^T;
   3. otherwise ``apply_operand``: chunked buckets -> kernel B1, element
      buckets -> the element engine.
 
@@ -34,8 +35,8 @@ import torch
 from ..core import schedule as sched
 from ..core.layout import BlockLayout, build_layout, is_contiguous
 from ..core.operator import LinearOperator
-from ..ops.dispatch import (apply_operand, patch_eligible, patch_wins,
-                            strip_eligible)
+from ..ops.dispatch import (apply_operand, check_route_options,
+                            patch_eligible, patch_wins, strip_eligible)
 from .block_sparse import (_PRECISIONS, BlockSparseMatrix, _check_operand,
                            _np_dtype, _resolve_device, _stage, _torch_dtype)
 from .stream import StreamRouted
@@ -68,7 +69,9 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
     ``device``: the card ("cuda") unless the caller passes another.
     ``granularity``: the bucket keys, "pow2" or ``(gm, gk)`` (see
     ``core/layout.build_layout``).  ``precision``: kept for parity; every
-    tier runs in full IEEE precision.
+    tier runs in full IEEE precision.  ``patch`` ("auto" | "always" |
+    "never") and ``panel`` ("v1" | "v2"): the route options of
+    :class:`BlockSparseMatrix`.
     """
 
     def __init__(
@@ -84,12 +87,16 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
         schedule: str = sched.SERIAL,
         granularity="pow2",
         check: bool = True,
+        patch: str = "auto",
+        panel: str = "v1",
     ):
         if shape is None:
             raise ValueError("shape=(nrows, ncols) is required")
         if precision not in _PRECISIONS:
             raise ValueError(
                 f"unknown precision {precision!r}; expected one of {_PRECISIONS}")
+        check_route_options(patch, panel)
+        self._patch_mode, self._panel = patch, panel
         self._device = _resolve_device(device)
         self._schedule = sched.normalize_schedule(schedule)
         self._precision = precision
@@ -134,10 +141,12 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
     def from_block_sparse(cls, bsm, *, schedule=None, granularity="pow2",
                           **kwargs):
         """Convert a BlockSparseMatrix (blocks must have contiguous ranges);
-        ``kwargs`` (``device``, ``dtype``, ...) go to the constructor, the
-        device defaulting to ``bsm``'s."""
+        ``kwargs`` (``device``, ``dtype``, ``patch``, ``panel``, ...) go to
+        the constructor, the device and the two route options defaulting to
+        ``bsm``'s."""
         n = bsm.nblocks
-        kwargs.setdefault("device", bsm.device)
+        for key in ("device", "patch", "panel"):
+            kwargs.setdefault(key, getattr(bsm, key))
         return cls(
             [bsm.block(i) for i in range(n)],
             [bsm.blockrowindices(i) for i in range(n)],
@@ -151,7 +160,8 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
     def from_symmetric(cls, sbm, *, schedule=None, granularity="pow2",
                        **kwargs):
         """Expand a SymmetricBlockMatrix: diagonals once, off-diagonals twice
-        (as they are and transposed)."""
+        (as they are and transposed); ``kwargs`` as in
+        :meth:`from_block_sparse`, defaulting to ``sbm``'s."""
         blocks, rows, cols = [], [], []
         for i in range(sbm.ndiagonals):
             blocks.append(sbm.diagonal(i))
@@ -163,7 +173,8 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
             blocks += [o, o.T]
             rows += [r, c]
             cols += [c, r]
-        kwargs.setdefault("device", sbm.device)
+        for key in ("device", "patch", "panel"):
+            kwargs.setdefault(key, getattr(sbm, key))
         return cls(
             blocks, rows, cols, sbm.shape,
             schedule=schedule if schedule is not None else sbm.schedule,
@@ -194,6 +205,9 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
     @property
     def schedule(self) -> str:
         return self._schedule
+
+    patch = BlockSparseMatrix.patch
+    panel = BlockSparseMatrix.panel
 
     @property
     def nblocks(self) -> int:
@@ -245,10 +259,10 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
         _check_operand(x, self._device, self._dtype)
         out_len = self.shape[1] if transpose else self.shape[0]
         r = 1 if x.ndim == 1 else x.shape[1]
-        if r > 1 and patch_eligible(x, self._dtype):
+        if patch_eligible(x, self._dtype, self._patch_mode):
             entry = self._patch_for()
-            if entry is not None and patch_wins(entry[0],
-                                                [(self._layout, 1)], r):
+            if entry is not None and patch_wins(
+                    entry[0], [(self._layout, 1)], r, self._patch_mode):
                 from ..ops.patch_engine import patch_apply
 
                 return patch_apply(entry[0], entry[1], x, transpose=transpose)
@@ -266,5 +280,6 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
             f"VariableBlockCompressedRowStorage({m}x{n}, {self.nblocks} blocks "
             f"in {self.nblockrows} block rows, nnz={self.nnz}, "
             f"dtype={self.dtype}, device={self._device}, "
-            f"schedule={self._schedule!r})"
+            f"schedule={self._schedule!r}, patch={self._patch_mode!r}, "
+            f"panel={self._panel!r})"
         )

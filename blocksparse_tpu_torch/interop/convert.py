@@ -24,8 +24,8 @@ def from_reference(A, **kwargs):
     """The port's ``SymmetricBlockMatrix``,
     ``VariableBlockCompressedRowStorage`` or ``BlockSparseMatrix`` holding
     ``A``'s blocks and index lists; ``kwargs`` (``device``, ``dtype``,
-    ``precision``, ``schedule``, ``granularity``, ...) go to its
-    constructor."""
+    ``precision``, ``schedule``, ``granularity``, ``patch``, ``panel``,
+    ...) go to its constructor."""
     if hasattr(A, "ndiagonals"):
         d, o = range(A.ndiagonals), range(A.noffdiagonals)
         return SymmetricBlockMatrix(

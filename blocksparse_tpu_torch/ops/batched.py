@@ -9,7 +9,8 @@ applied to its own operand).
     (``ops/kernels/batched_spmm.py``) over the operators' shared merged-patch
     plan tables and their stacked values;
   - :func:`batched_mv`: ``[ops[p] @ xs[p] for p]`` through kernel B6
-    (``ops/kernels/panel_spmv.py``) over their shared panel-plan tables.
+    (``ops/kernels/panel_spmv.py``) over their shared panel-plan tables
+    (v1 plans; operators built with ``panel="v2"`` loop).
 
 A batch takes its kernel when P >= 2, every operator and the operand are
 float32, the operators are of one type and lie with the operand on one
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.operator import as_tensor
+from ..core.panel import PanelPlan
 from .kernels.batched_spmm import batched_spmm_apply
 from .kernels.panel_spmv import panel_apply_batched, panel_id_tables
 
@@ -148,14 +150,19 @@ def _panel_stack(ops, plans):
 def _stacked_panel_entry(ops):
     """:func:`_panel_stack` of the operators' panel plans for A (each
     operator's, whatever its own route decision), or None where the batch
-    loops: no panel plan, a plan above the cap, or unequal structure."""
+    loops: no panel plan, a v2 plan (``panel="v2"``: kernel B6 streams v1
+    plans only), a plan above the cap, or unequal structure.
+
+    The JAX package reaches its batched kernel with v2 plans and fails
+    there (``Panel2Plan`` has no ``NC32``); here the plan type decides
+    before anything is launched."""
     key = ("mv",) + tuple(id(op) for op in ops)
     hit = _cache_get(key)
     if hit is not None:
         return hit[1]
     plans = [op._panel_for(False) if hasattr(op, "_panel_for") else None
              for op in ops]
-    if any(p is None for p in plans):
+    if any(p is None or not isinstance(p, PanelPlan) for p in plans):
         result = None
     elif (plans[0].tile_bytes > _BATCHED_PANEL_TILE_CAP
           or not _same_panel_structure(plans)):

@@ -3,10 +3,12 @@
 Counterpart of ``blocksparse_tpu/ops/dispatch.py``.  A format's ``_apply``
 tries, in the JAX package's order:
 
-  1. the patch route (f32, r > 1, ``patch_wins``): kernels B2 / B3;
+  1. the patch route (f32, ``patch_wins``): kernels B2 / B3 for r > 1,
+     kernel B7 for r = 1 (only under ``patch="always"``);
   2. the stream route (f32 operator and operand, r = 1,
      ``strip_eligible``): ``stream_plan_choice`` weighs the panel plan
-     (``core/panel.py``, kernel B5), the slab plan (``core/strip.py``,
+     (``core/panel.py``, kernel B5, or with ``panel="v2"``
+     ``core/panel2.py``, kernel B10), the slab plan (``core/strip.py``,
      kernel B8) and the bucket engines by bytes streamed, and the chosen
      plan runs in one launch;
   3. the bucket route, ``apply_operand`` / ``apply_symmetric`` here:
@@ -30,9 +32,13 @@ The rules (``patch_wins``, ``stream_plan_choice``, the planners' costs) are
 the JAX package's, measured on a TPU v5e and kept so the port routes as it
 does; re-measuring them on the H100 is queued (ROADMAP D).  The JAX
 package's TPU guards (chunk >= 8, the scalar-memory table cap, bf16
-alignment, the on-chip memory budget, and the mask-select kernels' operand
-cap n <= 32768 and 4096-index minimum) and its environment knobs have no
-counterpart here.
+alignment, the on-chip memory budget, the r = 1 patch kernel's G % 8 rule,
+and the mask-select kernels' operand cap n <= 32768 and 4096-index minimum)
+have no counterpart here.  Its two routing switches are constructor
+options of the formats instead of environment variables: ``patch=``
+("auto" | "always" | "never", the JAX ``BST_PATCH``) and ``panel=``
+("v1" | "v2", the JAX ``BST_PANEL_IMPL``); :func:`check_route_options`
+validates them.
 """
 
 from __future__ import annotations
@@ -43,9 +49,12 @@ from .colored import build_colored_plan, colored_wins
 from .kernels.fused_spmm import fused_apply
 from .torch_spmv import bucket_apply
 
-__all__ = ["apply_operand", "apply_symmetric", "element_plan",
-           "patch_eligible", "patch_wins", "strip_eligible",
-           "stream_plan_choice"]
+__all__ = ["apply_operand", "apply_symmetric", "check_route_options",
+           "element_plan", "patch_eligible", "patch_wins", "strip_eligible",
+           "stream_plan_choice", "PATCH_MODES", "PANEL_IMPLS"]
+
+PATCH_MODES = ("auto", "always", "never")
+PANEL_IMPLS = ("v1", "v2")
 
 # The bucket engines of the JAX package re-stream values per 128-column RHS
 # slice, the patch mono-kernel per 256 columns; one bucket launch costs about
@@ -56,20 +65,42 @@ _PATCH_R_SLICE = 256
 _STRIP_TAX = 1.0e6
 
 
-def patch_eligible(x: torch.Tensor, dtype: torch.dtype) -> bool:
-    """Static pre-check for the patch engine: f32 operator and operand."""
-    return dtype == torch.float32 and x.dtype == torch.float32
+def check_route_options(patch: str, panel: str) -> None:
+    """Raise ``ValueError`` for a ``patch=`` / ``panel=`` value outside
+    :data:`PATCH_MODES` / :data:`PANEL_IMPLS`."""
+    if patch not in PATCH_MODES:
+        raise ValueError(f"unknown patch={patch!r}; expected one of "
+                         f"{PATCH_MODES}")
+    if panel not in PANEL_IMPLS:
+        raise ValueError(f"unknown panel={panel!r}; expected one of "
+                         f"{PANEL_IMPLS}")
 
 
-def patch_wins(plan, layouts_reads, r: int = 1) -> bool:
-    """Patch SpMM vs the bucket engines: the r > 1 byte rule, verbatim.
+def patch_eligible(x: torch.Tensor, dtype: torch.dtype,
+                   mode: str = "auto") -> bool:
+    """Static pre-check for the patch engines: f32 operator and operand,
+    ``mode`` not "never", and a matrix operand unless ``mode`` is "always"
+    (under "auto" ``patch_wins`` refuses every vector, so the formats need
+    not build the plan to learn it)."""
+    return (mode != "never" and dtype == torch.float32
+            and x.dtype == torch.float32
+            and (x.ndim > 1 or mode == "always"))
 
-    This is the rule measured on the TPU v5e the JAX package was tuned on,
-    awaiting measurement on the H100; it is kept so the flagship routes as
-    on the TPU.  At r == 1 the patch path is not taken, as in the JAX
-    package outside its ``BST_PATCH=always`` override.
+
+def patch_wins(plan, layouts_reads, r: int = 1, mode: str = "auto") -> bool:
+    """Patch engines vs the bucket engines.
+
+    Under ``mode="always"`` the patch route takes every r (at r = 1 kernel
+    B7), as the JAX package's ``BST_PATCH=always``.  Under "auto", r = 1
+    stays off the patch route and r > 1 follows the byte rule verbatim: the
+    rule measured on the TPU v5e the JAX package was tuned on, awaiting
+    measurement on the H100, kept so the flagship routes as on the TPU.
     """
-    if plan is None or r <= 1:
+    if plan is None:
+        return False
+    if mode == "always":
+        return True
+    if r <= 1:
         return False
     bucket_slices = -(-r // _BUCKET_R_SLICE)
     bucket = sum(

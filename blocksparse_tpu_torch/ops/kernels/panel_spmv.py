@@ -186,15 +186,17 @@ def panel_spmv(plan: PanelPlan, dev, x: torch.Tensor, *,
     return y
 
 
-class _PanelApply(torch.autograd.Function):
-    """Forward: :func:`panel_spmv`.  Backward: the plain version's autograd
-    on the same tables (dx = A^T g, and dvals where asked)."""
+class StreamApply(torch.autograd.Function):
+    """Forward: a stream kernel's wrapper ``spmv(plan, dev, x)``.
+    Backward: its plain version ``plain(plan, dev, x)``'s autograd on the
+    same tables (dx = A^T g, and dvals where asked).  Serves B5 here and
+    B10 (``panel2_spmv.py``)."""
 
     @staticmethod
-    def forward(ctx, vals, x, plan, rest):
+    def forward(ctx, vals, x, plan, rest, spmv, plain):
         ctx.save_for_backward(vals, x)
-        ctx.plan, ctx.rest = plan, rest
-        return panel_spmv(plan, (vals,) + rest, x)
+        ctx.plan, ctx.rest, ctx.plain = plan, rest, plain
+        return spmv(plan, (vals,) + rest, x)
 
     @staticmethod
     def backward(ctx, g):
@@ -203,16 +205,17 @@ class _PanelApply(torch.autograd.Function):
         with torch.enable_grad():
             v = vals.detach().requires_grad_(need[0])
             xx = x.detach().requires_grad_(need[1])
-            y = panel_apply_plain(ctx.plan, (v,) + ctx.rest, xx)
+            y = ctx.plain(ctx.plan, (v,) + ctx.rest, xx)
             wrt = [t for t, n in zip((v, xx), need) if n]
             got = iter(torch.autograd.grad(y, wrt, g))
         return (next(got) if need[0] else None,
-                next(got) if need[1] else None, None, None)
+                next(got) if need[1] else None, None, None, None, None)
 
 
 def panel_apply(plan: PanelPlan, dev, x: torch.Tensor) -> torch.Tensor:
     """:func:`panel_spmv` with autograd in ``x`` and the plan's values."""
-    return _PanelApply.apply(dev[0], x, plan, tuple(dev[1:]))
+    return StreamApply.apply(dev[0], x, plan, tuple(dev[1:]), panel_spmv,
+                             panel_apply_plain)
 
 
 # -- kernel B6: P operators over one plan's tables ----------------------------

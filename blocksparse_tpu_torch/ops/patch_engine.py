@@ -1,6 +1,7 @@
-"""Merged-patch SpMM (r > 1): CUDA kernels B2 and B3, plain versions, autograd.
+"""Merged-patch products: CUDA kernels B2, B3 and B7, plain versions, autograd.
 
-Counterpart of the r > 1 part of ``blocksparse_tpu/ops/patch_engine.py``.
+Counterpart of ``blocksparse_tpu/ops/patch_engine.py``.  Matrices (r > 1)
+run B2 / B3, vectors (r = 1) B7; :func:`patch_apply` routes by rank.
 Kernel B2 (``csrc/patch_spmm.cu``) replaces ``_kern_fwd`` / ``_kern_tr``:
 
   forward    Y[rs[b] : rs[b] + MP] += V_b @ concat_j X[cc[b, j]*32 : +32]
@@ -30,8 +31,13 @@ the summation order varies from run to run.
 Precision: all tiers run in IEEE fp32 FMA (no TF32), which meets the
 ``"highest"`` tolerance; faster tiers are later work.
 
-Not ported yet (ROADMAP): the r = 1 one-read kernels (B7) and the one-hot
-SpMV engine.
+Vectors: kernel B7 (``ops/kernels/patch_spmv1.py``, ``csrc/patch_spmv1.cu``)
+replaces ``_kern1_f`` / ``_kern1_t`` / ``_kern1_m`` with the one-hot chunk
+gathers and scatters around them, in one launch per bucket: mode ``f`` for
+A x, ``t`` for A^T x, ``m`` for a symmetric plan (both contributions from
+one read of the values).  :func:`patch_spmv_plain` is the counterpart of
+the JAX package's one-hot XLA engine ``patch_spmv``, with direct chunk
+gathers and ``index_add_`` in place of the one-hot matmuls.
 """
 
 from __future__ import annotations
@@ -40,10 +46,12 @@ import torch
 
 from ..core.patch import CC, PatchPlan
 from ..utils import build
+from .kernels.patch_spmv1 import patch_spmv1_apply, patch_spmv1_plain
 from .torch_spmv import chunk_rows, gather_rows, scatter_rows
 
 __all__ = ["patch_device_arrays", "patch_apply", "patch_spmm",
-           "patch_spmm_plain", "bucket_spmm", "bucket_spmm_plain",
+           "patch_spmm_plain", "patch_spmv", "patch_spmv_plain",
+           "bucket_spmm", "bucket_spmm_plain",
            "bucket_spmm_sym", "bucket_spmm_sym_plain", "LAUNCHES",
            "SYM_LAUNCHES"]
 
@@ -280,9 +288,42 @@ def patch_spmm_plain(plan: PatchPlan, dev, X, *, transpose: bool = False):
     return Y
 
 
+def _spmv_mode(plan: PatchPlan, transpose: bool) -> tuple:
+    """(B7 mode, n_out) of an r = 1 product."""
+    n_out = _n_out(plan, transpose)
+    return ("m" if plan.symmetric else "t" if transpose else "f"), n_out
+
+
+def patch_spmv(plan: PatchPlan, dev, x, *, transpose: bool = False):
+    """y = A @ x (A^T @ x when ``transpose``); x: [n] f32.  One B7 launch
+    per bucket on a CUDA tensor (mode ``m`` on a symmetric plan), the plain
+    version on a CPU tensor."""
+    mode, n_out = _spmv_mode(plan, transpose)
+    y = None
+    for vals, cc, rs, mk in dev:
+        part = patch_spmv1_apply(vals, cc, rs, mk, x, n_out, mode)
+        y = part if y is None else y + part
+    return x.new_zeros(n_out) if y is None else y
+
+
+def patch_spmv_plain(plan: PatchPlan, dev, x, *, transpose: bool = False):
+    """Plain version of :func:`patch_spmv` (counterpart of the JAX
+    package's one-hot engine ``patch_spmv``), on any device."""
+    mode, n_out = _spmv_mode(plan, transpose)
+    y = x.new_zeros(n_out)
+    for vals, cc, rs, mk in dev:
+        y = y + patch_spmv1_plain(vals, cc, rs, mk, x, n_out, mode)
+    return y
+
+
 def patch_apply(plan: PatchPlan, dev, x, *, transpose: bool = False):
-    """Entry point for matrix products; the r = 1 vector paths of the JAX
-    package are not ported."""
+    """Entry point: x [n] runs :func:`patch_spmv` (kernel B7), x [n, r]
+    :func:`patch_spmm` (B2 / B3).  A symmetric plan is applied as it is
+    (``transpose`` must be False): S^T is the plan built with
+    ``transpose_main=True``."""
+    if x.ndim == 1:
+        return patch_spmv(plan, dev, x, transpose=transpose)
     if x.ndim != 2:
-        raise ValueError(f"patch_apply takes [n, r], got {tuple(x.shape)}")
+        raise ValueError(f"patch_apply takes [n] or [n, r], got "
+                         f"{tuple(x.shape)}")
     return patch_spmm(plan, dev, x, transpose=transpose)

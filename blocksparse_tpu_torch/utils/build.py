@@ -66,6 +66,13 @@ _SIGNATURES = {
     # tpw, stream
     "bst_slab_spmv_f32": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I,
                           _I, _P),
+    # vals, cc, rs, mk, x, y, nb, MP, KP, n_in, n_out, mode, stream
+    "bst_patch_spmv1_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I,
+                            _P),
+    # vals, rid8, cid8, segid, tgt, b8, x, y, ntiles, TS, CW, RW, seg, NC,
+    # ncols, nrows, mirror, tpw, stream
+    "bst_panel2_spmv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                            _I, _I, _L, _L, _I, _I, _P),
 }
 
 

@@ -16,7 +16,11 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      the kernel with 16 (sums carried in registers); B4: forward and
      transpose, P in {2, 4} x r in {8, 64, 128, 264}, and against P launches
      of B2; B6: on B5's panel plans, P in {2, 5}, at 1 against 16 tiles per
-     warp and against P launches of B5;
+     warp and against P launches of B5; B7: modes f, t (B2's plan, and a
+     plan with G = 1 whose row windows run past n) and m, a (B3's plans),
+     each against B2 / B3 at r = 1 on the same plan; B10: v2 plans at seg
+     8, 16 and 32, plain, transposed, fused mirror and with a last segment
+     past ncols, at 1 against 16 tiles per warp;
   2. the flagship operator (4096^2, 200 contiguous 64x64 f32 blocks, r = 64):
      a constructor without ``device=`` lands on the card; kernels against
      plain versions at its shapes, then the main path once
@@ -59,7 +63,19 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      and config-3 recipes at n = 4096, P = 16, one B6 launch each, timed
      beside the loop of 16 B5 launches, and its gradient; above the
      24 MB/product cap (config 3 at n = 32768, P = 4) the batch loops (four
-     B5 launches) and B6 is driven directly on the stacked plan, timed.
+     B5 launches) and B6 is driven directly on the stacked plan, timed;
+ 10. the r = 1 patch route (kernel B7) on phase 3's, phase 5's and phase
+     7's operands built with ``patch="always"``: one B7 launch per product
+     (A^T too on config 1, whose plan has G = 1) and no B1/B5/B8, against
+     the float64 bucket route, B7 at r = 1 against B2 / B3 on the same
+     plan, timed eager and from a CUDA graph beside B5 on the default
+     operator, B7's plain version and the library call;
+ 11. the panel v2 route (kernel B10) on the same operands built with
+     ``panel="v2"``: each plan's seg, bytes and host seconds, one B10
+     launch per product (a mirror launch on the symmetric operand's fused
+     plan) and no B5, against the float64 bucket route, B10 against its
+     plain version at 1 and 16 tiles per warp, timed as in phase 10; a
+     ``batched_mv`` of two v2 operators loops (no B6).
 
 Every timed kernel also gets its bound -- the larger of its logical bytes
 (stored values, operands and results, each once) over 3.35 TB/s and its
@@ -92,18 +108,20 @@ if not torch.cuda.is_available():
 
 import blocksparse_tpu_torch as bt  # noqa: E402
 from blocksparse_tpu_torch.core.layout import build_layout  # noqa: E402
+from blocksparse_tpu_torch.core import panel2  # noqa: E402
 from blocksparse_tpu_torch.core.panel import (  # noqa: E402
     _layout_entries, build_panel_plan, panel_plan_from_layout)
-from blocksparse_tpu_torch.core.patch import CC  # noqa: E402
+from blocksparse_tpu_torch.core.patch import CC, build_patch_plan  # noqa: E402
 from blocksparse_tpu_torch.core.strip import (  # noqa: E402
     plan_from_layout, plan_symmetric)
 from blocksparse_tpu_torch.formats import symmetric as symmetric_format  # noqa: E402
 from blocksparse_tpu_torch.formats import vbcrs as vbcrs_format  # noqa: E402
 from blocksparse_tpu_torch.ops import batched, patch_engine  # noqa: E402
 from blocksparse_tpu_torch.ops.dispatch import (  # noqa: E402
-    apply_operand, apply_symmetric, element_plan, patch_wins)
+    apply_operand, apply_symmetric, element_plan, patch_eligible, patch_wins)
 from blocksparse_tpu_torch.ops.kernels import (  # noqa: E402
-    batched_spmm, fused_spmm, mask_select, panel_spmv, slab_spmv)
+    batched_spmm, fused_spmm, mask_select, panel2_spmv, panel_spmv,
+    patch_spmv1, slab_spmv)
 from blocksparse_tpu_torch.ops.torch_spmv import bucket_apply  # noqa: E402
 from blocksparse_tpu_torch.utils import build  # noqa: E402
 from blocksparse_tpu_torch.utils.testmatrices import (  # noqa: E402
@@ -130,6 +148,10 @@ B8_REPLACES = "blocksparse_tpu/ops/pallas/slab_spmv.py:85"
 B4_SRC = "blocksparse_tpu_torch/csrc/batched_spmm.cu"
 B4_REPLACES = "blocksparse_tpu/ops/batched.py:46"
 B6_REPLACES = "blocksparse_tpu/ops/pallas/panel_spmv.py:305"
+B7_SRC = "blocksparse_tpu_torch/csrc/patch_spmv1.cu"
+B7_REPLACES = "blocksparse_tpu/ops/patch_engine.py:175"
+B10_SRC = "blocksparse_tpu_torch/csrc/panel2_spmv.cu"
+B10_REPLACES = "blocksparse_tpu/ops/pallas/panel2_spmv.py:90"
 STREAM_KERNEL = {"panel": "B5", "strip": "B8", None: "B1"}
 
 
@@ -230,12 +252,15 @@ def reset_counts() -> None:
     batched_spmm.LAUNCHES = 0
     panel_spmv.BATCHED_LAUNCHES = 0
     panel_spmv.BATCHED_MIRROR_LAUNCHES = 0
+    patch_spmv1.LAUNCHES = 0
+    panel2_spmv.LAUNCHES = 0
+    panel2_spmv.MIRROR_LAUNCHES = 0
 
 
 def counts() -> dict:
     """Kernel launches since the last reset ("B1 sym": those of B1 in its
-    symmetric mode, also counted under "B1"; "B5 mirror", "B6 mirror" and
-    "B8 mirror" those on a mirror plan)."""
+    symmetric mode, also counted under "B1"; "B5 mirror", "B6 mirror",
+    "B8 mirror" and "B10 mirror" those on a mirror plan)."""
     return {"B1": fused_spmm.LAUNCHES, "B1 sym": fused_spmm.SYM_LAUNCHES,
             "B2": patch_engine.LAUNCHES, "B3": patch_engine.SYM_LAUNCHES,
             "B9 gather": mask_select.GATHER_LAUNCHES,
@@ -244,7 +269,9 @@ def counts() -> dict:
             "B5 mirror": panel_spmv.MIRROR_LAUNCHES,
             "B8": slab_spmv.LAUNCHES, "B8 mirror": slab_spmv.MIRROR_LAUNCHES,
             "B4": batched_spmm.LAUNCHES, "B6": panel_spmv.BATCHED_LAUNCHES,
-            "B6 mirror": panel_spmv.BATCHED_MIRROR_LAUNCHES}
+            "B6 mirror": panel_spmv.BATCHED_MIRROR_LAUNCHES,
+            "B7": patch_spmv1.LAUNCHES, "B10": panel2_spmv.LAUNCHES,
+            "B10 mirror": panel2_spmv.MIRROR_LAUNCHES}
 
 
 def grown_since(before: dict) -> dict:
@@ -253,24 +280,31 @@ def grown_since(before: dict) -> dict:
 
 
 def stream_kernel(op, transpose=False) -> str:
-    """The kernel an f32 r = 1 product of ``op`` runs: B5, B8 or B1."""
-    return STREAM_KERNEL[op._stream_entry(transpose)[0]]
+    """The kernel an f32 r = 1 product of ``op`` runs on its stream route:
+    B5 (B10 on a v2 panel plan), B8 or B1 (the bucket route)."""
+    choice, plan, _ = op._stream_entry(transpose)
+    if choice == "panel" and isinstance(plan, panel2.Panel2Plan):
+        return "B10"
+    return STREAM_KERNEL[choice]
 
 
 def stream_want(op, transpose=False, k=1) -> dict:
     """Exact launches of k f32 r = 1 products through the stream route."""
-    choice, plan, _ = op._stream_entry(transpose)
-    name = STREAM_KERNEL[choice]
-    return {"B1": 0, "B1 sym": 0, "B9 gather": 0, "B9 scatter": 0,
-            "B5": k * (name == "B5"), "B8": k * (name == "B8"),
-            "B5 mirror": k * (name == "B5" and plan.mirror),
-            "B8 mirror": k * (name == "B8" and plan.mirror)}
+    plan = op._stream_entry(transpose)[1]
+    name = stream_kernel(op, transpose)
+    want = {"B1": 0, "B1 sym": 0, "B9 gather": 0, "B9 scatter": 0, "B7": 0}
+    for kern in ("B5", "B8", "B10"):
+        want[kern] = k * (name == kern)
+        want[f"{kern} mirror"] = k * (name == kern and plan.mirror)
+    return want
 
 
 def plain_stream(op, x, transpose=False):
     """The stream route's plain version, or None where ``op`` takes the
     bucket route."""
     choice, plan, dev = op._stream_entry(transpose)
+    if choice == "panel" and isinstance(plan, panel2.Panel2Plan):
+        return panel2_spmv.panel2_apply_plain(plan, dev, x)
     if choice == "panel":
         return panel_spmv.panel_apply_plain(plan, dev, x)
     if choice == "strip":
@@ -317,12 +351,17 @@ def plain_buckets(layout, buckets, x, out_len, dtype, *, transpose=False,
     return y
 
 
-def plain_patch(entry, layouts_reads, x, r, dtype, transpose=False):
-    """The patch route's plain version when the operator would take it."""
-    if entry is None or not patch_wins(entry[0], layouts_reads, r):
+def plain_patch(op, entry, layouts_reads, x, dtype, transpose=False):
+    """The patch route's plain version when ``op`` would take it (the
+    caller has checked ``patch_eligible``)."""
+    r = 1 if x.ndim == 1 else x.shape[1]
+    if entry is None or not patch_wins(entry[0], layouts_reads, r, op.patch):
         return None
     plan, dev = entry
     dev = [(v.to(dtype), cc, rs, mk) for v, cc, rs, mk in dev]
+    if x.ndim == 1:
+        return patch_engine.patch_spmv_plain(plan, dev, x,
+                                             transpose=transpose)
     return patch_engine.patch_spmm_plain(plan, dev, x, transpose=transpose)
 
 
@@ -334,8 +373,8 @@ def plain_route(A, x: torch.Tensor, *, transpose=False,
     dtype = dtype or A.dtype
     x = x.to(dtype)
     r = 1 if x.ndim == 1 else x.shape[1]
-    if r > 1 and A.dtype == torch.float32:
-        y = plain_patch(A._patch_for(), [(A.layout, 1)], x, r, dtype,
+    if patch_eligible(x.float(), A.dtype, A.patch):
+        y = plain_patch(A, A._patch_for(), [(A.layout, 1)], x, dtype,
                         transpose)
         if y is not None:
             return y
@@ -354,9 +393,9 @@ def plain_route_sym(S: bt.SymmetricBlockMatrix, x: torch.Tensor, *,
     dtype = dtype or S.dtype
     x = x.to(dtype)
     r = 1 if x.ndim == 1 else x.shape[1]
-    if r > 1 and S.dtype == torch.float32:
-        y = plain_patch(S._patch_for(transpose),
-                        [(S._dlayout, 1), (S._olayout, 2)], x, r, dtype)
+    if patch_eligible(x.float(), S.dtype, S.patch):
+        y = plain_patch(S, S._patch_for(transpose),
+                        [(S._dlayout, 1), (S._olayout, 2)], x, dtype)
         if y is not None:
             return y
     if r == 1 and S.dtype == torch.float32:
@@ -464,8 +503,9 @@ def time_routes(label, kern, plain, nbytes, flops, card):
     return k_ms, p_ms, k_dev, p_dev
 
 
-def contiguous_operator(n, nblocks, bs, seed, value_seed, device):
-    """nblocks uniform bs x bs f32 blocks at distinct block-aligned positions."""
+def contiguous_operator(n, nblocks, bs, seed, value_seed, device, **opts):
+    """nblocks uniform bs x bs f32 blocks at distinct block-aligned positions
+    (``opts``: the route options of the constructor)."""
     rng = np.random.default_rng(seed)
     ntiles = n // bs
     pos = rng.choice(ntiles * ntiles, size=nblocks, replace=False)
@@ -476,7 +516,7 @@ def contiguous_operator(n, nblocks, bs, seed, value_seed, device):
               for _ in range(nblocks)]
     A = bt.BlockSparseMatrix(blocks, [np.arange(r, r + bs) for r in rows],
                              [np.arange(c, c + bs) for c in cols], (n, n),
-                             device=device)
+                             device=device, **opts)
     return A, vrng
 
 
@@ -531,6 +571,7 @@ def phase1():
     plan, dev = A._patch_for()
     vals, cc, rs, _mk = dev[0]
     patch_bucket = (vals, cc, rs, shape[0])
+    shape_b2 = shape
     print(f"  patch plan: {plan.buckets[0].nb} slots of "
           f"{plan.buckets[0].MP}x{plan.buckets[0].KP}")
     for r in (64, 128, 300):
@@ -583,6 +624,18 @@ def phase1():
     stream_errs, panel_plans = stream_kernels_vs_plain(gen)
     errs.update(stream_errs)
     errs.update(batched_kernels_vs_plain(gen, patch_bucket, panel_plans))
+    W = wide_patch_operator(DEV)
+    wplan, wdev = W._patch_for()
+    wb = wplan.buckets[0]
+    require(wb.G % 8 != 0 and int(wb.row_start.max()) + wb.MP > W.shape[0],
+            "the wide plan must have G % 8 != 0 and windows past n")
+    print(f"  wide patch plan: {wb.nb} slots of {wb.MP}x{wb.KP}, G={wb.G}")
+    errs.update(b7_vs_plain(gen, [
+        ("BSM plan", (*patch_bucket[:3], None), shape_b2, False),
+        (f"wide plan (G={wb.G})", wdev[0], W.shape, False)]
+        + [(f"symmetric plan transpose_main={tm}", S._patch_for(tm)[1][0],
+            S.shape, True) for tm in (False, True)]))
+    errs.update(b10_vs_plain(gen))
     return errs
 
 
@@ -706,6 +759,91 @@ def batched_kernels_vs_plain(gen, patch_bucket, panel_plans):
     return errs
 
 
+def wide_patch_operator(device):
+    """Five 120 x 1000 f32 blocks in a 2030^2 matrix: the patch plan has one
+    slot per canvas of 128 x 1024 (G = 1, where the JAX package's r = 1
+    kernel does not run) and row windows that run past n."""
+    rng = np.random.default_rng(14)
+    n, starts = 2030, [(0, 0), (256, 1000), (1910, 0), (1910, 1000),
+                       (640, 512)]
+    rows = [np.arange(r, r + 120) for r, _ in starts]
+    cols = [np.arange(c, min(c + 1000, n)) for _, c in starts]
+    blocks = [rng.standard_normal((120, len(c))).astype(np.float32)
+              for c in cols]
+    return bt.BlockSparseMatrix(blocks, rows, cols, (n, n), device=device)
+
+
+def b7_vs_plain(gen, cases) -> dict:
+    """B7 against its plain version and against B2 (modes f, t) or B3
+    (modes m, a) at r = 1 on the same plan.  ``cases``: (label, (vals, cc,
+    rs, mk), (nrows, ncols), symmetric)."""
+    errs = {"B7": 0.0, "B7 duality": 0.0}
+    for label, (vals, cc, rs, mk), (m, n), symmetric in cases:
+        for mode in (("m", "a") if symmetric else ("f", "t")):
+            n_in, n_out = (m, n) if mode == "t" else (n, m)
+            x = torch.randn(n_in, generator=gen).to(DEV)
+            got = patch_spmv1.patch_spmv1(vals, cc, rs, mk, x, n_out, mode)
+            ref = patch_spmv1.patch_spmv1_plain(vals, cc, rs, mk, x, n_out,
+                                                mode)
+            if symmetric:
+                other = patch_engine.bucket_spmm_sym(
+                    vals, cc, rs, mk, x[:, None], adjoint=mode == "a")
+            else:
+                other = patch_engine.bucket_spmm(
+                    vals, cc, rs, x[:, None], n_out, transpose=mode == "t")
+            torch.cuda.synchronize()
+            errs["B7"] = max(errs["B7"], rel_check(
+                f"B7 {label} mode {mode} vs plain", got, ref, TOL32))
+            errs["B7 duality"] = max(errs["B7 duality"], rel_check(
+                f"B7 {label} mode {mode} vs {'B3' if symmetric else 'B2'} "
+                f"at r=1", got, other[:, 0], TOL32))
+    return errs
+
+
+def b10_vs_plain(gen) -> dict:
+    """B10 on v2 plans at seg 8, 16 and 32: plain, transposed, fused mirror
+    and a plan whose last segment runs past ncols (1010 columns), against
+    its plain version, at 1 against 16 tiles per warp."""
+    errs = {"B10": 0.0, "B10 duality": 0.0}
+    blocks, rows, cols, shape = random_block_sparse(
+        11, shape=(600, 600), nblocks=30, max_block=60, dtype=np.float32,
+        contiguous=True)
+    lay = build_layout(blocks, rows, cols, shape)
+    d, di, o, ri, ci, shp = random_symmetric(
+        13, n=700, ngroups=14, noffdiag=26, dtype=np.float32, contiguous=True)
+    dl, ol = build_layout(d, di, di, shp), build_layout(o, ri, ci, shp)
+    fused = (panel2._layout_entries(dl, transpose=False)
+             + [(b, r, c, True) for b, r, c, _ in
+                panel2._layout_entries(ol, transpose=False)])
+    rng = np.random.default_rng(23)
+    wrap = [(rng.standard_normal((40, 30)).astype(np.float32),
+             np.arange(0, 40), np.arange(980, 1010), False),
+            (rng.standard_normal((24, 100)).astype(np.float32),
+             np.arange(40, 64), np.arange(300, 400), False)]
+    for seg in (8, 16, 32):
+        plans = {
+            "plain": panel2.build_panel2_plan(
+                panel2._layout_entries(lay, transpose=False), shape, seg=seg),
+            "transposed": panel2.build_panel2_plan(
+                panel2._layout_entries(lay, transpose=True), shape[::-1],
+                seg=seg),
+            "fused mirror": panel2.build_panel2_plan(fused, shp, seg=seg,
+                                                     mirror=True),
+            "past ncols": panel2.build_panel2_plan(wrap, (64, 1010), seg=seg),
+        }
+        require(plans["fused mirror"].mirror, "the fused v2 plan must mirror")
+        require(plans["past ncols"].NC * seg > 1010,
+                "the last segment must run past ncols")
+        for label, plan in plans.items():
+            dev = panel2_spmv.panel2_device_arrays(plan, DEV)
+            x = torch.randn(plan.ncols, generator=gen).to(DEV)
+            check_stream_kernel(
+                f"B10 seg {seg} {label} (S={plan.S} TS={plan.TS} "
+                f"CW={plan.CW})", panel2_spmv.panel2_spmv,
+                panel2_spmv.panel2_apply_plain, plan, dev, x, errs)
+    return errs
+
+
 # -- phase 2 -------------------------------------------------------------------
 
 def phase2():
@@ -795,8 +933,12 @@ def describe(plan) -> str:
     if plan is None:
         return "none"
     kind = "mirror" if plan.mirror else "plain"
-    extra = (f", CW {plan.CW}, RW {plan.RW}, grids {plan.grids_used}"
-             if hasattr(plan, "CW") else "")
+    if isinstance(plan, panel2.Panel2Plan):
+        extra = f", CW {plan.CW}, RW {plan.RW}, v2 seg {plan.seg}"
+    elif hasattr(plan, "CW"):
+        extra = f", CW {plan.CW}, RW {plan.RW}, grids {plan.grids_used}"
+    else:
+        extra = ""
     return (f"{plan.S} slabs x {plan.TS} tiles{extra}, {kind}, "
             f"{plan.tile_bytes / 1e6:.1f} MB + {plan.aux_bytes / 1e6:.2f} MB "
             f"aux (as the JAX package counts it)")
@@ -815,8 +957,8 @@ def stream_setup(op, transpose=False) -> dict:
     t3 = time.perf_counter()
     print(f"  panel plan: {describe(pplan)}, {t1 - t0:.2f} s on the host")
     print(f"  slab plan: {describe(splan)}, {t2 - t1:.2f} s on the host")
-    print(f"  stream route decision: {choice} ({STREAM_KERNEL[choice]}); "
-          f"staging {t3 - t2:.2f} s")
+    print(f"  stream route decision: {choice} ({stream_kernel(op, transpose)}"
+          f"); staging {t3 - t2:.2f} s")
     return {"panel_s": t1 - t0, "strip_s": t2 - t1, "stage_s": t3 - t2}
 
 
@@ -890,7 +1032,7 @@ def phase3(card: str):
         "SpMM r=128": time_routes(
             "SpMM r=128", lambda: A @ X, lambda: plain_route(A, X),
             plan.value_bytes, 2 * plan.value_bytes // 4 * 128, card),
-        "setup": setup, "launches": launched["B5"],
+        "setup": setup, "launches": launched["B5"], "op": A,
     }
 
 
@@ -1214,6 +1356,7 @@ def phase5(card: str):
             lambda: plain_route_sym(S, X), plan.value_bytes,
             2 * 128 * (int(hb.vals.size) + mirrored), card),
         "setup": setup, "launches": launched["B5"], "B9 single": b9_single,
+        "op": S,
     }
     csr = csr_on_card([S])
     times["library"] = {"SpMM r=128": library_ms(
@@ -1435,7 +1578,7 @@ def phase7(card: str):
             "B8 on the slab plan", lambda: slab_spmv.slab_spmv(splan, sdev, x),
             lambda: slab_spmv.slab_apply_plain(splan, sdev, x), sbytes,
             2 * splan.tile_bytes // 4, card),
-        "setup": setup, "launches": launched["B5"],
+        "setup": setup, "launches": launched["B5"], "op": V,
     }
     csr = csr_on_card([V])
     times["library"] = {"SpMV": library_ms(
@@ -1800,6 +1943,217 @@ def phase9(card: str):
     return out
 
 
+# -- phases 10 and 11 ------------------------------------------------------------
+
+REAL = {"bsm": "BSM n=8192, 2000 x 128x128 (config 1)",
+        "sym": "symmetric n=32768, 384 + 4096 blocks (config 2 x8)",
+        "vbcrs": "VBCRS n=32768 (config 3)"}
+
+
+def real_operand(key: str, **opts):
+    """Phase 3's, 5's or 7's operand, built anew with the route options
+    ``opts``; the constructor's host seconds."""
+    t0 = time.perf_counter()
+    if key == "bsm":
+        op = contiguous_operator(8192, 2000, 128, seed=7, value_seed=7 + 7777,
+                                 device=DEV, **opts)[0]
+    elif key == "sym":
+        d, di, o, ri, ci, shape = random_symmetric(
+            8, n=32768, ngroups=384, noffdiag=4096, dtype=np.float32,
+            contiguous=True)
+        op = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape, device=DEV,
+                                     **opts)
+    else:
+        blocks, rs, cs = config3_blocks(32768)
+        op = bt.VariableBlockCompressedRowStorage(
+            blocks, rs, cs, (32768, 32768), granularity=(8, 128), device=DEV,
+            **opts)
+    torch.cuda.synchronize()
+    return op, time.perf_counter() - t0
+
+
+def real_x(key: str) -> torch.Tensor:
+    """The operand vector of ``key`` in phases 10 and 11 (the same x, so
+    one library call serves both)."""
+    n = 8192 if key == "bsm" else 32768
+    seed = {"bsm": 21, "sym": 22, "vbcrs": 23}[key]
+    return torch.randn(n, generator=torch.Generator().manual_seed(seed)).to(DEV)
+
+
+def float64_reference(op, x, transpose=False) -> torch.Tensor:
+    """The bucket route through the plain versions in float64."""
+    if hasattr(op, "_dlayout"):
+        return plain_buckets_sym(op, x, transpose=transpose,
+                                 dtype=torch.float64)
+    n_out = op.shape[1] if transpose else op.shape[0]
+    return plain_buckets(op.layout, op._buckets, x.double(), n_out,
+                         torch.float64, transpose=transpose)
+
+
+def default_beside(label, default, x, card) -> tuple:
+    """(eager, graph) ms of the default operator's product (B5), timed
+    beside a route of phases 10 and 11."""
+    fn = lambda: default @ x  # noqa: E731
+    eager = min(median_ms(fn), median_ms(fn))
+    graph = graph_ms(fn)
+    print(f"  {label}, default operator ({stream_kernel(default)}): eager "
+          f"{eager:.4f} ms, graph {graph:.4f} ms [{card}]")
+    return eager, graph
+
+
+def live_patch_bytes(plan, ncols: int) -> int:
+    """Value bytes of a patch plan on columns below ``ncols``: what B7
+    reads (sentinel chunks lie past the columns and hold zeros)."""
+    total = 0
+    for b in plan.buckets:
+        lanes = np.clip(ncols - b.col_chunk.astype(np.int64) * CC, 0, CC)
+        total += int(lanes.sum()) * b.MP * 4
+    return total
+
+
+def phase10(card: str, defaults: dict):
+    print("phase 10: the r = 1 patch route (B7), patch='always', on the "
+          "operands of phases 3, 5 and 7")
+    out = {"errs": {"B7": 0.0, "B7 duality": 0.0, "B7 float64": 0.0},
+           "launches": {}, "times": {}, "library": {}}
+    errs = out["errs"]
+    for key, label in REAL.items():
+        op, t_ctor = real_operand(key, patch="always")
+        t0 = time.perf_counter()
+        plan, dev = op._patch_for(False) if key == "sym" else op._patch_for()
+        torch.cuda.synchronize()
+        t_plan = time.perf_counter() - t0
+        b = plan.buckets[0]
+        live = live_patch_bytes(plan, op.shape[1])
+        print(f"  {label}: constructor {t_ctor:.2f} s; patch plan {b.nb} "
+              f"slots of {b.MP}x{b.KP} (G={b.G}), "
+              f"{plan.value_bytes / 1e6:.1f} MB, of which B7 reads "
+              f"{live / 1e6:.1f} MB (its lanes past the columns skip their "
+              f"loads), {t_plan:.2f} s on the host")
+        x = real_x(key)
+        n = op.shape[0]
+        launched = 0
+        for tr in ((False, True) if key == "bsm" else (False,)):
+            name = f"{label}: {'A.T @ x' if tr else 'A @ x'}"
+            reset_counts()
+            y = (op.T if tr else op) @ x
+            torch.cuda.synchronize()
+            got = counts()
+            print(f"  {name}: launches {got}")
+            require_counts(name, got, {"B7": 1, "B1": 0, "B2": 0, "B3": 0,
+                                       "B5": 0, "B8": 0, "B10": 0})
+            launched += got["B7"]
+            errs["B7 float64"] = max(errs["B7 float64"], rel_check(
+                f"{name} (B7) vs float64 bucket route", y,
+                float64_reference(op, x, tr), TOL32))
+            errs["B7"] = max(errs["B7"], rel_check(
+                f"{name} (B7) vs its plain version", y,
+                patch_engine.patch_spmv_plain(plan, dev, x, transpose=tr),
+                TOL32))
+            vals, cc, rs, mk = dev[0]
+            other = (patch_engine.bucket_spmm_sym(vals, cc, rs, mk, x[:, None])
+                     if key == "sym" else patch_engine.bucket_spmm(
+                         vals, cc, rs, x[:, None], n, transpose=tr))
+            errs["B7 duality"] = max(errs["B7 duality"], rel_check(
+                f"{name}: B7 vs {'B3' if key == 'sym' else 'B2'} at r=1",
+                y, other[:, 0], TOL32))
+            if not tr:
+                y0 = y
+        out["launches"][key] = launched
+        flops = 2 * op.nnz
+        times = dict(zip(("ms", "plain_ms", "graph_ms", "plain_graph_ms"),
+                         time_routes(f"{label} SpMV, patch route (B7)",
+                                     lambda: op @ x,
+                                     lambda: patch_engine.patch_spmv_plain(
+                                         plan, dev, x),
+                                     live, flops, card)))
+        times["b5_ms"], times["b5_graph_ms"] = default_beside(
+            label, defaults[key], x, card)
+        csr = csr_on_card([op])
+        out["library"][key] = library_ms(f"{label} SpMV, torch.mv on the "
+                                         f"CSR matrix", lambda: torch.mv(
+                                             csr, x), y0, card)
+        del csr
+        times["bound"] = bound(logical_nnz(op) * 4 + 2 * n * 4, flops)
+        times["plan_mb"], times["plan_s"] = plan.value_bytes / 1e6, t_plan
+        times["read_mb"] = live / 1e6
+        out["times"][key] = times
+        del op, plan, dev
+    return out
+
+
+def phase11(card: str, defaults: dict, library: dict):
+    print("phase 11: the panel v2 route (B10), panel='v2', on the operands "
+          "of phases 3, 5 and 7")
+    out = {"errs": {"B10": 0.0, "B10 duality": 0.0, "B10 float64": 0.0},
+           "launches": {}, "mirror": {}, "times": {}}
+    errs = out["errs"]
+    for key, label in REAL.items():
+        op, t_ctor = real_operand(key, panel="v2")
+        print(f"  {label}: constructor {t_ctor:.2f} s")
+        setup = stream_setup(op)
+        require(stream_kernel(op) == "B10",
+                f"{label}: the v2 panel plan must take the stream route")
+        _, plan, dev = op._stream_entry(False)
+        require(plan.mirror == (key == "sym"),
+                f"{label}: mirror plan {plan.mirror}, expected "
+                f"{key == 'sym'} (the fused plan on the symmetric operand)")
+        x = real_x(key)
+        reset_counts()
+        y = op @ x
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"  {label}: A @ x launches {got}")
+        require_counts(f"{label}: A @ x", got, dict(stream_want(op), B2=0,
+                                                     B3=0))
+        out["launches"][key] = got["B10"]
+        out["mirror"][key] = got["B10 mirror"]
+        errs["B10 float64"] = max(errs["B10 float64"], rel_check(
+            f"{label}: A @ x (B10) vs float64 bucket route", y,
+            float64_reference(op, x), TOL32))
+        check_stream_kernel(f"B10 {label}", panel2_spmv.panel2_spmv,
+                            panel2_spmv.panel2_apply_plain, plan, dev, x,
+                            errs)
+        flops = 2 * op.nnz
+        times = dict(zip(("ms", "plain_ms", "graph_ms", "plain_graph_ms"),
+                         time_routes(f"{label} SpMV, panel v2 route (B10)",
+                                     lambda: op @ x,
+                                     lambda: panel2_spmv.panel2_apply_plain(
+                                         plan, dev, x),
+                                     stream_bytes(op), flops, card)))
+        times["b5_ms"], times["b5_graph_ms"] = default_beside(
+            label, defaults[key], x, card)
+        times["library_ms"] = library[key]
+        times["bound"] = bound(logical_nnz(op) * 4 + 2 * op.shape[0] * 4,
+                               flops)
+        times.update(seg=plan.seg, plan_mb=(plan.tile_bytes + plan.aux_bytes)
+                     / 1e6, plan_s=setup["panel_s"])
+        out["times"][key] = times
+        del op, plan, dev
+
+    # a batch of v2 operators loops: one B10 launch per product, no B6
+    blocks, rs, cs = config3_blocks(4096)
+    rng = np.random.default_rng(301)
+    ops = [bt.VariableBlockCompressedRowStorage(
+        [rng.standard_normal(b.shape).astype(np.float32) for b in blocks]
+        if p else blocks, rs, cs, (4096, 4096), granularity=(8, 128),
+        device=DEV, panel="v2") for p in range(2)]
+    xs = torch.randn((2, 4096), generator=torch.Generator().manual_seed(24))
+    reset_counts()
+    y = bt.batched_mv(ops, xs.to(DEV))
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"  batched_mv of two v2 operators (config 3, n=4096): launches "
+          f"{got}")
+    require_counts("batched_mv of v2 operators", got,
+                   {"B6": 0, "B5": 0, "B10": 2 * (stream_kernel(ops[0])
+                                                  == "B10")})
+    batch_check("batched_mv of v2 operators vs float64 scipy", y,
+                scipy_refs(ops, xs))
+    out["batched launches"] = got
+    return out
+
+
 def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1841,8 +2195,15 @@ def main() -> None:
     v_times, errs7 = run("phase 7", phase7, card)
     slab_times, errs8 = run("phase 8", phase8, card)
     batch = run("phase 9", phase9, card)
+    defaults = {"bsm": times["op"], "sym": sym_times["op"],
+                "vbcrs": v_times["op"]}
+    b7 = run("phase 10", phase10, card, defaults)
+    b10 = run("phase 11", phase11, card, defaults, b7["library"])
     print("phase wall times: " + ", ".join(f"{k} {v:.1f} s"
                                            for k, v in wall.items()))
+    require(all(b7["launches"].values()) and all(b10["launches"].values()),
+            f"a main path skipped B7 or B10: {b7['launches']}, "
+            f"{b10['launches']}")
     b5_launches = {"BSM real size (phase 3)": times["launches"],
                    "symmetric flagship (phase 4)": launches4["B5"],
                    "symmetric real size (phase 5)": sym_times["launches"],
@@ -1859,6 +2220,17 @@ def main() -> None:
     def measured(bnd, lib):
         """The keys every kernel entry carries beside its times."""
         return {"bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib}
+
+    def per_operand(res):
+        """Phase 10's or 11's times of every operand, keyed by operand."""
+        out = {}
+        for key, t in res["times"].items():
+            for k in ("ms", "plain_ms", "graph_ms", "plain_graph_ms", "b5_ms",
+                      "b5_graph_ms", "plan_mb", "read_mb", "plan_s", "seg"):
+                if k in t:
+                    out[f"{key}_{k}"] = t[k]
+            out[f"{key}_bound_ms"] = t["bound"][0]
+        return out
 
     mm, mv2, mv3 = batch["mm"], batch["mv config 2"], batch["mv config 3"]
     capped = batch["mv capped"]
@@ -1996,6 +2368,39 @@ def main() -> None:
          "capped_bound_ms": capped["bound"][0],
          "capped_timed": "B6 driven on the stacked plan, P=4 x config-3 VBCRS "
                          "n=32768, above the 24 MB cap (the batch loops)"},
+        {"name": "patch_spmv1 (B7)", "route": "cuda", "source": B7_SRC,
+         "replaces": B7_REPLACES, "launches": sum(b7["launches"].values()),
+         "launches_by_path": b7["launches"],
+         "max_abs_err": b7["errs"]["B7"],
+         "max_abs_err_float64": b7["errs"]["B7 float64"],
+         "max_abs_err_phase1": errs1["B7"],
+         "max_abs_err_duality": max(errs1["B7 duality"],
+                                    b7["errs"]["B7 duality"]),
+         **{k: b7["times"]["vbcrs"][k] for k in
+            ("ms", "plain_ms", "graph_ms", "plain_graph_ms")},
+         "timed": "V @ x, config-3 VBCRS n=32768, patch='always' (b5: the "
+                  "default operator beside it)", "card": card,
+         **measured(b7["times"]["vbcrs"]["bound"], b7["library"]["vbcrs"]),
+         **per_operand(b7),
+         **{f"{k}_library_ms": v for k, v in b7["library"].items()}},
+        {"name": "panel2_spmv (B10)", "route": "cuda", "source": B10_SRC,
+         "replaces": B10_REPLACES, "launches": sum(b10["launches"].values()),
+         "launches_by_path": b10["launches"],
+         "launches_mirror": sum(b10["mirror"].values()),
+         "max_abs_err": b10["errs"]["B10"],
+         "max_abs_err_float64": b10["errs"]["B10 float64"],
+         "max_abs_err_phase1": errs1["B10"],
+         "max_abs_err_duality": max(errs1["B10 duality"],
+                                    b10["errs"]["B10 duality"]),
+         **{k: b10["times"]["vbcrs"][k] for k in
+            ("ms", "plain_ms", "graph_ms", "plain_graph_ms")},
+         "timed": "V @ x, config-3 VBCRS n=32768, panel='v2' (b5: the "
+                  "default operator beside it)", "card": card,
+         **measured(b10["times"]["vbcrs"]["bound"],
+                    b10["times"]["vbcrs"]["library_ms"]),
+         **per_operand(b10),
+         **{f"{k}_library_ms": t["library_ms"]
+            for k, t in b10["times"].items()}},
     ]}
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

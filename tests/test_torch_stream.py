@@ -596,7 +596,7 @@ def test_panel_autograd_gradcheck_f64():
     rest = tuple(dev[1:])
 
     def fn(v, xx):
-        return panel_spmv._PanelApply.apply(v, xx, plan, rest)
+        return panel_spmv.panel_apply(plan, (v,) + rest, xx)
     assert torch.autograd.gradcheck(fn, (vals, x), eps=1e-6, atol=1e-7,
                                     fast_mode=True)
 
