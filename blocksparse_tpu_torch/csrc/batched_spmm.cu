@@ -1,4 +1,4 @@
-// Batched merged-patch SpMM on Hopper (kernel B4 of the port).
+// Batched merged-patch SpMM on Hopper tensor cores (kernel B4 of the port).
 //
 // Replaces blocksparse_tpu/ops/batched.py::_kern_batched (launched from
 // _batched_raw under batched_mm): P same-structure patch SpMMs in one
@@ -10,85 +10,231 @@
 // (the transpose mode is the backward's dX).  X is [P, x_rows, r] and Y
 // [P, y_rows, r]; rows past X's end read zero and rows past Y's end are
 // dropped, so the JAX wrapper's padding of X and Y to the plan's padded row
-// counts is not needed.
+// counts is not needed.  A chunk id whose rows start past X's end (forward)
+// or Y's end (transpose) is a sentinel.
 //
-// What bounds it on the card: as kernel B2 (patch_spmm.cu), each value feeds
-// r FMAs, so at r = 64-128 it sits between the bytes of the P value stacks
-// and the CUDA-core fp32 FMA rate.  The design: B2's tile core
-// (tile_core.cuh) with a third grid dimension, blockIdx.z = p, that offsets
-// the values, X and Y of product p; one launch covers all P products, so
-// the card is filled P times wider than by one product and P - 1 launches
-// of host overhead go away.  The TPU kernel prefetched product p+1's slabs
-// under product p's compute in an in-order grid; here the products' blocks
-// simply run side by side.
+// The design: one block per (product p = blockIdx.z, slot b and 128-row
+// tile, column tile of 64 or 128), on tile_mma.cuh's tensor-core loop.
+// Forward: a full 128 x 128 output tile at MP = 128, r = 128, the slot's
+// live chunks (sentinels skipped: no loads, no MMAs) staged 32 deep through
+// the cp.async ring.  Transpose: 128 rows of V's k extent (four chunks;
+// sentinel ones neither load values nor run MMAs) against the window's MP
+// rows, 16 deep per stage.  tier 0 is one TF32 pass (precision=None),
+// tier 1 3xTF32 ("high", "highest").  The TPU kernel prefetched product
+// p+1's slabs under product p's compute in an in-order grid; here the
+// products' blocks run side by side.
+//
+// What bounds it on the card: 2 r flops per stored value of every product,
+// at the 3xTF32 rate (165 TFLOP/s) for tier 1; at tier 0 the bytes of the P
+// value stacks.
 //
 // Race-freedom: slots of one product may share output rows and blocks run
-// in no order, so every write to Y is an fp32 atomicAdd into the zeroed
-// output the wrapper allocates, as in B2; products never share a row of Y.
-// The summation order varies from run to run.
-#include "tile_core.cuh"
+// in no order, so every write to Y is an atomicAdd(float4*) into the zeroed
+// output the wrapper allocates; products never share a row of Y.  The
+// summation order across blocks varies from run to run.
+#include "tile_mma.cuh"
 
 namespace {
 
+using bst_mma::Tile;
 constexpr int kCC = 32;  // column chunk width of the patch plan
 
-template <int TR, bool TRANS>
-__global__ void __launch_bounds__(bst::kThreads)
-    batched_spmm_kernel(const float* __restrict__ vals,
-                        const int* __restrict__ cc, const int* __restrict__ rs,
-                        const float* __restrict__ x, float* __restrict__ y,
-                        int nb, int MP, int KP, int r, long long x_rows,
-                        long long y_rows) {
+struct BatchArgs {
+  const float* vals;
+  const int* cc;
+  const int* rs;
+  const float* x;
+  float* y;
+  int nb, MP, KP, r;
+  long long x_rows, y_rows;
+  int vec, rtiles;
+};
+
+// Forward stage s: A = V[m0 : m0 + 128, kpos[s] : +32], B = the chunk's X rows.
+template <class T>
+struct ForwardStages {
+  const float* V;
+  int KP, m0, mrows;
+  const float* x;
+  long long x_rows;
+  int r, c0;
+  bool vec;
+  const int* chunk;  // shared memory
+  const int* kpos;
+  __device__ __forceinline__ bool live(int) const { return true; }
+  __device__ __forceinline__ void load(int s, float* As, float* Bs) const {
+    const float* Vk = V + kpos[s];
+    bst_mma::copy_tile<T::ROWS, T::KT>(
+        As, T::A_LD,
+        [&](int q) -> const float* {
+          return q < mrows ? Vk + (long long)(m0 + q) * KP : nullptr;
+        },
+        bst_mma::AllCols{}, true, V);
+    const long long base = (long long)chunk[s] * kCC;
+    bst_mma::copy_tile<T::KT, T::TR>(
+        Bs, T::B_LD,
+        [&](int q) -> const float* {
+          return base + q < x_rows ? x + (base + q) * r + c0 : nullptr;
+        },
+        bst_mma::ColsBelow{r - c0}, vec, x);
+  }
+};
+
+// Transpose stage s: window rows m = 16 s .. + 16; A = V[m, k0 : k0 + 128]
+// (transposed layout; a sentinel chunk's columns are zero-filled, not read),
+// B = X[rs[b] + m].
+template <class T>
+struct TransposeStages {
+  const float* V;
+  int KP, MP, k0;
+  long long w;  // rs[b]
+  const float* x;
+  long long x_rows;
+  int r, c0;
+  bool vec;
+  const bool* chunk_live;  // shared memory, ROWS / 32 entries
+  __device__ __forceinline__ bool live(int mi) const {
+    return chunk_live[mi / 2];
+  }
+  __device__ __forceinline__ void load(int s, float* As, float* Bs) const {
+    const int m0 = s * T::KT, mrows = MP - m0;
+    const float* Vm = V + (long long)m0 * KP + k0;
+    const bool* ok = chunk_live;
+    bst_mma::copy_tile<T::KT, T::ROWS>(
+        As, T::A_LD,
+        [&](int q) -> const float* {
+          return q < mrows ? Vm + (long long)q * KP : nullptr;
+        },
+        [&](int c) { return ok[c / kCC]; }, true, V);
+    bst_mma::copy_tile<T::KT, T::TR>(
+        Bs, T::B_LD,
+        [&](int q) -> const float* {
+          return q < mrows && w + m0 + q < x_rows ? x + (w + m0 + q) * r + c0
+                                                  : nullptr;
+        },
+        bst_mma::ColsBelow{r - c0}, vec, x);
+  }
+};
+
+// 128 x TRW tiles.  The forward 3xTF32 instance holds the stage's split B
+// fragments beside a 64-value accumulator: one block per SM, a deeper ring.
+template <int TRW, int TIER, bool TRANS>
+struct Kern {
+  static constexpr bool kWide = TIER == 1 && !TRANS;
+  using T = Tile<TRANS, 2, 4, TRW / 32, TRANS ? 16 : 32,
+                 TRANS ? 4 : (kWide ? 5 : 3)>;
+  static_assert(T::TR == TRW && T::ROWS == 128, "tile");
+};
+
+template <int TRW, int TIER, bool TRANS>
+__global__ void __launch_bounds__(bst_mma::kThreads,
+                                  Kern<TRW, TIER, TRANS>::kWide ? 1 : 2)
+    batched_spmm_kernel(BatchArgs a) {
+  using T = typename Kern<TRW, TIER, TRANS>::T;
+  extern __shared__ __align__(16) float smem[];
   const long long p = blockIdx.z;
-  const float* V = vals + p * nb * MP * KP;
-  const float* X = x + p * x_rows * r;
-  float* Y = y + p * y_rows * r;
-  const bst::WindowMap window{rs};
-  const bst::ChunkMap chunks{cc, KP / kCC, kCC};
-  if constexpr (TRANS)
-    bst::tile_product<float, TR, true, false>(V, MP, KP, chunks, window, X,
-                                              x_rows, Y, y_rows, r);
-  else
-    bst::tile_product<float, TR, false, false>(V, MP, KP, window, chunks, X,
-                                               x_rows, Y, y_rows, r);
+  const float* V = a.vals + (p * a.nb + blockIdx.x / a.rtiles) *
+                                (long long)a.MP * a.KP;
+  const float* X = a.x + p * a.x_rows * a.r;
+  const int b = blockIdx.x / a.rtiles, tile = blockIdx.x % a.rtiles;
+  const int c0 = blockIdx.y * TRW;
+  const int KC = a.KP / kCC;
+  const int* cc_row = a.cc + (long long)b * KC;
+  const bst_mma::AddY add{a.y + p * a.y_rows * a.r, a.y_rows, a.r, c0,
+                          a.vec != 0};
+  if constexpr (TRANS) {
+    constexpr int NCH = T::ROWS / kCC;
+    __shared__ bool chunk_live[NCH];
+    __shared__ long long chunk_row[NCH];
+    const int k0 = tile * T::ROWS;
+    if (threadIdx.x < NCH) {
+      const int j = k0 / kCC + threadIdx.x;
+      const long long row = j < KC ? (long long)__ldg(cc_row + j) * kCC
+                                   : a.y_rows;
+      chunk_row[threadIdx.x] = row;
+      chunk_live[threadIdx.x] = row < a.y_rows;
+    }
+    __syncthreads();
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) any |= chunk_live[c];
+    if (!any) return;
+    const TransposeStages<T> st{V, a.KP, a.MP, k0, __ldg(a.rs + b), X,
+                                a.x_rows, a.r, c0, a.vec != 0, chunk_live};
+    bst_mma::tile_gemm<T, TIER>(
+        st, (a.MP + T::KT - 1) / T::KT, T::ROWS / 16,
+        [&](int row, int col, float4 v) {
+          add(chunk_row[row / kCC] + row % kCC, col, v);
+        },
+        smem);
+  } else {
+    __shared__ int chunk[bst_mma::kMaxKC], kpos[bst_mma::kMaxKC];
+    __shared__ int counts[bst_mma::kMaxKC / 32];
+    const int nst = bst_mma::live_chunks(cc_row, KC, a.x_rows, chunk, kpos,
+                                         counts);
+    if (nst == 0) return;
+    const int m0 = tile * T::ROWS, mrows = min(T::ROWS, a.MP - m0);
+    const long long row0 = (long long)__ldg(a.rs + b) + m0;
+    const ForwardStages<T> st{V, a.KP, m0, mrows, X, a.x_rows, a.r, c0,
+                              a.vec != 0, chunk, kpos};
+    bst_mma::tile_gemm<T, TIER>(
+        st, nst, (mrows + 15) / 16,
+        [&](int row, int col, float4 v) {
+          if (row < mrows) add(row0 + row, col, v);
+        },
+        smem);
+  }
 }
 
-template <int TR>
-void launch(dim3 grid, cudaStream_t s, bool transpose, const float* vals,
-            const int* cc, const int* rs, const float* x, float* y, int nb,
-            int MP, int KP, int r, long long x_rows, long long y_rows) {
-  if (transpose)
-    batched_spmm_kernel<TR, true><<<grid, bst::kThreads, 0, s>>>(
-        vals, cc, rs, x, y, nb, MP, KP, r, x_rows, y_rows);
-  else
-    batched_spmm_kernel<TR, false><<<grid, bst::kThreads, 0, s>>>(
-        vals, cc, rs, x, y, nb, MP, KP, r, x_rows, y_rows);
+template <int TRW, int TIER, bool TRANS>
+int launch(const BatchArgs& a, dim3 grid, cudaStream_t s) {
+  constexpr int smem = Kern<TRW, TIER, TRANS>::T::SMEM;
+  static bool sized = false;  // above 48 KB once per kernel instance
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        batched_spmm_kernel<TRW, TIER, TRANS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  batched_spmm_kernel<TRW, TIER, TRANS>
+      <<<grid, bst_mma::kThreads, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int TRW, int TIER>
+int launch_mode(const BatchArgs& a, dim3 grid, bool transpose,
+                cudaStream_t s) {
+  return transpose ? launch<TRW, TIER, true>(a, grid, s)
+                   : launch<TRW, TIER, false>(a, grid, s);
 }
 
 }  // namespace
 
-// y must be zeroed ([P, y_rows, r] f32).  transpose: 0 forward, 1 transpose.
+// y must be zeroed ([P, y_rows, r] f32).  transpose: 0 forward, 1
+// transpose.  tier: 0 one TF32 pass, 1 3xTF32.  vals must be 16-byte
+// aligned.
 extern "C" int bst_batched_spmm_f32(const float* vals, const int* cc,
                                     const int* rs, const float* x, float* y,
                                     int P, int nb, int MP, int KP, int r,
                                     long long x_rows, long long y_rows,
-                                    int transpose, void* stream) {
-  if (KP % kCC != 0 || P > 65535) return (int)cudaErrorInvalidValue;
-  if (P <= 0 || nb <= 0 || r <= 0 || MP <= 0 || KP <= 0 || y_rows <= 0)
-    return 0;
-  const int M = transpose ? KP : MP;
-  const int tr = bst::column_tile(r, false);
-  const dim3 grid(nb * ((M + bst::kMT - 1) / bst::kMT), (r + tr - 1) / tr, P);
+                                    int transpose, int tier, void* stream) {
+  if (KP % kCC != 0 || KP / kCC > bst_mma::kMaxKC || P > 65535 || tier < 0 ||
+      tier > 1 || reinterpret_cast<uintptr_t>(vals) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (P <= 0 || nb <= 0 || r <= 0 || MP <= 0 || y_rows <= 0) return 0;
+  const bool vec = r % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const int trw = r <= 64 ? 64 : 128;
+  const int rtiles = transpose ? (KP + 127) / 128 : (MP + 127) / 128;
+  const BatchArgs a{vals, cc, rs, x, y, nb, MP, KP, r, x_rows, y_rows,
+                    vec ? 1 : 0, rtiles};
+  const dim3 grid(nb * rtiles, (r + trw - 1) / trw, P);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BST_LAUNCH(TRV)                                                    \
-  launch<TRV>(grid, s, transpose != 0, vals, cc, rs, x, y, nb, MP, KP, r, \
-              x_rows, y_rows)
-  switch (tr) {
-    case 1: BST_LAUNCH(1); break;
-    case 32: BST_LAUNCH(32); break;
-    case 64: BST_LAUNCH(64); break;
-    default: BST_LAUNCH(128); break;
-  }
-#undef BST_LAUNCH
-  return (int)cudaGetLastError();
+  const bool tr = transpose != 0;
+  if (trw == 64)
+    return tier ? launch_mode<64, 1>(a, grid, tr, s)
+                : launch_mode<64, 0>(a, grid, tr, s);
+  return tier ? launch_mode<128, 1>(a, grid, tr, s)
+              : launch_mode<128, 0>(a, grid, tr, s);
 }

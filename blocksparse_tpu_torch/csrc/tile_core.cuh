@@ -1,5 +1,7 @@
-// Shared tile core of the port's two block-product kernels (fused_spmm.cu,
-// patch_spmm.cu): gather -> per-block GEMM tile -> atomic scatter-add.
+// Shared tile core of kernels B1 (fused_spmm.cu) and B2 (patch_spmm.cu):
+// gather -> per-block GEMM tile -> atomic scatter-add, in IEEE fp32 / fp64
+// FMA at every precision tier.  (B3 and B4 run the tensor-core core,
+// tile_mma.cuh.)
 //
 // One thread block owns one (stored block b, 64-row output tile, column tile
 // of TR right-hand-side columns).  It walks the contraction in stages of KT:
@@ -21,13 +23,9 @@
 // [0, y_rows) is dropped: sentinel and padded lanes need no padded buffers,
 // and a bad table cannot write outside y.
 //
-// MIRROR (TR <= 32) adds the transposed contribution of the same
-// shared-memory tile (y[in rows] += A^T x[out rows]), one read of V feeding
-// two products.  Two row predicates restrict the mirrored product: mir_out
-// selects the out rows whose x enters it, mir_in the in rows it adds into.
-// B1 mirrors every row (AllRows); B3 mirrors only the leading chunks that
-// hold stored off-diagonal blocks (ChunkPrefix), so the diagonal blocks
-// that share its slots get no spurious transpose.
+// MIRROR (TR <= 32, B1's symmetric mode) adds the transposed contribution
+// of the same shared-memory tile (y[in rows] += A^T x[out rows]) for every
+// row, one read of V feeding two products.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -67,28 +65,14 @@ struct WindowMap {
   }
 };
 
-// Mirror predicates: does row i of slot b take part in the mirrored product?
-struct AllRows {
-  __device__ __forceinline__ bool operator()(int, int) const { return true; }
-};
-
-struct ChunkPrefix {  // row i lies in one of slot b's first lead[b] C-chunks
-  const int* lead;
-  int C;
-  __device__ __forceinline__ bool operator()(int b, int i) const {
-    return i / C < lead[b];
-  }
-};
-
 // A = V (TRANS false, [mp, kp]) or V^T (TRANS true, [kp, mp]) of slot b.
 // grid: x = nslots * ceil(M / kMT), y = ceil(r / TR); block: kThreads.
 template <typename T, int TR, bool TRANS, bool MIRROR, class OutMap,
-          class InMap, class MirIn = AllRows, class MirOut = AllRows>
+          class InMap>
 __device__ __forceinline__ void tile_product(
     const T* __restrict__ vals, int mp, int kp, OutMap out_row,
     InMap in_row, const T* __restrict__ x, long long x_rows,
-    T* __restrict__ y, long long y_rows, int r, MirIn mir_in = MirIn(),
-    MirOut mir_out = MirOut()) {
+    T* __restrict__ y, long long y_rows, int r) {
   static_assert(TR == 1 || TR == 32 || TR == 64 || TR == 128,
                 "column tile is 1, 32, 64 or 128");
   static_assert(!MIRROR || TR <= 32, "mirror pass takes column tiles <= 32");
@@ -117,9 +101,7 @@ __device__ __forceinline__ void tile_product(
   if constexpr (MIRROR) {
     for (int idx = t; idx < kMT * TR; idx += kThreads) {
       const int mi = idx / TR, c = idx % TR;
-      Xr[mi][c] = (m0 + mi < M && mir_out(b, m0 + mi))
-                      ? load_x(out_row(b, m0 + mi), c)
-                      : T(0);
+      Xr[mi][c] = m0 + mi < M ? load_x(out_row(b, m0 + mi), c) : T(0);
     }
   }
 
@@ -211,7 +193,7 @@ __device__ __forceinline__ void tile_product(
           s = fma(At[kj][g * ROWS + j], Xr[g * ROWS + j][0], s);
         Red[g][kj] = s;
         __syncthreads();
-        if (t < KT && k0 + t < K && mir_in(b, k0 + t)) {
+        if (t < KT && k0 + t < K) {
           T tot = T(0);
 #pragma unroll
           for (int gg = 0; gg < G; ++gg) tot += Red[gg][t];
@@ -225,8 +207,7 @@ __device__ __forceinline__ void tile_product(
           const int kj = kg + RG * i;
           T s = T(0);
           for (int mi = 0; mi < kMT; ++mi) s = fma(At[kj][mi], Xr[mi][c], s);
-          if (k0 + kj < K && mir_in(b, k0 + kj))
-            add_y(in_row(b, k0 + kj), c, s);
+          if (k0 + kj < K) add_y(in_row(b, k0 + kj), c, s);
         }
       }
     }

@@ -108,9 +108,10 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
 
     ``device``: where the operator's tensors live, the card ("cuda") unless
     the caller passes another (``"cpu"`` runs the kernels' plain versions).
-    ``precision``: "highest" | "high" | None, kept for parity with the JAX
-    package.  Every tier currently runs in full IEEE precision (see
-    ``ops/kernels/fused_spmm.py``).  ``granularity``: the bucket keys,
+    ``precision``: "highest" | "high" | None, the JAX package's tiers.  On
+    this format the tier reaches kernel B4 through ``batched_mm``; its own
+    products (B1, B2 and the SpMV kernels) run IEEE fp32 at every tier
+    (see ``ops/patch_engine.py``).  ``granularity``: the bucket keys,
     "pow2" or ``(gm, gk)`` (see ``core/layout.build_layout``).
     ``patch``: "auto" (the route decision), "always" (every f32 product
     takes the patch route where a plan exists, r = 1 included) or "never"

@@ -57,8 +57,10 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
 
     ``device``: the card ("cuda") unless the caller passes another.
     ``granularity``: the bucket keys, "pow2" or ``(gm, gk)`` (see
-    ``core/layout.build_layout``).  ``precision``: kept for parity; every
-    tier runs in full IEEE precision.  ``patch`` ("auto" | "always" |
+    ``core/layout.build_layout``).  ``precision``: "highest" | "high" |
+    None, the tier of the r > 1 products on kernel B3 (3xTF32 for
+    "highest" and "high", one TF32 pass for None; the JAX package's tiers);
+    every other route runs IEEE precision.  ``patch`` ("auto" | "always" |
     "never") and ``panel`` ("v1" | "v2"): the route options of
     :class:`BlockSparseMatrix`.
     """
@@ -222,7 +224,8 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
                 from ..ops.patch_engine import patch_apply
 
                 # the plan embeds S or S^T; it is applied as it is
-                return patch_apply(entry[0], entry[1], x)
+                return patch_apply(entry[0], entry[1], x,
+                                   precision=self._precision)
         # conj is a no-op for the real dtypes this slice admits
         if strip_eligible(x, self._dtype):
             y = self._stream_apply(x, transpose)

@@ -68,10 +68,11 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
 
     ``device``: the card ("cuda") unless the caller passes another.
     ``granularity``: the bucket keys, "pow2" or ``(gm, gk)`` (see
-    ``core/layout.build_layout``).  ``precision``: kept for parity; every
-    tier runs in full IEEE precision.  ``patch`` ("auto" | "always" |
-    "never") and ``panel`` ("v1" | "v2"): the route options of
-    :class:`BlockSparseMatrix`.
+    ``core/layout.build_layout``).  ``precision``: as for
+    :class:`BlockSparseMatrix` (the tier reaches kernel B4 through
+    ``batched_mm``; this format's own products run IEEE fp32).
+    ``patch`` ("auto" | "always" | "never") and ``panel`` ("v1" | "v2"):
+    the route options of :class:`BlockSparseMatrix`.
     """
 
     def __init__(

@@ -223,10 +223,10 @@ def batched_mm(ops, Xs, *, precision=None):
     differ).  ``Xs``: [P, n, r] tensor or a list of [n, r].  Returns
     [P, m, r].  Loops over the operators when the batch is ineligible
     (different structures, symmetric operands, non-f32).  Differentiable in
-    ``Xs``.  ``precision`` is kept for parity with the JAX package: every
-    tier runs IEEE fp32.
+    ``Xs``.  ``precision``: B4's tier ("highest" / "high": 3xTF32, None: one
+    TF32 pass on the card); None takes ``ops[0].precision``, as the JAX
+    package does.  The loop runs each operator's own route.
     """
-    del precision
     ops = list(ops)
     P = len(ops)
     Xs = _stacked_operand(Xs, 3, "batched_mm", P)
@@ -237,4 +237,7 @@ def batched_mm(ops, Xs, *, precision=None):
     if Xs.shape[1] != plan.ncols:   # B4 would read zeros past X's end
         raise ValueError(f"batched_mm: operators take {plan.ncols} rows, "
                          f"Xs has {Xs.shape[1]}")
-    return batched_spmm_apply(vals_stack, cc, rs, Xs, plan.nrows)
+    if precision is None:
+        precision = getattr(ops[0], "precision", "highest")
+    return batched_spmm_apply(vals_stack, cc, rs, Xs, plan.nrows,
+                              precision=precision)

@@ -13,8 +13,13 @@ X is [P, n_in, r] and Y [P, n_out, r]: rows past X's end read zero and rows
 past Y's end are dropped (the JAX wrapper padded both and cut Y).  Any r is
 taken in one launch, so the JAX package's ``R_SLICE`` split is not needed.
 
-Race-freedom: the kernel adds into a zeroed output with fp32 ``atomicAdd``,
-as kernel B2 does; the summation order varies from run to run.
+Race-freedom: the kernel adds into a zeroed output with fp32
+``atomicAdd(float4*)``; the summation order varies from run to run.
+
+Precision: the kernel runs on the tensor cores at ``precision``'s tier
+(``ops/patch_engine.TIERS``): 3xTF32 for "highest" (the wrapper's
+default) and "high", one TF32 pass for None.  The plain version is exact
+in the operands' dtype at every tier.
 
 Routing: CPU tensors take :func:`batched_spmm_plain`; CUDA tensors launch
 the kernel or raise.  ``LAUNCHES`` counts kernel launches.
@@ -30,7 +35,7 @@ import torch
 
 from ...core.patch import CC
 from ...utils import build
-from ..patch_engine import _window_rows
+from ..patch_engine import _aligned, _window_rows, precision_tier
 from ..torch_spmv import chunk_rows
 
 __all__ = ["batched_spmm", "batched_spmm_plain", "batched_spmm_apply",
@@ -95,23 +100,26 @@ def _check(vals, cc, rs, X) -> bool:
     return True
 
 
-def batched_spmm(vals, cc, rs, X, n_out: int, *,
-                 transpose: bool = False) -> torch.Tensor:
+def batched_spmm(vals, cc, rs, X, n_out: int, *, transpose: bool = False,
+                 precision="highest") -> torch.Tensor:
     """Y [P, n_out, r] = the P products of one patch plan's tables with
-    their stacked values, applied to X [P, n_in, r]: kernel B4 on CUDA
-    tensors, the plain version on CPU tensors."""
+    their stacked values, applied to X [P, n_in, r]: kernel B4 at
+    ``precision``'s tier on CUDA tensors, the plain version on CPU
+    tensors."""
     global LAUNCHES
+    tier = precision_tier(precision)
     if not _check(vals, cc, rs, X):
         return batched_spmm_plain(vals, cc, rs, X, n_out, transpose=transpose)
     P, nb, MP, KP = vals.shape
-    X = X.contiguous()
-    vals, cc, rs = vals.contiguous(), cc.contiguous(), rs.contiguous()
+    X = _aligned(X.contiguous())
+    vals = _aligned(vals.contiguous())
+    cc, rs = cc.contiguous(), rs.contiguous()
     n_in, r = X.shape[1], X.shape[2]
     Y = torch.zeros((P, n_out, r), dtype=torch.float32, device=X.device)
     if P and nb and r and n_out:
         build.launch("bst_batched_spmm_f32", X.device, vals.data_ptr(),
                      cc.data_ptr(), rs.data_ptr(), X.data_ptr(), Y.data_ptr(),
-                     P, nb, MP, KP, r, n_in, n_out, int(transpose))
+                     P, nb, MP, KP, r, n_in, n_out, int(transpose), tier)
         LAUNCHES += 1
     return Y
 
@@ -122,10 +130,11 @@ class _BatchedSpmm(torch.autograd.Function):
     rows."""
 
     @staticmethod
-    def forward(ctx, vals, cc, rs, X, n_out, transpose):
+    def forward(ctx, vals, cc, rs, X, n_out, transpose, precision="highest"):
         ctx.save_for_backward(vals, cc, rs, X)
-        ctx.transpose = transpose
-        return batched_spmm(vals, cc, rs, X, n_out, transpose=transpose)
+        ctx.transpose, ctx.precision = transpose, precision
+        return batched_spmm(vals, cc, rs, X, n_out, transpose=transpose,
+                            precision=precision)
 
     @staticmethod
     def backward(ctx, g):
@@ -134,16 +143,18 @@ class _BatchedSpmm(torch.autograd.Function):
         dvals = dX = None
         if ctx.needs_input_grad[3]:
             dX = _BatchedSpmm.apply(vals, cc, rs, g, X.shape[1],
-                                    not ctx.transpose)
+                                    not ctx.transpose, ctx.precision)
         if ctx.needs_input_grad[0]:
             win, cols = _window_rows(rs, vals.shape[2]), chunk_rows(cc, CC)
             a, b = (X, g) if ctx.transpose else (g, X)
             dvals = torch.einsum("pbmr,pbkr->pbmk", _gather(a, win),
                                  _gather(b, cols))
-        return dvals, None, None, dX, None, None
+        return dvals, None, None, dX, None, None, None
 
 
 def batched_spmm_apply(vals, cc, rs, X, n_out: int, *,
-                       transpose: bool = False) -> torch.Tensor:
-    """:func:`batched_spmm` with autograd in X and the stacked values."""
-    return _BatchedSpmm.apply(vals, cc, rs, X, n_out, transpose)
+                       transpose: bool = False,
+                       precision="highest") -> torch.Tensor:
+    """:func:`batched_spmm` with autograd in X and the stacked values; the
+    backward's dX runs at the same tier."""
+    return _BatchedSpmm.apply(vals, cc, rs, X, n_out, transpose, precision)

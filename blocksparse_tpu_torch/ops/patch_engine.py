@@ -11,12 +11,17 @@ The transpose product swaps the gather/scatter roles over the same storage.
 
 Kernel B3 (``csrc/patch_sym.cu``) replaces ``_kern_mir``, the product of a
 symmetric plan (S = D + O + O^T, off-diagonals stored once): the forward
-product, plus from the same read of V_b the mirrored ``V_b^T @ X[window]``
-added into the column chunks ``j < mk[b]`` (the chunks that hold stored
-off-diagonal blocks).  Its ``adjoint`` mode is the transpose of that map,
-which the backward pass runs for dX.  A symmetric plan is
-transpose-invariant in its off-diagonal pair; S^T is the plan built with
-``transpose_main=True`` (``core/patch.py``).
+product, plus the mirrored ``V_b^T @ X[window]`` added into the column
+chunks ``j < mk[b]`` (the chunks that hold stored off-diagonal blocks).
+Its ``adjoint`` mode is the transpose of that map, which the backward pass
+runs for dX.  A symmetric plan is transpose-invariant in its off-diagonal
+pair; S^T is the plan built with ``transpose_main=True``
+(``core/patch.py``).  B3 runs the mirrored product by chunk ownership: one
+block per output chunk sums the transposed contributions of every (slot,
+chunk) pair that lands on it and adds the sum once.  The pairs are the
+owner tables (:func:`owner_tables`), derived here from the plan for both
+modes and carried on each bucket's :class:`BucketArrays`; the plan itself
+is the JAX package's, unchanged.
 
 Buffers: the JAX wrapper padded X and Y to ``(NC + 1) * 32`` and
 ``(NR + MC) * 8`` rows and cut Y afterwards.  Here X and Y keep their true
@@ -25,11 +30,14 @@ row windows) and rows past Y's end are dropped, which gives the same
 result without the copies.
 
 Race-freedom: slots run concurrently and may share output rows, so the
-kernel adds into a zeroed output (``torch.zeros``) with fp32 ``atomicAdd``;
-the summation order varies from run to run.
+kernels add into a zeroed output (``torch.zeros``) with fp32 atomics; the
+summation order varies from run to run.
 
-Precision: all tiers run in IEEE fp32 FMA (no TF32), which meets the
-``"highest"`` tolerance; faster tiers are later work.
+Precision: B3 honours the operator's tier (:data:`TIERS`): "highest" and
+"high" run 3xTF32 on the tensor cores, None one TF32 pass -- the JAX
+package's ``_slot_dot`` tiers.  B2 runs IEEE fp32 FMA at every tier (its
+move to the tensor-core core is later work).  The plain versions, which
+the CPU runs, are exact in the operands' dtype at every tier.
 
 Vectors: kernel B7 (``ops/kernels/patch_spmv1.py``, ``csrc/patch_spmv1.cu``)
 replaces ``_kern1_f`` / ``_kern1_t`` / ``_kern1_m`` with the one-hot chunk
@@ -42,6 +50,7 @@ gathers and ``index_add_`` in place of the one-hot matmuls.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.patch import CC, PatchPlan
@@ -52,22 +61,86 @@ from .torch_spmv import chunk_rows, gather_rows, scatter_rows
 __all__ = ["patch_device_arrays", "patch_apply", "patch_spmm",
            "patch_spmm_plain", "patch_spmv", "patch_spmv_plain",
            "bucket_spmm", "bucket_spmm_plain",
-           "bucket_spmm_sym", "bucket_spmm_sym_plain", "LAUNCHES",
+           "bucket_spmm_sym", "bucket_spmm_sym_plain", "owner_tables",
+           "precision_tier", "BucketArrays", "TIERS", "LAUNCHES",
            "SYM_LAUNCHES"]
 
 LAUNCHES = 0       # kernel B2
 SYM_LAUNCHES = 0   # kernel B3
 
+# precision -> tensor-core tier of kernels B3 and B4: 1 = 3xTF32, 0 = one
+# TF32 pass (the JAX package's "highest" / "high" / None of _slot_dot)
+TIERS = {"highest": 1, "high": 1, None: 0}
+
+
+def precision_tier(precision) -> int:
+    if precision not in TIERS:
+        raise ValueError(f"unknown precision {precision!r}; expected one of "
+                         f"{tuple(TIERS)}")
+    return TIERS[precision]
+
+
+class BucketArrays(tuple):
+    """One bucket's device tensors ``(vals, cc, rs, mk)``.  ``owners``: on a
+    symmetric plan, kernel B3's owner tables of the symmetric (index
+    False) and adjoint (index True) modes, each ``(chunk, ptr, pair)``
+    int32 tensors; None otherwise."""
+
+    def __new__(cls, arrays, owners=None):
+        self = super().__new__(cls, arrays)
+        self.owners = owners
+        return self
+
+
+def owner_tables(col_chunk: np.ndarray, mirror_kc: np.ndarray, nchunks: int,
+                 adjoint: bool) -> tuple:
+    """Kernel B3's owner tables of one bucket, in numpy.
+
+    The pairs (slot b, chunk position j) whose transposed product
+    ``V_b[:, j*32 : +32]^T @ X[window b]`` lands on a live chunk (id below
+    ``nchunks``; the sentinel is ``nchunks``): those with ``j < mk[b]`` in
+    the symmetric mode, all of them in the adjoint mode.  Grouped by target
+    chunk as a CSR list: ``chunk [no]`` the owning chunks in descending
+    fan-in (ties by chunk id), ``ptr [no + 1]``, ``pair [npairs]`` =
+    ``b * KC + j``, ascending within a chunk (the kernel's summation order).
+    """
+    nb, KC = col_chunk.shape
+    live = col_chunk < nchunks
+    if not adjoint:
+        live &= np.arange(KC)[None, :] < mirror_kc[:, None]
+    b, j = np.nonzero(live)
+    target = col_chunk[b, j].astype(np.int64)
+    order = np.argsort(target, kind="stable")
+    fan = np.bincount(target, minlength=nchunks)
+    chunk = np.nonzero(fan)[0]
+    chunk = chunk[np.argsort(-fan[chunk], kind="stable")]
+    start = np.concatenate([[0], np.cumsum(fan)])
+    ptr = np.concatenate([[0], np.cumsum(fan[chunk])])
+    # pair positions in chunk-sorted order, taken owner by owner
+    pos = np.repeat(start[chunk] - ptr[:-1], fan[chunk]) + np.arange(ptr[-1])
+    pair = (b * KC + j)[order][pos]
+    return (chunk.astype(np.int32), ptr.astype(np.int32),
+            pair.astype(np.int32))
+
 
 def patch_device_arrays(plan: PatchPlan, device) -> tuple:
-    """Per bucket: (vals f32, cc int32, rs int32, mk int32) on ``device``."""
-    return tuple(
-        (torch.from_numpy(b.vals).to(device),
-         torch.from_numpy(b.col_chunk).to(device),
-         torch.from_numpy(b.row_start).to(device),
-         torch.from_numpy(b.mirror_kc).to(device))
-        for b in plan.buckets
-    )
+    """Per bucket a :class:`BucketArrays`: (vals f32, cc int32, rs int32,
+    mk int32) on ``device``, with B3's owner tables on a symmetric plan."""
+    nchunks = -(-plan.ncols // CC)
+    out = []
+    for b in plan.buckets:
+        owners = None
+        if plan.symmetric:
+            owners = tuple(
+                tuple(torch.from_numpy(t).to(device) for t in owner_tables(
+                    b.col_chunk, b.mirror_kc, nchunks, adjoint))
+                for adjoint in (False, True))
+        out.append(BucketArrays(
+            (torch.from_numpy(b.vals).to(device),
+             torch.from_numpy(b.col_chunk).to(device),
+             torch.from_numpy(b.row_start).to(device),
+             torch.from_numpy(b.mirror_kc).to(device)), owners))
+    return tuple(out)
 
 
 def _window_rows(rs: torch.Tensor, MP: int) -> torch.Tensor:
@@ -149,56 +222,94 @@ def _mirror_rows(cc, mk):
                        torch.iinfo(torch.int64).max // 2)
 
 
-def bucket_spmm_sym_plain(vals, cc, rs, mk, X, *,
-                          adjoint: bool = False) -> torch.Tensor:
+def _owners_for(cc, mk, n: int, adjoint: bool) -> tuple:
+    """:func:`owner_tables` of one bucket's tensors, on their device (for
+    callers that pass a bucket without its :class:`BucketArrays`)."""
+    tabs = owner_tables(cc.cpu().numpy(), mk.cpu().numpy(), -(-n // CC),
+                        adjoint)
+    return tuple(torch.from_numpy(t).to(cc.device) for t in tabs)
+
+
+def bucket_spmm_sym_plain(vals, cc, rs, mk, X, *, adjoint: bool = False,
+                          owners=None) -> torch.Tensor:
     """Plain PyTorch version of kernel B3 for one bucket of a symmetric
-    plan; X and the result are [n, r]."""
-    n, MP = X.shape[0], vals.shape[1]
-    win, cols, mir = _window_rows(rs, MP), chunk_rows(cc, CC), _mirror_rows(cc, mk)
-    if adjoint:   # (F + M)^T = F^T + M^T: roles of the two passes swap
-        yt = torch.einsum("bmk,bmr->bkr", vals, gather_rows(X, win))
-        yp = torch.einsum("bmk,bkr->bmr", vals, gather_rows(X, mir))
-        return scatter_rows(n, cols, yt) + scatter_rows(n, win, yp)
+    plan; X and the result are [n, r].  The same two passes as the kernel:
+    the forward product into the slot windows (over every chunk, or the
+    chunks ``j < mk[b]`` in the adjoint mode), and the transposed product
+    of every pair that ``owners`` -- ``(chunk, ptr, pair)`` of this mode,
+    built from ``cc`` and ``mk`` when None -- lists, added into the chunk
+    ``cc`` names for it (independently of the kernel's grouping by
+    ``chunk`` and ``ptr``)."""
+    n, (nb, MP, KP) = X.shape[0], vals.shape
+    if owners is None:
+        owners = _owners_for(cc, mk, n, adjoint)
+    pair = owners[2].long()
+    win = _window_rows(rs, MP)
+    cols = _mirror_rows(cc, mk) if adjoint else chunk_rows(cc, CC)
     yp = torch.einsum("bmk,bkr->bmr", vals, gather_rows(X, cols))
     yt = torch.einsum("bmk,bmr->bkr", vals, gather_rows(X, win))
-    return scatter_rows(n, win, yp) + scatter_rows(n, mir, yt)
+    rows = chunk_rows(cc.reshape(-1)[pair][:, None], CC)
+    return (scatter_rows(n, win, yp)
+            + scatter_rows(n, rows, yt.reshape(nb * (KP // CC), CC, -1)[pair]))
 
 
-def bucket_spmm_sym(vals, cc, rs, mk, X, *,
-                    adjoint: bool = False) -> torch.Tensor:
+def bucket_spmm_sym(vals, cc, rs, mk, X, *, adjoint: bool = False,
+                    owners=None, precision="highest") -> torch.Tensor:
     """Y [n, r] = one bucket of a symmetric plan applied to X [n, r] (its
-    transpose when ``adjoint``): kernel B3 for CUDA tensors, its plain
-    version for CPU tensors."""
+    transpose when ``adjoint``): kernel B3 at ``precision``'s tier for CUDA
+    tensors, its plain version (exact at every tier) for CPU tensors.
+    ``owners``: the owner tables of this mode (``BucketArrays.owners
+    [adjoint]``), built from ``cc`` and ``mk`` when None."""
     global SYM_LAUNCHES
+    tier = precision_tier(precision)
     if tuple(mk.shape) != tuple(rs.shape):
         raise ValueError(f"mk {tuple(mk.shape)} does not match rs "
                          f"{tuple(rs.shape)}")
-    if not _check_bucket(vals, cc, rs, X, mk):
-        return bucket_spmm_sym_plain(vals, cc, rs, mk, X, adjoint=adjoint)
-    X = X.contiguous()
-    vals, cc = vals.contiguous(), cc.contiguous()
-    rs, mk = rs.contiguous(), mk.contiguous()
-    nb, MP, KP = vals.shape
+    if owners is not None and len(owners) != 3:
+        raise ValueError("owners must be (chunk, ptr, pair)")
+    if not _check_bucket(vals, cc, rs, X, mk, *(owners or ())):
+        return bucket_spmm_sym_plain(vals, cc, rs, mk, X, adjoint=adjoint,
+                                     owners=owners)
     n, r = X.shape
+    if owners is None:
+        owners = _owners_for(cc, mk, n, adjoint)
+    chunk, ptr, pair = (t.contiguous() for t in owners)
+    X = _aligned(X.contiguous())
+    vals = _aligned(vals.contiguous())
+    cc, rs, mk = cc.contiguous(), rs.contiguous(), mk.contiguous()
+    nb, MP, KP = vals.shape
     Y = torch.zeros((n, r), dtype=torch.float32, device=X.device)
     if nb and r and n:
         build.launch("bst_patch_sym_f32", X.device, vals.data_ptr(),
-                     cc.data_ptr(), rs.data_ptr(), mk.data_ptr(), X.data_ptr(),
-                     Y.data_ptr(), nb, MP, KP, r, n, int(adjoint))
+                     cc.data_ptr(), rs.data_ptr(), mk.data_ptr(),
+                     chunk.data_ptr(), ptr.data_ptr(), pair.data_ptr(),
+                     chunk.numel(), X.data_ptr(), Y.data_ptr(), nb, MP, KP, r,
+                     n, int(adjoint), tier)
         SYM_LAUNCHES += 1
     return Y
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or a copy where its data is not 16-byte aligned (the
+    tensor-core kernels stage it with 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 class _PatchSpmmSym(torch.autograd.Function):
     """Exact cotangents of kernel B3 (mirrors the ``"mir"`` branch of the
     JAX package's ``patch_engine._spmm_vjp_bwd``): dX is the same kernel
-    in its adjoint mode, dvals is torch ops on the gathered rows."""
+    in its adjoint mode at the same tier, dvals is torch ops on the
+    gathered rows.  ``owners``: the bucket's owner tables of both modes
+    (``BucketArrays.owners``) or None."""
 
     @staticmethod
-    def forward(ctx, vals, cc, rs, mk, X, adjoint):
+    def forward(ctx, vals, cc, rs, mk, X, adjoint, owners=None,
+                precision="highest"):
         ctx.save_for_backward(vals, cc, rs, mk, X)
-        ctx.adjoint = adjoint
-        return bucket_spmm_sym(vals, cc, rs, mk, X, adjoint=adjoint)
+        ctx.adjoint, ctx.owners, ctx.precision = adjoint, owners, precision
+        return bucket_spmm_sym(
+            vals, cc, rs, mk, X, adjoint=adjoint, precision=precision,
+            owners=None if owners is None else owners[adjoint])
 
     @staticmethod
     def backward(ctx, g):
@@ -206,7 +317,8 @@ class _PatchSpmmSym(torch.autograd.Function):
         g = g.contiguous()
         dvals = dX = None
         if ctx.needs_input_grad[4]:
-            dX = _PatchSpmmSym.apply(vals, cc, rs, mk, g, not ctx.adjoint)
+            dX = _PatchSpmmSym.apply(vals, cc, rs, mk, g, not ctx.adjoint,
+                                     ctx.owners, ctx.precision)
         if ctx.needs_input_grad[0]:
             win = _window_rows(rs, vals.shape[1])
             cols, mir = chunk_rows(cc, CC), _mirror_rows(cc, mk)
@@ -217,7 +329,7 @@ class _PatchSpmmSym(torch.autograd.Function):
                                   gather_rows(b, cols))
                      + torch.einsum("bmr,bkr->bmk", gather_rows(b, win),
                                     gather_rows(a, mir)))
-        return dvals, None, None, None, dX, None
+        return dvals, None, None, None, dX, None, None, None
 
 
 class _PatchSpmm(torch.autograd.Function):
@@ -258,14 +370,19 @@ def _n_out(plan: PatchPlan, transpose: bool) -> int:
     return plan.ncols if transpose else plan.nrows
 
 
-def patch_spmm(plan: PatchPlan, dev, X, *, transpose: bool = False):
+def patch_spmm(plan: PatchPlan, dev, X, *, transpose: bool = False,
+               precision="highest"):
     """Y = A @ X (A^T @ X when ``transpose``); X: [n, r] f32.  A symmetric
-    plan runs kernel B3, any other B2."""
+    plan runs kernel B3 at ``precision``'s tier, any other B2 (IEEE fp32
+    at every tier)."""
     n_out = _n_out(plan, transpose)
     Y = None
-    for vals, cc, rs, mk in dev:
+    for bucket in dev:
+        vals, cc, rs, mk = bucket
         if plan.symmetric:
-            part = _PatchSpmmSym.apply(vals, cc, rs, mk, X, False)
+            part = _PatchSpmmSym.apply(vals, cc, rs, mk, X, False,
+                                       getattr(bucket, "owners", None),
+                                       precision)
         else:
             part = _PatchSpmm.apply(vals, cc, rs, X, n_out, transpose)
         Y = part if Y is None else Y + part
@@ -279,9 +396,13 @@ def patch_spmm_plain(plan: PatchPlan, dev, X, *, transpose: bool = False):
     package's ``patch_spmm_xla``), on any device."""
     n_out = _n_out(plan, transpose)
     Y = X.new_zeros((n_out, X.shape[1]))
-    for vals, cc, rs, mk in dev:
+    for bucket in dev:
+        vals, cc, rs, mk = bucket
         if plan.symmetric:
-            Y = Y + bucket_spmm_sym_plain(vals, cc, rs, mk, X)
+            owners = getattr(bucket, "owners", None)
+            Y = Y + bucket_spmm_sym_plain(
+                vals, cc, rs, mk, X,
+                owners=None if owners is None else owners[False])
         else:
             Y = Y + bucket_spmm_plain(vals, cc, rs, X, n_out,
                                       transpose=transpose)
@@ -316,14 +437,15 @@ def patch_spmv_plain(plan: PatchPlan, dev, x, *, transpose: bool = False):
     return y
 
 
-def patch_apply(plan: PatchPlan, dev, x, *, transpose: bool = False):
+def patch_apply(plan: PatchPlan, dev, x, *, transpose: bool = False,
+                precision="highest"):
     """Entry point: x [n] runs :func:`patch_spmv` (kernel B7), x [n, r]
-    :func:`patch_spmm` (B2 / B3).  A symmetric plan is applied as it is
-    (``transpose`` must be False): S^T is the plan built with
-    ``transpose_main=True``."""
+    :func:`patch_spmm` (B2 / B3, B3 at ``precision``'s tier).  A symmetric
+    plan is applied as it is (``transpose`` must be False): S^T is the plan
+    built with ``transpose_main=True``."""
     if x.ndim == 1:
         return patch_spmv(plan, dev, x, transpose=transpose)
     if x.ndim != 2:
         raise ValueError(f"patch_apply takes [n] or [n, r], got "
                          f"{tuple(x.shape)}")
-    return patch_spmm(plan, dev, x, transpose=transpose)
+    return patch_spmm(plan, dev, x, transpose=transpose, precision=precision)

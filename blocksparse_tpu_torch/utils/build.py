@@ -45,8 +45,10 @@ _SIGNATURES = {
     "bst_fused_spmm_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P),
     # vals, cc, rs, x, y, nb, MP, KP, r, x_rows, y_rows, transpose, stream
     "bst_patch_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P),
-    # vals, cc, rs, mk, x, y, nb, MP, KP, r, n, adjoint, stream
-    "bst_patch_sym_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P),
+    # vals, cc, rs, mk, own_chunk, own_ptr, own_pair, n_own, x, y, nb, MP,
+    # KP, r, n, adjoint, tier, stream
+    "bst_patch_sym_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                          _I, _L, _I, _I, _P),
     # x, n, idx, K, out, stream
     "bst_mask_gather_f32": (_P, _L, _P, _L, _P, _P),
     # v, idx, K, y, out_len, stream
@@ -55,9 +57,10 @@ _SIGNATURES = {
     # ngrids, grids, ncols, nrows, mirror, tpw, stream
     "bst_panel_spmv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                            _I, _I, _L, _L, _L, _I, _I, _P),
-    # vals, cc, rs, x, y, P, nb, MP, KP, r, x_rows, y_rows, transpose, stream
+    # vals, cc, rs, x, y, P, nb, MP, KP, r, x_rows, y_rows, transpose, tier,
+    # stream
     "bst_batched_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
-                             _I, _P),
+                             _I, _I, _P),
     # as bst_panel_spmv_f32 with P after y
     "bst_panel_spmv_batched_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
                                    _I, _I, _I, _I, _I, _L, _L, _L, _I, _I,

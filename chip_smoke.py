@@ -8,7 +8,8 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
   1. each kernel against its plain PyTorch version on the card (B1: forward,
      transpose, symmetric x f32/f64 x r in {1, 64, 200}; B2: forward,
      transpose x r in {64, 128, 300}; B3: symmetric and adjoint x r in
-     {32, 64, 128, 300}; B9: element gather and scatter-add with duplicate
+     {32, 64, 128, 300} x both plans x both tensor-core tiers ("highest":
+     3xTF32, None: one TF32 pass); B9: element gather and scatter-add with duplicate
      and sentinel indices; B5: plain, transposed, fused mirror plans with
      shifted grids and a plan whose last segment runs past ncols; B8: plain
      and mirror slab plans), plus the duality check of B5 and B8: the
@@ -16,7 +17,8 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      the kernel with 16 (sums carried in registers); B4: forward and
      transpose, P in {2, 4} x r in {8, 64, 128, 264}, and against P launches
      of B2; B6: on B5's panel plans, P in {2, 5}, at 1 against 16 tiles per
-     warp and against P launches of B5; B7: modes f, t (B2's plan, and a
+     warp and against P launches of B5 (B4 at both tiers, its duality with
+     B2 at "highest"); B7: modes f, t (B2's plan, and a
      plan with G = 1 whose row windows run past n) and m, a (B3's plans),
      each against B2 / B3 at r = 1 on the same plan; B10: v2 plans at seg
      8, 16 and 32, plain, transposed, fused mirror and with a last segment
@@ -42,6 +44,9 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      plan) and SpMM r = 128 (B3) against the float64 plain route, the bucket
      route (B1 + B9, exact counts, and its gradient through B9), all timed
      eager and from a CUDA graph, and the bucket route's device time split;
+     B3's owner tables, and B3 at precision=None (a second operator), in
+     its adjoint mode (the dX of S @ X) and with an empty owner table (its
+     forward blocks alone), timed;
   6. the VBCRS flagship (config-3 recipe, n = 4096, seed 9, granularity
      (8, 128)): B5 against its plain version, V @ x, V.T @ x, V.H @ X
      (r = 64), axpby and (V @ V) @ x against float64 scipy with exact
@@ -59,7 +64,8 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      (config-1 structure, n = 4096, P = 4, r = 128) and on the config-3
      recipe (n = 4096, P = 4), one B4 launch each, and its gradient; at the
      real size (phase 3's recipe, P = 4, r = 128) timed beside the loop of
-     four B2 launches; ``batched_mv`` on the config-2 (fused mirror plan)
+     four B2 launches, and B4 at precision=None beside it;
+     ``batched_mv`` on the config-2 (fused mirror plan)
      and config-3 recipes at n = 4096, P = 16, one B6 launch each, timed
      beside the loop of 16 B5 launches, and its gradient; above the
      24 MB/product cap (config 3 at n = 32768, P = 4) the batch loops (four
@@ -79,15 +85,24 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
 
 Every timed kernel also gets its bound -- the larger of its logical bytes
 (stored values, operands and results, each once) over 3.35 TB/s and its
-fp32 operations over 67 TFLOP/s -- and the time of one PyTorch call that
-computes the same function (a CSR product through torch.sparse, or
-index_select / index_add_), which the port never calls.
+operations over the peak rate of the tier's arithmetic: 495 / 3 = 165
+TFLOP/s (3xTF32, the fastest tensor-core way to fp32 accuracy) for
+"highest" and "high", 495 TFLOP/s (TF32) for precision=None -- and the
+time of one PyTorch call that computes the same function (a CSR product
+through torch.sparse, or index_select / index_add_), which the port never
+calls.
 
 Tolerances: |kernel - reference| <= tol * max(1, max|reference|) with tol
-1e-5 for f32 and 1e-12 for f64; the kernels add into their outputs with
-atomics (run-to-run summation order) and FMA, so bit equality is not
-expected.  Any failure raises and exits nonzero.  The second-to-last line
-is a JSON summary of the kernels, the last line a JSON device record.
+1e-5 for f32 (3xTF32 included) and 1e-12 for f64; the kernels add into
+their outputs with atomics (run-to-run summation order), so bit equality
+is not expected.  B3 and B4 at precision=None run one TF32 pass: each
+operand keeps 11 significant bits (unit roundoff 2^-11 = 4.9e-4), so each
+product is off by up to ~1e-3 of itself, and a sum of K ~ 1000
+random-sign products drifts by ~sqrt(K) 1e-3 of a typical product while
+max|reference| is ~4 sqrt(K) of one: TOL_TF32 = 2e-3 holds that with
+margin for K <= 1024.  Any failure raises and exits nonzero.  The
+second-to-last line is a JSON summary of the kernels, the last line a JSON
+device record.
 
 Needs one CUDA card, nvcc, torch and scipy; imports no jax.
 """
@@ -130,8 +145,14 @@ from blocksparse_tpu_torch.utils.testmatrices import (  # noqa: E402
 DEV = torch.device("cuda", 0)
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 TOL32 = TOL[torch.float32]
+TOL_TF32 = 2e-3  # one TF32 pass (precision=None); see the module docstring
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_FLOPS_PER_S = 67e12   # H100 SXM data sheet, fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM data sheet, dense TF32 tensor cores
+# operations per second at each precision tier: 3xTF32 (three TF32
+# products per product) reaches fp32 accuracy; None is one TF32 pass
+PEAK_FLOPS = {"highest": TF32_FLOPS_PER_S / 3, "high": TF32_FLOPS_PER_S / 3,
+              None: TF32_FLOPS_PER_S}
+TIER_TOL = {"highest": TOL32, None: TOL_TF32}
 B1_SRC = "blocksparse_tpu_torch/csrc/fused_spmm.cu"
 B2_SRC = "blocksparse_tpu_torch/csrc/patch_spmm.cu"
 B1_REPLACES = "blocksparse_tpu/ops/pallas/fused_spmm.py:81"
@@ -198,11 +219,12 @@ def batch_check(name: str, out: torch.Tensor, refs, tol: float = TOL32) -> float
     return err
 
 
-def bound(nbytes: float, flops: float) -> tuple:
+def bound(nbytes: float, flops: float, precision="highest") -> tuple:
     """(ms, "bytes" | "operations"): the least time the card could take,
-    the larger of nbytes over 3.35 TB/s and fp32 flops over 67 TFLOP/s."""
+    the larger of nbytes over 3.35 TB/s and flops over the tier's peak
+    (``PEAK_FLOPS``)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / FP32_FLOPS_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[precision] * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -358,7 +380,8 @@ def plain_patch(op, entry, layouts_reads, x, dtype, transpose=False):
     if entry is None or not patch_wins(entry[0], layouts_reads, r, op.patch):
         return None
     plan, dev = entry
-    dev = [(v.to(dtype), cc, rs, mk) for v, cc, rs, mk in dev]
+    dev = [patch_engine.BucketArrays((b[0].to(dtype), *b[1:]), b.owners)
+           for b in dev]
     if x.ndim == 1:
         return patch_engine.patch_spmv_plain(plan, dev, x,
                                              transpose=transpose)
@@ -583,7 +606,7 @@ def phase1():
             err = rel_check(f"B2 {'transpose' if tr else 'forward'} r={r}",
                             got, ref, TOL[torch.float32])
             errs["B2"] = max(errs["B2"], err)
-    errs["B3"] = 0.0
+    errs["B3"] = errs["B3 tf32"] = 0.0
     d, di, o, ri, ci, shape = random_symmetric(
         3, n=1024, ngroups=12, noffdiag=20, dtype=np.float32, contiguous=True)
     S = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape, device=DEV)
@@ -596,14 +619,17 @@ def phase1():
         for r in (32, 64, 128, 300):
             X = torch.randn((shape[0], r), generator=gen).to(DEV)
             for adj in (False, True):
-                got = patch_engine.bucket_spmm_sym(vals, cc, rs, mk, X, adjoint=adj)
                 ref = patch_engine.bucket_spmm_sym_plain(vals, cc, rs, mk, X,
                                                          adjoint=adj)
-                torch.cuda.synchronize()
-                err = rel_check(f"B3 {'adjoint' if adj else 'symmetric'} "
-                                f"transpose_main={tm} r={r}", got, ref,
-                                TOL[torch.float32])
-                errs["B3"] = max(errs["B3"], err)
+                for prec, key in (("highest", "B3"), (None, "B3 tf32")):
+                    got = patch_engine.bucket_spmm_sym(
+                        vals, cc, rs, mk, X, adjoint=adj, precision=prec,
+                        owners=dev[0].owners[adj])
+                    torch.cuda.synchronize()
+                    errs[key] = max(errs[key], rel_check(
+                        f"B3 {'adjoint' if adj else 'symmetric'} "
+                        f"transpose_main={tm} r={r} precision={prec}", got,
+                        ref, TIER_TOL[prec]))
     errs["B9 gather"] = errs["B9 scatter"] = 0.0
     rng = np.random.default_rng(12)
     for n, K in ((32768, 1 << 20), (1000, 50000)):
@@ -713,7 +739,8 @@ def batched_kernels_vs_plain(gen, patch_bucket, panel_plans):
     zero), against the plain versions, and the duality checks: B4 against
     P launches of B2, B6 at 1 against 16 tiles per warp and against P
     launches of B5."""
-    errs = {"B4": 0.0, "B4 duality": 0.0, "B6": 0.0, "B6 duality": 0.0}
+    errs = {"B4": 0.0, "B4 tf32": 0.0, "B4 duality": 0.0, "B6": 0.0,
+            "B6 duality": 0.0}
     vals, cc, rs, n = patch_bucket
 
     def planes(v, P):
@@ -726,13 +753,17 @@ def batched_kernels_vs_plain(gen, patch_bucket, panel_plans):
             for tr in (False, True):
                 name = f"B4 {'transpose' if tr else 'forward'} P={P} r={r}"
                 got = batched_spmm.batched_spmm(vals_b, cc, rs, X, n, transpose=tr)
+                fast = batched_spmm.batched_spmm(vals_b, cc, rs, X, n,
+                                                 transpose=tr, precision=None)
                 ref = batched_spmm.batched_spmm_plain(vals_b, cc, rs, X, n,
                                                       transpose=tr)
                 loop = torch.stack([patch_engine.bucket_spmm(
                     vals_b[p], cc, rs, X[p], n, transpose=tr) for p in range(P)])
                 torch.cuda.synchronize()
                 errs["B4"] = max(errs["B4"], rel_check(
-                    f"{name} vs plain", got, ref, TOL32))
+                    f"{name} precision=highest vs plain", got, ref, TOL32))
+                errs["B4 tf32"] = max(errs["B4 tf32"], rel_check(
+                    f"{name} precision=None vs plain", fast, ref, TOL_TF32))
                 errs["B4 duality"] = max(errs["B4 duality"], rel_check(
                     f"{name} vs {P} B2 launches", got, loop, TOL32))
     for label, plan in panel_plans.items():
@@ -1209,6 +1240,82 @@ def b9_single_calls(S, x, gen, card) -> dict:
     return out
 
 
+def owner_stats(plan, bucket, n) -> dict:
+    """B3's owner tables on one symmetric plan, from the tables it runs."""
+    hb = plan.buckets[0]
+    nchunks = -(-n // CC)
+    stats = {"sentinel chunk slots": int((hb.col_chunk >= nchunks).sum()),
+             "chunk slots": int(hb.col_chunk.size),
+             "mirrored chunks": int(hb.mirror_kc.sum())}
+    for mode, (chunk, ptr, pair) in zip(("symmetric", "adjoint"),
+                                        bucket.owners):
+        fan = (ptr[1:] - ptr[:-1]).cpu().numpy()
+        stats[mode] = {"owners": int(chunk.numel()),
+                       "pairs": int(pair.numel()),
+                       "fan-in min/mean/max": (int(fan.min()),
+                                               float(fan.mean()),
+                                               int(fan.max()))}
+    return stats
+
+
+def b3_tiers(S, X, d_args, gen, card) -> dict:
+    """B3 beside the default ("highest") operator's S @ X: at precision=None
+    (a second operator built with it), in its adjoint mode (the dX of
+    S @ X), and its forward blocks alone (an empty owner table), each
+    checked and timed eager and from a CUDA graph."""
+    n, r = X.shape
+    plan, dev = S._patch_for(False)
+    bucket = dev[0]
+    vals, cc, rs, mk = bucket
+    stats = owner_stats(plan, bucket, n)
+    print(f"  B3 owner tables: {stats}")
+    sym = stats["symmetric"]
+    print(f"  B3 mirror adds per product: {sym['owners'] * CC * r} by "
+          f"ownership, against {stats['mirrored chunks'] * CC * r} "
+          f"(one per mirrored chunk and column)")
+    Sn = bt.SymmetricBlockMatrix(*d_args, device=DEV, precision=None)
+    before = counts()
+    Yn = Sn @ X
+    torch.cuda.synchronize()
+    require_counts("S @ X at precision=None", grown_since(before),
+                   {"B3": 1, "B2": 0})
+    ref = plain_route_sym(S, X, dtype=torch.float64)
+    out = {"none_err": rel_check("SpMM r=128 precision=None vs float64 plain",
+                                 Yn, ref, TOL_TF32)}
+    G = torch.randn((n, r), generator=gen).to(DEV)
+    adjoint = lambda: patch_engine.bucket_spmm_sym(  # noqa: E731
+        vals, cc, rs, mk, G, adjoint=True, owners=bucket.owners[True])
+    out["adjoint_err"] = rel_check(
+        "B3 adjoint (dX of S @ X) vs float64 plain", adjoint(),
+        patch_engine.bucket_spmm_sym_plain(vals.double(), cc, rs, mk,
+                                           G.double(), adjoint=True),
+        TOL32)
+    empty = tuple(torch.zeros(k, dtype=torch.int32, device=DEV)
+                  for k in (0, 1, 0))
+    full = {"highest": lambda: S @ X, None: lambda: Sn @ X}
+    for prec in ("highest", None):
+        fwd = lambda p=prec: patch_engine.bucket_spmm_sym(  # noqa: E731
+            vals, cc, rs, mk, X, owners=empty, precision=p)
+        t_full, t_fwd = graph_ms(full[prec]), graph_ms(fwd)
+        out[f"forward blocks {prec}"] = t_fwd
+        out[f"graph {prec}"] = t_full
+        print(f"  B3 precision={prec}: full launch {t_full:.4f} ms, forward "
+              f"blocks alone {t_fwd:.4f} ms, owner blocks' share "
+              f"{max(0.0, 1 - t_fwd / t_full):.2f} (graph) [{card}]")
+    eager = {"highest": [], None: []}
+    for prec in ("highest", None, None, "highest"):
+        eager[prec].append(median_ms(full[prec]))
+    out["none"] = (min(eager[None]), out["graph None"])
+    out["highest eager"] = min(eager["highest"])
+    out["adjoint"] = (median_ms(adjoint), graph_ms(adjoint))
+    print(f"  B3 S @ X eager highest {eager['highest'][0]:.4f} / "
+          f"{eager['highest'][1]:.4f} ms, None {eager[None][0]:.4f} / "
+          f"{eager[None][1]:.4f} ms; adjoint (dX) eager {out['adjoint'][0]:.4f}"
+          f" ms, graph {out['adjoint'][1]:.4f} ms [{card}]")
+    out["stats"] = stats
+    return out
+
+
 def phase5(card: str):
     print("phase 5: symmetric real size n=32768, 384 diagonal + 4096 "
           "off-diagonal f32 blocks (config-2 recipe x8)")
@@ -1362,8 +1469,11 @@ def phase5(card: str):
     times["library"] = {"SpMM r=128": library_ms(
         "symmetric SpMM r=128, expanded CSR matrix @ X", lambda: csr @ X, Y,
         card)}
-    times["bound"] = {"SpMM r=128": bound(
-        logical_nnz(S) * 4 + 2 * shape[0] * 128 * 4, 2 * S.nnz * 128)}
+    spmm_bytes = logical_nnz(S) * 4 + 2 * shape[0] * 128 * 4
+    times["bound"] = {"SpMM r=128": bound(spmm_bytes, 2 * S.nnz * 128),
+                      "SpMM r=128 None": bound(spmm_bytes, 2 * S.nnz * 128,
+                                               None)}
+    times["B3 tiers"] = b3_tiers(S, X, (d, di, o, ri, ci, shape), gen, card)
 
     # the bucket route's parts, each replayed from its own CUDA graph
     n = shape[0]
@@ -1837,7 +1947,7 @@ def phase9(card: str):
     print("phase 9: batched products (bench.py's batches: one structure, "
           "values from seeds 100+i / 200+i / 300+i)")
     gen = torch.Generator(device="cpu").manual_seed(13)
-    out = {"errs": {"B4": 0.0, "B6": 0.0}, "launches": {}}
+    out = {"errs": {"B4": 0.0, "B4 tf32": 0.0, "B6": 0.0}, "launches": {}}
     errs, launches = out["errs"], out["launches"]
 
     # 9.1 batched_mm at r = 128, one B4 launch per batch
@@ -1869,10 +1979,10 @@ def phase9(card: str):
     got = counts()
     require_counts("batched_mm real size", got, {"B4": 1, "B2": 0, "B1": 0})
     launches["B4 real size"] = got["B4"]
+    refs64 = [plain_route(op, X[p], dtype=torch.float64)
+              for p, op in enumerate(ops)]
     errs["B4"] = max(errs["B4"], batch_check(
-        "batched_mm real size vs float64 plain route", Y,
-        [plain_route(op, X[p], dtype=torch.float64)
-         for p, op in enumerate(ops)]))
+        "batched_mm real size vs float64 plain route", Y, refs64))
     before = counts()
     loop_out = torch.stack([op @ X[p] for p, op in enumerate(ops)])
     torch.cuda.synchronize()
@@ -1880,11 +1990,20 @@ def phase9(card: str):
                    {"B2": P, "B4": 0})
     batch_check("batched_mm real size vs the loop of B2 launches", Y,
                 list(loop_out))
+    # B4 at precision=None: the kernel wrapper at the batch's tables (the
+    # operators here are "highest", and batched_mm takes their tier)
+    fast = lambda: batched_spmm.batched_spmm(  # noqa: E731
+        vals_b, cc, rs, X, n, precision=None)
+    errs["B4 tf32"] = batch_check(
+        "B4 real size precision=None vs float64 plain route", fast(), refs64,
+        TOL_TF32)
+    del refs64
     nnz = sum(op.nnz for op in ops)
     nbytes, flops = nnz * 4 + 2 * P * n * r * 4, 2 * nnz * r
     csr = csr_on_card(ops)
     times = time_batch("batched_mm real size", {
         "B4": lambda: bt.batched_mm(ops, X),
+        "B4 none": fast,
         "loop": lambda: torch.stack([op @ X[p] for p, op in enumerate(ops)]),
         "plain": lambda: batched_spmm.batched_spmm_plain(vals_b, cc, rs, X, n),
     }, nbytes, flops, card)
@@ -1892,6 +2011,12 @@ def phase9(card: str):
         "batched_mm real size, block-diagonal CSR matrix @ stacked X",
         lambda: csr @ X.reshape(P * n, r), Y.reshape(P * n, r), card)
     times["bound"] = bound(nbytes, flops)
+    times["bound none"] = bound(nbytes, flops, None)
+    for key, prec in (("B4", "highest"), ("B4 none", None)):
+        bnd = times["bound none" if prec is None else "bound"]
+        print(f"  B4 precision={prec}: graph {times[key][1]:.4f} ms against "
+              f"its bound {bnd[0]:.4f} ms ({bnd[1]}): "
+              f"{100 * bnd[0] / times[key][1]:.1f}% of the bound [{card}]")
     out["mm"] = times
     del csr, vals_b, X, Y, loop_out, ops
 
@@ -2051,7 +2176,8 @@ def phase10(card: str, defaults: dict):
                 patch_engine.patch_spmv_plain(plan, dev, x, transpose=tr),
                 TOL32))
             vals, cc, rs, mk = dev[0]
-            other = (patch_engine.bucket_spmm_sym(vals, cc, rs, mk, x[:, None])
+            other = (patch_engine.bucket_spmm_sym(
+                vals, cc, rs, mk, x[:, None], owners=dev[0].owners[False])
                      if key == "sym" else patch_engine.bucket_spmm(
                          vals, cc, rs, x[:, None], n, transpose=tr))
             errs["B7 duality"] = max(errs["B7 duality"], rel_check(
@@ -2233,6 +2359,7 @@ def main() -> None:
         return out
 
     mm, mv2, mv3 = batch["mm"], batch["mv config 2"], batch["mv config 3"]
+    b3 = sym_times["B3 tiers"]
     capped = batch["mv capped"]
     summary = {"kernels": [
         {"name": "fused_spmm (B1)", "route": "cuda", "source": B1_SRC,
@@ -2266,13 +2393,23 @@ def main() -> None:
         {"name": "patch_sym (B3)", "route": "cuda", "source": B3_SRC,
          "replaces": B3_REPLACES, "launches": launches4["B3"],
          "max_abs_err": errs4["B3"], "max_abs_err_phase1": errs1["B3"],
+         "max_abs_err_tf32_phase1": errs1["B3 tf32"],
+         "max_abs_err_none": b3["none_err"],
+         "max_abs_err_adjoint": b3["adjoint_err"],
          "ms": sym_times["SpMM r=128"][0],
          "plain_ms": sym_times["SpMM r=128"][1],
          "graph_ms": sym_times["SpMM r=128"][2],
          "plain_graph_ms": sym_times["SpMM r=128"][3],
-         "timed": "S @ X, n=32768, 384 + 4096 f32 blocks (symmetric), r=128",
+         "timed": "S @ X, n=32768, 384 + 4096 f32 blocks (symmetric), r=128, "
+                  "precision='highest' (3xTF32); none: precision=None (TF32)",
          "card": card, **measured(sym_times["bound"]["SpMM r=128"],
-                                  sym_times["library"]["SpMM r=128"])},
+                                  sym_times["library"]["SpMM r=128"]),
+         "none_ms": b3["none"][0], "none_graph_ms": b3["none"][1],
+         "none_bound_ms": sym_times["bound"]["SpMM r=128 None"][0],
+         "none_bound_by": sym_times["bound"]["SpMM r=128 None"][1],
+         "adjoint_ms": b3["adjoint"][0], "adjoint_graph_ms": b3["adjoint"][1],
+         "forward_blocks_graph_ms": b3["forward blocks highest"],
+         "none_forward_blocks_graph_ms": b3["forward blocks None"]},
     ] + [
         {"name": f"mask_select {kind} (B9)", "route": "cuda", "source": B9_SRC,
          "replaces": rep_, "launches": launches5[f"B9 {kind}"],
@@ -2338,12 +2475,18 @@ def main() -> None:
          "launches_by_path": b4_launches,
          "max_abs_err": batch["errs"]["B4"], "max_abs_err_phase1": errs1["B4"],
          "max_abs_err_duality": errs1["B4 duality"],
+         "max_abs_err_tf32_phase1": errs1["B4 tf32"],
+         "max_abs_err_none": batch["errs"]["B4 tf32"],
          "ms": mm["B4"][0], "plain_ms": mm["plain"][0],
          "graph_ms": mm["B4"][1], "plain_graph_ms": mm["plain"][1],
          "loop_ms": mm["loop"][0], "loop_graph_ms": mm["loop"][1],
-         "timed": "batched_mm, P=4 x (n=8192, 2000 x 128x128 f32), r=128 "
-                  "(loop: 4 B2 launches)",
-         "card": card, **measured(mm["bound"], mm["library"])},
+         "timed": "batched_mm, P=4 x (n=8192, 2000 x 128x128 f32), r=128, "
+                  "precision='highest' (3xTF32; loop: 4 B2 launches); none: "
+                  "the B4 wrapper at precision=None (TF32)",
+         "card": card, **measured(mm["bound"], mm["library"]),
+         "none_ms": mm["B4 none"][0], "none_graph_ms": mm["B4 none"][1],
+         "none_bound_ms": mm["bound none"][0],
+         "none_bound_by": mm["bound none"][1]},
         {"name": "panel_spmv_batched (B6)", "route": "cuda", "source": B5_SRC,
          "replaces": B6_REPLACES, "launches": sum(b6_launches.values()),
          "launches_by_path": b6_launches,
