@@ -1,6 +1,6 @@
-// Shared tile core of kernels B1 (fused_spmm.cu) and B2 (patch_spmm.cu):
-// gather -> per-block GEMM tile -> atomic scatter-add, in IEEE fp32 / fp64
-// FMA at every precision tier.  (B3 and B4 run the tensor-core core,
+// Tile core of kernel B1 (fused_spmm.cu): gather -> per-block GEMM tile ->
+// atomic scatter-add, in IEEE fp32 / fp64 FMA at every precision tier.
+// (B2 runs wgmma + TMA in patch_spmm.cu; B3 and B4 the tensor-core core,
 // tile_mma.cuh.)
 //
 // One thread block owns one (stored block b, 64-row output tile, column tile
@@ -17,11 +17,11 @@
 // output the wrapper allocated.  The summation order across blocks
 // therefore varies from run to run.
 //
-// Row mapping is a functor per side: ChunkMap (row i of slot b lives at
-// tab[b, i / C] * C + i % C) and WindowMap (row start[b] + i).  A gathered
-// row outside [0, x_rows) reads zero and a scattered row outside
-// [0, y_rows) is dropped: sentinel and padded lanes need no padded buffers,
-// and a bad table cannot write outside y.
+// Row mapping is a functor per side: ChunkMap (row i of block b lives at
+// tab[b, i / C] * C + i % C).  A gathered row outside [0, x_rows) reads
+// zero and a scattered row outside [0, y_rows) is dropped: sentinel and
+// padded lanes need no padded buffers, and a bad table cannot write outside
+// y.
 //
 // MIRROR (TR <= 32, B1's symmetric mode) adds the transposed contribution
 // of the same shared-memory tile (y[in rows] += A^T x[out rows]) for every
@@ -51,22 +51,15 @@ inline int column_tile(int r, bool mirror) {
 
 struct ChunkMap {
   const int* tab;
-  int per;  // chunks per slot (row stride of the table)
+  int per;  // chunks per block (row stride of the table)
   int C;
   __device__ __forceinline__ long long operator()(int b, int i) const {
     return (long long)tab[(long long)b * per + i / C] * C + i % C;
   }
 };
 
-struct WindowMap {
-  const int* start;
-  __device__ __forceinline__ long long operator()(int b, int i) const {
-    return (long long)start[b] + i;
-  }
-};
-
-// A = V (TRANS false, [mp, kp]) or V^T (TRANS true, [kp, mp]) of slot b.
-// grid: x = nslots * ceil(M / kMT), y = ceil(r / TR); block: kThreads.
+// A = V (TRANS false, [mp, kp]) or V^T (TRANS true, [kp, mp]) of block b.
+// grid: x = nblocks * ceil(M / kMT), y = ceil(r / TR); block: kThreads.
 template <typename T, int TR, bool TRANS, bool MIRROR, class OutMap,
           class InMap>
 __device__ __forceinline__ void tile_product(

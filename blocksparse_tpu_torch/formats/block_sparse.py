@@ -109,11 +109,12 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
     ``device``: where the operator's tensors live, the card ("cuda") unless
     the caller passes another (``"cpu"`` runs the kernels' plain versions).
     ``precision``: "highest" | "high" | None, the JAX package's tiers.  On
-    this format the tier reaches kernel B4 through ``batched_mm``; its own
-    products (B1, B2 and the SpMV kernels) run IEEE fp32 at every tier
-    (see ``ops/patch_engine.py``).  ``granularity``: the bucket keys,
-    "pow2" or ``(gm, gk)`` (see ``core/layout.build_layout``).
-    ``patch``: "auto" (the route decision), "always" (every f32 product
+    this format the tier reaches kernel B2 (the patch-route SpMM and its
+    gradient: 3xTF32 for "highest" and "high", one TF32 pass for None) and
+    B4 through ``batched_mm``; its other products (B1 and the SpMV
+    kernels) run IEEE fp32 at every tier (see ``ops/patch_engine.py``).
+    ``granularity``: the bucket keys, "pow2" or ``(gm, gk)`` (see
+    ``core/layout.build_layout``).  ``patch``: "auto" (the route decision), "always" (every f32 product
     takes the patch route where a plan exists, r = 1 included) or "never"
     -- the JAX package's ``BST_PATCH``.  ``panel``: "v1" or "v2", the panel
     plans the stream route builds -- the JAX package's ``BST_PANEL_IMPL``.
@@ -250,7 +251,8 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
                     entry[0], [(self._layout, 1)], r, self._patch_mode):
                 from ..ops.patch_engine import patch_apply
 
-                return patch_apply(entry[0], entry[1], x, transpose=transpose)
+                return patch_apply(entry[0], entry[1], x, transpose=transpose,
+                                   precision=self._precision)
         # conj is a no-op for the real dtypes this slice admits
         if strip_eligible(x, self._dtype):
             y = self._stream_apply(x, transpose)

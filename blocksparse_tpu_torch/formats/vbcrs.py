@@ -69,8 +69,9 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
     ``device``: the card ("cuda") unless the caller passes another.
     ``granularity``: the bucket keys, "pow2" or ``(gm, gk)`` (see
     ``core/layout.build_layout``).  ``precision``: as for
-    :class:`BlockSparseMatrix` (the tier reaches kernel B4 through
-    ``batched_mm``; this format's own products run IEEE fp32).
+    :class:`BlockSparseMatrix` (the tier reaches kernel B2, this format's
+    patch-route SpMM, and B4 through ``batched_mm``; its other products
+    run IEEE fp32).
     ``patch`` ("auto" | "always" | "never") and ``panel`` ("v1" | "v2"):
     the route options of :class:`BlockSparseMatrix`.
     """
@@ -266,7 +267,8 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
                     entry[0], [(self._layout, 1)], r, self._patch_mode):
                 from ..ops.patch_engine import patch_apply
 
-                return patch_apply(entry[0], entry[1], x, transpose=transpose)
+                return patch_apply(entry[0], entry[1], x, transpose=transpose,
+                                   precision=self._precision)
         # conj is a no-op for the real dtypes this slice admits
         if strip_eligible(x, self._dtype):
             y = self._stream_apply(x, transpose)

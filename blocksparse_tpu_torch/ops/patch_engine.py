@@ -2,12 +2,18 @@
 
 Counterpart of ``blocksparse_tpu/ops/patch_engine.py``.  Matrices (r > 1)
 run B2 / B3, vectors (r = 1) B7; :func:`patch_apply` routes by rank.
-Kernel B2 (``csrc/patch_spmm.cu``) replaces ``_kern_fwd`` / ``_kern_tr``:
+Kernel B2 replaces ``_kern_fwd`` / ``_kern_tr``:
 
   forward    Y[rs[b] : rs[b] + MP] += V_b @ concat_j X[cc[b, j]*32 : +32]
   transpose  the 32-row chunks cc[b, j] of Y += V_b^T @ X[rs[b] : rs[b] + MP]
 
 The transpose product swaps the gather/scatter roles over the same storage.
+The forward runs on wgmma + TMA (``csrc/patch_spmm.cu``) after a prologue
+launch (:func:`patch_xt`) that writes the K-major copy X^T the tensor
+cores read -- hi = tf32(X)^T and, at "highest"/"high", lo = (X - hi)^T.
+The transpose runs kernel B4's transposed instance at P = 1
+(``csrc/batched_spmm.cu``), counted here as a B2 launch: TF32 wgmma takes
+K-major operands only, and V^T is MN-major in V's storage.
 
 Kernel B3 (``csrc/patch_sym.cu``) replaces ``_kern_mir``, the product of a
 symmetric plan (S = D + O + O^T, off-diagonals stored once): the forward
@@ -33,11 +39,10 @@ Race-freedom: slots run concurrently and may share output rows, so the
 kernels add into a zeroed output (``torch.zeros``) with fp32 atomics; the
 summation order varies from run to run.
 
-Precision: B3 honours the operator's tier (:data:`TIERS`): "highest" and
-"high" run 3xTF32 on the tensor cores, None one TF32 pass -- the JAX
-package's ``_slot_dot`` tiers.  B2 runs IEEE fp32 FMA at every tier (its
-move to the tensor-core core is later work).  The plain versions, which
-the CPU runs, are exact in the operands' dtype at every tier.
+Precision: B2 and B3 honour the operator's tier (:data:`TIERS`):
+"highest" and "high" run 3xTF32 on the tensor cores, None one TF32 pass --
+the JAX package's ``_slot_dot`` tiers.  The plain versions, which the CPU
+runs, are exact in the operands' dtype at every tier.
 
 Vectors: kernel B7 (``ops/kernels/patch_spmv1.py``, ``csrc/patch_spmv1.cu``)
 replaces ``_kern1_f`` / ``_kern1_t`` / ``_kern1_m`` with the one-hot chunk
@@ -60,16 +65,17 @@ from .torch_spmv import chunk_rows, gather_rows, scatter_rows
 
 __all__ = ["patch_device_arrays", "patch_apply", "patch_spmm",
            "patch_spmm_plain", "patch_spmv", "patch_spmv_plain",
-           "bucket_spmm", "bucket_spmm_plain",
-           "bucket_spmm_sym", "bucket_spmm_sym_plain", "owner_tables",
-           "precision_tier", "BucketArrays", "TIERS", "LAUNCHES",
-           "SYM_LAUNCHES"]
+           "bucket_spmm", "bucket_spmm_plain", "patch_xt", "patch_xt_plain",
+           "tf32_round", "bucket_spmm_sym", "bucket_spmm_sym_plain",
+           "owner_tables", "precision_tier", "BucketArrays", "TIERS",
+           "LAUNCHES", "XT_LAUNCHES", "SYM_LAUNCHES"]
 
-LAUNCHES = 0       # kernel B2
+LAUNCHES = 0       # kernel B2 (forward and transpose products)
+XT_LAUNCHES = 0    # kernel B2's prologue (X^T of a forward product)
 SYM_LAUNCHES = 0   # kernel B3
 
-# precision -> tensor-core tier of kernels B3 and B4: 1 = 3xTF32, 0 = one
-# TF32 pass (the JAX package's "highest" / "high" / None of _slot_dot)
+# precision -> tensor-core tier of kernels B2, B3 and B4: 1 = 3xTF32, 0 =
+# one TF32 pass (the JAX package's "highest" / "high" / None of _slot_dot)
 TIERS = {"highest": 1, "high": 1, None: 0}
 
 
@@ -159,6 +165,63 @@ def bucket_spmm_plain(vals, cc, rs, X, n_out: int, *,
     return scatter_rows(n_out, win, yp)
 
 
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to the
+    nearest value with 10 explicit mantissa bits, ties away from zero (the
+    low 13 bits of the result are zero)."""
+    bits = t.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = ((bits + 0x1000) & 0xFFFFE000).to(torch.int32)
+    return bits.view(torch.float32)
+
+
+def _xt_ld(n: int) -> int:
+    """Row stride of X^T: n rounded up to 4 floats (TMA's 16-byte strides)."""
+    return -(-n // 4) * 4
+
+
+def patch_xt_plain(X: torch.Tensor, tier: int) -> tuple:
+    """Plain version of B2's prologue: (hi, lo), each [r, ld] with ld = n
+    rounded up to 4, hi = tf32(X)^T and lo = (X - tf32(X))^T (None at tier
+    0); columns past n are zero."""
+    n, r = X.shape
+    hi = X.new_zeros((r, _xt_ld(n)))
+    rounded = tf32_round(X)
+    hi[:, :n] = rounded.t()
+    lo = None
+    if tier:
+        lo = X.new_zeros((r, _xt_ld(n)))
+        lo[:, :n] = (X - rounded).t()
+    return hi, lo
+
+
+def patch_xt(X: torch.Tensor, tier: int) -> tuple:
+    """B2's prologue: the K-major copy of X [n, r] f32 that the forward
+    kernel reads (:func:`patch_xt_plain` says what it holds).  A CUDA
+    tensor launches the kernel (the outputs come from ``torch.empty``), a
+    CPU tensor takes the plain version."""
+    global XT_LAUNCHES
+    if tier not in (0, 1):
+        raise ValueError(f"tier must be 0 or 1, got {tier!r}")
+    if X.ndim != 2 or X.dtype != torch.float32:
+        raise TypeError(f"X must be [n, r] float32, got {tuple(X.shape)} "
+                        f"{X.dtype}")
+    if X.device.type == "cpu":
+        return patch_xt_plain(X, tier)
+    if X.device.type != "cuda":
+        raise ValueError(f"no kernel for device {X.device}")
+    X = X.contiguous()
+    n, r = X.shape
+    ld = _xt_ld(n)
+    hi = torch.empty((r, ld), dtype=torch.float32, device=X.device)
+    lo = torch.empty_like(hi) if tier else None
+    if n and r:
+        build.launch("bst_patch_xt_f32", X.device, X.data_ptr(),
+                     hi.data_ptr(), None if lo is None else lo.data_ptr(),
+                     n, r, ld)
+        XT_LAUNCHES += 1
+    return hi, lo
+
+
 def _check_bucket(vals, cc, rs, X, *extra) -> bool:
     """Validate one bucket's tensors (``extra``: further int32 tables);
     True when the kernel is to run (CUDA tensors), False for the plain
@@ -190,25 +253,35 @@ def _check_bucket(vals, cc, rs, X, *extra) -> bool:
     return True
 
 
-def bucket_spmm(vals, cc, rs, X, n_out: int, *,
-                transpose: bool = False) -> torch.Tensor:
-    """Y [n_out, r] = one patch bucket applied to X [n_in, r].
-
-    The kernel takes float32 (the plan's dtype); the plain CPU path takes
-    any floating dtype."""
+def bucket_spmm(vals, cc, rs, X, n_out: int, *, transpose: bool = False,
+                precision="highest") -> torch.Tensor:
+    """Y [n_out, r] = one patch bucket applied to X [n_in, r]: kernel B2 at
+    ``precision``'s tier for CUDA tensors (the forward after its prologue,
+    the transpose on B4's transposed instance at P = 1), its plain version
+    (exact at every tier, any floating dtype) for CPU tensors."""
     global LAUNCHES
+    tier = precision_tier(precision)
     if not _check_bucket(vals, cc, rs, X):
         return bucket_spmm_plain(vals, cc, rs, X, n_out, transpose=transpose)
     nb, MP, KP = vals.shape
-    X = X.contiguous()
-    vals, cc, rs = vals.contiguous(), cc.contiguous(), rs.contiguous()
+    X = _aligned(X.contiguous())
+    vals = _aligned(vals.contiguous())
+    cc, rs = cc.contiguous(), rs.contiguous()
     n_in, r = X.shape
     Y = torch.zeros((n_out, r), dtype=torch.float32, device=X.device)
-    if nb and r and n_out:
-        build.launch("bst_patch_spmm_f32", X.device, vals.data_ptr(),
+    if not (nb and r and n_out and n_in):
+        return Y
+    if transpose:
+        build.launch("bst_batched_spmm_f32", X.device, vals.data_ptr(),
                      cc.data_ptr(), rs.data_ptr(), X.data_ptr(), Y.data_ptr(),
-                     nb, MP, KP, r, n_in, n_out, int(transpose))
-        LAUNCHES += 1
+                     1, nb, MP, KP, r, n_in, n_out, 1, tier)
+    else:
+        hi, lo = patch_xt(X, tier)
+        build.launch("bst_patch_spmm_f32", X.device, vals.data_ptr(),
+                     cc.data_ptr(), rs.data_ptr(), hi.data_ptr(),
+                     None if lo is None else lo.data_ptr(), Y.data_ptr(),
+                     nb, MP, KP, r, n_in, hi.shape[1], n_out, tier)
+    LAUNCHES += 1
     return Y
 
 
@@ -335,13 +408,14 @@ class _PatchSpmmSym(torch.autograd.Function):
 class _PatchSpmm(torch.autograd.Function):
     """Exact cotangents (mirrors the JAX package's
     ``patch_engine._spmm_vjp_bwd``): dX is the same kernel in the other
-    mode, dvals is torch ops on the gathered rows."""
+    mode at the same tier, dvals is torch ops on the gathered rows."""
 
     @staticmethod
-    def forward(ctx, vals, cc, rs, X, n_out, transpose):
+    def forward(ctx, vals, cc, rs, X, n_out, transpose, precision="highest"):
         ctx.save_for_backward(vals, cc, rs, X)
-        ctx.transpose = transpose
-        return bucket_spmm(vals, cc, rs, X, n_out, transpose=transpose)
+        ctx.transpose, ctx.precision = transpose, precision
+        return bucket_spmm(vals, cc, rs, X, n_out, transpose=transpose,
+                           precision=precision)
 
     @staticmethod
     def backward(ctx, g):
@@ -350,7 +424,7 @@ class _PatchSpmm(torch.autograd.Function):
         dvals = dX = None
         if ctx.needs_input_grad[3]:
             dX = _PatchSpmm.apply(vals, cc, rs, g, X.shape[0],
-                                  not ctx.transpose)
+                                  not ctx.transpose, ctx.precision)
         if ctx.needs_input_grad[0]:
             win, cols = _window_rows(rs, vals.shape[1]), chunk_rows(cc, CC)
             if ctx.transpose:
@@ -359,7 +433,7 @@ class _PatchSpmm(torch.autograd.Function):
             else:
                 dvals = torch.einsum("bmr,bkr->bmk", gather_rows(g, win),
                                      gather_rows(X, cols))
-        return dvals, None, None, dX, None, None
+        return dvals, None, None, dX, None, None, None
 
 
 def _n_out(plan: PatchPlan, transpose: bool) -> int:
@@ -373,8 +447,7 @@ def _n_out(plan: PatchPlan, transpose: bool) -> int:
 def patch_spmm(plan: PatchPlan, dev, X, *, transpose: bool = False,
                precision="highest"):
     """Y = A @ X (A^T @ X when ``transpose``); X: [n, r] f32.  A symmetric
-    plan runs kernel B3 at ``precision``'s tier, any other B2 (IEEE fp32
-    at every tier)."""
+    plan runs kernel B3, any other B2, at ``precision``'s tier."""
     n_out = _n_out(plan, transpose)
     Y = None
     for bucket in dev:
@@ -384,7 +457,8 @@ def patch_spmm(plan: PatchPlan, dev, X, *, transpose: bool = False,
                                        getattr(bucket, "owners", None),
                                        precision)
         else:
-            part = _PatchSpmm.apply(vals, cc, rs, X, n_out, transpose)
+            part = _PatchSpmm.apply(vals, cc, rs, X, n_out, transpose,
+                                    precision)
         Y = part if Y is None else Y + part
     if Y is None:
         return X.new_zeros((n_out, X.shape[1]))
@@ -440,7 +514,7 @@ def patch_spmv_plain(plan: PatchPlan, dev, x, *, transpose: bool = False):
 def patch_apply(plan: PatchPlan, dev, x, *, transpose: bool = False,
                 precision="highest"):
     """Entry point: x [n] runs :func:`patch_spmv` (kernel B7), x [n, r]
-    :func:`patch_spmm` (B2 / B3, B3 at ``precision``'s tier).  A symmetric
+    :func:`patch_spmm` (B2 / B3 at ``precision``'s tier).  A symmetric
     plan is applied as it is (``transpose`` must be False): S^T is the plan
     built with ``transpose_main=True``."""
     if x.ndim == 1:

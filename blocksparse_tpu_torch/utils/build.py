@@ -43,8 +43,12 @@ _SIGNATURES = {
     # vals, out_tab, in_tab, x, y, nb, mp, kp, C, r, x_rows, y_rows, mode, stream
     "bst_fused_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P),
     "bst_fused_spmm_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P),
-    # vals, cc, rs, x, y, nb, MP, KP, r, x_rows, y_rows, transpose, stream
-    "bst_patch_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _P),
+    # x, hi, lo, n, r, ld, stream
+    "bst_patch_xt_f32": (_P, _P, _P, _L, _I, _L, _P),
+    # vals, cc, rs, xt_hi, xt_lo, y, nb, MP, KP, r, x_rows, ld, y_rows, tier,
+    # stream
+    "bst_patch_spmm_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
+                           _I, _P),
     # vals, cc, rs, mk, own_chunk, own_ptr, own_pair, n_own, x, y, nb, MP,
     # KP, r, n, adjoint, tier, stream
     "bst_patch_sym_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,

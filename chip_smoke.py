@@ -6,8 +6,11 @@
 Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
 
   1. each kernel against its plain PyTorch version on the card (B1: forward,
-     transpose, symmetric x f32/f64 x r in {1, 64, 200}; B2: forward,
-     transpose x r in {64, 128, 300}; B3: symmetric and adjoint x r in
+     transpose, symmetric x f32/f64 x r in {1, 64, 200}; B2: its prologue
+     (hi bit-equal to the plain tf32(X)^T, hi + lo == X), forward and
+     transpose x r in {8, 64, 128, 300} x both tensor-core tiers on a plan
+     of 8-row slots and on one of 128-row slots, and its wgmma forward
+     against B4's forward instance at P = 1; B3: symmetric and adjoint x r in
      {32, 64, 128, 300} x both plans x both tensor-core tiers ("highest":
      3xTF32, None: one TF32 pass); B9: element gather and scatter-add with duplicate
      and sentinel indices; B5: plain, transposed, fused mirror plans with
@@ -32,7 +35,11 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
   3. the real size (n = 8192, 2000 contiguous 128x128 f32 blocks): SpMV
      through the stream route (one B5 launch) and SpMM r = 128 (B2)
      against the float64 plain route, the bucket route (B1) driven
-     explicitly, all timed eager and replayed from a CUDA graph;
+     explicitly, all timed eager and replayed from a CUDA graph; B2 at
+     precision=None (a second operator built with it) and A.T @ X at both
+     tiers, timed the same way, and the forward's parts: the prologue
+     alone, the bucket's forward and B4's forward instance at P = 1 on the
+     same plan, and the host time per call;
   4. the symmetric flagship (config-2 recipe, 4096^2, 48 diagonal + 160
      off-diagonal blocks): B1's symmetric pass and B3 against their plain
      versions, the main path with exact counts (B3 on every r > 1 product,
@@ -90,12 +97,12 @@ TFLOP/s (3xTF32, the fastest tensor-core way to fp32 accuracy) for
 "highest" and "high", 495 TFLOP/s (TF32) for precision=None -- and the
 time of one PyTorch call that computes the same function (a CSR product
 through torch.sparse, or index_select / index_add_), which the port never
-calls.
+calls, eager and replayed from a CUDA graph where the call captures.
 
 Tolerances: |kernel - reference| <= tol * max(1, max|reference|) with tol
 1e-5 for f32 (3xTF32 included) and 1e-12 for f64; the kernels add into
 their outputs with atomics (run-to-run summation order), so bit equality
-is not expected.  B3 and B4 at precision=None run one TF32 pass: each
+is not expected.  B2, B3 and B4 at precision=None run one TF32 pass: each
 operand keeps 11 significant bits (unit roundoff 2^-11 = 4.9e-4), so each
 product is off by up to ~1e-3 of itself, and a sum of K ~ 1000
 random-sign products drifts by ~sqrt(K) 1e-3 of a typical product while
@@ -157,6 +164,7 @@ B1_SRC = "blocksparse_tpu_torch/csrc/fused_spmm.cu"
 B2_SRC = "blocksparse_tpu_torch/csrc/patch_spmm.cu"
 B1_REPLACES = "blocksparse_tpu/ops/pallas/fused_spmm.py:81"
 B2_REPLACES = "blocksparse_tpu/ops/patch_engine.py:329"
+B2_TR_REPLACES = "blocksparse_tpu/ops/patch_engine.py:371"
 B3_SRC = "blocksparse_tpu_torch/csrc/patch_sym.cu"
 B3_REPLACES = "blocksparse_tpu/ops/patch_engine.py:345"
 B9_SRC = "blocksparse_tpu_torch/csrc/mask_select.cu"
@@ -228,29 +236,49 @@ def bound(nbytes: float, flops: float, precision="highest") -> tuple:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def csr_on_card(ops) -> torch.Tensor:
-    """The operators (symmetric ones expanded) block-diagonally in one f32
-    CSR tensor on the card, duplicates summed: the operand of the library
-    call that the kernels are timed beside."""
+def csr_on_card(ops, transpose=False) -> torch.Tensor:
+    """The operators (symmetric ones expanded; transposed with
+    ``transpose``) block-diagonally in one f32 CSR tensor on the card,
+    duplicates summed: the operand of the library call that the kernels
+    are timed beside."""
     rows, cols, vals = [], [], []
     r0 = c0 = 0
     for op in ops:
         r, c, v = bt.rowcolvals(op)
+        if transpose:
+            r, c = c, r
         rows.append(torch.from_numpy(r).to(DEV) + r0)
         cols.append(torch.from_numpy(c).to(DEV) + c0)
         vals.append(torch.from_numpy(np.asarray(v, np.float32)).to(DEV))
-        r0, c0 = r0 + op.shape[0], c0 + op.shape[1]
+        m, n = op.shape[::-1] if transpose else op.shape
+        r0, c0 = r0 + m, c0 + n
     coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]),
                                   torch.cat(vals), (r0, c0)).coalesce()
     return coo.to_sparse_csr()
 
 
-def library_ms(label: str, call, kernel_out: torch.Tensor, card: str) -> float:
+class LibraryTime(float):
+    """A library call's eager median (the float), with ``graph``: its
+    median replay from a CUDA graph (device time), or None where the call
+    does not capture."""
+
+    graph: float | None = None
+
+
+def library_ms(label: str, call, kernel_out: torch.Tensor,
+               card: str) -> LibraryTime:
     """Median CUDA-event time of one PyTorch call computing what a kernel
-    computes, its result held against the kernel's."""
+    computes, its result held against the kernel's: eager, and replayed
+    from a CUDA graph where the call captures (cuSPARSE may refuse)."""
     rel_check(f"{label}: library call vs kernel", call(), kernel_out, TOL32)
-    ms = median_ms(call)
-    print(f"  {label}: library call {ms:.4f} ms [{card}]")
+    ms = LibraryTime(median_ms(call))
+    try:
+        ms.graph = graph_ms(call)
+        note = f"CUDA-graph replay {ms.graph:.4f} ms"
+    except (RuntimeError, SmokeFailure) as e:
+        torch.cuda.synchronize()
+        note = f"does not capture in a CUDA graph ({str(e).splitlines()[0][:120]})"
+    print(f"  {label}: library call {ms:.4f} ms eager, {note} [{card}]")
     return ms
 
 
@@ -265,6 +293,7 @@ def reset_counts() -> None:
     fused_spmm.LAUNCHES = 0
     fused_spmm.SYM_LAUNCHES = 0
     patch_engine.LAUNCHES = 0
+    patch_engine.XT_LAUNCHES = 0
     patch_engine.SYM_LAUNCHES = 0
     mask_select.GATHER_LAUNCHES = 0
     mask_select.SCATTER_LAUNCHES = 0
@@ -281,10 +310,13 @@ def reset_counts() -> None:
 
 def counts() -> dict:
     """Kernel launches since the last reset ("B1 sym": those of B1 in its
-    symmetric mode, also counted under "B1"; "B5 mirror", "B6 mirror",
-    "B8 mirror" and "B10 mirror" those on a mirror plan)."""
+    symmetric mode, also counted under "B1"; "B2 prologue": B2's X^T
+    launches, one per forward product; "B5 mirror", "B6 mirror", "B8
+    mirror" and "B10 mirror" those on a mirror plan)."""
     return {"B1": fused_spmm.LAUNCHES, "B1 sym": fused_spmm.SYM_LAUNCHES,
-            "B2": patch_engine.LAUNCHES, "B3": patch_engine.SYM_LAUNCHES,
+            "B2": patch_engine.LAUNCHES,
+            "B2 prologue": patch_engine.XT_LAUNCHES,
+            "B3": patch_engine.SYM_LAUNCHES,
             "B9 gather": mask_select.GATHER_LAUNCHES,
             "B9 scatter": mask_select.SCATTER_LAUNCHES,
             "B5": panel_spmv.LAUNCHES,
@@ -569,7 +601,7 @@ def b1_cases(np_dtype):
 
 def phase1():
     print("phase 1: kernels against their plain versions")
-    errs = {"B1": 0.0, "B2": 0.0}
+    errs = {"B1": 0.0}
     gen = torch.Generator(device="cpu").manual_seed(5)
     for np_dtype, dtype in ((np.float32, torch.float32),
                             (np.float64, torch.float64)):
@@ -597,15 +629,7 @@ def phase1():
     shape_b2 = shape
     print(f"  patch plan: {plan.buckets[0].nb} slots of "
           f"{plan.buckets[0].MP}x{plan.buckets[0].KP}")
-    for r in (64, 128, 300):
-        X = torch.randn((shape[0], r), generator=gen).to(DEV)
-        for tr in (False, True):
-            got = patch_engine.bucket_spmm(vals, cc, rs, X, shape[0], transpose=tr)
-            ref = patch_engine.bucket_spmm_plain(vals, cc, rs, X, shape[0], transpose=tr)
-            torch.cuda.synchronize()
-            err = rel_check(f"B2 {'transpose' if tr else 'forward'} r={r}",
-                            got, ref, TOL[torch.float32])
-            errs["B2"] = max(errs["B2"], err)
+    errs.update(b2_vs_plain(gen, patch_bucket))
     errs["B3"] = errs["B3 tf32"] = 0.0
     d, di, o, ri, ci, shape = random_symmetric(
         3, n=1024, ngroups=12, noffdiag=20, dtype=np.float32, contiguous=True)
@@ -662,6 +686,56 @@ def phase1():
         + [(f"symmetric plan transpose_main={tm}", S._patch_for(tm)[1][0],
             S.shape, True) for tm in (False, True)]))
     errs.update(b10_vs_plain(gen))
+    return errs
+
+
+def b2_vs_plain(gen, patch_bucket) -> dict:
+    """B2 on phase 1's patch plan (8-row slots) and on a plan of 128-row
+    slots (two 64-row blocks each): its prologue against the plain split
+    (hi bit-equal, hi + lo == X), the forward and the transpose at both
+    tiers against the plain version (TOL32 at "highest", TOL_TF32 at None),
+    and the duality of the wgmma forward with B4's forward instance at
+    P = 1 at "highest"."""
+    errs = {"B2": 0.0, "B2 tf32": 0.0, "B2 duality": 0.0, "B2 prologue": 0.0}
+    wide, _ = contiguous_operator(2048, 150, 128, seed=15, value_seed=None,
+                                  device=DEV)
+    plan, dev = wide._patch_for()
+    require(plan.buckets[0].MP == 128, "the second B2 plan must have "
+            f"128-row slots, got {plan.buckets[0].MP}")
+    print(f"  patch plan of 128-row slots: {plan.buckets[0].nb} slots of "
+          f"{plan.buckets[0].MP}x{plan.buckets[0].KP}")
+    for (vals, cc, rs, n), r in [(patch_bucket, r) for r in (8, 64, 128, 300)] \
+            + [((*dev[0][:3], 2048), r) for r in (8, 128, 300)]:
+        X = torch.randn((n, r), generator=gen).to(DEV)
+        for tier in (0, 1):
+            hi, lo = patch_engine.patch_xt(X, tier)
+            phi, plo = patch_engine.patch_xt_plain(X, tier)
+            torch.cuda.synchronize()
+            require(torch.equal(hi[:, :n], phi[:, :n]),
+                    f"B2 prologue r={r} tier {tier}: hi differs from tf32(X)^T")
+            if tier:
+                require(torch.equal(hi[:, :n] + lo[:, :n], X.t()),
+                        f"B2 prologue r={r}: hi + lo != X")
+                errs["B2 prologue"] = max(errs["B2 prologue"], float(
+                    (lo[:, :n] - plo[:, :n]).abs().max()))
+        print(f"  B2 prologue n={n} r={r}: hi bit-equal to the plain "
+              f"tf32(X)^T at both tiers, hi + lo == X exactly")
+        for tr in (False, True):
+            ref = patch_engine.bucket_spmm_plain(vals, cc, rs, X, n,
+                                                 transpose=tr)
+            for prec, key in (("highest", "B2"), (None, "B2 tf32")):
+                got = patch_engine.bucket_spmm(vals, cc, rs, X, n,
+                                               transpose=tr, precision=prec)
+                torch.cuda.synchronize()
+                errs[key] = max(errs[key], rel_check(
+                    f"B2 {'transpose' if tr else 'forward'} MP={vals.shape[1]} "
+                    f"r={r} precision={prec}", got, ref, TIER_TOL[prec]))
+        other = batched_spmm.batched_spmm(vals[None], cc, rs, X[None], n)[0]
+        got = patch_engine.bucket_spmm(vals, cc, rs, X, n)
+        torch.cuda.synchronize()
+        errs["B2 duality"] = max(errs["B2 duality"], rel_check(
+            f"B2 forward MP={vals.shape[1]} r={r} vs B4's forward at P=1",
+            got, other, TOL32))
     return errs
 
 
@@ -929,14 +1003,22 @@ def phase2():
          S @ (S @ xn.astype(np.float64)), "B1"),
     ]
     reset_counts()
-    outs = []
+    outs, per = [], {}
     for name, fn, _ref, kernel in products:
-        before = counts()[kernel]
+        before = counts()
         outs.append(fn())
-        require(counts()[kernel] > before, f"{name}: kernel {kernel} was not launched")
+        per[name] = grown_since(before)
+        require(per[name][kernel] > 0, f"{name}: kernel {kernel} was not launched")
     torch.cuda.synchronize()
     launches = counts()
     print(f"  main-path launches: {launches}")
+    # B2's forward runs its prologue first; its transpose (B4's transposed
+    # instance at P = 1) needs none
+    require(per["A @ X"]["B2 prologue"] == per["A @ X"]["B2"]
+            and per["A.H @ X"]["B2 prologue"] == 0,
+            f"B2 prologue launches: {per['A @ X']}, {per['A.H @ X']}")
+    launches["B2 forward"] = per["A @ X"]["B2"]
+    launches["B2 transpose"] = per["A.H @ X"]["B2"]
     for (name, _fn, ref, _k), out in zip(products, outs):
         rel_check(f"{name} vs float64 scipy", out, ref, TOL[torch.float32])
     require(launches["B1"] > 0 and launches["B2"] > 0,
@@ -1004,6 +1086,95 @@ def require_counts(name, got: dict, want: dict) -> None:
     require(sub == want, f"{name}: launches {sub}, expected {want}")
 
 
+def b2_real(A, X, bounds, card) -> dict:
+    """Phase 3's SpMM through B2 beside the default ("highest") operator:
+    at precision=None (a second operator built with it), A.T @ X at both
+    tiers, each checked against the float64 plain route and timed eager and
+    from a CUDA graph; then, eager and from a CUDA graph, the forward's
+    prologue alone, the bucket's forward (prologue included) and B4's
+    forward instance at P = 1 on the same plan; and the host time per
+    call."""
+    n, r = X.shape
+    An, _ = contiguous_operator(8192, 2000, 128, seed=7, value_seed=7 + 7777,
+                                device=DEV, precision=None)
+    plan, dev = A._patch_for()
+    vals, cc, rs, _mk = dev[0]
+    b = plan.buckets[0]
+    live = int((b.col_chunk < -(-n // CC)).sum())
+    print(f"  B2 plan: {b.nb} slots of {b.MP}x{b.KP}, "
+          f"{b.col_chunk.size - live} of {b.col_chunk.size} chunk slots "
+          f"sentinel")
+    before = counts()
+    Yn, Yt, Ytn = An @ X, A.T @ X, An.T @ X
+    torch.cuda.synchronize()
+    require_counts("A @ X at None, A.T @ X at both tiers", grown_since(before),
+                   {"B2": 3, "B2 prologue": 1, "B4": 0, "B1": 0})
+    ref_t = plain_route(A, X, transpose=True, dtype=torch.float64)
+    out = {
+        "none_err": rel_check("SpMM r=128 precision=None vs float64 plain",
+                              Yn, plain_route(A, X, dtype=torch.float64),
+                              TOL_TF32),
+        "transpose_err": rel_check("A.T @ X r=128 vs float64 plain", Yt,
+                                   ref_t, TOL32),
+        "transpose_none_err": rel_check(
+            "A.T @ X r=128 precision=None vs float64 plain", Ytn, ref_t,
+            TOL_TF32)}
+    del Yn, Yt, Ytn, ref_t
+    routes = {("A @ X", "highest"): lambda: A @ X,
+              ("A @ X", None): lambda: An @ X,
+              ("A.T @ X", "highest"): lambda: A.T @ X,
+              ("A.T @ X", None): lambda: An.T @ X}
+    eager = {k: [] for k in routes}
+    for k in list(routes) + list(routes)[::-1]:
+        eager[k].append(median_ms(routes[k]))
+    for (name, prec), fn in routes.items():
+        graph = graph_ms(fn)
+        bnd = bounds["SpMM r=128" + (" None" if prec is None else "")]
+        out[(name, prec)] = (min(eager[(name, prec)]), graph)
+        print(f"  B2 {name} precision={prec}: eager "
+              f"{eager[(name, prec)][0]:.4f} / {eager[(name, prec)][1]:.4f} "
+              f"ms, graph {graph:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}): "
+              f"{100 * bnd[0] / graph:.1f}% of the bound [{card}]")
+    for prec in ("highest", None):
+        tier = patch_engine.precision_tier(prec)
+        parts = {
+            "prologue": lambda t=tier: patch_engine.patch_xt(X, t)[0],
+            "forward": lambda p=prec: patch_engine.bucket_spmm(
+                vals, cc, rs, X, n, precision=p),
+            "B4 P=1": lambda p=prec: batched_spmm.batched_spmm(
+                vals[None], cc, rs, X[None], n, precision=p),
+        }
+        for name, fn in parts.items():
+            out[(name, prec)] = (median_ms(fn), graph_ms(fn))
+        pro = bounds["prologue" + (" None" if prec is None else "")]
+        print(f"  B2 forward parts, precision={prec} (eager / graph ms): "
+              + ", ".join(f"{name} {out[(name, prec)][0]:.4f} / "
+                          f"{out[(name, prec)][1]:.4f}" for name in parts)
+              + f"; prologue bound {pro[0]:.4f} ms ({pro[1]}) [{card}]")
+    out["host_us"] = {
+        "A @ X": host_us(lambda: A @ X),
+        "bucket_spmm": host_us(
+            lambda: patch_engine.bucket_spmm(vals, cc, rs, X, n)),
+        "prologue": host_us(lambda: patch_engine.patch_xt(X, 1))}
+    print("  B2 host time per call (enqueue only): " + ", ".join(
+        f"{k} {v:.1f} us" for k, v in out["host_us"].items()))
+    return out
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host time per call in µs: the calls only enqueue, and the card is
+    left to catch up after the clock stops."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return dt
+
+
 def phase3(card: str):
     print("phase 3: real size n=8192, 2000 x 128x128 f32 (config-1 recipe)")
     A, vrng = contiguous_operator(8192, 2000, 128, seed=7, value_seed=7 + 7777,
@@ -1046,11 +1217,22 @@ def phase3(card: str):
                            lambda: torch.mv(csr, x), y, card),
         "SpMM r=128": library_ms("SpMM r=128, CSR matrix @ X",
                                  lambda: csr @ X, Y, card)}
+    del csr
+    csr_t = csr_on_card([A], transpose=True)
+    library["SpMM r=128 transpose"] = library_ms(
+        "A.T @ X r=128, transposed CSR matrix @ X", lambda: csr_t @ X,
+        A.T @ X, card)
+    del csr_t
+    spmm_bytes, spmm_flops = nnz * 4 + 2 * 8192 * 128 * 4, 2 * nnz * 128
     bounds = {"SpMV": bound(nnz * 4 + 2 * 8192 * 4, 2 * nnz),
-              "SpMM r=128": bound(nnz * 4 + 2 * 8192 * 128 * 4,
-                                  2 * nnz * 128)}
+              "SpMM r=128": bound(spmm_bytes, spmm_flops),
+              "SpMM r=128 None": bound(spmm_bytes, spmm_flops, None),
+              # X read once, X^T written once (hi; hi and lo at tier 1)
+              "prologue": bound(3 * 8192 * 128 * 4, 0),
+              "prologue None": bound(2 * 8192 * 128 * 4, 0)}
+    b2 = b2_real(A, X, bounds, card)
     return {
-        "library": library, "bound": bounds,
+        "library": library, "bound": bounds, "B2": b2,
         "SpMV": time_routes(
             "SpMV, stream route (B5)", lambda: A @ x,
             lambda: plain_route(A, x), stream_bytes(A),
@@ -1063,8 +1245,21 @@ def phase3(card: str):
         "SpMM r=128": time_routes(
             "SpMM r=128", lambda: A @ X, lambda: plain_route(A, X),
             plan.value_bytes, 2 * plan.value_bytes // 4 * 128, card),
+        "SpMM r=128 transpose plain": plain_times(
+            "A.T @ X r=128", lambda: plain_route(A, X, transpose=True), card),
+        "prologue plain": plain_times(
+            "B2 prologue (tier 1)",
+            lambda: patch_engine.patch_xt_plain(X, 1)[0], card),
         "setup": setup, "launches": launched["B5"], "op": A,
     }
+
+
+def plain_times(label, fn, card) -> tuple:
+    """(eager, graph) ms of a plain version."""
+    out = (median_ms(fn), graph_ms(fn))
+    print(f"  {label}, plain version: eager {out[0]:.4f} ms, graph "
+          f"{out[1]:.4f} ms [{card}]")
+    return out
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -1232,9 +1427,12 @@ def b9_single_calls(S, x, gen, card) -> dict:
         label = f"B9 {kind}, one call on {K} indices (n={n})"
         p1, k1, k2, p2 = (median_ms(plain), median_ms(kern), median_ms(kern),
                           median_ms(plain))
-        print(f"  {label}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
-              f"{p2:.4f} ms, bound {bnd[0] * 1e3:.3f} us ({bnd[1]}) [{card}]")
-        out[kind] = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+        graph = graph_ms(kern)
+        print(f"  {label}: kernel {k1:.4f} / {k2:.4f} ms (graph {graph:.4f} "
+              f"ms), plain {p1:.4f} / {p2:.4f} ms, bound "
+              f"{bnd[0] * 1e3:.3f} us ({bnd[1]}) [{card}]")
+        out[kind] = {"ms": min(k1, k2), "graph_ms": graph,
+                     "plain_ms": min(p1, p2),
                      "library_ms": library_ms(label, lib, kern(), card),
                      "bound": bnd}
     return out
@@ -2315,6 +2513,7 @@ def main() -> None:
     errs1 = run("phase 1", phase1)
     errs2, launches = run("phase 2", phase2)
     times = run("phase 3", phase3, card)
+    b2 = times["B2"]
     errs4, launches4 = run("phase 4", phase4, card)
     sym_times, errs5, launches5 = run("phase 5", phase5, card)
     errs6, launches6 = run("phase 6", phase6)
@@ -2345,7 +2544,8 @@ def main() -> None:
 
     def measured(bnd, lib):
         """The keys every kernel entry carries beside its times."""
-        return {"bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib}
+        return {"bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib,
+                "library_graph_ms": getattr(lib, "graph", None)}
 
     def per_operand(res):
         """Phase 10's or 11's times of every operand, keyed by operand."""
@@ -2381,15 +2581,68 @@ def main() -> None:
          "vbcrs_graph_ms": v_times["SpMV bucket"][2],
          "vbcrs_timed": "bucket route of V @ x, config 3, n=32768",
          **measured(times["bound"]["SpMV"], times["library"]["SpMV"])},
-        {"name": "patch_spmm (B2)", "route": "cuda", "source": B2_SRC,
-         "replaces": B2_REPLACES, "launches": launches["B2"],
+        {"name": "patch_spmm forward (B2)", "route": "cuda", "source": B2_SRC,
+         "replaces": B2_REPLACES, "launches": launches["B2 forward"],
+         "launches_main_path": launches["B2"],
+         "design": "wgmma + TMA on X^T: 64-row blocks (one consumer "
+                   "warpgroup, one producer warp, two blocks per SM; no "
+                   "clusters), "
+                   "tier 1 ('highest'/'high') 3xTF32 with register-A "
+                   "splits and per-stage sums, tier 0 (None) one TF32 pass "
+                   "from shared memory",
          "max_abs_err": errs2["B2"], "max_abs_err_phase1": errs1["B2"],
+         "max_abs_err_tf32_phase1": errs1["B2 tf32"],
+         "max_abs_err_duality": errs1["B2 duality"],
+         "max_abs_err_none": b2["none_err"],
          "ms": times["SpMM r=128"][0], "plain_ms": times["SpMM r=128"][1],
          "graph_ms": times["SpMM r=128"][2],
          "plain_graph_ms": times["SpMM r=128"][3],
-         "timed": "A @ X, n=8192, 2000 x 128x128 f32, r=128", "card": card,
+         "timed": "A @ X, n=8192, 2000 x 128x128 f32, r=128, "
+                  "precision='highest' (3xTF32), prologue included; none: "
+                  "an operator built with precision=None (TF32)",
+         "card": card,
          **measured(times["bound"]["SpMM r=128"],
-                    times["library"]["SpMM r=128"])},
+                    times["library"]["SpMM r=128"]),
+         "none_ms": b2[("A @ X", None)][0],
+         "none_graph_ms": b2[("A @ X", None)][1],
+         "none_bound_ms": times["bound"]["SpMM r=128 None"][0],
+         "none_bound_by": times["bound"]["SpMM r=128 None"][1],
+         "host_us_per_call": b2["host_us"],
+         **{f"{key}{'_none' if prec is None else ''}_{k}": b2[(part, prec)][i]
+            for part, key in (("forward", "bucket"), ("B4 P=1", "b4_p1"))
+            for prec in ("highest", None)
+            for i, k in enumerate(("ms", "graph_ms"))}},
+        {"name": "patch_spmm transpose (B2 on B4's transposed instance, "
+                 "P=1)", "route": "cuda", "source": B4_SRC,
+         "replaces": B2_TR_REPLACES, "launches": launches["B2 transpose"],
+         "max_abs_err": b2["transpose_err"],
+         "max_abs_err_none": b2["transpose_none_err"],
+         "ms": b2[("A.T @ X", "highest")][0],
+         "graph_ms": b2[("A.T @ X", "highest")][1],
+         "plain_ms": times["SpMM r=128 transpose plain"][0],
+         "plain_graph_ms": times["SpMM r=128 transpose plain"][1],
+         "none_ms": b2[("A.T @ X", None)][0],
+         "none_graph_ms": b2[("A.T @ X", None)][1],
+         "none_bound_ms": times["bound"]["SpMM r=128 None"][0],
+         "timed": "A.T @ X, n=8192, 2000 x 128x128 f32, r=128, "
+                  "precision='highest'; none: precision=None",
+         "card": card,
+         **measured(times["bound"]["SpMM r=128"],
+                    times["library"]["SpMM r=128 transpose"])},
+        {"name": "patch_spmm prologue (B2's X^T)", "route": "cuda",
+         "source": B2_SRC, "replaces": B2_REPLACES,
+         "launches": launches["B2 prologue"],
+         "max_abs_err": errs1["B2 prologue"],
+         "ms": b2[("prologue", "highest")][0],
+         "graph_ms": b2[("prologue", "highest")][1],
+         "plain_ms": times["prologue plain"][0],
+         "plain_graph_ms": times["prologue plain"][1],
+         "none_ms": b2[("prologue", None)][0],
+         "none_graph_ms": b2[("prologue", None)][1],
+         "none_bound_ms": times["bound"]["prologue None"][0],
+         "timed": "X [8192, 128] -> hi, lo [128, 8192] (tier 1); none: hi "
+                  "only (tier 0)", "card": card,
+         **measured(times["bound"]["prologue"], None)},
         {"name": "patch_sym (B3)", "route": "cuda", "source": B3_SRC,
          "replaces": B3_REPLACES, "launches": launches4["B3"],
          "max_abs_err": errs4["B3"], "max_abs_err_phase1": errs1["B3"],
@@ -2416,6 +2669,7 @@ def main() -> None:
          "max_abs_err": errs5[f"B9 {kind}"],
          "max_abs_err_phase1": errs1[f"B9 {kind}"],
          "ms": sym_times["B9 single"][kind]["ms"],
+         "graph_ms": sym_times["B9 single"][kind]["graph_ms"],
          "plain_ms": sym_times["B9 single"][kind]["plain_ms"],
          "timed": "one call on the largest index table of the symmetric real "
                   "size's element buckets (n=32768)",
@@ -2503,6 +2757,7 @@ def main() -> None:
          "mirror_graph_ms": mv2["B6"][1], "mirror_plain_graph_ms": mv2["plain"][1],
          "mirror_loop_ms": mv2["loop"][0], "mirror_loop_graph_ms": mv2["loop"][1],
          "mirror_bound_ms": mv2["bound"][0], "mirror_library_ms": mv2["library"],
+         "mirror_library_graph_ms": mv2["library"].graph,
          "mirror_timed": "batched_mv, P=16 x config-2 symmetric n=4096 (fused "
                          "mirror plan)",
          "capped_ms": capped["B6"][0], "capped_graph_ms": capped["B6"][1],
@@ -2525,7 +2780,8 @@ def main() -> None:
                   "default operator beside it)", "card": card,
          **measured(b7["times"]["vbcrs"]["bound"], b7["library"]["vbcrs"]),
          **per_operand(b7),
-         **{f"{k}_library_ms": v for k, v in b7["library"].items()}},
+         **{f"{k}_library_ms": v for k, v in b7["library"].items()},
+         **{f"{k}_library_graph_ms": v.graph for k, v in b7["library"].items()}},
         {"name": "panel2_spmv (B10)", "route": "cuda", "source": B10_SRC,
          "replaces": B10_REPLACES, "launches": sum(b10["launches"].values()),
          "launches_by_path": b10["launches"],
