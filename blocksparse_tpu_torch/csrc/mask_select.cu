@@ -1,5 +1,5 @@
-// Sentinel-aware element gather and scatter-add on Hopper (kernel B9 of the
-// port).
+// Sentinel-aware element gather and scatter-add, and the one-launch element
+// pass built on them, on Hopper (kernel B9 of the port).
 //
 // Replaces blocksparse_tpu/ops/pallas/mask_select.py::_gather_kernel and
 // ::_scatter_kernel (launched from mask_gather / mask_scatter_add), the
@@ -25,7 +25,23 @@
 // fp32 atomicAdd into the output the wrapper zeroed; the summation order
 // varies between runs.  The TPU kernel summed in a fixed order through its
 // sequential grid.
-#include <cuda_runtime.h>
+//
+// The element pass (bst_element_pass_*): the element engine's whole
+// gather -> per-block product -> scatter-add over every element bucket of a
+// layout in one launch, f32 and f64, in place of one gather, one product and
+// one scatter-add per bucket (three launches and two allocations each, and
+// the buckets' values are tiny, so the per-bucket chain was all launch
+// latency).  It takes a table of bucket descriptors (values [nb, mp, kp],
+// row_idx [nb, mp], col_idx [nb, kp]) and runs the tile core of kernel B1
+// (tile_core.cuh) with element row maps: each thread block gathers
+// x[col_idx] of its block into shared memory (an index >= n reads 0), forms
+// V @ xg for a 64-row tile and adds each row into y[row_idx] with one atomic
+// add per (block, row) (an index >= out_len is dropped).  Transpose mode
+// swaps the tables and uses V^T; symmetric mode also gathers x[row_idx] and
+// adds V^T @ xr into y[col_idx] from the same shared-memory tile of V.
+// Every write to y is an atomicAdd (fp32 / fp64) into the output the
+// wrapper zeroed, or into the partial sum of the launches before it.
+#include "tile_core.cuh"
 
 namespace {
 
@@ -83,4 +99,33 @@ extern "C" int bst_mask_scatter_add_f32(const float* v, const int* idx,
                         static_cast<cudaStream_t>(stream)>>>(v, idx, K, y,
                                                              out_len);
   return (int)cudaGetLastError();
+}
+
+// The element pass: table is n descriptors (int64 [n, 9] on the card, see
+// tile_core.cuh::BucketDesc, chunk 1), items their work items in this mode;
+// mode 0 forward, 1 transpose, 2 symmetric.  y is added into.
+template <typename T>
+static int element_pass(const void* table, int n, long long items,
+                        const T* x, T* y, int r, long long x_rows,
+                        long long y_rows, int mode, void* stream) {
+  if (n < 0 || (n == 0 && items != 0)) return (int)cudaErrorInvalidValue;
+  const bst::DescTable tab{static_cast<const bst::BucketDesc*>(table), n, {}};
+  return bst::launch_buckets<T, bst::ElemMap>(tab, items, x, y, r, x_rows,
+                                              y_rows, mode, stream);
+}
+
+extern "C" int bst_element_pass_f32(const void* table, int n, long long items,
+                                    const float* x, float* y, int r,
+                                    long long x_rows, long long y_rows,
+                                    int mode, void* stream) {
+  return element_pass<float>(table, n, items, x, y, r, x_rows, y_rows, mode,
+                             stream);
+}
+
+extern "C" int bst_element_pass_f64(const void* table, int n, long long items,
+                                    const double* x, double* y, int r,
+                                    long long x_rows, long long y_rows,
+                                    int mode, void* stream) {
+  return element_pass<double>(table, n, items, x, y, r, x_rows, y_rows,
+                              mode, stream);
 }

@@ -1,7 +1,17 @@
-// Tile core of kernel B1 (fused_spmm.cu): gather -> per-block GEMM tile ->
-// atomic scatter-add, in IEEE fp32 / fp64 FMA at every precision tier.
-// (B2 runs wgmma + TMA in patch_spmm.cu; B3 and B4 the tensor-core core,
-// tile_mma.cuh.)
+// Tile core of kernel B1 (fused_spmm.cu) and of B9's element pass
+// (mask_select.cu): gather -> per-block GEMM tile -> atomic scatter-add, in
+// IEEE fp32 / fp64 FMA at every precision tier.  (B2 runs wgmma + TMA in
+// patch_spmm.cu; B3 and B4 the tensor-core core, tile_mma.cuh.)
+//
+// Multi-bucket launches: one launch covers every bucket of a layout.  The
+// wrapper passes a table of bucket descriptors (BucketDesc: the bucket's
+// values, its row and column tables, its shape, chunk, block count and the
+// number of its first work item); a work item is one (stored block, 64-row
+// output tile), numbered bucket after bucket, and grid.x runs over all of
+// them.  A thread block finds its bucket by a binary search over the first
+// items (locate), then runs the per-block body below on the block and tile
+// of its item.  A single-bucket launch passes its one descriptor by value
+// (DescTable::one), so it needs no table in device memory.
 //
 // One thread block owns one (stored block b, 64-row output tile, column tile
 // of TR right-hand-side columns).  It walks the contraction in stages of KT:
@@ -17,11 +27,11 @@
 // output the wrapper allocated.  The summation order across blocks
 // therefore varies from run to run.
 //
-// Row mapping is a functor per side: ChunkMap (row i of block b lives at
-// tab[b, i / C] * C + i % C).  A gathered row outside [0, x_rows) reads
-// zero and a scattered row outside [0, y_rows) is dropped: sentinel and
-// padded lanes need no padded buffers, and a bad table cannot write outside
-// y.
+// Row mapping is a functor per side: ChunkMap (B1: row i of block b lives at
+// tab[b, i / C] * C + i % C) or ElemMap (B9: at tab[b, i]).  A gathered row
+// outside [0, x_rows) reads zero and a scattered row outside [0, y_rows) is
+// dropped: sentinel and padded lanes need no padded buffers, and a bad table
+// cannot write outside y.
 //
 // MIRROR (TR <= 32, B1's symmetric mode) adds the transposed contribution
 // of the same shared-memory tile (y[in rows] += A^T x[out rows]) for every
@@ -49,23 +59,78 @@ inline int column_tile(int r, bool mirror) {
   return r <= 64 ? 64 : 128;
 }
 
+// extent: rows of a block on this side; tab: [nblocks, extent / C]
 struct ChunkMap {
   const int* tab;
   int per;  // chunks per block (row stride of the table)
   int C;
+  __device__ __forceinline__ ChunkMap(const int* t, int extent, int c)
+      : tab(t), per(extent / c), C(c) {}
   __device__ __forceinline__ long long operator()(int b, int i) const {
     return (long long)tab[(long long)b * per + i / C] * C + i % C;
   }
 };
 
-// A = V (TRANS false, [mp, kp]) or V^T (TRANS true, [kp, mp]) of block b.
-// grid: x = nblocks * ceil(M / kMT), y = ceil(r / TR); block: kThreads.
+// tab: [nblocks, extent] element indices (the chunk argument is 1)
+struct ElemMap {
+  const int* tab;
+  int per;
+  __device__ __forceinline__ ElemMap(const int* t, int extent, int)
+      : tab(t), per(extent) {}
+  __device__ __forceinline__ long long operator()(int b, int i) const {
+    return tab[(long long)b * per + i];
+  }
+};
+
+// One bucket of a launch; the wrapper writes these as rows of an int64
+// tensor [n, 9] (ops/kernels/fused_spmm.py::BucketTable).  first[0] numbers
+// the work items of the forward and symmetric modes (M = mp), first[1]
+// those of the transpose mode (M = kp).
+struct BucketDesc {
+  const void* vals;     // [nb, mp, kp] of T
+  const int* row_tab;   // [nb, mp / C]
+  const int* col_tab;   // [nb, kp / C]
+  long long first[2];
+  long long mp, kp, C, nb;
+};
+static_assert(sizeof(BucketDesc) == 72, "descriptor rows are 9 int64");
+
+struct DescTable {
+  const BucketDesc* dev;  // n descriptors in item order, or null: use one
+  int n;
+  BucketDesc one;
+};
+
+// The bucket that owns work item g (the last whose first item is <= g) and
+// the item's number inside it.
+__device__ __forceinline__ BucketDesc locate(const DescTable& t, long long g,
+                                             int side, long long& item) {
+  if (t.dev == nullptr) {
+    item = g;
+    return t.one;
+  }
+  int lo = 0, hi = t.n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (t.dev[mid].first[side] <= g)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  const BucketDesc d = t.dev[lo];
+  item = g - d.first[side];
+  return d;
+}
+
+// A = V (TRANS false, [mp, kp]) or V^T (TRANS true, [kp, mp]) of block b;
+// item = b * ceil(M / kMT) + (output tile).  grid: y = ceil(r / TR); block:
+// kThreads.
 template <typename T, int TR, bool TRANS, bool MIRROR, class OutMap,
           class InMap>
 __device__ __forceinline__ void tile_product(
     const T* __restrict__ vals, int mp, int kp, OutMap out_row,
     InMap in_row, const T* __restrict__ x, long long x_rows,
-    T* __restrict__ y, long long y_rows, int r) {
+    T* __restrict__ y, long long y_rows, int r, long long item) {
   static_assert(TR == 1 || TR == 32 || TR == 64 || TR == 128,
                 "column tile is 1, 32, 64 or 128");
   static_assert(!MIRROR || TR <= 32, "mirror pass takes column tiles <= 32");
@@ -73,8 +138,8 @@ __device__ __forceinline__ void tile_product(
   const int M = TRANS ? kp : mp;  // output extent of A
   const int K = TRANS ? mp : kp;  // contraction extent
   const int mtiles = (M + kMT - 1) / kMT;
-  const int b = blockIdx.x / mtiles;
-  const int m0 = (blockIdx.x % mtiles) * kMT;
+  const int b = (int)(item / mtiles);
+  const int m0 = (int)(item % mtiles) * kMT;
   const int c0 = blockIdx.y * TR;
   const int t = threadIdx.x;
   const T* V = vals + (long long)b * mp * kp;
@@ -123,9 +188,9 @@ __device__ __forceinline__ void tile_product(
     for (int q = 0; q < NA; ++q) {
       const int idx = t + q * kThreads;
       const int m = m0 + a_m(idx), k = k0 + a_k(idx);
-      ra[q] = (m < M && k < K)
-                  ? (TRANS ? V[(long long)k * kp + m] : V[(long long)m * kp + k])
-                  : T(0);
+      // 32-bit offsets inside one block's tile (mp * kp < 2^31): fewer
+      // registers, so more blocks per SM
+      ra[q] = (m < M && k < K) ? V[TRANS ? k * kp + m : m * kp + k] : T(0);
     }
 #pragma unroll
     for (int q = 0; q < NX; ++q) {
@@ -228,5 +293,75 @@ __device__ __forceinline__ void tile_product(
     }
   }
 }
+
+namespace {  // one copy per translation unit: B1 and B9 each instantiate it
+
+// Every work item of the table's buckets (grid.x) x column tiles (grid.y);
+// Map is ChunkMap (B1) or ElemMap (B9's element pass).  At r = 1 in fp32
+// the kernel streams V with one stage of loads in flight per block, so it
+// asks for three blocks per SM (at most 80 registers a thread) to keep
+// enough bytes in flight for HBM.
+template <typename T, int TR, bool TRANS, bool MIRROR, class Map>
+__global__ void __launch_bounds__(kThreads,
+                                  TR == 1 && sizeof(T) == 4 ? 3 : 1)
+    bucket_kernel(const DescTable tab, const T* __restrict__ x,
+                  T* __restrict__ y, int r, long long x_rows,
+                  long long y_rows) {
+  long long item;
+  const BucketDesc d = locate(tab, blockIdx.x, TRANS ? 1 : 0, item);
+  const int mp = (int)d.mp, kp = (int)d.kp, C = (int)d.C;
+  const Map out_map(TRANS ? d.col_tab : d.row_tab, TRANS ? kp : mp, C);
+  const Map in_map(TRANS ? d.row_tab : d.col_tab, TRANS ? mp : kp, C);
+  tile_product<T, TR, TRANS, MIRROR>(static_cast<const T*>(d.vals), mp, kp,
+                                     out_map, in_map, x, x_rows, y, y_rows,
+                                     r, item);
+}
+
+// The mirror pass exists for column tiles <= 32 only: a symmetric launch
+// with a wider tile is refused, not silently skipped.
+template <typename T, int TR, class Map>
+cudaError_t launch_tile(dim3 grid, cudaStream_t s, int mode,
+                        const DescTable& tab, const T* x, T* y, int r,
+                        long long x_rows, long long y_rows) {
+  if (mode == 0)
+    bucket_kernel<T, TR, false, false, Map><<<grid, kThreads, 0, s>>>(
+        tab, x, y, r, x_rows, y_rows);
+  else if (mode == 1)
+    bucket_kernel<T, TR, true, false, Map><<<grid, kThreads, 0, s>>>(
+        tab, x, y, r, x_rows, y_rows);
+  else if constexpr (TR <= 32)
+    bucket_kernel<T, TR, false, true, Map><<<grid, kThreads, 0, s>>>(
+        tab, x, y, r, x_rows, y_rows);
+  else
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// mode: 0 forward, 1 transpose, 2 symmetric (needs x_rows == y_rows); items:
+// the table's work items in that mode's numbering.  y must be zeroed or
+// hold a partial sum: the kernel adds into it.
+template <typename T, class Map>
+int launch_buckets(const DescTable& tab, long long items, const T* x, T* y,
+                   int r, long long x_rows, long long y_rows, int mode,
+                   void* stream) {
+  if (mode < 0 || mode > 2 || items < 0 || items > 0x7fffffffLL ||
+      (mode == 2 && x_rows != y_rows))
+    return (int)cudaErrorInvalidValue;
+  if (items == 0 || r <= 0 || y_rows == 0) return 0;
+  const int tr = column_tile(r, mode == 2);
+  const dim3 grid((unsigned)items, (r + tr - 1) / tr);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (tr) {
+    case 1: err = launch_tile<T, 1, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows); break;
+    case 32: err = launch_tile<T, 32, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows); break;
+    case 64: err = launch_tile<T, 64, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows); break;
+    default: err = launch_tile<T, 128, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows); break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 
 }  // namespace bst

@@ -16,10 +16,10 @@ package's ``_apply`` does, minus its split-complex route:
      ``stream_plan_choice`` picks the panel plan (kernel B5, or B10 on the
      v2 plan under ``panel="v2"``) or the slab plan (kernel B8) for A or
      A^T;
-  3. otherwise ``apply_operand``: chunked buckets -> kernel B1, element
-     buckets -> the torch-op engine (colored gather rounds under
-     ``schedule="colored"``, with ``colors`` forward and
-     ``transposecolors`` for transpose products).
+  3. otherwise ``apply_operand``: chunked buckets -> one launch of kernel
+     B1, element buckets -> one launch of B9's element pass (colored
+     gather rounds under ``schedule="colored"`` where they win, with
+     ``colors`` forward and ``transposecolors`` for transpose products).
 
 Real float32/float64 only in this slice; complex dtypes raise
 ``NotImplementedError``.
@@ -36,8 +36,9 @@ from .. import coloring
 from ..core import schedule as sched
 from ..core.layout import BlockLayout, build_layout
 from ..core.operator import LinearOperator
-from ..ops.dispatch import (apply_operand, check_route_options,
-                            patch_eligible, patch_wins, strip_eligible)
+from ..ops.dispatch import (StagedBuckets, apply_operand,
+                            check_route_options, patch_eligible, patch_wins,
+                            strip_eligible)
 from .stream import StreamRouted
 
 __all__ = ["BlockSparseMatrix"]
@@ -92,15 +93,15 @@ def _check_operand(x: torch.Tensor, device, dtype) -> None:
         raise TypeError(f"operand dtype {x.dtype} != operator dtype {dtype}")
 
 
-def _stage(layout: BlockLayout, device) -> tuple:
+def _stage(layout: BlockLayout, device) -> StagedBuckets:
     """Per bucket: (values, row_idx, col_idx, row_chunk, col_chunk) on
     ``device`` (the chunk tables None for element buckets)."""
     def dev(a):
         return None if a is None else torch.from_numpy(
             np.ascontiguousarray(a)).to(device)
-    return tuple((dev(b.values), dev(b.row_idx), dev(b.col_idx),
-                  dev(b.row_chunk_idx), dev(b.col_chunk_idx))
-                 for b in layout.buckets)
+    return StagedBuckets((dev(b.values), dev(b.row_idx), dev(b.col_idx),
+                          dev(b.row_chunk_idx), dev(b.col_chunk_idx))
+                         for b in layout.buckets)
 
 
 class BlockSparseMatrix(StreamRouted, LinearOperator):

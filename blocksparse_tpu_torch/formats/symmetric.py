@@ -23,10 +23,11 @@ routes as the JAX package's ``_apply`` does, minus its split-complex route:
      B10 under ``panel="v2"``: fused with the mirror pass, or expanded) or
      the unified slab plan (kernel B8 with its mirror pass), each for S or,
      with the transposed diagonal, for S^T;
-  3. otherwise ``apply_symmetric``: chunked off-diagonal buckets -> kernel
-     B1 in symmetric mode, element off-diagonal buckets -> the torch-op
-     engine's one-read symmetric pass (colored gather rounds over
-     ``fusedcolors`` where they win), the diagonal -> ``apply_operand``.
+  3. otherwise ``apply_symmetric``: the diagonal -> ``apply_operand``,
+     chunked off-diagonal buckets -> one launch of kernel B1 in symmetric
+     mode, element off-diagonal buckets -> one launch of B9's element pass
+     in symmetric mode (colored gather rounds over ``fusedcolors`` where
+     they win).
 """
 
 from __future__ import annotations

@@ -17,8 +17,8 @@ split-complex route:
   2. f32, r = 1 -> the stream route (``formats/stream.py``) where
      ``stream_plan_choice`` picks the panel plan (kernel B5, or B10 under
      ``panel="v2"``) or the slab plan (kernel B8) for V or V^T;
-  3. otherwise ``apply_operand``: chunked buckets -> kernel B1, element
-     buckets -> the element engine.
+  3. otherwise ``apply_operand``: chunked buckets -> one launch of kernel
+     B1, element buckets -> one launch of B9's element pass.
 
 As in the JAX package the schedule is recorded but no color sets are built:
 both schedules run the same routes.  Real float32/float64 only; complex

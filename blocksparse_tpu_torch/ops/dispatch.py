@@ -11,22 +11,27 @@ tries, in the JAX package's order:
      ``core/panel2.py``, kernel B10), the slab plan (``core/strip.py``,
      kernel B8) and the bucket engines by bytes streamed, and the chosen
      plan runs in one launch;
-  3. the bucket route, ``apply_operand`` / ``apply_symmetric`` here:
+  3. the bucket route, ``apply_operand`` / ``apply_symmetric`` here, one
+     launch per layout and kind of bucket, all adding into one zeroed
+     output per product:
 
-  - every chunked (``chunk > 1``) real bucket goes to the chunk-table kernel
-    B1 (``ops/kernels/fused_spmm.py``): its CUDA kernel for a CUDA tensor,
-    its plain version for a CPU tensor;
-  - element buckets (``chunk == 1``) go to the element engine
-    (``ops/torch_spmv.bucket_apply``), whose gathers and scatter-adds of an
-    f32 SpMV run kernel B9 (``ops/kernels/mask_select.py``), as the JAX
-    package sent them to its mask-select kernels; under
-    ``schedule="colored"`` the scatter-adds become the colored gather rounds
-    (``ops/colored.py``) where ``colored_wins`` holds.
+  - the chunked (``chunk > 1``) buckets in one multi-bucket launch of the
+    chunk-table kernel B1 (``ops/kernels/fused_spmm.multi_block_apply``;
+    the port of the JAX engine's ``chunked_multi_apply`` chain);
+  - the element buckets (``chunk == 1``) in one launch of kernel B9's
+    element pass (``ops/kernels/mask_select.element_apply``), or, under
+    ``schedule="colored"`` where ``colored_wins`` holds, through the
+    element engine's colored gather rounds (``ops/torch_spmv.bucket_apply``
+    over ``ops/colored.py``, its f32 SpMV gathers on B9's one-call gather).
 
-``apply_symmetric`` does the same for S = D + O + O^T: each chunked
-off-diagonal bucket goes to B1 in its symmetric mode (both contributions
-from one read of the values), the element off-diagonal buckets to the
-element engine's symmetric pass, and the diagonal to ``apply_operand``.
+  CPU tensors run the kernels' plain versions through the same calls.  The
+  launches read descriptor tables of the staged buckets
+  (:class:`StagedBuckets`, :func:`bucket_tables`), built at the first
+  product and kept with the buckets.
+
+``apply_symmetric`` does the same for S = D + O + O^T: the diagonal through
+``apply_operand``, then the off-diagonal buckets in the symmetric modes of
+the same two launches (both contributions from one read of the values).
 
 The rules (``patch_wins``, ``stream_plan_choice``, the planners' costs) are
 the JAX package's, measured on a TPU v5e and kept so the port routes as it
@@ -46,12 +51,14 @@ from __future__ import annotations
 import torch
 
 from .colored import build_colored_plan, colored_wins
-from .kernels.fused_spmm import fused_apply
+from .kernels.fused_spmm import BucketTable, multi_fused_apply
+from .kernels.mask_select import element_fused_apply
 from .torch_spmv import bucket_apply
 
-__all__ = ["apply_operand", "apply_symmetric", "check_route_options",
-           "element_plan", "patch_eligible", "patch_wins", "strip_eligible",
-           "stream_plan_choice", "PATCH_MODES", "PANEL_IMPLS"]
+__all__ = ["apply_operand", "apply_symmetric", "bucket_tables",
+           "check_route_options", "element_plan", "patch_eligible",
+           "patch_wins", "strip_eligible", "stream_plan_choice",
+           "StagedBuckets", "PATCH_MODES", "PANEL_IMPLS"]
 
 PATCH_MODES = ("auto", "always", "never")
 PANEL_IMPLS = ("v1", "v2")
@@ -167,47 +174,75 @@ def element_plan(layout, elem_ids, out_len: int, colors, device, *,
                               device=device)
 
 
-def _element_pass(layout, elem, elem_ids, out_len, x, *, transpose,
-                  symmetric, colors):
-    """The element buckets ``elem`` (positions ``elem_ids`` in ``layout``)
-    through the element engine, as colored gather rounds when ``colors``
-    are given and the plan wins."""
-    plan = element_plan(layout, elem_ids, out_len, colors, x.device,
+class StagedBuckets(tuple):
+    """A layout's buckets on the operator's device: per bucket ``(values,
+    row_idx, col_idx, row_chunk, col_chunk)`` (the chunk tables None for
+    element buckets).  ``tables`` caches the descriptor tables of the
+    bucket route's launches over them (:func:`bucket_tables`): they hold
+    the tensors' addresses and live exactly as long as these tensors, and
+    re-staged buckets are a new object with tables of their own."""
+
+    def __new__(cls, buckets):
+        self = super().__new__(cls, buckets)
+        self.tables = {}
+        return self
+
+
+def bucket_tables(staged: StagedBuckets, layout) -> dict:
+    """``{"chunked": BucketTable | None, "element": BucketTable | None}``
+    over ``layout``'s chunked and element buckets (None where it has none),
+    built at the first product and kept on ``staged``."""
+    if not staged.tables:
+        chunked, elem = [], []
+        for hb, (vals, ridx, cidx, rc, cc) in zip(layout.buckets, staged):
+            if hb.chunk > 1:
+                chunked.append((vals, rc, cc, hb.chunk))
+            else:
+                elem.append((vals, ridx, cidx, 1))
+        staged.tables.update(
+            chunked=BucketTable(chunked) if chunked else None,
+            element=BucketTable(elem) if elem else None)
+    return staged.tables
+
+
+def _add_buckets(dev_buckets, layout, x, y, *, transpose, symmetric,
+                 colors):
+    """``y`` plus ``layout``'s bucketed product with ``x`` (in place where
+    the launches add): one B1 launch over the chunked buckets, then one
+    element pass over the element buckets, or their colored gather rounds
+    where ``colors`` are given and the plan wins."""
+    tables = bucket_tables(dev_buckets, layout)
+    if tables["chunked"] is not None:
+        y = multi_fused_apply(tables["chunked"], x, out=y,
+                              transpose=transpose, symmetric=symmetric)
+    if tables["element"] is None:
+        return y
+    elem_ids = [i for i, hb in enumerate(layout.buckets) if hb.chunk == 1]
+    plan = element_plan(layout, elem_ids, y.shape[0], colors, x.device,
                         transpose=transpose, symmetric=symmetric)
-    return bucket_apply(elem, out_len, x, transpose=transpose,
-                        symmetric=symmetric, colored_plan=plan, mask_gs=True)
+    if plan is None:
+        return element_fused_apply(tables["element"], x, out=y,
+                                   transpose=transpose, symmetric=symmetric)
+    return y + bucket_apply([dev_buckets[i][:3] for i in elem_ids],
+                            y.shape[0], x, transpose=transpose,
+                            symmetric=symmetric, colored_plan=plan,
+                            mask_gs=True)
 
 
 def apply_operand(dev_buckets, layout, out_len: int, x: torch.Tensor, *,
                   transpose: bool = False, colors=None) -> torch.Tensor:
-    """Apply a bucketed operand with per-bucket routing.
+    """Apply a bucketed operand: one B1 launch over its chunked buckets and
+    one element pass (or the colored gather rounds) over its element
+    buckets, into one zeroed output.
 
-    ``dev_buckets``: per bucket ``(values, row_idx, col_idx, row_chunk,
-    col_chunk)`` tensors (the chunk tables are None for element buckets).
-    Values are real (float32/float64), so there is no conjugate mode.
-    ``colors``: the color sets (tuple of tuples of block ids) when the
-    operator's schedule is "colored", else None.
+    ``dev_buckets``: the layout's :class:`StagedBuckets`.  Values are real
+    (float32/float64), so there is no conjugate mode.  ``colors``: the
+    color sets (tuple of tuples of block ids) when the operator's schedule
+    is "colored", else None.
     """
-    y = None
-    elem, elem_ids = [], []
-    for bid, (hb, (vals, ridx, cidx, rc, cc)) in enumerate(
-            zip(layout.buckets, dev_buckets)):
-        if hb.chunk > 1:
-            part = fused_apply(vals, rc, cc, hb.chunk, x, out_len,
-                               transpose=transpose)
-            y = part if y is None else y + part
-        else:
-            elem.append((vals, ridx, cidx))
-            elem_ids.append(bid)
-    if elem:
-        part = _element_pass(layout, elem, elem_ids, out_len, x,
-                             transpose=transpose, symmetric=False,
-                             colors=colors)
-        y = part if y is None else y + part
-    if y is None:
-        shape = (out_len,) if x.ndim == 1 else (out_len, x.shape[1])
-        y = x.new_zeros(shape)
-    return y
+    shape = (out_len,) if x.ndim == 1 else (out_len, x.shape[1])
+    return _add_buckets(dev_buckets, layout, x, x.new_zeros(shape),
+                        transpose=transpose, symmetric=False, colors=colors)
 
 
 def apply_symmetric(diag_buckets, diag_layout, off_buckets, off_layout,
@@ -216,22 +251,12 @@ def apply_symmetric(diag_buckets, diag_layout, off_buckets, off_layout,
     """Symmetric operand S = D + O + O^T (O the stored off-diagonals).
 
     The off-diagonal pair is transpose-invariant and reads each stored
-    block once for both of its contributions; only the diagonal pass
-    honors ``transpose``.  ``fused_colors`` (union row+col conflicts) and
-    ``diag_colors`` drive the colored gather rounds of the element engine.
+    block once for both of its contributions (B1's and the element pass's
+    symmetric modes); only the diagonal pass honors ``transpose``.
+    ``fused_colors`` (union row+col conflicts) and ``diag_colors`` drive the
+    colored gather rounds of the element engine.
     """
     y = apply_operand(diag_buckets, diag_layout, n, x, transpose=transpose,
                       colors=diag_colors)
-    elem, elem_ids = [], []
-    for bid, (hb, (vals, ridx, cidx, rc, cc)) in enumerate(
-            zip(off_layout.buckets, off_buckets)):
-        if hb.chunk > 1:
-            y = y + fused_apply(vals, rc, cc, hb.chunk, x, n, symmetric=True)
-        else:
-            elem.append((vals, ridx, cidx))
-            elem_ids.append(bid)
-    if elem:
-        y = y + _element_pass(off_layout, elem, elem_ids, n, x,
-                              transpose=False, symmetric=True,
-                              colors=fused_colors)
-    return y
+    return _add_buckets(off_buckets, off_layout, x, y, transpose=False,
+                        symmetric=True, colors=fused_colors)

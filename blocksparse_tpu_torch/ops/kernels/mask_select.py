@@ -1,23 +1,41 @@
-"""Element gather and scatter-add: CUDA kernel B9, plain versions, autograd.
+"""Element gather, scatter-add and element pass: CUDA kernel B9, plain
+versions, autograd.
 
 The kernels (``csrc/mask_select.cu``) replace
 ``blocksparse_tpu/ops/pallas/mask_select.py::_gather_kernel`` and
 ``::_scatter_kernel``: the gather ``out = x[idx]`` and the scatter-add
-``y[idx] += v`` of the element engine (``ops/torch_spmv.bucket_apply`` with
-``mask_gs=True``) for f32 vectors, i.e. SpMV with element buckets.
+``y[idx] += v`` of the element engine, i.e. products of element buckets
+(``chunk == 1``, arbitrary index lists).
+
+- :func:`element_apply`: the bucket route's element pass
+  (``ops/dispatch.py``), every element bucket of a layout in one launch
+  over a :class:`~.fused_spmm.BucketTable`, f32 and f64, forward,
+  transpose or symmetric (``V @ x[cols]`` into ``y[rows]``, ``V^T @
+  x[rows]`` into ``y[cols]``, or both from one read of V), adding into a
+  given output.  Its plain version, :func:`element_apply_plain`, is the
+  per-bucket gather -> einsum -> scatter-add chain
+  (:func:`mask_gather_plain` / :func:`mask_scatter_add_plain` on vectors).
+- :func:`mask_gather` / :func:`mask_scatter_add`: one gather or one
+  scatter-add of f32 vectors; the colored element pass
+  (``ops/torch_spmv.bucket_apply`` with ``mask_gs=True``) gathers with them.
 
 Sentinel convention (``core/layout.py``): an index at or past ``n`` gathers
 0, and one at or past ``out_len`` scatters nowhere.
 
-Race-freedom: indices repeat, so the scatter kernel adds into a zeroed output
-(allocated here with ``torch.zeros``) with fp32 ``atomicAdd``; the summation
-order varies from run to run.
+Race-freedom: indices repeat, so the scatter-add and the element pass add
+into a zeroed output (the scatter's allocated here with ``torch.zeros``;
+the element pass's given, possibly holding the partial sum of the launches
+before it) with fp32/fp64 ``atomicAdd``; the summation order varies from run
+to run.
 
-Routing: a CPU tensor takes the plain version (:func:`mask_gather_plain`,
-:func:`mask_scatter_add_plain`); a CUDA tensor launches the kernel or
-raises.  ``GATHER_LAUNCHES`` and ``SCATTER_LAUNCHES`` count kernel launches.
-:func:`gather_apply` and :func:`scatter_apply` add autograd: each is the
-other's adjoint, so a backward pass runs the other kernel.
+Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises.  ``GATHER_LAUNCHES``, ``SCATTER_LAUNCHES`` and
+``ELEMENT_LAUNCHES`` count kernel launches, ``ELEMENT_SYM_LAUNCHES`` the
+element passes in the symmetric mode.  :func:`gather_apply` and
+:func:`scatter_apply` add autograd (each is the other's adjoint, so a
+backward pass runs the other kernel), :func:`element_fused_apply` too (its
+x cotangent is the element pass in the transposed mode; the symmetric mode
+is its own adjoint).
 """
 
 from __future__ import annotations
@@ -26,13 +44,19 @@ import torch
 
 from ...utils import build
 from ..torch_spmv import gather_rows, scatter_rows
+from .fused_spmm import (BucketTable, TableApply, check_table_call,
+                         launch_mode, launch_table)
 
-__all__ = ["mask_gather", "mask_gather_plain", "mask_scatter_add",
+__all__ = ["element_apply", "element_apply_plain", "element_fused_apply",
+           "mask_gather", "mask_gather_plain", "mask_scatter_add",
            "mask_scatter_add_plain", "gather_apply", "scatter_apply",
-           "GATHER_LAUNCHES", "SCATTER_LAUNCHES"]
+           "ELEMENT_LAUNCHES", "ELEMENT_SYM_LAUNCHES", "GATHER_LAUNCHES",
+           "SCATTER_LAUNCHES"]
 
 GATHER_LAUNCHES = 0
 SCATTER_LAUNCHES = 0
+ELEMENT_LAUNCHES = 0
+ELEMENT_SYM_LAUNCHES = 0
 
 
 def mask_gather_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -148,3 +172,66 @@ def scatter_apply(v: torch.Tensor, idx: torch.Tensor,
                   out_len: int) -> torch.Tensor:
     """:func:`mask_scatter_add` with autograd."""
     return _Scatter.apply(v, idx, out_len)
+
+
+def element_apply_plain(table: BucketTable, x: torch.Tensor, *, out,
+                        transpose: bool = False,
+                        symmetric: bool = False) -> torch.Tensor:
+    """Plain version of the element pass: per bucket, gather -> einsum ->
+    scatter-add into ``out`` in place (the element engine's chain, through
+    :func:`mask_gather_plain` / :func:`mask_scatter_add_plain` for a vector
+    ``x``); returns ``out``."""
+    out_len = out.shape[0]
+    vec = x.ndim == 1
+
+    def gather(idx):
+        return mask_gather_plain(x, idx)[..., None] if vec \
+            else gather_rows(x, idx)
+
+    def scatter(idx, upd):
+        if vec:
+            return mask_scatter_add_plain(upd.reshape(-1), idx.reshape(-1),
+                                          out_len)
+        return scatter_rows(out_len, idx, upd)
+
+    for vals, ridx, cidx, _chunk in table.buckets:
+        if transpose:
+            out += scatter(cidx, torch.einsum("bmk,bmr->bkr", vals,
+                                              gather(ridx)))
+        else:
+            out += scatter(ridx, torch.einsum("bmk,bkr->bmr", vals,
+                                              gather(cidx)))
+        if symmetric:
+            out += scatter(cidx, torch.einsum("bmk,bmr->bkr", vals,
+                                              gather(ridx)))
+    return out
+
+
+def element_apply(table: BucketTable, x: torch.Tensor, *, out,
+                  transpose: bool = False,
+                  symmetric: bool = False) -> torch.Tensor:
+    """Add every element bucket of ``table`` (chunk 1: element index
+    tables) applied to ``x`` ([n] or [n, r]) into ``out`` ([out_len] or
+    [out_len, r]) in one launch; returns ``out``."""
+    global ELEMENT_LAUNCHES, ELEMENT_SYM_LAUNCHES
+    mode = launch_mode(transpose, symmetric)
+    if any(b[3] != 1 for b in table.buckets):
+        raise ValueError("the element pass takes element buckets (chunk 1)")
+    check_table_call(table, x, out, symmetric)
+    if x.device.type == "cpu":
+        return element_apply_plain(table, x, out=out, transpose=transpose,
+                                   symmetric=symmetric)
+    if launch_table("bst_element_pass", table, x, out, mode):
+        ELEMENT_LAUNCHES += 1
+        ELEMENT_SYM_LAUNCHES += symmetric
+    return out
+
+
+def element_fused_apply(table: BucketTable, x: torch.Tensor, *, out,
+                        transpose: bool = False,
+                        symmetric: bool = False) -> torch.Tensor:
+    """:func:`element_apply` with autograd (in ``x``, ``out`` and the
+    table's values; x's cotangent is the element pass in the transposed
+    mode)."""
+    return TableApply.apply(out, x, table, element_apply, transpose,
+                            symmetric, *table.values)

@@ -12,10 +12,16 @@ scattered row index at or past ``out_len`` lands in the dropped slot
 tables name, so merged row windows that run past the last row need no
 padded buffers.
 
-``bucket_apply(..., mask_gs=True)`` sends the gathers and scatter-adds of
-an f32 SpMV through kernel B9 (``ops/kernels/mask_select.py``), as the JAX
-engine sent them to its mask-select kernels.  Not ported yet (ROADMAP): the
-sorted-segment scatter and the one-hot multi-bucket chain of the JAX engine.
+The bucket route (``ops/dispatch.py``) runs the element buckets of a layout
+in one launch of B9's element pass (``ops/kernels/mask_select.
+element_apply``; its plain version is the per-bucket gather -> einsum ->
+scatter-add chain of ``bucket_apply``) and its chunked buckets in one
+multi-bucket launch of B1 (the port of the JAX engine's
+``chunked_multi_apply`` chain).  ``bucket_apply`` serves the element
+buckets that run a colored plan; with ``mask_gs=True`` the gathers and
+scatter-adds of an f32 SpMV go through B9's one-call kernels
+(``mask_gather`` / ``mask_scatter_add``), as the JAX engine sent them to its
+mask-select kernels.  Not ported (ROADMAP): the sorted-segment scatter.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["bucket_apply", "chunked_bucket_apply", "chunk_rows",
-           "gather_rows", "scatter_rows"]
+           "gather_rows", "scatter_rows", "values_grad"]
 
 
 def chunk_rows(table: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -48,6 +54,27 @@ def scatter_rows(out_len: int, idx: torch.Tensor,
     acc.index_add_(0, idx.reshape(-1).long().clamp(max=out_len),
                    upd.reshape(-1, r))
     return acc[:out_len]
+
+
+def values_grad(g: torch.Tensor, x: torch.Tensor, rows: torch.Tensor,
+                cols: torch.Tensor, *, transpose: bool = False,
+                symmetric: bool = False) -> torch.Tensor:
+    """Cotangent of a bucket's values ([nb, mp, kp]) for the output
+    cotangent ``g`` of its product with ``x``; ``rows`` / ``cols``: the
+    bucket's element row and column ids ([nb, mp] / [nb, kp], sentinels
+    read zero).  Exact: the outer products of the gathered rows."""
+    gm = g[:, None] if g.ndim == 1 else g
+    xm = x[:, None] if x.ndim == 1 else x
+
+    def outer(a, rows_of_a, b):
+        return torch.einsum("bmr,bkr->bmk", gather_rows(a, rows_of_a),
+                            gather_rows(b, cols))
+
+    if symmetric:
+        return outer(gm, rows, xm) + outer(xm, rows, gm)
+    if transpose:
+        return outer(xm, rows, gm)
+    return outer(gm, rows, xm)
 
 
 def bucket_apply(buckets, out_len: int, x: torch.Tensor, *,

@@ -40,9 +40,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    # vals, out_tab, in_tab, x, y, nb, mp, kp, C, r, x_rows, y_rows, mode, stream
+    # vals, row_tab, col_tab, x, y, nb, mp, kp, C, r, x_rows, y_rows, mode,
+    # stream
     "bst_fused_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P),
     "bst_fused_spmm_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P),
+    # table, n, items, x, y, r, x_rows, y_rows, mode, stream
+    "bst_fused_spmm_multi_f32": (_P, _I, _L, _P, _P, _I, _L, _L, _I, _P),
+    "bst_fused_spmm_multi_f64": (_P, _I, _L, _P, _P, _I, _L, _L, _I, _P),
+    "bst_element_pass_f32": (_P, _I, _L, _P, _P, _I, _L, _L, _I, _P),
+    "bst_element_pass_f64": (_P, _I, _L, _P, _P, _I, _L, _L, _I, _P),
     # x, hi, lo, n, r, ld, stream
     "bst_patch_xt_f32": (_P, _P, _P, _L, _I, _L, _P),
     # vals, cc, rs, xt_hi, xt_lo, y, nb, MP, KP, r, x_rows, ld, y_rows, tier,

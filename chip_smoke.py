@@ -6,7 +6,13 @@
 Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
 
   1. each kernel against its plain PyTorch version on the card (B1: forward,
-     transpose, symmetric x f32/f64 x r in {1, 64, 200}; B2: its prologue
+     transpose, symmetric x f32/f64 x r in {1, 64, 200}, one bucket per
+     launch and, over every chunked bucket of a layout plus one with chunk
+     ids past n, in one multi-bucket launch, also against the sum of
+     one-bucket launches; B9's element pass: the same modes and dtypes, r
+     in {1, 64}, on element buckets with sentinel lanes and repeated rows,
+     at f32 r = 1 also against the per-bucket chain of its one-call gather
+     and scatter-add; B2: its prologue
      (hi bit-equal to the plain tf32(X)^T, hi + lo == X), forward and
      transpose x r in {8, 64, 128, 300} x both tensor-core tiers on a plan
      of 8-row slots and on one of 128-row slots, and its wgmma forward
@@ -30,12 +36,14 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      a constructor without ``device=`` lands on the card; kernels against
      plain versions at its shapes, then the main path once
      with the counters reset (A @ X, A @ x, A.T @ x, A.H @ X, axpby,
-     (A @ A) @ x; its r = 1 products stay on the bucket route, B1, as the
-     JAX decision says) against float64 scipy, and gradients;
+     (A @ A) @ x; its r = 1 products stay on the bucket route, one B1
+     launch each, as the JAX decision says) against float64 scipy, and
+     gradients;
   3. the real size (n = 8192, 2000 contiguous 128x128 f32 blocks): SpMV
      through the stream route (one B5 launch) and SpMM r = 128 (B2)
-     against the float64 plain route, the bucket route (B1) driven
-     explicitly, all timed eager and replayed from a CUDA graph; B2 at
+     against the float64 plain route, the bucket route (one B1 launch, its
+     backward one more) driven explicitly, all timed eager and replayed
+     from a CUDA graph; B2 at
      precision=None (a second operator built with it) and A.T @ X at both
      tiers, timed the same way, and the forward's parts: the prologue
      alone, the bucket's forward and B4's forward instance at P = 1 on the
@@ -44,13 +52,22 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      off-diagonal blocks): B1's symmetric pass and B3 against their plain
      versions, the main path with exact counts (B3 on every r > 1 product,
      one B5 launch on the fused mirror plan per r = 1 product), the bucket
-     route (B1 symmetric, B9) driven explicitly, and gradients;
+     route (one B1 launch per layout, the off-diagonal's symmetric)
+     driven explicitly, and gradients; then the same recipe with scattered
+     groups, whose r = 1 products no stream plan takes, as a main path:
+     under the colored schedule its element buckets run the colored
+     gather rounds (B9's one-call gathers, the backward's scatter-adds),
+     under "serial" one B9 element pass per layout, with exact counts;
   5. the symmetric real size (config-2 recipe x8, n = 32768): construction
      split (layout, coloring, panel plan, slab plan, patch plan), B9 against
      its plain version on every element bucket, SpMV through B5 (expanded
      plan) and SpMM r = 128 (B3) against the float64 plain route, the bucket
-     route (B1 + B9, exact counts, and its gradient through B9), all timed
-     eager and from a CUDA graph, and the bucket route's device time split;
+     route (at most two B1 launches and two B9 element passes, exact
+     counts, with its gradient; which passes run colored plans printed),
+     all timed eager and from a CUDA graph, and the bucket route's device
+     time split (each pass in one launch beside one launch per
+     bucket), the element pass beside its bound and a CSR library call;
+     B9's one-call kernels also on 2^20 indices;
      B3's owner tables, and B3 at precision=None (a second operator), in
      its adjoint mode (the dX of S @ X) and with an empty owner table (its
      forward blocks alone), timed;
@@ -59,8 +76,9 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      (r = 64), axpby and (V @ V) @ x against float64 scipy with exact
      counts, and the gradient of V @ x;
   7. the VBCRS real size (the same recipe at n = 32768): construction split
-     (layout, panel plan, slab plan), SpMV through B5, the bucket route (B1)
-     and the plain route, eager and graph, and B8 on the operand's slab plan
+     (layout, panel plan, slab plan), SpMV through B5, the bucket route (one
+     B1 launch, and its backward) and the plain route, eager and graph, and
+     B8 on the operand's slab plan
      against its plain version, timed;
   8. the slab route's main path: a BSM the JAX decision sends to the slab
      plan (n = 8192, 4000 aligned 64x128 f32 blocks and one block whose rows
@@ -140,10 +158,13 @@ from blocksparse_tpu_torch.formats import symmetric as symmetric_format  # noqa:
 from blocksparse_tpu_torch.formats import vbcrs as vbcrs_format  # noqa: E402
 from blocksparse_tpu_torch.ops import batched, patch_engine  # noqa: E402
 from blocksparse_tpu_torch.ops.dispatch import (  # noqa: E402
-    apply_operand, apply_symmetric, element_plan, patch_eligible, patch_wins)
+    apply_operand, apply_symmetric, bucket_tables, element_plan,
+    patch_eligible, patch_wins)
 from blocksparse_tpu_torch.ops.kernels import (  # noqa: E402
     batched_spmm, fused_spmm, mask_select, panel2_spmv, panel_spmv,
     patch_spmv1, slab_spmv)
+from blocksparse_tpu_torch.ops.kernels.fused_spmm import (  # noqa: E402
+    BucketTable)
 from blocksparse_tpu_torch.ops.torch_spmv import bucket_apply  # noqa: E402
 from blocksparse_tpu_torch.utils import build  # noqa: E402
 from blocksparse_tpu_torch.utils.testmatrices import (  # noqa: E402
@@ -182,6 +203,8 @@ B7_REPLACES = "blocksparse_tpu/ops/patch_engine.py:175"
 B10_SRC = "blocksparse_tpu_torch/csrc/panel2_spmv.cu"
 B10_REPLACES = "blocksparse_tpu/ops/pallas/panel2_spmv.py:90"
 STREAM_KERNEL = {"panel": "B5", "strip": "B8", None: "B1"}
+MODE_KW = {"forward": {}, "transpose": {"transpose": True},
+           "symmetric": {"symmetric": True}}
 
 
 class SmokeFailure(RuntimeError):
@@ -297,6 +320,8 @@ def reset_counts() -> None:
     patch_engine.SYM_LAUNCHES = 0
     mask_select.GATHER_LAUNCHES = 0
     mask_select.SCATTER_LAUNCHES = 0
+    mask_select.ELEMENT_LAUNCHES = 0
+    mask_select.ELEMENT_SYM_LAUNCHES = 0
     for mod in (panel_spmv, slab_spmv):
         mod.LAUNCHES = 0
         mod.MIRROR_LAUNCHES = 0
@@ -310,15 +335,18 @@ def reset_counts() -> None:
 
 def counts() -> dict:
     """Kernel launches since the last reset ("B1 sym": those of B1 in its
-    symmetric mode, also counted under "B1"; "B2 prologue": B2's X^T
-    launches, one per forward product; "B5 mirror", "B6 mirror", "B8
-    mirror" and "B10 mirror" those on a mirror plan)."""
+    symmetric mode, also counted under "B1"; "B9 element": B9's element
+    passes, "B9 element sym" those in the symmetric mode; "B2 prologue":
+    B2's X^T launches, one per forward product; "B5 mirror", "B6 mirror",
+    "B8 mirror" and "B10 mirror" those on a mirror plan)."""
     return {"B1": fused_spmm.LAUNCHES, "B1 sym": fused_spmm.SYM_LAUNCHES,
             "B2": patch_engine.LAUNCHES,
             "B2 prologue": patch_engine.XT_LAUNCHES,
             "B3": patch_engine.SYM_LAUNCHES,
             "B9 gather": mask_select.GATHER_LAUNCHES,
             "B9 scatter": mask_select.SCATTER_LAUNCHES,
+            "B9 element": mask_select.ELEMENT_LAUNCHES,
+            "B9 element sym": mask_select.ELEMENT_SYM_LAUNCHES,
             "B5": panel_spmv.LAUNCHES,
             "B5 mirror": panel_spmv.MIRROR_LAUNCHES,
             "B8": slab_spmv.LAUNCHES, "B8 mirror": slab_spmv.MIRROR_LAUNCHES,
@@ -346,7 +374,8 @@ def stream_want(op, transpose=False, k=1) -> dict:
     """Exact launches of k f32 r = 1 products through the stream route."""
     plan = op._stream_entry(transpose)[1]
     name = stream_kernel(op, transpose)
-    want = {"B1": 0, "B1 sym": 0, "B9 gather": 0, "B9 scatter": 0, "B7": 0}
+    want = {"B1": 0, "B1 sym": 0, "B9 gather": 0, "B9 scatter": 0,
+            "B9 element": 0, "B7": 0}
     for kern in ("B5", "B8", "B10"):
         want[kern] = k * (name == kern)
         want[f"{kern} mirror"] = k * (name == kern and plan.mirror)
@@ -367,7 +396,8 @@ def plain_stream(op, x, transpose=False):
 
 
 def bucket_route(A, x, transpose=False):
-    """A BSM's or VBCRS's bucket route, driven explicitly (B1 for chunked
+    """A BSM's or VBCRS's bucket route, driven explicitly (one B1 launch
+    over the chunked buckets, one B9 element pass over the element
     buckets)."""
     out_len = A.shape[1] if transpose else A.shape[0]
     colors = None
@@ -378,7 +408,8 @@ def bucket_route(A, x, transpose=False):
 
 
 def bucket_route_sym(S, x, transpose=False):
-    """S's bucket route, driven explicitly (B1 symmetric mode, B9)."""
+    """S's bucket route, driven explicitly (per layout one B1 launch and
+    one B9 element pass, the off-diagonal's in their symmetric modes)."""
     colored = not bt.isserial(S.schedule)
     return apply_symmetric(
         S._dbuckets, S._dlayout, S._obuckets, S._olayout, S.shape[0], x,
@@ -475,30 +506,89 @@ def elem_ids(layout) -> list:
     return [i for i, b in enumerate(layout.buckets) if b.chunk == 1]
 
 
-def b9_per_spmv(S: bt.SymmetricBlockMatrix, transpose: bool) -> tuple:
-    """(gathers, scatters) of B9 in one f32 r = 1 product of S: one gather
-    per diagonal element bucket and two per off-diagonal one (forward and
-    mirror); as many scatter-adds, unless that pass runs its colored plan."""
-    n = S.shape[0]
-    d_ids, o_ids = elem_ids(S._dlayout), elem_ids(S._olayout)
-    scatters = 0
-    if d_ids and element_plan(S._dlayout, d_ids, n, S.diagonalcolors(), DEV,
-                              transpose=transpose, symmetric=False) is None:
-        scatters += len(d_ids)
-    if o_ids and element_plan(S._olayout, o_ids, n, S.fusedcolors(), DEV,
-                              transpose=False, symmetric=True) is None:
-        scatters += 2 * len(o_ids)
-    return len(d_ids) + 2 * len(o_ids), scatters
+def passes_of(op, transpose=False) -> list:
+    """The bucket route's passes of one product of ``op``: per layout
+    (layout, colors, out_len, transpose, symmetric)."""
+    if hasattr(op, "_dlayout"):
+        colored = not bt.isserial(op.schedule)
+        n = op.shape[0]
+        return [(op._dlayout, op.diagonalcolors() if colored else None, n,
+                 transpose, False),
+                (op._olayout, op.fusedcolors() if colored else None, n,
+                 False, True)]
+    colors = None
+    if isinstance(op, bt.BlockSparseMatrix) and not bt.isserial(op.schedule):
+        colors = op.transposecolors() if transpose else op.colors()
+    return [(op.layout, colors, op.shape[1] if transpose else op.shape[0],
+             transpose, False)]
 
 
-def element_pass(S: bt.SymmetricBlockMatrix, x, mask_gs: bool):
-    """S's element off-diagonal buckets as the main path runs them, through
-    B9 (``mask_gs``) or through torch indexing ops."""
+def colored_passes(op, transpose=False) -> list:
+    """Per pass with element buckets: True where they run the colored
+    gather rounds (B9's one-call gathers), False where the element pass."""
+    return [element_plan(lay, elem_ids(lay), n, colors, DEV, transpose=tr,
+                         symmetric=sym) is not None
+            for lay, colors, n, tr, sym in passes_of(op, transpose)
+            if elem_ids(lay)]
+
+
+def bucket_want(op, transpose=False, backward=False) -> dict:
+    """Exact launches of one f32 r = 1 bucket-route product of ``op``: per
+    layout one B1 launch over its chunked buckets (symmetric mode on the
+    off-diagonal pass), one element pass over its element buckets, or,
+    under a colored plan, one B9 gather per element bucket and gathered
+    table.  ``backward``: with the product's backward, which repeats every
+    B1 launch and element pass (in the adjoint mode) and turns each gather
+    into a scatter-add."""
+    want = {"B1": 0, "B1 sym": 0, "B9 element": 0, "B9 element sym": 0,
+            "B9 gather": 0, "B9 scatter": 0}
+    for lay, colors, n, tr, sym in passes_of(op, transpose):
+        ids = elem_ids(lay)
+        if n_chunked(lay):
+            want["B1"] += 1
+            want["B1 sym"] += sym
+        if ids and element_plan(lay, ids, n, colors, DEV, transpose=tr,
+                                symmetric=sym) is None:
+            want["B9 element"] += 1
+            want["B9 element sym"] += sym
+        elif ids:
+            want["B9 gather"] += len(ids) * (2 if sym else 1)
+    if backward:
+        for k in ("B1", "B1 sym", "B9 element", "B9 element sym"):
+            want[k] *= 2
+        want["B9 scatter"] = want["B9 gather"]
+    return want
+
+
+def per_bucket_element_pass(S, x, mask_gs: bool):
+    """S's element off-diagonal buckets one bucket at a time, as the route
+    ran them before the element pass: a gather, an einsum and a
+    scatter-add each, through B9's one-call kernels (``mask_gs``) or
+    through torch indexing ops."""
     ids = elem_ids(S._olayout)
-    plan = element_plan(S._olayout, ids, S.shape[0], S.fusedcolors(), DEV,
-                        transpose=False, symmetric=True)
     return bucket_apply([S._obuckets[i][:3] for i in ids], S.shape[0], x,
-                        symmetric=True, colored_plan=plan, mask_gs=mask_gs)
+                        symmetric=True, mask_gs=mask_gs)
+
+
+def element_csr(table: BucketTable, n: int, symmetric: bool) -> torch.Tensor:
+    """The element buckets of ``table`` as one f32 CSR matrix on the card
+    (V at (rows, cols), with ``symmetric`` also V^T at (cols, rows);
+    sentinel lanes dropped, duplicates summed): the operand of the element
+    pass's library call."""
+    rows, cols, vals = [], [], []
+    for v, ridx, cidx, _c in table.buckets:
+        r = ridx.long()[:, :, None].expand(v.shape)
+        c = cidx.long()[:, None, :].expand(v.shape)
+        keep = (r < n) & (c < n)
+        pairs = [(r, c)] + ([(c, r)] if symmetric else [])
+        for a, b in pairs:
+            rows.append(a[keep])
+            cols.append(b[keep])
+            vals.append(v.float()[keep])
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows),
+                                               torch.cat(cols)]),
+                                  torch.cat(vals), (n, n)).coalesce()
+    return coo.to_sparse_csr()
 
 
 def median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -599,6 +689,115 @@ def b1_cases(np_dtype):
            t(rc), t(cc), C, n)
 
 
+def b1_table(np_dtype):
+    """(table, n): every chunked bucket of ``b1_cases``'s layout (mixed
+    chunks, n = 1536) and its chunk-scattered bucket, whose chunk ids reach
+    rows up to 2048 + 16 (past n: they read zero and scatter nowhere) and
+    repeat across blocks."""
+    blocks, rows, cols, shape = random_block_sparse(
+        3, shape=(1536, 1536), nblocks=120, max_block=96, dtype=np.float64,
+        contiguous=True)
+    lay = build_layout([b.astype(np_dtype) for b in blocks], rows, cols,
+                       shape)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+    buckets = [(t(b.values), t(b.row_chunk_idx), t(b.col_chunk_idx), b.chunk)
+               for b in lay.buckets if b.chunk > 1]
+    rng = np.random.default_rng(11)
+    nb, mp, kp, C = 96, 64, 128, 16
+    buckets.append((t(rng.standard_normal((nb, mp, kp)).astype(np_dtype)),
+                    t(rng.integers(0, 2048 // C + 1, (nb, mp // C)).astype(
+                        np.int32)),
+                    t(rng.integers(0, 2048 // C + 1, (nb, kp // C)).astype(
+                        np.int32)), C))
+    return BucketTable(buckets), shape[0]
+
+
+def b1_multi_vs_plain(gen) -> dict:
+    """B1's multi-bucket launch against its plain version and against the
+    sum of one-bucket launches (the duality of the two entries), f32 / f64
+    x forward, transpose, symmetric x r in {1, 64, 200}, adding into an
+    output that already holds a partial sum."""
+    errs = {"B1 multi": 0.0, "B1 duality": 0.0}
+    for np_dtype, dtype in ((np.float32, torch.float32),
+                            (np.float64, torch.float64)):
+        table, n = b1_table(np_dtype)
+        for r in (1, 64, 200):
+            X = torch.randn((n, r), generator=gen, dtype=dtype).to(DEV)
+            x = X[:, 0].contiguous() if r == 1 else X
+            prior = torch.randn(x.shape, generator=gen, dtype=dtype).to(DEV)
+            for mode, kw in MODE_KW.items():
+                got = fused_spmm.multi_block_apply(table, x, out=prior.clone(),
+                                                   **kw)
+                ref = fused_spmm.multi_block_apply_plain(
+                    table, x, out=prior.clone(), **kw)
+                one = prior.clone()
+                for v, rt, ct, c in table.buckets:
+                    one += fused_spmm.chunked_block_apply(v, rt, ct, c, x, n,
+                                                          **kw)
+                torch.cuda.synchronize()
+                label = f"B1 multi {dtype} {len(table)} buckets {mode} r={r}"
+                errs["B1 multi"] = max(errs["B1 multi"], rel_check(
+                    label, got, ref, TOL[dtype]))
+                errs["B1 duality"] = max(errs["B1 duality"], rel_check(
+                    f"{label} vs {len(table)} one-bucket launches", got, one,
+                    TOL[dtype]))
+    return errs
+
+
+def element_table_on_card(np_dtype, n: int) -> BucketTable:
+    """Element buckets of an n x n operand shaped like the layouts' (square,
+    thin and one-column tiles), rows drawn with repeats within and across
+    blocks, sentinel lanes (index n) in both tables."""
+    rng = np.random.default_rng(13)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+    buckets = []
+    for nb, mp, kp in ((512, 64, 64), (300, 2, 128), (200, 128, 1),
+                       (64, 1, 256)):
+        ridx = rng.integers(0, n, (nb, mp)).astype(np.int32)
+        cidx = rng.integers(0, n, (nb, kp)).astype(np.int32)
+        ridx[::3, -1] = n
+        cidx[1::4, 0] = n
+        buckets.append((t(rng.standard_normal((nb, mp, kp)).astype(np_dtype)),
+                        t(ridx), t(cidx), 1))
+    return BucketTable(buckets)
+
+
+def element_vs_plain(gen) -> dict:
+    """B9's element pass against its plain version, f32 / f64 x forward,
+    transpose, symmetric x r in {1, 64}, adding into an output that holds a
+    partial sum; at f32 r = 1 also against the per-bucket chain through
+    B9's one-call gather and scatter-add (the duality of the two)."""
+    errs = {"B9 element": 0.0, "B9 element duality": 0.0}
+    n = 5000
+    for np_dtype, dtype in ((np.float32, torch.float32),
+                            (np.float64, torch.float64)):
+        table = element_table_on_card(np_dtype, n)
+        for r in (1, 64):
+            X = torch.randn((n, r), generator=gen, dtype=dtype).to(DEV)
+            x = X[:, 0].contiguous() if r == 1 else X
+            prior = torch.randn(x.shape, generator=gen, dtype=dtype).to(DEV)
+            for mode, kw in MODE_KW.items():
+                got = mask_select.element_apply(table, x, out=prior.clone(),
+                                                **kw)
+                ref = mask_select.element_apply_plain(table, x,
+                                                      out=prior.clone(), **kw)
+                torch.cuda.synchronize()
+                label = (f"B9 element pass {dtype} {len(table)} buckets "
+                         f"{mode} r={r}")
+                errs["B9 element"] = max(errs["B9 element"], rel_check(
+                    label, got, ref, TOL[dtype]))
+                if dtype == torch.float32 and r == 1:
+                    chain = prior + bucket_apply(
+                        [b[:3] for b in table.buckets], n, x, mask_gs=True,
+                        **kw)
+                    errs["B9 element duality"] = max(
+                        errs["B9 element duality"], rel_check(
+                            f"{label} vs the per-bucket chain of one-call "
+                            f"gathers and scatter-adds", got, chain,
+                            TOL[dtype]))
+    return errs
+
+
 def phase1():
     print("phase 1: kernels against their plain versions")
     errs = {"B1": 0.0}
@@ -618,6 +817,7 @@ def phase1():
                     err = rel_check(f"B1 {dtype} {label} {mode} r={r}", got,
                                     ref, TOL[dtype])
                     errs["B1"] = max(errs["B1"], err)
+    errs.update(b1_multi_vs_plain(gen))
     blocks, rows, cols, shape = random_block_sparse(
         4, shape=(2048, 2048), nblocks=150, max_block=120, dtype=np.float64,
         contiguous=True)
@@ -671,6 +871,7 @@ def phase1():
             err = rel_check(f"B9 {kind} n={n} K={K}", got, ref,
                             TOL[torch.float32])
             errs[f"B9 {kind}"] = max(errs[f"B9 {kind}"], err)
+    errs.update(element_vs_plain(gen))
     stream_errs, panel_plans = stream_kernels_vs_plain(gen)
     errs.update(stream_errs)
     errs.update(batched_kernels_vs_plain(gen, patch_bucket, panel_plans))
@@ -1019,6 +1220,12 @@ def phase2():
             f"B2 prologue launches: {per['A @ X']}, {per['A.H @ X']}")
     launches["B2 forward"] = per["A @ X"]["B2"]
     launches["B2 transpose"] = per["A.H @ X"]["B2"]
+    # the r = 1 products: one B1 launch per application of A
+    for name, tr, k in (("A @ x", False, 1), ("A.T @ x", True, 1),
+                        ("A.axpby(x, y, 2.0, 0.5)", False, 1),
+                        ("(A @ A) @ x", False, 2)):
+        require_counts(name, per[name], {key: k * v for key, v in
+                                         bucket_want(A, tr).items()})
     for (name, _fn, ref, _k), out in zip(products, outs):
         rel_check(f"{name} vs float64 scipy", out, ref, TOL[torch.float32])
     require(launches["B1"] > 0 and launches["B2"] > 0,
@@ -1199,15 +1406,9 @@ def phase3(card: str):
               plain_route(A, x, dtype=torch.float64), TOL[torch.float32])
     rel_check("SpMM r=128 vs float64 plain", Y,
               plain_route(A, X, dtype=torch.float64), TOL[torch.float32])
-    # the bucket route, driven explicitly: one B1 launch per chunked bucket
-    before = counts()
-    yb = bucket_route(A, x)
-    torch.cuda.synchronize()
-    require_counts("bucket-route SpMV", grown_since(before),
-                   {"B1": n_chunked(A.layout), "B5": 0, "B8": 0})
-    rel_check("bucket-route SpMV (B1) vs float64 plain", yb,
-              plain_buckets(A.layout, A._buckets, x.double(), 8192,
-                            torch.float64), TOL[torch.float32])
+    # the bucket route, driven explicitly: one B1 launch over the chunked
+    # buckets, and one for its backward
+    bucket_launched, _ = check_bucket_route("bucket-route SpMV (B1)", A, x)
     plan = A._patch_for()[0]
     splan = A._stream_entry(False)[1]
     csr = csr_on_card([A])
@@ -1251,7 +1452,36 @@ def phase3(card: str):
             "B2 prologue (tier 1)",
             lambda: patch_engine.patch_xt_plain(X, 1)[0], card),
         "setup": setup, "launches": launched["B5"], "op": A,
+        "bucket launches": bucket_launched,
     }
+
+
+def check_bucket_route(name, op, x, transpose=False) -> dict:
+    """One bucket-route product of ``op`` (driven explicitly) and then the
+    product with its backward, each with exact launch counts
+    (``bucket_want``), against the float64 plain route; returns the
+    product's launches and its error."""
+    drive = bucket_route_sym if hasattr(op, "_dlayout") else bucket_route
+    before = counts()
+    y = drive(op, x, transpose)
+    torch.cuda.synchronize()
+    got = grown_since(before)
+    print(f"  {name}: launches "
+          f"{ {k: v for k, v in got.items() if v} }")
+    require_counts(name, got, dict(bucket_want(op, transpose), B5=0, B8=0))
+    err = rel_check(f"{name} vs float64 plain", y,
+                    float64_reference(op, x, transpose), TOL32)
+    w = torch.randn(y.shape, generator=torch.Generator().manual_seed(31),
+                    dtype=y.dtype).to(DEV)
+    before = counts()
+    xg = x.clone().requires_grad_()
+    (w * drive(op, xg, transpose)).sum().backward()
+    torch.cuda.synchronize()
+    require_counts(f"{name} and its backward", grown_since(before),
+                   bucket_want(op, transpose, backward=True))
+    rel_check(f"d(w . {name})/dx vs float64 plain", xg.grad,
+              float64_reference(op, w, not transpose), TOL32)
+    return got, err
 
 
 def plain_times(label, fn, card) -> tuple:
@@ -1351,22 +1581,14 @@ def phase4(card: str):
     for (name, _fn, ref, *_), out in zip(products, outs):
         rel_check(f"{name} vs float64 scipy", out, ref, TOL[torch.float32])
 
-    # the bucket route, driven explicitly: every chunked bucket is one B1
-    # launch, each chunked off-diagonal bucket in B1's symmetric mode
-    per_spmv, per_sym = n_chunked(S._dlayout, S._olayout), n_chunked(S._olayout)
-    require(per_sym > 0, "no chunked off-diagonal bucket")
+    # the bucket route, driven explicitly: per layout one B1 launch over
+    # its chunked buckets, the off-diagonal's in B1's symmetric mode
+    require(n_chunked(S._olayout) > 0, "no chunked off-diagonal bucket")
     for tr in (False, True):
-        before = counts()
-        yb = bucket_route_sym(S, x, transpose=tr)
-        torch.cuda.synchronize()
-        gathers, scatters = b9_per_spmv(S, tr)
-        require_counts(f"bucket-route S{'.T' if tr else ''} @ x",
-                       grown_since(before),
-                       {"B1": per_spmv, "B1 sym": per_sym, "B5": 0,
-                        "B9 gather": gathers, "B9 scatter": scatters})
-        rel_check(f"bucket-route S{'.T' if tr else ''} @ x (B1 symmetric) vs "
-                  f"float64 scipy", yb, (Ssc.T if tr else Ssc) @ x64,
-                  TOL[torch.float32])
+        name = f"bucket-route S{'.T' if tr else ''} @ x (B1 symmetric)"
+        check_bucket_route(name, S, x, tr)
+        rel_check(f"{name} vs float64 scipy", bucket_route_sym(S, x, tr),
+                  (Ssc.T if tr else Ssc) @ x64, TOL[torch.float32])
 
     # gradients: B3's backward runs its adjoint mode; B5's backward is the
     # plain version's autograd on the same plan
@@ -1383,6 +1605,7 @@ def phase4(card: str):
         require(grown["B3"] >= 2 if r > 1 else grown["B5 mirror"] == 1,
                 f"{name}: the product did not run the kernel ({grown})")
     launches["setup"] = setup
+    launches["scattered"] = scattered_main_path()
     mplan = S._stream_entry(False)[1]
     vbytes = value_bytes_of(S._dlayout, S._olayout)
     launches["times"] = {
@@ -1398,43 +1621,100 @@ def phase4(card: str):
     return errs, launches
 
 
+def scattered_main_path() -> dict:
+    """The bucket route as a main path: the config-2 recipe at n = 4096
+    with scattered groups, whose f32 r = 1 products no stream plan takes.
+    Under the default colored schedule both element passes win their
+    colored plans (B9's one-call gathers; the backward's scatter-adds);
+    under schedule="serial" each layout runs one B9 element pass.  S @ x
+    and its gradient, counted exactly, against float64 scipy; returns the
+    launches of each schedule's run."""
+    d, di, o, ri, ci, shape = random_symmetric(
+        8, n=4096, ngroups=48, noffdiag=160, dtype=np.float32,
+        contiguous=False)
+    rng = np.random.default_rng(14)
+    xn, wn = (rng.standard_normal(4096).astype(np.float32) for _ in range(2))
+    x, w = torch.from_numpy(xn).to(DEV), torch.from_numpy(wn).to(DEV)
+    out = {}
+    for schedule in ("colored", "serial"):
+        S = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape, device=DEV,
+                                    schedule=schedule)
+        require(stream_kernel(S) == "B1", f"scattered {schedule}: no stream "
+                f"plan should take S @ x ({stream_kernel(S)})")
+        Ssc = bt.to_scipy(S).astype(np.float64)
+        print(f"  scattered groups, schedule={schedule}: {S}; element passes "
+              f"colored (diagonal, off-diagonal): {colored_passes(S)}")
+        reset_counts()
+        y = S @ x
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"  scattered {schedule} S @ x: launches "
+              f"{ {k: v for k, v in got.items() if v} }")
+        require_counts(f"scattered {schedule} S @ x", got, bucket_want(S))
+        rel_check(f"scattered {schedule} S @ x vs float64 scipy", y,
+                  Ssc @ xn.astype(np.float64), TOL32)
+        before = counts()
+        xg = x.clone().requires_grad_()
+        (w * (S @ xg)).sum().backward()
+        torch.cuda.synchronize()
+        require_counts(f"scattered {schedule} S @ x and its backward",
+                       grown_since(before), bucket_want(S, backward=True))
+        rel_check(f"scattered {schedule} d(w . S @ x)/dx vs float64 scipy",
+                  xg.grad, Ssc.T @ wn.astype(np.float64), TOL32)
+        out[schedule] = counts()
+    require(out["colored"]["B9 gather"] > 0 and
+            out["colored"]["B9 scatter"] > 0 and
+            out["serial"]["B9 element"] > 0,
+            f"the scattered main paths skipped a B9 kernel: {out}")
+    return out
+
+
 # -- phase 5 -------------------------------------------------------------------
 
 def b9_single_calls(S, x, gen, card) -> dict:
-    """B9's gather and scatter-add on the largest index table of S's element
-    buckets, timed beside their plain versions and beside one PyTorch call
-    each (index_select on x with its sentinel zero appended; index_add_
-    into a zeroed vector with the dropped slot)."""
+    """B9's one-call gather and scatter-add, each timed beside its plain
+    version and one PyTorch call (index_select on x with its sentinel zero
+    appended; index_add_ into a zeroed vector with the dropped slot): on
+    the largest index table of S's element buckets (keys "gather",
+    "scatter"), and on 2^20 random indices, every seventh the sentinel
+    (keys "gather 1M", "scatter 1M"), where the card's time is device work
+    rather than launch latency."""
     n = x.shape[0]
-    idx = max((t for i in elem_ids(S._olayout) for t in S._obuckets[i][1:3]),
-              key=lambda t: t.numel()).reshape(-1).contiguous()
-    v = torch.randn(idx.numel(), generator=gen).to(DEV)
+    big = torch.randint(0, n, (1 << 20,), generator=gen, dtype=torch.int32)
+    big[::7] = n
+    tables = {"": max((t for i in elem_ids(S._olayout)
+                       for t in S._obuckets[i][1:3]),
+                      key=lambda t: t.numel()).reshape(-1).contiguous(),
+              " 1M": big.to(DEV)}
     x_ext = torch.cat([x, x.new_zeros(1)])
-    K, used = idx.numel(), int(torch.unique(idx[idx < n]).numel())
-    calls = {
-        "gather": (lambda: mask_select.mask_gather(x, idx),
-                   lambda: mask_select.mask_gather_plain(x, idx),
-                   lambda: torch.index_select(x_ext, 0, idx),
-                   bound(2 * K * 4 + used * 4, 0)),
-        "scatter": (lambda: mask_select.mask_scatter_add(v, idx, n),
-                    lambda: mask_select.mask_scatter_add_plain(v, idx, n),
-                    lambda: torch.zeros(n + 1, device=DEV).index_add_(
-                        0, idx, v)[:n],
-                    bound(2 * K * 4 + n * 4, K)),
-    }
     out = {}
-    for kind, (kern, plain, lib, bnd) in calls.items():
-        label = f"B9 {kind}, one call on {K} indices (n={n})"
-        p1, k1, k2, p2 = (median_ms(plain), median_ms(kern), median_ms(kern),
-                          median_ms(plain))
-        graph = graph_ms(kern)
-        print(f"  {label}: kernel {k1:.4f} / {k2:.4f} ms (graph {graph:.4f} "
-              f"ms), plain {p1:.4f} / {p2:.4f} ms, bound "
-              f"{bnd[0] * 1e3:.3f} us ({bnd[1]}) [{card}]")
-        out[kind] = {"ms": min(k1, k2), "graph_ms": graph,
-                     "plain_ms": min(p1, p2),
-                     "library_ms": library_ms(label, lib, kern(), card),
-                     "bound": bnd}
+    for tag, idx in tables.items():
+        v = torch.randn(idx.numel(), generator=gen).to(DEV)
+        K, used = idx.numel(), int(torch.unique(idx[idx < n]).numel())
+        calls = {
+            "gather": (lambda: mask_select.mask_gather(x, idx),
+                       lambda: mask_select.mask_gather_plain(x, idx),
+                       lambda: torch.index_select(x_ext, 0, idx),
+                       bound(2 * K * 4 + used * 4, 0)),
+            "scatter": (lambda: mask_select.mask_scatter_add(v, idx, n),
+                        lambda: mask_select.mask_scatter_add_plain(v, idx, n),
+                        lambda: torch.zeros(n + 1, device=DEV).index_add_(
+                            0, idx, v)[:n],
+                        bound(2 * K * 4 + n * 4, K)),
+        }
+        for kind, (kern, plain, lib, bnd) in calls.items():
+            label = f"B9 {kind}, one call on {K} indices (n={n})"
+            p1, k1, k2, p2 = (median_ms(plain), median_ms(kern),
+                              median_ms(kern), median_ms(plain))
+            graph = graph_ms(kern)
+            print(f"  {label}: kernel {k1:.4f} / {k2:.4f} ms (graph "
+                  f"{graph:.4f} ms), plain {p1:.4f} / {p2:.4f} ms, bound "
+                  f"{bnd[0] * 1e3:.3f} us ({bnd[1]}) [{card}]")
+            out[kind + tag] = {"ms": min(k1, k2), "graph_ms": graph,
+                               "plain_ms": min(p1, p2), "indices": K,
+                               "library_ms": library_ms(label, lib, kern(),
+                                                        card),
+                               "bound": bnd}
     return out
 
 
@@ -1614,35 +1894,18 @@ def phase5(card: str):
               plain_buckets_sym(S, w, transpose=True, dtype=torch.float64),
               TOL[torch.float32])
 
-    # the bucket route, driven explicitly: B1 per chunked bucket, B9 per
-    # element-bucket gather and scatter
-    gathers, scatters = b9_per_spmv(S, False)
-    require(gathers > 0 and scatters > 0, "no element bucket")
+    # the bucket route, driven explicitly: per layout one B1 launch over
+    # its chunked buckets and one B9 element pass over its element buckets
+    # (a pass under a colored plan keeps B9's one-call gathers), and its
+    # backward
+    print(f"  bucket route passes: {describe_passes(S)}")
     reset_counts()
-    yb = bucket_route_sym(S, x)
-    torch.cuda.synchronize()
-    bucket_launched = counts()
-    require_counts("bucket-route SpMV", bucket_launched,
-                   {"B1": n_chunked(S._dlayout, S._olayout),
-                    "B1 sym": n_chunked(S._olayout), "B5": 0,
-                    "B9 gather": gathers, "B9 scatter": scatters})
-    rel_check("bucket-route SpMV (B1 + B9) vs float64 plain", yb,
-              plain_buckets_sym(S, x, dtype=torch.float64),
-              TOL[torch.float32])
-    # its backward: each B9 gather's adjoint is a B9 scatter-add and the
-    # other way round
-    before = counts()
-    xg = x.clone().requires_grad_()
-    (w * bucket_route_sym(S, xg)).sum().backward()
-    rel_check("d(w . bucket route S @ x)/dx vs float64 plain S^T w", xg.grad,
-              plain_buckets_sym(S, w, transpose=True, dtype=torch.float64),
-              TOL[torch.float32])
-    grown = {k: v for k, v in grown_since(before).items()
-             if k in ("B9 gather", "B9 scatter")}
-    require(grown == {"B9 gather": gathers + scatters,
-                      "B9 scatter": gathers + scatters},
-            f"bucket-route SpMV and its backward: B9 launches {grown}, "
-            f"expected {gathers + scatters} of each")
+    bucket_launched, errs["bucket route"] = check_bucket_route(
+        "bucket-route SpMV (B1 + B9 element pass)", S, x)
+    require(0 < bucket_launched["B1"] <= 2 and
+            bucket_launched["B9 element"] <= 2,
+            f"bucket-route SpMV: {bucket_launched['B1']} B1 launches and "
+            f"{bucket_launched['B9 element']} element passes, at most 2 each")
     nbytes = value_bytes_of(S._dlayout, S._olayout)
     flops = 2 * sum(int(b.values.size) for b in S._dlayout.buckets) + \
         4 * sum(int(b.values.size) for b in S._olayout.buckets)
@@ -1653,7 +1916,7 @@ def phase5(card: str):
             lambda: plain_route_sym(S, x), stream_bytes(S),
             2 * splan.tile_bytes // 4, card),
         "SpMV bucket": time_routes(
-            "symmetric SpMV, bucket route (B1 + B9)",
+            "symmetric SpMV, bucket route (B1 + B9 element pass)",
             lambda: bucket_route_sym(S, x),
             lambda: plain_buckets_sym(S, x), nbytes, flops, card),
         "SpMM r=128": time_routes(
@@ -1670,41 +1933,116 @@ def phase5(card: str):
     spmm_bytes = logical_nnz(S) * 4 + 2 * shape[0] * 128 * 4
     times["bound"] = {"SpMM r=128": bound(spmm_bytes, 2 * S.nnz * 128),
                       "SpMM r=128 None": bound(spmm_bytes, 2 * S.nnz * 128,
-                                               None)}
+                                               None),
+                      # the bucket values as stored, x and y once each
+                      "SpMV bucket": bound(nbytes + 2 * shape[0] * 4, flops)}
     times["B3 tiers"] = b3_tiers(S, X, (d, di, o, ri, ci, shape), gen, card)
 
-    # the bucket route's parts, each replayed from its own CUDA graph
-    n = shape[0]
-    chunked = [(hb_, S._obuckets[i]) for i, hb_ in
-               enumerate(S._olayout.buckets) if hb_.chunk > 1]
+    split = bucket_split(S, x, card)
+    errs.update(split.pop("errs"))
+    times.update(split)
+    return times, errs, bucket_launched
 
-    def b1_symmetric_pass():
+
+def describe_passes(op) -> str:
+    """Which kernels each bucket-route pass of ``op`` runs."""
+    out = []
+    names = (("diagonal", "off-diagonal") if hasattr(op, "_dlayout")
+             else ("one layout",))
+    for (lay, colors, n, tr, sym), name in zip(passes_of(op), names):
+        ids = elem_ids(lay)
+        kind = "no element bucket"
+        if ids:
+            kind = ("colored gather rounds (B9 one-call gathers)"
+                    if element_plan(lay, ids, n, colors, DEV, transpose=tr,
+                                    symmetric=sym) is not None
+                    else "one B9 element pass")
+        out.append(f"{name}: {n_chunked(lay)} chunked buckets in one B1 "
+                   f"launch{' (symmetric)' if sym else ''}, {len(ids)} "
+                   f"element buckets as {kind}")
+    return "; ".join(out)
+
+
+def bucket_split(S, x, card) -> dict:
+    """The symmetric bucket route's parts, each replayed from its own CUDA
+    graph: the diagonal pass, the off-diagonal B1 pass in one launch and as
+    one-bucket launches, the element pass in one launch and as the
+    per-bucket chain (B9's one-call kernels, or torch ops); then the
+    element pass timed eager and from a graph beside its plain version, its
+    bound and one library call (torch.mv on the CSR matrix of the same
+    element blocks)."""
+    n = x.shape[0]
+    tabs = bucket_tables(S._obuckets, S._olayout)
+    ctab, etab = tabs["chunked"], tabs["element"]
+
+    def per_bucket_b1():
         y_ = x.new_zeros(n)
-        for hb_, (v, _ri, _ci, rc, cc) in chunked:
-            y_ = y_ + fused_spmm.chunked_block_apply(v, rc, cc, hb_.chunk, x,
-                                                     n, symmetric=True)
+        for v, rc, cc, c in ctab.buckets:
+            y_ = y_ + fused_spmm.chunked_block_apply(v, rc, cc, c, x, n,
+                                                     symmetric=True)
         return y_
 
+    def element_one_launch():
+        return mask_select.element_apply(etab, x, out=x.new_zeros(n),
+                                         symmetric=True)
+
+    def b1_one_launch():
+        return fused_spmm.multi_block_apply(ctab, x, out=x.new_zeros(n),
+                                            symmetric=True)
+
+    errs = {
+        "B1 multi": rel_check(
+            "B1 symmetric pass (one launch) vs its plain version",
+            b1_one_launch(), fused_spmm.multi_block_apply_plain(
+                ctab, x, out=x.new_zeros(n), symmetric=True), TOL32),
+        "B9 element": rel_check(
+            "element pass (one launch) vs its plain version",
+            element_one_launch(), mask_select.element_apply_plain(
+                etab, x, out=x.new_zeros(n), symmetric=True), TOL32)}
     parts = {
         "diagonal": lambda: apply_operand(S._dbuckets, S._dlayout, n, x,
                                           colors=S.diagonalcolors()),
-        f"B1 symmetric pass ({len(chunked)} chunked buckets)":
-            b1_symmetric_pass,
-        f"element pass through B9 ({len(elem_ids(S._olayout))} buckets)":
-            lambda: element_pass(S, x, True),
-        "element pass through torch ops": lambda: element_pass(S, x, False),
+        "B1 pass": b1_one_launch,
+        "B1 pass per bucket": per_bucket_b1,
+        "element pass": element_one_launch,
+        "element pass per bucket (B9)":
+            lambda: per_bucket_element_pass(S, x, True),
+        "element pass per bucket (torch ops)":
+            lambda: per_bucket_element_pass(S, x, False),
     }
     split = {name: graph_ms(fn) for name, fn in parts.items()}
-    print("  symmetric bucket-route SpMV split, CUDA-graph replay: " + ", ".join(
-        f"{name} {ms:.4f} ms" for name, ms in split.items()) + f" [{card}]")
-    elem_values = [S._olayout.buckets[i].values
-                   for i in elem_ids(S._olayout)]
-    times["element pass"] = time_routes(
-        "element pass", lambda: element_pass(S, x, True),
-        lambda: element_pass(S, x, False),
-        sum(int(v.nbytes) for v in elem_values),
-        4 * sum(int(v.size) for v in elem_values), card)
-    return times, errs, bucket_launched
+    print(f"  symmetric bucket-route SpMV split, CUDA-graph replay "
+          f"({len(ctab)} chunked, {len(etab)} element off-diagonal buckets; "
+          f"'per bucket': one launch per bucket): " + ", ".join(
+              f"{name} {ms:.4f} ms" for name, ms in split.items())
+          + f" [{card}]")
+    ids = torch.cat([t.reshape(-1) for b in etab.buckets for t in b[1:3]])
+    used = int(torch.unique(ids[ids < n]).numel())
+    ebytes = sum(v.numel() * v.element_size() + (ri.numel() + ci.numel()) * 4
+                 for v, ri, ci, _c in etab.buckets) + 2 * used * 4
+    eflops = 4 * sum(v.numel() for v in etab.values)
+    cbytes = sum(v.numel() * v.element_size() + (rc.numel() + cc.numel()) * 4
+                 for v, rc, cc, _c in ctab.buckets) + 2 * n * 4
+    out = {"errs": errs, "split": split,
+           "B1 pass bound": bound(cbytes, 4 * sum(v.numel()
+                                                  for v in ctab.values)),
+           "element bound": bound(ebytes, eflops),
+           "element pass": time_routes(
+               "element pass (one B9 launch)", element_one_launch,
+               lambda: mask_select.element_apply_plain(
+                   etab, x, out=x.new_zeros(n), symmetric=True),
+               ebytes, eflops, card)}
+    csr = element_csr(etab, n, symmetric=True)
+    out["element library"] = library_ms(
+        "element pass, torch.mv on the CSR matrix of the element blocks",
+        lambda: torch.mv(csr, x), element_one_launch(), card)
+    print(f"  B1 symmetric pass bound {out['B1 pass bound'][0]:.4f} ms "
+          f"({out['B1 pass bound'][1]}; {cbytes} bytes: values, chunk "
+          f"tables, x and y) [{card}]")
+    print(f"  element pass bound {out['element bound'][0] * 1e3:.3f} us "
+          f"({out['element bound'][1]}; {ebytes} bytes: values, index "
+          f"tables, {used} rows of x and of y) [{card}]")
+    return out
 
 
 # -- phase 6 -------------------------------------------------------------------
@@ -1849,13 +2187,8 @@ def phase7(card: str):
               TOL[torch.float32])
     rel_check("SpMV (B5) vs float64 plain stream route", y,
               plain_route(V, x, dtype=torch.float64), TOL[torch.float32])
-    before = counts()
-    yb = bucket_route(V, x)
-    torch.cuda.synchronize()
-    require_counts("bucket-route SpMV", grown_since(before),
-                   {"B1": n_chunked(V.layout), "B5": 0, "B8": 0})
-    rel_check("bucket-route SpMV (B1) vs float64 plain", yb, ref,
-              TOL[torch.float32])
+    print(f"  bucket route passes: {describe_passes(V)}")
+    bucket_launched, _ = check_bucket_route("bucket-route SpMV (B1)", V, x)
 
     errs = {"B5": 0.0, "B5 duality": 0.0, "B8": 0.0, "B8 duality": 0.0}
     _, pplan, pdev = V._stream_entry(False)
@@ -1887,6 +2220,7 @@ def phase7(card: str):
             lambda: slab_spmv.slab_apply_plain(splan, sdev, x), sbytes,
             2 * splan.tile_bytes // 4, card),
         "setup": setup, "launches": launched["B5"], "op": V,
+        "bucket launches": bucket_launched,
     }
     csr = csr_on_card([V])
     times["library"] = {"SpMV": library_ms(
@@ -1953,7 +2287,7 @@ def phase8(card: str):
             "slab-route SpMV (B8)", lambda: A @ x, lambda: plain_route(A, x),
             stream_bytes(A), 2 * plan.tile_bytes // 4, card),
         "SpMV bucket": time_routes(
-            "bucket-route SpMV (B1 + element engine)",
+            "bucket-route SpMV (B1 + B9 element pass)",
             lambda: bucket_route(A, x),
             lambda: plain_buckets(A.layout, A._buckets, x, 8192,
                                   torch.float32),
@@ -2560,11 +2894,35 @@ def main() -> None:
 
     mm, mv2, mv3 = batch["mm"], batch["mv config 2"], batch["mv config 3"]
     b3 = sym_times["B3 tiers"]
+    split, single = sym_times["split"], sym_times["B9 single"]
+    scattered = launches4["scattered"]
+    b1_launches = {"flagship main path (phase 2)": launches["B1"],
+                   "BSM real size bucket route (phase 3)":
+                       times["bucket launches"]["B1"],
+                   "symmetric real size bucket route (phase 5)":
+                       launches5["B1"],
+                   "VBCRS real size bucket route (phase 7)":
+                       v_times["bucket launches"]["B1"]}
+    element_launches = {
+        "scattered symmetric main path, serial (phase 4)":
+            scattered["serial"]["B9 element"],
+        "symmetric real size bucket route (phase 5)":
+            launches5["B9 element"]}
+    require(all(b1_launches.values()) and all(element_launches.values()),
+            f"a path skipped B1 or B9's element pass: {b1_launches}, "
+            f"{element_launches}")
     capped = batch["mv capped"]
     summary = {"kernels": [
         {"name": "fused_spmm (B1)", "route": "cuda", "source": B1_SRC,
          "replaces": B1_REPLACES, "launches": launches["B1"],
+         "launches_by_path": b1_launches,
+         "design": "one launch per layout over a device table of bucket "
+                   "descriptors (grid: every (block, 64-row tile) of every "
+                   "chunked bucket); chunked_block_apply is its "
+                   "one-descriptor call",
          "max_abs_err": errs2["B1"], "max_abs_err_phase1": errs1["B1"],
+         "max_abs_err_multi": max(errs1["B1 multi"], errs5["B1 multi"]),
+         "max_abs_err_duality": errs1["B1 duality"],
          "ms": times["SpMV bucket"][0], "plain_ms": times["SpMV bucket"][1],
          "graph_ms": times["SpMV bucket"][2],
          "plain_graph_ms": times["SpMV bucket"][3],
@@ -2577,6 +2935,12 @@ def main() -> None:
          "sym_plain_graph_ms": sym_times["SpMV bucket"][3],
          "sym_timed": "bucket route of S @ x, n=32768, 384 + 4096 f32 blocks "
                       "(symmetric)",
+         "sym_bound_ms": sym_times["bound"]["SpMV bucket"][0],
+         "sym_pass_graph_ms": split["B1 pass"],
+         "sym_pass_bound_ms": sym_times["B1 pass bound"][0],
+         "sym_pass_per_bucket_graph_ms": split["B1 pass per bucket"],
+         "sym_pass_timed": "the off-diagonal B1 symmetric pass alone, one "
+                           "launch; per_bucket: one launch per bucket",
          "vbcrs_ms": v_times["SpMV bucket"][0],
          "vbcrs_graph_ms": v_times["SpMV bucket"][2],
          "vbcrs_timed": "bucket route of V @ x, config 3, n=32768",
@@ -2664,24 +3028,52 @@ def main() -> None:
          "forward_blocks_graph_ms": b3["forward blocks highest"],
          "none_forward_blocks_graph_ms": b3["forward blocks None"]},
     ] + [
+        {"name": "mask_select element pass (B9)", "route": "cuda",
+         "source": B9_SRC, "replaces": B9_GATHER_REPLACES,
+         "replaces_also": B9_SCATTER_REPLACES,
+         "launches": launches5["B9 element"],
+         "launches_by_path": element_launches,
+         "design": "the element buckets' gather -> product -> scatter-add "
+                   "in one launch per layout on B1's tile core with element "
+                   "row maps",
+         "max_abs_err": errs5["bucket route"],
+         "max_abs_err_kernel": errs5["B9 element"],
+         "max_abs_err_phase1": errs1["B9 element"],
+         "max_abs_err_duality": errs1["B9 element duality"],
+         "ms": sym_times["element pass"][0],
+         "plain_ms": sym_times["element pass"][1],
+         "graph_ms": sym_times["element pass"][2],
+         "plain_graph_ms": sym_times["element pass"][3],
+         "per_bucket_graph_ms": split["element pass per bucket (B9)"],
+         "per_bucket_torch_graph_ms":
+             split["element pass per bucket (torch ops)"],
+         "timed": "the element off-diagonal pass of S @ x, n=32768 "
+                  "(symmetric), one launch; per_bucket: the chain of "
+                  "one-call gathers and scatter-adds",
+         "card": card, **measured(sym_times["element bound"],
+                                  sym_times["element library"])},
+    ] + [
         {"name": f"mask_select {kind} (B9)", "route": "cuda", "source": B9_SRC,
-         "replaces": rep_, "launches": launches5[f"B9 {kind}"],
+         "replaces": rep_,
+         "launches": scattered["colored"][f"B9 {kind}"],
+         "launches_by_path": {
+             "scattered symmetric main path, colored, with its backward "
+             "(phase 4)": scattered["colored"][f"B9 {kind}"]},
          "max_abs_err": errs5[f"B9 {kind}"],
          "max_abs_err_phase1": errs1[f"B9 {kind}"],
-         "ms": sym_times["B9 single"][kind]["ms"],
-         "graph_ms": sym_times["B9 single"][kind]["graph_ms"],
-         "plain_ms": sym_times["B9 single"][kind]["plain_ms"],
-         "timed": "one call on the largest index table of the symmetric real "
-                  "size's element buckets (n=32768)",
+         "ms": single[kind]["ms"], "graph_ms": single[kind]["graph_ms"],
+         "plain_ms": single[kind]["plain_ms"],
+         "timed": f"one call on the largest index table of the symmetric "
+                  f"real size's element buckets ({single[kind]['indices']} "
+                  f"indices, n=32768); _1m: on {single[kind + ' 1M']['indices']}"
+                  f" random indices",
          "card": card,
-         **measured(sym_times["B9 single"][kind]["bound"],
-                    sym_times["B9 single"][kind]["library_ms"]),
-         "pass_ms": sym_times["element pass"][0],
-         "pass_plain_ms": sym_times["element pass"][1],
-         "pass_graph_ms": sym_times["element pass"][2],
-         "pass_plain_graph_ms": sym_times["element pass"][3],
-         "pass_timed": "element pass of S @ x (its gathers and scatter-adds "
-                       "through B9 vs torch ops), n=32768 (symmetric)"}
+         **measured(single[kind]["bound"], single[kind]["library_ms"]),
+         **{f"{k}_1m": single[kind + " 1M"][k]
+            for k in ("ms", "graph_ms", "plain_ms")},
+         "bound_ms_1m": single[kind + " 1M"]["bound"][0],
+         "library_ms_1m": single[kind + " 1M"]["library_ms"],
+         "library_graph_ms_1m": single[kind + " 1M"]["library_ms"].graph}
         for kind, rep_ in (("gather", B9_GATHER_REPLACES),
                            ("scatter", B9_SCATTER_REPLACES))
     ] + [

@@ -121,16 +121,20 @@ def test_patch_plain_vs_jax_interpret(transpose, r):
 
 @pytest.mark.parametrize("mode", list(MODES))
 def test_fused_gradcheck(mode):
+    """B1's autograd on a one-bucket table (the bucket route's call)."""
     vals, rc, cc, C, n = chunk_inputs("scattered-tables", np.float64)
     vals = vals[:3, :8, :16].copy()
     rc, cc = rc[:3, :1].copy(), cc[:3, :2].copy()
     t = torch.from_numpy
     v = t(vals).requires_grad_()
     x = torch.randn(n, 2, dtype=torch.float64, requires_grad=True)
-    kw = MODES[mode]
-    assert torch.autograd.gradcheck(
-        lambda v_, x_: fused_spmm.fused_apply(v_, t(rc), t(cc), C, x_, n, **kw),
-        (v, x))
+
+    def fn(v_, x_):
+        table = fused_spmm.BucketTable([(v_, t(rc), t(cc), C)])
+        return fused_spmm.multi_fused_apply(
+            table, x_, out=torch.zeros(n, 2, dtype=torch.float64),
+            **MODES[mode])
+    assert torch.autograd.gradcheck(fn, (v, x))
 
 
 @pytest.mark.parametrize("transpose", [False, True])
