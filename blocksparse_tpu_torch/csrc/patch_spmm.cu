@@ -1,26 +1,26 @@
 // Merged-patch SpMM on Hopper (kernel B2 of the port): the forward pass on
-// wgmma + TMA, and its operand prologue.
+// wgmma + TMA, and the operand prologue it shares with the transposed
+// product (patch_spmm_tr.cu).
 //
 // Replaces blocksparse_tpu/ops/patch_engine.py::_kern_fwd (launched from
 // _bucket_spmm_raw / patch_spmm).  For every slot b of a patch bucket, with
 // V_b of shape [MP, KP] and its KP/32 column chunks cc[b]:
 //   Y[rs[b] : rs[b] + MP] += V_b @ Xg,  Xg = concat_j X[cc[b,j]*32 : +32]
 // Sentinel column chunks (id >= ceil(n / 32)) read zero; padded slots
-// (zero values, rs = 0) add zeros.  The transposed product (_kern_tr) runs
-// on kernel B4's transposed instance at P = 1 (batched_spmm.cu): TF32
-// wgmma takes K-major operands only, and V^T is MN-major in V's storage.
+// (zero values, rs = 0) add zeros.
 //
 // What bounds it on the card: 2 r flops per stored value at the tier's
 // tensor-core rate (3xTF32: 165 TFLOP/s for "highest"/"high"; one TF32
 // pass: 495 TFLOP/s for precision=None, where the bytes of V bound it).
 //
 // The design:
-//   - Prologue (xt_kernel, its own launch): X [n, r] -> X^T [r, ld], ld =
-//     n rounded up to 4 floats (TMA takes 16-byte global strides).  It
-//     writes hi = tf32(X)^T (cvt.rna) and, at tier 1, lo = (X - tf32(X))^T,
-//     exact in fp32.  Every gathered 32-row chunk of X is then a K-major
-//     box X^T[c0 : c0 + TR, chunk*32 : +32] of 128-byte rows: exactly the
-//     span of the 128-byte swizzle that wgmma reads.
+//   - Prologue (xt_kernel, its own launch): X [P, n, r] -> X^T [P, r, ld],
+//     ld = n rounded up to 4 floats (TMA takes 16-byte global strides), one
+//     grid plane per product.  It writes hi = tf32(X)^T (cvt.rna) and, at
+//     tier 1, lo = (X - tf32(X))^T, exact in fp32.  Every gathered 32-row
+//     chunk of X is then a K-major box X^T[c0 : c0 + TR, chunk*32 : +32] of
+//     128-byte rows: exactly the span of the 128-byte swizzle that wgmma
+//     reads.  The transposed product reads its slot windows the same way.
 //   - Main kernel: one thread block per (slot b, 64-row tile of MP, column
 //     tile TR in {64, 128}), two blocks per SM.  The slot's live chunks
 //     are compacted first (tile_mma.cuh's live_chunks), so sentinels issue
@@ -45,15 +45,17 @@
 // 0) into the zeroed output the wrapper allocates (tile_mma.cuh's AddY).
 // The summation order across blocks varies from run to run.
 //
-// Tensor maps are encoded on the host with cuTensorMapEncodeTiled, reached
-// through cudaGetDriverEntryPoint (the library links no libcuda), and
-// passed as __grid_constant__ kernel parameters.  A shape the kernel does
-// not take returns cudaErrorInvalidValue; there is no fallback.
-#include <cuda.h>  // CUtensorMap and its enums (declarations only)
+// Tensor maps are encoded on the host (tma_wgmma.cuh) and passed as
+// __grid_constant__ kernel parameters.  A shape the kernel does not take
+// returns cudaErrorInvalidValue; there is no fallback.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tile_mma.cuh"
+#include "tma_wgmma.cuh"
+
+using namespace bst_tma;
 
 namespace {
 
@@ -61,8 +63,8 @@ constexpr int kCC = 32;  // column chunk width of the patch plan
 
 // -- prologue ------------------------------------------------------------------
 
-// hi[c, i] = tf32(x[i, c]); lo[c, i] = x[i, c] - hi[c, i] (lo may be null).
-// 64 x 64 tiles through shared memory, 256 threads, four float4 loads of
+// hi[p, c, i] = tf32(x[p, i, c]); lo[p, c, i] = x[p, i, c] - hi[p, c, i] (lo
+// may be null); product p = blockIdx.z.  64 x 64 tiles through shared memory, 256 threads, four float4 loads of
 // X's rows (scalar loads where vec is 0: r % 4 != 0 or x unaligned) and
 // four float4 stores of X^T's rows per thread (ld % 4 == 0 and 16-byte
 // aligned outputs; rows of X past n are written as zeros into the pad).
@@ -71,6 +73,10 @@ __global__ void __launch_bounds__(256)
               float* __restrict__ lo, long long n, int r, long long ld,
               int vec) {
   __shared__ float tile[64][65];
+  const long long p = blockIdx.z;
+  x += p * n * r;
+  hi += p * r * ld;
+  if (lo != nullptr) lo += p * r * ld;
   const long long i0 = (long long)blockIdx.x * 64;
   const int c0 = blockIdx.y * 64;
 #pragma unroll
@@ -111,157 +117,6 @@ __global__ void __launch_bounds__(256)
           make_float4(l[0], l[1], l[2], l[3]);
   }
 }
-
-// -- PTX: shared memory, mbarriers, TMA ------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// Waits for the phase of parity `parity` to complete.  A wait that outlasts
-// 2^28 polls (seconds; a stage takes microseconds) traps: a lost arrival
-// ends the launch with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 28)) __trap();
-  }
-}
-
-// box at coordinates (c0 innermost, c1) of `map` into dst; completes on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-// -- PTX: wgmma ------------------------------------------------------------------
-
-// Shared-memory descriptor of a K-major tile of 128-byte rows under the
-// 128-byte swizzle (as TMA writes it): start address >> 4, leading offset
-// 1 (unused in this layout), stride 1024 bytes between 8-row groups, layout
-// type 1 (128-byte swizzle).  A k8 step of TF32 advances the start by 32
-// bytes inside the swizzle atom.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving accumulator traffic across wgmma
-template <int K>
-__device__ __forceinline__ void fence_regs(float (&d)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define BST_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define BST_D16(i) BST_D4(i), BST_D4(i + 4), BST_D4(i + 8), BST_D4(i + 12)
-#define BST_R32                                                              \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
-  "%30, %31"
-#define BST_R64                                                              \
-  BST_R32                                                                    \
-  ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
-  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "   \
-  "%60, %61, %62, %63"
-
-// d [m64 x N] (+)= A [m64 x k8] B [k8 x N]: ss with A from shared memory,
-// rs with A from registers (the m16n8k8 A fragment of each warp's 16 rows);
-// scale 0 overwrites d.
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<64> {
-  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t da,
-                                            uint64_t db, int scale) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-        "{" BST_R32 "}, %32, %33, p, 1, 1;\n}\n"
-        : BST_D16(0), BST_D16(16)
-        : "l"(da), "l"(db), "r"(scale));
-  }
-  __device__ __forceinline__ static void rs(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-        "{" BST_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-        : BST_D16(0), BST_D16(16)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  __device__ __forceinline__ static void ss(float (&d)[64], uint64_t da,
-                                            uint64_t db, int scale) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-        "{" BST_R64 "}, %64, %65, p, 1, 1;\n}\n"
-        : BST_D16(0), BST_D16(16), BST_D16(32), BST_D16(48)
-        : "l"(da), "l"(db), "r"(scale));
-  }
-  __device__ __forceinline__ static void rs(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-        "{" BST_R64 "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-        : BST_D16(0), BST_D16(16), BST_D16(32), BST_D16(48)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale));
-  }
-};
-
-#undef BST_D4
-#undef BST_D16
-#undef BST_R32
-#undef BST_R64
 
 // -- the forward kernel -----------------------------------------------------------
 
@@ -350,8 +205,7 @@ __global__ void __launch_bounds__(Fwd<TR, TIER>::THREADS, 2)
         fence_regs(acc);
       } else {
         const uint32_t l_addr = h_addr + F::B_BYTES;
-        // A fragments of the four k8 steps: logical (row, k) sits at byte
-        // row * 128 + ((k / 4) ^ (row % 8)) * 16 + (k % 4) * 4 of the tile
+        // A fragments of the four k8 steps from the swizzled tile
         uint32_t abig[4][4], asml[4][4];
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks)
@@ -360,8 +214,7 @@ __global__ void __launch_bounds__(Fwd<TR, TIER>::THREADS, 2)
             const int row = lw * 16 + gid + 8 * (q & 1);
             const int k = ks * 8 + tig + 4 * (q >> 1);
             const float v = *reinterpret_cast<const float*>(
-                st + row * 128 +
-                ((((k >> 2) ^ (row & 7)) << 4) | ((k & 3) << 2)));
+                st + sw128_offset(row, k));
             bst_mma::split<1>(v, abig[ks][q], asml[ks][q]);
           }
         float part[F::ND];
@@ -407,12 +260,9 @@ __global__ void __launch_bounds__(Fwd<TR, TIER>::THREADS, 2)
 
 // -- host side ---------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
+}  // namespace
+
+namespace bst_tma {
 
 cudaError_t encoder(EncodeTiled* out) {
   static EncodeTiled fn = nullptr;
@@ -435,21 +285,9 @@ cudaError_t encoder(EncodeTiled* out) {
   return cudaSuccess;
 }
 
-// A row-major f32 matrix [outer, inner] with row stride ld floats, read in
-// boxes of [box_outer, 32] under the 128-byte swizzle; out-of-range
-// elements read zero.
-bool tensor_map(EncodeTiled enc, CUtensorMap* m, const float* base,
-                long long inner, long long outer, long long ld,
-                int box_outer) {
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * sizeof(float)};
-  const cuuint32_t box[2] = {32, (cuuint32_t)box_outer};
-  const cuuint32_t step[2] = {1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),
-             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
+}  // namespace bst_tma
+
+namespace {
 
 struct Maps {
   CUtensorMap v, h, l;
@@ -485,22 +323,19 @@ int launch_tier(int tier, const Maps& m, const int* cc, const int* rs,
                               vec, s);
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 }  // namespace
 
-// The prologue: hi [r, ld] = tf32(x)^T and, where lo is not null,
-// lo [r, ld] = (x - tf32(x))^T, for x [n, r] row-major; ld % 4 == 0, ld >= n.
-extern "C" int bst_patch_xt_f32(const float* x, float* hi, float* lo,
+// The prologue: per product p < P, hi [p, r, ld] = tf32(x[p])^T and, where
+// lo is not null, lo [p, r, ld] = (x[p] - tf32(x[p]))^T, for x [P, n, r]
+// row-major; ld % 4 == 0, ld >= n.
+extern "C" int bst_patch_xt_f32(const float* x, float* hi, float* lo, int P,
                                 long long n, int r, long long ld,
                                 void* stream) {
-  if (ld % 4 != 0 || ld < n || (r + 63) / 64 > 65535 || n < 0 || r < 0 ||
-      !aligned16(hi) || (lo != nullptr && !aligned16(lo)))
+  if (ld % 4 != 0 || ld < n || (r + 63) / 64 > 65535 || P > 65535 || n < 0 ||
+      r < 0 || P < 0 || !aligned16(hi) || (lo != nullptr && !aligned16(lo)))
     return (int)cudaErrorInvalidValue;
-  if (n == 0 || r == 0) return 0;
-  const dim3 grid((unsigned)((n + 63) / 64), (r + 63) / 64);
+  if (n == 0 || r == 0 || P == 0) return 0;
+  const dim3 grid((unsigned)((n + 63) / 64), (r + 63) / 64, P);
   const int vec = r % 4 == 0 && aligned16(x);
   xt_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       x, hi, lo, n, r, ld, vec);

@@ -7,9 +7,9 @@
 // right-hand side -- as a sum over a list of contraction stages of depth
 // Tile::KT.  The caller's Stages functor says what stage s is: which values
 // form its A tile and which rows of X its B tile.  So one loop runs the
-// forward product (A = rows of V, B = a gathered 32-row chunk of X), the
-// transposed product (A = V^T, B = rows of the slot's window) and B3's
-// owner pass (a list of (slot, chunk) pairs).  Stages that would read only
+// forward product (A = rows of V, B = a gathered 32-row chunk of X) and
+// B3's owner pass, a transposed product (A = V^T, B = rows of a slot's
+// window) over a list of (slot, chunk) pairs.  Stages that would read only
 // zeros -- sentinel chunks -- are left out of the list by the caller, so
 // they issue neither loads nor MMAs.
 //

@@ -110,9 +110,9 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
     ``device``: where the operator's tensors live, the card ("cuda") unless
     the caller passes another (``"cpu"`` runs the kernels' plain versions).
     ``precision``: "highest" | "high" | None, the JAX package's tiers.  On
-    this format the tier reaches kernel B2 (the patch-route SpMM and its
-    gradient: 3xTF32 for "highest" and "high", one TF32 pass for None) and
-    B4 through ``batched_mm``; its other products (B1 and the SpMV
+    this format the tier reaches kernel B2 (the patch-route SpMM, its
+    transpose and their gradients: 3xTF32 for "highest" and "high", one
+    TF32 pass for None) and B4 through ``batched_mm``; its other products (B1 and the SpMV
     kernels) run IEEE fp32 at every tier (see ``ops/patch_engine.py``).
     ``granularity``: the bucket keys, "pow2" or ``(gm, gk)`` (see
     ``core/layout.build_layout``).  ``patch``: "auto" (the route decision), "always" (every f32 product

@@ -223,9 +223,11 @@ def batched_mm(ops, Xs, *, precision=None):
     differ).  ``Xs``: [P, n, r] tensor or a list of [n, r].  Returns
     [P, m, r].  Loops over the operators when the batch is ineligible
     (different structures, symmetric operands, non-f32).  Differentiable in
-    ``Xs``.  ``precision``: B4's tier ("highest" / "high": 3xTF32, None: one
-    TF32 pass on the card); None takes ``ops[0].precision``, as the JAX
-    package does.  The loop runs each operator's own route.
+    ``Xs``: the dX of the batch is one launch of B2's transposed product
+    with its product axis (and one of its prologue).  ``precision``: the
+    tier of both ("highest" / "high": 3xTF32, None: one TF32 pass on the
+    card); None takes ``ops[0].precision``, as the JAX package does.  The
+    loop runs each operator's own route.
     """
     ops = list(ops)
     P = len(ops)

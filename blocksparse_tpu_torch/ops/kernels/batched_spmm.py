@@ -1,6 +1,6 @@
 """Batched merged-patch SpMM: CUDA kernel B4, its plain version, its autograd.
 
-The kernel (``csrc/batched_spmm.cu``) replaces
+The kernel (``csrc/batched_spmm.cu``) replaces the forward mode of
 ``blocksparse_tpu/ops/batched.py::_kern_batched``: P same-structure patch
 SpMMs in one launch.  The P operators share one patch plan's tables (``cc``
 [nb, KP/32], ``rs`` [nb]) and stack their values [P, nb, MP, KP]; for every
@@ -12,6 +12,10 @@ product p and slot b
 X is [P, n_in, r] and Y [P, n_out, r]: rows past X's end read zero and rows
 past Y's end are dropped (the JAX wrapper padded both and cut Y).  Any r is
 taken in one launch, so the JAX package's ``R_SLICE`` split is not needed.
+The transpose mode (the backward's dX) runs kernel B2's transposed product
+with its product axis (``ops/patch_engine.transpose_spmm``: one prologue
+and one ``csrc/patch_spmm_tr.cu`` launch for all P products, counted in
+``patch_engine.XT_LAUNCHES`` and ``TR_LAUNCHES``).
 
 Race-freedom: the kernel adds into a zeroed output with fp32
 ``atomicAdd(float4*)``; the summation order varies from run to run.
@@ -22,11 +26,11 @@ default) and "high", one TF32 pass for None.  The plain version is exact
 in the operands' dtype at every tier.
 
 Routing: CPU tensors take :func:`batched_spmm_plain`; CUDA tensors launch
-the kernel or raise.  ``LAUNCHES`` counts kernel launches.
+the kernels or raise.  ``LAUNCHES`` counts B4's launches.
 
 Gradient: :func:`batched_spmm_apply` mirrors the JAX package's
-``_batched_bwd``: dX is the kernel in the other mode, dvals torch ops on the
-gathered rows.
+``_batched_bwd``: dX is the product in the other mode, dvals torch ops on
+the gathered rows.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ import torch
 
 from ...core.patch import CC
 from ...utils import build
-from ..patch_engine import _aligned, _window_rows, precision_tier
+from ..patch_engine import (_aligned, _window_rows, precision_tier,
+                            transpose_spmm)
 from ..torch_spmv import chunk_rows
 
 __all__ = ["batched_spmm", "batched_spmm_plain", "batched_spmm_apply",
@@ -103,13 +108,15 @@ def _check(vals, cc, rs, X) -> bool:
 def batched_spmm(vals, cc, rs, X, n_out: int, *, transpose: bool = False,
                  precision="highest") -> torch.Tensor:
     """Y [P, n_out, r] = the P products of one patch plan's tables with
-    their stacked values, applied to X [P, n_in, r]: kernel B4 at
-    ``precision``'s tier on CUDA tensors, the plain version on CPU
-    tensors."""
+    their stacked values, applied to X [P, n_in, r], at ``precision``'s
+    tier on CUDA tensors (the forward on kernel B4, the transpose on B2's
+    transposed product), the plain version on CPU tensors."""
     global LAUNCHES
     tier = precision_tier(precision)
     if not _check(vals, cc, rs, X):
         return batched_spmm_plain(vals, cc, rs, X, n_out, transpose=transpose)
+    if transpose:
+        return transpose_spmm(vals, cc, rs, X, n_out, tier)
     P, nb, MP, KP = vals.shape
     X = _aligned(X.contiguous())
     vals = _aligned(vals.contiguous())
@@ -119,15 +126,14 @@ def batched_spmm(vals, cc, rs, X, n_out: int, *, transpose: bool = False,
     if P and nb and r and n_out:
         build.launch("bst_batched_spmm_f32", X.device, vals.data_ptr(),
                      cc.data_ptr(), rs.data_ptr(), X.data_ptr(), Y.data_ptr(),
-                     P, nb, MP, KP, r, n_in, n_out, int(transpose), tier)
+                     P, nb, MP, KP, r, n_in, n_out, tier)
         LAUNCHES += 1
     return Y
 
 
 class _BatchedSpmm(torch.autograd.Function):
     """Exact cotangents (mirrors the JAX package's ``_batched_bwd``): dX is
-    the same kernel in the other mode, dvals torch ops on the gathered
-    rows."""
+    the product in the other mode, dvals torch ops on the gathered rows."""
 
     @staticmethod
     def forward(ctx, vals, cc, rs, X, n_out, transpose, precision="highest"):

@@ -8,12 +8,14 @@ Kernel B2 replaces ``_kern_fwd`` / ``_kern_tr``:
   transpose  the 32-row chunks cc[b, j] of Y += V_b^T @ X[rs[b] : rs[b] + MP]
 
 The transpose product swaps the gather/scatter roles over the same storage.
-The forward runs on wgmma + TMA (``csrc/patch_spmm.cu``) after a prologue
-launch (:func:`patch_xt`) that writes the K-major copy X^T the tensor
-cores read -- hi = tf32(X)^T and, at "highest"/"high", lo = (X - hi)^T.
-The transpose runs kernel B4's transposed instance at P = 1
-(``csrc/batched_spmm.cu``), counted here as a B2 launch: TF32 wgmma takes
-K-major operands only, and V^T is MN-major in V's storage.
+Both run on wgmma + TMA after a prologue launch (:func:`patch_xt`) that
+writes the K-major copy X^T the tensor cores read -- hi = tf32(X)^T and, at
+"highest"/"high", lo = (X - hi)^T.  The forward (``csrc/patch_spmm.cu``)
+reads V from shared memory; the transpose (``csrc/patch_spmm_tr.cu``,
+:func:`patch_tr`) reads V^T into registers, since TF32 wgmma takes a
+shared-memory operand only K-major and V^T is MN-major in V's storage, and
+keeps each slot's window of X^T in shared memory.  The transpose takes a
+product axis, so it is also ``batched_mm``'s dX (``kernels/batched_spmm.py``).
 
 Kernel B3 (``csrc/patch_sym.cu``) replaces ``_kern_mir``, the product of a
 symmetric plan (S = D + O + O^T, off-diagonals stored once): the forward
@@ -36,8 +38,9 @@ row windows) and rows past Y's end are dropped, which gives the same
 result without the copies.
 
 Race-freedom: slots run concurrently and may share output rows, so the
-kernels add into a zeroed output (``torch.zeros``) with fp32 atomics; the
-summation order varies from run to run.
+kernels add into a zeroed output (``torch.zeros``) with fp32 atomics (B2's
+transpose with the TMA unit's reduce-add, atomic per element, where r % 4
+== 0); the summation order varies from run to run.
 
 Precision: B2 and B3 honour the operator's tier (:data:`TIERS`):
 "highest" and "high" run 3xTF32 on the tensor cores, None one TF32 pass --
@@ -55,6 +58,8 @@ gathers and ``index_add_`` in place of the one-hot matmuls.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -66,12 +71,14 @@ from .torch_spmv import chunk_rows, gather_rows, scatter_rows
 __all__ = ["patch_device_arrays", "patch_apply", "patch_spmm",
            "patch_spmm_plain", "patch_spmv", "patch_spmv_plain",
            "bucket_spmm", "bucket_spmm_plain", "patch_xt", "patch_xt_plain",
-           "tf32_round", "bucket_spmm_sym", "bucket_spmm_sym_plain",
-           "owner_tables", "precision_tier", "BucketArrays", "TIERS",
-           "LAUNCHES", "XT_LAUNCHES", "SYM_LAUNCHES"]
+           "patch_tr", "transpose_spmm", "tr_geometry", "tf32_round",
+           "bucket_spmm_sym", "bucket_spmm_sym_plain", "owner_tables",
+           "precision_tier", "BucketArrays", "TIERS", "LAUNCHES",
+           "XT_LAUNCHES", "TR_LAUNCHES", "SYM_LAUNCHES"]
 
-LAUNCHES = 0       # kernel B2 (forward and transpose products)
-XT_LAUNCHES = 0    # kernel B2's prologue (X^T of a forward product)
+LAUNCHES = 0       # kernel B2's forward
+TR_LAUNCHES = 0    # kernel B2's transpose (A^T X, every dX, batched_mm's dX)
+XT_LAUNCHES = 0    # kernel B2's prologue (X^T, one per forward or transpose)
 SYM_LAUNCHES = 0   # kernel B3
 
 # precision -> tensor-core tier of kernels B2, B3 and B4: 1 = 3xTF32, 0 =
@@ -180,46 +187,108 @@ def _xt_ld(n: int) -> int:
 
 
 def patch_xt_plain(X: torch.Tensor, tier: int) -> tuple:
-    """Plain version of B2's prologue: (hi, lo), each [r, ld] with ld = n
+    """Plain version of B2's prologue: (hi, lo), each [r, ld] for X [n, r]
+    (each [P, r, ld] for X [P, n, r], product by product) with ld = n
     rounded up to 4, hi = tf32(X)^T and lo = (X - tf32(X))^T (None at tier
     0); columns past n are zero."""
-    n, r = X.shape
-    hi = X.new_zeros((r, _xt_ld(n)))
+    n, r = X.shape[-2:]
+    shape = (*X.shape[:-2], r, _xt_ld(n))
     rounded = tf32_round(X)
-    hi[:, :n] = rounded.t()
+    hi = X.new_zeros(shape)
+    hi[..., :n] = rounded.transpose(-1, -2)
     lo = None
     if tier:
-        lo = X.new_zeros((r, _xt_ld(n)))
-        lo[:, :n] = (X - rounded).t()
+        lo = X.new_zeros(shape)
+        lo[..., :n] = (X - rounded).transpose(-1, -2)
     return hi, lo
 
 
 def patch_xt(X: torch.Tensor, tier: int) -> tuple:
-    """B2's prologue: the K-major copy of X [n, r] f32 that the forward
-    kernel reads (:func:`patch_xt_plain` says what it holds).  A CUDA
-    tensor launches the kernel (the outputs come from ``torch.empty``), a
-    CPU tensor takes the plain version."""
+    """B2's prologue: the K-major copy of X [n, r] or [P, n, r] f32 that
+    the forward and the transposed kernels read (:func:`patch_xt_plain`
+    says what it holds), one launch for all P products.  A CUDA tensor
+    launches the kernel (the outputs come from ``torch.empty``), a CPU
+    tensor takes the plain version."""
     global XT_LAUNCHES
     if tier not in (0, 1):
         raise ValueError(f"tier must be 0 or 1, got {tier!r}")
-    if X.ndim != 2 or X.dtype != torch.float32:
-        raise TypeError(f"X must be [n, r] float32, got {tuple(X.shape)} "
-                        f"{X.dtype}")
+    if X.ndim not in (2, 3) or X.dtype != torch.float32:
+        raise TypeError(f"X must be [n, r] or [P, n, r] float32, got "
+                        f"{tuple(X.shape)} {X.dtype}")
     if X.device.type == "cpu":
         return patch_xt_plain(X, tier)
     if X.device.type != "cuda":
         raise ValueError(f"no kernel for device {X.device}")
     X = X.contiguous()
-    n, r = X.shape
+    n, r = X.shape[-2:]
+    P = X.shape[0] if X.ndim == 3 else 1
     ld = _xt_ld(n)
-    hi = torch.empty((r, ld), dtype=torch.float32, device=X.device)
+    hi = torch.empty((*X.shape[:-2], r, ld), dtype=torch.float32,
+                     device=X.device)
     lo = torch.empty_like(hi) if tier else None
-    if n and r:
+    if n and r and P:
         build.launch("bst_patch_xt_f32", X.device, X.data_ptr(),
                      hi.data_ptr(), None if lo is None else lo.data_ptr(),
-                     n, r, ld)
+                     P, n, r, ld)
         XT_LAUNCHES += 1
     return hi, lo
+
+
+def tr_geometry(P: int, nb: int, MP: int, KP: int, r: int, tier: int,
+                sms: int) -> tuple:
+    """(TR, group, blocks) that B2's transposed kernel launches with for
+    these shapes on a card of ``sms`` multiprocessors: its column tile, the
+    64-row tiles a block computes and the grid's size, as the kernel's entry
+    point decides them (``csrc/patch_spmm_tr.cu``, ``geometry``).  Builds
+    the kernels' library if needed."""
+    out = (ctypes.c_longlong * 3)()
+    build.check(build.load_library().bst_patch_tr_geometry(
+        P, nb, MP, KP, r, tier, sms, out), "bst_patch_tr_geometry")
+    return tuple(out)
+
+
+def patch_tr(vals, cc, rs, hi, lo, n_in: int, n_out: int,
+             tier: int) -> torch.Tensor:
+    """B2's transposed kernel alone, on CUDA tensors: Y [P, n_out, r] =
+    the chunks cc[b, j] of each product's Y += V[p, b]^T @ X[p, window b],
+    with X given as the prologue's hi / lo [P, r, ld] of X [P, n_in, r]
+    (lo None at tier 0); vals [P, nb, MP, KP] 16-byte aligned, tables
+    int32, all contiguous.  The tiles go into Y by the TMA unit's
+    reduce-add (atomicAdd where r % 4 != 0); the kernel picks its launch
+    geometry (:func:`tr_geometry`).  CPU tensors take the plain version on
+    X = (hi + lo)^T."""
+    global TR_LAUNCHES
+    P, nb, MP, KP = vals.shape
+    r = hi.shape[1]
+    if hi.device.type == "cpu":
+        X = (hi if lo is None else hi + lo)[..., :n_in].transpose(-1, -2)
+        return torch.stack([bucket_spmm_plain(vals[p], cc, rs, X[p], n_out,
+                                              transpose=True)
+                            for p in range(P)])
+    Y = torch.zeros((P, n_out, r), dtype=torch.float32, device=hi.device)
+    if P and nb and r and n_out and n_in:
+        build.launch("bst_patch_spmm_tr_f32", hi.device, vals.data_ptr(),
+                     cc.data_ptr(), rs.data_ptr(), hi.data_ptr(),
+                     None if lo is None else lo.data_ptr(), Y.data_ptr(), P,
+                     nb, MP, KP, r, n_in, hi.shape[-1], n_out, tier)
+        TR_LAUNCHES += 1
+    return Y
+
+
+def transpose_spmm(vals, cc, rs, X, n_out: int, tier: int) -> torch.Tensor:
+    """Y [P, n_out, r] = the transposed products of P value stacks vals
+    [P, nb, MP, KP] sharing one plan's tables with X [P, n_in, r]: one
+    prologue launch and one :func:`patch_tr` launch, for CUDA tensors the
+    caller has checked."""
+    X = _aligned(X.contiguous())
+    vals = _aligned(vals.contiguous())
+    P, n_in, r = X.shape
+    if not (P and vals.shape[1] and r and n_out and n_in):
+        return torch.zeros((P, n_out, r), dtype=torch.float32,
+                           device=X.device)
+    hi, lo = patch_xt(X, tier)
+    return patch_tr(vals, cc.contiguous(), rs.contiguous(), hi, lo, n_in,
+                    n_out, tier)
 
 
 def _check_bucket(vals, cc, rs, X, *extra) -> bool:
@@ -256,13 +325,15 @@ def _check_bucket(vals, cc, rs, X, *extra) -> bool:
 def bucket_spmm(vals, cc, rs, X, n_out: int, *, transpose: bool = False,
                 precision="highest") -> torch.Tensor:
     """Y [n_out, r] = one patch bucket applied to X [n_in, r]: kernel B2 at
-    ``precision``'s tier for CUDA tensors (the forward after its prologue,
-    the transpose on B4's transposed instance at P = 1), its plain version
-    (exact at every tier, any floating dtype) for CPU tensors."""
+    ``precision``'s tier for CUDA tensors (the forward or the transpose,
+    each after its prologue), its plain version (exact at every tier, any
+    floating dtype) for CPU tensors."""
     global LAUNCHES
     tier = precision_tier(precision)
     if not _check_bucket(vals, cc, rs, X):
         return bucket_spmm_plain(vals, cc, rs, X, n_out, transpose=transpose)
+    if transpose:
+        return transpose_spmm(vals[None], cc, rs, X[None], n_out, tier)[0]
     nb, MP, KP = vals.shape
     X = _aligned(X.contiguous())
     vals = _aligned(vals.contiguous())
@@ -271,16 +342,11 @@ def bucket_spmm(vals, cc, rs, X, n_out: int, *, transpose: bool = False,
     Y = torch.zeros((n_out, r), dtype=torch.float32, device=X.device)
     if not (nb and r and n_out and n_in):
         return Y
-    if transpose:
-        build.launch("bst_batched_spmm_f32", X.device, vals.data_ptr(),
-                     cc.data_ptr(), rs.data_ptr(), X.data_ptr(), Y.data_ptr(),
-                     1, nb, MP, KP, r, n_in, n_out, 1, tier)
-    else:
-        hi, lo = patch_xt(X, tier)
-        build.launch("bst_patch_spmm_f32", X.device, vals.data_ptr(),
-                     cc.data_ptr(), rs.data_ptr(), hi.data_ptr(),
-                     None if lo is None else lo.data_ptr(), Y.data_ptr(),
-                     nb, MP, KP, r, n_in, hi.shape[1], n_out, tier)
+    hi, lo = patch_xt(X, tier)
+    build.launch("bst_patch_spmm_f32", X.device, vals.data_ptr(),
+                 cc.data_ptr(), rs.data_ptr(), hi.data_ptr(),
+                 None if lo is None else lo.data_ptr(), Y.data_ptr(),
+                 nb, MP, KP, r, n_in, hi.shape[1], n_out, tier)
     LAUNCHES += 1
     return Y
 

@@ -49,12 +49,18 @@ _SIGNATURES = {
     "bst_fused_spmm_multi_f64": (_P, _I, _L, _P, _P, _I, _L, _L, _I, _P),
     "bst_element_pass_f32": (_P, _I, _L, _P, _P, _I, _L, _L, _I, _P),
     "bst_element_pass_f64": (_P, _I, _L, _P, _P, _I, _L, _L, _I, _P),
-    # x, hi, lo, n, r, ld, stream
-    "bst_patch_xt_f32": (_P, _P, _P, _L, _I, _L, _P),
+    # x, hi, lo, P, n, r, ld, stream
+    "bst_patch_xt_f32": (_P, _P, _P, _I, _L, _I, _L, _P),
     # vals, cc, rs, xt_hi, xt_lo, y, nb, MP, KP, r, x_rows, ld, y_rows, tier,
     # stream
     "bst_patch_spmm_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
                            _I, _P),
+    # vals, cc, rs, xt_hi, xt_lo, y, P, nb, MP, KP, r, x_rows, ld, y_rows,
+    # tier, stream
+    "bst_patch_spmm_tr_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L,
+                              _L, _L, _I, _P),
+    # P, nb, MP, KP, r, tier, sms, out (no stream: a host query)
+    "bst_patch_tr_geometry": (_I, _I, _I, _I, _I, _I, _I, _P),
     # vals, cc, rs, mk, own_chunk, own_ptr, own_pair, n_own, x, y, nb, MP,
     # KP, r, n, adjoint, tier, stream
     "bst_patch_sym_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
@@ -67,10 +73,9 @@ _SIGNATURES = {
     # ngrids, grids, ncols, nrows, mirror, tpw, stream
     "bst_panel_spmv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                            _I, _I, _L, _L, _L, _I, _I, _P),
-    # vals, cc, rs, x, y, P, nb, MP, KP, r, x_rows, y_rows, transpose, tier,
-    # stream
+    # vals, cc, rs, x, y, P, nb, MP, KP, r, x_rows, y_rows, tier, stream
     "bst_batched_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
-                             _I, _I, _P),
+                             _I, _P),
     # as bst_panel_spmv_f32 with P after y
     "bst_panel_spmv_batched_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
                                    _I, _I, _I, _I, _I, _L, _L, _L, _I, _I,

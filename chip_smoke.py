@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (blocksparse_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --transposes   # B2's transposed products alone
 
 Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
 
@@ -13,19 +14,26 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      in {1, 64}, on element buckets with sentinel lanes and repeated rows,
      at f32 r = 1 also against the per-bucket chain of its one-call gather
      and scatter-add; B2: its prologue
-     (hi bit-equal to the plain tf32(X)^T, hi + lo == X), forward and
-     transpose x r in {8, 64, 128, 300} x both tensor-core tiers on a plan
-     of 8-row slots and on one of 128-row slots, and its wgmma forward
-     against B4's forward instance at P = 1; B3: symmetric and adjoint x r in
+     (hi bit-equal to the plain tf32(X)^T, hi + lo == X, one launch for P
+     products), forward and transpose x r in {6, 8, 64, 128, 300, 302}
+     (r % 4 != 0: the transpose's atomicAdd epilogue) x both
+     tensor-core tiers on a plan of 8-row slots, one of 48-row slots (not a
+     multiple of 32) and one of 128-row slots, the transpose also at P in
+     {2, 4} (batched_mm's dX) against its plain version and against P
+     single transposes, with inf / NaN in the rows of X no window covers,
+     and against the forward on the plan of the transposed layout, its
+     launch geometry on known shapes; its
+     wgmma forward against B4's forward instance at P = 1; B3: symmetric
+     and adjoint x r in
      {32, 64, 128, 300} x both plans x both tensor-core tiers ("highest":
      3xTF32, None: one TF32 pass); B9: element gather and scatter-add with duplicate
      and sentinel indices; B5: plain, transposed, fused mirror plans with
      shifted grids and a plan whose last segment runs past ncols; B8: plain
      and mirror slab plans), plus the duality check of B5 and B8: the
      kernel with one tile per warp (every row sum an atomic add) against
-     the kernel with 16 (sums carried in registers); B4: forward and
-     transpose, P in {2, 4} x r in {8, 64, 128, 264}, and against P launches
-     of B2; B6: on B5's panel plans, P in {2, 5}, at 1 against 16 tiles per
+     the kernel with 16 (sums carried in registers); B4: forward, P in
+     {2, 4} x r in {8, 64, 128, 264}, and against P launches of B2; B6: on
+     B5's panel plans, P in {2, 5}, at 1 against 16 tiles per
      warp and against P launches of B5 (B4 at both tiers, its duality with
      B2 at "highest"); B7: modes f, t (B2's plan, and a
      plan with G = 1 whose row windows run past n) and m, a (B3's plans),
@@ -45,9 +53,11 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      backward one more) driven explicitly, all timed eager and replayed
      from a CUDA graph; B2 at
      precision=None (a second operator built with it) and A.T @ X at both
-     tiers, timed the same way, and the forward's parts: the prologue
-     alone, the bucket's forward and B4's forward instance at P = 1 on the
-     same plan, and the host time per call;
+     tiers (one prologue and one transposed launch each), timed the same
+     way, and the parts: the prologue alone, the bucket's forward, B4's
+     forward instance at P = 1 on the same plan, the transposed kernel alone
+     with its grid, X^T and output-add bytes as the plan gives them, and
+     the host time per call;
   4. the symmetric flagship (config-2 recipe, 4096^2, 48 diagonal + 160
      off-diagonal blocks): B1's symmetric pass and B3 against their plain
      versions, the main path with exact counts (B3 on every r > 1 product,
@@ -87,9 +97,11 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
   9. the batched products (bench.py's batches: one structure, values from
      seeds 100+i / 200+i / 300+i): ``batched_mm`` on the config-4 recipe
      (config-1 structure, n = 4096, P = 4, r = 128) and on the config-3
-     recipe (n = 4096, P = 4), one B4 launch each, and its gradient; at the
+     recipe (n = 4096, P = 4), one B4 launch each, and its gradient (one
+     prologue and one B2 transposed launch for the P products); at the
      real size (phase 3's recipe, P = 4, r = 128) timed beside the loop of
-     four B2 launches, and B4 at precision=None beside it;
+     four B2 launches, B4 at precision=None beside it, and the dX of the
+     batch (B2's transpose at P = 4) at both tiers;
      ``batched_mv`` on the config-2 (fused mirror plan)
      and config-3 recipes at n = 4096, P = 16, one B6 launch each, timed
      beside the loop of 16 B5 launches, and its gradient; above the
@@ -186,6 +198,7 @@ B2_SRC = "blocksparse_tpu_torch/csrc/patch_spmm.cu"
 B1_REPLACES = "blocksparse_tpu/ops/pallas/fused_spmm.py:81"
 B2_REPLACES = "blocksparse_tpu/ops/patch_engine.py:329"
 B2_TR_REPLACES = "blocksparse_tpu/ops/patch_engine.py:371"
+B2_TR_SRC = "blocksparse_tpu_torch/csrc/patch_spmm_tr.cu"
 B3_SRC = "blocksparse_tpu_torch/csrc/patch_sym.cu"
 B3_REPLACES = "blocksparse_tpu/ops/patch_engine.py:345"
 B9_SRC = "blocksparse_tpu_torch/csrc/mask_select.cu"
@@ -316,6 +329,7 @@ def reset_counts() -> None:
     fused_spmm.LAUNCHES = 0
     fused_spmm.SYM_LAUNCHES = 0
     patch_engine.LAUNCHES = 0
+    patch_engine.TR_LAUNCHES = 0
     patch_engine.XT_LAUNCHES = 0
     patch_engine.SYM_LAUNCHES = 0
     mask_select.GATHER_LAUNCHES = 0
@@ -336,11 +350,13 @@ def reset_counts() -> None:
 def counts() -> dict:
     """Kernel launches since the last reset ("B1 sym": those of B1 in its
     symmetric mode, also counted under "B1"; "B9 element": B9's element
-    passes, "B9 element sym" those in the symmetric mode; "B2 prologue":
-    B2's X^T launches, one per forward product; "B5 mirror", "B6 mirror",
+    passes, "B9 element sym" those in the symmetric mode; "B2": B2's
+    forward, "B2 transpose" its transposed product, "B2 prologue" its X^T
+    launches, one per launch of either; "B5 mirror", "B6 mirror",
     "B8 mirror" and "B10 mirror" those on a mirror plan)."""
     return {"B1": fused_spmm.LAUNCHES, "B1 sym": fused_spmm.SYM_LAUNCHES,
             "B2": patch_engine.LAUNCHES,
+            "B2 transpose": patch_engine.TR_LAUNCHES,
             "B2 prologue": patch_engine.XT_LAUNCHES,
             "B3": patch_engine.SYM_LAUNCHES,
             "B9 gather": mask_select.GATHER_LAUNCHES,
@@ -648,9 +664,11 @@ def time_routes(label, kern, plain, nbytes, flops, card):
     return k_ms, p_ms, k_dev, p_dev
 
 
-def contiguous_operator(n, nblocks, bs, seed, value_seed, device, **opts):
+def contiguous_operator(n, nblocks, bs, seed, value_seed, device,
+                        transposed=False, **opts):
     """nblocks uniform bs x bs f32 blocks at distinct block-aligned positions
-    (``opts``: the route options of the constructor)."""
+    (``opts``: the route options of the constructor); with ``transposed``
+    the transpose of that operator, built from the transposed blocks."""
     rng = np.random.default_rng(seed)
     ntiles = n // bs
     pos = rng.choice(ntiles * ntiles, size=nblocks, replace=False)
@@ -659,6 +677,8 @@ def contiguous_operator(n, nblocks, bs, seed, value_seed, device, **opts):
     vrng = rng if value_seed is None else np.random.default_rng(value_seed)
     blocks = [vrng.standard_normal((bs, bs)).astype(np.float32)
               for _ in range(nblocks)]
+    if transposed:
+        blocks, rows, cols = [b.T.copy() for b in blocks], cols, rows
     A = bt.BlockSparseMatrix(blocks, [np.arange(r, r + bs) for r in rows],
                              [np.arange(c, c + bs) for c in cols], (n, n),
                              device=device, **opts)
@@ -891,53 +911,186 @@ def phase1():
 
 
 def b2_vs_plain(gen, patch_bucket) -> dict:
-    """B2 on phase 1's patch plan (8-row slots) and on a plan of 128-row
-    slots (two 64-row blocks each): its prologue against the plain split
-    (hi bit-equal, hi + lo == X), the forward and the transpose at both
-    tiers against the plain version (TOL32 at "highest", TOL_TF32 at None),
-    and the duality of the wgmma forward with B4's forward instance at
-    P = 1 at "highest"."""
-    errs = {"B2": 0.0, "B2 tf32": 0.0, "B2 duality": 0.0, "B2 prologue": 0.0}
+    """B2 on three plans: phase 1's (8-row slots), one of 48-row slots (MP
+    not a multiple of 32: the transpose's last window box holds rows of
+    other slots) and one of 128-row slots (two 64-row blocks each).  Its
+    prologue against the plain split (hi bit-equal, hi + lo == X; at P = 3
+    one launch, held product by product), the forward and the transpose at
+    both tiers against the plain version (TOL32 at "highest", TOL_TF32 at
+    None), the transpose also at P in {2, 4} (batched_mm's dX) against
+    batched_spmm_plain and against P single transposes; the duality of the
+    wgmma forward with B4's forward instance at P = 1; on the 48-row plan,
+    inf / NaN in the rows of X that no window covers (the result stays
+    finite and equal to the plain version) and the duality of the transpose
+    with the forward on the plan of the transposed layout.  r in {6, 302}
+    (r % 4 != 0) takes the transpose's atomicAdd epilogue and the
+    prologue's scalar loads, the other r the TMA reduce-add.  Last, the
+    transpose's launch geometry (``patch_engine.tr_geometry``) on known
+    shapes."""
+    errs = {"B2": 0.0, "B2 tf32": 0.0, "B2 duality": 0.0, "B2 prologue": 0.0,
+            "B2 transpose": 0.0, "B2 transpose tf32": 0.0,
+            "B2 transpose duality": 0.0}
+    plans = {"8-row": patch_bucket}
+    mid, _ = contiguous_operator(1536, 40, 48, seed=16, value_seed=None,
+                                 device=DEV)
+    mplan, mdev = mid._patch_for()
+    require(mplan.buckets[0].MP % 32 != 0, "the second B2 plan must have "
+            f"slots of a non-multiple of 32 rows, got {mplan.buckets[0].MP}")
+    plans["48-row"] = (*mdev[0][:3], 1536)
     wide, _ = contiguous_operator(2048, 150, 128, seed=15, value_seed=None,
                                   device=DEV)
     plan, dev = wide._patch_for()
-    require(plan.buckets[0].MP == 128, "the second B2 plan must have "
+    require(plan.buckets[0].MP == 128, "the third B2 plan must have "
             f"128-row slots, got {plan.buckets[0].MP}")
-    print(f"  patch plan of 128-row slots: {plan.buckets[0].nb} slots of "
-          f"{plan.buckets[0].MP}x{plan.buckets[0].KP}")
-    for (vals, cc, rs, n), r in [(patch_bucket, r) for r in (8, 64, 128, 300)] \
-            + [((*dev[0][:3], 2048), r) for r in (8, 128, 300)]:
-        X = torch.randn((n, r), generator=gen).to(DEV)
-        for tier in (0, 1):
-            hi, lo = patch_engine.patch_xt(X, tier)
-            phi, plo = patch_engine.patch_xt_plain(X, tier)
-            torch.cuda.synchronize()
-            require(torch.equal(hi[:, :n], phi[:, :n]),
-                    f"B2 prologue r={r} tier {tier}: hi differs from tf32(X)^T")
-            if tier:
-                require(torch.equal(hi[:, :n] + lo[:, :n], X.t()),
-                        f"B2 prologue r={r}: hi + lo != X")
-                errs["B2 prologue"] = max(errs["B2 prologue"], float(
-                    (lo[:, :n] - plo[:, :n]).abs().max()))
-        print(f"  B2 prologue n={n} r={r}: hi bit-equal to the plain "
-              f"tf32(X)^T at both tiers, hi + lo == X exactly")
-        for tr in (False, True):
-            ref = patch_engine.bucket_spmm_plain(vals, cc, rs, X, n,
-                                                 transpose=tr)
-            for prec, key in (("highest", "B2"), (None, "B2 tf32")):
-                got = patch_engine.bucket_spmm(vals, cc, rs, X, n,
-                                               transpose=tr, precision=prec)
+    plans["128-row"] = (*dev[0][:3], 2048)
+    for label, (vals, cc, rs, n) in plans.items():
+        print(f"  B2 plan of {label} slots: {vals.shape[0]} slots of "
+              f"{vals.shape[1]}x{vals.shape[2]}")
+    for label, (vals, cc, rs, n) in plans.items():
+        for r in B2_R:
+            X = torch.randn((n, r), generator=gen).to(DEV)
+            for tier in (0, 1):
+                hi, lo = patch_engine.patch_xt(X, tier)
+                phi, plo = patch_engine.patch_xt_plain(X, tier)
                 torch.cuda.synchronize()
-                errs[key] = max(errs[key], rel_check(
-                    f"B2 {'transpose' if tr else 'forward'} MP={vals.shape[1]} "
-                    f"r={r} precision={prec}", got, ref, TIER_TOL[prec]))
-        other = batched_spmm.batched_spmm(vals[None], cc, rs, X[None], n)[0]
-        got = patch_engine.bucket_spmm(vals, cc, rs, X, n)
+                require(torch.equal(hi[:, :n], phi[:, :n]),
+                        f"B2 prologue r={r} tier {tier}: hi differs from tf32(X)^T")
+                if tier:
+                    require(torch.equal(hi[:, :n] + lo[:, :n], X.t()),
+                            f"B2 prologue r={r}: hi + lo != X")
+                    errs["B2 prologue"] = max(errs["B2 prologue"], float(
+                        (lo[:, :n] - plo[:, :n]).abs().max()))
+            for tr in (False, True):
+                ref = patch_engine.bucket_spmm_plain(vals, cc, rs, X, n,
+                                                     transpose=tr)
+                for prec in ("highest", None):
+                    key = ("B2 transpose" if tr else "B2") + (
+                        " tf32" if prec is None else "")
+                    got = patch_engine.bucket_spmm(vals, cc, rs, X, n,
+                                                   transpose=tr, precision=prec)
+                    torch.cuda.synchronize()
+                    errs[key] = max(errs[key], rel_check(
+                        f"B2 {'transpose' if tr else 'forward'} {label} "
+                        f"MP={vals.shape[1]} r={r} precision={prec}", got,
+                        ref, TIER_TOL[prec]))
+            other = batched_spmm.batched_spmm(vals[None], cc, rs, X[None], n)[0]
+            got = patch_engine.bucket_spmm(vals, cc, rs, X, n)
+            torch.cuda.synchronize()
+            errs["B2 duality"] = max(errs["B2 duality"], rel_check(
+                f"B2 forward {label} r={r} vs B4's forward at P=1", got, other,
+                TOL32))
+            for P in (2, 4):
+                vals_b = vals[None] * torch.randn((P,) + tuple(vals.shape),
+                                                  generator=gen).to(DEV)
+                Xb = torch.randn((P, n, r), generator=gen).to(DEV)
+                name = f"B2 transpose {label} P={P} r={r}"
+                ref = batched_spmm.batched_spmm_plain(vals_b, cc, rs, Xb, n,
+                                                      transpose=True)
+                loop = torch.stack([patch_engine.bucket_spmm(
+                    vals_b[p], cc, rs, Xb[p], n, transpose=True)
+                    for p in range(P)])
+                for prec in ("highest", None):
+                    key = "B2 transpose" + (" tf32" if prec is None else "")
+                    got = batched_spmm.batched_spmm(
+                        vals_b, cc, rs, Xb, n, transpose=True, precision=prec)
+                    torch.cuda.synchronize()
+                    errs[key] = max(errs[key], rel_check(
+                        f"{name} precision={prec} vs plain", got, ref,
+                        TIER_TOL[prec]))
+                    if prec == "highest":
+                        errs["B2 transpose duality"] = max(
+                            errs["B2 transpose duality"], rel_check(
+                                f"{name} vs {P} single transposes", got, loop,
+                                TOL32))
+        print(f"  B2 prologue {label} n={n}: hi bit-equal to the plain "
+              f"tf32(X)^T at both tiers, hi + lo == X exactly, r in {B2_R}")
+    # the prologue's product axis: one launch for three products
+    vals, cc, rs, n = plans["48-row"]
+    Xb = torch.randn((3, n, 40), generator=gen).to(DEV)
+    before = counts()
+    hi, lo = patch_engine.patch_xt(Xb, 1)
+    torch.cuda.synchronize()
+    require(grown_since(before)["B2 prologue"] == 1,
+            "the P-axis prologue must be one launch")
+    for p in range(3):
+        phi, _ = patch_engine.patch_xt_plain(Xb[p], 1)
+        require(torch.equal(hi[p], phi) and torch.equal(
+            hi[p, :, :n] + lo[p, :, :n], Xb[p].t()),
+            f"B2 prologue P=3: product {p} differs from its plain split")
+    print("  B2 prologue P=3: one launch, each product's hi bit-equal to its "
+          "plain split, hi + lo == X")
+    # inf / NaN in the rows of X that no window covers
+    MP = vals.shape[1]
+    covered = torch.zeros(n, dtype=torch.bool)
+    reach = torch.zeros(n, dtype=torch.bool)  # read by a window's last box
+    for w in rs.tolist():
+        covered[w:w + MP] = True
+        reach[w + MP:w + -(-MP // 32) * 32] = True
+    bad = ~covered
+    require(bool((bad & reach).any()), "the 48-row plan must leave rows "
+            "inside a window's last box uncovered")
+    X = torch.randn((n, 64), generator=gen)
+    X[bad] = float("inf")
+    X[bad.nonzero()[::2, 0]] = float("nan")
+    X = X.to(DEV)
+    ref = patch_engine.bucket_spmm_plain(vals, cc, rs, X, n, transpose=True)
+    require(bool(torch.isfinite(ref).all()), "the plain version must not "
+            "read uncovered rows")
+    for prec in ("highest", None):
+        key = "B2 transpose" + (" tf32" if prec is None else "")
+        got = patch_engine.bucket_spmm(vals, cc, rs, X, n, transpose=True,
+                                       precision=prec)
         torch.cuda.synchronize()
-        errs["B2 duality"] = max(errs["B2 duality"], rel_check(
-            f"B2 forward MP={vals.shape[1]} r={r} vs B4's forward at P=1",
-            got, other, TOL32))
+        errs[key] = max(errs[key], rel_check(
+            f"B2 transpose 48-row, inf/NaN in {int(bad.sum())} uncovered rows "
+            f"({int((bad & reach).sum())} inside last window boxes) "
+            f"precision={prec}", got, ref, TIER_TOL[prec]))
+    # duality: A.T @ X by the transpose against the forward on A^T's plan
+    midT, _ = contiguous_operator(1536, 40, 48, seed=16, value_seed=None,
+                                  device=DEV, transposed=True)
+    tplan, tdev = midT._patch_for()
+    X = torch.randn((n, 64), generator=gen).to(DEV)
+    before = counts()
+    Yt = patch_engine.patch_spmm(mplan, mdev, X, transpose=True)
+    grown_t = grown_since(before)
+    before = counts()
+    Yf = patch_engine.patch_spmm(tplan, tdev, X)
+    grown_f = grown_since(before)
+    torch.cuda.synchronize()
+    require(grown_t["B2 transpose"] >= 1 and grown_t["B2"] == 0
+            and grown_f["B2"] >= 1 and grown_f["B2 transpose"] == 0,
+            f"duality routes: {grown_t}, {grown_f}")
+    errs["B2 transpose duality"] = max(errs["B2 transpose duality"], rel_check(
+        f"B2 transpose 48-row r=64 vs B2's forward on the transposed "
+        f"layout's plan ({tplan.buckets[0].nb} slots of "
+        f"{tplan.buckets[0].MP}x{tplan.buckets[0].KP})", Yt, Yf, TOL32))
+    for case, want in TR_GEOMETRY:
+        got = patch_engine.tr_geometry(*case)
+        require(got == want, f"B2 transpose geometry {case}: (TR, group, "
+                f"blocks) {got}, expected {want}")
+    print(f"  B2 transpose geometry: {len(TR_GEOMETRY)} known shapes give the "
+          f"expected (TR, group, blocks)")
     return errs
+
+
+B2_R = (6, 8, 64, 128, 300, 302)   # phase 1's widths for B2
+
+# (P, nb, MP, KP, r, tier, SMs) -> (TR, group, blocks) of B2's transpose
+TR_GEOMETRY = (
+    # phase 3's operand (358 slots of 128 x 768, r = 128) on 132 SMs: one
+    # block per slot, all twelve 64-row tiles of it, at both tiers
+    ((1, 358, 128, 768, 128, 1, 132), (128, 12, 358)),
+    ((1, 358, 128, 768, 128, 0, 132), (128, 12, 358)),
+    # 192-row slots at tier 1: hi and lo windows of TR = 128 (192 KB) do not
+    # fit beside the rings, TR = 64 does (two column tiles: 100 blocks, one
+    # wave); at tier 0 TR = 128 fits and two blocks per slot fill the wave
+    ((1, 50, 192, 256, 128, 1, 132), (64, 4, 100)),
+    ((1, 50, 192, 256, 128, 0, 132), (128, 2, 100)),
+    # a few slots: groups of three tiles fill one wave of 120 blocks
+    ((1, 10, 8, 768, 300, 0, 132), (128, 3, 120)),
+    # r <= 64 takes TR = 64; the product axis multiplies the grid
+    ((4, 358, 128, 768, 40, 1, 132), (64, 12, 1432)),
+)
 
 
 def check_stream_kernel(name, kernel, plain, plan, dev, x, errs):
@@ -1009,11 +1162,11 @@ def stream_kernels_vs_plain(gen):
 
 
 def batched_kernels_vs_plain(gen, patch_bucket, panel_plans):
-    """B4 on phase 1's patch plan and B6 on its panel plans: P products
-    whose values are the plan's own scaled entry by entry (padding stays
-    zero), against the plain versions, and the duality checks: B4 against
-    P launches of B2, B6 at 1 against 16 tiles per warp and against P
-    launches of B5."""
+    """B4 (forward; its transpose is B2's, checked in b2_vs_plain) on phase
+    1's patch plan and B6 on its panel plans: P products whose values are
+    the plan's own scaled entry by entry (padding stays zero), against the
+    plain versions, and the duality checks: B4 against P launches of B2, B6
+    at 1 against 16 tiles per warp and against P launches of B5."""
     errs = {"B4": 0.0, "B4 tf32": 0.0, "B4 duality": 0.0, "B6": 0.0,
             "B6 duality": 0.0}
     vals, cc, rs, n = patch_bucket
@@ -1025,22 +1178,20 @@ def batched_kernels_vs_plain(gen, patch_bucket, panel_plans):
         vals_b = planes(vals, P)
         for r in (8, 64, 128, 264):
             X = torch.randn((P, n, r), generator=gen).to(DEV)
-            for tr in (False, True):
-                name = f"B4 {'transpose' if tr else 'forward'} P={P} r={r}"
-                got = batched_spmm.batched_spmm(vals_b, cc, rs, X, n, transpose=tr)
-                fast = batched_spmm.batched_spmm(vals_b, cc, rs, X, n,
-                                                 transpose=tr, precision=None)
-                ref = batched_spmm.batched_spmm_plain(vals_b, cc, rs, X, n,
-                                                      transpose=tr)
-                loop = torch.stack([patch_engine.bucket_spmm(
-                    vals_b[p], cc, rs, X[p], n, transpose=tr) for p in range(P)])
-                torch.cuda.synchronize()
-                errs["B4"] = max(errs["B4"], rel_check(
-                    f"{name} precision=highest vs plain", got, ref, TOL32))
-                errs["B4 tf32"] = max(errs["B4 tf32"], rel_check(
-                    f"{name} precision=None vs plain", fast, ref, TOL_TF32))
-                errs["B4 duality"] = max(errs["B4 duality"], rel_check(
-                    f"{name} vs {P} B2 launches", got, loop, TOL32))
+            name = f"B4 forward P={P} r={r}"
+            got = batched_spmm.batched_spmm(vals_b, cc, rs, X, n)
+            fast = batched_spmm.batched_spmm(vals_b, cc, rs, X, n,
+                                             precision=None)
+            ref = batched_spmm.batched_spmm_plain(vals_b, cc, rs, X, n)
+            loop = torch.stack([patch_engine.bucket_spmm(
+                vals_b[p], cc, rs, X[p], n) for p in range(P)])
+            torch.cuda.synchronize()
+            errs["B4"] = max(errs["B4"], rel_check(
+                f"{name} precision=highest vs plain", got, ref, TOL32))
+            errs["B4 tf32"] = max(errs["B4 tf32"], rel_check(
+                f"{name} precision=None vs plain", fast, ref, TOL_TF32))
+            errs["B4 duality"] = max(errs["B4 duality"], rel_check(
+                f"{name} vs {P} B2 launches", got, loop, TOL32))
     for label, plan in panel_plans.items():
         tables = panel_spmv.panel_id_tables(plan, DEV)
         for P in (2, 5):
@@ -1175,7 +1326,7 @@ def phase2():
             "JAX decision)")
 
     # kernels against their plain versions at the flagship's shapes
-    errs = {"B1": 0.0, "B2": 0.0}
+    errs = {"B1": 0.0, "B2": 0.0, "B2 transpose": 0.0}
     for hb, (v, _ri, _ci, rc, cc) in zip(A.layout.buckets, A._buckets):
         for tr in (False, True):
             got = fused_spmm.chunked_block_apply(v, rc, cc, hb.chunk, x, 4096, transpose=tr)
@@ -1189,7 +1340,8 @@ def phase2():
             got = patch_engine.bucket_spmm(vals, cc, rs, X, 4096, transpose=tr)
             ref = patch_engine.bucket_spmm_plain(vals, cc, rs, X, 4096, transpose=tr)
             torch.cuda.synchronize()
-            errs["B2"] = max(errs["B2"], rel_check(
+            key = "B2 transpose" if tr else "B2"
+            errs[key] = max(errs[key], rel_check(
                 f"B2 {'transpose' if tr else 'forward'} r=64", got, ref, TOL[torch.float32]))
 
     # the main path, counted
@@ -1197,7 +1349,8 @@ def phase2():
         ("A @ X", lambda: A @ X, S @ Xn.astype(np.float64), "B2"),
         ("A @ x", lambda: A @ x, S @ xn.astype(np.float64), "B1"),
         ("A.T @ x", lambda: A.T @ x, S.T @ xn.astype(np.float64), "B1"),
-        ("A.H @ X", lambda: A.H @ X, S.T @ Xn.astype(np.float64), "B2"),
+        ("A.H @ X", lambda: A.H @ X, S.T @ Xn.astype(np.float64),
+         "B2 transpose"),
         ("A.axpby(x, y, 2.0, 0.5)", lambda: A.axpby(x, y, 2.0, 0.5),
          2.0 * (S @ xn.astype(np.float64)) + 0.5 * yn.astype(np.float64), "B1"),
         ("(A @ A) @ x", lambda: (A @ A) @ x,
@@ -1213,13 +1366,13 @@ def phase2():
     torch.cuda.synchronize()
     launches = counts()
     print(f"  main-path launches: {launches}")
-    # B2's forward runs its prologue first; its transpose (B4's transposed
-    # instance at P = 1) needs none
+    # B2's forward and its transpose each run the prologue first
     require(per["A @ X"]["B2 prologue"] == per["A @ X"]["B2"]
-            and per["A.H @ X"]["B2 prologue"] == 0,
-            f"B2 prologue launches: {per['A @ X']}, {per['A.H @ X']}")
+            and per["A @ X"]["B2 transpose"] == 0
+            and per["A.H @ X"]["B2 prologue"] == per["A.H @ X"]["B2 transpose"]
+            and per["A.H @ X"]["B2"] == 0,
+            f"B2 launches: {per['A @ X']}, {per['A.H @ X']}")
     launches["B2 forward"] = per["A @ X"]["B2"]
-    launches["B2 transpose"] = per["A.H @ X"]["B2"]
     # the r = 1 products: one B1 launch per application of A
     for name, tr, k in (("A @ x", False, 1), ("A.T @ x", True, 1),
                         ("A.axpby(x, y, 2.0, 0.5)", False, 1),
@@ -1228,7 +1381,8 @@ def phase2():
                                          bucket_want(A, tr).items()})
     for (name, _fn, ref, _k), out in zip(products, outs):
         rel_check(f"{name} vs float64 scipy", out, ref, TOL[torch.float32])
-    require(launches["B1"] > 0 and launches["B2"] > 0,
+    require(launches["B1"] > 0 and launches["B2"] > 0
+            and launches["B2 transpose"] > 0,
             f"main path skipped a kernel: {launches}")
 
     # gradients: the backward passes run each kernel in the other mode
@@ -1242,7 +1396,9 @@ def phase2():
         ref = S.T @ (Wn if r > 1 else Wn[:, 0]).astype(np.float64)
         rel_check(name, Xg.grad, ref, TOL[torch.float32])
         grown = {k: counts()[k] - before[k] for k in before}
-        require(grown["B2" if r > 1 else "B1"] >= 2,
+        # the forward and its dX: B2 then B2's transpose; B1 twice at r = 1
+        require(grown["B2"] >= 1 and grown["B2 transpose"] >= 1 if r > 1
+                else grown["B1"] >= 2,
                 f"{name}: backward did not run the kernel ({grown})")
     return errs, launches
 
@@ -1297,9 +1453,11 @@ def b2_real(A, X, bounds, card) -> dict:
     """Phase 3's SpMM through B2 beside the default ("highest") operator:
     at precision=None (a second operator built with it), A.T @ X at both
     tiers, each checked against the float64 plain route and timed eager and
-    from a CUDA graph; then, eager and from a CUDA graph, the forward's
-    prologue alone, the bucket's forward (prologue included) and B4's
-    forward instance at P = 1 on the same plan; and the host time per
+    from a CUDA graph; then, eager and from a CUDA graph, the prologue
+    alone, the bucket's forward (prologue included), B4's forward instance
+    at P = 1 on the same plan, and the transposed kernel alone (its grid,
+    and the X^T bytes its blocks load, its output adds and its X^T scratch
+    as the plan gives them, printed beside it); and the host time per
     call."""
     n, r = X.shape
     An, _ = contiguous_operator(8192, 2000, 128, seed=7, value_seed=7 + 7777,
@@ -1315,7 +1473,8 @@ def b2_real(A, X, bounds, card) -> dict:
     Yn, Yt, Ytn = An @ X, A.T @ X, An.T @ X
     torch.cuda.synchronize()
     require_counts("A @ X at None, A.T @ X at both tiers", grown_since(before),
-                   {"B2": 3, "B2 prologue": 1, "B4": 0, "B1": 0})
+                   {"B2": 1, "B2 transpose": 2, "B2 prologue": 3, "B4": 0,
+                    "B1": 0})
     ref_t = plain_route(A, X, transpose=True, dtype=torch.float64)
     out = {
         "none_err": rel_check("SpMM r=128 precision=None vs float64 plain",
@@ -1351,13 +1510,27 @@ def b2_real(A, X, bounds, card) -> dict:
             "B4 P=1": lambda p=prec: batched_spmm.batched_spmm(
                 vals[None], cc, rs, X[None], n, precision=p),
         }
+        hi, lo = patch_engine.patch_xt(X[None], tier)
+        parts["transposed kernel"] = (
+            lambda t=tier, hi=hi, lo=lo: patch_engine.patch_tr(
+                vals[None], cc, rs, hi, lo, n, n, t))
         for name, fn in parts.items():
             out[(name, prec)] = (median_ms(fn), graph_ms(fn))
         pro = bounds["prologue" + (" None" if prec is None else "")]
-        print(f"  B2 forward parts, precision={prec} (eager / graph ms): "
+        print(f"  B2 parts, precision={prec} (eager / graph ms): "
               + ", ".join(f"{name} {out[(name, prec)][0]:.4f} / "
                           f"{out[(name, prec)][1]:.4f}" for name in parts)
               + f"; prologue bound {pro[0]:.4f} ms ({pro[1]}) [{card}]")
+        out[("transpose grid", prec)] = tr = transpose_traffic(
+            b, n, r, tier, hi.shape[-1])
+        print(f"  B2 transpose grid (modelled from the plan), precision={prec}: "
+              f"static split of each "
+              f"slot's live chunk pairs into groups of {tr['group']} 64-row "
+              f"tiles, TR = {tr['TR']}: {tr['blocks']} blocks on "
+              f"{tr['sms']} SMs ({tr['busy_blocks']} with work); X^T loaded "
+              f"{tr['xt_bytes'] / 1e6:.1f} MB, adds into Y "
+              f"{tr['add_bytes'] / 1e6:.1f} MB (TMA reduce-add), X^T scratch "
+              f"{tr['scratch_bytes'] / 1e6:.2f} MB [{card}]")
     out["host_us"] = {
         "A @ X": host_us(lambda: A @ X),
         "bucket_spmm": host_us(
@@ -1366,6 +1539,26 @@ def b2_real(A, X, bounds, card) -> dict:
     print("  B2 host time per call (enqueue only): " + ", ".join(
         f"{k} {v:.1f} us" for k, v in out["host_us"].items()))
     return out
+
+
+def transpose_traffic(b, n: int, r: int, tier: int, ld: int) -> dict:
+    """B2's transposed launch on patch bucket ``b`` (host plan) for X [n, r]
+    into n rows: the grid ``tr_geometry`` picks, the blocks with work, the
+    X^T bytes those blocks load (their whole window, hi and lo at tier 1),
+    the bytes added into Y (one add per live chunk row and column of every
+    slot; TMA reduce-adds in the L2 where r % 4 == 0) and the prologue's
+    X^T scratch."""
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    TR, group, blocks = patch_engine.tr_geometry(1, b.nb, b.MP, b.KP, r,
+                                                 tier, sms)
+    live = (b.col_chunk < -(-n // CC)).sum(axis=1)   # per slot
+    tiles = -(-live // 2)                              # 64-row tiles
+    busy = int((-(-tiles // group)).sum()) * -(-r // TR)
+    return {"TR": TR, "group": group, "blocks": blocks, "sms": sms,
+            "busy_blocks": busy,
+            "xt_bytes": busy * -(-b.MP // 32) * TR * 128 * (1 + tier),
+            "add_bytes": int(live.sum()) * CC * r * 4,
+            "scratch_bytes": r * ld * 4 * (1 + tier)}
 
 
 def host_us(fn, reps: int = 200) -> float:
@@ -2100,7 +2293,8 @@ def phase6():
                 panel_spmv.panel_spmv, panel_spmv.panel_apply_plain, plan,
                 dev, x, errs)
 
-    spmm = "B2" if patch_wins(V._patch_for()[0], [(V.layout, 1)], 64) else "B1"
+    spmm = ("B2 transpose" if patch_wins(V._patch_for()[0], [(V.layout, 1)], 64)
+            else "B1")
     # (name, product, reference, transpose of its stream product or None
     # for r > 1, applications of V)
     products = [
@@ -2119,6 +2313,8 @@ def phase6():
         grown = grown_since(before)
         if tr is None:
             require(grown[spmm] > 0, f"{name}: kernel {spmm} was not launched")
+            require(spmm == "B1" or grown["B2 prologue"] == grown[spmm],
+                    f"{name}: one prologue per transposed launch, got {grown}")
         else:
             require_counts(name, grown, stream_want(V, tr, k))
     torch.cuda.synchronize()
@@ -2383,8 +2579,9 @@ def time_batch(label, routes: dict, nbytes, flops, card) -> dict:
 
 def batched_mm_step(label, ops, gen, want_b2_loop: bool):
     """One batched_mm batch on the main path: exactly one B4 launch and no
-    other, each product against float64 scipy, and the gradient in Xs
-    (B4 forward and in its transpose mode)."""
+    other, each product against float64 scipy, and the gradient in Xs (B4
+    forward, then one prologue and one B2 transposed launch for the P
+    products' dX)."""
     P, n = len(ops), ops[0].shape[1]
     require(batched._stacked_entry(ops) is not None,
             f"{label}: the batch must take B4 (the JAX decision)")
@@ -2404,8 +2601,9 @@ def batched_mm_step(label, ops, gen, want_b2_loop: bool):
     before = counts()
     (W.to(DEV) * bt.batched_mm(ops, Xg)).sum().backward()
     torch.cuda.synchronize()
-    require_counts(f"gradient of batched_mm {label}", grown_since(before),
-                   {"B4": 2, "B2": 0})
+    grad = grown_since(before)
+    require_counts(f"gradient of batched_mm {label}", grad,
+                   {"B4": 1, "B2 transpose": 1, "B2 prologue": 1, "B2": 0})
     batch_check(f"d(W . batched_mm {label})/dXs vs float64 scipy A_p^T W_p",
                 Xg.grad, scipy_grads(ops, W))
     if want_b2_loop:
@@ -2413,7 +2611,49 @@ def batched_mm_step(label, ops, gen, want_b2_loop: bool):
         torch.stack([op @ Xd[p] for p, op in enumerate(ops)])
         require_counts(f"loop of {label}", grown_since(before),
                        {"B2": P, "B4": 0})
-    return got["B4"], err
+    return got["B4"], grad["B2 transpose"], err
+
+
+def batched_dx(ops, vals_b, cc, rs, gen, card) -> dict:
+    """The dX of batched_mm at the real size: B2's transposed product at
+    P = 4 (one prologue and one transposed launch) at both tiers, against
+    the float64 plain version, timed beside the plain version and the
+    block-diagonal transposed CSR matrix @ G, with its bound."""
+    P, n, r = len(ops), ops[0].shape[1], 128
+    G = torch.randn((P, n, r), generator=gen).to(DEV)
+    dx = {prec: (lambda p=prec: batched_spmm.batched_spmm(
+        vals_b, cc, rs, G, n, transpose=True, precision=p))
+        for prec in ("highest", None)}
+    before = counts()
+    got = {prec: fn() for prec, fn in dx.items()}
+    torch.cuda.synchronize()
+    require_counts("batched_mm dX at both tiers", grown_since(before),
+                   {"B2 transpose": 2, "B2 prologue": 2, "B4": 0, "B2": 0})
+    ref = batched_spmm.batched_spmm_plain(vals_b.double(), cc, rs, G.double(),
+                                          n, transpose=True)
+    out = {"errs": {prec: batch_check(
+        f"batched_mm dX P={P} precision={prec} vs float64 plain", got[prec],
+        list(ref), TIER_TOL[prec]) for prec in dx}}
+    del ref
+    nnz = sum(op.nnz for op in ops)
+    nbytes, flops = nnz * 4 + 2 * P * n * r * 4, 2 * nnz * r
+    csr_t = csr_on_card(ops, transpose=True)
+    out.update(time_batch("batched_mm dX real size", {
+        "highest": dx["highest"], "none": dx[None],
+        "plain": lambda: batched_spmm.batched_spmm_plain(
+            vals_b, cc, rs, G, n, transpose=True)}, nbytes, flops, card))
+    out["library"] = library_ms(
+        "batched_mm dX real size, block-diagonal transposed CSR matrix @ "
+        "stacked G", lambda: csr_t @ G.reshape(P * n, r),
+        got["highest"].reshape(P * n, r), card)
+    out["bound"], out["bound none"] = (bound(nbytes, flops),
+                                       bound(nbytes, flops, None))
+    for key, prec in (("highest", "highest"), ("none", None)):
+        bnd = out["bound none" if prec is None else "bound"]
+        print(f"  batched_mm dX precision={prec}: graph {out[key][1]:.4f} ms "
+              f"against its bound {bnd[0]:.4f} ms ({bnd[1]}): "
+              f"{100 * bnd[0] / out[key][1]:.1f}% of the bound [{card}]")
+    return out
 
 
 def batched_mv_step(label, ops, gen, card):
@@ -2482,13 +2722,15 @@ def phase9(card: str):
     out = {"errs": {"B4": 0.0, "B4 tf32": 0.0, "B6": 0.0}, "launches": {}}
     errs, launches = out["errs"], out["launches"]
 
-    # 9.1 batched_mm at r = 128, one B4 launch per batch
+    # 9.1 batched_mm at r = 128, one B4 launch per batch, and its gradient
+    launches["B2 transpose"] = 0
     for key, label, ops in (
             ("config 4", "config 4 (n=4096, 200 x 64x64 BSM)",
              config1_operators(4096, 200, 64, 4)),
             ("config 3", "config 3 (n=4096, VBCRS)", config3_operators(4096, 4))):
-        launches[f"B4 {key}"], err = batched_mm_step(label, ops, gen,
-                                                      key == "config 4")
+        launches[f"B4 {key}"], dx, err = batched_mm_step(label, ops, gen,
+                                                          key == "config 4")
+        launches["B2 transpose"] += dx
         errs["B4"] = max(errs["B4"], err)
 
     # 9.2 batched_mm at the real size, timed
@@ -2550,7 +2792,9 @@ def phase9(card: str):
               f"its bound {bnd[0]:.4f} ms ({bnd[1]}): "
               f"{100 * bnd[0] / times[key][1]:.1f}% of the bound [{card}]")
     out["mm"] = times
-    del csr, vals_b, X, Y, loop_out, ops
+    del csr, Y, loop_out
+    out["dX"] = batched_dx(ops, vals_b, cc, rs, gen, card)
+    del vals_b, X, ops
 
     # 9.3 batched_mv at P = 16, one B6 launch per batch
     for key, label, ops in (
@@ -2812,6 +3056,36 @@ def phase11(card: str, defaults: dict, library: dict):
     return out
 
 
+def transpose_times(card: str) -> dict:
+    """The transposed products of this checkout's B2, timed alone (eager
+    and from a CUDA graph, at both tiers): A.T @ X on phase 3's operand (an
+    operator built with each precision) and batched_mm's dX at phase 9's
+    real size (P = 4).  Only entry points that older checkouts of the port
+    also have are used (the operators' .T and their ``precision``,
+    batched_spmm's transpose mode), so this script, copied into an older
+    checkout, times its transposes the same way (``--transposes``)."""
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    X = torch.randn((8192, 128), generator=gen).to(DEV)
+    out = {}
+    for prec in ("highest", None):
+        A, _ = contiguous_operator(8192, 2000, 128, seed=7,
+                                   value_seed=7 + 7777, device=DEV,
+                                   precision=prec)
+        fn = lambda A=A: A.T @ X  # noqa: E731
+        out[f"A.T @ X {prec}"] = (median_ms(fn), graph_ms(fn))
+        del A, fn
+    ops = config1_operators(8192, 2000, 128, 4)
+    _plan, vals_b, cc, rs = batched._stacked_entry(ops)
+    G = torch.randn((4, 8192, 128), generator=gen).to(DEV)
+    for prec in ("highest", None):
+        fn = lambda p=prec: batched_spmm.batched_spmm(  # noqa: E731
+            vals_b, cc, rs, G, 8192, transpose=True, precision=p)
+        out[f"batched_mm dX P=4 {prec}"] = (median_ms(fn), graph_ms(fn))
+    for k, (eager, graph) in out.items():
+        print(f"  {k}: eager {eager:.4f} ms, graph {graph:.4f} ms [{card}]")
+    return out
+
+
 def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2834,6 +3108,23 @@ def main() -> None:
     if regs:
         print(f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} registers "
               f"per thread, {spills} bytes of spill stores in all")
+    tr_builds = {}  # B2's transpose: its <TR, TIER> instances
+    for part in out.split("Compiling entry function")[1:]:
+        inst = re.match(r" '\w*patch_tr_kernelILi(\d+)ELi(\d)E", part)
+        used = re.search(r"Used (\d+) registers", part)
+        if inst and used:
+            spill = re.search(r"(\d+) bytes spill stores", part)
+            tr_builds[inst.groups()] = (used.group(1),
+                                        spill.group(1) if spill else "0")
+    for (TR, tier), (used, spill) in sorted(tr_builds.items()):
+        print(f"ptxas: B2 transpose TR={TR} tier {tier}: {used} registers, "
+              f"{spill} bytes of spill stores")
+    if out:
+        print(f"ptxas: {out.count('C7519')} wgmma fences injected (C7519)")
+    if sys.argv[1:] == ["--transposes"]:
+        print(f"transposes of the port at {bt.__file__}")
+        print(json.dumps({"transposes": transpose_times(card)}))
+        return
 
     wall = {}
 
@@ -2976,11 +3267,28 @@ def main() -> None:
             for part, key in (("forward", "bucket"), ("B4 P=1", "b4_p1"))
             for prec in ("highest", None)
             for i, k in enumerate(("ms", "graph_ms"))}},
-        {"name": "patch_spmm transpose (B2 on B4's transposed instance, "
-                 "P=1)", "route": "cuda", "source": B4_SRC,
+        {"name": "patch_spmm transpose (B2's transpose: wgmma + TMA, V^T "
+                 "in registers)", "route": "cuda", "source": B2_TR_SRC,
          "replaces": B2_TR_REPLACES, "launches": launches["B2 transpose"],
+         "launches_by_path": {
+             "flagship main path A.H @ X (phase 2)": launches["B2 transpose"],
+             "batched_mm dX, config 4 and config 3 (phase 9)":
+                 batch["launches"]["B2 transpose"]},
+         "design": "A = V^T read into registers from TMA boxes of live "
+                   "chunks, B = the slot's window of X^T kept in shared "
+                   "memory for every 64-row tile of the block; one producer "
+                   "warp per consumer warpgroup, two warpgroups on "
+                   "alternate tiles; tiles added into Y by TMA reduce-add "
+                   "from swizzled staging; product axis in grid z "
+                   "(batched_mm's dX)",
          "max_abs_err": b2["transpose_err"],
          "max_abs_err_none": b2["transpose_none_err"],
+         "max_abs_err_phase1": errs1["B2 transpose"],
+         "max_abs_err_tf32_phase1": errs1["B2 transpose tf32"],
+         "max_abs_err_duality": errs1["B2 transpose duality"],
+         "max_abs_err_flagship": errs2["B2 transpose"],
+         "max_abs_err_dx": batch["dX"]["errs"]["highest"],
+         "max_abs_err_dx_none": batch["dX"]["errs"][None],
          "ms": b2[("A.T @ X", "highest")][0],
          "graph_ms": b2[("A.T @ X", "highest")][1],
          "plain_ms": times["SpMM r=128 transpose plain"][0],
@@ -2988,8 +3296,24 @@ def main() -> None:
          "none_ms": b2[("A.T @ X", None)][0],
          "none_graph_ms": b2[("A.T @ X", None)][1],
          "none_bound_ms": times["bound"]["SpMM r=128 None"][0],
+         "none_bound_by": times["bound"]["SpMM r=128 None"][1],
+         **{f"kernel{'_none' if prec is None else ''}_{k}":
+            b2[("transposed kernel", prec)][i]
+            for prec in ("highest", None)
+            for i, k in enumerate(("ms", "graph_ms"))},
+         **{f"dx{'_none' if key == 'none' else ''}_{k}": batch["dX"][key][i]
+            for key in ("highest", "none")
+            for i, k in enumerate(("ms", "graph_ms"))},
+         "dx_plain_ms": batch["dX"]["plain"][0],
+         "dx_plain_graph_ms": batch["dX"]["plain"][1],
+         "dx_bound_ms": batch["dX"]["bound"][0],
+         "dx_none_bound_ms": batch["dX"]["bound none"][0],
+         "dx_library_ms": batch["dX"]["library"],
+         "dx_library_graph_ms": batch["dX"]["library"].graph,
          "timed": "A.T @ X, n=8192, 2000 x 128x128 f32, r=128, "
-                  "precision='highest'; none: precision=None",
+                  "precision='highest', prologue included; none: "
+                  "precision=None; kernel: the transposed launch alone; dx: "
+                  "batched_mm's dX, P=4 x that operand",
          "card": card,
          **measured(times["bound"]["SpMM r=128"],
                     times["library"]["SpMM r=128 transpose"])},
@@ -3005,7 +3329,8 @@ def main() -> None:
          "none_graph_ms": b2[("prologue", None)][1],
          "none_bound_ms": times["bound"]["prologue None"][0],
          "timed": "X [8192, 128] -> hi, lo [128, 8192] (tier 1); none: hi "
-                  "only (tier 0)", "card": card,
+                  "only (tier 0); one launch per forward or transposed "
+                  "product", "card": card,
          **measured(times["bound"]["prologue"], None)},
         {"name": "patch_sym (B3)", "route": "cuda", "source": B3_SRC,
          "replaces": B3_REPLACES, "launches": launches4["B3"],

@@ -158,8 +158,9 @@ def test_batched_r_slicing(ops, rng):
 
 
 def test_batched_grad(ops, rng):
-    """Cotangents in Xs through the autograd Function (dX by B4's transpose
-    mode): against jax.grad of the JAX call and against 2 A^T A X."""
+    """Cotangents in Xs through the autograd Function (dX by B2's
+    transposed product with its product axis): against jax.grad of the JAX
+    call and against 2 A^T A X."""
     J, P_ = ops
     Xn = rng.standard_normal((3, 512, 8)).astype(np.float32)
     Xs = torch.from_numpy(Xn).requires_grad_()

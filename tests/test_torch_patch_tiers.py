@@ -1,9 +1,10 @@
 """Kernel B2 (general patch SpMM) and its precision tiers, on the CPU.
 
-On the card B2's forward runs on wgmma after a prologue launch that writes
-the K-major copy X^T (hi = tf32(X)^T and, at "highest"/"high", lo =
-(X - hi)^T); its transpose runs B4's transposed instance at P = 1, both at
-the operator's tier.  Here, where the wrappers take the plain versions:
+On the card B2's forward and its transpose run on wgmma, each after a
+prologue launch that writes the K-major copy X^T (hi = tf32(X)^T and, at
+"highest"/"high", lo = (X - hi)^T), both at the operator's tier
+(``tests/test_torch_patch_transpose.py`` holds the transpose on its own).
+Here, where the wrappers take the plain versions:
 
   - the prologue's plain split: hi has its low 13 bits zero, hi + lo == X
     bit for bit, and the rounding is cvt.rna's (nearest, ties away from
