@@ -18,11 +18,17 @@ map back to y through each segment's target, the same segment of x.
 One departure from the JAX package: the mirror map-back is a per-segment
 int32 target table ``otgt`` instead of the one-hot ``omap``
 [S*CW*4, NG*NC32] (tens to hundreds of MB at real sizes).  ``aux_bytes``
-still counts the one-hot, so the route decision is the JAX package's.
+still counts the one-hot, so ``stream_plan_choice`` charges a general
+operand's plan as the JAX package does (a symmetric operand's plan is
+charged the port's own cost, ``ops/panel_router.py::route_bytes``).
 
 The cost-model constants (``_STEP_TAX``, ``_ROLL_TAX``,
 ``_MIRROR_RATE_PENALTY``, the 256-768 slab budgets) were measured on a TPU
-v5e and are kept as they are, so the port plans as the JAX package does.
+v5e and are kept as they are, so these planners plan as the JAX package
+does.  The port's route picks between a symmetric operand's two candidate
+plans (:func:`symmetric_candidates`) by its own H100 rule
+(``ops/panel_router.py``); :func:`panel_plan_symmetric` keeps the JAX
+rule.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ from .layout import BlockLayout, is_contiguous
 from .strip import CC, RC
 
 __all__ = ["PanelPlan", "build_panel_plan", "panel_plan_from_layout",
-           "panel_plan_symmetric", "SEG", "GRIDS", "NSEG"]
+           "panel_plan_symmetric", "symmetric_candidates", "SEG", "GRIDS",
+           "NSEG"]
 
 SEG = 32               # x-gather segment (lanes) = one row of x.reshape(-1,32)
 GRIDS = tuple(range(0, 32, 4))   # shifted seg grids (rows of roll(x, -g))
@@ -88,8 +95,9 @@ class PanelPlan:
     def aux_bytes(self) -> int:
         """Per-product aux stream as the JAX package counts it: id vectors,
         segment tables and (mirror plans) the bf16 map-back one-hot.  The
-        route decision reads this, so the one-hot is counted though the
-        port stages only ``otgt``."""
+        JAX package's rules read this (``_plan_cost``, and
+        ``stream_plan_choice`` for a general operand), so the one-hot is
+        counted though the port stages only ``otgt``."""
         a = (self.rid8.size + self.cid8.size + self.segid.size) * 4
         return int(a + self.omap_size * 2)
 
@@ -424,25 +432,22 @@ def panel_plan_from_layout(layout: BlockLayout, *, transpose: bool = False,
 _MIRROR_RATE_PENALTY = 1.4
 
 
-def panel_plan_symmetric(dlayout: BlockLayout, olayout: BlockLayout, *,
+def symmetric_candidates(dlayout: BlockLayout, olayout: BlockLayout, *,
                          transpose_diag: bool = False, TS_max: int = 1024):
-    """Symmetric panel plan: S = D + O + O^T in one kernel launch.
+    """(fused, expanded): the two candidate plans of a symmetric operand
+    S = D + O + O^T, each None where ineligible (both None unless f32).
 
-    Two candidate layouts, decided by the JAX package's cost model:
-
-      * **fused**: store each off-diagonal once; the kernel emits both
-        contributions from one value read (mirror plan), charged
-        ``_MIRROR_RATE_PENALTY`` per byte;
-      * **expanded**: materialize O^T blocks too and run the plain
+      * **fused**: each off-diagonal stored once; the kernel emits both
+        contributions from one value read (mirror plan);
+      * **expanded**: O^T blocks materialized too, run by the plain
         (forward-only) kernel.
 
     ``transpose_diag`` builds the S^T variant (diagonal blocks transpose;
-    the off-diagonal pair is transpose-invariant).
-    """
+    the off-diagonal pair is transpose-invariant)."""
     dts = [b.values.dtype for b in dlayout.buckets] + [
         b.values.dtype for b in olayout.buckets]
     if dts and np.result_type(*dts) != np.float32:
-        return None
+        return None, None
     shape = (dlayout.nrows, dlayout.ncols)
     diag = _layout_entries(dlayout, transpose=transpose_diag)
     off = _layout_entries(olayout, transpose=False)
@@ -452,6 +457,17 @@ def panel_plan_symmetric(dlayout: BlockLayout, olayout: BlockLayout, *,
         mirror=True, TS_max=TS_max)
     expanded = _best_shift_variant(diag + off + off_t, shape, mirror=False,
                                    TS_max=TS_max)
+    return fused, expanded
+
+
+def panel_plan_symmetric(dlayout: BlockLayout, olayout: BlockLayout, *,
+                         transpose_diag: bool = False, TS_max: int = 1024):
+    """Symmetric panel plan: S = D + O + O^T in one kernel launch, the
+    cheaper of :func:`symmetric_candidates` by the JAX package's cost model
+    (the fused plan charged ``_MIRROR_RATE_PENALTY`` per byte).  The port's
+    route takes its own rule (``ops/panel_router.py``)."""
+    fused, expanded = symmetric_candidates(
+        dlayout, olayout, transpose_diag=transpose_diag, TS_max=TS_max)
 
     def cost(p, factor):
         return None if p is None else _plan_cost(p) * factor

@@ -29,7 +29,8 @@ class StreamRouted:
 
     The plans and bucket-route reads default to one general layout,
     ``_layout`` (BSM, VBCRS); the symmetric format overrides
-    ``_build_panel``, ``_build_strip`` and ``_stream_reads``."""
+    ``_build_panel``, ``_build_strip``, ``_stream_reads`` and
+    ``_panel_bytes``."""
 
     def _build_panel(self, transpose: bool):
         return panel_plan_general(self._layout, transpose=transpose,
@@ -41,6 +42,10 @@ class StreamRouted:
     def _stream_reads(self):
         """[(layout, value reads)] of the bucket route, for the decision."""
         return [(self._layout, 1)]
+
+    def _panel_bytes(self, plan):
+        """The panel plan's cost in the decision; None: the JAX rule's."""
+        return None
 
     def _cached(self, key, build):
         if key not in self._stream:
@@ -60,9 +65,10 @@ class StreamRouted:
     def _stream_entry(self, transpose: bool):
         """(choice, plan, device tensors); choice None = bucket route."""
         def build():
-            choice = stream_plan_choice(self._panel_for(transpose),
-                                        self._strip_for(transpose),
-                                        self._stream_reads())
+            pplan = self._panel_for(transpose)
+            choice = stream_plan_choice(pplan, self._strip_for(transpose),
+                                        self._stream_reads(),
+                                        panel_bytes=self._panel_bytes(pplan))
             if choice == "panel":
                 plan = self._panel_for(transpose)
                 return choice, plan, panel_arrays(plan, self._device)

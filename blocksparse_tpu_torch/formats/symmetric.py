@@ -44,7 +44,7 @@ from ..core.operator import LinearOperator
 from ..core.strip import plan_symmetric
 from ..ops.dispatch import (apply_symmetric, check_route_options,
                             patch_eligible, patch_wins, strip_eligible)
-from ..ops.panel_router import panel_plan_sym
+from ..ops.panel_router import panel_plan_sym, route_bytes
 from .block_sparse import (_PRECISIONS, BlockSparseMatrix, _check_operand,
                            _colors_tuple, _np_dtype, _resolve_device, _stage,
                            _torch_dtype)
@@ -208,6 +208,10 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
     def _build_strip(self, transpose: bool):
         return plan_symmetric(self._dlayout, self._olayout,
                               transpose_diag=transpose)
+
+    def _panel_bytes(self, plan):
+        # the H100 rule's cost, by which panel_plan_sym picked the plan
+        return route_bytes(plan)
 
     def _stream_reads(self):
         # the bucket route reads each stored off-diagonal twice in the JAX

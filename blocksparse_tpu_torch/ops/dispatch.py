@@ -125,7 +125,8 @@ def strip_eligible(x: torch.Tensor, dtype: torch.dtype) -> bool:
             and x.ndim == 1)
 
 
-def stream_plan_choice(pplan, splan, layouts_reads) -> str | None:
+def stream_plan_choice(pplan, splan, layouts_reads, *,
+                       panel_bytes: float | None = None) -> str | None:
     """'panel' | 'strip' | None: the cheapest total stream wins.
 
     ``pplan`` / ``splan``: the panel and slab plans, or None where the
@@ -134,12 +135,15 @@ def stream_plan_choice(pplan, splan, layouts_reads) -> str | None:
     tile and aux bytes plus one launch tax; the bucket engines cost their
     padded bytes per value read (``layouts_reads``: [(layout, reads)],
     symmetric off-diagonals read twice), scattered buckets charged up to
-    3x by chunk width.
+    3x by chunk width.  ``panel_bytes``, where given, is the panel plan's
+    cost in place of its tile and aux bytes: the cost by which the port's
+    router picked the plan (``ops/panel_router.py::route_bytes``).
     """
     cands = []
     if pplan is not None:
-        cands.append((pplan.tile_bytes + pplan.aux_bytes + _STRIP_TAX,
-                      "panel"))
+        if panel_bytes is None:
+            panel_bytes = pplan.tile_bytes + pplan.aux_bytes
+        cands.append((panel_bytes + _STRIP_TAX, "panel"))
     if splan is not None:
         cands.append((splan.tile_bytes + splan.aux_bytes + _STRIP_TAX,
                       "strip"))

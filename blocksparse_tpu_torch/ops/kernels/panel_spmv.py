@@ -21,10 +21,21 @@ per-segment map-back target ``otgt`` (the JAX package's one-hot ``omap`` is
 never built); :func:`panel_id_tables` stages the tables alone.  The shift
 grids travel as one packed integer.
 
-Race-freedom: warps add their row sums and mirrored sums into a zeroed
-output with fp32 ``atomicAdd`` (``csrc/tile_stream.cuh``); the summation
-order varies from run to run.  ``tiles_per_warp`` moves sums between
-registers and atomics without changing the product.
+Design (``csrc/panel_spmv.cu``): persistent blocks over contiguous ranges
+of the tile stream, one producer warp feeding a ring of shared-memory
+stages with 1-D bulk copies of the live tiles and each stage's tables
+(read a stage ahead) in its ring slot, a slab's mirrored sums kept in
+shared memory.  :func:`panel_geometry` reports the launch a plan gets:
+ring stages, mirror mode (sums in shared memory, or direct atomics where
+the plan's CW leaves too little room), blocks per SM, blocks and tiles per
+block.
+
+Race-freedom: every sum goes into a zeroed output with fp32 atomics (a
+block's mirrored sums meet in shared memory first); the summation order
+varies from run to run.  ``tiles_per_block`` moves sums between registers,
+shared memory and atomics without changing the product.  B6 keeps the
+``tile_stream.cuh`` core (``tiles_per_warp``, as B8 and B10): on the
+real-size batches the ring was slower.
 
 Routing: a CPU tensor takes the plain version (:func:`panel_apply_plain`,
 :func:`panel_apply_batched_plain`); a CUDA tensor launches the kernel or
@@ -40,6 +51,8 @@ forward), giving dx and, where the values require it, dvals.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -47,7 +60,8 @@ from ...core.panel import NSEG, SEG, PanelPlan
 from ...core.strip import CC, RC
 from ...utils import build
 
-__all__ = ["panel_device_arrays", "panel_id_tables", "panel_spmv",
+__all__ = ["panel_device_arrays", "panel_id_tables", "panel_geometry",
+           "PANEL_MODES", "panel_spmv",
            "panel_apply_plain", "panel_apply", "panel_spmv_batched",
            "panel_apply_batched_plain", "panel_apply_batched", "LAUNCHES",
            "MIRROR_LAUNCHES", "BATCHED_LAUNCHES", "BATCHED_MIRROR_LAUNCHES"]
@@ -154,14 +168,33 @@ def _kernel_args(plan: PanelPlan, dev, x: torch.Tensor) -> int:
 
 
 def _default_tpw(ntiles: int) -> int:
-    """Tiles per warp: about four thousand warps in flight, 1-16 tiles each."""
+    """Tiles per warp of the ``tile_stream.cuh`` kernels (B6, B8, B10):
+    about four thousand warps in flight, 1-16 tiles each."""
     return max(1, min(16, ntiles // 4096))
 
 
+PANEL_MODES = ("plain", "mirror", "mirror direct")
+
+
+def panel_geometry(plan: PanelPlan) -> dict:
+    """The launch B5 takes for ``plan`` on the current card, as the
+    kernel's C entry decides it: ring ``stages``, ``mode`` (one of
+    :data:`PANEL_MODES`), dynamic shared-memory bytes, ``blocks``,
+    ``tiles_per_block`` and ``per_sm`` (blocks resident on one
+    multiprocessor).  Builds the kernels' library."""
+    out = (ctypes.c_longlong * 6)()
+    build.check(build.load_library().bst_panel_spmv_geometry(
+        plan.S * plan.TS, plan.CW, int(plan.mirror), out),
+        "bst_panel_spmv_geometry")
+    return {"stages": out[0], "mode": PANEL_MODES[out[1]], "smem": out[2],
+            "blocks": out[3], "tiles_per_block": out[4], "per_sm": out[5]}
+
+
 def panel_spmv(plan: PanelPlan, dev, x: torch.Tensor, *,
-               tiles_per_warp: int | None = None) -> torch.Tensor:
+               tiles_per_block: int | None = None) -> torch.Tensor:
     """y = A @ x for a panel plan: kernel B5 on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    version on a CPU tensor.  ``tiles_per_block``: the range of the tile
+    stream each block takes (default: the kernel's geometry)."""
     global LAUNCHES, MIRROR_LAUNCHES
     _check(plan, dev, x)
     if x.device.type == "cpu":
@@ -171,7 +204,6 @@ def panel_spmv(plan: PanelPlan, dev, x: torch.Tensor, *,
     grids = _kernel_args(plan, dev, x)
     vals, rid8, cid8, segid, otgt, b8 = dev
     ntiles = plan.S * plan.TS
-    tpw = tiles_per_warp or _default_tpw(ntiles)
     x = x.contiguous()
     y = torch.zeros(plan.nrows, dtype=torch.float32, device=x.device)
     mirror = plan.mirror
@@ -180,7 +212,7 @@ def panel_spmv(plan: PanelPlan, dev, x: torch.Tensor, *,
                  otgt.data_ptr() if mirror else None, b8.data_ptr(),
                  x.data_ptr(), y.data_ptr(), ntiles, plan.TS, plan.CW,
                  plan.RW, plan.NC32, len(plan.grids_used), grids, plan.ncols,
-                 plan.nrows, int(mirror), tpw)
+                 plan.nrows, int(mirror), tiles_per_block or 0)
     LAUNCHES += 1
     MIRROR_LAUNCHES += mirror
     return y

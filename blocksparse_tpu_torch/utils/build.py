@@ -70,9 +70,11 @@ _SIGNATURES = {
     # v, idx, K, y, out_len, stream
     "bst_mask_scatter_add_f32": (_P, _P, _L, _P, _L, _P),
     # vals, rid8, cid8, segid, otgt, b8, x, y, ntiles, TS, CW, RW, NC32,
-    # ngrids, grids, ncols, nrows, mirror, tpw, stream
+    # ngrids, grids, ncols, nrows, mirror, tiles per block, stream
     "bst_panel_spmv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
-                           _I, _I, _L, _L, _L, _I, _I, _P),
+                           _I, _I, _L, _L, _L, _I, _L, _P),
+    # ntiles, CW, mirror, out (a host query on the current card)
+    "bst_panel_spmv_geometry": (_L, _I, _I, _P),
     # vals, cc, rs, x, y, P, nb, MP, KP, r, x_rows, y_rows, tier, stream
     "bst_batched_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
                              _I, _P),

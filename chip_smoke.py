@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --transposes   # B2's transposed products alone
+    python3 chip_smoke.py --spmv         # the r = 1 stream products alone
 
 Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
 
@@ -28,10 +29,14 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      {32, 64, 128, 300} x both plans x both tensor-core tiers ("highest":
      3xTF32, None: one TF32 pass); B9: element gather and scatter-add with duplicate
      and sentinel indices; B5: plain, transposed, fused mirror plans with
-     shifted grids and a plan whose last segment runs past ncols; B8: plain
-     and mirror slab plans), plus the duality check of B5 and B8: the
-     kernel with one tile per warp (every row sum an atomic add) against
-     the kernel with 16 (sums carried in registers); B4: forward, P in
+     shifted grids (one of five slabs), a plan whose last segment runs past
+     ncols and a mirror plan whose 408 compact chunks take B5's direct
+     mode, each at one tile per block, the whole stream in one block,
+     ranges that split slabs and row chunks over fewer blocks than slabs,
+     and the kernel's own geometry (its duality check: the first two
+     against each other); B8: plain and mirror slab plans, at one tile per
+     warp (every row sum an atomic add) against 16 (sums carried in
+     registers); B4: forward, P in
      {2, 4} x r in {8, 64, 128, 264}, and against P launches of B2; B6: on
      B5's panel plans, P in {2, 5}, at 1 against 16 tiles per
      warp and against P launches of B5 (B4 at both tiers, its duality with
@@ -70,8 +75,11 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      under "serial" one B9 element pass per layout, with exact counts;
   5. the symmetric real size (config-2 recipe x8, n = 32768): construction
      split (layout, coloring, panel plan, slab plan, patch plan), B9 against
-     its plain version on every element bucket, SpMV through B5 (expanded
-     plan) and SpMM r = 128 (B3) against the float64 plain route, the bucket
+     its plain version on every element bucket, SpMV through B5 on the plan
+     the H100 rule picks (the fused mirror plan; both candidate plans timed
+     through B5, the measured mirror factor printed beside the rule's
+     constant) and its gradient timed, and SpMM r = 128 (B3) against the
+     float64 plain route, the bucket
      route (at most two B1 launches and two B9 element passes, exact
      counts, with its gradient; which passes run colored plans printed),
      all timed eager and from a CUDA graph, and the bucket route's device
@@ -86,8 +94,9 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      (r = 64), axpby and (V @ V) @ x against float64 scipy with exact
      counts, and the gradient of V @ x;
   7. the VBCRS real size (the same recipe at n = 32768): construction split
-     (layout, panel plan, slab plan), SpMV through B5, the bucket route (one
-     B1 launch, and its backward) and the plain route, eager and graph, and
+     (layout, panel plan, slab plan), SpMV through B5 and its gradient, the
+     bucket route (one B1 launch, and its backward) and the plain route,
+     eager and graph, and
      B8 on the operand's slab plan
      against its plain version, timed;
   8. the slab route's main path: a BSM the JAX decision sends to the slab
@@ -162,13 +171,15 @@ import blocksparse_tpu_torch as bt  # noqa: E402
 from blocksparse_tpu_torch.core.layout import build_layout  # noqa: E402
 from blocksparse_tpu_torch.core import panel2  # noqa: E402
 from blocksparse_tpu_torch.core.panel import (  # noqa: E402
-    _layout_entries, build_panel_plan, panel_plan_from_layout)
+    PanelPlan, _best_shift_variant, _layout_entries, build_panel_plan,
+    panel_plan_from_layout)
 from blocksparse_tpu_torch.core.patch import CC, build_patch_plan  # noqa: E402
 from blocksparse_tpu_torch.core.strip import (  # noqa: E402
     plan_from_layout, plan_symmetric)
+from blocksparse_tpu_torch.core import panel as core_panel  # noqa: E402
 from blocksparse_tpu_torch.formats import symmetric as symmetric_format  # noqa: E402
 from blocksparse_tpu_torch.formats import vbcrs as vbcrs_format  # noqa: E402
-from blocksparse_tpu_torch.ops import batched, patch_engine  # noqa: E402
+from blocksparse_tpu_torch.ops import batched, panel_router, patch_engine  # noqa: E402
 from blocksparse_tpu_torch.ops.dispatch import (  # noqa: E402
     apply_operand, apply_symmetric, bucket_tables, element_plan,
     patch_eligible, patch_wins)
@@ -1110,11 +1121,98 @@ def check_stream_kernel(name, kernel, plain, plan, dev, x, errs):
         f"{name} duality: tpw=1 vs tpw=16", one, many, TOL[torch.float32]))
 
 
+def wide_mirror_plan():
+    """A mirror plan whose 408 compact chunks in one slab leave too little
+    shared memory for B5's mirror accumulator beside its ring, so B5 takes
+    its direct mode: rows 0-7 hold a diagonal block and 400 stored
+    off-diagonal 8 x 128 blocks at distinct chunks on grid 4, the last
+    one cut at n = 51300 (its segment runs past ncols)."""
+    rng = np.random.default_rng(29)
+    n = 51300
+    ents = [(rng.standard_normal((8, 8)).astype(np.float32), np.arange(8),
+             np.arange(8), False)]
+    for c in range(1, 401):
+        c0 = 128 * c + 4
+        cols = np.arange(c0, min(c0 + 128, n))
+        ents.append((rng.standard_normal((8, cols.size)).astype(np.float32),
+                     np.arange(8), cols, True))
+    return build_panel_plan(ents, (n, n), mirror=True)
+
+
+def split_span(plan) -> int | None:
+    """Tiles per block that cut the plan's stream with a block boundary
+    inside a live row chunk (ranges that split a slab and a row chunk),
+    into fewer blocks than slabs where the plan has more than two; None
+    where no row chunk spans two tiles."""
+    ntiles, rid = plan.S * plan.TS, plan.rid8.reshape(-1)
+    start = -(-ntiles // (plan.S - 1)) if plan.S > 2 else 2
+    for span in range(start, ntiles):
+        cuts = np.arange(span, ntiles, span)
+        if any(c % plan.TS and rid[c] < plan.RW and rid[c] == rid[c - 1]
+               for c in cuts):
+            return span
+    return None
+
+
+def b5_launch_text(plan) -> str:
+    g = panel_spmv.panel_geometry(plan)
+    return (f"B5 launch: {g['mode']} mode, {g['stages']} ring stages of "
+            f"32 KB, {g['smem'] / 1024:.1f} KB shared memory, "
+            f"{g['per_sm']} blocks per SM, {g['blocks']} blocks x "
+            f"{g['tiles_per_block']} tiles")
+
+
+def check_b5(label, plan, dev, x, errs, span=None) -> str:
+    """B5 against its plain version at launch geometries of one tile per
+    block (every sum an atomic add into y), the whole stream in one block
+    (every sum meets in shared memory), ``span`` tiles per block where
+    given, and the kernel's own; its duality check holds the first two
+    against each other.  Returns the plan's B5 mode."""
+    ntiles = plan.S * plan.TS
+    ref = panel_spmv.panel_apply_plain(plan, dev, x)
+    runs = {t: panel_spmv.panel_spmv(plan, dev, x, tiles_per_block=t)
+            for t in dict.fromkeys((1, ntiles, span, None))}
+    torch.cuda.synchronize()
+    for t, got in runs.items():
+        errs["B5"] = max(errs["B5"], rel_check(
+            f"B5 {label} tiles_per_block={t or 'auto'} vs plain", got, ref,
+            TOL32))
+    errs["B5 duality"] = max(errs["B5 duality"], rel_check(
+        f"B5 {label} duality: tiles_per_block=1 vs {ntiles}", runs[1],
+        runs[ntiles], TOL32))
+    return panel_spmv.panel_geometry(plan)["mode"]
+
+
+def b5_vs_plain(gen, plans) -> dict:
+    """:func:`check_b5` on each plan, with ranges that split slabs and row
+    chunks over fewer blocks than slabs (:func:`split_span`); the plans
+    drive B5's three modes: plain, mirror (sums in shared memory) and
+    mirror direct."""
+    errs = {"B5": 0.0, "B5 duality": 0.0}
+    modes, fewer = set(), []
+    for label, plan in plans.items():
+        dev = panel_spmv.panel_device_arrays(plan, DEV)
+        x = torch.randn(plan.ncols, generator=gen).to(DEV)
+        span = split_span(plan)
+        blocks = None if span is None else -(-plan.S * plan.TS // span)
+        print(f"  B5 {label}: {describe(plan)}; {b5_launch_text(plan)}; "
+              f"ranges splitting a row chunk: "
+              f"{'none' if span is None else f'{span} tiles, {blocks} blocks'}")
+        if span is not None and blocks < plan.S:
+            fewer.append(label)
+        modes.add(check_b5(label, plan, dev, x, errs, span))
+    require(modes == set(panel_spmv.PANEL_MODES),
+            f"phase 1 must drive every B5 mode, drove {sorted(modes)}")
+    require(fewer, "no plan ran with fewer blocks than slabs")
+    return errs
+
+
 def stream_kernels_vs_plain(gen):
     """B5 and B8 on small plans: plain, transposed, fused mirror with
-    shifted grids, a last segment past ncols; slab plain and mirror.
-    Returns the errors and the panel plans."""
-    errs = {"B5": 0.0, "B5 duality": 0.0, "B8": 0.0, "B8 duality": 0.0}
+    shifted grids (and one of five slabs), a last segment past ncols, a
+    mirror plan of B5's direct mode; slab plain and mirror.  Returns the
+    errors and the panel plans."""
+    errs = {"B8": 0.0, "B8 duality": 0.0}
     blocks, rows, cols, shape = random_block_sparse(
         11, shape=(600, 600), nblocks=30, max_block=60, dtype=np.float32,
         contiguous=True)
@@ -1125,6 +1223,8 @@ def stream_kernels_vs_plain(gen):
     fused = (_layout_entries(dl, transpose=False)
              + [(b, r, c, True) for b, r, c, _ in
                 _layout_entries(ol, transpose=False)])
+    d2 = random_symmetric(8, n=4096, ngroups=48, noffdiag=160,
+                          dtype=np.float32, contiguous=True)
     rng = np.random.default_rng(23)
     wrap = [(rng.standard_normal((40, 30)).astype(np.float32),
              np.arange(0, 40), np.arange(980, 1010), False),
@@ -1134,19 +1234,19 @@ def stream_kernels_vs_plain(gen):
         "plain": panel_plan_from_layout(lay),
         "transposed": panel_plan_from_layout(lay, transpose=True),
         "fused mirror": build_panel_plan(fused, shp, mirror=True),
+        "fused mirror, config-2 recipe n=4096": core_panel.symmetric_candidates(
+            build_layout(d2[0], d2[1], d2[1], d2[5]),
+            build_layout(*d2[2:]))[0],
         "wrap": build_panel_plan(wrap, (64, 1010)),
+        "wide mirror": wide_mirror_plan(),
     }
     require(plans["fused mirror"].mirror and
             len(plans["fused mirror"].grids_used) > 1,
             "the fused plan must mirror on shifted grids")
     require(20 in plans["wrap"].grids_used, "the wrap plan must use grid 20")
-    for label, plan in plans.items():
-        dev = panel_spmv.panel_device_arrays(plan, DEV)
-        x = torch.randn(plan.ncols, generator=gen).to(DEV)
-        check_stream_kernel(
-            f"B5 {label} (S={plan.S} TS={plan.TS} CW={plan.CW} grids="
-            f"{plan.grids_used})", panel_spmv.panel_spmv,
-            panel_spmv.panel_apply_plain, plan, dev, x, errs)
+    require(plans["fused mirror, config-2 recipe n=4096"].S >= 4,
+            "the config-2 fused plan must have several slabs")
+    errs.update(b5_vs_plain(gen, plans))
     splans = {"plain": plan_from_layout(lay),
               "transposed": plan_from_layout(lay, transpose=True),
               "mirror": plan_symmetric(dl, ol),
@@ -1412,7 +1512,8 @@ def describe(plan) -> str:
     if isinstance(plan, panel2.Panel2Plan):
         extra = f", CW {plan.CW}, RW {plan.RW}, v2 seg {plan.seg}"
     elif hasattr(plan, "CW"):
-        extra = f", CW {plan.CW}, RW {plan.RW}, grids {plan.grids_used}"
+        extra = (f", CW {plan.CW}, RW {plan.RW}, grids {plan.grids_used}, "
+                 f"{plan.nt} live tiles ({plan.nt * 4096 / 1e6:.1f} MB)")
     else:
         extra = ""
     return (f"{plan.S} slabs x {plan.TS} tiles{extra}, {kind}, "
@@ -1435,6 +1536,10 @@ def stream_setup(op, transpose=False) -> dict:
     print(f"  slab plan: {describe(splan)}, {t2 - t1:.2f} s on the host")
     print(f"  stream route decision: {choice} ({stream_kernel(op, transpose)}"
           f"); staging {t3 - t2:.2f} s")
+    plan = op._stream_entry(transpose)[1]
+    if isinstance(plan, PanelPlan):
+        print(f"  plan the r = 1 product reads: {describe(plan)}; "
+              f"{b5_launch_text(plan)}")
     return {"panel_s": t1 - t0, "strip_s": t2 - t1, "stage_s": t3 - t2}
 
 
@@ -1987,6 +2092,81 @@ def b3_tiers(S, X, d_args, gen, card) -> dict:
     return out
 
 
+def grad_times(label, op, x, card) -> dict:
+    """The gradient of an r = 1 product, d(w . op @ x)/dx, whose backward
+    is the plain version's autograd on the stream plan
+    (``StreamApply.backward``): eager, the backward alone; from a CUDA
+    graph, forward and backward together less the forward's graph time."""
+    w = torch.randn(x.shape[0], generator=torch.Generator().manual_seed(37)).to(DEV)
+    xg = x.clone().requires_grad_()
+    y = op @ xg
+    out = {"eager_ms": median_ms(
+        lambda: torch.autograd.grad(y, xg, w, retain_graph=True)[0])}
+    try:
+        both = graph_ms(lambda: torch.autograd.grad(op @ xg, xg, w)[0])
+        out["graph_ms"] = both - graph_ms(lambda: op @ x)
+        graph = f"graph {out['graph_ms']:.4f} ms (forward and backward less forward)"
+    except RuntimeError as e:  # the capture fails: no graph time
+        torch.cuda.synchronize()
+        out["graph_ms"] = None
+        graph = f"no graph time: the capture fails ({str(e).splitlines()[0]})"
+    print(f"  {label} SpMV backward (plain autograd): eager "
+          f"{out['eager_ms']:.4f} ms, {graph} [{card}]")
+    return out
+
+
+def symmetric_plan_rule(S, x, card) -> dict:
+    """The measurement behind the H100 rule for a symmetric operand's v1
+    plan (``ops/panel_router.py``): both candidate plans
+    (``symmetric_candidates``), each B5 product checked against its plain
+    version and timed eager and from a CUDA graph; their live-tile and
+    table bytes; the mirror factor this run measures (the fused plan's
+    graph time per live byte over the expanded plan's) beside the rule's
+    ``MIRROR_FACTOR``; the plan each rule picks.  The route must read the
+    plan the H100 rule picks."""
+    t0 = time.perf_counter()
+    fused, expanded = core_panel.symmetric_candidates(S._dlayout, S._olayout)
+    out = {"host_s": time.perf_counter() - t0}
+    for key, plan in (("fused", fused), ("expanded", expanded)):
+        dev = panel_spmv.panel_device_arrays(plan, DEV)
+        fn = lambda plan=plan, dev=dev: panel_spmv.panel_spmv(plan, dev, x)  # noqa: E731
+        rel_check(f"B5 on the {key} plan vs plain", fn(),
+                  panel_spmv.panel_apply_plain(plan, dev, x), TOL32)
+        live = plan.nt * 4096
+        out[key] = {"live_mb": live / 1e6, "tile_mb": plan.tile_bytes / 1e6,
+                    "cost_mb": panel_router.b5_cost(plan) / 1e6,
+                    "eager_ms": median_ms(fn), "graph_ms": graph_ms(fn),
+                    "geometry": panel_spmv.panel_geometry(plan)}
+        t = out[key]
+        print(f"  {key} plan: {describe(plan)}; {b5_launch_text(plan)}; B5 "
+              f"eager {t['eager_ms']:.4f} ms, graph {t['graph_ms']:.4f} ms = "
+              f"{live / (t['graph_ms'] * 1e-3) / 1e9:.1f} GB/s of live tiles "
+              f"[{card}]")
+        del dev, fn
+    f, e = out["fused"], out["expanded"]
+    out["measured_factor"] = ((f["graph_ms"] / f["live_mb"])
+                              / (e["graph_ms"] / e["live_mb"]))
+    jax_cost = {k: core_panel._plan_cost(p) * (
+        core_panel._MIRROR_RATE_PENALTY if p.mirror else 1.0)
+        for k, p in (("fused", fused), ("expanded", expanded))}
+    out["jax_pick"] = ("expanded" if jax_cost["expanded"] <= jax_cost["fused"]
+                       else "fused")
+    pick = panel_router.symmetric_choice(fused, expanded)
+    out["h100_pick"] = "fused" if pick is fused else "expanded"
+    print(f"  H100 rule: fused {f['cost_mb']:.1f} MB against expanded "
+          f"{e['cost_mb']:.1f} MB (live tiles x MIRROR_FACTOR "
+          f"{panel_router.MIRROR_FACTOR} on the fused plan, plus the tables "
+          f"B5 stages) -> {out['h100_pick']}; this run measures a mirror "
+          f"factor of {out['measured_factor']:.3f} (graph ms per live MB, "
+          f"fused over expanded); the JAX rule (v5e: x1.4 and the one-hot "
+          f"map-back) picks {out['jax_pick']} [{card}]")
+    plan = S._stream_entry(False)[1]
+    require(plan.mirror == pick.mirror and plan.nt == pick.nt,
+            f"the symmetric SpMV reads {describe(plan)}, the H100 rule "
+            f"picks the {out['h100_pick']} plan")
+    return out
+
+
 def phase5(card: str):
     print("phase 5: symmetric real size n=32768, 384 diagonal + 4096 "
           "off-diagonal f32 blocks (config-2 recipe x8)")
@@ -2065,9 +2245,9 @@ def phase5(card: str):
     b9_single = b9_single_calls(S, x, gen, card)
 
     setup = stream_setup(S)
-    require(stream_kernel(S) == "B5" and not S._stream_entry(False)[1].mirror,
-            "the symmetric real-size SpMV takes the expanded panel plan (the "
-            "JAX decision)")
+    require(stream_kernel(S) == "B5",
+            "the symmetric real-size SpMV takes the panel route")
+    rule = symmetric_plan_rule(S, x, card)
     reset_counts()
     y = S @ x
     Y = S @ X
@@ -2117,18 +2297,24 @@ def phase5(card: str):
             lambda: plain_route_sym(S, X), plan.value_bytes,
             2 * 128 * (int(hb.vals.size) + mirrored), card),
         "setup": setup, "launches": launched["B5"], "B9 single": b9_single,
-        "op": S,
+        "op": S, "rule": rule, "grad": grad_times("symmetric", S, x, card),
     }
     csr = csr_on_card([S])
-    times["library"] = {"SpMM r=128": library_ms(
-        "symmetric SpMM r=128, expanded CSR matrix @ X", lambda: csr @ X, Y,
-        card)}
+    times["library"] = {
+        "SpMM r=128": library_ms(
+            "symmetric SpMM r=128, expanded CSR matrix @ X", lambda: csr @ X,
+            Y, card),
+        "SpMV": library_ms("symmetric SpMV, torch.mv on the expanded CSR "
+                           "matrix", lambda: torch.mv(csr, x), y, card)}
     spmm_bytes = logical_nnz(S) * 4 + 2 * shape[0] * 128 * 4
     times["bound"] = {"SpMM r=128": bound(spmm_bytes, 2 * S.nnz * 128),
                       "SpMM r=128 None": bound(spmm_bytes, 2 * S.nnz * 128,
                                                None),
                       # the bucket values as stored, x and y once each
-                      "SpMV bucket": bound(nbytes + 2 * shape[0] * 4, flops)}
+                      "SpMV bucket": bound(nbytes + 2 * shape[0] * 4, flops),
+                      # the stored logical values, x and y once each
+                      "SpMV": bound(stored + 2 * shape[0] * 4,
+                                    2 * S._dlayout.nnz + 4 * S._olayout.nnz)}
     times["B3 tiers"] = b3_tiers(S, X, (d, di, o, ri, ci, shape), gen, card)
 
     split = bucket_split(S, x, card)
@@ -2288,10 +2474,8 @@ def phase6():
     for tr in (False, True):
         choice, plan, dev = V._stream_entry(tr)
         if choice == "panel":
-            check_stream_kernel(
-                f"B5 V{'.T' if tr else ''} ({describe(plan)})",
-                panel_spmv.panel_spmv, panel_spmv.panel_apply_plain, plan,
-                dev, x, errs)
+            check_b5(f"V{'.T' if tr else ''} ({describe(plan)})", plan, dev,
+                     x, errs)
 
     spmm = ("B2 transpose" if patch_wins(V._patch_for()[0], [(V.layout, 1)], 64)
             else "B1")
@@ -2388,8 +2572,7 @@ def phase7(card: str):
 
     errs = {"B5": 0.0, "B5 duality": 0.0, "B8": 0.0, "B8 duality": 0.0}
     _, pplan, pdev = V._stream_entry(False)
-    check_stream_kernel("B5 at the real size", panel_spmv.panel_spmv,
-                        panel_spmv.panel_apply_plain, pplan, pdev, x, errs)
+    check_b5("at the real size", pplan, pdev, x, errs)
     splan = V._strip_for(False)
     t0 = time.perf_counter()
     sdev = slab_spmv.plan_device_arrays(splan, DEV)
@@ -2417,6 +2600,7 @@ def phase7(card: str):
             2 * splan.tile_bytes // 4, card),
         "setup": setup, "launches": launched["B5"], "op": V,
         "bucket launches": bucket_launched,
+        "grad": grad_times("VBCRS", V, x, card),
     }
     csr = csr_on_card([V])
     times["library"] = {"SpMV": library_ms(
@@ -3086,6 +3270,74 @@ def transpose_times(card: str) -> dict:
     return out
 
 
+def spmv_times(card: str) -> dict:
+    """The r = 1 stream products of this checkout's B5 and B6, timed alone,
+    eager and from a CUDA graph: phase 3's, 5's and 7's operands through
+    their routes (``op @ x``, each checked against the plain version on the
+    plan it reads), the gradient of each (:func:`grad_times`), the
+    symmetric operand's fused and expanded candidate plans through B5
+    directly, and ``batched_mv`` (B6) on phase 9's config-2 and config-3
+    batches.  Only entry points that older checkouts of the port also have
+    are used, so this script, copied into an older checkout, times its
+    kernels the same way (``--spmv``)."""
+    gen = torch.Generator(device="cpu").manual_seed(41)
+    A, _ = contiguous_operator(8192, 2000, 128, seed=7, value_seed=7 + 7777,
+                               device=DEV)
+    d, di, o, ri, ci, shape = random_symmetric(
+        8, n=32768, ngroups=384, noffdiag=4096, dtype=np.float32,
+        contiguous=True)
+    S = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape, device=DEV)
+    blocks, rs, cs = config3_blocks(32768)
+    V = bt.VariableBlockCompressedRowStorage(
+        blocks, rs, cs, (32768, 32768), granularity=(8, 128), device=DEV)
+    out = {}
+    for key, op in (("config 1", A), ("symmetric", S), ("VBCRS", V)):
+        x = torch.randn(op.shape[1], generator=gen).to(DEV)
+        choice, plan, dev = op._stream_entry(False)
+        require(choice == "panel", f"{key}: the SpMV takes {choice}")
+        rel_check(f"{key} SpMV vs plain", op @ x,
+                  panel_spmv.panel_apply_plain(plan, dev, x), TOL32)
+        fn = lambda op=op, x=x: op @ x  # noqa: E731
+        out[key] = {"plan": describe(plan), "eager_ms": median_ms(fn),
+                    "graph_ms": graph_ms(fn),
+                    "grad": grad_times(key, op, x, card)}
+        print(f"  {key} SpMV: {out[key]['plan']}: eager "
+              f"{out[key]['eager_ms']:.4f} ms, graph {out[key]['graph_ms']:.4f}"
+              f" ms [{card}]")
+        if key == "symmetric":
+            entries = (_layout_entries(S._dlayout, transpose=False),
+                       _layout_entries(S._olayout, transpose=False),
+                       _layout_entries(S._olayout, transpose=True))
+            cands = {
+                "fused": _best_shift_variant(
+                    entries[0] + [(b, r, c, True) for b, r, c, _ in entries[1]],
+                    shape, mirror=True, TS_max=1024),
+                "expanded": _best_shift_variant(
+                    entries[0] + entries[1] + entries[2], shape, mirror=False,
+                    TS_max=1024)}
+            for name, cplan in cands.items():
+                cdev = panel_spmv.panel_device_arrays(cplan, DEV)
+                fn = lambda p=cplan, dv=cdev, x=x: panel_spmv.panel_spmv(p, dv, x)  # noqa: E731
+                rel_check(f"B5 on the {name} plan vs plain", fn(),
+                          panel_spmv.panel_apply_plain(cplan, cdev, x), TOL32)
+                out[f"symmetric {name}"] = {
+                    "plan": describe(cplan), "eager_ms": median_ms(fn),
+                    "graph_ms": graph_ms(fn)}
+                print(f"  symmetric {name} plan through B5: "
+                      f"{out[f'symmetric {name}']['plan']}: eager "
+                      f"{out[f'symmetric {name}']['eager_ms']:.4f} ms, graph "
+                      f"{out[f'symmetric {name}']['graph_ms']:.4f} ms [{card}]")
+                del cdev, fn
+    for key, ops in (("batched_mv config 2 P=16", config2_operators(16)),
+                     ("batched_mv config 3 P=16", config3_operators(4096, 16))):
+        xb = torch.randn((16, 4096), generator=gen).to(DEV)
+        fn = lambda ops=ops, xb=xb: bt.batched_mv(ops, xb)  # noqa: E731
+        out[key] = {"eager_ms": median_ms(fn), "graph_ms": graph_ms(fn)}
+        print(f"  {key} (B6): eager {out[key]['eager_ms']:.4f} ms, graph "
+              f"{out[key]['graph_ms']:.4f} ms [{card}]")
+    return out
+
+
 def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3124,6 +3376,10 @@ def main() -> None:
     if sys.argv[1:] == ["--transposes"]:
         print(f"transposes of the port at {bt.__file__}")
         print(json.dumps({"transposes": transpose_times(card)}))
+        return
+    if sys.argv[1:] == ["--spmv"]:
+        print(f"r = 1 stream products of the port at {bt.__file__}")
+        print(json.dumps({"spmv": spmv_times(card)}))
         return
 
     wall = {}
@@ -3419,6 +3675,16 @@ def main() -> None:
          "sym_ms": sym_times["SpMV"][0], "sym_plain_ms": sym_times["SpMV"][1],
          "sym_graph_ms": sym_times["SpMV"][2],
          "sym_plain_graph_ms": sym_times["SpMV"][3],
+         "sym_bound_ms": sym_times["bound"]["SpMV"][0],
+         "sym_library_ms": sym_times["library"]["SpMV"],
+         "sym_library_graph_ms": getattr(sym_times["library"]["SpMV"],
+                                         "graph", None),
+         "sym_plan": describe(sym_times["op"]._stream_entry(False)[1]),
+         "sym_rule": {k: sym_times["rule"][k] for k in (
+             "measured_factor", "h100_pick", "jax_pick")}
+         | {"fused_graph_ms": sym_times["rule"]["fused"]["graph_ms"],
+            "expanded_graph_ms": sym_times["rule"]["expanded"]["graph_ms"]},
+         "grad_ms": {"symmetric": sym_times["grad"], "VBCRS": v_times["grad"]},
          "mirror_ms": launches4["times"]["SpMV"][0],
          "mirror_plain_ms": launches4["times"]["SpMV"][1],
          "mirror_graph_ms": launches4["times"]["SpMV"][2],

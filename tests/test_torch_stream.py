@@ -32,6 +32,7 @@ from blocksparse_tpu.utils import testmatrices as jtm
 import blocksparse_tpu_torch as bt
 from blocksparse_tpu_torch.core import panel, strip
 from blocksparse_tpu_torch.core.layout import build_layout
+from blocksparse_tpu_torch.ops import panel_router
 from blocksparse_tpu_torch.ops.dispatch import stream_plan_choice
 from blocksparse_tpu_torch.ops.kernels import panel_spmv, slab_spmv
 
@@ -342,14 +343,19 @@ def test_route_decision_equals_jax_general(kind, transpose):
 
 @pytest.mark.parametrize("kind", list(SYMMETRIC))
 def test_route_decision_equals_jax_symmetric(kind):
+    """The route decision on the plan the port's route builds (the H100
+    rule's pick, ``ops/panel_router.py``) equals the JAX decision on the
+    JAX rule's plan, the port's plan charged as the format charges it
+    (``route_bytes``): on these fixtures the two plans route alike."""
     (jd, jo), (pd, po), _ = symmetric(kind)
     jp = jpanel.panel_plan_symmetric(jd, jo)
     js = jstrip.plan_symmetric(jd, jo)
     want = jax_choice(None if jp is None else (jp, None),
                       None if js is None else (js, None), [(jd, 1), (jo, 2)])
-    got = stream_plan_choice(panel.panel_plan_symmetric(pd, po),
-                             strip.plan_symmetric(pd, po),
-                             [(pd, 1), (po, 2)])
+    plan = panel_router.panel_plan_sym(pd, po, transpose_diag=False)
+    got = stream_plan_choice(plan, strip.plan_symmetric(pd, po),
+                             [(pd, 1), (po, 2)],
+                             panel_bytes=panel_router.route_bytes(plan))
     assert got == want
 
 
@@ -671,6 +677,11 @@ def test_symmetric_routes_like_jax(kind, transpose):
                       None if js is None else (js, None), [(jd, 1), (jo, 2)])
     S = S.T if transpose else S
     x = _x(shape[0], 44)
+    if want == "panel":   # the staged plan is the H100 rule's pick
+        pick = panel_router.symmetric_choice(*panel.symmetric_candidates(
+            P._dlayout, P._olayout, transpose_diag=transpose))
+        staged = P._stream_entry(transpose)[1]
+        assert (staged.mirror, staged.nt) == (pick.mirror, pick.nt)
     y, ran = routed(lambda: (P.T if transpose else P) @ torch.from_numpy(x))
     assert ran == expected(want)
     assert relerr(y, S @ x.astype(np.float64)) <= TOL_SCIPY

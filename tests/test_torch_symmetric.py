@@ -28,7 +28,8 @@ from blocksparse_tpu_torch import coloring
 from blocksparse_tpu_torch.core.layout import build_layout
 from blocksparse_tpu_torch.core.patch import build_patch_plan
 from blocksparse_tpu_torch.ops import patch_engine
-from blocksparse_tpu_torch.ops.kernels import fused_spmm, mask_select
+from blocksparse_tpu_torch.ops.kernels import (fused_spmm, mask_select,
+                                               panel_spmv)
 from blocksparse_tpu_torch.utils.testmatrices import random_symmetric
 
 torch.set_num_threads(2)
@@ -133,22 +134,29 @@ def spy_on(fn_owner, name, store):
                                   "S.H @ X"])
 def test_port_matches_jax_f32_routes(case):
     """f32: r > 1 takes the symmetric patch route (B3's plain version, on
-    the plan for S or S^T) and r = 1 the chunk-table route with B1's
-    symmetric pass; the JAX pallas-interpret operator runs _kern_mir."""
+    the plan for S or S^T) and r = 1 the stream route on the fused panel
+    plan (B5's plain version): charged the port's H100 cost
+    (``ops/panel_router.py::route_bytes``) it beats the bucket route here,
+    where the JAX package takes the chunk-table route.  The JAX
+    pallas-interpret operator runs _kern_mir."""
     J, Jp, P, S = operators("small", np.float32, pallas=True)
     v = operands(P.shape[0], np.float32)
     apply, oracle = CASES[case]
-    b1, b3 = [], []
+    b1, b3, b5 = [], [], []
     o1, w1 = spy_on(fused_spmm, "chunked_block_apply_plain", b1)
     o3, w3 = spy_on(patch_engine, "bucket_spmm_sym_plain", b3)
+    o5, w5 = spy_on(panel_spmv, "panel_apply_plain", b5)
     try:
         fused_spmm.chunked_block_apply_plain = w1
         patch_engine.bucket_spmm_sym_plain = w3
+        panel_spmv.panel_apply_plain = w5
         got = apply(P, to_torch(v))
     finally:
         fused_spmm.chunked_block_apply_plain = o1
         patch_engine.bucket_spmm_sym_plain = o3
-    assert (len(b3) > 0) == ("X" in case) and (len(b1) > 0) == ("x" in case)
+        panel_spmv.panel_apply_plain = o5
+    assert (len(b3) > 0) == ("X" in case) and (len(b5) > 0) == ("x" in case)
+    assert not b1
     assert got.dtype == torch.float32
     v64 = {k: a.astype(np.float64) for k, a in v.items()}
     assert relerr(got, oracle(S, v64)) <= TOL32
