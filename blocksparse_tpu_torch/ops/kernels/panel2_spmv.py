@@ -12,10 +12,18 @@ and compact-chunk ids, the segment table and, for mirror plans, the target
 table ``tgt`` in the plan's own [S, CW*NSEG] order (the JAX package's
 [S, NSEG, CW] relayout served Mosaic and is not made).
 
-Race-freedom: warps add their row sums and mirrored sums into a zeroed
-output with fp32 ``atomicAdd`` (``csrc/tile_stream.cuh``, as kernel B5); the
-summation order varies from run to run.  ``tiles_per_warp`` moves sums
-between registers and atomics without changing the product.
+Design: kernel B5's bulk-copy ring (``csrc/panel_ring.cuh``) on the v2
+geometry: persistent blocks over ranges of the tile stream, one producer
+warp feeding 1-D bulk copies of the live tiles and each stage's tables --
+per tile NSEG x bases ``segid * seg`` and, on a mirror plan, y bases
+``tgt * seg`` (-1 for the sentinels NC and n_yseg) -- into its ring
+slots, a slab's mirrored sums kept in shared memory.
+:func:`panel2_geometry` reports the launch a plan gets.
+
+Race-freedom: every sum goes into a zeroed output with fp32 atomics (a
+block's mirrored sums meet in shared memory first); the summation order
+varies from run to run.  ``tiles_per_block`` moves sums between registers,
+shared memory and atomics without changing the product.
 
 Routing: a CPU tensor takes the plain version (:func:`panel2_apply_plain`,
 the counterpart of the JAX ``_xla_forward``); a CUDA tensor launches the
@@ -31,16 +39,18 @@ it, dvals.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from ...core.panel2 import Panel2Plan
 from ...core.strip import CC, RC
 from ...utils import build
-from .panel_spmv import StreamApply, _default_tpw
+from .panel_spmv import PANEL_MODES, StreamApply
 
 __all__ = ["panel2_device_arrays", "panel2_spmv", "panel2_apply_plain",
-           "panel2_apply", "LAUNCHES", "MIRROR_LAUNCHES"]
+           "panel2_apply", "panel2_geometry", "LAUNCHES", "MIRROR_LAUNCHES"]
 
 LAUNCHES = 0          # kernel B10
 MIRROR_LAUNCHES = 0
@@ -109,10 +119,25 @@ def _check(plan: Panel2Plan, dev, x: torch.Tensor) -> None:
         raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
 
 
+def panel2_geometry(plan: Panel2Plan) -> dict:
+    """The launch B10 takes for ``plan`` on the current card, as the
+    kernel's C entry decides it (as :func:`panel_spmv.panel_geometry` for
+    B5): ring ``stages``, ``mode`` (one of ``PANEL_MODES``), dynamic
+    shared-memory bytes, ``blocks``, ``tiles_per_block`` and ``per_sm``.
+    Builds the kernels' library."""
+    out = (ctypes.c_longlong * 6)()
+    build.check(build.load_library().bst_panel2_spmv_geometry(
+        plan.S * plan.TS, plan.CW, plan.seg, int(plan.mirror), out),
+        "bst_panel2_spmv_geometry")
+    return {"stages": out[0], "mode": PANEL_MODES[out[1]], "smem": out[2],
+            "blocks": out[3], "tiles_per_block": out[4], "per_sm": out[5]}
+
+
 def panel2_spmv(plan: Panel2Plan, dev, x: torch.Tensor, *,
-                tiles_per_warp: int | None = None) -> torch.Tensor:
+                tiles_per_block: int | None = None) -> torch.Tensor:
     """y = A @ x for a v2 panel plan: kernel B10 on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    version on a CPU tensor.  ``tiles_per_block``: the range of the tile
+    stream each block takes (default: the kernel's geometry)."""
     global LAUNCHES, MIRROR_LAUNCHES
     _check(plan, dev, x)
     if x.device.type == "cpu":
@@ -127,17 +152,15 @@ def panel2_spmv(plan: Panel2Plan, dev, x: torch.Tensor, *,
                     ("tgt", tgt), ("b8", b8)):
         if t is not None and (t.dtype != torch.int32 or not t.is_contiguous()):
             raise TypeError(f"{name} must be contiguous int32")
-    ntiles = plan.S * plan.TS
-    tpw = tiles_per_warp or _default_tpw(ntiles)
-    x, vals = x.contiguous(), vals.contiguous()
+    x = x.contiguous()
     y = torch.zeros(plan.nrows, dtype=torch.float32, device=x.device)
     mirror = plan.mirror
     build.launch("bst_panel2_spmv_f32", x.device, vals.data_ptr(),
                  rid8.data_ptr(), cid8.data_ptr(), segid.data_ptr(),
                  tgt.data_ptr() if mirror else None, b8.data_ptr(),
-                 x.data_ptr(), y.data_ptr(), ntiles, plan.TS, plan.CW,
-                 plan.RW, plan.seg, plan.NC, plan.ncols, plan.nrows,
-                 int(mirror), tpw)
+                 x.data_ptr(), y.data_ptr(), plan.S * plan.TS, plan.TS,
+                 plan.CW, plan.RW, plan.seg, plan.NC, plan.ncols, plan.nrows,
+                 int(mirror), tiles_per_block or 0)
     LAUNCHES += 1
     MIRROR_LAUNCHES += mirror
     return y

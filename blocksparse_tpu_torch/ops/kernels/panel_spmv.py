@@ -21,20 +21,20 @@ per-segment map-back target ``otgt`` (the JAX package's one-hot ``omap`` is
 never built); :func:`panel_id_tables` stages the tables alone.  The shift
 grids travel as one packed integer.
 
-Design (``csrc/panel_spmv.cu``): persistent blocks over contiguous ranges
-of the tile stream, one producer warp feeding a ring of shared-memory
-stages with 1-D bulk copies of the live tiles and each stage's tables
-(read a stage ahead) in its ring slot, a slab's mirrored sums kept in
-shared memory.  :func:`panel_geometry` reports the launch a plan gets:
-ring stages, mirror mode (sums in shared memory, or direct atomics where
-the plan's CW leaves too little room), blocks per SM, blocks and tiles per
-block.
+Design (``csrc/panel_ring.cuh``, shared with kernel B10): persistent
+blocks over contiguous ranges of the tile stream, one producer warp
+feeding a ring of shared-memory stages with 1-D bulk copies of the live
+tiles and each stage's tables (read a stage ahead) in its ring slot, a
+slab's mirrored sums kept in shared memory.  :func:`panel_geometry`
+reports the launch a plan gets: ring stages, mirror mode (sums in shared
+memory, or direct atomics where the plan's CW leaves too little room),
+blocks per SM, blocks and tiles per block.
 
 Race-freedom: every sum goes into a zeroed output with fp32 atomics (a
 block's mirrored sums meet in shared memory first); the summation order
 varies from run to run.  ``tiles_per_block`` moves sums between registers,
 shared memory and atomics without changing the product.  B6 keeps the
-``tile_stream.cuh`` core (``tiles_per_warp``, as B8 and B10): on the
+``tile_stream.cuh`` core (``tiles_per_warp``, as B8): on the
 real-size batches the ring was slower.
 
 Routing: a CPU tensor takes the plain version (:func:`panel_apply_plain`,
@@ -168,7 +168,7 @@ def _kernel_args(plan: PanelPlan, dev, x: torch.Tensor) -> int:
 
 
 def _default_tpw(ntiles: int) -> int:
-    """Tiles per warp of the ``tile_stream.cuh`` kernels (B6, B8, B10):
+    """Tiles per warp of the ``tile_stream.cuh`` kernels (B6, B8):
     about four thousand warps in flight, 1-16 tiles each."""
     return max(1, min(16, ntiles // 4096))
 

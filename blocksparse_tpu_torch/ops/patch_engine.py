@@ -51,7 +51,8 @@ Vectors: kernel B7 (``ops/kernels/patch_spmv1.py``, ``csrc/patch_spmv1.cu``)
 replaces ``_kern1_f`` / ``_kern1_t`` / ``_kern1_m`` with the one-hot chunk
 gathers and scatters around them, in one launch per bucket: mode ``f`` for
 A x, ``t`` for A^T x, ``m`` for a symmetric plan (both contributions from
-one read of the values).  :func:`patch_spmv_plain` is the counterpart of
+one read of the values), reading only the bucket's live row tiles
+(``BucketArrays.tiles``).  :func:`patch_spmv_plain` is the counterpart of
 the JAX package's one-hot XLA engine ``patch_spmv``, with direct chunk
 gathers and ``index_add_`` in place of the one-hot matmuls.
 """
@@ -65,7 +66,8 @@ import torch
 
 from ..core.patch import CC, PatchPlan
 from ..utils import build
-from .kernels.patch_spmv1 import patch_spmv1_apply, patch_spmv1_plain
+from .kernels.patch_spmv1 import (live_row_tiles, patch_spmv1_apply,
+                                  patch_spmv1_plain)
 from .torch_spmv import chunk_rows, gather_rows, scatter_rows
 
 __all__ = ["patch_device_arrays", "patch_apply", "patch_spmm",
@@ -97,11 +99,13 @@ class BucketArrays(tuple):
     """One bucket's device tensors ``(vals, cc, rs, mk)``.  ``owners``: on a
     symmetric plan, kernel B3's owner tables of the symmetric (index
     False) and adjoint (index True) modes, each ``(chunk, ptr, pair)``
-    int32 tensors; None otherwise."""
+    int32 tensors; None otherwise.  ``tiles``: kernel B7's live row-tile
+    table (``patch_spmv1.live_row_tiles``), int32 [ntiles, 2], or None."""
 
-    def __new__(cls, arrays, owners=None):
+    def __new__(cls, arrays, owners=None, tiles=None):
         self = super().__new__(cls, arrays)
         self.owners = owners
+        self.tiles = tiles
         return self
 
 
@@ -138,7 +142,8 @@ def owner_tables(col_chunk: np.ndarray, mirror_kc: np.ndarray, nchunks: int,
 
 def patch_device_arrays(plan: PatchPlan, device) -> tuple:
     """Per bucket a :class:`BucketArrays`: (vals f32, cc int32, rs int32,
-    mk int32) on ``device``, with B3's owner tables on a symmetric plan."""
+    mk int32) on ``device``, with B7's live row-tile table and, on a
+    symmetric plan, B3's owner tables."""
     nchunks = -(-plan.ncols // CC)
     out = []
     for b in plan.buckets:
@@ -152,7 +157,8 @@ def patch_device_arrays(plan: PatchPlan, device) -> tuple:
             (torch.from_numpy(b.vals).to(device),
              torch.from_numpy(b.col_chunk).to(device),
              torch.from_numpy(b.row_start).to(device),
-             torch.from_numpy(b.mirror_kc).to(device)), owners))
+             torch.from_numpy(b.mirror_kc).to(device)), owners,
+            torch.from_numpy(live_row_tiles(b.vals)).to(device)))
     return tuple(out)
 
 
@@ -561,8 +567,10 @@ def patch_spmv(plan: PatchPlan, dev, x, *, transpose: bool = False):
     version on a CPU tensor."""
     mode, n_out = _spmv_mode(plan, transpose)
     y = None
-    for vals, cc, rs, mk in dev:
-        part = patch_spmv1_apply(vals, cc, rs, mk, x, n_out, mode)
+    for bucket in dev:
+        vals, cc, rs, mk = bucket
+        part = patch_spmv1_apply(vals, cc, rs, mk, x, n_out, mode,
+                                 tiles=getattr(bucket, "tiles", None))
         y = part if y is None else y + part
     return x.new_zeros(n_out) if y is None else y
 

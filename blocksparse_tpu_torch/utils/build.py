@@ -86,13 +86,18 @@ _SIGNATURES = {
     # tpw, stream
     "bst_slab_spmv_f32": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _L, _L, _I,
                           _I, _P),
-    # vals, cc, rs, mk, x, y, nb, MP, KP, n_in, n_out, mode, stream
-    "bst_patch_spmv1_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I,
-                            _P),
+    # vals, cc, rs, mk, tiles, ntiles, x, y, nb, MP, KP, n_in, n_out, mode,
+    # tiles per block, stream
+    "bst_patch_spmv1_f32": (_P, _P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _L,
+                            _L, _I, _L, _P),
+    # ntiles, KP, mode, out (a host query on the current card)
+    "bst_patch_spmv1_geometry": (_L, _I, _I, _P),
     # vals, rid8, cid8, segid, tgt, b8, x, y, ntiles, TS, CW, RW, seg, NC,
-    # ncols, nrows, mirror, tpw, stream
+    # ncols, nrows, mirror, tiles per block, stream
     "bst_panel2_spmv_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
-                            _I, _I, _L, _L, _I, _I, _P),
+                            _I, _I, _L, _L, _I, _L, _P),
+    # ntiles, CW, seg, mirror, out (a host query on the current card)
+    "bst_panel2_spmv_geometry": (_L, _I, _I, _I, _P),
 }
 
 

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --transposes   # B2's transposed products alone
-    python3 chip_smoke.py --spmv         # the r = 1 stream products alone
+    python3 chip_smoke.py --spmv         # the r = 1 products alone
 
 Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
 
@@ -40,11 +40,18 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      {2, 4} x r in {8, 64, 128, 264}, and against P launches of B2; B6: on
      B5's panel plans, P in {2, 5}, at 1 against 16 tiles per
      warp and against P launches of B5 (B4 at both tiers, its duality with
-     B2 at "highest"); B7: modes f, t (B2's plan, and a
-     plan with G = 1 whose row windows run past n) and m, a (B3's plans),
-     each against B2 / B3 at r = 1 on the same plan; B10: v2 plans at seg
-     8, 16 and 32, plain, transposed, fused mirror and with a last segment
-     past ncols, at 1 against 16 tiles per warp;
+     B2 at "highest"); B7: modes f, t, m and a on B2's plan, a plan with
+     G = 1 whose row windows run past n, B3's plans, a symmetric plan of
+     64 x 2048 slots and a copy of it with all-zero row tiles, an all-zero
+     slot and a slot of sentinel chunks, each at one tile per block, the
+     whole live row-tile table in one block and the kernel's geometry
+     (printed), and against B2 (f, t) / B3 (m, a) at r = 1 on the same
+     plan; then x = inf at the rows only all-zero row tiles face (modes t
+     and a) against scipy over the blocks; B10: v2 plans at seg 8, 16 and
+     32, plain, transposed, fused mirror (two), a mirror plan of its
+     direct mode and one with a last segment past ncols, at one tile per
+     block, the whole stream in one block, ranges that split slabs and its
+     own geometry (printed), every seg driving the three modes;
   2. the flagship operator (4096^2, 200 contiguous 64x64 f32 blocks, r = 64):
      a constructor without ``device=`` lands on the card; kernels against
      plain versions at its shapes, then the main path once
@@ -117,16 +124,19 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      24 MB/product cap (config 3 at n = 32768, P = 4) the batch loops (four
      B5 launches) and B6 is driven directly on the stacked plan, timed;
  10. the r = 1 patch route (kernel B7) on phase 3's, phase 5's and phase
-     7's operands built with ``patch="always"``: one B7 launch per product
+     7's operands built with ``patch="always"``: the bytes B7 reads (its
+     live row tiles) and its launch geometry, one B7 launch per product
      (A^T too on config 1, whose plan has G = 1) and no B1/B5/B8, against
      the float64 bucket route, B7 at r = 1 against B2 / B3 on the same
      plan, timed eager and from a CUDA graph beside B5 on the default
-     operator, B7's plain version and the library call;
+     operator, B7's plain version and the library call, and A^T x on
+     config 1 (mode t) timed the same way;
  11. the panel v2 route (kernel B10) on the same operands built with
-     ``panel="v2"``: each plan's seg, bytes and host seconds, one B10
-     launch per product (a mirror launch on the symmetric operand's fused
-     plan) and no B5, against the float64 bucket route, B10 against its
-     plain version at 1 and 16 tiles per warp, timed as in phase 10; a
+     ``panel="v2"``: each plan's seg, bytes, host seconds and B10's launch
+     geometry, one B10 launch per product (a mirror launch on the
+     symmetric operand's fused plan) and no B5, against the float64 bucket
+     route, B10 against its plain version at one tile per block, the whole
+     stream in one block and its own geometry, timed as in phase 10; a
      ``batched_mv`` of two v2 operators loops (no B6).
 
 Every timed kernel also gets its bound -- the larger of its logical bytes
@@ -857,6 +867,7 @@ def phase1():
     plan, dev = A._patch_for()
     vals, cc, rs, _mk = dev[0]
     patch_bucket = (vals, cc, rs, shape[0])
+    bsm_bucket = dev[0]
     shape_b2 = shape
     print(f"  patch plan: {plan.buckets[0].nb} slots of "
           f"{plan.buckets[0].MP}x{plan.buckets[0].KP}")
@@ -912,11 +923,19 @@ def phase1():
     require(wb.G % 8 != 0 and int(wb.row_start.max()) + wb.MP > W.shape[0],
             "the wide plan must have G % 8 != 0 and windows past n")
     print(f"  wide patch plan: {wb.nb} slots of {wb.MP}x{wb.KP}, G={wb.G}")
+    WS = wide_symmetric_operator(DEV)
+    wsb = WS._patch_for(False)[1][0]
+    require(wsb[0].shape[2] == 2048 and int(wsb[3].min()) > 0,
+            "the wide symmetric plan must have KP = 2048 and mirrored chunks")
     errs.update(b7_vs_plain(gen, [
-        ("BSM plan", (*patch_bucket[:3], None), shape_b2, False),
-        (f"wide plan (G={wb.G})", wdev[0], W.shape, False)]
+        ("BSM plan", bsm_bucket, shape_b2[0]),
+        (f"wide plan (G={wb.G}, windows past n)", wdev[0], W.shape[0])]
         + [(f"symmetric plan transpose_main={tm}", S._patch_for(tm)[1][0],
-            S.shape, True) for tm in (False, True)]))
+            S.shape[0]) for tm in (False, True)]
+        + [("wide symmetric plan", wsb, WS.shape[0]),
+           ("wide symmetric plan with zero row tiles and all-zero slots",
+            with_dead_slots(wsb, WS.shape[0]), WS.shape[0])]))
+    errs.update(b7_nonfinite(gen, W, wdev[0]))
     errs.update(b10_vs_plain(gen))
     return errs
 
@@ -1127,15 +1146,7 @@ def wide_mirror_plan():
     its direct mode: rows 0-7 hold a diagonal block and 400 stored
     off-diagonal 8 x 128 blocks at distinct chunks on grid 4, the last
     one cut at n = 51300 (its segment runs past ncols)."""
-    rng = np.random.default_rng(29)
-    n = 51300
-    ents = [(rng.standard_normal((8, 8)).astype(np.float32), np.arange(8),
-             np.arange(8), False)]
-    for c in range(1, 401):
-        c0 = 128 * c + 4
-        cols = np.arange(c0, min(c0 + 128, n))
-        ents.append((rng.standard_normal((8, cols.size)).astype(np.float32),
-                     np.arange(8), cols, True))
+    ents, n = wide_mirror_entries()
     return build_panel_plan(ents, (n, n), mirror=True)
 
 
@@ -1330,37 +1341,197 @@ def wide_patch_operator(device):
     return bt.BlockSparseMatrix(blocks, rows, cols, (n, n), device=device)
 
 
+def with_dead_slots(bucket, n: int):
+    """A copy of a plan bucket (vals, cc, rs, mk) with what B7's table
+    skips: row tiles 1 and 3 of the first half of the slots zeroed, the
+    last slot's values zeroed with every chunk a sentinel, the one before
+    it all zero; its live row-tile table built anew."""
+    vals, cc, rs, mk = (t.clone() for t in bucket[:4])
+    nb = vals.shape[0]
+    require(vals.shape[1] >= 32 and nb >= 4,
+            "the dead-slot plan needs 4 row tiles and 4 slots")
+    vals[:nb // 2, 8:16] = 0
+    vals[:nb // 2, 24:32] = 0
+    vals[nb - 2:] = 0
+    cc[nb - 1] = -(-n // CC)
+    tiles = torch.from_numpy(patch_spmv1.live_row_tiles(
+        vals.cpu().numpy())).to(DEV)
+    return patch_engine.BucketArrays((vals, cc, rs, mk), tiles=tiles)
+
+
+def wide_symmetric_operator(device):
+    """A symmetric operator whose patch plan has slots of 64 x 2048 (each
+    128-column stretch owner warp of B7 holds two) with 62 mirrored chunks
+    each: 32 diagonal groups of 64 rows, each with one stored off-diagonal
+    block of 64 x 1984 at an aligned column offset past the groups."""
+    rng = np.random.default_rng(16)
+    d = [rng.standard_normal((64, 64)).astype(np.float32) for _ in range(32)]
+    di = [np.arange(64 * g, 64 * g + 64) for g in range(32)]
+    ci = [np.arange(2048 + 96 * g, 2048 + 96 * g + 1984) for g in range(32)]
+    o = [rng.standard_normal((64, 1984)).astype(np.float32) for _ in range(32)]
+    return bt.SymmetricBlockMatrix(d, di, o, di, ci, (7040, 7040),
+                                   device=device)
+
+
+def check_b7(label, bucket, x, n_out, mode, errs, other=None) -> None:
+    """B7 against its plain version at one tile per block (every sum an
+    atomic add into y), the whole table in one block (a slot's column sums
+    meet in one owner warp) and the kernel's own geometry; its duality
+    check holds the first two against each other, and against ``other``
+    (B2 or B3 at r = 1 on the same plan) where given."""
+    vals, cc, rs, mk = bucket
+    tiles = bucket.tiles
+    ref = patch_spmv1.patch_spmv1_plain(vals, cc, rs, mk, x, n_out, mode)
+    runs = {t: patch_spmv1.patch_spmv1(vals, cc, rs, mk, x, n_out, mode,
+                                       tiles=tiles, tiles_per_block=t)
+            for t in dict.fromkeys((1, tiles.shape[0], None))}
+    torch.cuda.synchronize()
+    for t, got in runs.items():
+        errs["B7"] = max(errs["B7"], rel_check(
+            f"B7 {label} mode {mode} tiles_per_block={t or 'auto'} vs plain",
+            got, ref, TOL32))
+    errs["B7 duality"] = max(errs["B7 duality"], rel_check(
+        f"B7 {label} mode {mode} duality: tiles_per_block=1 vs "
+        f"{tiles.shape[0]}", runs[1], runs[tiles.shape[0]], TOL32))
+    if other is not None:
+        errs["B7 duality"] = max(errs["B7 duality"], rel_check(
+            f"B7 {label} mode {mode} vs {other[0]} at r=1", runs[None],
+            other[1], TOL32))
+
+
+def b7_launch_text(bucket, mode: str) -> str:
+    tiles = bucket.tiles
+    g = patch_spmv1.patch_spmv1_geometry(tiles.shape[0], bucket[0].shape[2],
+                                         mode)
+    return (f"B7 launch (mode {mode}): {g['stages']} ring stages of 32 KB, "
+            f"{g['smem'] / 1024:.1f} KB shared memory, {g['per_sm']} "
+            f"blocks per SM, {g['blocks']} blocks x {g['tiles_per_block']} "
+            f"row tiles")
+
+
 def b7_vs_plain(gen, cases) -> dict:
-    """B7 against its plain version and against B2 (modes f, t) or B3
-    (modes m, a) at r = 1 on the same plan.  ``cases``: (label, (vals, cc,
-    rs, mk), (nrows, ncols), symmetric)."""
-    errs = {"B7": 0.0, "B7 duality": 0.0}
-    for label, (vals, cc, rs, mk), (m, n), symmetric in cases:
-        for mode in (("m", "a") if symmetric else ("f", "t")):
-            n_in, n_out = (m, n) if mode == "t" else (n, m)
-            x = torch.randn(n_in, generator=gen).to(DEV)
-            got = patch_spmv1.patch_spmv1(vals, cc, rs, mk, x, n_out, mode)
-            ref = patch_spmv1.patch_spmv1_plain(vals, cc, rs, mk, x, n_out,
-                                                mode)
-            if symmetric:
-                other = patch_engine.bucket_spmm_sym(
-                    vals, cc, rs, mk, x[:, None], adjoint=mode == "a")
+    """B7 in modes f, t, m and a on each plan bucket of ``cases`` ((label,
+    BucketArrays with its live row-tile table, n)), checked by
+    :func:`check_b7` against its plain version at three launch geometries
+    and against B2 (modes f, t) and B3 (modes m, a) at r = 1 on the same
+    plan; then the non-finite case: on the G = 1 plan whose windows run
+    past n (``wide``), x = inf at the rows only all-zero row tiles face,
+    where B7 must give scipy's finite A^T x over the blocks."""
+    errs = {"B7": 0.0, "B7 duality": 0.0, "B7 inf": 0.0}
+    for label, bucket, n in cases:
+        vals, cc, rs, mk = bucket
+        nb, MP, KP = vals.shape
+        tiles = bucket.tiles.cpu().numpy()
+        print(f"  B7 {label}: {nb} slots of {MP}x{KP}, {len(tiles)} of "
+              f"{nb * MP // 8} row tiles live, "
+              f"{patch_spmv1.live_tile_bytes(tiles) / 1e6:.3f} of "
+              f"{vals.numel() * 4 / 1e6:.3f} MB read; "
+              f"{b7_launch_text(bucket, 'm')}")
+        for mode in ("f", "t", "m", "a"):
+            x = torch.randn(n, generator=gen).to(DEV)
+            if mode in "ft":
+                other = ("B2", patch_engine.bucket_spmm(
+                    vals, cc, rs, x[:, None], n, transpose=mode == "t"))
             else:
-                other = patch_engine.bucket_spmm(
-                    vals, cc, rs, x[:, None], n_out, transpose=mode == "t")
-            torch.cuda.synchronize()
-            errs["B7"] = max(errs["B7"], rel_check(
-                f"B7 {label} mode {mode} vs plain", got, ref, TOL32))
-            errs["B7 duality"] = max(errs["B7 duality"], rel_check(
-                f"B7 {label} mode {mode} vs {'B3' if symmetric else 'B2'} "
-                f"at r=1", got, other[:, 0], TOL32))
+                other = ("B3", patch_engine.bucket_spmm_sym(
+                    vals, cc, rs, mk, x[:, None], adjoint=mode == "a"))
+            check_b7(label, bucket, x, n, mode, errs,
+                     (other[0], other[1][:, 0]))
     return errs
 
 
+def b7_nonfinite(gen, W, bucket) -> dict:
+    """B7 on the wide plan with x = inf at the rows that only all-zero row
+    tiles face (modes t and a read x at a tile's rows; the plan's mk is 0,
+    so a is t): the result must be finite and equal scipy's A^T x over the
+    blocks, which never meets those rows; the plain version, which sums
+    the plan's padding too, gives NaN there."""
+    vals, cc, rs, mk = bucket
+    n = W.shape[0]
+    MT = vals.shape[1] // 8
+    covered = np.zeros(n + vals.shape[1], bool)
+    windows = np.zeros_like(covered)
+    rs_h = rs.cpu().numpy()
+    for t in bucket.tiles[:, 0].cpu().numpy():
+        r0 = int(rs_h[t // MT]) + (t % MT) * 8
+        covered[r0:r0 + 8] = True
+    for r0 in rs_h:
+        windows[r0:r0 + vals.shape[1]] = True
+    faced = np.flatnonzero(windows[:n] & ~covered[:n])
+    require(faced.size > 0,
+            "the wide plan must have rows only zero row tiles face")
+    xh = torch.randn(n, generator=gen).double()
+    xh[torch.from_numpy(faced)] = float("inf")
+    ref = bt.to_scipy(W).astype(np.float64).T @ xh.numpy()
+    require(np.all(np.isfinite(ref)), "scipy's A^T x must stay finite")
+    x = xh.float().to(DEV)
+    err = 0.0
+    for mode in ("t", "a"):
+        got = patch_spmv1.patch_spmv1(vals, cc, rs, mk, x, n, mode,
+                                      tiles=bucket.tiles)
+        plain = patch_spmv1.patch_spmv1_plain(vals, cc, rs, mk, x, n, mode)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(got).all()),
+                f"B7 mode {mode} with inf at {faced.size} rows only zero "
+                f"tiles face gave a non-finite result")
+        require(bool(torch.isnan(plain).any()),
+                "the plain version must meet the inf (the check must bite)")
+        err = max(err, rel_check(
+            f"B7 mode {mode}, inf at {faced.size} rows only zero row tiles "
+            f"face, vs scipy over the blocks", got, ref, TOL32))
+    return {"B7 inf": err}
+
+
+def check_b10(label, plan, dev, x, errs, span=None) -> str:
+    """B10 against its plain version at one tile per block, the whole
+    stream in one block, ``span`` tiles per block (ranges that split slabs
+    and row chunks) where given, and the kernel's own geometry; its duality
+    check holds the first two against each other.  Returns the plan's
+    mode."""
+    ntiles = plan.S * plan.TS
+    ref = panel2_spmv.panel2_apply_plain(plan, dev, x)
+    runs = {t: panel2_spmv.panel2_spmv(plan, dev, x, tiles_per_block=t)
+            for t in dict.fromkeys((1, ntiles, span, None))}
+    torch.cuda.synchronize()
+    for t, got in runs.items():
+        errs["B10"] = max(errs["B10"], rel_check(
+            f"B10 {label} tiles_per_block={t or 'auto'} vs plain", got, ref,
+            TOL32))
+    errs["B10 duality"] = max(errs["B10 duality"], rel_check(
+        f"B10 {label} duality: tiles_per_block=1 vs {ntiles}", runs[1],
+        runs[ntiles], TOL32))
+    return panel2_spmv.panel2_geometry(plan)["mode"]
+
+
+def b10_launch_text(plan) -> str:
+    g = panel2_spmv.panel2_geometry(plan)
+    return (f"B10 launch: {g['mode']} mode, {g['stages']} ring stages of "
+            f"32 KB, {g['smem'] / 1024:.1f} KB shared memory, "
+            f"{g['per_sm']} blocks per SM, {g['blocks']} blocks x "
+            f"{g['tiles_per_block']} tiles")
+
+
+def wide_mirror_entries():
+    """The entries of :func:`wide_mirror_plan`: a diagonal block and 400
+    stored off-diagonal 8 x 128 blocks at distinct chunks of one slab."""
+    rng = np.random.default_rng(29)
+    n = 51300
+    ents = [(rng.standard_normal((8, 8)).astype(np.float32), np.arange(8),
+             np.arange(8), False)]
+    for c in range(1, 401):
+        c0 = 128 * c + 4
+        cols = np.arange(c0, min(c0 + 128, n))
+        ents.append((rng.standard_normal((8, cols.size)).astype(np.float32),
+                     np.arange(8), cols, True))
+    return ents, n
+
+
 def b10_vs_plain(gen) -> dict:
-    """B10 on v2 plans at seg 8, 16 and 32: plain, transposed, fused mirror
-    and a plan whose last segment runs past ncols (1010 columns), against
-    its plain version, at 1 against 16 tiles per warp."""
+    """B10 on v2 plans at seg 8, 16 and 32: plain, transposed, fused mirror,
+    a mirror plan whose compact chunks take the direct mode, and a plan
+    whose last segment runs past ncols (1010 columns), each through
+    :func:`check_b10` (ranges that split slabs where the plan has them);
+    every seg drives the three modes."""
     errs = {"B10": 0.0, "B10 duality": 0.0}
     blocks, rows, cols, shape = random_block_sparse(
         11, shape=(600, 600), nblocks=30, max_block=60, dtype=np.float32,
@@ -1372,11 +1543,19 @@ def b10_vs_plain(gen) -> dict:
     fused = (panel2._layout_entries(dl, transpose=False)
              + [(b, r, c, True) for b, r, c, _ in
                 panel2._layout_entries(ol, transpose=False)])
+    d2 = random_symmetric(8, n=4096, ngroups=48, noffdiag=160,
+                          dtype=np.float32, contiguous=True)
+    fused2 = (panel2._layout_entries(build_layout(d2[0], d2[1], d2[1], d2[5]),
+                                     transpose=False)
+              + [(b, r, c, True) for b, r, c, _ in panel2._layout_entries(
+                  build_layout(*d2[2:]), transpose=False)])
+    wide, nw = wide_mirror_entries()
     rng = np.random.default_rng(23)
     wrap = [(rng.standard_normal((40, 30)).astype(np.float32),
              np.arange(0, 40), np.arange(980, 1010), False),
             (rng.standard_normal((24, 100)).astype(np.float32),
              np.arange(40, 64), np.arange(300, 400), False)]
+    fewer = []
     for seg in (8, 16, 32):
         plans = {
             "plain": panel2.build_panel2_plan(
@@ -1386,18 +1565,32 @@ def b10_vs_plain(gen) -> dict:
                 seg=seg),
             "fused mirror": panel2.build_panel2_plan(fused, shp, seg=seg,
                                                      mirror=True),
+            "fused mirror, config-2 recipe n=4096": panel2.build_panel2_plan(
+                fused2, d2[5], seg=seg, mirror=True),
+            "wide mirror": panel2.build_panel2_plan(wide, (nw, nw), seg=seg,
+                                                    mirror=True),
             "past ncols": panel2.build_panel2_plan(wrap, (64, 1010), seg=seg),
         }
         require(plans["fused mirror"].mirror, "the fused v2 plan must mirror")
         require(plans["past ncols"].NC * seg > 1010,
                 "the last segment must run past ncols")
+        modes = set()
         for label, plan in plans.items():
             dev = panel2_spmv.panel2_device_arrays(plan, DEV)
             x = torch.randn(plan.ncols, generator=gen).to(DEV)
-            check_stream_kernel(
-                f"B10 seg {seg} {label} (S={plan.S} TS={plan.TS} "
-                f"CW={plan.CW})", panel2_spmv.panel2_spmv,
-                panel2_spmv.panel2_apply_plain, plan, dev, x, errs)
+            span = split_span(plan)
+            blocks_ = None if span is None else -(-plan.S * plan.TS // span)
+            print(f"  B10 seg {seg} {label}: {describe(plan)}; "
+                  f"{b10_launch_text(plan)}; ranges splitting a row chunk: "
+                  f"{'none' if span is None else f'{span} tiles, {blocks_} blocks'}")
+            if span is not None and blocks_ < plan.S:
+                fewer.append((seg, label))
+            modes.add(check_b10(f"seg {seg} {label}", plan, dev, x, errs,
+                                span))
+        require(modes == set(panel_spmv.PANEL_MODES),
+                f"seg {seg}: phase 1 must drive every B10 mode, drove "
+                f"{sorted(modes)}")
+    require(fewer, "no v2 plan ran with fewer blocks than slabs")
     return errs
 
 
@@ -3086,16 +3279,6 @@ def default_beside(label, default, x, card) -> tuple:
     return eager, graph
 
 
-def live_patch_bytes(plan, ncols: int) -> int:
-    """Value bytes of a patch plan on columns below ``ncols``: what B7
-    reads (sentinel chunks lie past the columns and hold zeros)."""
-    total = 0
-    for b in plan.buckets:
-        lanes = np.clip(ncols - b.col_chunk.astype(np.int64) * CC, 0, CC)
-        total += int(lanes.sum()) * b.MP * 4
-    return total
-
-
 def phase10(card: str, defaults: dict):
     print("phase 10: the r = 1 patch route (B7), patch='always', on the "
           "operands of phases 3, 5 and 7")
@@ -3109,12 +3292,17 @@ def phase10(card: str, defaults: dict):
         torch.cuda.synchronize()
         t_plan = time.perf_counter() - t0
         b = plan.buckets[0]
-        live = live_patch_bytes(plan, op.shape[1])
+        tiles = dev[0].tiles
+        live = patch_spmv1.live_tile_bytes(tiles)
         print(f"  {label}: constructor {t_ctor:.2f} s; patch plan {b.nb} "
               f"slots of {b.MP}x{b.KP} (G={b.G}), "
               f"{plan.value_bytes / 1e6:.1f} MB, of which B7 reads "
-              f"{live / 1e6:.1f} MB (its lanes past the columns skip their "
-              f"loads), {t_plan:.2f} s on the host")
+              f"{live / 1e6:.1f} MB: {tiles.shape[0]} of "
+              f"{b.nb * b.MP // 8} row tiles live, "
+              f"{float(tiles[:, 1].double().mean()) * CC:.0f} of {b.KP} "
+              f"columns wide on average; {t_plan:.2f} s on the host")
+        mode = "m" if key == "sym" else "f"
+        print(f"  {label}: {b7_launch_text(dev[0], mode)}")
         x = real_x(key)
         n = op.shape[0]
         launched = 0
@@ -3163,6 +3351,15 @@ def phase10(card: str, defaults: dict):
         times["bound"] = bound(logical_nnz(op) * 4 + 2 * n * 4, flops)
         times["plan_mb"], times["plan_s"] = plan.value_bytes / 1e6, t_plan
         times["read_mb"] = live / 1e6
+        if key == "bsm":  # A.T @ x: B7 in mode t
+            t_ms = time_routes(
+                f"{label} A.T @ x, patch route (B7 mode t)",
+                lambda: op.T @ x,
+                lambda: patch_engine.patch_spmv_plain(plan, dev, x,
+                                                      transpose=True),
+                live, flops, card)
+            times.update(t_ms=t_ms[0], t_plain_ms=t_ms[1],
+                         t_graph_ms=t_ms[2], t_plain_graph_ms=t_ms[3])
         out["times"][key] = times
         del op, plan, dev
     return out
@@ -3197,9 +3394,8 @@ def phase11(card: str, defaults: dict, library: dict):
         errs["B10 float64"] = max(errs["B10 float64"], rel_check(
             f"{label}: A @ x (B10) vs float64 bucket route", y,
             float64_reference(op, x), TOL32))
-        check_stream_kernel(f"B10 {label}", panel2_spmv.panel2_spmv,
-                            panel2_spmv.panel2_apply_plain, plan, dev, x,
-                            errs)
+        print(f"  {label}: {describe(plan)}; {b10_launch_text(plan)}")
+        check_b10(label, plan, dev, x, errs)
         flops = 2 * op.nnz
         times = dict(zip(("ms", "plain_ms", "graph_ms", "plain_graph_ms"),
                          time_routes(f"{label} SpMV, panel v2 route (B10)",
@@ -3213,7 +3409,9 @@ def phase11(card: str, defaults: dict, library: dict):
         times["bound"] = bound(logical_nnz(op) * 4 + 2 * op.shape[0] * 4,
                                flops)
         times.update(seg=plan.seg, plan_mb=(plan.tile_bytes + plan.aux_bytes)
-                     / 1e6, plan_s=setup["panel_s"])
+                     / 1e6, plan_s=setup["panel_s"],
+                     read_mb=plan.nt * 4096 / 1e6,
+                     geometry=panel2_spmv.panel2_geometry(plan))
         out["times"][key] = times
         del op, plan, dev
 
@@ -3271,15 +3469,17 @@ def transpose_times(card: str) -> dict:
 
 
 def spmv_times(card: str) -> dict:
-    """The r = 1 stream products of this checkout's B5 and B6, timed alone,
-    eager and from a CUDA graph: phase 3's, 5's and 7's operands through
-    their routes (``op @ x``, each checked against the plain version on the
-    plan it reads), the gradient of each (:func:`grad_times`), the
-    symmetric operand's fused and expanded candidate plans through B5
-    directly, and ``batched_mv`` (B6) on phase 9's config-2 and config-3
-    batches.  Only entry points that older checkouts of the port also have
-    are used, so this script, copied into an older checkout, times its
-    kernels the same way (``--spmv``)."""
+    """The r = 1 stream products of this checkout's B5, B6, B7 and B10,
+    timed alone, eager and from a CUDA graph: phase 3's, 5's and 7's
+    operands through their routes (``op @ x``, each checked against the
+    plain version on the plan it reads), the gradient of each
+    (:func:`grad_times`), the symmetric operand's fused and expanded
+    candidate plans through B5 directly; the same operands built with
+    ``patch="always"`` (B7, and ``A.T @ x`` on config 1) and with
+    ``panel="v2"`` (B10); and ``batched_mv`` (B6) on phase 9's config-2
+    and config-3 batches.  Only entry points that older checkouts of the
+    port also have are used, so this script, copied into an older checkout,
+    times its kernels the same way (``--spmv``)."""
     gen = torch.Generator(device="cpu").manual_seed(41)
     A, _ = contiguous_operator(8192, 2000, 128, seed=7, value_seed=7 + 7777,
                                device=DEV)
@@ -3328,6 +3528,35 @@ def spmv_times(card: str) -> dict:
                       f"{out[f'symmetric {name}']['eager_ms']:.4f} ms, graph "
                       f"{out[f'symmetric {name}']['graph_ms']:.4f} ms [{card}]")
                 del cdev, fn
+    del A, S, V
+    # the opt-in routes: B7 (patch="always") and B10 (panel="v2")
+    for key, make in (("config 1", "bsm"), ("symmetric", "sym"),
+                      ("VBCRS", "vbcrs")):
+        x = torch.randn(8192 if make == "bsm" else 32768,
+                        generator=gen).to(DEV)
+        op = real_operand(make, patch="always")[0]
+        plan, dev = op._patch_for(False) if make == "sym" else op._patch_for()
+        products = {f"{key} B7": (lambda op=op: op @ x,
+                                  lambda p=plan, d=dev: (
+                                      patch_engine.patch_spmv_plain(p, d, x)))}
+        if make == "bsm":
+            products[f"{key} A.T @ x B7"] = (
+                lambda op=op: op.T @ x,
+                lambda p=plan, d=dev: patch_engine.patch_spmv_plain(
+                    p, d, x, transpose=True))
+        v2 = real_operand(make, panel="v2")[0]
+        choice, p2, d2 = v2._stream_entry(False)
+        require(isinstance(p2, panel2.Panel2Plan),
+                f"{key}: panel='v2' must take a v2 plan, took {choice}")
+        products[f"{key} B10"] = (
+            lambda op=v2: op @ x,
+            lambda p=p2, d=d2: panel2_spmv.panel2_apply_plain(p, d, x))
+        for name, (fn, plain) in products.items():
+            rel_check(f"{name} vs plain", fn(), plain(), TOL32)
+            out[name] = {"eager_ms": median_ms(fn), "graph_ms": graph_ms(fn)}
+            print(f"  {name}: eager {out[name]['eager_ms']:.4f} ms, graph "
+                  f"{out[name]['graph_ms']:.4f} ms [{card}]")
+        del op, plan, dev, v2, p2, d2, products
     for key, ops in (("batched_mv config 2 P=16", config2_operators(16)),
                      ("batched_mv config 3 P=16", config3_operators(4096, 16))):
         xb = torch.randn((16, 4096), generator=gen).to(DEV)
@@ -3433,7 +3662,9 @@ def main() -> None:
         out = {}
         for key, t in res["times"].items():
             for k in ("ms", "plain_ms", "graph_ms", "plain_graph_ms", "b5_ms",
-                      "b5_graph_ms", "plan_mb", "read_mb", "plan_s", "seg"):
+                      "b5_graph_ms", "plan_mb", "read_mb", "plan_s", "seg",
+                      "t_ms", "t_plain_ms", "t_graph_ms", "t_plain_graph_ms",
+                      "geometry"):
                 if k in t:
                     out[f"{key}_{k}"] = t[k]
             out[f"{key}_bound_ms"] = t["bound"][0]
