@@ -10,7 +10,11 @@ in hand-written CUDA kernels for Hopper (``csrc/``): the chunk-table kernel
 SpMM kernel (f32, r > 1) and its symmetric counterpart, the element gather
 and scatter-add, and the one-launch stream SpMV kernels over panel and slab
 plans (f32, r = 1), and the batched products of P same-structure operators
-in one launch (:func:`batched_mm`, :func:`batched_mv`).  Operators live on
+in one launch (:func:`batched_mm`, :func:`batched_mv`).  The Krylov
+solvers :func:`cg`, :func:`bicgstab` and :func:`gmres` and the
+preconditioners :func:`jacobi` and :func:`block_jacobi` run on the
+operator's device, and :func:`as_linear_operator` hands an operator to
+``scipy.sparse.linalg``.  Operators live on
 the card unless the caller passes ``device="cpu"``; on CPU tensors the same
 routes run the kernels' plain PyTorch versions.
 
@@ -43,7 +47,16 @@ from .formats.symmetric import SymmetricBlockMatrix
 from .formats.vbcrs import VariableBlockCompressedRowStorage
 from .interop.convert import from_reference
 from .ops.batched import batched_mm, batched_mv
-from .interop.scipy_io import rowcolvals, to_scipy
+from .interop.scipy_io import (
+    as_linear_operator,
+    from_dense,
+    from_scipy_blocks,
+    rowcolvals,
+    sparse,
+    to_scipy,
+)
+from .precond import DiagonalOperator, block_jacobi, jacobi
+from .solvers import SolveInfo, bicgstab, cg, gmres
 
 __version__ = "0.1.0"
 
@@ -75,4 +88,15 @@ __all__ = [
     "from_reference",
     "batched_mm",
     "batched_mv",
+    "sparse",
+    "from_dense",
+    "from_scipy_blocks",
+    "as_linear_operator",
+    "cg",
+    "bicgstab",
+    "gmres",
+    "SolveInfo",
+    "jacobi",
+    "block_jacobi",
+    "DiagonalOperator",
 ]

@@ -5,8 +5,11 @@ Counterpart of ``blocksparse_tpu/core/operator.py``:
 - ``A @ x`` / ``A.mv(x)``        : SpMV
 - ``A @ X`` / ``A.mm(X)``        : multi-RHS SpMM
 - ``A.axpby(x, y, alpha, beta)`` : functional 5-arg ``mul!`` -> alpha*A@x + beta*y
+- ``A.apply(x, transpose=, conj=)``: the product with explicit mode flags
 - ``A.T`` / ``A.H`` / ``A.conj()``: lazy wrappers (flag flips; the index
-                                   tables swap roles, no data movement)
+                                   tables swap roles, no data movement);
+                                   ``A.transpose()`` / ``A.adjoint()`` too
+- ``A.matvec_closure()``          : a plain ``x -> A @ x`` callable
 - ``a * A``, ``A + B``, ``A @ B``: scaled / summed / composed operators
 
 Operands are ``torch.Tensor``s (a numpy array is taken as a CPU tensor).
@@ -125,6 +128,11 @@ class LinearOperator:
             return self.mm(other)
         raise ValueError(f"cannot multiply operator by array of ndim {other.ndim}")
 
+    def apply(self, x, *, transpose: bool = False, conj: bool = False):
+        """The product with explicit mode flags (``A @ x``, ``A.T @ x``,
+        ``A.conj() @ x`` or ``A.H @ x``)."""
+        return self._apply(as_tensor(x), transpose, conj)
+
     def __mul__(self, other):
         if _is_scalar(other):
             return ScaledOperator(other, self)
@@ -157,6 +165,12 @@ class LinearOperator:
     def H(self) -> "LinearOperator":
         return AdjointOperator(self)
 
+    def adjoint(self) -> "LinearOperator":
+        return self.H
+
+    def transpose(self) -> "LinearOperator":
+        return self.T
+
     def conj(self) -> "LinearOperator":
         return ConjOperator(self)
 
@@ -165,6 +179,10 @@ class LinearOperator:
         """Materialize as a dense tensor (A @ I)."""
         eye = torch.eye(self.shape[1], dtype=self.dtype, device=self.device)
         return self.mm(eye)
+
+    def matvec_closure(self):
+        """A plain ``x -> A @ x`` callable, for solvers that take one."""
+        return lambda x: self.__matmul__(x)
 
 
 class _WrappedOperator(LinearOperator):

@@ -8,14 +8,21 @@ answer from host numpy: a ``SymmetricBlockMatrix`` by ``ndiagonals``,
 ``block(i)``, ``row_start(i)`` and ``col_start(i)``; a
 ``BlockSparseMatrix`` by ``nblocks``, ``block(i)`` and the two index
 accessors.  It builds the port's operator from the same numpy blocks.
-This module imports neither jax nor the JAX package.
+It also carries the preconditioners of ``blocksparse_tpu/precond.py``
+across, by class name: a ``DiagonalOperator`` by its 1-D ``d``, and a
+``SumOperator`` (the ``M + DiagonalOperator`` that ``block_jacobi``
+returns) by its summands ``a`` and ``b``.  This module imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
 
-from ..formats.block_sparse import BlockSparseMatrix
+import numpy as np
+
+from ..core.operator import SumOperator
+from ..formats.block_sparse import BlockSparseMatrix, _np_dtype
 from ..formats.symmetric import SymmetricBlockMatrix
 from ..formats.vbcrs import VariableBlockCompressedRowStorage
+from ..precond import DiagonalOperator
 
 __all__ = ["from_reference"]
 
@@ -25,7 +32,17 @@ def from_reference(A, **kwargs):
     ``VariableBlockCompressedRowStorage`` or ``BlockSparseMatrix`` holding
     ``A``'s blocks and index lists; ``kwargs`` (``device``, ``dtype``,
     ``precision``, ``schedule``, ``granularity``, ``patch``, ``panel``,
-    ...) go to its constructor."""
+    ...) go to its constructor.  A ``DiagonalOperator`` becomes the port's,
+    on ``kwargs["device"]`` (the card unless given) in ``kwargs["dtype"]``
+    (its own unless given); a ``SumOperator`` the port's sum of its
+    summands, each carried across with ``kwargs``."""
+    kind = type(A).__name__
+    if kind == "DiagonalOperator":
+        return DiagonalOperator(np.array(A.d, dtype=_np_dtype(kwargs.get("dtype"))),
+                                device=kwargs.get("device"))
+    if kind == "SumOperator":
+        return SumOperator(from_reference(A.a, **kwargs),
+                           from_reference(A.b, **kwargs))
     if hasattr(A, "ndiagonals"):
         d, o = range(A.ndiagonals), range(A.noffdiagonals)
         return SymmetricBlockMatrix(

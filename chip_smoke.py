@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --transposes   # B2's transposed products alone
     python3 chip_smoke.py --spmv         # the r = 1 products alone
+    python3 chip_smoke.py --solve        # phase 12 (the BEM solve) alone
 
 Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
 
@@ -137,7 +138,29 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      symmetric operand's fused plan) and no B5, against the float64 bucket
      route, B10 against its plain version at one tile per block, the whole
      stream in one block and its own geometry, timed as in phase 10; a
-     ``batched_mv`` of two v2 operators loops (no B6).
+     ``batched_mv`` of two v2 operators loops (no B6);
+ 12. the BEM solve: ``examples/bem_solve.py``'s recipe at n = 8192 (128
+     z-slice clusters of 64 points, thresh 0.6, f32) as a
+     ``SymmetricBlockMatrix`` on the card, with the example's self-term
+     64; an independent dense float64 assembly of the recipe (not through
+     the port) is the oracle: its extreme eigenvalues (``eigvalsh`` on the
+     card; the system must be positive definite) and scipy's plain CG on
+     it; ``cg`` plain and with ``M = block_jacobi(S)``, ``bicgstab`` and
+     ``gmres`` with M, at tol 1e-5, each converged with a float64 residual
+     on that assembly <= 2 tol |b| (GMRES, which converges on the
+     preconditioned residual: |M (b - A x)| <= 2 tol |M b|, M the inverses
+     of its diagonal blocks), its exact launches (one S and one M product
+     per CG step, the chunk's frozen steps included) and host reads
+     (``solvers.HOST_CHECKS``); the port's float64 operator against the
+     assembly, and its block-Jacobi CG at tol 1e-10 against
+     ``scipy.sparse.linalg.cg`` on the assembly with its block inverses
+     (iterations within one, x within 1e-8); the host syncs of one and two
+     chunks of each solver under ``torch.cuda.set_sync_debug_mode("warn")``
+     by source line (the solver's only at its reads); eager ms per
+     iteration of each solver beside its products replayed from a CUDA
+     graph (and a whole CG / BiCGStab chunk replayed, held to an eager
+     chunk within 1e-5), and the set-up
+     seconds (``--solve`` runs this phase alone).
 
 Every timed kernel also gets its bound -- the larger of its logical bytes
 (stored values, operands and results, each once) over 3.35 TB/s and its
@@ -158,26 +181,35 @@ random-sign products drifts by ~sqrt(K) 1e-3 of a typical product while
 max|reference| is ~4 sqrt(K) of one: TOL_TF32 = 2e-3 holds that with
 margin for K <= 1024.  Any failure raises and exits nonzero.  The
 second-to-last line is a JSON summary of the kernels, the last line a JSON
-device record.
+device record; before them, one line per kernel puts its timed product's
+graph time beside its bound and its library call.
 
 Needs one CUDA card, nvcc, torch and scipy; imports no jax.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
+import os
 import re
 import subprocess
 import sys
 import time
+import traceback
+import warnings
+from collections import Counter
 
 import numpy as np
+import scipy.sparse.linalg as spla
+from scipy.sparse import block_diag
 import torch
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
 
 import blocksparse_tpu_torch as bt  # noqa: E402
+from blocksparse_tpu_torch import solvers  # noqa: E402
 from blocksparse_tpu_torch.core.layout import build_layout  # noqa: E402
 from blocksparse_tpu_torch.core import panel2  # noqa: E402
 from blocksparse_tpu_torch.core.panel import (  # noqa: E402
@@ -204,6 +236,7 @@ from blocksparse_tpu_torch.utils.testmatrices import (  # noqa: E402
     random_block_sparse, random_symmetric)
 
 DEV = torch.device("cuda", 0)
+ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 TOL32 = TOL[torch.float32]
 TOL_TF32 = 2e-3  # one TF32 pass (precision=None); see the module docstring
@@ -643,10 +676,11 @@ def median_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def graph_ms(fn) -> float:
-    """Device time per call without host launch overhead: ``fn`` captured
-    once in a CUDA graph, then the median CUDA-event time of its replays.
-    The replayed output is checked against an eager call."""
+def replayed(fn) -> tuple:
+    """``fn`` captured once in a CUDA graph (after three eager calls on a
+    side stream) and replayed once: ``(graph, gap, dtype)``, the gap
+    between the replayed output and the last eager one relative to
+    max(1, max|eager|)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -659,8 +693,16 @@ def graph_ms(fn) -> float:
     graph.replay()
     torch.cuda.synchronize()
     scale = max(1.0, float(ref.abs().max()))
-    require(float((out - ref).abs().max()) <= TOL[ref.dtype] * scale,
-            "CUDA-graph replay disagrees with the eager product")
+    return graph, float((out - ref).abs().max()) / scale, ref.dtype
+
+
+def graph_ms(fn) -> float:
+    """Device time per call without host launch overhead: the median
+    CUDA-event time of ``fn``'s replays from a CUDA graph, whose output is
+    held to an eager call within ``TOL`` of its dtype."""
+    graph, gap, dtype = replayed(fn)
+    require(gap <= TOL[dtype], f"CUDA-graph replay disagrees with the eager "
+            f"product: {gap:.3e} > {TOL[dtype]:.0e}")
     return median_ms(graph.replay)
 
 
@@ -3438,6 +3480,437 @@ def phase11(card: str, defaults: dict, library: dict):
     return out
 
 
+BEM_NPTS, BEM_CLUSTERS, BEM_THRESH = 8192, 128, 0.6
+# the diagonal self-term: examples/bem_solve.py's own, len(cluster) = 64
+BEM_SELF_TERM = 64.0
+SOLVE_TOL = 1e-5
+# a self-term whose smallest eigenvalue lies near zero, printed beside the
+# example's as the same spectrum shifted
+NEAR_SINGULAR_SELF_TERM = 11.5
+# the solves of n1 and n2 iterations whose difference times one iteration
+# (tol = 0; GMRES: two and four restart cycles).  At tol = 0 BiCGStab
+# reaches the f32 floor and stalls (rho or omega below its guard) after
+# about 34 iterations on this system, so its solves stay below that
+TIMED_ITERATIONS = {"cg": (16, 48), "bicgstab": (8, 24)}
+
+
+def fibonacci_sphere(n: int) -> np.ndarray:
+    i = np.arange(n)
+    phi = np.pi * (3.0 - np.sqrt(5.0)) * i
+    z = 1 - 2 * (i + 0.5) / n
+    rho = np.sqrt(1 - z * z)
+    return np.stack([rho * np.cos(phi), rho * np.sin(phi), z], axis=1)
+
+
+def bem_system(npts: int, nclusters: int, thresh: float, self_term: float):
+    """``examples/bem_solve.py``'s near-field system, as the arguments of a
+    ``SymmetricBlockMatrix``: points on a Fibonacci sphere sorted by z,
+    ``nclusters`` contiguous z-slice clusters, 1/(4 pi r) blocks between
+    clusters whose centres lie closer than ``thresh`` (each stored once),
+    ``self_term`` on the diagonal, f32."""
+    pts = fibonacci_sphere(npts)
+    pts = pts[np.argsort(pts[:, 2], kind="stable")]
+    bounds = np.linspace(0, npts, nclusters + 1).astype(int)
+    clusters = [np.arange(bounds[i], bounds[i + 1]) for i in range(nclusters)]
+    centers = np.stack([pts[c].mean(axis=0) for c in clusters])
+
+    def kernel_block(ci, cj, diagonal):
+        d = np.linalg.norm(pts[ci][:, None, :] - pts[cj][None, :, :], axis=-1)
+        if diagonal:
+            np.fill_diagonal(d, np.inf)
+        blk = 1.0 / (4 * np.pi * np.maximum(d, 1e-9))
+        if diagonal:
+            blk[np.diag_indices_from(blk)] = self_term
+        return blk.astype(np.float32)
+
+    diagonals, offdiag, rows, cols = [], [], [], []
+    for i in range(nclusters):
+        diagonals.append(kernel_block(clusters[i], clusters[i], True))
+        for j in range(i + 1, nclusters):
+            if np.linalg.norm(centers[i] - centers[j]) < thresh:
+                offdiag.append(kernel_block(clusters[i], clusters[j], False))
+                rows.append(clusters[i])
+                cols.append(clusters[j])
+    return diagonals, clusters, offdiag, rows, cols, (npts, npts)
+
+
+def bem_dense(npts: int, nclusters: int, thresh: float,
+              self_term: float) -> np.ndarray:
+    """The same system assembled densely in float64 from the recipe alone,
+    without the port and without the stored-once blocks: for each cluster,
+    its rows against every point of each cluster whose centre lies closer
+    than ``thresh`` (its own included), 1/(4 pi r) rounded through f32 as
+    the operator's values are, ``self_term`` on the diagonal."""
+    pts = fibonacci_sphere(npts)
+    pts = pts[np.argsort(pts[:, 2], kind="stable")]
+    bounds = np.linspace(0, npts, nclusters + 1).astype(int)
+    label = np.repeat(np.arange(nclusters), np.diff(bounds))
+    centers = np.stack([pts[label == c].mean(axis=0) for c in range(nclusters)])
+    near = np.linalg.norm(centers[:, None] - centers[None], axis=-1) < thresh
+    A = np.zeros((npts, npts))
+    for c in range(nclusters):
+        rows = np.arange(bounds[c], bounds[c + 1])
+        cols = np.flatnonzero(near[c][label])
+        d = np.linalg.norm(pts[rows][:, None, :] - pts[cols][None, :, :],
+                           axis=-1)
+        with np.errstate(divide="ignore"):
+            blk = (1.0 / (4 * np.pi * d)).astype(np.float32)
+        A[np.ix_(rows, cols)] = blk
+    A[np.diag_indices(npts)] = self_term
+    return A
+
+
+def product_want(op, k: int) -> dict:
+    """Exact launches of k r = 1 products of ``op`` on its default route:
+    its stream kernel (B5 / B8 / B10, mirror launches counted) where the
+    stream route takes it, else the bucket route's launches."""
+    if op.dtype == torch.float32 and stream_kernel(op) != "B1":
+        name, plan = stream_kernel(op), op._stream_entry(False)[1]
+        return {name: k, f"{name} mirror": k * bool(plan.mirror)}
+    return {key: k * v for key, v in bucket_want(op).items()}
+
+
+def solve_products(name: str, k: int, restart: int) -> tuple:
+    """(host reads, S products, M products) of a preconditioned solve that
+    took k iterations under the default maxiter, as ``solvers`` runs it:
+    CG and BiCGStab run whole chunks until the read that finds the flag
+    down (max(1, ceil(k / CHUNK)) reads); CG makes one S and one M product
+    per step, BiCGStab two of each, both one S product for the initial
+    residual and one for the true residual, CG one M product for z0.
+    GMRES reads at each cycle's chunk boundaries and at its end (the cycle
+    of ``last`` iterations reads ceil(last / CHUNK) times and runs
+    min(CHUNK ceil(last / CHUNK), restart) steps of one S and one M
+    product), plus one S and one M product per cycle for its residual, one
+    M product for M b and one S product for the true residual."""
+    C = solvers.CHUNK
+    if name in ("cg", "bicgstab"):
+        reads = max(1, -(-k // C))
+        per = 1 if name == "cg" else 2
+        return reads, 2 + per * reads * C, (name == "cg") + per * reads * C
+    cycles = max(1, -(-k // restart))
+    lasts = [restart] * (cycles - 1) + [k - (cycles - 1) * restart]
+    reads = sum(max(1, -(-last // C)) for last in lasts)
+    steps = sum(min(C * max(1, -(-last // C)), restart) for last in lasts)
+    return reads, cycles + steps + 1, 1 + cycles + steps
+
+
+def merged(*wants) -> dict:
+    """Every counter of ``counts()``: the sum of the ``wants``, else 0."""
+    out = {k: 0 for k in counts()}
+    for want in wants:
+        for k, v in want.items():
+            out[k] += v
+    return out
+
+
+def source_site(filename: str, lineno: int) -> str:
+    """A source line as ``path:line``: relative to the checkout inside it,
+    from the package directory on (``torch/...``) outside it."""
+    path = os.path.abspath(filename)
+    if path.startswith(ROOT + os.sep):
+        return f"{os.path.relpath(path, ROOT)}:{lineno}"
+    parts = path.split(os.sep)
+    for i in range(len(parts) - 1, -1, -1):
+        if parts[i] == "site-packages":
+            return f"{'/'.join(parts[i + 1:])}:{lineno}"
+    return f"{path}:{lineno}"
+
+
+def sync_sites(fn) -> Counter:
+    """Host synchronisations ``fn`` makes, by the source line that made
+    them (``torch.cuda.set_sync_debug_mode("warn")``); a line outside the
+    checkout also names the innermost line of the package (else of this
+    script) that led there."""
+    sites = Counter()
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        site = source_site(filename, lineno)
+        if not site.startswith("blocksparse_tpu_torch"):
+            stack = [f for f in traceback.extract_stack()[:-1]
+                     if f.filename.startswith(ROOT + os.sep)]
+            ours = [f for f in stack if not f.filename.endswith(
+                "chip_smoke.py")] or stack
+            if ours:
+                site += f" via {source_site(ours[-1].filename, ours[-1].lineno)}"
+        sites[site] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sites
+
+
+def product_bound(op) -> float:
+    """Least ms of one r = 1 product by ``op``: its stored values, operand
+    and result once each over 3.35 TB/s, or two operations per logical
+    entry (a symmetric off-diagonal counted twice) at the "highest" tier's
+    peak (``PEAK_FLOPS``), whichever is longer."""
+    size = torch.empty(0, dtype=op.dtype).element_size()
+    entries = (op._dlayout.nnz + 2 * op._olayout.nnz if hasattr(op, "_dlayout")
+               else op.nnz)
+    return bound((logical_nnz(op) + 2 * op.shape[0]) * size, 2 * entries)[0]
+
+
+def solve_ms_per_iteration(solve, n1: int, n2: int) -> float:
+    """Eager ms per iteration: host clock around solves of n1 and n2
+    iterations (tol = 0: none converges, and each must run all n), each
+    ending in a synchronize, the lowest of three of each, differenced."""
+    def wall(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, info = solve(n)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+        require(int(info.iterations) == n, f"a timed solve of maxiter {n} "
+                f"stopped after {int(info.iterations)} iterations")
+        return wall_s
+    solve(n1)  # warm
+    lo = {n: min(wall(n) for _ in range(3)) for n in (n1, n2)}
+    return (lo[n2] - lo[n1]) / (n2 - n1) * 1e3
+
+
+def phase12(card: str) -> dict:
+    print(f"phase 12: BEM solve (examples/bem_solve.py's recipe), n={BEM_NPTS},"
+          f" {BEM_CLUSTERS} clusters of {BEM_NPTS // BEM_CLUSTERS}, thresh "
+          f"{BEM_THRESH}, self-term {BEM_SELF_TERM}, f32, tol {SOLVE_TOL}")
+    t_phase = time.perf_counter()
+    setup = {}
+    t = time.perf_counter()
+    args = bem_system(BEM_NPTS, BEM_CLUSTERS, BEM_THRESH, BEM_SELF_TERM)
+    setup["recipe"] = time.perf_counter() - t
+    t = time.perf_counter()
+    S = bt.SymmetricBlockMatrix(*args, device=DEV)
+    torch.cuda.synchronize()
+    setup["operator (layout, coloring)"] = time.perf_counter() - t
+    b_np = np.random.default_rng(0).standard_normal(BEM_NPTS).astype(np.float32)
+    b = torch.from_numpy(b_np).to(DEV)
+    t = time.perf_counter()
+    S @ b
+    torch.cuda.synchronize()
+    setup["plans (first product)"] = time.perf_counter() - t
+    t = time.perf_counter()
+    M = bt.block_jacobi(S)
+    torch.cuda.synchronize()
+    setup["block_jacobi"] = time.perf_counter() - t
+    t = time.perf_counter()
+    A64 = bem_dense(BEM_NPTS, BEM_CLUSTERS, BEM_THRESH, BEM_SELF_TERM)
+    Minv64 = block_diag([np.linalg.inv(A64[np.ix_(c, c)]) for c in args[1]],
+                        format="csr")
+    setup["independent float64 assembly and block inverses"] = (
+        time.perf_counter() - t)
+    b64 = b_np.astype(np.float64)
+    bnorm = float(np.linalg.norm(b64))
+    print(f"  {S}; {S.noffdiagonals} off-diagonal blocks stored once, "
+          f"{logical_nnz(S) * 4 / 1e6:.1f} MB of stored values; M: {M}")
+    print(f"  S @ p: {stream_kernel(S)} on {describe(S._stream_entry(False)[1])}")
+    print(f"  M @ r: {stream_kernel(M)}"
+          + (f" on {describe(M._stream_entry(False)[1])}"
+             if stream_kernel(M) != "B1" else " (bucket route)"))
+    print("  set-up: " + ", ".join(f"{k} {v:.2f} s" for k, v in setup.items()))
+    out = {"setup_s": setup, "solves": {}, "launches": {}}
+
+    # the spectrum of the independent assembly, on the card in float64; a
+    # self-term s shifts it by s - BEM_SELF_TERM
+    t = time.perf_counter()
+    ev = torch.linalg.eigvalsh(torch.from_numpy(A64).to(DEV))
+    lo, hi = float(ev[0]), float(ev[-1])
+    del ev
+    out["eigenvalues"] = {"min": lo, "max": hi, "self_term": BEM_SELF_TERM,
+                          "seconds": time.perf_counter() - t}
+    shift = BEM_SELF_TERM - NEAR_SINGULAR_SELF_TERM
+    print(f"  independent float64 assembly: eigenvalues {lo:.6f} .. {hi:.6f} "
+          f"at self-term {BEM_SELF_TERM} (condition {hi / lo:.2f}); "
+          f"{lo - shift:.6f} .. {hi - shift:.6f} at self-term "
+          f"{NEAR_SINGULAR_SELF_TERM}; eigvalsh on the card "
+          f"{out['eigenvalues']['seconds']:.2f} s")
+    require(lo > 0, f"the BEM system is not positive definite: {lo:.3e}")
+    sp_iters = [0]
+    x_sp, code = spla.cg(A64, b64, rtol=SOLVE_TOL, atol=0.0,
+                         callback=lambda _x: sp_iters.__setitem__(
+                             0, sp_iters[0] + 1))
+    out["scipy_plain_cg"] = {"iterations": sp_iters[0], "code": code}
+    print(f"  scipy.sparse.linalg.cg on it in float64, plain, tol "
+          f"{SOLVE_TOL}: {sp_iters[0]} iterations, code {code}, residual "
+          f"{np.linalg.norm(b64 - A64 @ x_sp) / bnorm:.3e} |b|")
+
+    # each solve from a zero x0, counters reset just before it
+    restart = inspect.signature(bt.gmres).parameters["restart"].default
+    cases = (("cg", None), ("cg", M), ("bicgstab", M), ("gmres", M))
+
+    def solve(name, m, **kw):
+        return getattr(bt, name)(S, b, M=m, **kw)
+
+    for name, m in cases:
+        label = f"{name}{' + block_jacobi' if m is not None else ''}"
+        reset_counts()
+        solvers.HOST_CHECKS = 0
+        t = time.perf_counter()
+        x, info = solve(name, m, tol=SOLVE_TOL)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+        got, reads = counts(), solvers.HOST_CHECKS
+        k = int(info.iterations)
+        require(info.iterations.device == DEV and info.residual.device == DEV,
+                f"{label}: SolveInfo off the card")
+        require(bool(info.converged), f"{label}: not converged in {k} "
+                f"iterations, residual {float(info.residual):.3e}")
+        r64 = b64 - A64 @ x.double().cpu().numpy()
+        res64 = float(np.linalg.norm(r64))
+        # GMRES meets tol on the preconditioned residual M (b - A x)
+        held, limit, what = res64, 2 * SOLVE_TOL * bnorm, "2 tol |b|"
+        if name == "gmres":
+            held = float(np.linalg.norm(Minv64 @ r64))
+            limit = 2 * SOLVE_TOL * float(np.linalg.norm(Minv64 @ b64))
+            what = "2 tol |M b|, preconditioned"
+        require(held <= limit, f"{label}: float64 residual {held:.3e} above "
+                f"{limit:.3e} ({what})")
+        want_reads, nS, nM = solve_products(name, k, restart)
+        if m is None:
+            nM = 0
+        want = merged(product_want(S, nS), product_want(M, nM))
+        require(reads == want_reads, f"{label}: {reads} host reads, expected "
+                f"{want_reads} for {k} iterations")
+        require(got == want, f"{label}: launches {got}, expected {want} "
+                f"({nS} S and {nM} M products)")
+        print(f"  {label}: {k} iterations, converged, residual on the card "
+              f"{float(info.residual):.3e}, float64 residual {res64:.3e}"
+              + (f", preconditioned {held:.3e}" if name == "gmres" else "")
+              + f" <= {limit:.3e} ({what}); {reads} host reads "
+              f"(HOST_CHECKS), {nS} S + {nM} M products, launches "
+              f"{ {k_: v for k_, v in got.items() if v} }; {wall_s:.3f} s wall")
+        out["solves"][label] = {"iterations": k, "host_checks": reads,
+                                "residual64": res64, "wall_s": wall_s,
+                                "products": (nS, nM)}
+        if (name, m) == ("cg", M):
+            out["launches"] = got
+
+    # float64 on the card against scipy's CG on the independent assembly
+    t = time.perf_counter()
+    S64 = bt.SymmetricBlockMatrix(
+        [a.astype(np.float64) for a in args[0]], args[1],
+        [a.astype(np.float64) for a in args[2]], args[3], args[4], args[5],
+        device=DEV)
+    M64 = bt.block_jacobi(S64)
+    setup["float64 operator and block_jacobi"] = time.perf_counter() - t
+    b64_dev = torch.from_numpy(b64).to(DEV)
+    gap = float(np.abs((S64 @ b64_dev).cpu().numpy() - A64 @ b64).max())
+    require(gap <= TOL[torch.float64] * float(np.abs(A64 @ b64).max()),
+            f"the port's float64 operator is {gap:.3e} off the independent "
+            f"assembly")
+    print(f"  the port's float64 operator against the independent assembly: "
+          f"max |S x - A x| {gap:.3e}")
+    reset_counts()
+    x64, info64 = bt.cg(S64, b64_dev, tol=1e-10, M=M64)
+    torch.cuda.synchronize()
+    got64 = counts()
+    k64 = int(info64.iterations)
+    _, nS, nM = solve_products("cg", k64, restart)
+    require(got64 == merged(product_want(S64, nS), product_want(M64, nM)),
+            f"float64 cg + block_jacobi: launches {got64}, expected "
+            f"{nS} S and {nM} M products on the bucket route")
+    sp_iters = [0]
+    x_sp, code = spla.cg(A64, b64, rtol=1e-10, atol=0.0, M=Minv64,
+                         callback=lambda _x: sp_iters.__setitem__(
+                             0, sp_iters[0] + 1))
+    x64h = x64.cpu().numpy()
+    rel64 = float(np.linalg.norm(x64h - x_sp) / np.linalg.norm(x_sp))
+    require(code == 0 and bool(info64.converged),
+            f"float64 cg: scipy code {code}, port converged "
+            f"{bool(info64.converged)}")
+    require(abs(k64 - sp_iters[0]) <= 1, f"float64 cg: {k64} iterations, "
+            f"scipy {sp_iters[0]}")
+    require(rel64 <= 1e-8, f"float64 cg: x {rel64:.3e} from scipy's")
+    print(f"  float64 cg + block_jacobi at tol 1e-10: {k64} iterations on the "
+          f"card, scipy.sparse.linalg.cg {sp_iters[0]}; |x - x_scipy| / "
+          f"|x_scipy| {rel64:.3e}; launches "
+          f"{ {k_: v for k_, v in got64.items() if v} }")
+    out["float64"] = {"iterations": k64, "scipy_iterations": sp_iters[0],
+                      "x_rel": rel64}
+    del S64, M64, x64
+
+    # host synchronisations: one chunk of each solver, and one read
+    solver_file = source_site(solvers.__file__, 0).rsplit(":", 1)[0]
+    src, first = inspect.getsourcelines(solvers._host_read)
+    read_sites = {f"{solver_file}:{first + i}" for i in range(len(src))}
+    out["syncs"] = {}
+    for name in ("cg", "bicgstab", "gmres"):
+        warm = sync_sites(lambda: solve(name, M, tol=0.0, maxiter=1))
+        print(f"  host syncs, {name} + block_jacobi, a warm-up call of one "
+              f"iteration: {dict(warm) or 'none'}")
+        for n_it in (solvers.CHUNK, 2 * solvers.CHUNK):
+            solvers.HOST_CHECKS = 0
+            sites = sync_sites(lambda: solve(name, M, tol=0.0, maxiter=n_it))
+            own = {s: c for s, c in sites.items() if s.startswith(solver_file)}
+            others = {s: c for s, c in sites.items() if s not in own}
+            require(set(own) <= read_sites and bool(own) == bool(
+                solvers.HOST_CHECKS), f"{name}, {n_it} iterations: the "
+                f"solver synchronised at {own}, {solvers.HOST_CHECKS} host "
+                f"reads (its reads are {sorted(read_sites)})")
+            print(f"  host syncs, {name} + block_jacobi, {n_it} iterations: "
+                  f"{solvers.HOST_CHECKS} host reads, solver syncs {own}, "
+                  f"elsewhere {others or 'none'}")
+            out["syncs"][f"{name} {n_it}"] = {"reads": solvers.HOST_CHECKS,
+                                              "solver": own, "other": others}
+
+    # time: eager per iteration, the products' CUDA-graph floor
+    p = torch.randn(BEM_NPTS, generator=torch.Generator().manual_seed(12)).to(DEV)
+    floor_ms = graph_ms(lambda: M @ (S @ p))
+    s_ms = graph_ms(lambda: S @ p)
+    s_bound, m_bound = product_bound(S), product_bound(M)
+    print(f"  one S and one M product replayed from a CUDA graph: "
+          f"{floor_ms:.4f} ms (S alone {s_ms:.4f}); bound {s_bound + m_bound:.4f}"
+          f" ms (S {s_bound:.4f}, M {m_bound:.4f}) [{card}]")
+    out["floor_ms"], out["s_graph_ms"] = floor_ms, s_ms
+    out["bound_ms"] = {"S": s_bound, "M": m_bound}
+    per_iteration = {"cg": 1, "bicgstab": 2, "gmres": 1}
+    out["per_iteration"] = {}
+    for name, m in cases:
+        label = f"{name}{' + block_jacobi' if m is not None else ''}"
+        n1, n2 = TIMED_ITERATIONS.get(name, (2 * restart, 4 * restart))
+        ms = solve_ms_per_iteration(
+            lambda n, name=name, m=m: solve(name, m, tol=0.0, maxiter=n),
+            n1, n2)
+        floor = per_iteration[name] * (floor_ms if m is not None else s_ms)
+        # a chunk with no read captures whole where nothing in it syncs
+        # (GMRES reads inside every cycle)
+        whole = gap = None
+        if name != "gmres" and not any(out["syncs"][f"{name} {solvers.CHUNK}"][
+                key] for key in ("solver", "other")):
+            graph, gap, _ = replayed(lambda name=name, m=m: solve(
+                name, m, tol=0.0, maxiter=solvers.CHUNK)[0])
+            require(gap <= TOL32, f"{label}: a chunk replayed from a CUDA "
+                    f"graph is {gap:.3e} off an eager one (limit {TOL32:.0e})")
+            whole = median_ms(graph.replay) / solvers.CHUNK
+            del graph
+        low = per_iteration[name] * (s_bound + (m_bound if m is not None else 0))
+        out["per_iteration"][label] = {"eager_ms": ms, "floor_ms": floor,
+                                       "bound_ms": low, "share": floor / ms,
+                                       "whole_graph_ms": whole,
+                                       "replay_gap": gap}
+        whole_txt = ("not captured" if whole is None else
+                     f"{whole:.4f} ms (share {whole / ms:.2f}; replay "
+                     f"{gap:.3e} off eager, limit {TOL32:.0e})")
+        print(f"  {label}: eager {ms:.4f} ms per iteration; its products "
+              f"replayed {floor:.4f} ms = {floor / ms:.2f} of it (device idle "
+              f"share at most {1 - floor / ms:.2f}); bound of its products "
+              f"{low:.4f} ms; a whole chunk replayed from a CUDA graph, per "
+              f"iteration: {whole_txt} [{card}]")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 12 set-up: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in setup.items())
+          + f"; phase {out['seconds']:.1f} s")
+    return out
+
+
 def transpose_times(card: str) -> dict:
     """The transposed products of this checkout's B2, timed alone (eager
     and from a CUDA graph, at both tiers): A.T @ X on phase 3's operand (an
@@ -3567,6 +4040,25 @@ def spmv_times(card: str) -> dict:
     return out
 
 
+def print_rooflines(summary: dict, card: str) -> None:
+    """Each kernel's timed product beside its bound and its library call,
+    one line each (the numbers of the kernels line)."""
+    print(f"kernels against their bounds and library calls [{card}]:")
+    for k in summary["kernels"]:
+        graph = k.get("graph_ms")
+        share = f"{100 * k['bound_ms'] / graph:.1f}%" if graph else "-"
+        lib = k["library_ms"]
+        lib_txt = "none" if lib is None else (
+            f"{lib:.4f} eager / " + ("no graph" if k["library_graph_ms"] is None
+                                     else f"{k['library_graph_ms']:.4f} graph"))
+        graph_txt = f"{graph:.4f}" if graph else "-"
+        print(f"  {k['name']}: {k['launches']} launches; eager {k['ms']:.4f} "
+              f"ms, graph {graph_txt} ms, bound {k['bound_ms']:.4g} ms "
+              f"({k['bound_by']}) = {share} of the graph time; library call "
+              f"{lib_txt} ms; plain {k['plain_ms']:.4f} ms; timed: "
+              f"{k.get('timed', '')}")
+
+
 def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3610,6 +4102,9 @@ def main() -> None:
         print(f"r = 1 stream products of the port at {bt.__file__}")
         print(json.dumps({"spmv": spmv_times(card)}))
         return
+    if sys.argv[1:] == ["--solve"]:
+        print(json.dumps({"solve": phase12(card)}, default=str))
+        return
 
     wall = {}
 
@@ -3634,6 +4129,7 @@ def main() -> None:
                 "vbcrs": v_times["op"]}
     b7 = run("phase 10", phase10, card, defaults)
     b10 = run("phase 11", phase11, card, defaults, b7["library"])
+    solve = run("phase 12", phase12, card)
     print("phase wall times: " + ", ".join(f"{k} {v:.1f} s"
                                            for k, v in wall.items()))
     require(all(b7["launches"].values()) and all(b10["launches"].values()),
@@ -3643,7 +4139,9 @@ def main() -> None:
                    "symmetric flagship (phase 4)": launches4["B5"],
                    "symmetric real size (phase 5)": sym_times["launches"],
                    "VBCRS flagship (phase 6)": launches6["B5"],
-                   "VBCRS real size (phase 7)": v_times["launches"]}
+                   "VBCRS real size (phase 7)": v_times["launches"],
+                   "BEM solve, cg + block_jacobi (phase 12)":
+                       solve["launches"]["B5"]}
     require(all(b5_launches.values()), f"a main path skipped B5: {b5_launches}")
     b4_launches = {k: v for k, v in batch["launches"].items()
                    if k.startswith("B4")}
@@ -3681,6 +4179,9 @@ def main() -> None:
                        launches5["B1"],
                    "VBCRS real size bucket route (phase 7)":
                        v_times["bucket launches"]["B1"]}
+    if solve["launches"]["B1"]:  # the preconditioner on the bucket route
+        b1_launches["BEM solve, cg + block_jacobi (phase 12)"] = (
+            solve["launches"]["B1"])
     element_launches = {
         "scattered symmetric main path, serial (phase 4)":
             scattered["serial"]["B9 element"],
@@ -4015,6 +4516,7 @@ def main() -> None:
          **{f"{k}_library_ms": t["library_ms"]
             for k, t in b10["times"].items()}},
     ]}
+    print_rooflines(summary, card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
