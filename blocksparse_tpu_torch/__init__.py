@@ -4,7 +4,9 @@ The general :class:`BlockSparseMatrix`, the half-stored
 :class:`SymmetricBlockMatrix` and the CSR-of-blocks
 :class:`VariableBlockCompressedRowStorage`, with their lazy operator
 algebra (``@``, ``.T``, ``.H``, ``axpby``, composition) on torch tensors,
-DSATUR coloring and the colored gather-round plan.  The block products run
+in float32, float64, complex64 and complex128, DSATUR coloring and the
+colored gather-round plan; :func:`split_complex` gives a complex operator's
+split-real form (:class:`ComplexSplitOperator`).  The block products run
 in hand-written CUDA kernels for Hopper (``csrc/``): the chunk-table kernel
 (SpMV and SpMM of chunked buckets, plain or symmetric), the merged-patch
 SpMM kernel (f32, r > 1) and its symmetric counterpart, the element gather
@@ -42,6 +44,7 @@ from .core.operator import (
     TransposeOperator,
 )
 from .core.schedule import COLORED, SERIAL, isserial
+from .complexops import ComplexSplitOperator, split_complex
 from .formats.block_sparse import BlockSparseMatrix
 from .formats.symmetric import SymmetricBlockMatrix
 from .formats.vbcrs import VariableBlockCompressedRowStorage
@@ -99,4 +102,6 @@ __all__ = [
     "jacobi",
     "block_jacobi",
     "DiagonalOperator",
+    "split_complex",
+    "ComplexSplitOperator",
 ]

@@ -10,6 +10,9 @@ Counterpart of ``blocksparse_tpu/core/operator.py``:
                                    tables swap roles, no data movement);
                                    ``A.transpose()`` / ``A.adjoint()`` too
 - ``A.matvec_closure()``          : a plain ``x -> A @ x`` callable
+- ``A.split()``, ``A.mv_split(xr, xi)``, ``A.mm_split(Xr, Xi)``: the
+                                   split-real form of a complex operator
+                                   (``complexops.py``)
 - ``a * A``, ``A + B``, ``A @ B``: scaled / summed / composed operators
 
 Operands are ``torch.Tensor``s (a numpy array is taken as a CPU tensor).
@@ -173,6 +176,28 @@ class LinearOperator:
 
     def conj(self) -> "LinearOperator":
         return ConjOperator(self)
+
+    # -- split-complex form -------------------------------------------------
+    def split(self):
+        """The split-real form of a complex format operator: a
+        :class:`~blocksparse_tpu_torch.complexops.ComplexSplitOperator` over
+        two real operators of the same format, built once and kept on the
+        operator (the JAX ``autosplit`` cache).  No product is routed
+        through it on its own: complex products run natively."""
+        cache = getattr(self, "_split_cache", None)
+        if cache is None:
+            from ..complexops import split_complex
+
+            cache = self._split_cache = split_complex(self)
+        return cache
+
+    def mv_split(self, xr, xi):
+        """``(yr, yi)``, real, of ``A @ (xr + i xi)`` through :meth:`split`."""
+        return self.split().mv_split(xr, xi)
+
+    def mm_split(self, Xr, Xi):
+        """``(Yr, Yi)``, real, of ``A @ (Xr + i Xi)`` through :meth:`split`."""
+        return self.split().mm_split(Xr, Xi)
 
     # -- materialization ----------------------------------------------------
     def todense(self) -> torch.Tensor:

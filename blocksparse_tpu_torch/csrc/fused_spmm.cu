@@ -8,12 +8,16 @@
 //   transpose  y[col chunks(b)] += V_b^T @ x[row chunks(b)]
 //   symmetric  forward, plus y[col chunks] += V_b^T @ x[row chunks] from the
 //              same shared-memory tile of V_b (one read of the values)
-// where a chunk table row lists C-aligned chunks of x / y.
+// where a chunk table row lists C-aligned chunks of x / y.  Element types:
+// f32, f64 and complex64 / complex128 (c64, c128: interleaved {re, im}),
+// the last two also in a conjugate mode that reads conj(V_b) (V_b^H in the
+// transpose mode, conj(V_b) for both halves of the symmetric one).
 //
 // What bounds it on the card: SpMV (r = 1) streams each value once and does
 // two flops per 4 or 8 bytes, so it is bound by the bytes of vals; at
 // r = 64-128 each value feeds r FMAs and the CUDA-core FMA rate and the
-// bytes of vals both matter.  The design (tile_core.cuh): one launch per
+// bytes of vals both matter (a complex value feeds four FMAs per column
+// for its 8 or 16 bytes).  The design (tile_core.cuh): one launch per
 // layout over a table of bucket descriptors, so the grid holds every
 // (block, 64-row output tile) of every bucket and fills the 132 SMs however
 // small each bucket is (one launch per bucket left most SMs idle and paid a
@@ -33,10 +37,11 @@ template <typename T>
 int run_one(const T* vals, const int* row_tab, const int* col_tab, const T* x,
             T* y, int nb, int mp, int kp, int C, int r, long long x_rows,
             long long y_rows, int mode, void* stream) {
-  if (C <= 0 || mp % C != 0 || kp % C != 0 || mode < 0 || mode > 2)
+  const int base = mode & ~bst::kConj;
+  if (C <= 0 || mp % C != 0 || kp % C != 0 || base < 0 || base > 2)
     return (int)cudaErrorInvalidValue;
   if (nb <= 0 || mp <= 0 || kp <= 0) return 0;
-  const long long M = mode == 1 ? kp : mp;
+  const long long M = base == 1 ? kp : mp;
   const bst::DescTable tab{
       nullptr, 1, bst::BucketDesc{vals, row_tab, col_tab, {0, 0}, mp, kp, C, nb}};
   return bst::launch_buckets<T, bst::ChunkMap>(
@@ -57,7 +62,8 @@ int run_many(const void* table, int n, long long items, const T* x, T* y,
 }  // namespace
 
 // One bucket: vals [nb, mp, kp], row_tab [nb, mp / C], col_tab [nb, kp / C];
-// mode 0 forward, 1 transpose, 2 symmetric.  y is added into.
+// mode 0 forward, 1 transpose, 2 symmetric, plus bst::kConj (4) for conj(V)
+// (the complex entries).  y is added into.
 extern "C" int bst_fused_spmm_f32(const float* vals, const int* row_tab,
                                   const int* col_tab, const float* x, float* y,
                                   int nb, int mp, int kp, int C, int r,
@@ -94,6 +100,45 @@ extern "C" int bst_fused_spmm_multi_f64(const void* table, int n,
                                         void* stream) {
   return run_many<double>(table, n, items, x, y, r, x_rows, y_rows, mode,
                           stream);
+}
+
+using c64 = bst::cplx<float>;
+using c128 = bst::cplx<double>;
+
+extern "C" int bst_fused_spmm_c64(const c64* vals, const int* row_tab,
+                                  const int* col_tab, const c64* x, c64* y,
+                                  int nb, int mp, int kp, int C, int r,
+                                  long long x_rows, long long y_rows, int mode,
+                                  void* stream) {
+  return run_one<c64>(vals, row_tab, col_tab, x, y, nb, mp, kp, C, r, x_rows,
+                      y_rows, mode, stream);
+}
+
+extern "C" int bst_fused_spmm_c128(const c128* vals, const int* row_tab,
+                                   const int* col_tab, const c128* x, c128* y,
+                                   int nb, int mp, int kp, int C, int r,
+                                   long long x_rows, long long y_rows,
+                                   int mode, void* stream) {
+  return run_one<c128>(vals, row_tab, col_tab, x, y, nb, mp, kp, C, r,
+                       x_rows, y_rows, mode, stream);
+}
+
+extern "C" int bst_fused_spmm_multi_c64(const void* table, int n,
+                                        long long items, const c64* x, c64* y,
+                                        int r, long long x_rows,
+                                        long long y_rows, int mode,
+                                        void* stream) {
+  return run_many<c64>(table, n, items, x, y, r, x_rows, y_rows, mode,
+                       stream);
+}
+
+extern "C" int bst_fused_spmm_multi_c128(const void* table, int n,
+                                         long long items, const c128* x,
+                                         c128* y, int r, long long x_rows,
+                                         long long y_rows, int mode,
+                                         void* stream) {
+  return run_many<c128>(table, n, items, x, y, r, x_rows, y_rows, mode,
+                        stream);
 }
 
 extern "C" const char* bst_error_string(int err) {

@@ -28,10 +28,11 @@
 //
 // The element pass (bst_element_pass_*): the element engine's whole
 // gather -> per-block product -> scatter-add over every element bucket of a
-// layout in one launch, f32 and f64, in place of one gather, one product and
-// one scatter-add per bucket (three launches and two allocations each, and
-// the buckets' values are tiny, so the per-bucket chain was all launch
-// latency).  It takes a table of bucket descriptors (values [nb, mp, kp],
+// layout in one launch, f32, f64, complex64 and complex128 (the complex
+// ones also in the conjugate mode of the tile core), in place of one
+// gather, one product and one scatter-add per bucket (three launches and
+// two allocations each, and the buckets' values are tiny, so the per-bucket
+// chain was all launch latency).  It takes a table of bucket descriptors (values [nb, mp, kp],
 // row_idx [nb, mp], col_idx [nb, kp]) and runs the tile core of kernel B1
 // (tile_core.cuh) with element row maps: each thread block gathers
 // x[col_idx] of its block into shared memory (an index >= n reads 0), forms
@@ -39,8 +40,10 @@
 // add per (block, row) (an index >= out_len is dropped).  Transpose mode
 // swaps the tables and uses V^T; symmetric mode also gathers x[row_idx] and
 // adds V^T @ xr into y[col_idx] from the same shared-memory tile of V.
-// Every write to y is an atomicAdd (fp32 / fp64) into the output the
-// wrapper zeroed, or into the partial sum of the launches before it.
+// Every write to y is an atomicAdd (fp32 / fp64; a complex value as two,
+// one per part) into the output the wrapper zeroed, or into the partial sum
+// of the launches before it.  The one-call gather and scatter-add stay f32,
+// as the TPU kernels they replace.
 #include "tile_core.cuh"
 
 namespace {
@@ -103,7 +106,8 @@ extern "C" int bst_mask_scatter_add_f32(const float* v, const int* idx,
 
 // The element pass: table is n descriptors (int64 [n, 9] on the card, see
 // tile_core.cuh::BucketDesc, chunk 1), items their work items in this mode;
-// mode 0 forward, 1 transpose, 2 symmetric.  y is added into.
+// mode 0 forward, 1 transpose, 2 symmetric, plus bst::kConj (4) for conj(V)
+// (the complex entries).  y is added into.
 template <typename T>
 static int element_pass(const void* table, int n, long long items,
                         const T* x, T* y, int r, long long x_rows,
@@ -128,4 +132,23 @@ extern "C" int bst_element_pass_f64(const void* table, int n, long long items,
                                     int mode, void* stream) {
   return element_pass<double>(table, n, items, x, y, r, x_rows, y_rows,
                               mode, stream);
+}
+
+extern "C" int bst_element_pass_c64(const void* table, int n, long long items,
+                                    const bst::cplx<float>* x,
+                                    bst::cplx<float>* y, int r,
+                                    long long x_rows, long long y_rows,
+                                    int mode, void* stream) {
+  return element_pass<bst::cplx<float>>(table, n, items, x, y, r, x_rows,
+                                        y_rows, mode, stream);
+}
+
+extern "C" int bst_element_pass_c128(const void* table, int n,
+                                     long long items,
+                                     const bst::cplx<double>* x,
+                                     bst::cplx<double>* y, int r,
+                                     long long x_rows, long long y_rows,
+                                     int mode, void* stream) {
+  return element_pass<bst::cplx<double>>(table, n, items, x, y, r, x_rows,
+                                         y_rows, mode, stream);
 }

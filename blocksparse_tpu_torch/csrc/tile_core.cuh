@@ -3,6 +3,14 @@
 // IEEE fp32 / fp64 FMA at every precision tier.  (B2 runs wgmma + TMA in
 // patch_spmm.cu; B3 and B4 the tensor-core core, tile_mma.cuh.)
 //
+// Element types: float, double, and the complex cplx<float> / cplx<double>
+// (complex64 / complex128): interleaved {re, im} pairs, the layout of
+// torch.view_as_real, so a complex tensor is passed as it is.  A complex
+// multiply-add is four IEEE FMAs (mac).  CONJ (complex only) makes the
+// kernel read conj(V): with the transpose mode it applies V^H, with the
+// mirror mode conj(V) to both halves.  The launch carries it as bit kConj
+// of the mode; for a real T that bit changes nothing.
+//
 // Multi-bucket launches: one launch covers every bucket of a layout.  The
 // wrapper passes a table of bucket descriptors (BucketDesc: the bucket's
 // values, its row and column tables, its shape, chunk, block count and the
@@ -18,14 +26,17 @@
 // each stage stages a [64, KT] tile of the block's operator (V or V^T),
 // stored transposed so a thread's eight output rows are contiguous, and the
 // gathered [KT, TR] rows of x in shared memory, then accumulates with IEEE
-// fma in T (float or double; no TF32 anywhere).  The next stage's global
+// fma in T (float, double or their complex pairs; no TF32 anywhere).  The next stage's global
 // loads are issued into registers before the current stage computes, so
 // their latency overlaps the FMAs.  For TR >= 32 each thread
 // holds an 8 x TR/32 register tile.  The finished tile is added into y with
 // atomicAdd: thread blocks run concurrently, and blocks of a population may
 // share output rows, so every write to y is an atomic add into the zeroed
 // output the wrapper allocated.  The summation order across blocks
-// therefore varies from run to run.
+// therefore varies from run to run.  A complex value is added as two scalar
+// atomics, one on its real and one on its imaginary part: each part is a
+// sum of its own, exact per component, so the argument holds unchanged (a
+// reader between the two may see one part updated, but no kernel reads y).
 //
 // Row mapping is a functor per side: ChunkMap (B1: row i of block b lives at
 // tab[b, i / C] * C + i % C) or ElemMap (B9: at tab[b, i]).  A gathered row
@@ -45,18 +56,77 @@ namespace bst {
 constexpr int kThreads = 256;  // threads per block
 constexpr int kMT = 64;        // output rows per block
 constexpr int kPad = 4;        // row padding of the transposed A tile
+constexpr int kConj = 4;       // mode bit: read conj(V)
 
-// contraction depth per shared-memory stage, by column-tile width
-template <int TR>
+// complex element: {re, im}, as torch.view_as_real lays it out
+template <typename R>
+struct __align__(2 * sizeof(R)) cplx {
+  R re, im;
+  cplx() = default;
+  __host__ __device__ constexpr cplx(R r) : re(r), im(R(0)) {}
+  __host__ __device__ constexpr cplx(R r, R i) : re(r), im(i) {}
+};
+
+template <typename T>
+constexpr bool kComplex = false;
+template <typename R>
+constexpr bool kComplex<cplx<R>> = true;
+
+template <typename R>
+__device__ __forceinline__ cplx<R> operator+(cplx<R> a, cplx<R> b) {
+  return cplx<R>(a.re + b.re, a.im + b.im);
+}
+
+// acc + a * b: one IEEE FMA for a real T, four for a complex one
+__device__ __forceinline__ float mac(float a, float b, float acc) {
+  return fmaf(a, b, acc);
+}
+__device__ __forceinline__ double mac(double a, double b, double acc) {
+  return fma(a, b, acc);
+}
+template <typename R>
+__device__ __forceinline__ cplx<R> mac(cplx<R> a, cplx<R> b, cplx<R> acc) {
+  return cplx<R>(mac(a.re, b.re, mac(-a.im, b.im, acc.re)),
+                 mac(a.re, b.im, mac(a.im, b.re, acc.im)));
+}
+
+template <bool CONJ>
+__device__ __forceinline__ float conj_if(float v) { return v; }
+template <bool CONJ>
+__device__ __forceinline__ double conj_if(double v) { return v; }
+template <bool CONJ, typename R>
+__device__ __forceinline__ cplx<R> conj_if(cplx<R> v) {
+  return CONJ ? cplx<R>(v.re, -v.im) : v;
+}
+
+// y += v: a complex value as two scalar atomics (see the header comment)
+__device__ __forceinline__ void atomic_add(float* y, float v) { atomicAdd(y, v); }
+__device__ __forceinline__ void atomic_add(double* y, double v) { atomicAdd(y, v); }
+template <typename R>
+__device__ __forceinline__ void atomic_add(cplx<R>* y, cplx<R> v) {
+  atomicAdd(&y->re, v.re);
+  atomicAdd(&y->im, v.im);
+}
+
+// Contraction depth per shared-memory stage, by element type and column-tile
+// width.  The tiles are static shared memory (at most 48 KB): at 16-byte
+// elements (complex128) the stages are shallower, so the A tile, the x stage
+// and the mirror's x rows (64 x TR) fit: 44,544 bytes at TR = 1 and 45,568
+// at TR = 32 in the mirror mode, where depth 64 / 32 would need 79,872 and
+// 83,968.
+template <typename T, int TR>
 __host__ __device__ constexpr int stage_depth() {
+  if (sizeof(T) >= 16) return TR == 1 ? 32 : 8;
   return TR == 1 ? 64 : (TR == 32 ? 32 : 16);
 }
 
-// column-tile width for r right-hand-side columns
-inline int column_tile(int r, bool mirror) {
+// Column-tile width for r right-hand-side columns of elem_bytes each.  At 16
+// bytes the tile stops at 64 columns: a thread then holds 8 x 2 complex128
+// accumulators (64 registers), where 128 columns would need 128.
+inline int column_tile(int r, bool mirror, int elem_bytes) {
   if (r == 1) return 1;
   if (r <= 32 || mirror) return 32;
-  return r <= 64 ? 64 : 128;
+  return (r <= 64 || elem_bytes >= 16) ? 64 : 128;
 }
 
 // extent: rows of a block on this side; tab: [nblocks, extent / C]
@@ -125,8 +195,8 @@ __device__ __forceinline__ BucketDesc locate(const DescTable& t, long long g,
 // A = V (TRANS false, [mp, kp]) or V^T (TRANS true, [kp, mp]) of block b;
 // item = b * ceil(M / kMT) + (output tile).  grid: y = ceil(r / TR); block:
 // kThreads.
-template <typename T, int TR, bool TRANS, bool MIRROR, class OutMap,
-          class InMap>
+template <typename T, int TR, bool TRANS, bool MIRROR, bool CONJ,
+          class OutMap, class InMap>
 __device__ __forceinline__ void tile_product(
     const T* __restrict__ vals, int mp, int kp, OutMap out_row,
     InMap in_row, const T* __restrict__ x, long long x_rows,
@@ -134,7 +204,7 @@ __device__ __forceinline__ void tile_product(
   static_assert(TR == 1 || TR == 32 || TR == 64 || TR == 128,
                 "column tile is 1, 32, 64 or 128");
   static_assert(!MIRROR || TR <= 32, "mirror pass takes column tiles <= 32");
-  constexpr int KT = stage_depth<TR>();
+  constexpr int KT = stage_depth<T, TR>();
   const int M = TRANS ? kp : mp;  // output extent of A
   const int K = TRANS ? mp : kp;  // contraction extent
   const int mtiles = (M + kMT - 1) / kMT;
@@ -153,7 +223,7 @@ __device__ __forceinline__ void tile_product(
                                                     : T(0);
   };
   auto add_y = [&](long long row, int c, T v) {
-    if (row >= 0 && row < y_rows && c0 + c < r) atomicAdd(&y[row * r + c0 + c], v);
+    if (row >= 0 && row < y_rows && c0 + c < r) atomic_add(&y[row * r + c0 + c], v);
   };
 
   if constexpr (MIRROR) {
@@ -190,7 +260,9 @@ __device__ __forceinline__ void tile_product(
       const int m = m0 + a_m(idx), k = k0 + a_k(idx);
       // 32-bit offsets inside one block's tile (mp * kp < 2^31): fewer
       // registers, so more blocks per SM
-      ra[q] = (m < M && k < K) ? V[TRANS ? k * kp + m : m * kp + k] : T(0);
+      ra[q] = (m < M && k < K)
+                  ? conj_if<CONJ>(V[TRANS ? k * kp + m : m * kp + k])
+                  : T(0);
     }
 #pragma unroll
     for (int q = 0; q < NX; ++q) {
@@ -221,7 +293,7 @@ __device__ __forceinline__ void tile_product(
 #pragma unroll
       for (int j = 0; j < KT / 4; ++j) {
         const int kj = kq * (KT / 4) + j;
-        acc[0][0] = fma(At[kj][mi], Xs[kj][0], acc[0][0]);
+        acc[0][0] = mac(At[kj][mi], Xs[kj][0], acc[0][0]);
       }
     } else {
 #pragma unroll 4
@@ -234,7 +306,7 @@ __device__ __forceinline__ void tile_product(
 #pragma unroll
         for (int i = 0; i < RI; ++i)
 #pragma unroll
-          for (int j = 0; j < CJ; ++j) acc[i][j] = fma(a[i], bx[j], acc[i][j]);
+          for (int j = 0; j < CJ; ++j) acc[i][j] = mac(a[i], bx[j], acc[i][j]);
       }
     }
 
@@ -248,13 +320,13 @@ __device__ __forceinline__ void tile_product(
         T s = T(0);
 #pragma unroll
         for (int j = 0; j < ROWS; ++j)
-          s = fma(At[kj][g * ROWS + j], Xr[g * ROWS + j][0], s);
+          s = mac(At[kj][g * ROWS + j], Xr[g * ROWS + j][0], s);
         Red[g][kj] = s;
         __syncthreads();
         if (t < KT && k0 + t < K) {
           T tot = T(0);
 #pragma unroll
-          for (int gg = 0; gg < G; ++gg) tot += Red[gg][t];
+          for (int gg = 0; gg < G; ++gg) tot = tot + Red[gg][t];
           add_y(in_row(b, k0 + t), 0, tot);
         }
       } else {
@@ -264,7 +336,7 @@ __device__ __forceinline__ void tile_product(
         for (int i = 0; i < KT / RG; ++i) {
           const int kj = kg + RG * i;
           T s = T(0);
-          for (int mi = 0; mi < kMT; ++mi) s = fma(At[kj][mi], Xr[mi][c], s);
+          for (int mi = 0; mi < kMT; ++mi) s = mac(At[kj][mi], Xr[mi][c], s);
           if (k0 + kj < K) add_y(in_row(b, k0 + kj), c, s);
         }
       }
@@ -301,7 +373,7 @@ namespace {  // one copy per translation unit: B1 and B9 each instantiate it
 // the kernel streams V with one stage of loads in flight per block, so it
 // asks for three blocks per SM (at most 80 registers a thread) to keep
 // enough bytes in flight for HBM.
-template <typename T, int TR, bool TRANS, bool MIRROR, class Map>
+template <typename T, int TR, bool TRANS, bool MIRROR, bool CONJ, class Map>
 __global__ void __launch_bounds__(kThreads,
                                   TR == 1 && sizeof(T) == 4 ? 3 : 1)
     bucket_kernel(const DescTable tab, const T* __restrict__ x,
@@ -312,52 +384,72 @@ __global__ void __launch_bounds__(kThreads,
   const int mp = (int)d.mp, kp = (int)d.kp, C = (int)d.C;
   const Map out_map(TRANS ? d.col_tab : d.row_tab, TRANS ? kp : mp, C);
   const Map in_map(TRANS ? d.row_tab : d.col_tab, TRANS ? mp : kp, C);
-  tile_product<T, TR, TRANS, MIRROR>(static_cast<const T*>(d.vals), mp, kp,
-                                     out_map, in_map, x, x_rows, y, y_rows,
-                                     r, item);
+  tile_product<T, TR, TRANS, MIRROR, CONJ>(static_cast<const T*>(d.vals), mp,
+                                           kp, out_map, in_map, x, x_rows, y,
+                                           y_rows, r, item);
 }
 
 // The mirror pass exists for column tiles <= 32 only: a symmetric launch
 // with a wider tile is refused, not silently skipped.
-template <typename T, int TR, class Map>
+template <typename T, int TR, bool CONJ, class Map>
 cudaError_t launch_tile(dim3 grid, cudaStream_t s, int mode,
                         const DescTable& tab, const T* x, T* y, int r,
                         long long x_rows, long long y_rows) {
   if (mode == 0)
-    bucket_kernel<T, TR, false, false, Map><<<grid, kThreads, 0, s>>>(
+    bucket_kernel<T, TR, false, false, CONJ, Map><<<grid, kThreads, 0, s>>>(
         tab, x, y, r, x_rows, y_rows);
   else if (mode == 1)
-    bucket_kernel<T, TR, true, false, Map><<<grid, kThreads, 0, s>>>(
+    bucket_kernel<T, TR, true, false, CONJ, Map><<<grid, kThreads, 0, s>>>(
         tab, x, y, r, x_rows, y_rows);
   else if constexpr (TR <= 32)
-    bucket_kernel<T, TR, false, true, Map><<<grid, kThreads, 0, s>>>(
+    bucket_kernel<T, TR, false, true, CONJ, Map><<<grid, kThreads, 0, s>>>(
         tab, x, y, r, x_rows, y_rows);
   else
     return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
-// mode: 0 forward, 1 transpose, 2 symmetric (needs x_rows == y_rows); items:
-// the table's work items in that mode's numbering.  y must be zeroed or
-// hold a partial sum: the kernel adds into it.
+// The instance of column tile tr; a 16-byte T has no 128-column instance
+// (column_tile never picks it).
+template <typename T, bool CONJ, class Map>
+cudaError_t launch_width(int tr, dim3 grid, cudaStream_t s, int mode,
+                         const DescTable& tab, const T* x, T* y, int r,
+                         long long x_rows, long long y_rows) {
+  switch (tr) {
+    case 1: return launch_tile<T, 1, CONJ, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows);
+    case 32: return launch_tile<T, 32, CONJ, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows);
+    case 64: return launch_tile<T, 64, CONJ, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows);
+    default:
+      if constexpr (sizeof(T) < 16)
+        return launch_tile<T, 128, CONJ, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows);
+      else
+        return cudaErrorInvalidValue;
+  }
+}
+
+// mode: 0 forward, 1 transpose, 2 symmetric (needs x_rows == y_rows), plus
+// kConj to read conj(V) (complex T; nothing changes for a real one);
+// items: the table's work items in that mode's numbering.  y must be zeroed
+// or hold a partial sum: the kernel adds into it.
 template <typename T, class Map>
 int launch_buckets(const DescTable& tab, long long items, const T* x, T* y,
                    int r, long long x_rows, long long y_rows, int mode,
                    void* stream) {
+  const bool conj = kComplex<T> && (mode & kConj) != 0;
+  mode &= ~kConj;
   if (mode < 0 || mode > 2 || items < 0 || items > 0x7fffffffLL ||
       (mode == 2 && x_rows != y_rows))
     return (int)cudaErrorInvalidValue;
   if (items == 0 || r <= 0 || y_rows == 0) return 0;
-  const int tr = column_tile(r, mode == 2);
+  const int tr = column_tile(r, mode == 2, (int)sizeof(T));
   const dim3 grid((unsigned)items, (r + tr - 1) / tr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (tr) {
-    case 1: err = launch_tile<T, 1, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows); break;
-    case 32: err = launch_tile<T, 32, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows); break;
-    case 64: err = launch_tile<T, 64, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows); break;
-    default: err = launch_tile<T, 128, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows); break;
-  }
+  // a real T has no CONJ instance: both branches are the plain one
+  const cudaError_t err =
+      conj ? launch_width<T, kComplex<T>, Map>(tr, grid, s, mode, tab, x, y, r,
+                                               x_rows, y_rows)
+           : launch_width<T, false, Map>(tr, grid, s, mode, tab, x, y, r,
+                                         x_rows, y_rows);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

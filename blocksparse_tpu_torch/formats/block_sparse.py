@@ -7,7 +7,9 @@ row/column index lists inside an (M, N) matrix.  Overlapping blocks sum.
 The host layout (``core/layout.py``) packs the blocks into shape buckets
 (``granularity``: "pow2" or ``(gm, gk)``); the buckets are staged on the
 operator's ``device`` at construction.  A product routes as the JAX
-package's ``_apply`` does, minus its split-complex route:
+package's ``_apply`` does, minus its split-complex route (a TPU
+workaround; ``split_complex`` stays as an explicit API,
+``complexops.py``):
 
   1. f32, a merged-patch plan exists and ``patch_wins`` -> the patch
      route: the SpMM kernel B2 for r > 1, the SpMV kernel B7 for r = 1
@@ -21,8 +23,10 @@ package's ``_apply`` does, minus its split-complex route:
      gather rounds under ``schedule="colored"`` where they win, with
      ``colors`` forward and ``transposecolors`` for transpose products).
 
-Real float32/float64 only in this slice; complex dtypes raise
-``NotImplementedError``.
+Dtypes: float32, float64, complex64 and complex128.  A complex product
+takes route 3 (the others are f32), in B1's and the element pass's complex
+instances, whose conjugate mode carries ``A.conj()`` and ``A.H``.  The
+operand's dtype must equal the operator's.
 """
 
 from __future__ import annotations
@@ -45,7 +49,9 @@ __all__ = ["BlockSparseMatrix"]
 
 _PRECISIONS = ("highest", "high", None)
 _DTYPES = {np.dtype(np.float32): torch.float32,
-           np.dtype(np.float64): torch.float64}
+           np.dtype(np.float64): torch.float64,
+           np.dtype(np.complex64): torch.complex64,
+           np.dtype(np.complex128): torch.complex128}
 
 
 def _colors_tuple(colors) -> tuple[tuple[int, ...], ...]:
@@ -62,13 +68,13 @@ def _np_dtype(dtype):
 
 def _torch_dtype(layouts, dtype) -> torch.dtype:
     """The operator's dtype: its first stored bucket's, else ``dtype``, else
-    float64; real float32/float64 only in this slice."""
+    float64; float32, float64, complex64 or complex128."""
     vals = [b.values.dtype for lay in layouts for b in lay.buckets]
     np_dt = np.dtype(vals[0] if vals else (_np_dtype(dtype) or np.float64))
     if np_dt not in _DTYPES:
         raise NotImplementedError(
-            f"dtype {np_dt} is not ported yet: this slice takes float32 "
-            "and float64 (complex: ROADMAP)")
+            f"dtype {np_dt} is not ported yet: the port takes float32, "
+            "float64, complex64 and complex128 (bf16 storage: ROADMAP)")
     return _DTYPES[np_dt]
 
 
@@ -254,7 +260,7 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
 
                 return patch_apply(entry[0], entry[1], x, transpose=transpose,
                                    precision=self._precision)
-        # conj is a no-op for the real dtypes this slice admits
+        # the patch and stream routes are f32: conj changes nothing there
         if strip_eligible(x, self._dtype):
             y = self._stream_apply(x, transpose)
             if y is not None:
@@ -263,7 +269,7 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
         if not sched.isserial(self._schedule):
             colors = self._tcolors if transpose else self._colors
         return apply_operand(self._buckets, self._layout, out_len, x,
-                             transpose=transpose, colors=colors)
+                             transpose=transpose, conj=conj, colors=colors)
 
     def __repr__(self):
         m, n = self.shape

@@ -7,12 +7,16 @@ applied twice, as it is to ``y[rowindices]`` and transposed to
 
     S = D + O + O^T        (O = off-diagonal blocks at (rows, cols))
 
-and S^T = D^T + O + O^T: only the diagonal pass transposes.  For the real
-dtypes of this slice the conjugate flag changes nothing.
+and S^T = D^T + O + O^T: only the diagonal pass transposes.  S is complex
+symmetric, not Hermitian, so ``S.H @ x = conj(S) @ x``: under the
+conjugate flag both passes read conjugated values, the diagonal's also
+transposed under ``transpose``.  Dtypes: float32, float64, complex64 and
+complex128; a complex product takes route 3 below.
 
 As in the JAX package, all four color sets are computed at construction
 whatever the schedule, and the default schedule is "colored".  A product
-routes as the JAX package's ``_apply`` does, minus its split-complex route:
+routes as the JAX package's ``_apply`` does, minus its split-complex route
+(``split_complex`` stays as an explicit API, ``complexops.py``):
 
   1. f32, a symmetric patch plan exists and ``patch_wins`` -> the
      symmetric patch route on the plan for S or, with the transposed
@@ -231,7 +235,7 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
                 # the plan embeds S or S^T; it is applied as it is
                 return patch_apply(entry[0], entry[1], x,
                                    precision=self._precision)
-        # conj is a no-op for the real dtypes this slice admits
+        # the patch and stream routes are f32: conj changes nothing there
         if strip_eligible(x, self._dtype):
             y = self._stream_apply(x, transpose)
             if y is not None:
@@ -239,7 +243,7 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
         colored = not sched.isserial(self._schedule)
         return apply_symmetric(
             self._dbuckets, self._dlayout, self._obuckets, self._olayout,
-            self.shape[0], x, transpose=transpose,
+            self.shape[0], x, transpose=transpose, conj=conj,
             diag_colors=self._dcolors if colored else None,
             fused_colors=self._fused_colors if colored else None)
 

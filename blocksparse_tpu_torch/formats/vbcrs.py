@@ -9,7 +9,8 @@ each diagonal block once and each off-diagonal twice, as it is and
 transposed).  Construction validates contiguity unless ``check=False``.
 
 A product routes as the JAX package's ``_apply`` does, minus its
-split-complex route:
+split-complex route (``split_complex`` stays as an explicit API,
+``complexops.py``):
 
   1. f32, a merged-patch plan exists and ``patch_wins`` -> the patch
      route: kernel B2 for r > 1, kernel B7 for r = 1 (``patch="always"``
@@ -21,8 +22,9 @@ split-complex route:
      B1, element buckets -> one launch of B9's element pass.
 
 As in the JAX package the schedule is recorded but no color sets are built:
-both schedules run the same routes.  Real float32/float64 only; complex
-dtypes raise ``NotImplementedError``.
+both schedules run the same routes.  Dtypes: float32, float64, complex64
+and complex128; a complex product takes route 3, whose conjugate mode
+carries ``V.conj()`` and ``V.H``.
 """
 
 from __future__ import annotations
@@ -269,13 +271,13 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
 
                 return patch_apply(entry[0], entry[1], x, transpose=transpose,
                                    precision=self._precision)
-        # conj is a no-op for the real dtypes this slice admits
+        # the patch and stream routes are f32: conj changes nothing there
         if strip_eligible(x, self._dtype):
             y = self._stream_apply(x, transpose)
             if y is not None:
                 return y
         return apply_operand(self._buckets, self._layout, out_len, x,
-                             transpose=transpose)
+                             transpose=transpose, conj=conj)
 
     def __repr__(self):
         m, n = self.shape

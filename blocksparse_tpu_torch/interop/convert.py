@@ -11,13 +11,17 @@ accessors.  It builds the port's operator from the same numpy blocks.
 It also carries the preconditioners of ``blocksparse_tpu/precond.py``
 across, by class name: a ``DiagonalOperator`` by its 1-D ``d``, and a
 ``SumOperator`` (the ``M + DiagonalOperator`` that ``block_jacobi``
-returns) by its summands ``a`` and ``b``.  This module imports neither jax nor the JAX package.
+returns) by its summands ``a`` and ``b``; and a ``ComplexSplitOperator``
+by its real children ``re_op`` and ``im_op``.  Complex operators of all
+three formats carry across as they are (their blocks are complex numpy).
+This module imports neither jax nor the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..complexops import ComplexSplitOperator
 from ..core.operator import SumOperator
 from ..formats.block_sparse import BlockSparseMatrix, _np_dtype
 from ..formats.symmetric import SymmetricBlockMatrix
@@ -35,7 +39,8 @@ def from_reference(A, **kwargs):
     ...) go to its constructor.  A ``DiagonalOperator`` becomes the port's,
     on ``kwargs["device"]`` (the card unless given) in ``kwargs["dtype"]``
     (its own unless given); a ``SumOperator`` the port's sum of its
-    summands, each carried across with ``kwargs``."""
+    summands, and a ``ComplexSplitOperator`` the port's pair of its
+    children, each carried across with ``kwargs``."""
     kind = type(A).__name__
     if kind == "DiagonalOperator":
         return DiagonalOperator(np.array(A.d, dtype=_np_dtype(kwargs.get("dtype"))),
@@ -43,6 +48,9 @@ def from_reference(A, **kwargs):
     if kind == "SumOperator":
         return SumOperator(from_reference(A.a, **kwargs),
                            from_reference(A.b, **kwargs))
+    if kind == "ComplexSplitOperator":
+        return ComplexSplitOperator(from_reference(A.re_op, **kwargs),
+                                    from_reference(A.im_op, **kwargs))
     if hasattr(A, "ndiagonals"):
         d, o = range(A.ndiagonals), range(A.noffdiagonals)
         return SymmetricBlockMatrix(

@@ -33,6 +33,12 @@ tries, in the JAX package's order:
 ``apply_operand``, then the off-diagonal buckets in the symmetric modes of
 the same two launches (both contributions from one read of the values).
 
+Complex operators (complex64 / complex128) take the bucket route alone:
+the patch and stream routes are f32 (``patch_eligible``,
+``strip_eligible``), so their products run B1 and B9's element pass in the
+complex instances.  ``conj`` reaches the launches as their conjugate mode
+(``conj(V)``; with ``transpose``, ``V^H``).
+
 The rules (``patch_wins``, ``stream_plan_choice``, the planners' costs) are
 the JAX package's, measured on a TPU v5e and kept so the port routes as it
 does; re-measuring them on the H100 is queued (ROADMAP D).  The JAX
@@ -209,7 +215,7 @@ def bucket_tables(staged: StagedBuckets, layout) -> dict:
     return staged.tables
 
 
-def _add_buckets(dev_buckets, layout, x, y, *, transpose, symmetric,
+def _add_buckets(dev_buckets, layout, x, y, *, transpose, symmetric, conj,
                  colors):
     """``y`` plus ``layout``'s bucketed product with ``x`` (in place where
     the launches add): one B1 launch over the chunked buckets, then one
@@ -218,7 +224,8 @@ def _add_buckets(dev_buckets, layout, x, y, *, transpose, symmetric,
     tables = bucket_tables(dev_buckets, layout)
     if tables["chunked"] is not None:
         y = multi_fused_apply(tables["chunked"], x, out=y,
-                              transpose=transpose, symmetric=symmetric)
+                              transpose=transpose, symmetric=symmetric,
+                              conj=conj)
     if tables["element"] is None:
         return y
     elem_ids = [i for i, hb in enumerate(layout.buckets) if hb.chunk == 1]
@@ -226,41 +233,48 @@ def _add_buckets(dev_buckets, layout, x, y, *, transpose, symmetric,
                         transpose=transpose, symmetric=symmetric)
     if plan is None:
         return element_fused_apply(tables["element"], x, out=y,
-                                   transpose=transpose, symmetric=symmetric)
+                                   transpose=transpose, symmetric=symmetric,
+                                   conj=conj)
     return y + bucket_apply([dev_buckets[i][:3] for i in elem_ids],
                             y.shape[0], x, transpose=transpose,
-                            symmetric=symmetric, colored_plan=plan,
-                            mask_gs=True)
+                            symmetric=symmetric, conj=conj,
+                            colored_plan=plan, mask_gs=True)
 
 
 def apply_operand(dev_buckets, layout, out_len: int, x: torch.Tensor, *,
-                  transpose: bool = False, colors=None) -> torch.Tensor:
+                  transpose: bool = False, conj: bool = False,
+                  colors=None) -> torch.Tensor:
     """Apply a bucketed operand: one B1 launch over its chunked buckets and
     one element pass (or the colored gather rounds) over its element
     buckets, into one zeroed output.
 
-    ``dev_buckets``: the layout's :class:`StagedBuckets`.  Values are real
-    (float32/float64), so there is no conjugate mode.  ``colors``: the
+    ``dev_buckets``: the layout's :class:`StagedBuckets`.  ``conj``: the
+    conjugate of the values (complex; real values are unchanged), so
+    ``transpose`` and ``conj`` together apply the adjoint.  ``colors``: the
     color sets (tuple of tuples of block ids) when the operator's schedule
     is "colored", else None.
     """
     shape = (out_len,) if x.ndim == 1 else (out_len, x.shape[1])
     return _add_buckets(dev_buckets, layout, x, x.new_zeros(shape),
-                        transpose=transpose, symmetric=False, colors=colors)
+                        transpose=transpose, symmetric=False, conj=conj,
+                        colors=colors)
 
 
 def apply_symmetric(diag_buckets, diag_layout, off_buckets, off_layout,
                     n: int, x: torch.Tensor, *, transpose: bool = False,
-                    diag_colors=None, fused_colors=None) -> torch.Tensor:
+                    conj: bool = False, diag_colors=None,
+                    fused_colors=None) -> torch.Tensor:
     """Symmetric operand S = D + O + O^T (O the stored off-diagonals).
 
     The off-diagonal pair is transpose-invariant and reads each stored
     block once for both of its contributions (B1's and the element pass's
-    symmetric modes); only the diagonal pass honors ``transpose``.
-    ``fused_colors`` (union row+col conflicts) and ``diag_colors`` drive the
-    colored gather rounds of the element engine.
+    symmetric modes); only the diagonal pass honors ``transpose``.  Both
+    passes honor ``conj``: S is complex symmetric, so ``S^H = conj(S)`` and
+    ``S^H x`` is the diagonal's adjoint plus the off-diagonal pair's
+    conjugate.  ``fused_colors`` (union row+col conflicts) and
+    ``diag_colors`` drive the colored gather rounds of the element engine.
     """
     y = apply_operand(diag_buckets, diag_layout, n, x, transpose=transpose,
-                      colors=diag_colors)
+                      conj=conj, colors=diag_colors)
     return _add_buckets(off_buckets, off_layout, x, y, transpose=False,
-                        symmetric=True, colors=fused_colors)
+                        symmetric=True, conj=conj, colors=fused_colors)

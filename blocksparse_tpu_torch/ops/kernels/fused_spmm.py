@@ -4,7 +4,9 @@ The kernel (``csrc/fused_spmm.cu``) replaces
 ``blocksparse_tpu/ops/pallas/fused_spmm.py::_kernel``.  For each stored block
 b of a chunked bucket it adds ``V_b @ x[col chunks]`` into ``y[row chunks]``
 (``V_b^T`` with the tables swapped when ``transpose``; both contributions
-from one read of ``V_b`` when ``symmetric``).
+from one read of ``V_b`` when ``symmetric``).  It takes float32, float64,
+complex64 and complex128; ``conj`` (complex only) reads ``conj(V_b)``, so
+``transpose`` and ``conj`` together apply ``V_b^H``.
 
 Two entries launch it.  :func:`multi_block_apply` covers every bucket of a
 :class:`BucketTable` (a layout's chunked buckets) in one launch and adds
@@ -17,11 +19,13 @@ kernel (its descriptor passed by value) into a fresh zeroed output.
 
 Race-freedom: thread blocks run concurrently and blocks may share output
 rows, so the kernel adds into a zeroed output (or the partial sum of the
-launches before it) with fp32/fp64 ``atomicAdd``.  The summation order
-varies from run to run; compare with a tolerance, not bit for bit.
+launches before it) with fp32/fp64 ``atomicAdd`` (a complex value as two,
+one per part).  The summation order varies from run to run; compare with a
+tolerance, not bit for bit.
 
 Precision: every tier (``"highest"``, ``"high"``, ``None``) runs in IEEE
-fp32/fp64 FMA, with no TF32, which meets the ``"highest"`` tolerance.
+fp32/fp64 FMA (four per complex multiply-add), with no TF32, which meets
+the ``"highest"`` tolerance.
 Faster tiers are later work.
 
 Routing: a CPU tensor takes the plain version
@@ -39,7 +43,7 @@ from ...utils import build
 from ..torch_spmv import chunk_rows, chunked_bucket_apply, values_grad
 
 __all__ = ["BucketTable", "check_table_call", "chunked_block_apply",
-           "chunked_block_apply_plain", "launch_mode",
+           "chunked_block_apply_plain", "entry_point", "launch_mode",
            "launch_table", "multi_block_apply",
            "multi_block_apply_plain", "multi_fused_apply", "TableApply",
            "LAUNCHES", "SYM_LAUNCHES"]
@@ -48,15 +52,29 @@ LAUNCHES = 0
 SYM_LAUNCHES = 0
 
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2}
+_CONJ = 4  # mode bit: read conj(V) (tile_core.cuh kConj)
 _ROW_TILE = 64  # output rows of a work item (tile_core.cuh kMT)
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.complex64: "c64", torch.complex128: "c128"}
 
 
-def launch_mode(transpose: bool, symmetric: bool) -> int:
-    """The kernels' mode: 0 forward, 1 transpose, 2 symmetric."""
+def launch_mode(transpose: bool, symmetric: bool, conj: bool = False) -> int:
+    """The kernels' mode: 0 forward, 1 transpose, 2 symmetric, plus 4 to
+    read conj(V)."""
     if symmetric and transpose:
         raise ValueError(
             "symmetric fused pass is transpose-invariant; use transpose=False")
-    return _MODES[(transpose, symmetric)]
+    return _MODES[(transpose, symmetric)] | (_CONJ if conj else 0)
+
+
+def entry_point(prefix: str, dtype: torch.dtype) -> str:
+    """The kernel entry ``prefix``_f32 / _f64 / _c64 / _c128 for values of
+    ``dtype``; raises ``TypeError`` for any other dtype."""
+    suffix = _SUFFIX.get(dtype)
+    if suffix is None:
+        raise TypeError(f"{prefix} takes float32, float64, complex64 or "
+                        f"complex128, got {dtype}")
+    return f"{prefix}_{suffix}"
 
 
 class BucketTable:
@@ -144,47 +162,48 @@ def check_table_call(table: BucketTable, x, out, symmetric: bool) -> None:
 
 
 def launch_table(prefix: str, table: BucketTable, x, out, mode: int) -> bool:
-    """Launch entry point ``prefix``_f32 / _f64 over every bucket of
-    ``table`` on CUDA tensors (checked by the caller), adding into ``out``;
-    False where there was nothing to launch."""
+    """Launch entry point ``prefix``_f32 / _f64 / _c64 / _c128 over every
+    bucket of ``table`` on CUDA tensors (checked by the caller), adding into
+    ``out``; False where there was nothing to launch."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    suffix = {torch.float32: "f32", torch.float64: "f64"}.get(table.dtype)
-    if suffix is None:
-        raise TypeError(f"{prefix} takes float32/float64, got {table.dtype}")
-    xm = x.contiguous()
+    name = entry_point(prefix, table.dtype)
+    xm = x.resolve_conj().contiguous()
     r = 1 if x.ndim == 1 else x.shape[1]
-    items = table.items[mode == 1]
+    items = table.items[(mode & ~_CONJ) == 1]
     if not (items and r and out.shape[0]):
         return False
-    build.launch(f"{prefix}_{suffix}", x.device, table.table.data_ptr(),
+    build.launch(name, x.device, table.table.data_ptr(),
                  len(table), items, xm.data_ptr(), out.data_ptr(), r,
                  xm.shape[0], out.shape[0], mode)
     return True
 
 
 def multi_block_apply_plain(table: BucketTable, x, *, out,
-                            transpose: bool = False,
-                            symmetric: bool = False) -> torch.Tensor:
+                            transpose: bool = False, symmetric: bool = False,
+                            conj: bool = False) -> torch.Tensor:
     """Plain version of the multi-bucket launch: ``out`` += each bucket's
     :func:`chunked_block_apply_plain`, in place; returns ``out``."""
     for vals, rtab, ctab, chunk in table.buckets:
         out += chunked_block_apply_plain(vals, rtab, ctab, chunk, x,
                                          out.shape[0], transpose=transpose,
-                                         symmetric=symmetric)
+                                         symmetric=symmetric, conj=conj)
     return out
 
 
 def multi_block_apply(table: BucketTable, x, *, out, transpose: bool = False,
-                      symmetric: bool = False) -> torch.Tensor:
+                      symmetric: bool = False,
+                      conj: bool = False) -> torch.Tensor:
     """Add every bucket of ``table`` applied to ``x`` ([n] or [n, r]) into
-    ``out`` ([out_len] or [out_len, r]) in one launch; returns ``out``."""
+    ``out`` ([out_len] or [out_len, r]) in one launch; returns ``out``.
+    ``conj``: the buckets' conjugates (nothing changes for real values)."""
     global LAUNCHES, SYM_LAUNCHES
-    mode = launch_mode(transpose, symmetric)
+    conj = conj and table.dtype.is_complex
+    mode = launch_mode(transpose, symmetric, conj)
     check_table_call(table, x, out, symmetric)
     if x.device.type == "cpu":
         return multi_block_apply_plain(table, x, out=out, transpose=transpose,
-                                       symmetric=symmetric)
+                                       symmetric=symmetric, conj=conj)
     if launch_table("bst_fused_spmm_multi", table, x, out, mode):
         LAUNCHES += 1
         SYM_LAUNCHES += symmetric
@@ -194,52 +213,57 @@ def multi_block_apply(table: BucketTable, x, *, out, transpose: bool = False,
 class TableApply(torch.autograd.Function):
     """``out += (every bucket of table) @ x`` in place through ``launch``
     (:func:`multi_block_apply`, or B9's ``element_apply``), with exact
-    cotangents: ``out``'s is the output's, x's the same launch in the
-    other mode (the symmetric mode is its own adjoint), each bucket's
-    values' the torch ops on the gathered rows
-    (``torch_spmv.values_grad``)."""
+    cotangents in torch's convention (``y = M x`` gives ``M^H g``):
+    ``out``'s is the output's, x's the same launch in the other mode with
+    the conj flag flipped (the symmetric mode is its own transpose, so its
+    adjoint is its conjugate), each bucket's values' the torch ops on the
+    gathered rows (``torch_spmv.values_grad``)."""
 
     @staticmethod
-    def forward(ctx, out, x, table, launch, transpose, symmetric, *vals):
+    def forward(ctx, out, x, table, launch, transpose, symmetric, conj,
+                *vals):
         ctx.mark_dirty(out)
         ctx.save_for_backward(x, *vals)
-        ctx.cfg = (table, launch, transpose, symmetric)
+        ctx.cfg = (table, launch, transpose, symmetric, conj)
         return launch(table, x, out=out, transpose=transpose,
-                      symmetric=symmetric)
+                      symmetric=symmetric, conj=conj)
 
     @staticmethod
     def backward(ctx, g):
         x, *vals = ctx.saved_tensors
-        table, launch, transpose, symmetric = ctx.cfg
+        table, launch, transpose, symmetric, conj = ctx.cfg
         g = g.contiguous()
         dx = None
         if ctx.needs_input_grad[1]:
             dx = TableApply.apply(g.new_zeros(x.shape), g, table, launch,
                                   not transpose and not symmetric, symmetric,
-                                  *vals)
+                                  not conj, *vals)
         dvals = [values_grad(g, x, chunk_rows(rtab, chunk),
                              chunk_rows(ctab, chunk), transpose=transpose,
-                             symmetric=symmetric)
-                 if ctx.needs_input_grad[6 + i] else None
+                             symmetric=symmetric, conj=conj)
+                 if ctx.needs_input_grad[7 + i] else None
                  for i, (_v, rtab, ctab, chunk) in enumerate(table.buckets)]
         return (g if ctx.needs_input_grad[0] else None, dx, None, None, None,
-                None, *dvals)
+                None, None, *dvals)
 
 
 def multi_fused_apply(table: BucketTable, x, *, out, transpose: bool = False,
-                      symmetric: bool = False) -> torch.Tensor:
+                      symmetric: bool = False,
+                      conj: bool = False) -> torch.Tensor:
     """:func:`multi_block_apply` with autograd (in ``x``, ``out`` and the
     table's values)."""
     return TableApply.apply(out, x, table, multi_block_apply, transpose,
-                            symmetric, *table.values)
+                            symmetric, conj, *table.values)
 
 
 def chunked_block_apply_plain(vals, row_chunk, col_chunk, chunk: int, x,
                               out_len: int, *, transpose: bool = False,
-                              symmetric: bool = False) -> torch.Tensor:
+                              symmetric: bool = False,
+                              conj: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel: same tables, same result."""
     return chunked_bucket_apply(vals, row_chunk, col_chunk, chunk, out_len, x,
-                                transpose=transpose, symmetric=symmetric)
+                                transpose=transpose, symmetric=symmetric,
+                                conj=conj)
 
 
 def _check(vals, row_chunk, col_chunk, chunk, x, out_len, symmetric):
@@ -268,31 +292,29 @@ def _check(vals, row_chunk, col_chunk, chunk, x, out_len, symmetric):
 
 def chunked_block_apply(vals, row_chunk, col_chunk, chunk: int, x,
                         out_len: int, *, transpose: bool = False,
-                        symmetric: bool = False) -> torch.Tensor:
+                        symmetric: bool = False,
+                        conj: bool = False) -> torch.Tensor:
     """Fused chunk-granular block product of one bucket: [out_len] or
-    [out_len, r]."""
+    [out_len, r].  ``conj``: the bucket's conjugate (nothing changes for
+    real values)."""
     global LAUNCHES, SYM_LAUNCHES
-    mode = launch_mode(transpose, symmetric)
+    conj = conj and vals.dtype.is_complex
+    mode = launch_mode(transpose, symmetric, conj)
     _check(vals, row_chunk, col_chunk, chunk, x, out_len, symmetric)
     if x.device.type == "cpu":
         return chunked_block_apply_plain(
             vals, row_chunk, col_chunk, chunk, x, out_len,
-            transpose=transpose, symmetric=symmetric)
+            transpose=transpose, symmetric=symmetric, conj=conj)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if vals.dtype == torch.float32:
-        fn_name = "bst_fused_spmm_f32"
-    elif vals.dtype == torch.float64:
-        fn_name = "bst_fused_spmm_f64"
-    else:
-        raise TypeError(f"fused_spmm kernel takes float32/float64, got {vals.dtype}")
+    fn_name = entry_point("bst_fused_spmm", vals.dtype)
     for name, t in (("row_chunk", row_chunk), ("col_chunk", col_chunk)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
     vec = x.ndim == 1
-    xm = (x[:, None] if vec else x).contiguous()
+    xm = (x[:, None] if vec else x).resolve_conj().contiguous()
     n_in, r = xm.shape
-    vals = vals.contiguous()
+    vals = vals.resolve_conj().contiguous()
     row_chunk, col_chunk = row_chunk.contiguous(), col_chunk.contiguous()
     nb, mp, kp = vals.shape
     y = torch.zeros((out_len, r), dtype=vals.dtype, device=x.device)

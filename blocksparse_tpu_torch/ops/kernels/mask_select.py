@@ -9,14 +9,15 @@ The kernels (``csrc/mask_select.cu``) replace
 
 - :func:`element_apply`: the bucket route's element pass
   (``ops/dispatch.py``), every element bucket of a layout in one launch
-  over a :class:`~.fused_spmm.BucketTable`, f32 and f64, forward,
-  transpose or symmetric (``V @ x[cols]`` into ``y[rows]``, ``V^T @
-  x[rows]`` into ``y[cols]``, or both from one read of V), adding into a
-  given output.  Its plain version, :func:`element_apply_plain`, is the
+  over a :class:`~.fused_spmm.BucketTable`, f32, f64, complex64 and
+  complex128, forward, transpose or symmetric (``V @ x[cols]`` into
+  ``y[rows]``, ``V^T @ x[rows]`` into ``y[cols]``, or both from one read
+  of V), each also with ``conj`` (complex: ``conj(V)`` in place of V),
+  adding into a given output.  Its plain version, :func:`element_apply_plain`, is the
   per-bucket gather -> einsum -> scatter-add chain
   (:func:`mask_gather_plain` / :func:`mask_scatter_add_plain` on vectors).
 - :func:`mask_gather` / :func:`mask_scatter_add`: one gather or one
-  scatter-add of f32 vectors; the colored element pass
+  scatter-add of f32 vectors (f32 only, as the TPU kernels); the colored element pass
   (``ops/torch_spmv.bucket_apply`` with ``mask_gs=True``) gathers with them.
 
 Sentinel convention (``core/layout.py``): an index at or past ``n`` gathers
@@ -25,8 +26,8 @@ Sentinel convention (``core/layout.py``): an index at or past ``n`` gathers
 Race-freedom: indices repeat, so the scatter-add and the element pass add
 into a zeroed output (the scatter's allocated here with ``torch.zeros``;
 the element pass's given, possibly holding the partial sum of the launches
-before it) with fp32/fp64 ``atomicAdd``; the summation order varies from run
-to run.
+before it) with fp32/fp64 ``atomicAdd`` (a complex value as two, one per
+part); the summation order varies from run to run.
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  ``GATHER_LAUNCHES``, ``SCATTER_LAUNCHES`` and
@@ -34,8 +35,8 @@ kernel or raises.  ``GATHER_LAUNCHES``, ``SCATTER_LAUNCHES`` and
 element passes in the symmetric mode.  :func:`gather_apply` and
 :func:`scatter_apply` add autograd (each is the other's adjoint, so a
 backward pass runs the other kernel), :func:`element_fused_apply` too (its
-x cotangent is the element pass in the transposed mode; the symmetric mode
-is its own adjoint).
+x cotangent is the element pass in the transposed mode with the conj flag
+flipped; the symmetric mode is its own transpose).
 """
 
 from __future__ import annotations
@@ -175,12 +176,12 @@ def scatter_apply(v: torch.Tensor, idx: torch.Tensor,
 
 
 def element_apply_plain(table: BucketTable, x: torch.Tensor, *, out,
-                        transpose: bool = False,
-                        symmetric: bool = False) -> torch.Tensor:
+                        transpose: bool = False, symmetric: bool = False,
+                        conj: bool = False) -> torch.Tensor:
     """Plain version of the element pass: per bucket, gather -> einsum ->
     scatter-add into ``out`` in place (the element engine's chain, through
     :func:`mask_gather_plain` / :func:`mask_scatter_add_plain` for a vector
-    ``x``); returns ``out``."""
+    ``x``), with ``conj(V)`` under ``conj``; returns ``out``."""
     out_len = out.shape[0]
     vec = x.ndim == 1
 
@@ -195,6 +196,8 @@ def element_apply_plain(table: BucketTable, x: torch.Tensor, *, out,
         return scatter_rows(out_len, idx, upd)
 
     for vals, ridx, cidx, _chunk in table.buckets:
+        if conj:
+            vals = vals.conj()
         if transpose:
             out += scatter(cidx, torch.einsum("bmk,bmr->bkr", vals,
                                               gather(ridx)))
@@ -208,19 +211,21 @@ def element_apply_plain(table: BucketTable, x: torch.Tensor, *, out,
 
 
 def element_apply(table: BucketTable, x: torch.Tensor, *, out,
-                  transpose: bool = False,
-                  symmetric: bool = False) -> torch.Tensor:
+                  transpose: bool = False, symmetric: bool = False,
+                  conj: bool = False) -> torch.Tensor:
     """Add every element bucket of ``table`` (chunk 1: element index
     tables) applied to ``x`` ([n] or [n, r]) into ``out`` ([out_len] or
-    [out_len, r]) in one launch; returns ``out``."""
+    [out_len, r]) in one launch; returns ``out``.  ``conj``: the buckets'
+    conjugates (nothing changes for real values)."""
     global ELEMENT_LAUNCHES, ELEMENT_SYM_LAUNCHES
-    mode = launch_mode(transpose, symmetric)
+    conj = conj and table.dtype.is_complex
+    mode = launch_mode(transpose, symmetric, conj)
     if any(b[3] != 1 for b in table.buckets):
         raise ValueError("the element pass takes element buckets (chunk 1)")
     check_table_call(table, x, out, symmetric)
     if x.device.type == "cpu":
         return element_apply_plain(table, x, out=out, transpose=transpose,
-                                   symmetric=symmetric)
+                                   symmetric=symmetric, conj=conj)
     if launch_table("bst_element_pass", table, x, out, mode):
         ELEMENT_LAUNCHES += 1
         ELEMENT_SYM_LAUNCHES += symmetric
@@ -228,10 +233,10 @@ def element_apply(table: BucketTable, x: torch.Tensor, *, out,
 
 
 def element_fused_apply(table: BucketTable, x: torch.Tensor, *, out,
-                        transpose: bool = False,
-                        symmetric: bool = False) -> torch.Tensor:
+                        transpose: bool = False, symmetric: bool = False,
+                        conj: bool = False) -> torch.Tensor:
     """:func:`element_apply` with autograd (in ``x``, ``out`` and the
     table's values; x's cotangent is the element pass in the transposed
-    mode)."""
+    mode with the conj flag flipped)."""
     return TableApply.apply(out, x, table, element_apply, transpose,
-                            symmetric, *table.values)
+                            symmetric, conj, *table.values)

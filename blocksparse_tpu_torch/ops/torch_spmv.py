@@ -58,32 +58,39 @@ def scatter_rows(out_len: int, idx: torch.Tensor,
 
 def values_grad(g: torch.Tensor, x: torch.Tensor, rows: torch.Tensor,
                 cols: torch.Tensor, *, transpose: bool = False,
-                symmetric: bool = False) -> torch.Tensor:
+                symmetric: bool = False, conj: bool = False) -> torch.Tensor:
     """Cotangent of a bucket's values ([nb, mp, kp]) for the output
     cotangent ``g`` of its product with ``x``; ``rows`` / ``cols``: the
     bucket's element row and column ids ([nb, mp] / [nb, kp], sentinels
-    read zero).  Exact: the outer products of the gathered rows."""
+    read zero).  Exact: the outer products of the gathered rows, in
+    torch's complex convention: ``y = V x`` gives ``g x^H``, ``y = V^T x``
+    its transpose, and a product with ``conj(V)`` (``conj``) the conjugate
+    of the same product's."""
     gm = g[:, None] if g.ndim == 1 else g
-    xm = x[:, None] if x.ndim == 1 else x
+    xm = (x[:, None] if x.ndim == 1 else x).conj()
 
     def outer(a, rows_of_a, b):
         return torch.einsum("bmr,bkr->bmk", gather_rows(a, rows_of_a),
                             gather_rows(b, cols))
 
     if symmetric:
-        return outer(gm, rows, xm) + outer(xm, rows, gm)
-    if transpose:
-        return outer(xm, rows, gm)
-    return outer(gm, rows, xm)
+        dv = outer(gm, rows, xm) + outer(xm, rows, gm)
+    elif transpose:
+        dv = outer(xm, rows, gm)
+    else:
+        dv = outer(gm, rows, xm)
+    return dv.conj_physical() if conj else dv
 
 
 def bucket_apply(buckets, out_len: int, x: torch.Tensor, *,
                  transpose: bool = False, symmetric: bool = False,
-                 colored_plan=None, mask_gs: bool = False) -> torch.Tensor:
+                 conj: bool = False, colored_plan=None,
+                 mask_gs: bool = False) -> torch.Tensor:
     """Apply element buckets ``(values, row_idx, col_idx)`` to x ([n] or [n, r]).
 
     In transpose mode the two index tables swap roles and each block's values
-    are used transposed -- a flag flip, no data movement.
+    are used transposed -- a flag flip, no data movement.  ``conj`` uses
+    each block's conjugate (complex values; real ones are unchanged).
 
     ``symmetric``: each block adds its forward contribution into its rows
     and its transposed contribution ``V^T x[rows]`` into its columns, from
@@ -122,6 +129,8 @@ def bucket_apply(buckets, out_len: int, x: torch.Tensor, *,
     y = xm.new_zeros((out_len, r))
     fwd, mirror = [], []
     for vals, ridx, cidx in buckets:
+        if conj:
+            vals = vals.conj()
         if transpose:
             yp = torch.einsum("bmk,bmr->bkr", vals, gather(ridx))
             fwd.append((cidx, yp))
@@ -146,18 +155,22 @@ def bucket_apply(buckets, out_len: int, x: torch.Tensor, *,
 
 def chunked_bucket_apply(vals, row_chunk_idx, col_chunk_idx, chunk: int,
                          out_len: int, x: torch.Tensor, *,
-                         transpose: bool = False,
-                         symmetric: bool = False) -> torch.Tensor:
+                         transpose: bool = False, symmetric: bool = False,
+                         conj: bool = False) -> torch.Tensor:
     """Chunk-granular engine: blocks stored offset-shifted onto whole
     C-aligned chunks of x and y (``core/layout.py`` Bucket docstring).
 
     forward    y[row chunks] += V @ x[col chunks]
     transpose  y[col chunks] += V^T @ x[row chunks]
     symmetric  both of the above from one read of V (``transpose`` False).
+
+    ``conj`` puts conj(V) in place of V in each.
     """
     if symmetric and transpose:
         raise ValueError(
             "symmetric fused pass is transpose-invariant; use transpose=False")
+    if conj:
+        vals = vals.conj()
     vec = x.ndim == 1
     xm = x[:, None] if vec else x
     rows = chunk_rows(row_chunk_idx, chunk)

@@ -44,11 +44,13 @@ _SIGNATURES = {
     # stream
     "bst_fused_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P),
     "bst_fused_spmm_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P),
+    "bst_fused_spmm_c64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P),
+    "bst_fused_spmm_c128": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I,
+                            _P),
     # table, n, items, x, y, r, x_rows, y_rows, mode, stream
-    "bst_fused_spmm_multi_f32": (_P, _I, _L, _P, _P, _I, _L, _L, _I, _P),
-    "bst_fused_spmm_multi_f64": (_P, _I, _L, _P, _P, _I, _L, _L, _I, _P),
-    "bst_element_pass_f32": (_P, _I, _L, _P, _P, _I, _L, _L, _I, _P),
-    "bst_element_pass_f64": (_P, _I, _L, _P, _P, _I, _L, _L, _I, _P),
+    **{f"{entry}_{suffix}": (_P, _I, _L, _P, _P, _I, _L, _L, _I, _P)
+       for entry in ("bst_fused_spmm_multi", "bst_element_pass")
+       for suffix in ("f32", "f64", "c64", "c128")},
     # x, hi, lo, P, n, r, ld, stream
     "bst_patch_xt_f32": (_P, _P, _P, _I, _L, _I, _L, _P),
     # vals, cc, rs, xt_hi, xt_lo, y, nb, MP, KP, r, x_rows, ld, y_rows, tier,

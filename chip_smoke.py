@@ -5,6 +5,7 @@
     python3 chip_smoke.py --transposes   # B2's transposed products alone
     python3 chip_smoke.py --spmv         # the r = 1 products alone
     python3 chip_smoke.py --solve        # phase 12 (the BEM solve) alone
+    python3 chip_smoke.py --complex      # phase 13 (the complex BEM) alone
 
 Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
 
@@ -15,7 +16,10 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      one-bucket launches; B9's element pass: the same modes and dtypes, r
      in {1, 64}, on element buckets with sentinel lanes and repeated rows,
      at f32 r = 1 also against the per-bucket chain of its one-call gather
-     and scatter-add; B2: its prologue
+     and scatter-add; B1 (one-bucket and multi-bucket, the latter also
+     against the sum of one-bucket launches) and B9's element pass at
+     complex64 / complex128 x forward, transpose, symmetric x conj off / on
+     x r in {1, 64}; B2: its prologue
      (hi bit-equal to the plain tf32(X)^T, hi + lo == X, one launch for P
      products), forward and transpose x r in {6, 8, 64, 128, 300, 302}
      (r % 4 != 0: the transpose's atomicAdd epilogue) x both
@@ -160,19 +164,38 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      iteration of each solver beside its products replayed from a CUDA
      graph (and a whole CG / BiCGStab chunk replayed, held to an eager
      chunk within 1e-5), and the set-up
-     seconds (``--solve`` runs this phase alone).
+     seconds (``--solve`` runs this phase alone);
+ 13. the complex Helmholtz BEM (``--complex`` runs this phase alone): phase
+     12's geometry with exp(i k r) / (4 pi r) blocks, k = 16, self-term 64,
+     as a complex64 ``SymmetricBlockMatrix`` (128 + 4123 blocks of 64 x 64,
+     139.3 MB); ``S @ x``, ``S.T @ x``, ``S.H @ x``, ``S.conj() @ x`` and
+     ``S @ X`` (r = 64) against an independent dense complex128 assembly of
+     the recipe (rounded through complex64, as the values are), each with
+     exactly 2 B1 launches (one symmetric) and nothing else; the same recipe
+     on scattered index lists (schedule "serial"): 2 B9 element passes per
+     product; ``S @ x`` and ``S @ X`` timed eager and from a CUDA graph
+     beside their bound, a complex64 CSR call of torch.sparse and the same
+     products through ``split_complex(S)`` (four f32 products on the real
+     routes); GMRES(20) + ``block_jacobi`` in complex64 at tol 1e-5 (held
+     to its preconditioned residual on the assembly, exact launches and
+     host reads, its iterations within 3 of scipy's GMRES(20) with the same
+     block inverses), complex128 GMRES at tol 1e-12 against scipy's
+     solution within 1e-10, and eager ms per GMRES iteration beside its
+     products' CUDA-graph floor.
 
 Every timed kernel also gets its bound -- the larger of its logical bytes
 (stored values, operands and results, each once) over 3.35 TB/s and its
 operations over the peak rate of the tier's arithmetic: 495 / 3 = 165
 TFLOP/s (3xTF32, the fastest tensor-core way to fp32 accuracy) for
-"highest" and "high", 495 TFLOP/s (TF32) for precision=None -- and the
-time of one PyTorch call that computes the same function (a CSR product
+"highest" and "high", 495 TFLOP/s (TF32) for precision=None, 67
+TFLOP/s (float32 outside the tensor cores) for the complex products, 8
+operations per complex multiply-add -- and the time of one PyTorch call that computes the same function (a CSR product
 through torch.sparse, or index_select / index_add_), which the port never
 calls, eager and replayed from a CUDA graph where the call captures.
 
 Tolerances: |kernel - reference| <= tol * max(1, max|reference|) with tol
-1e-5 for f32 (3xTF32 included) and 1e-12 for f64; the kernels add into
+1e-5 for f32 and complex64 (3xTF32 included) and 1e-12 for f64 and
+complex128; the kernels add into
 their outputs with atomics (run-to-run summation order), so bit equality
 is not expected.  B2, B3 and B4 at precision=None run one TF32 pass: each
 operand keeps 11 significant bits (unit roundoff 2^-11 = 4.9e-4), so each
@@ -237,7 +260,8 @@ from blocksparse_tpu_torch.utils.testmatrices import (  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 ROOT = os.path.dirname(os.path.abspath(__file__))
-TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+TOL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.complex64: 1e-5,
+       torch.complex128: 1e-12}
 TOL32 = TOL[torch.float32]
 TOL_TF32 = 2e-3  # one TF32 pass (precision=None); see the module docstring
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -286,8 +310,9 @@ def require(cond: bool, msg: str) -> None:
 def abs_err(name: str, got: torch.Tensor, ref, tol: float) -> tuple:
     """(max |got - ref|, tol * max(1, max|ref|)); raises past the limit."""
     ref = torch.as_tensor(np.asarray(ref)) if not isinstance(ref, torch.Tensor) else ref
-    got64 = got.detach().double().cpu()
-    ref64 = ref.detach().double().cpu()
+    got64, ref64 = (t.detach().resolve_conj().to(
+        torch.complex128 if t.is_complex() else torch.float64).cpu()
+        for t in (got, ref))
     require(tuple(got64.shape) == tuple(ref64.shape),
             f"{name}: shape {tuple(got64.shape)} != {tuple(ref64.shape)}")
     require(bool(torch.isfinite(got64).all()), f"{name}: non-finite output")
@@ -750,13 +775,31 @@ def contiguous_operator(n, nblocks, bs, seed, value_seed, device,
 
 # -- phase 1 -------------------------------------------------------------------
 
+def values_of(np_dtype, rng, shape) -> np.ndarray:
+    """Standard normal values of ``shape``; complex ones (a normal real
+    and imaginary part) for a complex ``np_dtype``."""
+    v = rng.standard_normal(shape)
+    if np.issubdtype(np_dtype, np.complexfloating):
+        v = v + 1j * rng.standard_normal(shape)
+    return v.astype(np_dtype)
+
+
+def as_dtype(blocks, np_dtype, seed: int = 31) -> list:
+    """``blocks`` in ``np_dtype``; a complex dtype also gets an imaginary
+    part drawn from ``seed``."""
+    if not np.issubdtype(np_dtype, np.complexfloating):
+        return [b.astype(np_dtype) for b in blocks]
+    rng = np.random.default_rng(seed)
+    return [(b + 1j * rng.standard_normal(b.shape)).astype(np_dtype)
+            for b in blocks]
+
+
 def b1_cases(np_dtype):
     """(label, vals, row_chunk, col_chunk, C, n) on the card."""
     blocks, rows, cols, shape = random_block_sparse(
         3, shape=(1536, 1536), nblocks=120, max_block=96, dtype=np.float64,
         contiguous=True)
-    lay = build_layout([b.astype(np_dtype) for b in blocks], rows, cols,
-                       shape)
+    lay = build_layout(as_dtype(blocks, np_dtype), rows, cols, shape)
     chunked = [b for b in lay.buckets if b.chunk > 1]
     hb = max(chunked, key=lambda b: b.nblocks * b.mp * b.kp)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
@@ -765,7 +808,7 @@ def b1_cases(np_dtype):
            t(hb.col_chunk_idx), hb.chunk, shape[0])
     rng = np.random.default_rng(11)
     n, nb, mp, kp, C = 2048, 96, 64, 128, 16
-    vals = rng.standard_normal((nb, mp, kp)).astype(np_dtype)
+    vals = values_of(np_dtype, rng, (nb, mp, kp))
     rc = rng.integers(0, n // C, (nb, mp // C)).astype(np.int32)
     cc = rng.integers(0, n // C, (nb, kp // C)).astype(np.int32)
     yield (f"chunk-scattered tables nb={nb} tile={mp}x{kp} C={C}", t(vals),
@@ -780,14 +823,13 @@ def b1_table(np_dtype):
     blocks, rows, cols, shape = random_block_sparse(
         3, shape=(1536, 1536), nblocks=120, max_block=96, dtype=np.float64,
         contiguous=True)
-    lay = build_layout([b.astype(np_dtype) for b in blocks], rows, cols,
-                       shape)
+    lay = build_layout(as_dtype(blocks, np_dtype), rows, cols, shape)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
     buckets = [(t(b.values), t(b.row_chunk_idx), t(b.col_chunk_idx), b.chunk)
                for b in lay.buckets if b.chunk > 1]
     rng = np.random.default_rng(11)
     nb, mp, kp, C = 96, 64, 128, 16
-    buckets.append((t(rng.standard_normal((nb, mp, kp)).astype(np_dtype)),
+    buckets.append((t(values_of(np_dtype, rng, (nb, mp, kp))),
                     t(rng.integers(0, 2048 // C + 1, (nb, mp // C)).astype(
                         np.int32)),
                     t(rng.integers(0, 2048 // C + 1, (nb, kp // C)).astype(
@@ -840,8 +882,8 @@ def element_table_on_card(np_dtype, n: int) -> BucketTable:
         cidx = rng.integers(0, n, (nb, kp)).astype(np.int32)
         ridx[::3, -1] = n
         cidx[1::4, 0] = n
-        buckets.append((t(rng.standard_normal((nb, mp, kp)).astype(np_dtype)),
-                        t(ridx), t(cidx), 1))
+        buckets.append((t(values_of(np_dtype, rng, (nb, mp, kp))), t(ridx),
+                        t(cidx), 1))
     return BucketTable(buckets)
 
 
@@ -878,6 +920,75 @@ def element_vs_plain(gen) -> dict:
                             f"{label} vs the per-bucket chain of one-call "
                             f"gathers and scatter-adds", got, chain,
                             TOL[dtype]))
+    return errs
+
+
+ALL_DTYPES = ["float32", "float64", "complex64", "complex128"]
+COMPLEX_DTYPES = ((np.complex64, torch.complex64),
+                  (np.complex128, torch.complex128))
+
+
+def complex_vs_plain(gen) -> dict:
+    """B1 (one bucket per launch, and every bucket of a table in one launch
+    against its plain version and the sum of one-bucket launches) and B9's
+    element pass at complex64 / complex128 x forward, transpose, symmetric
+    x conj off / on x r in {1, 64}, against their plain versions on the
+    card, adding into an output that holds a partial sum."""
+    errs = {"B1 complex": 0.0, "B1 multi complex": 0.0,
+            "B1 duality complex": 0.0, "B9 element complex": 0.0}
+    n_elem = 5000
+    for np_dtype, dtype in COMPLEX_DTYPES:
+        cases = list(b1_cases(np_dtype))
+        table, n_tab = b1_table(np_dtype)
+        etable = element_table_on_card(np_dtype, n_elem)
+        for r in (1, 64):
+            for mode, kw in MODE_KW.items():
+                for conj in (False, True):
+                    tag = f"{dtype} {mode}{' conj' if conj else ''} r={r}"
+                    for label, vals, rc, cc, C, n in cases:
+                        X = torch.randn((n, r), generator=gen, dtype=dtype)
+                        x = (X[:, 0] if r == 1 else X).contiguous().to(DEV)
+                        got = fused_spmm.chunked_block_apply(
+                            vals, rc, cc, C, x, n, conj=conj, **kw)
+                        ref = fused_spmm.chunked_block_apply_plain(
+                            vals, rc, cc, C, x, n, conj=conj, **kw)
+                        torch.cuda.synchronize()
+                        errs["B1 complex"] = max(errs["B1 complex"], rel_check(
+                            f"B1 {label} {tag}", got, ref, TOL[dtype]))
+                    X = torch.randn((n_tab, r), generator=gen, dtype=dtype)
+                    x = (X[:, 0] if r == 1 else X).contiguous().to(DEV)
+                    prior = torch.randn(x.shape, generator=gen,
+                                        dtype=dtype).to(DEV)
+                    got = fused_spmm.multi_block_apply(
+                        table, x, out=prior.clone(), conj=conj, **kw)
+                    ref = fused_spmm.multi_block_apply_plain(
+                        table, x, out=prior.clone(), conj=conj, **kw)
+                    one = prior.clone()
+                    for v, rt, ct, c in table.buckets:
+                        one += fused_spmm.chunked_block_apply(
+                            v, rt, ct, c, x, n_tab, conj=conj, **kw)
+                    torch.cuda.synchronize()
+                    label = f"B1 multi {len(table)} buckets {tag}"
+                    errs["B1 multi complex"] = max(
+                        errs["B1 multi complex"],
+                        rel_check(label, got, ref, TOL[dtype]))
+                    errs["B1 duality complex"] = max(
+                        errs["B1 duality complex"],
+                        rel_check(f"{label} vs one-bucket launches", got, one,
+                                  TOL[dtype]))
+                    X = torch.randn((n_elem, r), generator=gen, dtype=dtype)
+                    x = (X[:, 0] if r == 1 else X).contiguous().to(DEV)
+                    prior = torch.randn(x.shape, generator=gen,
+                                        dtype=dtype).to(DEV)
+                    got = mask_select.element_apply(
+                        etable, x, out=prior.clone(), conj=conj, **kw)
+                    ref = mask_select.element_apply_plain(
+                        etable, x, out=prior.clone(), conj=conj, **kw)
+                    torch.cuda.synchronize()
+                    errs["B9 element complex"] = max(
+                        errs["B9 element complex"], rel_check(
+                            f"B9 element pass {len(etable)} buckets {tag}",
+                            got, ref, TOL[dtype]))
     return errs
 
 
@@ -956,6 +1067,7 @@ def phase1():
                             TOL[torch.float32])
             errs[f"B9 {kind}"] = max(errs[f"B9 {kind}"], err)
     errs.update(element_vs_plain(gen))
+    errs.update(complex_vs_plain(gen))
     stream_errs, panel_plans = stream_kernels_vs_plain(gen)
     errs.update(stream_errs)
     errs.update(batched_kernels_vs_plain(gen, patch_bucket, panel_plans))
@@ -3502,60 +3614,69 @@ def fibonacci_sphere(n: int) -> np.ndarray:
     return np.stack([rho * np.cos(phi), rho * np.sin(phi), z], axis=1)
 
 
-def bem_system(npts: int, nclusters: int, thresh: float, self_term: float):
+def bem_system(npts: int, nclusters: int, thresh: float, self_term: float,
+               k: float = 0.0, dtype=np.float32, perm=None):
     """``examples/bem_solve.py``'s near-field system, as the arguments of a
     ``SymmetricBlockMatrix``: points on a Fibonacci sphere sorted by z,
-    ``nclusters`` contiguous z-slice clusters, 1/(4 pi r) blocks between
-    clusters whose centres lie closer than ``thresh`` (each stored once),
-    ``self_term`` on the diagonal, f32."""
+    ``nclusters`` contiguous z-slice clusters, exp(i k r) / (4 pi r) blocks
+    (k = 0: the example's 1/(4 pi r)) between clusters whose centres lie
+    closer than ``thresh`` (each stored once), ``self_term`` on the
+    diagonal; computed in complex128 and stored in ``dtype`` (its real part
+    where ``dtype`` is real).  ``perm``: each point's index in a scattered
+    numbering (the cluster index lists become scattered lists)."""
     pts = fibonacci_sphere(npts)
     pts = pts[np.argsort(pts[:, 2], kind="stable")]
     bounds = np.linspace(0, npts, nclusters + 1).astype(int)
     clusters = [np.arange(bounds[i], bounds[i + 1]) for i in range(nclusters)]
     centers = np.stack([pts[c].mean(axis=0) for c in clusters])
+    real = not np.issubdtype(dtype, np.complexfloating)
 
     def kernel_block(ci, cj, diagonal):
         d = np.linalg.norm(pts[ci][:, None, :] - pts[cj][None, :, :], axis=-1)
         if diagonal:
-            np.fill_diagonal(d, np.inf)
-        blk = 1.0 / (4 * np.pi * np.maximum(d, 1e-9))
+            np.fill_diagonal(d, 1.0)  # replaced by the self-term below
+        blk = np.exp(1j * k * d) / (4 * np.pi * np.maximum(d, 1e-9))
         if diagonal:
             blk[np.diag_indices_from(blk)] = self_term
-        return blk.astype(np.float32)
+        return (blk.real if real else blk).astype(dtype)
 
+    name = (lambda idx: idx) if perm is None else (lambda idx: perm[idx])
     diagonals, offdiag, rows, cols = [], [], [], []
     for i in range(nclusters):
         diagonals.append(kernel_block(clusters[i], clusters[i], True))
         for j in range(i + 1, nclusters):
             if np.linalg.norm(centers[i] - centers[j]) < thresh:
                 offdiag.append(kernel_block(clusters[i], clusters[j], False))
-                rows.append(clusters[i])
-                cols.append(clusters[j])
-    return diagonals, clusters, offdiag, rows, cols, (npts, npts)
+                rows.append(name(clusters[i]))
+                cols.append(name(clusters[j]))
+    return (diagonals, [name(c) for c in clusters], offdiag, rows, cols,
+            (npts, npts))
 
 
-def bem_dense(npts: int, nclusters: int, thresh: float,
-              self_term: float) -> np.ndarray:
-    """The same system assembled densely in float64 from the recipe alone,
-    without the port and without the stored-once blocks: for each cluster,
-    its rows against every point of each cluster whose centre lies closer
-    than ``thresh`` (its own included), 1/(4 pi r) rounded through f32 as
-    the operator's values are, ``self_term`` on the diagonal."""
+def bem_dense(npts: int, nclusters: int, thresh: float, self_term: float,
+              k: float = 0.0, dtype=np.float32) -> np.ndarray:
+    """The same system assembled densely from the recipe alone, without the
+    port and without the stored-once blocks: for each cluster, its rows
+    against every point of each cluster whose centre lies closer than
+    ``thresh`` (its own included), exp(i k r) / (4 pi r) rounded through
+    ``dtype`` as the operator's values are, ``self_term`` on the diagonal;
+    float64 where ``dtype`` is real, else complex128."""
     pts = fibonacci_sphere(npts)
     pts = pts[np.argsort(pts[:, 2], kind="stable")]
     bounds = np.linspace(0, npts, nclusters + 1).astype(int)
     label = np.repeat(np.arange(nclusters), np.diff(bounds))
     centers = np.stack([pts[label == c].mean(axis=0) for c in range(nclusters)])
     near = np.linalg.norm(centers[:, None] - centers[None], axis=-1) < thresh
-    A = np.zeros((npts, npts))
+    real = not np.issubdtype(dtype, np.complexfloating)
+    A = np.zeros((npts, npts), dtype=np.float64 if real else np.complex128)
     for c in range(nclusters):
         rows = np.arange(bounds[c], bounds[c + 1])
         cols = np.flatnonzero(near[c][label])
         d = np.linalg.norm(pts[rows][:, None, :] - pts[cols][None, :, :],
                            axis=-1)
-        with np.errstate(divide="ignore"):
-            blk = (1.0 / (4 * np.pi * d)).astype(np.float32)
-        A[np.ix_(rows, cols)] = blk
+        with np.errstate(divide="ignore", invalid="ignore"):
+            blk = np.exp(1j * k * d) / (4 * np.pi * d)
+        A[np.ix_(rows, cols)] = (blk.real if real else blk).astype(dtype)
     A[np.diag_indices(npts)] = self_term
     return A
 
@@ -3911,6 +4032,266 @@ def phase12(card: str) -> dict:
     return out
 
 
+# -- phase 13: a complex Helmholtz BEM solve ----------------------------------
+
+HELMHOLTZ_K = 16.0  # wavenumber of the exp(i k r) / (4 pi r) kernel
+COMPLEX_RESTART = 20
+COMPLEX_KINDS = {"S @ x": {}, "S.T @ x": {"transpose": True},
+                 "S.H @ x": {"transpose": True, "conj": True},
+                 "S.conj() @ x": {"conj": True}}
+
+
+def complex_csr_on_card(op) -> torch.Tensor:
+    """``op`` (a symmetric one expanded) as one CSR tensor of its own dtype
+    on the card, duplicates summed: the library call's operand."""
+    r, c, v = bt.rowcolvals(op)
+    np_dt = torch.empty(0, dtype=op.dtype).numpy().dtype
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.from_numpy(r), torch.from_numpy(c)]).to(DEV),
+        torch.from_numpy(np.asarray(v, np_dt)).to(DEV), op.shape).coalesce()
+    return coo.to_sparse_csr()
+
+
+def complex_bound(op, r: int) -> tuple:
+    """Least ms of ``op @ X`` ([n, r], complex64): the stored values,
+    operand and result once each over 3.35 TB/s, or 8 real operations per
+    complex multiply-add on every logical entry (a symmetric off-diagonal
+    twice) at the peak of the operator's tier (``PEAK_FLOPS``: 3xTF32
+    reaches the float32 accuracy these products are held to), whichever is
+    longer."""
+    require(op.dtype == torch.complex64, f"complex_bound: {op.dtype} is not "
+            "timed (complex64 only)")
+    entries = op._dlayout.nnz + 2 * op._olayout.nnz
+    return bound((logical_nnz(op) + 2 * op.shape[0] * r) * 8,
+                 8.0 * entries * r, op.precision)
+
+
+def phase13(card: str) -> dict:
+    n, ncl, thresh = BEM_NPTS, BEM_CLUSTERS, BEM_THRESH
+    k, st = HELMHOLTZ_K, BEM_SELF_TERM
+    print(f"phase 13: complex Helmholtz BEM (exp(i k r) / (4 pi r), k={k}), "
+          f"n={n}, {ncl} clusters of {n // ncl}, thresh {thresh}, self-term "
+          f"{st}, complex64 / complex128")
+    t_phase = time.perf_counter()
+    setup, out = {}, {"launches": {}, "errs": {}, "times": {}}
+    t = time.perf_counter()
+    args = bem_system(n, ncl, thresh, st, k, np.complex64)
+    setup["recipe"] = time.perf_counter() - t
+    t = time.perf_counter()
+    S = bt.SymmetricBlockMatrix(*args, device=DEV)
+    torch.cuda.synchronize()
+    setup["operator (layout, coloring)"] = time.perf_counter() - t
+    t = time.perf_counter()
+    A128 = bem_dense(n, ncl, thresh, st, k, np.complex128)
+    setup["independent complex128 assembly"] = time.perf_counter() - t
+    # the oracle of the complex64 products: the assembly rounded through
+    # complex64, as the operator's values are, on the card in complex128
+    A_dev = torch.from_numpy(A128).to(DEV).to(torch.complex64).to(
+        torch.complex128)
+    mb = logical_nnz(S) * 8 / 1e6
+    print(f"  {S}; {S.ndiagonals} diagonal + {S.noffdiagonals} off-diagonal "
+          f"blocks, {mb:.1f} MB of stored complex64 values")
+    out["stored_mb"] = mb
+    gen = torch.Generator().manual_seed(13)
+    x = torch.randn(n, generator=gen, dtype=torch.complex64).to(DEV)
+    X = torch.randn((n, 64), generator=gen, dtype=torch.complex64).to(DEV)
+    want = merged({"B1": 2, "B1 sym": 1})
+
+    # 1. products against the oracle, exact launches
+    refs = {"S @ x": A_dev, "S.T @ x": A_dev.T, "S.H @ x": A_dev.conj().T,
+            "S.conj() @ x": A_dev.conj()}
+    b1_total = 0
+    for label, kw in COMPLEX_KINDS.items():
+        reset_counts()
+        got = S.apply(x, **kw)
+        torch.cuda.synchronize()
+        require(counts() == want, f"{label}: launches {counts()}, expected "
+                f"{ {k_: v for k_, v in want.items() if v} }")
+        b1_total += counts()["B1"]
+        out["errs"][label] = rel_check(f"{label} (native) vs the independent "
+                                       f"assembly", got, refs[label] @
+                                       x.to(torch.complex128), TOL32)
+    reset_counts()
+    Y = S @ X
+    torch.cuda.synchronize()
+    require(counts() == want, f"S @ X: launches {counts()}")
+    b1_total += counts()["B1"]
+    out["errs"]["S @ X"] = rel_check("S @ X (native, r=64) vs the independent "
+                                     "assembly", Y, A_dev @ X.to(
+                                         torch.complex128), TOL32)
+    out["launches"]["native"] = b1_total
+    print(f"  each native product: launches "
+          f"{ {k_: v for k_, v in want.items() if v} } (2 B1, one of them in "
+          f"the symmetric mode; no B2-B10)")
+
+    # 2. the scattered variant: element buckets, B9's element pass
+    perm = np.random.default_rng(14).permutation(n)
+    t = time.perf_counter()
+    Ss = bt.SymmetricBlockMatrix(
+        *bem_system(n, ncl, thresh, st, k, np.complex64, perm=perm),
+        device=DEV, schedule="serial")
+    torch.cuda.synchronize()
+    setup["scattered operator"] = time.perf_counter() - t
+    require(all(b.chunk == 1 for lay in (Ss._dlayout, Ss._olayout)
+                for b in lay.buckets), "the scattered variant must have "
+            "element buckets only")
+    xs = torch.empty_like(x)
+    xs[torch.from_numpy(perm).to(DEV)] = x  # the same x, renumbered
+    want_s = merged({"B9 element": 2, "B9 element sym": 1})
+    ip = torch.from_numpy(perm).to(DEV)
+    b9_total = 0
+    for label, kw in COMPLEX_KINDS.items():
+        reset_counts()
+        got = Ss.apply(xs, **kw)[ip]
+        torch.cuda.synchronize()
+        require(counts() == want_s, f"scattered {label}: launches {counts()}")
+        b9_total += counts()["B9 element"]
+        out["errs"][f"scattered {label}"] = rel_check(
+            f"scattered {label} (serial) vs the assembly", got,
+            refs[label] @ x.to(torch.complex128), TOL32)
+    out["launches"]["scattered"] = b9_total
+    print(f"  each scattered product: launches "
+          f"{ {k_: v for k_, v in want_s.items() if v} }")
+    del Ss
+
+    # 3. times: native, the split form, the library call, the bound
+    t = time.perf_counter()
+    P = bt.split_complex(S)
+    (P @ x, P @ X)  # the children's plans, built at their first products
+    torch.cuda.synchronize()
+    setup["split_complex and its plans"] = time.perf_counter() - t
+    csr = complex_csr_on_card(S)
+    for label, v, r in (("S @ x", x, 1), ("S @ X", X, 64)):
+        bnd = complex_bound(S, r)
+        native = (lambda v=v: S @ v)
+        split = (lambda v=v: P @ v)
+        reset_counts()
+        ys = split()
+        torch.cuda.synchronize()
+        split_launches = {k_: c for k_, c in counts().items() if c}
+        require(sum(split_launches.values()) > 0,
+                f"split {label}: no launch")
+        out["errs"][f"split {label}"] = rel_check(
+            f"split {label} vs the assembly", ys,
+            A_dev @ v.to(torch.complex128), TOL32)
+        plain = (lambda v=v: plain_buckets_sym(S, v))
+        rel_check(f"{label}: the plain versions vs the kernels", plain(),
+                  native(), TOL32)
+        n1, s1, s2, n2 = (median_ms(native), median_ms(split),
+                          median_ms(split), median_ms(native))
+        ng, sg = graph_ms(native), graph_ms(split)
+        pm, pg = median_ms(plain), graph_ms(plain)
+        lib = library_ms(f"{label} complex64 CSR (torch.sparse)",
+                         lambda v=v: csr @ v, native(), card)
+        out["times"][label] = {
+            "ms": min(n1, n2), "graph_ms": ng, "plain_ms": pm,
+            "plain_graph_ms": pg, "split_ms": min(s1, s2),
+            "split_graph_ms": sg, "split_launches": split_launches,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib,
+            "library_graph_ms": lib.graph}
+        print(f"  {label}: native (2 B1) eager {n1:.4f} / {n2:.4f} ms, graph "
+              f"{ng:.4f} ms; split_complex (4 real products, {split_launches}) "
+              f"eager {s1:.4f} / {s2:.4f} ms, graph {sg:.4f} ms; bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}) = {100 * bnd[0] / ng:.1f}% of the "
+              f"native graph time; plain versions {pm:.4f} ms eager, "
+              f"{pg:.4f} ms graph [{card}]")
+    del csr
+
+    # 4. solves: GMRES(20) + block_jacobi in complex64, complex128 vs scipy
+    t = time.perf_counter()
+    M = bt.block_jacobi(S)
+    torch.cuda.synchronize()
+    setup["block_jacobi"] = time.perf_counter() - t
+    require(M.dtype == torch.complex64, f"block_jacobi dtype {M.dtype}")
+    Minv = block_diag([np.linalg.inv(A128[np.ix_(c, c)]) for c in args[1]],
+                      format="csr")
+    b = torch.randn(n, generator=gen, dtype=torch.complex64).to(DEV)
+    b128 = b.cpu().numpy().astype(np.complex128)
+    A64h = A128.astype(np.complex64).astype(np.complex128)
+    reset_counts()
+    solvers.HOST_CHECKS = 0
+    t = time.perf_counter()
+    xg, info = bt.gmres(S, b, M=M, tol=SOLVE_TOL, restart=COMPLEX_RESTART)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    got, reads, kit = counts(), solvers.HOST_CHECKS, int(info.iterations)
+    require(bool(info.converged), f"complex64 gmres: not converged in {kit}")
+    r64 = b128 - A64h @ xg.cpu().numpy().astype(np.complex128)
+    held = float(np.linalg.norm(Minv @ r64))
+    limit = 2 * SOLVE_TOL * float(np.linalg.norm(Minv @ b128))
+    require(held <= limit, f"complex64 gmres: preconditioned residual "
+            f"{held:.3e} above {limit:.3e}")
+    want_reads, nS, nM = solve_products("gmres", kit, COMPLEX_RESTART)
+    want_g = merged({"B1": 2 * nS + nM, "B1 sym": nS})
+    require(got == want_g and reads == want_reads, f"complex64 gmres: "
+            f"launches {got}, reads {reads}; expected {want_g}, {want_reads}")
+    sp_it = [0]
+    x_sp, code = spla.gmres(A64h, b128, rtol=SOLVE_TOL, atol=0.0,
+                            restart=COMPLEX_RESTART, M=Minv,
+                            callback=lambda _r: sp_it.__setitem__(
+                                0, sp_it[0] + 1), callback_type="pr_norm")
+    require(code == 0 and abs(kit - sp_it[0]) <= 3, f"complex64 gmres: "
+            f"{kit} iterations, scipy {sp_it[0]} (code {code})")
+    out["gmres64"] = {"iterations": kit, "scipy_iterations": sp_it[0],
+                      "preconditioned_residual": held, "limit": limit,
+                      "host_reads": reads, "wall_s": wall_s, "launches": got}
+    print(f"  complex64 gmres({COMPLEX_RESTART}) + block_jacobi, tol "
+          f"{SOLVE_TOL}: {kit} iterations (scipy.sparse.linalg.gmres on the "
+          f"assembly with the same block inverses: {sp_it[0]}), preconditioned"
+          f" residual {held:.3e} <= {limit:.3e}; {reads} host reads, launches "
+          f"{ {k_: v for k_, v in got.items() if v} } ({nS} S + {nM} M "
+          f"products); {wall_s:.3f} s wall")
+    out["launches"]["gmres64"] = got["B1"]
+
+    t = time.perf_counter()
+    S128 = bt.SymmetricBlockMatrix(
+        *bem_system(n, ncl, thresh, st, k, np.complex128), device=DEV)
+    M128 = bt.block_jacobi(S128)
+    torch.cuda.synchronize()
+    setup["complex128 operator and block_jacobi"] = time.perf_counter() - t
+    reset_counts()
+    x128, info128 = bt.gmres(S128, b.to(torch.complex128), M=M128, tol=1e-12,
+                             restart=COMPLEX_RESTART)
+    torch.cuda.synchronize()
+    k128 = int(info128.iterations)
+    require(bool(info128.converged), f"complex128 gmres: not converged in "
+            f"{k128}")
+    sp_it = [0]
+    x_sp, code = spla.gmres(A128, b128, rtol=1e-12, atol=0.0,
+                            restart=COMPLEX_RESTART, M=Minv,
+                            callback=lambda _r: sp_it.__setitem__(
+                                0, sp_it[0] + 1), callback_type="pr_norm")
+    rel128 = float(np.linalg.norm(x128.cpu().numpy() - x_sp)
+                   / np.linalg.norm(x_sp))
+    require(code == 0 and rel128 <= 1e-10, f"complex128 gmres: x {rel128:.3e}"
+            f" from scipy's (code {code})")
+    out["gmres128"] = {"iterations": k128, "scipy_iterations": sp_it[0],
+                       "x_rel": rel128}
+    print(f"  complex128 gmres({COMPLEX_RESTART}) + block_jacobi at tol 1e-12:"
+          f" {k128} iterations, scipy {sp_it[0]}; |x - x_scipy| / |x_scipy| "
+          f"{rel128:.3e}")
+    del S128, M128, A_dev
+
+    # eager ms per GMRES iteration beside its products' graph floor
+    p = torch.randn(n, generator=gen, dtype=torch.complex64).to(DEV)
+    floor = graph_ms(lambda: M @ (S @ p))
+    ms = solve_ms_per_iteration(
+        lambda it: bt.gmres(S, b, M=M, tol=0.0, maxiter=it,
+                            restart=COMPLEX_RESTART),
+        2 * COMPLEX_RESTART, 4 * COMPLEX_RESTART)
+    out["per_iteration"] = {"eager_ms": ms, "floor_ms": floor,
+                            "share": floor / ms}
+    print(f"  complex64 gmres + block_jacobi: eager {ms:.4f} ms per iteration;"
+          f" one S and one M product replayed {floor:.4f} ms = "
+          f"{floor / ms:.2f} of it [{card}]")
+    out["setup_s"] = setup
+    out["seconds"] = time.perf_counter() - t_phase
+    print("  phase 13 set-up: " + ", ".join(f"{k_} {v:.2f} s"
+                                            for k_, v in setup.items())
+          + f"; phase {out['seconds']:.1f} s")
+    return out
+
+
 def transpose_times(card: str) -> dict:
     """The transposed products of this checkout's B2, timed alone (eager
     and from a CUDA graph, at both tiers): A.T @ X on phase 3's operand (an
@@ -4059,6 +4440,30 @@ def print_rooflines(summary: dict, card: str) -> None:
               f"{k.get('timed', '')}")
 
 
+def print_complex_builds(out: str) -> dict:
+    """ptxas's registers and spill stores of B1's and B9's complex
+    instances (tile_core.cuh::bucket_kernel over cplx<float> / cplx<double>),
+    one line per kernel, element type and column tile; returns them."""
+    found = {}
+    for part in out.split("Compiling entry function")[1:]:
+        inst = re.match(r" '\w*bucket_kernelI\w*?cplxI([fd])EELi(\d+)E\w*?"
+                        r"(ChunkMap|ElemMap)", part)
+        used = re.search(r"Used (\d+) registers", part)
+        if inst and used:
+            spill = re.search(r"(\d+) bytes spill stores", part)
+            found.setdefault(inst.groups(), []).append(
+                (int(used.group(1)), int(spill.group(1)) if spill else 0))
+    names = {"f": "complex64", "d": "complex128", "ChunkMap": "B1",
+             "ElemMap": "B9 element pass"}
+    for (t, tr, kind), regs in sorted(found.items(),
+                                      key=lambda kv: (kv[0][2], kv[0][0],
+                                                      int(kv[0][1]))):
+        print(f"ptxas: {names[kind]} {names[t]} TR={tr}: {len(regs)} "
+              f"instances, {min(u for u, _ in regs)}-{max(u for u, _ in regs)}"
+              f" registers, {sum(sp for _, sp in regs)} bytes of spill stores")
+    return found
+
+
 def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4092,6 +4497,7 @@ def main() -> None:
     for (TR, tier), (used, spill) in sorted(tr_builds.items()):
         print(f"ptxas: B2 transpose TR={TR} tier {tier}: {used} registers, "
               f"{spill} bytes of spill stores")
+    print_complex_builds(out)
     if out:
         print(f"ptxas: {out.count('C7519')} wgmma fences injected (C7519)")
     if sys.argv[1:] == ["--transposes"]:
@@ -4104,6 +4510,12 @@ def main() -> None:
         return
     if sys.argv[1:] == ["--solve"]:
         print(json.dumps({"solve": phase12(card)}, default=str))
+        return
+    if sys.argv[1:] == ["--complex"]:
+        print(json.dumps({"complex": phase13(card)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
         return
 
     wall = {}
@@ -4130,6 +4542,7 @@ def main() -> None:
     b7 = run("phase 10", phase10, card, defaults)
     b10 = run("phase 11", phase11, card, defaults, b7["library"])
     solve = run("phase 12", phase12, card)
+    cx = run("phase 13", phase13, card)
     print("phase wall times: " + ", ".join(f"{k} {v:.1f} s"
                                            for k, v in wall.items()))
     require(all(b7["launches"].values()) and all(b10["launches"].values()),
@@ -4182,11 +4595,24 @@ def main() -> None:
     if solve["launches"]["B1"]:  # the preconditioner on the bucket route
         b1_launches["BEM solve, cg + block_jacobi (phase 12)"] = (
             solve["launches"]["B1"])
+    b1_launches["complex Helmholtz BEM products (phase 13)"] = (
+        cx["launches"]["native"])
+    b1_launches["complex Helmholtz BEM gmres + block_jacobi (phase 13)"] = (
+        cx["launches"]["gmres64"])
     element_launches = {
         "scattered symmetric main path, serial (phase 4)":
             scattered["serial"]["B9 element"],
         "symmetric real size bucket route (phase 5)":
-            launches5["B9 element"]}
+            launches5["B9 element"],
+        "scattered complex Helmholtz BEM products, serial (phase 13)":
+            cx["launches"]["scattered"]}
+    cx_times = {f"complex{'' if r == 1 else '_r64'}_{key}": t[key]
+                for label, r in (("S @ x", 1), ("S @ X", 64))
+                for t in (cx["times"][label],)
+                for key in ("ms", "graph_ms", "plain_ms", "plain_graph_ms",
+                            "split_ms", "split_graph_ms",
+                            "split_launches", "bound_ms", "bound_by",
+                            "library_ms", "library_graph_ms")}
     require(all(b1_launches.values()) and all(element_launches.values()),
             f"a path skipped B1 or B9's element pass: {b1_launches}, "
             f"{element_launches}")
@@ -4223,7 +4649,19 @@ def main() -> None:
          "vbcrs_ms": v_times["SpMV bucket"][0],
          "vbcrs_graph_ms": v_times["SpMV bucket"][2],
          "vbcrs_timed": "bucket route of V @ x, config 3, n=32768",
-         **measured(times["bound"]["SpMV"], times["library"]["SpMV"])},
+         **measured(times["bound"]["SpMV"], times["library"]["SpMV"]),
+         "dtypes": ALL_DTYPES,
+         "max_abs_err_complex_phase1": errs1["B1 complex"],
+         "max_abs_err_complex_multi": errs1["B1 multi complex"],
+         "max_abs_err_complex_duality": errs1["B1 duality complex"],
+         "max_abs_err_complex": max(v for k_, v in cx["errs"].items()
+                                    if not k_.startswith(("split",
+                                                          "scattered"))),
+         **cx_times,
+         "complex_timed": "S @ x (r = 1) and S @ X (r = 64, _r64), the "
+                          "complex64 Helmholtz BEM at n=8192 (phase 13): 2 "
+                          "B1 launches; split: split_complex(S), four f32 "
+                          "products"},
         {"name": "patch_spmm forward (B2)", "route": "cuda", "source": B2_SRC,
          "replaces": B2_REPLACES, "launches": launches["B2 forward"],
          "launches_main_path": launches["B2"],
@@ -4364,7 +4802,11 @@ def main() -> None:
                   "(symmetric), one launch; per_bucket: the chain of "
                   "one-call gathers and scatter-adds",
          "card": card, **measured(sym_times["element bound"],
-                                  sym_times["element library"])},
+                                  sym_times["element library"]),
+         "dtypes": ALL_DTYPES,
+         "max_abs_err_complex_phase1": errs1["B9 element complex"],
+         "max_abs_err_complex": max(v for k_, v in cx["errs"].items()
+                                    if k_.startswith("scattered"))},
     ] + [
         {"name": f"mask_select {kind} (B9)", "route": "cuda", "source": B9_SRC,
          "replaces": rep_,
@@ -4516,6 +4958,8 @@ def main() -> None:
          **{f"{k}_library_ms": t["library_ms"]
             for k, t in b10["times"].items()}},
     ]}
+    for entry in summary["kernels"]:
+        entry.setdefault("dtypes", ["float32"])
     print_rooflines(summary, card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

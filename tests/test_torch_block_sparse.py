@@ -202,9 +202,14 @@ def test_device_dtype_and_unported_options_raise():
     P = bt.BlockSparseMatrix(blocks, rows, cols, shape, device="cpu")
     with pytest.raises(TypeError, match="dtype"):
         P @ torch.zeros(shape[1], dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="complex"):
-        bt.BlockSparseMatrix([b.astype(np.complex128) for b in blocks], rows,
-                             cols, shape, device="cpu")
+    # complex dtypes build and apply (tests/test_torch_complex.py covers them)
+    C = bt.BlockSparseMatrix([b.astype(np.complex128) * (1 + 2j)
+                              for b in blocks], rows, cols, shape, device="cpu")
+    assert C.dtype == torch.complex128
+    xc = np.random.default_rng(45).standard_normal(max(shape)) * (1 - 1j)
+    got = (C.H @ torch.from_numpy(xc[:shape[0]].copy())).numpy()
+    want = bt.to_scipy(C).conj().T @ xc[:shape[0]]
+    assert np.abs(got - want).max() <= TOL64 * max(1.0, np.abs(want).max())
     with pytest.raises(ValueError, match="schedule"):
         bt.BlockSparseMatrix(blocks, rows, cols, shape, schedule="auto",
                              device="cpu")

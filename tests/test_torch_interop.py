@@ -171,3 +171,65 @@ def test_constructors_default_to_the_card():
         pytest.skip("a card is present: the default device works")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bt.from_dense(np.eye(8), 4)
+
+
+def test_from_reference_carries_complex_operators():
+    """Complex JAX operators of all three formats and a JAX
+    ``ComplexSplitOperator`` carried across: the port's products equal the
+    JAX ones."""
+    from blocksparse_tpu.utils.testmatrices import random_vbcrs
+
+    rng = np.random.default_rng(50)
+    blocks, rows, cols, shape = random_block_sparse(
+        51, shape=(180, 150), nblocks=14, max_block=30, dtype=np.complex128)
+    d, di, o, ri, ci, sshape = random_symmetric(
+        52, n=200, ngroups=8, noffdiag=10, dtype=np.complex64)
+    vb, rs, cs, vshape = random_vbcrs(53, shape=(160, 160), nrowgroups=6,
+                                      ncolgroups=6, dtype=np.complex128)
+    bsm = bst.BlockSparseMatrix(blocks, rows, cols, shape, backend="xla")
+    cases = [
+        (bsm, bt.BlockSparseMatrix, torch.complex128, TOL),
+        (bst.SymmetricBlockMatrix(d, di, o, ri, ci, sshape, backend="xla"),
+         bt.SymmetricBlockMatrix, torch.complex64, 1e-5),
+        (bst.VariableBlockCompressedRowStorage(vb, rs, cs, vshape,
+                                               backend="xla"),
+         bt.VariableBlockCompressedRowStorage, torch.complex128, TOL),
+        (bst.split_complex(bsm), bt.ComplexSplitOperator, torch.complex128,
+         TOL),
+    ]
+    for J, cls, dtype, tol in cases:
+        P = bt.from_reference(J, device="cpu")
+        assert type(P) is cls and P.dtype == dtype
+        m, n = P.shape
+        npdt = np.complex64 if dtype == torch.complex64 else np.complex128
+        x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(npdt)
+        y = (rng.standard_normal(m) + 1j * rng.standard_normal(m)).astype(npdt)
+        for got, want in ((P @ torch.from_numpy(x), J @ jnp.asarray(x)),
+                          (P.H @ torch.from_numpy(y), J.H @ jnp.asarray(y)),
+                          (P.conj() @ torch.from_numpy(x),
+                           J.conj() @ jnp.asarray(x))):
+            assert relerr(got.numpy(), np.asarray(want)) < tol
+
+
+def test_complex_to_scipy_from_dense_and_linear_operator():
+    rng = np.random.default_rng(54)
+    D = rng.standard_normal((70, 50)) + 1j * rng.standard_normal((70, 50))
+    D[:24] = 0.0
+    A = bt.from_dense(D, 16, device="cpu")
+    Aj = bst.from_dense(D, 16)
+    assert A.dtype == torch.complex128 and A.nblocks == Aj.nblocks
+    S = bt.to_scipy(A)
+    assert S.dtype == np.complex128
+    assert relerr(S.toarray(), D) == 0
+    assert relerr(S.toarray(), bst.to_scipy(Aj).toarray()) == 0
+    A64 = bt.from_dense(D, (24, 10), dtype=np.complex64, device="cpu")
+    assert A64.dtype == torch.complex64
+    B = bt.from_scipy_blocks(sp.csr_array(D), (16, 32), device="cpu")
+    assert B.dtype == torch.complex128
+    assert relerr(bt.sparse(B).toarray(), D) == 0
+    L = bt.as_linear_operator(A)
+    assert L.dtype == np.complex128
+    x = rng.standard_normal(50) + 1j * rng.standard_normal(50)
+    y = rng.standard_normal(70) + 1j * rng.standard_normal(70)
+    assert relerr(L.matvec(x), D @ x) < TOL
+    assert relerr(L.rmatvec(y), D.conj().T @ y) < TOL

@@ -6,8 +6,10 @@ through the port's (``device="cpu"`` operators, the kernels' plain
 versions).  In float64 the port's ``SolveInfo.iterations`` and ``converged``
 equal the JAX ones and its x agrees within 1e-10 relative; both also meet
 the case's own oracle (a dense solve or scipy).  The complex cases run on
-dense complex128 matrices, which the solvers accept (the port's formats
-still refuse complex).  The two jit cases of the JAX suite have no eager
+dense complex128 matrices, which the solvers accept, and again on complex
+port operators (the bucket route's complex products, with a complex
+``block_jacobi`` where the case is preconditioned).  The two jit cases of
+the JAX suite have no eager
 counterpart: in their place the host reads (``solvers.HOST_CHECKS``) are
 held to ``ceil(iterations / CHUNK) + 2`` per solve.
 """
@@ -103,6 +105,44 @@ def test_cg_complex_hermitian():
     x, info = both("cg", jnp.asarray(A), torch.from_numpy(A), b, tol=1e-12)
     assert x.dtype == torch.complex128
     assert bool(info.converged)
+    assert rel(x, np.linalg.solve(A, b)) < 1e-8
+
+
+def test_cg_complex_hermitian_operator():
+    """``test_cg_complex_hermitian`` on a complex Hermitian port operator:
+    a Hermitian positive definite matrix (complex off-diagonal tiles)
+    tiled into a complex128 ``BlockSparseMatrix``."""
+    rng = np.random.default_rng(31)
+    n = 240
+    G = (rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n)))
+    G[np.abs(np.subtract.outer(np.arange(n), np.arange(n))) > 60] = 0.0
+    A = 0.05 * (G + G.conj().T) + 20.0 * np.eye(n)
+    Ap = bt.from_dense(A, 40, device="cpu")
+    Aj = bst.from_dense(A, 40, backend="xla")
+    assert Ap.dtype == torch.complex128
+    b = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    x, info = both("cg", Aj, Ap, b, tol=1e-12)
+    assert x.dtype == torch.complex128 and bool(info.converged)
+    assert rel(x, np.linalg.solve(A, b)) < 1e-8
+
+
+def test_gmres_complex_operator_preconditioned():
+    """``test_gmres_complex_and_preconditioned`` on a complex symmetric port
+    operator with its complex ``block_jacobi``."""
+    rng = np.random.default_rng(32)
+    d, di, o, ri, ci, shape = tm.random_symmetric(
+        33, n=300, ngroups=10, noffdiag=16, dtype=np.complex128)
+    d = [b + (2.0 + 1.0j) * len(b) * np.eye(len(b)) for b in d]
+    o = [0.3 * b for b in o]
+    Sj = bst.SymmetricBlockMatrix(d, di, o, ri, ci, shape, backend="xla")
+    Sp = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape, device="cpu")
+    Mp, Mj = bt.block_jacobi(Sp), bst.block_jacobi(Sj)
+    assert Mp.dtype == torch.complex128
+    b = rng.standard_normal(shape[0]) + 1j * rng.standard_normal(shape[0])
+    x, info = both("gmres", Sj, Sp, b, Mj=Mj, Mp=Mp, tol=1e-12, restart=25,
+                   maxiter=500)
+    assert bool(info.converged) and int(info.iterations) > 0
+    A = np.asarray(bst.to_scipy(Sj).todense())
     assert rel(x, np.linalg.solve(A, b)) < 1e-8
 
 

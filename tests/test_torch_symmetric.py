@@ -400,9 +400,16 @@ def test_zero_blocks_and_bad_inputs():
         bt.SymmetricBlockMatrix(*args[:5], (288, 290), device="cpu")
     with pytest.raises(ValueError, match="granularity"):
         bt.SymmetricBlockMatrix(*args, granularity="exact", device="cpu")
-    with pytest.raises(NotImplementedError, match="complex"):
-        bt.SymmetricBlockMatrix(*fixture("contiguous", np.complex128),
+    # complex dtypes build and apply (tests/test_torch_complex.py covers them)
+    d, di, o, ri, ci, shape = fixture("contiguous", np.complex128)
+    C = bt.SymmetricBlockMatrix([b * (1 + 2j) for b in d], di,
+                                [b * (2 - 1j) for b in o], ri, ci, shape,
                                 device="cpu")
+    assert C.dtype == torch.complex128
+    xc = np.random.default_rng(62).standard_normal(288) * (1 + 1j)
+    got = (C.H @ torch.from_numpy(xc)).numpy()
+    want = bt.to_scipy(C).conj().T @ xc
+    assert np.abs(got - want).max() <= TOL64 * max(1.0, np.abs(want).max())
     with pytest.raises(ValueError, match="precision"):
         bt.SymmetricBlockMatrix(*args, precision="fast", device="cpu")
     P = bt.SymmetricBlockMatrix(*args, device="cpu")

@@ -245,10 +245,16 @@ def test_bad_operands_and_options():
     with pytest.raises(ValueError, match="precision"):
         bt.VariableBlockCompressedRowStorage(blocks, rs, cs, shape,
                                              precision="fast", device="cpu")
-    with pytest.raises(NotImplementedError, match="complex"):
-        bt.VariableBlockCompressedRowStorage(
-            [b.astype(np.complex128) for b in blocks], rs, cs, shape,
-            device="cpu")
+    # complex dtypes build and apply (tests/test_torch_complex.py covers them)
+    C = bt.VariableBlockCompressedRowStorage(
+        [b.astype(np.complex128) * (2 - 1j) for b in blocks], rs, cs, shape,
+        device="cpu")
+    assert C.dtype == torch.complex128
+    xc = np.random.default_rng(80).standard_normal(shape[1]) * (1 + 1j)
+    got = (C.conj() @ torch.from_numpy(xc)).numpy()
+    want = bt.to_scipy(C).conj() @ xc
+    assert np.abs(got - want).max() <= TOL[np.float64] * max(
+        1.0, np.abs(want).max())
 
 
 def test_gradient_matches_transpose_f64_and_f32():
