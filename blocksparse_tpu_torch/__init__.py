@@ -4,9 +4,15 @@ The general :class:`BlockSparseMatrix`, the half-stored
 :class:`SymmetricBlockMatrix` and the CSR-of-blocks
 :class:`VariableBlockCompressedRowStorage`, with their lazy operator
 algebra (``@``, ``.T``, ``.H``, ``axpby``, composition) on torch tensors,
-in float32, float64, complex64 and complex128, DSATUR coloring and the
-colored gather-round plan; :func:`split_complex` gives a complex operator's
-split-real form (:class:`ComplexSplitOperator`).  The block products run
+in float32, float64, complex64 and complex128 and with bfloat16 storage,
+operands of any dtype promoted as in the JAX package, DSATUR coloring and
+the colored gather-round plan (``schedule="colored"`` or ``"auto"``), the
+sorted scatter (``scatter="sorted"``); :func:`split_complex` gives a
+complex operator's split-real form (:class:`ComplexSplitOperator`);
+:func:`save` / :func:`load` read and write the JAX package's ``.npz``
+files, :func:`to_bcoo` / :func:`from_bcoo` convert to and from a torch
+sparse COO tensor, :func:`spy`, :func:`show` and :func:`blocksummary` draw
+the pattern.  The block products run
 in hand-written CUDA kernels for Hopper (``csrc/``): the chunk-table kernel
 (SpMV and SpMM of chunked buckets, plain or symmetric), the merged-patch
 SpMM kernel (f32, r > 1) and its symmetric counterpart, the element gather
@@ -43,12 +49,16 @@ from .core.operator import (
     SumOperator,
     TransposeOperator,
 )
-from .core.schedule import COLORED, SERIAL, isserial
+from .core import schedule
+from .core.schedule import AUTO, COLORED, SERIAL, isserial
 from .complexops import ComplexSplitOperator, split_complex
 from .formats.block_sparse import BlockSparseMatrix
 from .formats.symmetric import SymmetricBlockMatrix
 from .formats.vbcrs import VariableBlockCompressedRowStorage
+from .interop.bcoo import from_bcoo, to_bcoo
 from .interop.convert import from_reference
+from .interop.serialize import load, save
+from .interop.viz import blocksummary, show, spy
 from .ops.batched import batched_mm, batched_mv
 from .interop.scipy_io import (
     as_linear_operator,
@@ -85,7 +95,9 @@ __all__ = [
     "build_layout",
     "SERIAL",
     "COLORED",
+    "AUTO",
     "isserial",
+    "schedule",
     "rowcolvals",
     "to_scipy",
     "from_reference",
@@ -104,4 +116,11 @@ __all__ = [
     "DiagonalOperator",
     "split_complex",
     "ComplexSplitOperator",
+    "save",
+    "load",
+    "spy",
+    "show",
+    "blocksummary",
+    "to_bcoo",
+    "from_bcoo",
 ]

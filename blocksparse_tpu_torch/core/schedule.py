@@ -9,18 +9,21 @@ Counterpart of ``blocksparse_tpu/core/schedule.py``:
               (``ops/colored.py``), whose result depends on the coloring
               being right.  The CUDA kernels still add with atomics: using
               the colors as their launch schedule is later work (ROADMAP A8).
-
-The JAX package's ``"auto"`` is not carried.
+  AUTO     -- as in the JAX package, not serial: an "auto" operator builds
+              its colors and takes the colored path exactly as a "colored"
+              one does (``isserial("auto")`` is False), so its products
+              equal the colored operator's.
 """
 
 from __future__ import annotations
 
-__all__ = ["SERIAL", "COLORED", "isserial", "normalize_schedule"]
+__all__ = ["SERIAL", "COLORED", "AUTO", "isserial", "normalize_schedule"]
 
 SERIAL = "serial"
 COLORED = "colored"
+AUTO = "auto"
 
-_VALID = (SERIAL, COLORED)
+_VALID = (SERIAL, COLORED, AUTO)
 
 
 def normalize_schedule(s: str) -> str:

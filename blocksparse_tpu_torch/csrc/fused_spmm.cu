@@ -11,7 +11,11 @@
 // where a chunk table row lists C-aligned chunks of x / y.  Element types:
 // f32, f64 and complex64 / complex128 (c64, c128: interleaved {re, im}),
 // the last two also in a conjugate mode that reads conj(V_b) (V_b^H in the
-// transpose mode, conj(V_b) for both halves of the symmetric one).
+// transpose mode, conj(V_b) for both halves of the symmetric one).  Mixed
+// instances read the values in their stored type and compute in a wider
+// one (tile_core.cuh, Widen): bf16 -> f32 and bf16 -> f64 (bf16 storage),
+// f32 -> f64 and c64 -> c128 (an operand of the wider type); the entry
+// names carry both, bst_fused_spmm[_multi]_<stored>_<compute>.
 //
 // What bounds it on the card: SpMV (r = 1) streams each value once and does
 // two flops per 4 or 8 bytes, so it is bound by the bytes of vals; at
@@ -33,8 +37,8 @@
 
 namespace {
 
-template <typename T>
-int run_one(const T* vals, const int* row_tab, const int* col_tab, const T* x,
+template <typename V, typename T>
+int run_one(const V* vals, const int* row_tab, const int* col_tab, const T* x,
             T* y, int nb, int mp, int kp, int C, int r, long long x_rows,
             long long y_rows, int mode, void* stream) {
   const int base = mode & ~bst::kConj;
@@ -44,102 +48,56 @@ int run_one(const T* vals, const int* row_tab, const int* col_tab, const T* x,
   const long long M = base == 1 ? kp : mp;
   const bst::DescTable tab{
       nullptr, 1, bst::BucketDesc{vals, row_tab, col_tab, {0, 0}, mp, kp, C, nb}};
-  return bst::launch_buckets<T, bst::ChunkMap>(
+  return bst::launch_buckets<V, T, bst::ChunkMap>(
       tab, nb * ((M + bst::kMT - 1) / bst::kMT), x, y, r, x_rows, y_rows, mode,
       stream);
 }
 
-template <typename T>
+template <typename V, typename T>
 int run_many(const void* table, int n, long long items, const T* x, T* y,
              int r, long long x_rows, long long y_rows, int mode,
              void* stream) {
   if (n < 0 || (n == 0 && items != 0)) return (int)cudaErrorInvalidValue;
   const bst::DescTable tab{static_cast<const bst::BucketDesc*>(table), n, {}};
-  return bst::launch_buckets<T, bst::ChunkMap>(tab, items, x, y, r, x_rows,
-                                               y_rows, mode, stream);
+  return bst::launch_buckets<V, T, bst::ChunkMap>(tab, items, x, y, r, x_rows,
+                                                  y_rows, mode, stream);
 }
 
-}  // namespace
-
-// One bucket: vals [nb, mp, kp], row_tab [nb, mp / C], col_tab [nb, kp / C];
-// mode 0 forward, 1 transpose, 2 symmetric, plus bst::kConj (4) for conj(V)
-// (the complex entries).  y is added into.
-extern "C" int bst_fused_spmm_f32(const float* vals, const int* row_tab,
-                                  const int* col_tab, const float* x, float* y,
-                                  int nb, int mp, int kp, int C, int r,
-                                  long long x_rows, long long y_rows, int mode,
-                                  void* stream) {
-  return run_one<float>(vals, row_tab, col_tab, x, y, nb, mp, kp, C, r,
-                        x_rows, y_rows, mode, stream);
-}
-
-extern "C" int bst_fused_spmm_f64(const double* vals, const int* row_tab,
-                                  const int* col_tab, const double* x,
-                                  double* y, int nb, int mp, int kp, int C,
-                                  int r, long long x_rows, long long y_rows,
-                                  int mode, void* stream) {
-  return run_one<double>(vals, row_tab, col_tab, x, y, nb, mp, kp, C, r,
-                         x_rows, y_rows, mode, stream);
-}
-
-// Many buckets: table is n descriptors (int64 [n, 9] on the card, see
-// tile_core.cuh::BucketDesc), items their work items in this mode.
-extern "C" int bst_fused_spmm_multi_f32(const void* table, int n,
-                                        long long items, const float* x,
-                                        float* y, int r, long long x_rows,
-                                        long long y_rows, int mode,
-                                        void* stream) {
-  return run_many<float>(table, n, items, x, y, r, x_rows, y_rows, mode,
-                         stream);
-}
-
-extern "C" int bst_fused_spmm_multi_f64(const void* table, int n,
-                                        long long items, const double* x,
-                                        double* y, int r, long long x_rows,
-                                        long long y_rows, int mode,
-                                        void* stream) {
-  return run_many<double>(table, n, items, x, y, r, x_rows, y_rows, mode,
-                          stream);
-}
-
+using bf16 = __nv_bfloat16;
 using c64 = bst::cplx<float>;
 using c128 = bst::cplx<double>;
 
-extern "C" int bst_fused_spmm_c64(const c64* vals, const int* row_tab,
-                                  const int* col_tab, const c64* x, c64* y,
-                                  int nb, int mp, int kp, int C, int r,
-                                  long long x_rows, long long y_rows, int mode,
-                                  void* stream) {
-  return run_one<c64>(vals, row_tab, col_tab, x, y, nb, mp, kp, C, r, x_rows,
-                      y_rows, mode, stream);
-}
+}  // namespace
 
-extern "C" int bst_fused_spmm_c128(const c128* vals, const int* row_tab,
-                                   const int* col_tab, const c128* x, c128* y,
-                                   int nb, int mp, int kp, int C, int r,
-                                   long long x_rows, long long y_rows,
-                                   int mode, void* stream) {
-  return run_one<c128>(vals, row_tab, col_tab, x, y, nb, mp, kp, C, r,
-                       x_rows, y_rows, mode, stream);
-}
+// One bucket (bst_fused_spmm_<suffix>): vals [nb, mp, kp] of V, row_tab
+// [nb, mp / C], col_tab [nb, kp / C]; mode 0 forward, 1 transpose, 2
+// symmetric, plus bst::kConj (4) for conj(V) (the complex entries).  y is
+// added into.  Many buckets (bst_fused_spmm_multi_<suffix>): table is n
+// descriptors (int64 [n, 9] on the card, see tile_core.cuh::BucketDesc),
+// items their work items in this mode.
+#define BST_B1_ENTRIES(SUFFIX, V, T)                                          \
+  extern "C" int bst_fused_spmm_##SUFFIX(                                     \
+      const V* vals, const int* row_tab, const int* col_tab, const T* x,      \
+      T* y, int nb, int mp, int kp, int C, int r, long long x_rows,           \
+      long long y_rows, int mode, void* stream) {                             \
+    return run_one<V, T>(vals, row_tab, col_tab, x, y, nb, mp, kp, C, r,      \
+                         x_rows, y_rows, mode, stream);                       \
+  }                                                                           \
+  extern "C" int bst_fused_spmm_multi_##SUFFIX(                               \
+      const void* table, int n, long long items, const T* x, T* y, int r,     \
+      long long x_rows, long long y_rows, int mode, void* stream) {           \
+    return run_many<V, T>(table, n, items, x, y, r, x_rows, y_rows, mode,     \
+                          stream);                                            \
+  }
 
-extern "C" int bst_fused_spmm_multi_c64(const void* table, int n,
-                                        long long items, const c64* x, c64* y,
-                                        int r, long long x_rows,
-                                        long long y_rows, int mode,
-                                        void* stream) {
-  return run_many<c64>(table, n, items, x, y, r, x_rows, y_rows, mode,
-                       stream);
-}
-
-extern "C" int bst_fused_spmm_multi_c128(const void* table, int n,
-                                         long long items, const c128* x,
-                                         c128* y, int r, long long x_rows,
-                                         long long y_rows, int mode,
-                                         void* stream) {
-  return run_many<c128>(table, n, items, x, y, r, x_rows, y_rows, mode,
-                        stream);
-}
+BST_B1_ENTRIES(f32, float, float)
+BST_B1_ENTRIES(f64, double, double)
+BST_B1_ENTRIES(c64, c64, c64)
+BST_B1_ENTRIES(c128, c128, c128)
+BST_B1_ENTRIES(bf16_f32, bf16, float)
+BST_B1_ENTRIES(bf16_f64, bf16, double)
+BST_B1_ENTRIES(f32_f64, float, double)
+BST_B1_ENTRIES(c64_c128, c64, c128)
 
 extern "C" const char* bst_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

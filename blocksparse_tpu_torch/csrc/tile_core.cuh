@@ -11,6 +11,16 @@
 // mirror mode conj(V) to both halves.  The launch carries it as bit kConj
 // of the mode; for a real T that bit changes nothing.
 //
+// Stored and compute types: the values are read in their stored type V and
+// widened to the compute type T once, in registers, while a stage is
+// written to shared memory (Widen); x, y, the shared tiles and the sums are
+// T.  V == T is the plain instance; the mixed ones are bf16 -> float and
+// bf16 -> double (bf16 storage), float -> double and complex64 ->
+// complex128 (a wider operand: the product is computed in the promoted
+// type without a widened copy of the values in device memory).  The stage
+// registers hold V, so a mixed instance holds no more of them than the
+// plain instance of its stored type.
+//
 // Multi-bucket launches: one launch covers every bucket of a layout.  The
 // wrapper passes a table of bucket descriptors (BucketDesc: the bucket's
 // values, its row and column tables, its shape, chunk, block count and the
@@ -49,6 +59,7 @@
 // row, one read of V feeding two products.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace bst {
@@ -65,6 +76,9 @@ struct __align__(2 * sizeof(R)) cplx {
   cplx() = default;
   __host__ __device__ constexpr cplx(R r) : re(r), im(R(0)) {}
   __host__ __device__ constexpr cplx(R r, R i) : re(r), im(i) {}
+  template <typename S>  // complex64 -> complex128
+  __host__ __device__ constexpr explicit cplx(cplx<S> o)
+      : re(R(o.re)), im(R(o.im)) {}
 };
 
 template <typename T>
@@ -97,6 +111,26 @@ __device__ __forceinline__ double conj_if(double v) { return v; }
 template <bool CONJ, typename R>
 __device__ __forceinline__ cplx<R> conj_if(cplx<R> v) {
   return CONJ ? cplx<R>(v.re, -v.im) : v;
+}
+
+// a stored value V in the compute type T: exact for every pair the kernels
+// instantiate (a bf16 or a float is a float or a double exactly)
+template <typename T, typename V>
+struct Widen {
+  __device__ __forceinline__ static T of(V v) { return T(v); }
+};
+template <typename T>
+struct Widen<T, __nv_bfloat16> {
+  __device__ __forceinline__ static T of(__nv_bfloat16 v) {
+    return T(__bfloat162float(v));
+  }
+};
+
+template <typename V>
+__device__ __forceinline__ V zero() { return V(0); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __ushort_as_bfloat16(0);
 }
 
 // y += v: a complex value as two scalar atomics (see the header comment)
@@ -157,7 +191,7 @@ struct ElemMap {
 // the work items of the forward and symmetric modes (M = mp), first[1]
 // those of the transpose mode (M = kp).
 struct BucketDesc {
-  const void* vals;     // [nb, mp, kp] of T
+  const void* vals;     // [nb, mp, kp] of the stored type V
   const int* row_tab;   // [nb, mp / C]
   const int* col_tab;   // [nb, kp / C]
   long long first[2];
@@ -194,11 +228,11 @@ __device__ __forceinline__ BucketDesc locate(const DescTable& t, long long g,
 
 // A = V (TRANS false, [mp, kp]) or V^T (TRANS true, [kp, mp]) of block b;
 // item = b * ceil(M / kMT) + (output tile).  grid: y = ceil(r / TR); block:
-// kThreads.
-template <typename T, int TR, bool TRANS, bool MIRROR, bool CONJ,
+// kThreads.  VS: the stored type of the values, T the compute type.
+template <typename VS, typename T, int TR, bool TRANS, bool MIRROR, bool CONJ,
           class OutMap, class InMap>
 __device__ __forceinline__ void tile_product(
-    const T* __restrict__ vals, int mp, int kp, OutMap out_row,
+    const VS* __restrict__ vals, int mp, int kp, OutMap out_row,
     InMap in_row, const T* __restrict__ x, long long x_rows,
     T* __restrict__ y, long long y_rows, int r, long long item) {
   static_assert(TR == 1 || TR == 32 || TR == 64 || TR == 128,
@@ -212,7 +246,7 @@ __device__ __forceinline__ void tile_product(
   const int m0 = (int)(item % mtiles) * kMT;
   const int c0 = blockIdx.y * TR;
   const int t = threadIdx.x;
-  const T* V = vals + (long long)b * mp * kp;
+  const VS* V = vals + (long long)b * mp * kp;
 
   __shared__ __align__(16) T At[KT][kMT + kPad];  // At[k][m] = A[m0 + m][k0 + k]
   __shared__ T Xs[KT][TR];
@@ -252,7 +286,8 @@ __device__ __forceinline__ void tile_product(
   static_assert(NA * kThreads == kMT * KT, "A tile must split evenly");
   auto a_m = [](int idx) { return TRANS ? idx % kMT : idx / KT; };
   auto a_k = [](int idx) { return TRANS ? idx / kMT : idx % KT; };
-  T ra[NA], rx[NX];
+  VS ra[NA];  // the stored type: widened when the stage is written
+  T rx[NX];
   auto fetch = [&](int k0) {
 #pragma unroll
     for (int q = 0; q < NA; ++q) {
@@ -260,9 +295,8 @@ __device__ __forceinline__ void tile_product(
       const int m = m0 + a_m(idx), k = k0 + a_k(idx);
       // 32-bit offsets inside one block's tile (mp * kp < 2^31): fewer
       // registers, so more blocks per SM
-      ra[q] = (m < M && k < K)
-                  ? conj_if<CONJ>(V[TRANS ? k * kp + m : m * kp + k])
-                  : T(0);
+      ra[q] = (m < M && k < K) ? V[TRANS ? k * kp + m : m * kp + k]
+                                : zero<VS>();
     }
 #pragma unroll
     for (int q = 0; q < NX; ++q) {
@@ -277,7 +311,7 @@ __device__ __forceinline__ void tile_product(
 #pragma unroll
     for (int q = 0; q < NA; ++q) {
       const int idx = t + q * kThreads;
-      At[a_k(idx)][a_m(idx)] = ra[q];
+      At[a_k(idx)][a_m(idx)] = conj_if<CONJ>(Widen<T, VS>::of(ra[q]));
     }
 #pragma unroll
     for (int q = 0; q < NX; ++q) {
@@ -373,7 +407,8 @@ namespace {  // one copy per translation unit: B1 and B9 each instantiate it
 // the kernel streams V with one stage of loads in flight per block, so it
 // asks for three blocks per SM (at most 80 registers a thread) to keep
 // enough bytes in flight for HBM.
-template <typename T, int TR, bool TRANS, bool MIRROR, bool CONJ, class Map>
+template <typename VS, typename T, int TR, bool TRANS, bool MIRROR, bool CONJ,
+          class Map>
 __global__ void __launch_bounds__(kThreads,
                                   TR == 1 && sizeof(T) == 4 ? 3 : 1)
     bucket_kernel(const DescTable tab, const T* __restrict__ x,
@@ -384,26 +419,26 @@ __global__ void __launch_bounds__(kThreads,
   const int mp = (int)d.mp, kp = (int)d.kp, C = (int)d.C;
   const Map out_map(TRANS ? d.col_tab : d.row_tab, TRANS ? kp : mp, C);
   const Map in_map(TRANS ? d.row_tab : d.col_tab, TRANS ? mp : kp, C);
-  tile_product<T, TR, TRANS, MIRROR, CONJ>(static_cast<const T*>(d.vals), mp,
-                                           kp, out_map, in_map, x, x_rows, y,
-                                           y_rows, r, item);
+  tile_product<VS, T, TR, TRANS, MIRROR, CONJ>(
+      static_cast<const VS*>(d.vals), mp, kp, out_map, in_map, x, x_rows, y,
+      y_rows, r, item);
 }
 
 // The mirror pass exists for column tiles <= 32 only: a symmetric launch
 // with a wider tile is refused, not silently skipped.
-template <typename T, int TR, bool CONJ, class Map>
+template <typename VS, typename T, int TR, bool CONJ, class Map>
 cudaError_t launch_tile(dim3 grid, cudaStream_t s, int mode,
                         const DescTable& tab, const T* x, T* y, int r,
                         long long x_rows, long long y_rows) {
   if (mode == 0)
-    bucket_kernel<T, TR, false, false, CONJ, Map><<<grid, kThreads, 0, s>>>(
-        tab, x, y, r, x_rows, y_rows);
+    bucket_kernel<VS, T, TR, false, false, CONJ, Map>
+        <<<grid, kThreads, 0, s>>>(tab, x, y, r, x_rows, y_rows);
   else if (mode == 1)
-    bucket_kernel<T, TR, true, false, CONJ, Map><<<grid, kThreads, 0, s>>>(
-        tab, x, y, r, x_rows, y_rows);
+    bucket_kernel<VS, T, TR, true, false, CONJ, Map>
+        <<<grid, kThreads, 0, s>>>(tab, x, y, r, x_rows, y_rows);
   else if constexpr (TR <= 32)
-    bucket_kernel<T, TR, false, true, CONJ, Map><<<grid, kThreads, 0, s>>>(
-        tab, x, y, r, x_rows, y_rows);
+    bucket_kernel<VS, T, TR, false, true, CONJ, Map>
+        <<<grid, kThreads, 0, s>>>(tab, x, y, r, x_rows, y_rows);
   else
     return cudaErrorInvalidValue;
   return cudaSuccess;
@@ -411,17 +446,17 @@ cudaError_t launch_tile(dim3 grid, cudaStream_t s, int mode,
 
 // The instance of column tile tr; a 16-byte T has no 128-column instance
 // (column_tile never picks it).
-template <typename T, bool CONJ, class Map>
+template <typename VS, typename T, bool CONJ, class Map>
 cudaError_t launch_width(int tr, dim3 grid, cudaStream_t s, int mode,
                          const DescTable& tab, const T* x, T* y, int r,
                          long long x_rows, long long y_rows) {
   switch (tr) {
-    case 1: return launch_tile<T, 1, CONJ, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows);
-    case 32: return launch_tile<T, 32, CONJ, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows);
-    case 64: return launch_tile<T, 64, CONJ, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows);
+    case 1: return launch_tile<VS, T, 1, CONJ, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows);
+    case 32: return launch_tile<VS, T, 32, CONJ, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows);
+    case 64: return launch_tile<VS, T, 64, CONJ, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows);
     default:
       if constexpr (sizeof(T) < 16)
-        return launch_tile<T, 128, CONJ, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows);
+        return launch_tile<VS, T, 128, CONJ, Map>(grid, s, mode, tab, x, y, r, x_rows, y_rows);
       else
         return cudaErrorInvalidValue;
   }
@@ -430,8 +465,9 @@ cudaError_t launch_width(int tr, dim3 grid, cudaStream_t s, int mode,
 // mode: 0 forward, 1 transpose, 2 symmetric (needs x_rows == y_rows), plus
 // kConj to read conj(V) (complex T; nothing changes for a real one);
 // items: the table's work items in that mode's numbering.  y must be zeroed
-// or hold a partial sum: the kernel adds into it.
-template <typename T, class Map>
+// or hold a partial sum: the kernel adds into it.  The values are of the
+// stored type VS (every descriptor of the table), x and y of T.
+template <typename VS, typename T, class Map>
 int launch_buckets(const DescTable& tab, long long items, const T* x, T* y,
                    int r, long long x_rows, long long y_rows, int mode,
                    void* stream) {
@@ -446,10 +482,10 @@ int launch_buckets(const DescTable& tab, long long items, const T* x, T* y,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // a real T has no CONJ instance: both branches are the plain one
   const cudaError_t err =
-      conj ? launch_width<T, kComplex<T>, Map>(tr, grid, s, mode, tab, x, y, r,
-                                               x_rows, y_rows)
-           : launch_width<T, false, Map>(tr, grid, s, mode, tab, x, y, r,
-                                         x_rows, y_rows);
+      conj ? launch_width<VS, T, kComplex<T>, Map>(tr, grid, s, mode, tab, x,
+                                                   y, r, x_rows, y_rows)
+           : launch_width<VS, T, false, Map>(tr, grid, s, mode, tab, x, y, r,
+                                             x_rows, y_rows);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -23,10 +23,31 @@ workaround; ``split_complex`` stays as an explicit API,
      gather rounds under ``schedule="colored"`` where they win, with
      ``colors`` forward and ``transposecolors`` for transpose products).
 
-Dtypes: float32, float64, complex64 and complex128.  A complex product
-takes route 3 (the others are f32), in B1's and the element pass's complex
-instances, whose conjugate mode carries ``A.conj()`` and ``A.H``.  The
-operand's dtype must equal the operator's.
+Dtypes: float32, float64, complex64, complex128 and bfloat16 storage.  A
+complex product takes route 3 (the others are f32), in B1's and the
+element pass's complex instances, whose conjugate mode carries ``A.conj()``
+and ``A.H``.  bf16 values (``dtype=torch.bfloat16`` or ``"bfloat16"``, or
+blocks given as torch bf16 tensors or ml_dtypes bf16 arrays) are staged on
+the device as bf16; the host layout holds their exact float32 copies
+(numpy has no bf16), so ``block(i)`` returns float32.
+
+Operands of another dtype (:func:`promoted_apply`): the product comes out in
+``torch.promote_types(operator dtype, operand dtype)``, as in the JAX
+package.  An integer, bool or float16 operand is cast to that type; a
+float64 operand on a float32 operator and a complex128 one on a complex64
+operator run the kernels' mixed instances (values widened in registers, no
+widened copy stored); a complex operand on a real operator runs one real
+product of ``torch.view_as_real(x)`` as ``[n, 2r]``; a real operand on a
+complex operator is cast.  Any product whose compute dtype or operator
+dtype is not float32 takes route 3.
+
+The JAX constructors' ``backend=`` ("auto" | "xla" | "pallas" |
+"pallas-interpret") and ``optimize=`` ("auto" | "latency" | "throughput" |
+None) chose TPU engines and a TPU plan shape; here they are validated,
+stored and saved (``interop/serialize.py``) and change no route
+(``ops/dispatch.py``).  ``scatter=`` ("atomic" | "sorted") picks the
+element buckets' pass: B9's element pass, or its owner mode (bit-identical
+from run to run; the chunked buckets still add with B1's atomics).
 """
 
 from __future__ import annotations
@@ -40,7 +61,7 @@ from .. import coloring
 from ..core import schedule as sched
 from ..core.layout import BlockLayout, build_layout
 from ..core.operator import LinearOperator
-from ..ops.dispatch import (StagedBuckets, apply_operand,
+from ..ops.dispatch import (StagedBuckets, apply_operand, check_jax_options,
                             check_route_options, patch_eligible, patch_wins,
                             strip_eligible)
 from .stream import StreamRouted
@@ -66,15 +87,75 @@ def _np_dtype(dtype):
     return np.dtype(dtype)
 
 
-def _torch_dtype(layouts, dtype) -> torch.dtype:
-    """The operator's dtype: its first stored bucket's, else ``dtype``, else
-    float64; float32, float64, complex64 or complex128."""
+def is_bf16(dtype) -> bool:
+    """``dtype`` names bfloat16: ``torch.bfloat16``, ``"bfloat16"``, or the
+    numpy dtype or scalar type of an ml_dtypes bf16 (recognised by name;
+    the port does not import ml_dtypes)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype == torch.bfloat16
+    if isinstance(dtype, str):
+        return dtype == "bfloat16"
+    return "bfloat16" in (getattr(dtype, "name", None),
+                          getattr(dtype, "__name__", None),
+                          getattr(getattr(dtype, "dtype", None), "name", None))
+
+
+def _host_block(b) -> tuple[np.ndarray, bool]:
+    """(numpy block, was bf16).  A scipy block densifies; a torch tensor
+    comes to the host; a bf16 block (a torch bf16 tensor, an ml_dtypes bf16
+    array or raw 2-byte records, read by their bits) becomes its exact
+    float32 copy."""
+    if hasattr(b, "toarray"):
+        b = b.toarray()
+    if isinstance(b, torch.Tensor):
+        b = b.detach().cpu()
+        if b.dtype == torch.bfloat16:
+            return b.float().numpy(), True
+        return b.numpy(), False
+    a = np.asarray(b)
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                      and a.dtype.itemsize == 2):
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).float().numpy(), True
+    return a, False
+
+
+def host_values(groups, dtype):
+    """``(groups, layout dtype, bf16)`` for lists of blocks ``groups``: the
+    blocks as numpy, the numpy dtype to build the layouts in (None: the
+    blocks' own), and whether the operator stores bf16 -- ``dtype`` names
+    it, or ``dtype`` is None and every block is bf16.  A bf16 operator's
+    blocks are rounded to bf16 and kept as their exact float32 copies:
+    numpy has no bf16, and the layout's buckets depend only on shapes and
+    indices."""
+    conv = [[_host_block(b) for b in g] for g in groups]
+    flags = [f for g in conv for _, f in g]
+    bf16 = is_bf16(dtype) if dtype is not None else (bool(flags)
+                                                     and all(flags))
+    if not bf16:
+        return [[a for a, _ in g] for g in conv], _np_dtype(dtype), False
+
+    def rounded(a, was_bf16):
+        if was_bf16:
+            return a
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(torch.bfloat16).float().numpy()
+
+    return [[rounded(a, f) for a, f in g] for g in conv], np.float32, True
+
+
+def _torch_dtype(layouts, dtype, bf16: bool = False) -> torch.dtype:
+    """The operator's dtype: bfloat16 where ``bf16``, else its first stored
+    bucket's, else ``dtype``, else float64; float32, float64, complex64 or
+    complex128."""
+    if bf16:
+        return torch.bfloat16
     vals = [b.values.dtype for lay in layouts for b in lay.buckets]
     np_dt = np.dtype(vals[0] if vals else (_np_dtype(dtype) or np.float64))
     if np_dt not in _DTYPES:
         raise NotImplementedError(
-            f"dtype {np_dt} is not ported yet: the port takes float32, "
-            "float64, complex64 and complex128 (bf16 storage: ROADMAP)")
+            f"dtype {np_dt} is not ported: the port stores float32, "
+            "float64, complex64, complex128 and bfloat16")
     return _DTYPES[np_dt]
 
 
@@ -90,23 +171,46 @@ def _resolve_device(device) -> torch.device:
     return torch.empty(0, device=device).device
 
 
-def _check_operand(x: torch.Tensor, device, dtype) -> None:
+def promoted_apply(apply, x: torch.Tensor, device, dtype: torch.dtype,
+                   transpose: bool, conj: bool) -> torch.Tensor:
+    """The product ``apply(x', transpose, conj)`` of an operator of
+    ``dtype`` on ``device``, in ``torch.promote_types(dtype, x.dtype)``,
+    ``x'`` the operand in the compute dtype: a complex operand on a real
+    operator is one real product of ``view_as_real(x)`` as ``[n, 2r]``,
+    viewed back as complex (conjugating real values changes nothing);
+    otherwise the compute dtype is the result dtype (float32 where that is
+    bf16) and ``x`` is cast to it where it differs (an integer, bool or
+    narrower operand, or a real operand of a complex operator).  A float64
+    operand of a float32 or bf16 operator and a complex128 one of a
+    complex64 operator are passed as they are, to the kernels' mixed
+    instances.  An operand on another device raises ``ValueError``."""
     if x.device != device:
         raise ValueError(
             f"operand on {x.device}, operator on {device}; move one of them "
             "explicitly")
-    if x.dtype != dtype:
-        raise TypeError(f"operand dtype {x.dtype} != operator dtype {dtype}")
+    out = torch.promote_types(dtype, x.dtype)
+    if out.is_complex and not dtype.is_complex:
+        xr = torch.view_as_real(x.resolve_conj()).reshape(x.shape[0], -1)
+        y = promoted_apply(apply, xr, device, dtype, transpose, conj)
+        y = y.reshape(y.shape[0], *x.shape[1:], 2)
+        return torch.view_as_complex(y.contiguous())
+    compute = torch.float32 if out == torch.bfloat16 else out
+    y = apply(x if x.dtype == compute else x.to(compute), transpose, conj)
+    return y if y.dtype == out else y.to(out)
 
 
-def _stage(layout: BlockLayout, device) -> StagedBuckets:
+def _stage(layout: BlockLayout, device, dtype=None) -> StagedBuckets:
     """Per bucket: (values, row_idx, col_idx, row_chunk, col_chunk) on
-    ``device`` (the chunk tables None for element buckets)."""
-    def dev(a):
-        return None if a is None else torch.from_numpy(
-            np.ascontiguousarray(a)).to(device)
-    return StagedBuckets((dev(b.values), dev(b.row_idx), dev(b.col_idx),
-                          dev(b.row_chunk_idx), dev(b.col_chunk_idx))
+    ``device`` (the chunk tables None for element buckets); the values cast
+    to ``dtype`` on the host first where given (bf16 storage)."""
+    def dev(a, cast=None):
+        if a is None:
+            return None
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return (t if cast is None else t.to(cast)).to(device)
+    return StagedBuckets((dev(b.values, dtype), dev(b.row_idx),
+                          dev(b.col_idx), dev(b.row_chunk_idx),
+                          dev(b.col_chunk_idx))
                          for b in layout.buckets)
 
 
@@ -125,6 +229,15 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
     takes the patch route where a plan exists, r = 1 included) or "never"
     -- the JAX package's ``BST_PATCH``.  ``panel``: "v1" or "v2", the panel
     plans the stream route builds -- the JAX package's ``BST_PANEL_IMPL``.
+    ``schedule``: "serial", "colored" or "auto" (the colored path, as in
+    the JAX package).  ``scatter``: "atomic" (B9's element pass) or
+    "sorted" (its owner mode: race-free by row ownership, the same bits on
+    every run; the chunked buckets still add with B1's atomics, as the JAX
+    chunked path ignores ``scatter``).  ``backend`` and ``optimize``: the
+    JAX package's TPU engine and TPU plan-shape choices, validated, stored
+    and saved; they change no route on the card or the CPU (see
+    ``ops/dispatch.py``).  ``dtype``: the stored dtype, float32, float64,
+    complex64, complex128 or bfloat16 (see the module docstring).
     """
 
     def __init__(
@@ -139,6 +252,9 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
         precision: str | None = "highest",
         schedule: str = sched.SERIAL,
         granularity="pow2",
+        backend: str = "auto",
+        scatter: str = "atomic",
+        optimize: str | None = None,
         patch: str = "auto",
         panel: str = "v1",
     ):
@@ -148,15 +264,19 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
             raise ValueError(
                 f"unknown precision {precision!r}; expected one of {_PRECISIONS}")
         check_route_options(patch, panel)
+        check_jax_options(backend, optimize, scatter)
         self._patch_mode, self._panel = patch, panel
+        self._backend, self._scatter = backend, scatter
+        self._optimize, self._granularity = optimize, granularity
         self._device = _resolve_device(device)
         self._schedule = sched.normalize_schedule(schedule)
         self._precision = precision
+        (blocks,), np_dtype, bf16 = host_values([blocks], dtype)
         self._layout = build_layout(blocks, rowindices, colindices, shape,
-                                    granularity=granularity,
-                                    dtype=_np_dtype(dtype))
-        self._dtype = _torch_dtype([self._layout], dtype)
-        self._buckets = _stage(self._layout, self._device)
+                                    granularity=granularity, dtype=np_dtype)
+        self._dtype = _torch_dtype([self._layout], dtype, bf16)
+        self._buckets = _stage(self._layout, self._device,
+                               torch.bfloat16 if bf16 else None)
         if sched.isserial(self._schedule):
             all_ids = tuple(range(self._layout.nblocks))
             self._colors = self._tcolors = (all_ids,) if all_ids else ()
@@ -249,7 +369,11 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
         return None if self._patch[0] is None else self._patch
 
     def _apply(self, x, transpose: bool, conj: bool):
-        _check_operand(x, self._device, self._dtype)
+        return promoted_apply(self._apply_routes, x, self._device,
+                              self._dtype, transpose, conj)
+
+    def _apply_routes(self, x, transpose: bool, conj: bool):
+        """The product on ``x`` in a compute dtype of the values."""
         out_len = self.shape[1] if transpose else self.shape[0]
         r = 1 if x.ndim == 1 else x.shape[1]
         if patch_eligible(x, self._dtype, self._patch_mode):
@@ -269,7 +393,8 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
         if not sched.isserial(self._schedule):
             colors = self._tcolors if transpose else self._colors
         return apply_operand(self._buckets, self._layout, out_len, x,
-                             transpose=transpose, conj=conj, colors=colors)
+                             transpose=transpose, conj=conj, colors=colors,
+                             scatter=self._scatter)
 
     def __repr__(self):
         m, n = self.shape

@@ -10,8 +10,14 @@ applied twice, as it is to ``y[rowindices]`` and transposed to
 and S^T = D^T + O + O^T: only the diagonal pass transposes.  S is complex
 symmetric, not Hermitian, so ``S.H @ x = conj(S) @ x``: under the
 conjugate flag both passes read conjugated values, the diagonal's also
-transposed under ``transpose``.  Dtypes: float32, float64, complex64 and
-complex128; a complex product takes route 3 below.
+transposed under ``transpose``.  Dtypes: float32, float64, complex64,
+complex128 and bfloat16 storage; a complex product takes route 3 below, and
+so does every product whose operator or compute dtype is not float32.
+Operands of another dtype, bf16 storage and the ``backend=`` /
+``optimize=`` options behave as in :class:`~.block_sparse.
+BlockSparseMatrix`; as in the JAX package this format has no ``scatter=``
+(its off-diagonal pass is the symmetric one, which the sorted scatter does
+not cover).
 
 As in the JAX package, all four color sets are computed at construction
 whatever the schedule, and the default schedule is "colored".  A product
@@ -49,9 +55,10 @@ from ..core.strip import plan_symmetric
 from ..ops.dispatch import (apply_symmetric, check_route_options,
                             patch_eligible, patch_wins, strip_eligible)
 from ..ops.panel_router import panel_plan_sym, route_bytes
-from .block_sparse import (_PRECISIONS, BlockSparseMatrix, _check_operand,
-                           _colors_tuple, _np_dtype, _resolve_device, _stage,
-                           _torch_dtype)
+from ..ops.dispatch import check_jax_options
+from .block_sparse import (_PRECISIONS, BlockSparseMatrix, _colors_tuple,
+                           _resolve_device, _stage, _torch_dtype, host_values,
+                           promoted_apply)
 from .stream import StreamRouted
 
 __all__ = ["SymmetricBlockMatrix"]
@@ -67,7 +74,8 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
     "highest" and "high", one TF32 pass for None; the JAX package's tiers);
     every other route runs IEEE precision.  ``patch`` ("auto" | "always" |
     "never") and ``panel`` ("v1" | "v2"): the route options of
-    :class:`BlockSparseMatrix`.
+    :class:`BlockSparseMatrix`; ``schedule`` ("colored", "serial" or
+    "auto"), ``backend``, ``optimize`` and ``dtype`` as there.
     """
 
     def __init__(
@@ -84,6 +92,8 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
         precision: str | None = "highest",
         schedule: str = sched.COLORED,
         granularity="pow2",
+        backend: str = "auto",
+        optimize: str | None = None,
         patch: str = "auto",
         panel: str = "v1",
     ):
@@ -95,20 +105,25 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
             raise ValueError(
                 f"unknown precision {precision!r}; expected one of {_PRECISIONS}")
         check_route_options(patch, panel)
+        check_jax_options(backend, optimize)
         self._patch_mode, self._panel = patch, panel
+        self._backend, self._optimize = backend, optimize
+        self._granularity = granularity
         self._device = _resolve_device(device)
         self._schedule = sched.normalize_schedule(schedule)
         self._precision = precision
+        (diagonals, offdiagonals), np_dtype, bf16 = host_values(
+            [diagonals, offdiagonals], dtype)
         self._dlayout = build_layout(diagonals, diagonalindices,
                                      diagonalindices, shape,
-                                     granularity=granularity,
-                                     dtype=_np_dtype(dtype))
+                                     granularity=granularity, dtype=np_dtype)
         self._olayout = build_layout(offdiagonals, rowindices, colindices,
                                      shape, granularity=granularity,
-                                     dtype=_np_dtype(dtype))
-        self._dtype = _torch_dtype([self._dlayout, self._olayout], dtype)
-        self._dbuckets = _stage(self._dlayout, self._device)
-        self._obuckets = _stage(self._olayout, self._device)
+                                     dtype=np_dtype)
+        self._dtype = _torch_dtype([self._dlayout, self._olayout], dtype, bf16)
+        stored = torch.bfloat16 if bf16 else None
+        self._dbuckets = _stage(self._dlayout, self._device, stored)
+        self._obuckets = _stage(self._olayout, self._device, stored)
         self._dcolors = _colors_tuple(
             coloring.color_blocks(self._dlayout.rowindices))
         self._ocolors = _colors_tuple(
@@ -223,7 +238,11 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
         return [(self._dlayout, 1), (self._olayout, 2)]
 
     def _apply(self, x, transpose: bool, conj: bool):
-        _check_operand(x, self._device, self._dtype)
+        return promoted_apply(self._apply_routes, x, self._device,
+                              self._dtype, transpose, conj)
+
+    def _apply_routes(self, x, transpose: bool, conj: bool):
+        """The product on ``x`` in a compute dtype of the values."""
         r = 1 if x.ndim == 1 else x.shape[1]
         if patch_eligible(x, self._dtype, self._patch_mode):
             entry = self._patch_for(transpose)

@@ -22,9 +22,12 @@ split-complex route (``split_complex`` stays as an explicit API,
      B1, element buckets -> one launch of B9's element pass.
 
 As in the JAX package the schedule is recorded but no color sets are built:
-both schedules run the same routes.  Dtypes: float32, float64, complex64
-and complex128; a complex product takes route 3, whose conjugate mode
-carries ``V.conj()`` and ``V.H``.
+every schedule ("serial", "colored", "auto") runs the same routes.  Dtypes:
+float32, float64, complex64, complex128 and bfloat16 storage; a complex
+product takes route 3, whose conjugate mode carries ``V.conj()`` and
+``V.H``.  Operands of another dtype, bf16 storage and the ``backend=`` /
+``optimize=`` / ``scatter=`` options behave as in
+:class:`~.block_sparse.BlockSparseMatrix`.
 """
 
 from __future__ import annotations
@@ -39,8 +42,9 @@ from ..core.layout import BlockLayout, build_layout, is_contiguous
 from ..core.operator import LinearOperator
 from ..ops.dispatch import (apply_operand, check_route_options,
                             patch_eligible, patch_wins, strip_eligible)
-from .block_sparse import (_PRECISIONS, BlockSparseMatrix, _check_operand,
-                           _np_dtype, _resolve_device, _stage, _torch_dtype)
+from ..ops.dispatch import check_jax_options
+from .block_sparse import (_PRECISIONS, BlockSparseMatrix, _resolve_device,
+                           _stage, _torch_dtype, host_values, promoted_apply)
 from .stream import StreamRouted
 
 __all__ = ["VariableBlockCompressedRowStorage"]
@@ -75,7 +79,8 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
     patch-route SpMM, and B4 through ``batched_mm``; its other products
     run IEEE fp32).
     ``patch`` ("auto" | "always" | "never") and ``panel`` ("v1" | "v2"):
-    the route options of :class:`BlockSparseMatrix`.
+    the route options of :class:`BlockSparseMatrix`; ``schedule``,
+    ``scatter``, ``backend``, ``optimize`` and ``dtype`` as there.
     """
 
     def __init__(
@@ -90,6 +95,9 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
         precision: str | None = "highest",
         schedule: str = sched.SERIAL,
         granularity="pow2",
+        backend: str = "auto",
+        scatter: str = "atomic",
+        optimize: str | None = None,
         check: bool = True,
         patch: str = "auto",
         panel: str = "v1",
@@ -100,13 +108,15 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
             raise ValueError(
                 f"unknown precision {precision!r}; expected one of {_PRECISIONS}")
         check_route_options(patch, panel)
+        check_jax_options(backend, optimize, scatter)
         self._patch_mode, self._panel = patch, panel
+        self._backend, self._scatter = backend, scatter
+        self._optimize, self._granularity = optimize, granularity
         self._device = _resolve_device(device)
         self._schedule = sched.normalize_schedule(schedule)
         self._precision = precision
         n = len(blocks)
-        blocks = [np.asarray(b.toarray()) if hasattr(b, "toarray")
-                  else np.asarray(b) for b in blocks]
+        (blocks,), np_dtype, bf16 = host_values([blocks], dtype)
         rstarts = np.array(
             [_as_start(rowindices[i], blocks[i].shape[0], "row", i, check)
              for i in range(n)], dtype=np.int64)
@@ -133,10 +143,10 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
         rlists = [np.arange(r, r + b.shape[0]) for r, b in zip(rstarts, blocks)]
         clists = [np.arange(c, c + b.shape[1]) for c, b in zip(cstarts, blocks)]
         self._layout = build_layout(blocks, rlists, clists, shape,
-                                    granularity=granularity,
-                                    dtype=_np_dtype(dtype))
-        self._dtype = _torch_dtype([self._layout], dtype)
-        self._buckets = _stage(self._layout, self._device)
+                                    granularity=granularity, dtype=np_dtype)
+        self._dtype = _torch_dtype([self._layout], dtype, bf16)
+        self._buckets = _stage(self._layout, self._device,
+                               torch.bfloat16 if bf16 else None)
         self._patch = None
         self._stream = {}
 
@@ -146,10 +156,10 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
                           **kwargs):
         """Convert a BlockSparseMatrix (blocks must have contiguous ranges);
         ``kwargs`` (``device``, ``dtype``, ``patch``, ``panel``, ...) go to
-        the constructor, the device and the two route options defaulting to
-        ``bsm``'s."""
+        the constructor, the device, the dtype and the two route options
+        defaulting to ``bsm``'s."""
         n = bsm.nblocks
-        for key in ("device", "patch", "panel"):
+        for key in ("device", "dtype", "patch", "panel"):
             kwargs.setdefault(key, getattr(bsm, key))
         return cls(
             [bsm.block(i) for i in range(n)],
@@ -177,7 +187,7 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
             blocks += [o, o.T]
             rows += [r, c]
             cols += [c, r]
-        for key in ("device", "patch", "panel"):
+        for key in ("device", "dtype", "patch", "panel"):
             kwargs.setdefault(key, getattr(sbm, key))
         return cls(
             blocks, rows, cols, sbm.shape,
@@ -260,7 +270,11 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
     _patch_for = BlockSparseMatrix._patch_for
 
     def _apply(self, x, transpose: bool, conj: bool):
-        _check_operand(x, self._device, self._dtype)
+        return promoted_apply(self._apply_routes, x, self._device,
+                              self._dtype, transpose, conj)
+
+    def _apply_routes(self, x, transpose: bool, conj: bool):
+        """The product on ``x`` in a compute dtype of the values."""
         out_len = self.shape[1] if transpose else self.shape[0]
         r = 1 if x.ndim == 1 else x.shape[1]
         if patch_eligible(x, self._dtype, self._patch_mode):
@@ -277,7 +291,8 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
             if y is not None:
                 return y
         return apply_operand(self._buckets, self._layout, out_len, x,
-                             transpose=transpose, conj=conj)
+                             transpose=transpose, conj=conj,
+                             scatter=self._scatter)
 
     def __repr__(self):
         m, n = self.shape

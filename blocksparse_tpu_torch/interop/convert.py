@@ -13,7 +13,11 @@ across, by class name: a ``DiagonalOperator`` by its 1-D ``d``, and a
 ``SumOperator`` (the ``M + DiagonalOperator`` that ``block_jacobi``
 returns) by its summands ``a`` and ``b``; and a ``ComplexSplitOperator``
 by its real children ``re_op`` and ``im_op``.  Complex operators of all
-three formats carry across as they are (their blocks are complex numpy).
+three formats carry across as they are (their blocks are complex numpy),
+and so do bf16 ones (their blocks are ml_dtypes bf16 arrays, which the
+constructors read by their bits).  The JAX operator's ``schedule`` (``"auto"``
+included), ``backend``, ``optimize`` and, for the general and VBCRS
+formats, ``scatter`` are carried across unless ``kwargs`` give them.
 This module imports neither jax nor the JAX package.
 """
 
@@ -51,6 +55,9 @@ def from_reference(A, **kwargs):
     if kind == "ComplexSplitOperator":
         return ComplexSplitOperator(from_reference(A.re_op, **kwargs),
                                     from_reference(A.im_op, **kwargs))
+    for key in ("schedule", "backend", "optimize", "scatter"):
+        if hasattr(A, f"_{key}"):
+            kwargs.setdefault(key, getattr(A, f"_{key}"))
     if hasattr(A, "ndiagonals"):
         d, o = range(A.ndiagonals), range(A.noffdiagonals)
         return SymmetricBlockMatrix(

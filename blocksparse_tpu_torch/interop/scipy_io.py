@@ -111,10 +111,11 @@ def _tiled(shape, block_size, tile_of, dtype, kwargs) -> BlockSparseMatrix:
             tile = tile_of(bi, bj, bm, bn)
             if tile is None:
                 continue
-            blocks.append(tile if dtype is None else tile.astype(dtype))
+            blocks.append(tile)
             rows.append(np.arange(bi, min(bi + bm, m)))
             cols.append(np.arange(bj, min(bj + bn, n)))
-    return BlockSparseMatrix(blocks, rows, cols, (m, n), **kwargs)
+    return BlockSparseMatrix(blocks, rows, cols, (m, n), dtype=dtype,
+                             **kwargs)
 
 
 def from_dense(D, block_size, *, tol: float = 0.0, dtype=None,
@@ -155,7 +156,7 @@ def as_linear_operator(A):
     card) and return the result as numpy: a writable array over the
     product's own fresh host tensor (scipy's iterative solvers write into
     matvec results in place).  An input whose dtype differs from the
-    operator's raises, as the products do.
+    operator's comes out in the promoted dtype, as the products do.
     """
     from scipy.sparse.linalg import LinearOperator as _ScipyLO
 

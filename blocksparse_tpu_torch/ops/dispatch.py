@@ -37,7 +37,27 @@ Complex operators (complex64 / complex128) take the bucket route alone:
 the patch and stream routes are f32 (``patch_eligible``,
 ``strip_eligible``), so their products run B1 and B9's element pass in the
 complex instances.  ``conj`` reaches the launches as their conjugate mode
-(``conj(V)``; with ``transpose``, ``V^H``).
+(``conj(V)``; with ``transpose``, ``V^H``).  So does every product whose
+operator or compute dtype is not float32: bf16 storage, a float64 operand
+on a float32 operator, a complex128 one on a complex64 operator (the
+formats cast or view the operand first, ``formats/block_sparse.
+promoted_apply``), in the launches' mixed instances.
+
+``scatter="sorted"`` (general and VBCRS operators, as in the JAX package):
+the element buckets of a non-symmetric pass run B9's owner mode
+(``ops/kernels/mask_select.owner_apply``: race-free by row ownership, the
+same bits on every run) in place of the element pass, and no colored plan
+(the JAX package also skips the colored plan under "sorted").  The chunked
+buckets still add with B1's atomics, as the JAX chunked path ignores
+``scatter``, so a sorted product is bit-reproducible only where the
+operand has no chunked buckets; full determinism is ROADMAP A5.
+
+``backend=`` and ``optimize=`` (the JAX constructors' options) are stored,
+validated (:func:`check_jax_options`) and saved, and change no route here:
+they chose TPU engines (Pallas, XLA or the interpreter) and a TPU plan
+shape (an even grid-step bias that pipelined the TPU's value DMA), and the
+port has one engine per device, the kernels on the card and their plain
+versions on the CPU.
 
 The rules (``patch_wins``, ``stream_plan_choice``, the planners' costs) are
 the JAX package's, measured on a TPU v5e and kept so the port routes as it
@@ -58,16 +78,21 @@ import torch
 
 from .colored import build_colored_plan, colored_wins
 from .kernels.fused_spmm import BucketTable, multi_fused_apply
-from .kernels.mask_select import element_fused_apply
+from .kernels.mask_select import element_fused_apply, owner_fused_apply
 from .torch_spmv import bucket_apply
 
 __all__ = ["apply_operand", "apply_symmetric", "bucket_tables",
            "check_route_options", "element_plan", "patch_eligible",
            "patch_wins", "strip_eligible", "stream_plan_choice",
-           "StagedBuckets", "PATCH_MODES", "PANEL_IMPLS"]
+           "check_jax_options", "StagedBuckets", "PATCH_MODES", "PANEL_IMPLS",
+           "BACKENDS", "OPTIMIZE_MODES", "SCATTER_MODES"]
 
 PATCH_MODES = ("auto", "always", "never")
 PANEL_IMPLS = ("v1", "v2")
+# the JAX constructors' values (see the module docstring: stored, no route)
+BACKENDS = ("auto", "xla", "pallas", "pallas-interpret")
+OPTIMIZE_MODES = ("auto", "latency", "throughput", None)
+SCATTER_MODES = ("atomic", "sorted")
 
 # The bucket engines of the JAX package re-stream values per 128-column RHS
 # slice, the patch mono-kernel per 256 columns; one bucket launch costs about
@@ -87,6 +112,19 @@ def check_route_options(patch: str, panel: str) -> None:
     if panel not in PANEL_IMPLS:
         raise ValueError(f"unknown panel={panel!r}; expected one of "
                          f"{PANEL_IMPLS}")
+
+
+def check_jax_options(backend: str, optimize, scatter: str = "atomic"
+                      ) -> None:
+    """Raise ``ValueError`` for a ``backend=`` / ``optimize=`` /
+    ``scatter=`` value outside :data:`BACKENDS` / :data:`OPTIMIZE_MODES` /
+    :data:`SCATTER_MODES`."""
+    for name, value, valid in (("backend", backend, BACKENDS),
+                               ("optimize", optimize, OPTIMIZE_MODES),
+                               ("scatter", scatter, SCATTER_MODES)):
+        if value not in valid:
+            raise ValueError(f"unknown {name}={value!r}; expected one of "
+                             f"{valid}")
 
 
 def patch_eligible(x: torch.Tensor, dtype: torch.dtype,
@@ -216,11 +254,12 @@ def bucket_tables(staged: StagedBuckets, layout) -> dict:
 
 
 def _add_buckets(dev_buckets, layout, x, y, *, transpose, symmetric, conj,
-                 colors):
+                 colors, scatter="atomic"):
     """``y`` plus ``layout``'s bucketed product with ``x`` (in place where
     the launches add): one B1 launch over the chunked buckets, then one
-    element pass over the element buckets, or their colored gather rounds
-    where ``colors`` are given and the plan wins."""
+    element pass over the element buckets (the owner mode under
+    ``scatter="sorted"`` off the symmetric pass), or their colored gather
+    rounds where ``colors`` are given and the plan wins."""
     tables = bucket_tables(dev_buckets, layout)
     if tables["chunked"] is not None:
         y = multi_fused_apply(tables["chunked"], x, out=y,
@@ -228,6 +267,9 @@ def _add_buckets(dev_buckets, layout, x, y, *, transpose, symmetric, conj,
                               conj=conj)
     if tables["element"] is None:
         return y
+    if scatter == "sorted" and not symmetric:
+        return owner_fused_apply(tables["element"], x, out=y,
+                                 transpose=transpose, conj=conj)
     elem_ids = [i for i, hb in enumerate(layout.buckets) if hb.chunk == 1]
     plan = element_plan(layout, elem_ids, y.shape[0], colors, x.device,
                         transpose=transpose, symmetric=symmetric)
@@ -243,7 +285,7 @@ def _add_buckets(dev_buckets, layout, x, y, *, transpose, symmetric, conj,
 
 def apply_operand(dev_buckets, layout, out_len: int, x: torch.Tensor, *,
                   transpose: bool = False, conj: bool = False,
-                  colors=None) -> torch.Tensor:
+                  colors=None, scatter: str = "atomic") -> torch.Tensor:
     """Apply a bucketed operand: one B1 launch over its chunked buckets and
     one element pass (or the colored gather rounds) over its element
     buckets, into one zeroed output.
@@ -252,12 +294,15 @@ def apply_operand(dev_buckets, layout, out_len: int, x: torch.Tensor, *,
     conjugate of the values (complex; real values are unchanged), so
     ``transpose`` and ``conj`` together apply the adjoint.  ``colors``: the
     color sets (tuple of tuples of block ids) when the operator's schedule
-    is "colored", else None.
+    is "colored" or "auto", else None.  ``scatter``: "atomic" (the element
+    pass) or "sorted" (B9's owner mode for the element buckets, no colored
+    plan).  ``x`` is of a compute dtype of the values (``fused_spmm.
+    COMPUTE_TYPES``), and so is the result.
     """
     shape = (out_len,) if x.ndim == 1 else (out_len, x.shape[1])
     return _add_buckets(dev_buckets, layout, x, x.new_zeros(shape),
                         transpose=transpose, symmetric=False, conj=conj,
-                        colors=colors)
+                        colors=colors, scatter=scatter)
 
 
 def apply_symmetric(diag_buckets, diag_layout, off_buckets, off_layout,

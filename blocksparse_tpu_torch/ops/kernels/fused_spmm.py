@@ -8,6 +8,15 @@ from one read of ``V_b`` when ``symmetric``).  It takes float32, float64,
 complex64 and complex128; ``conj`` (complex only) reads ``conj(V_b)``, so
 ``transpose`` and ``conj`` together apply ``V_b^H``.
 
+Stored and compute types: the values are read in their stored type and the
+product is computed in the operand's type, which is the stored type or a
+wider one (:data:`COMPUTE_TYPES`): bf16 values with a float32 or float64
+operand, float32 values with a float64 operand, complex64 values with a
+complex128 operand.  The kernel widens each value in registers (exact), so
+no widened copy of the values exists in device memory; the plain versions
+widen the values with ``.to`` (``torch_spmv.widened``).  ``out`` is of the
+compute type.
+
 Two entries launch it.  :func:`multi_block_apply` covers every bucket of a
 :class:`BucketTable` (a layout's chunked buckets) in one launch and adds
 into a given output: the bucket route (``ops/dispatch.py``) makes one such
@@ -32,17 +41,22 @@ Routing: a CPU tensor takes the plain version
 (:func:`chunked_block_apply_plain`, and for a table
 :func:`multi_block_apply_plain`, the loop of it over the buckets); a CUDA
 tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel
-launches, ``SYM_LAUNCHES`` those of them in the symmetric mode.
+launches, ``SYM_LAUNCHES`` those of them in the symmetric mode, and
+``ENTRY_LAUNCHES`` every launch of B1 and B9 by entry point (so by stored
+and compute dtype: ``bst_fused_spmm_multi_f32_f64``, ...).
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
 from ...utils import build
 from ..torch_spmv import chunk_rows, chunked_bucket_apply, values_grad
 
-__all__ = ["BucketTable", "check_table_call", "chunked_block_apply",
+__all__ = ["BucketTable", "COMPUTE_TYPES", "ENTRY_LAUNCHES", "check_table_call",
+           "chunked_block_apply",
            "chunked_block_apply_plain", "entry_point", "launch_mode",
            "launch_table", "multi_block_apply",
            "multi_block_apply_plain", "multi_fused_apply", "TableApply",
@@ -50,12 +64,23 @@ __all__ = ["BucketTable", "check_table_call", "chunked_block_apply",
 
 LAUNCHES = 0
 SYM_LAUNCHES = 0
+ENTRY_LAUNCHES: Counter = Counter()  # cleared, never rebound
 
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2}
 _CONJ = 4  # mode bit: read conj(V) (tile_core.cuh kConj)
 _ROW_TILE = 64  # output rows of a work item (tile_core.cuh kMT)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64",
-           torch.complex64: "c64", torch.complex128: "c128"}
+           torch.complex64: "c64", torch.complex128: "c128",
+           torch.bfloat16: "bf16"}
+# stored dtype -> the compute dtypes of its kernel instances (the first the
+# plain instance's, where there is one; bf16 is always widened)
+COMPUTE_TYPES = {
+    torch.float32: (torch.float32, torch.float64),
+    torch.float64: (torch.float64,),
+    torch.complex64: (torch.complex64, torch.complex128),
+    torch.complex128: (torch.complex128,),
+    torch.bfloat16: (torch.float32, torch.float64),
+}
 
 
 def launch_mode(transpose: bool, symmetric: bool, conj: bool = False) -> int:
@@ -67,14 +92,21 @@ def launch_mode(transpose: bool, symmetric: bool, conj: bool = False) -> int:
     return _MODES[(transpose, symmetric)] | (_CONJ if conj else 0)
 
 
-def entry_point(prefix: str, dtype: torch.dtype) -> str:
-    """The kernel entry ``prefix``_f32 / _f64 / _c64 / _c128 for values of
-    ``dtype``; raises ``TypeError`` for any other dtype."""
-    suffix = _SUFFIX.get(dtype)
-    if suffix is None:
-        raise TypeError(f"{prefix} takes float32, float64, complex64 or "
-                        f"complex128, got {dtype}")
-    return f"{prefix}_{suffix}"
+def entry_point(prefix: str, dtype: torch.dtype,
+                compute: torch.dtype | None = None) -> str:
+    """The kernel entry for values stored in ``dtype`` and computed in
+    ``compute`` (default ``dtype``): ``prefix``_f32 / _f64 / _c64 / _c128
+    where the two agree, ``prefix``_<stored>_<compute> for the mixed
+    instances (:data:`COMPUTE_TYPES`); raises ``TypeError`` for any other
+    pair."""
+    compute = dtype if compute is None else compute
+    if compute not in COMPUTE_TYPES.get(dtype, ()):
+        raise TypeError(
+            f"{prefix}: values dtype {dtype} takes an operand dtype in "
+            f"{COMPUTE_TYPES.get(dtype, ())}, got {compute}")
+    if compute == dtype:
+        return f"{prefix}_{_SUFFIX[dtype]}"
+    return f"{prefix}_{_SUFFIX[dtype]}_{_SUFFIX[compute]}"
 
 
 class BucketTable:
@@ -83,7 +115,9 @@ class BucketTable:
     ``buckets``: per bucket ``(values [nb, mp, kp], row table, column
     table, chunk)``: the chunk tables ``[nb, mp / C]`` / ``[nb, kp / C]``
     of a chunked bucket (B1), or the element tables ``[nb, mp]`` /
-    ``[nb, kp]`` with chunk 1 (B9's element pass).  ``table`` is an int64
+    ``[nb, kp]`` with chunk 1 (B9's element pass).  ``dtype`` is the
+    values' stored dtype and ``compute_dtypes`` the operand dtypes a launch
+    over the table takes (:data:`COMPUTE_TYPES`).  ``table`` is an int64
     ``[n, 9]`` tensor on the buckets' device, one row per bucket as the
     kernels read it (``csrc/tile_core.cuh::BucketDesc``): the addresses of
     its values and tables, the number of its first work item in the
@@ -129,6 +163,8 @@ class BucketTable:
             for side, extent in enumerate((mp, kp)):
                 first[side].append(items[side])
                 items[side] += nb * -(-extent // _ROW_TILE)
+        self.compute_dtypes = COMPUTE_TYPES.get(self.dtype, ())
+        self.owners = {}  # B9's owner tables (mask_select.owner_table)
         self.first = (tuple(first[0]), tuple(first[1]))
         self.items = tuple(items)
         self.table = torch.tensor(rows, dtype=torch.int64, device=self.device)
@@ -147,9 +183,10 @@ def check_table_call(table: BucketTable, x, out, symmetric: bool) -> None:
             out.shape[1:] != x.shape[1:]:
         raise ValueError(f"x {tuple(x.shape)} and out {tuple(out.shape)} must "
                          "be [n] and [out_len], or [n, r] and [out_len, r]")
-    if x.dtype != table.dtype or out.dtype != table.dtype:
-        raise TypeError(f"x dtype {x.dtype} / out dtype {out.dtype} != values "
-                        f"dtype {table.dtype}")
+    if x.dtype != out.dtype or x.dtype not in table.compute_dtypes:
+        raise TypeError(f"x dtype {x.dtype} / out dtype {out.dtype}: both "
+                        f"must be one of {table.compute_dtypes}, the compute "
+                        f"dtypes of values dtype {table.dtype}")
     devs = {table.device, x.device, out.device}
     if len(devs) != 1:
         raise ValueError(f"tensors on different devices: {sorted(map(str, devs))}")
@@ -162,12 +199,13 @@ def check_table_call(table: BucketTable, x, out, symmetric: bool) -> None:
 
 
 def launch_table(prefix: str, table: BucketTable, x, out, mode: int) -> bool:
-    """Launch entry point ``prefix``_f32 / _f64 / _c64 / _c128 over every
-    bucket of ``table`` on CUDA tensors (checked by the caller), adding into
-    ``out``; False where there was nothing to launch."""
+    """Launch the entry point of ``prefix`` for the table's values and
+    ``x``'s dtype (:func:`entry_point`) over every bucket of ``table`` on
+    CUDA tensors (checked by the caller), adding into ``out``; False where
+    there was nothing to launch."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    name = entry_point(prefix, table.dtype)
+    name = entry_point(prefix, table.dtype, x.dtype)
     xm = x.resolve_conj().contiguous()
     r = 1 if x.ndim == 1 else x.shape[1]
     items = table.items[(mode & ~_CONJ) == 1]
@@ -176,6 +214,7 @@ def launch_table(prefix: str, table: BucketTable, x, out, mode: int) -> bool:
     build.launch(name, x.device, table.table.data_ptr(),
                  len(table), items, xm.data_ptr(), out.data_ptr(), r,
                  xm.shape[0], out.shape[0], mode)
+    ENTRY_LAUNCHES[name] += 1
     return True
 
 
@@ -238,11 +277,12 @@ class TableApply(torch.autograd.Function):
             dx = TableApply.apply(g.new_zeros(x.shape), g, table, launch,
                                   not transpose and not symmetric, symmetric,
                                   not conj, *vals)
+        # in the compute dtype, returned in each value's stored dtype
         dvals = [values_grad(g, x, chunk_rows(rtab, chunk),
                              chunk_rows(ctab, chunk), transpose=transpose,
-                             symmetric=symmetric, conj=conj)
+                             symmetric=symmetric, conj=conj).to(v.dtype)
                  if ctx.needs_input_grad[7 + i] else None
-                 for i, (_v, rtab, ctab, chunk) in enumerate(table.buckets)]
+                 for i, (v, rtab, ctab, chunk) in enumerate(table.buckets)]
         return (g if ctx.needs_input_grad[0] else None, dx, None, None, None,
                 None, None, *dvals)
 
@@ -279,8 +319,7 @@ def _check(vals, row_chunk, col_chunk, chunk, x, out_len, symmetric):
             f"do not match tile ({nb}, {mp}, {kp}) at chunk {chunk}")
     if x.ndim not in (1, 2):
         raise ValueError(f"x must be [n] or [n, r], got {tuple(x.shape)}")
-    if x.dtype != vals.dtype:
-        raise TypeError(f"x dtype {x.dtype} != values dtype {vals.dtype}")
+    entry_point("bst_fused_spmm", vals.dtype, x.dtype)  # raises on a bad pair
     if symmetric and x.shape[0] != out_len:
         raise ValueError(
             f"symmetric pass needs a square operand: x rows {x.shape[0]} "
@@ -295,8 +334,9 @@ def chunked_block_apply(vals, row_chunk, col_chunk, chunk: int, x,
                         symmetric: bool = False,
                         conj: bool = False) -> torch.Tensor:
     """Fused chunk-granular block product of one bucket: [out_len] or
-    [out_len, r].  ``conj``: the bucket's conjugate (nothing changes for
-    real values)."""
+    [out_len, r] in ``x``'s dtype (the values' or a wider one,
+    :data:`COMPUTE_TYPES`).  ``conj``: the bucket's conjugate (nothing
+    changes for real values)."""
     global LAUNCHES, SYM_LAUNCHES
     conj = conj and vals.dtype.is_complex
     mode = launch_mode(transpose, symmetric, conj)
@@ -307,7 +347,7 @@ def chunked_block_apply(vals, row_chunk, col_chunk, chunk: int, x,
             transpose=transpose, symmetric=symmetric, conj=conj)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    fn_name = entry_point("bst_fused_spmm", vals.dtype)
+    fn_name = entry_point("bst_fused_spmm", vals.dtype, x.dtype)
     for name, t in (("row_chunk", row_chunk), ("col_chunk", col_chunk)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
@@ -317,11 +357,12 @@ def chunked_block_apply(vals, row_chunk, col_chunk, chunk: int, x,
     vals = vals.resolve_conj().contiguous()
     row_chunk, col_chunk = row_chunk.contiguous(), col_chunk.contiguous()
     nb, mp, kp = vals.shape
-    y = torch.zeros((out_len, r), dtype=vals.dtype, device=x.device)
+    y = torch.zeros((out_len, r), dtype=x.dtype, device=x.device)
     if nb and r and out_len:
         build.launch(fn_name, x.device, vals.data_ptr(), row_chunk.data_ptr(),
                      col_chunk.data_ptr(), xm.data_ptr(), y.data_ptr(), nb, mp,
                      kp, chunk, r, n_in, out_len, mode)
+        ENTRY_LAUNCHES[fn_name] += 1
         LAUNCHES += 1
         SYM_LAUNCHES += symmetric
     return y[:, 0] if vec else y

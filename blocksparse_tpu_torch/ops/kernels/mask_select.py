@@ -19,6 +19,21 @@ The kernels (``csrc/mask_select.cu``) replace
 - :func:`mask_gather` / :func:`mask_scatter_add`: one gather or one
   scatter-add of f32 vectors (f32 only, as the TPU kernels); the colored element pass
   (``ops/torch_spmv.bucket_apply`` with ``mask_gs=True``) gathers with them.
+- :func:`owner_apply`: the owner mode, the element pass of an operator
+  built with ``scatter="sorted"`` (forward or transpose, with ``conj``):
+  the port of the JAX engine's sort + sorted-segment-sum scatter.  Its
+  tables (:class:`OwnerTable`, built on the host from
+  :func:`sorted_scatter_info`, the numpy counterpart of the JAX
+  ``_sorted_scatter_info``, and kept on the :class:`~.fused_spmm.
+  BucketTable`) list, per output row, the contributions (bucket, entry) in
+  the JAX order; one warp owns a row and writes it once, no atomics, so the
+  result is bit-identical from run to run.  Its plain version,
+  :func:`owner_apply_plain`, forms the same contributions, permutes them by
+  the table and sums each row's with ``torch.segment_reduce``.
+
+The element pass and the owner mode take the stored / compute dtype pairs
+of B1 (``fused_spmm.COMPUTE_TYPES``: values widened in registers, ``x`` and
+``out`` of the compute dtype).
 
 Sentinel convention (``core/layout.py``): an index at or past ``n`` gathers
 0, and one at or past ``out_len`` scatters nowhere.
@@ -30,9 +45,11 @@ before it) with fp32/fp64 ``atomicAdd`` (a complex value as two, one per
 part); the summation order varies from run to run.
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises.  ``GATHER_LAUNCHES``, ``SCATTER_LAUNCHES`` and
-``ELEMENT_LAUNCHES`` count kernel launches, ``ELEMENT_SYM_LAUNCHES`` the
-element passes in the symmetric mode.  :func:`gather_apply` and
+kernel or raises.  ``GATHER_LAUNCHES``, ``SCATTER_LAUNCHES``,
+``ELEMENT_LAUNCHES`` and ``OWNER_LAUNCHES`` count kernel launches,
+``ELEMENT_SYM_LAUNCHES`` the element passes in the symmetric mode
+(``fused_spmm.ENTRY_LAUNCHES`` counts the element pass and the owner mode
+by entry point too).  :func:`gather_apply` and
 :func:`scatter_apply` add autograd (each is the other's adjoint, so a
 backward pass runs the other kernel), :func:`element_fused_apply` too (its
 x cotangent is the element pass in the transposed mode with the conj flag
@@ -41,23 +58,28 @@ flipped; the symmetric mode is its own transpose).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ...utils import build
-from ..torch_spmv import gather_rows, scatter_rows
-from .fused_spmm import (BucketTable, TableApply, check_table_call,
-                         launch_mode, launch_table)
+from ..torch_spmv import gather_rows, scatter_rows, widened
+from .fused_spmm import (ENTRY_LAUNCHES, BucketTable, TableApply,
+                         check_table_call, entry_point, launch_mode,
+                         launch_table)
 
 __all__ = ["element_apply", "element_apply_plain", "element_fused_apply",
            "mask_gather", "mask_gather_plain", "mask_scatter_add",
            "mask_scatter_add_plain", "gather_apply", "scatter_apply",
+           "OwnerTable", "owner_apply", "owner_apply_plain",
+           "owner_fused_apply", "owner_table", "sorted_scatter_info",
            "ELEMENT_LAUNCHES", "ELEMENT_SYM_LAUNCHES", "GATHER_LAUNCHES",
-           "SCATTER_LAUNCHES"]
+           "OWNER_LAUNCHES", "SCATTER_LAUNCHES"]
 
 GATHER_LAUNCHES = 0
 SCATTER_LAUNCHES = 0
 ELEMENT_LAUNCHES = 0
 ELEMENT_SYM_LAUNCHES = 0
+OWNER_LAUNCHES = 0
 
 
 def mask_gather_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -196,6 +218,7 @@ def element_apply_plain(table: BucketTable, x: torch.Tensor, *, out,
         return scatter_rows(out_len, idx, upd)
 
     for vals, ridx, cidx, _chunk in table.buckets:
+        vals = widened(vals, x.dtype)
         if conj:
             vals = vals.conj()
         if transpose:
@@ -240,3 +263,155 @@ def element_fused_apply(table: BucketTable, x: torch.Tensor, *, out,
     mode with the conj flag flipped)."""
     return TableApply.apply(out, x, table, element_apply, transpose,
                             symmetric, conj, *table.values)
+
+
+# -- the owner mode (scatter="sorted") -----------------------------------------
+
+
+def sorted_scatter_info(targets) -> list:
+    """Per bucket, ``(perm, sorted_targets)`` as int32 numpy: ``perm`` the
+    stable argsort of the bucket's flattened targets ([nb, extent] element
+    indices: the row table forward, the column table transposed) and
+    ``sorted_targets`` the targets in that order.  The numpy counterpart of
+    the JAX package's ``ops/dispatch.py::_sorted_scatter_info``."""
+    info = []
+    for t in targets:
+        flat = np.asarray(t).reshape(-1)
+        perm = np.argsort(flat, kind="stable")
+        info.append((perm.astype(np.int32), flat[perm].astype(np.int32)))
+    return info
+
+
+class OwnerTable:
+    """The owner mode's tables for one direction of a :class:`BucketTable`
+    and one output length, on the table's device: ``rows`` (int32
+    [n_rows]) the output rows any bucket reaches (sentinel targets,
+    ``>= out_len``, are dropped), ``ptr`` (int64 [n_rows + 1]) the offsets
+    of their contributions in ``ent`` (int32 [nnz, 2]: bucket, entry, where
+    entry is ``b * mp + i`` forward and ``b * kp + k`` transposed).  A row's
+    contributions run bucket by bucket in table order and, inside a bucket,
+    in the order of :func:`sorted_scatter_info`'s permutation: the JAX
+    sorted scatter's order.  ``lengths`` (int64 [n_rows]) and ``offsets``
+    (each bucket's first flat entry among all buckets' products) serve the
+    plain version."""
+
+    def __init__(self, table: BucketTable, transpose: bool, out_len: int):
+        targets = [(c if transpose else r).cpu().numpy()
+                   for _v, r, c, _chunk in table.buckets]
+        tgt, bucket, entry = [], [], []
+        for q, (perm, srt) in enumerate(sorted_scatter_info(targets)):
+            keep = (srt >= 0) & (srt < out_len)
+            tgt.append(srt[keep])
+            entry.append(perm[keep])
+            bucket.append(np.full(int(keep.sum()), q, dtype=np.int32))
+        tgt = np.concatenate(tgt) if tgt else np.zeros(0, np.int32)
+        # stable: buckets stay in table order, each in its sorted order
+        order = np.argsort(tgt, kind="stable")
+        tgt = tgt[order]
+        ent = np.stack([np.concatenate(bucket)[order],
+                        np.concatenate(entry)[order]], axis=1) if len(order) \
+            else np.zeros((0, 2), np.int32)
+        rows, starts = np.unique(tgt, return_index=True)
+        ptr = np.append(starts, len(tgt)).astype(np.int64)
+        dev = table.device
+        self.rows = torch.from_numpy(rows.astype(np.int32)).to(dev)
+        self.ptr = torch.from_numpy(ptr).to(dev)
+        self.ent = torch.from_numpy(np.ascontiguousarray(ent, np.int32)).to(dev)
+        self.lengths = torch.from_numpy(np.diff(ptr)).to(dev)
+        extents = [v.shape[0] * v.shape[2 if transpose else 1]
+                   for v, *_ in table.buckets]
+        self.offsets = torch.from_numpy(
+            np.cumsum([0] + extents[:-1]).astype(np.int64)).to(dev)
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.rows.shape[0])
+
+
+def owner_table(table: BucketTable, transpose: bool, out_len: int
+                ) -> OwnerTable:
+    """The :class:`OwnerTable` of ``table`` for this direction and output
+    length, built on the host at first use and kept on the table."""
+    key = (bool(transpose), int(out_len))
+    if key not in table.owners:
+        table.owners[key] = OwnerTable(table, transpose, out_len)
+    return table.owners[key]
+
+
+def owner_apply_plain(table: BucketTable, x: torch.Tensor, *, out,
+                      transpose: bool = False, symmetric: bool = False,
+                      conj: bool = False) -> torch.Tensor:
+    """Plain version of the owner mode on the same tables: every bucket's
+    products (values widened to ``x``'s dtype), permuted by the owner table
+    and summed per row with ``torch.segment_reduce``, added into ``out`` in
+    place; returns ``out``."""
+    if symmetric:
+        raise ValueError("the owner mode has no symmetric mode")
+    own = owner_table(table, transpose, out.shape[0])
+    xm = x[:, None] if x.ndim == 1 else x
+    r = xm.shape[1]
+    parts = []
+    for vals, ridx, cidx, _chunk in table.buckets:
+        vals = widened(vals, xm.dtype)
+        if conj:
+            vals = vals.conj()
+        if transpose:
+            yp = torch.einsum("bmk,bmr->bkr", vals, gather_rows(xm, ridx))
+        else:
+            yp = torch.einsum("bmk,bkr->bmr", vals, gather_rows(xm, cidx))
+        parts.append(yp.reshape(-1, r))
+    if not own.n_rows:
+        return out
+    flat = torch.cat(parts)[own.offsets[own.ent[:, 0].long()]
+                            + own.ent[:, 1].long()]
+    data = torch.view_as_real(flat) if flat.is_complex() else flat
+    sums = torch.segment_reduce(data, "sum", lengths=own.lengths, axis=0)
+    if flat.is_complex():
+        sums = torch.view_as_complex(sums.contiguous())
+    om = out[:, None] if out.ndim == 1 else out
+    om.index_add_(0, own.rows.long(), sums)  # rows are unique: one add each
+    return out
+
+
+def owner_apply(table: BucketTable, x: torch.Tensor, *, out,
+                transpose: bool = False, symmetric: bool = False,
+                conj: bool = False) -> torch.Tensor:
+    """Add every element bucket of ``table`` applied to ``x`` ([n] or [n,
+    r]) into ``out`` ([out_len] or [out_len, r]) in one launch of the owner
+    mode; returns ``out``.  Forward or ``transpose``, with ``conj`` (the
+    buckets' conjugates); there is no symmetric mode, as the JAX sorted
+    scatter has none."""
+    global OWNER_LAUNCHES
+    if symmetric:
+        raise ValueError("the owner mode has no symmetric mode")
+    conj = conj and table.dtype.is_complex
+    mode = launch_mode(transpose, False, conj)
+    if any(b[3] != 1 for b in table.buckets):
+        raise ValueError("the owner mode takes element buckets (chunk 1)")
+    check_table_call(table, x, out, False)
+    if x.device.type == "cpu":
+        return owner_apply_plain(table, x, out=out, transpose=transpose,
+                                 conj=conj)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    name = entry_point("bst_element_owner", table.dtype, x.dtype)
+    own = owner_table(table, transpose, out.shape[0])
+    xm = x.resolve_conj().contiguous()
+    r = 1 if x.ndim == 1 else x.shape[1]
+    if own.n_rows and r:
+        build.launch(name, x.device, table.table.data_ptr(), len(table),
+                     own.rows.data_ptr(), own.ptr.data_ptr(),
+                     own.ent.data_ptr(), own.n_rows, xm.data_ptr(),
+                     out.data_ptr(), r, xm.shape[0], out.shape[0], mode)
+        ENTRY_LAUNCHES[name] += 1
+        OWNER_LAUNCHES += 1
+    return out
+
+
+def owner_fused_apply(table: BucketTable, x: torch.Tensor, *, out,
+                      transpose: bool = False,
+                      conj: bool = False) -> torch.Tensor:
+    """:func:`owner_apply` with autograd (x's cotangent is the owner mode in
+    the other direction with the conj flag flipped)."""
+    return TableApply.apply(out, x, table, owner_apply, transpose, False,
+                            conj, *table.values)

@@ -21,7 +21,14 @@ multi-bucket launch of B1 (the port of the JAX engine's
 buckets that run a colored plan; with ``mask_gs=True`` the gathers and
 scatter-adds of an f32 SpMV go through B9's one-call kernels
 (``mask_gather`` / ``mask_scatter_add``), as the JAX engine sent them to its
-mask-select kernels.  Not ported (ROADMAP): the sorted-segment scatter.
+mask-select kernels.  The sorted-segment scatter (``scatter="sorted"``) is
+B9's owner mode (``ops/kernels/mask_select.owner_apply``), whose plain
+version is a segment sum over the same tables.
+
+Values may be stored in a narrower type than the operand's (bf16 with a
+float32 or float64 operand, float32 with float64, complex64 with
+complex128): these engines widen them to the operand's dtype
+(:func:`widened`) before the product, as the kernels do in registers.
 """
 
 from __future__ import annotations
@@ -29,7 +36,13 @@ from __future__ import annotations
 import torch
 
 __all__ = ["bucket_apply", "chunked_bucket_apply", "chunk_rows",
-           "gather_rows", "scatter_rows", "values_grad"]
+           "gather_rows", "scatter_rows", "values_grad", "widened"]
+
+
+def widened(vals: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``vals`` in the compute ``dtype`` (exact: every stored type the
+    formats keep is a subset of its compute types)."""
+    return vals if vals.dtype == dtype else vals.to(dtype)
 
 
 def chunk_rows(table: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -129,6 +142,7 @@ def bucket_apply(buckets, out_len: int, x: torch.Tensor, *,
     y = xm.new_zeros((out_len, r))
     fwd, mirror = [], []
     for vals, ridx, cidx in buckets:
+        vals = widened(vals, xm.dtype)
         if conj:
             vals = vals.conj()
         if transpose:
@@ -169,6 +183,7 @@ def chunked_bucket_apply(vals, row_chunk_idx, col_chunk_idx, chunk: int,
     if symmetric and transpose:
         raise ValueError(
             "symmetric fused pass is transpose-invariant; use transpose=False")
+    vals = widened(vals, x.dtype)
     if conj:
         vals = vals.conj()
     vec = x.ndim == 1

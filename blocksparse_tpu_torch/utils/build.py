@@ -39,18 +39,23 @@ _info: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+# the (stored, compute) instances of B1 and B9's element pass and owner mode
+_VALUE_SUFFIXES = ("f32", "f64", "c64", "c128", "bf16_f32", "bf16_f64",
+                  "f32_f64", "c64_c128")
 _SIGNATURES = {
     # vals, row_tab, col_tab, x, y, nb, mp, kp, C, r, x_rows, y_rows, mode,
     # stream
-    "bst_fused_spmm_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P),
-    "bst_fused_spmm_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P),
-    "bst_fused_spmm_c64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P),
-    "bst_fused_spmm_c128": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I,
-                            _P),
+    **{f"bst_fused_spmm_{suffix}": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _L, _L, _I, _P)
+       for suffix in _VALUE_SUFFIXES},
     # table, n, items, x, y, r, x_rows, y_rows, mode, stream
     **{f"{entry}_{suffix}": (_P, _I, _L, _P, _P, _I, _L, _L, _I, _P)
        for entry in ("bst_fused_spmm_multi", "bst_element_pass")
-       for suffix in ("f32", "f64", "c64", "c128")},
+       for suffix in _VALUE_SUFFIXES},
+    # table, n, rows, ptr, ent, n_rows, x, y, r, x_rows, y_rows, mode, stream
+    **{f"bst_element_owner_{suffix}": (_P, _I, _P, _P, _P, _L, _P, _P, _I, _L,
+                                       _L, _I, _P)
+       for suffix in _VALUE_SUFFIXES},
     # x, hi, lo, P, n, r, ld, stream
     "bst_patch_xt_f32": (_P, _P, _P, _I, _L, _I, _L, _P),
     # vals, cc, rs, xt_hi, xt_lo, y, nb, MP, KP, r, x_rows, ld, y_rows, tier,

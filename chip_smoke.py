@@ -6,6 +6,7 @@
     python3 chip_smoke.py --spmv         # the r = 1 products alone
     python3 chip_smoke.py --solve        # phase 12 (the BEM solve) alone
     python3 chip_smoke.py --complex      # phase 13 (the complex BEM) alone
+    python3 chip_smoke.py --options      # phase 14 (options, dtypes, interop)
 
 Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
 
@@ -181,15 +182,40 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      host reads, its iterations within 3 of scipy's GMRES(20) with the same
      block inverses), complex128 GMRES at tol 1e-12 against scipy's
      solution within 1e-10, and eager ms per GMRES iteration beside its
-     products' CUDA-graph floor.
+     products' CUDA-graph floor;
+ 14. options, dtype rules and interop (``--options`` runs this phase
+     alone): phase 12's BEM operator stored bf16 (``dtype=torch.bfloat16``)
+     with f32 and f64 operands, contiguous (B1's bf16 -> f32 / f64
+     instances) and on scattered index lists (B9's element pass), against
+     the f32 operator within 2e-2 and against its own bf16 values in
+     float64 within 1e-5 (f32 results) or 1e-12 (f64); an f64 operand on
+     the flagship and on its scattered copy (f32 -> f64 instances, f64
+     results within 1e-12 of float64 scipy, no B2 or B5), a complex128
+     operand on phase 13's complex64 BEM, both numberings (c64 -> c128,
+     ``S.H`` included); every new instance against its plain version on
+     the card, with exact launches by entry point; ``scatter="sorted"``
+     on the scattered flagship (B9's owner mode: three products
+     ``torch.equal`` per kind, within f32 tolerance of the atomic element
+     pass, timed beside it), and every other owner instance on that
+     flagship stored f64, bf16, complex64 and complex128 (A @, A.T @ and
+     for complex A.H @ and A.conj() @ with each operand dtype that
+     reaches it: against its plain version, exact launches by entry point,
+     two products bit-equal, against a dense float64 / complex128 copy of
+     its values); save / load of the BEM operator (f32 and
+     bf16) through a temporary directory onto the card, staged tensors
+     ``torch.equal`` and load seconds; ``to_bcoo`` on the card against
+     ``to_scipy``; ``schedule="auto"`` with the colored operator's
+     launches.
 
 Every timed kernel also gets its bound -- the larger of its logical bytes
 (stored values, operands and results, each once) over 3.35 TB/s and its
 operations over the peak rate of the tier's arithmetic: 495 / 3 = 165
 TFLOP/s (3xTF32, the fastest tensor-core way to fp32 accuracy) for
-"highest" and "high", 495 TFLOP/s (TF32) for precision=None, 67
-TFLOP/s (float32 outside the tensor cores) for the complex products, 8
-operations per complex multiply-add -- and the time of one PyTorch call that computes the same function (a CSR product
+"highest" and "high" (complex64 included), 495 TFLOP/s (TF32) for
+precision=None, 67 TFLOP/s (FP64 tensor cores) for a float64 or
+complex128 compute type, 989 / 3 TFLOP/s (three bf16 passes) for bf16
+values times a float32 operand; 8 operations per complex multiply-add
+(``product_bound``) -- and the time of one PyTorch call that computes the same function (a CSR product
 through torch.sparse, or index_select / index_add_), which the port never
 calls, eager and replayed from a CUDA graph where the call captures.
 
@@ -218,6 +244,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -268,8 +295,17 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 TF32_FLOPS_PER_S = 495e12  # H100 SXM data sheet, dense TF32 tensor cores
 # operations per second at each precision tier: 3xTF32 (three TF32
 # products per product) reaches fp32 accuracy; None is one TF32 pass
+FP64_FLOPS_PER_S = 67e12  # H100 SXM data sheet, FP64 tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 PEAK_FLOPS = {"highest": TF32_FLOPS_PER_S / 3, "high": TF32_FLOPS_PER_S / 3,
-              None: TF32_FLOPS_PER_S}
+              None: TF32_FLOPS_PER_S,
+              # float64 / complex128 compute: the FP64 tensor cores
+              "float64": FP64_FLOPS_PER_S,
+              # bf16 values times a float32 operand at fp32 accuracy: the
+              # values are exact in bf16 and the operand splits exactly into
+              # three bf16 parts (8 + 8 + 8 significant bits), so three bf16
+              # passes with float32 sums reach it
+              "bf16 x f32": BF16_FLOPS_PER_S / 3}
 TIER_TOL = {"highest": TOL32, None: TOL_TF32}
 B1_SRC = "blocksparse_tpu_torch/csrc/fused_spmm.cu"
 B2_SRC = "blocksparse_tpu_torch/csrc/patch_spmm.cu"
@@ -351,6 +387,30 @@ def bound(nbytes: float, flops: float, precision="highest") -> tuple:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def product_bound(op, r: int = 1, compute=None) -> tuple:
+    """``bound`` of ``op @ X`` ([n, r] of ``compute``, by default the
+    operator's dtype): the stored values once in their own type, X and the
+    result once in ``compute``; 2 operations per multiply-add (8 complex)
+    on every logical entry (a symmetric off-diagonal twice) at the peak of
+    the fastest way to the compute type's accuracy (``PEAK_FLOPS``: the
+    FP64 tensor cores for float64 / complex128, three bf16 passes for bf16
+    values with a float32 operand, else the operator's tier)."""
+    compute = compute or op.dtype
+    entries = (op._dlayout.nnz + 2 * op._olayout.nnz
+               if hasattr(op, "_dlayout") else op.nnz)
+    stored = torch.empty(0, dtype=op.dtype).element_size()
+    isz = torch.empty(0, dtype=compute).element_size()
+    nbytes = logical_nnz(op) * stored + sum(op.shape) * r * isz
+    flops = (8.0 if compute.is_complex else 2.0) * entries * r
+    if compute in (torch.float64, torch.complex128):
+        tier = "float64"
+    elif op.dtype == torch.bfloat16:
+        tier = "bf16 x f32"
+    else:
+        tier = op.precision
+    return bound(nbytes, flops, tier)
+
+
 def csr_on_card(ops, transpose=False) -> torch.Tensor:
     """The operators (symmetric ones expanded; transposed with
     ``transpose``) block-diagonally in one f32 CSR tensor on the card,
@@ -415,6 +475,8 @@ def reset_counts() -> None:
     mask_select.SCATTER_LAUNCHES = 0
     mask_select.ELEMENT_LAUNCHES = 0
     mask_select.ELEMENT_SYM_LAUNCHES = 0
+    mask_select.OWNER_LAUNCHES = 0
+    fused_spmm.ENTRY_LAUNCHES.clear()
     for mod in (panel_spmv, slab_spmv):
         mod.LAUNCHES = 0
         mod.MIRROR_LAUNCHES = 0
@@ -429,7 +491,8 @@ def reset_counts() -> None:
 def counts() -> dict:
     """Kernel launches since the last reset ("B1 sym": those of B1 in its
     symmetric mode, also counted under "B1"; "B9 element": B9's element
-    passes, "B9 element sym" those in the symmetric mode; "B2": B2's
+    passes, "B9 element sym" those in the symmetric mode, "B9 owner" its
+    owner mode (scatter="sorted"); "B2": B2's
     forward, "B2 transpose" its transposed product, "B2 prologue" its X^T
     launches, one per launch of either; "B5 mirror", "B6 mirror",
     "B8 mirror" and "B10 mirror" those on a mirror plan)."""
@@ -442,6 +505,7 @@ def counts() -> dict:
             "B9 scatter": mask_select.SCATTER_LAUNCHES,
             "B9 element": mask_select.ELEMENT_LAUNCHES,
             "B9 element sym": mask_select.ELEMENT_SYM_LAUNCHES,
+            "B9 owner": mask_select.OWNER_LAUNCHES,
             "B5": panel_spmv.LAUNCHES,
             "B5 mirror": panel_spmv.MIRROR_LAUNCHES,
             "B8": slab_spmv.LAUNCHES, "B8 mirror": slab_spmv.MIRROR_LAUNCHES,
@@ -3770,17 +3834,6 @@ def sync_sites(fn) -> Counter:
     return sites
 
 
-def product_bound(op) -> float:
-    """Least ms of one r = 1 product by ``op``: its stored values, operand
-    and result once each over 3.35 TB/s, or two operations per logical
-    entry (a symmetric off-diagonal counted twice) at the "highest" tier's
-    peak (``PEAK_FLOPS``), whichever is longer."""
-    size = torch.empty(0, dtype=op.dtype).element_size()
-    entries = (op._dlayout.nnz + 2 * op._olayout.nnz if hasattr(op, "_dlayout")
-               else op.nnz)
-    return bound((logical_nnz(op) + 2 * op.shape[0]) * size, 2 * entries)[0]
-
-
 def solve_ms_per_iteration(solve, n1: int, n2: int) -> float:
     """Eager ms per iteration: host clock around solves of n1 and n2
     iterations (tol = 0: none converges, and each must run all n), each
@@ -3986,7 +4039,7 @@ def phase12(card: str) -> dict:
     p = torch.randn(BEM_NPTS, generator=torch.Generator().manual_seed(12)).to(DEV)
     floor_ms = graph_ms(lambda: M @ (S @ p))
     s_ms = graph_ms(lambda: S @ p)
-    s_bound, m_bound = product_bound(S), product_bound(M)
+    s_bound, m_bound = product_bound(S)[0], product_bound(M)[0]
     print(f"  one S and one M product replayed from a CUDA graph: "
           f"{floor_ms:.4f} ms (S alone {s_ms:.4f}); bound {s_bound + m_bound:.4f}"
           f" ms (S {s_bound:.4f}, M {m_bound:.4f}) [{card}]")
@@ -4050,20 +4103,6 @@ def complex_csr_on_card(op) -> torch.Tensor:
         torch.stack([torch.from_numpy(r), torch.from_numpy(c)]).to(DEV),
         torch.from_numpy(np.asarray(v, np_dt)).to(DEV), op.shape).coalesce()
     return coo.to_sparse_csr()
-
-
-def complex_bound(op, r: int) -> tuple:
-    """Least ms of ``op @ X`` ([n, r], complex64): the stored values,
-    operand and result once each over 3.35 TB/s, or 8 real operations per
-    complex multiply-add on every logical entry (a symmetric off-diagonal
-    twice) at the peak of the operator's tier (``PEAK_FLOPS``: 3xTF32
-    reaches the float32 accuracy these products are held to), whichever is
-    longer."""
-    require(op.dtype == torch.complex64, f"complex_bound: {op.dtype} is not "
-            "timed (complex64 only)")
-    entries = op._dlayout.nnz + 2 * op._olayout.nnz
-    return bound((logical_nnz(op) + 2 * op.shape[0] * r) * 8,
-                 8.0 * entries * r, op.precision)
 
 
 def phase13(card: str) -> dict:
@@ -4162,7 +4201,7 @@ def phase13(card: str) -> dict:
     setup["split_complex and its plans"] = time.perf_counter() - t
     csr = complex_csr_on_card(S)
     for label, v, r in (("S @ x", x, 1), ("S @ X", X, 64)):
-        bnd = complex_bound(S, r)
+        bnd = product_bound(S, r)
         native = (lambda v=v: S @ v)
         split = (lambda v=v: P @ v)
         reset_counts()
@@ -4289,6 +4328,711 @@ def phase13(card: str) -> dict:
     print("  phase 13 set-up: " + ", ".join(f"{k_} {v:.2f} s"
                                             for k_, v in setup.items())
           + f"; phase {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 14: options, dtype rules and interop (--options) ---------------------
+
+# the JAX package's sorted scatter: a segment sum in XLA (no Pallas kernel);
+# B9's owner mode also takes the place of its scatter kernel
+SORTED_REPLACES = "blocksparse_tpu/ops/xla_spmv.py:196"
+# each instance's launches against their plain versions (phase 14's keys)
+KERNEL_ERR = {"B1 bf16->f32": "bf16 B1", "B1 bf16->f64": "bf16 B1",
+              "B9 element bf16->f32": "bf16 scattered B9 element",
+              "B9 element bf16->f64": "bf16 scattered B9 element",
+              "B1 f32->f64": "f32->f64 B1",
+              "B9 element f32->f64": "f32->f64 scattered B9 element",
+              "B1 c64->c128": "c64->c128 B1",
+              "B9 element c64->c128": "c64->c128 scattered B9 element",
+              "B9 owner": "B9 owner kernel"}
+
+
+DT_NAME = {torch.float32: "f32", torch.float64: "f64", torch.complex64: "c64",
+           torch.complex128: "c128", torch.bfloat16: "bf16"}
+# the owner mode's instances beside float32, as (stored, operand) dtypes:
+# every pair of COMPUTE_TYPES
+OWNER_PAIRS = ((torch.float32, torch.float64), (torch.float64, torch.float64),
+               (torch.bfloat16, torch.float32),
+               (torch.bfloat16, torch.float64),
+               (torch.complex64, torch.complex64),
+               (torch.complex64, torch.complex128),
+               (torch.complex128, torch.complex128))
+
+
+def pair_name(stored, operand) -> str:
+    """"f64" for one type, "bf16->f32" for stored -> compute."""
+    return (DT_NAME[stored] if stored == operand
+            else f"{DT_NAME[stored]}->{DT_NAME[operand]}")
+
+
+def dense_of(op, dtype) -> torch.Tensor:
+    """``op``'s values (bf16 ones as their exact float32 copies) as a dense
+    matrix of ``dtype`` on the card, duplicates summed."""
+    r, c, v = bt.rowcolvals(op)
+    d = torch.zeros(op.shape, dtype=dtype, device=DEV)
+    d.index_put_((torch.from_numpy(r).to(DEV), torch.from_numpy(c).to(DEV)),
+                 torch.from_numpy(np.ascontiguousarray(v)).to(DEV).to(dtype),
+                 accumulate=True)
+    return d
+
+
+def entry_counts() -> dict:
+    """B1's and B9's launches since the last reset, by entry point."""
+    return {k: v for k, v in fused_spmm.ENTRY_LAUNCHES.items() if v}
+
+
+def csr_of(op, dtype) -> torch.Tensor:
+    """``op``'s values (a symmetric operator expanded, bf16 values as their
+    exact float32 copies) as one CSR matrix of ``dtype`` on the card,
+    duplicates summed: phase 14's reference and library-call operand."""
+    r, c, v = bt.rowcolvals(op)
+    coo = torch.sparse_coo_tensor(
+        torch.stack([torch.from_numpy(r), torch.from_numpy(c)]).to(DEV),
+        torch.from_numpy(np.ascontiguousarray(v)).to(DEV).to(dtype),
+        op.shape).coalesce()
+    return coo.to_sparse_csr()
+
+
+def timed(label, fn, plain, bnd, card, plain_graph=True) -> dict:
+    """Eager and CUDA-graph ms of ``fn``, its plain version's eager ms (and
+    graph ms where ``plain_graph``), beside the bound; printed."""
+    ms, gms = median_ms(fn), graph_ms(fn)
+    pms = median_ms(plain)
+    pgms = graph_ms(plain) if plain_graph else None
+    pg_txt = f", graph {pgms:.4f}" if pgms is not None else ""
+    print(f"  {label}: eager {ms:.4f} ms, graph {gms:.4f} ms; plain "
+          f"{pms:.4f}{pg_txt} ms; bound {bnd[0]:.4g} ms ({bnd[1]}) = "
+          f"{100 * bnd[0] / gms:.1f}% of the graph time [{card}]")
+    return {"ms": ms, "graph_ms": gms, "plain_ms": pms,
+            "plain_graph_ms": pgms, "bound": bnd}
+
+
+def launch_vs_plain(label, table, launch, plain, xs, modes, tol,
+                    conj=False) -> float:
+    """One launch over ``table`` against its plain version on the same
+    operands, in each of ``modes`` (keys of ``MODE_KW``; with ``conj``
+    each also with the values conjugated), for each operand of ``xs`` (the
+    output length is the operand's: square operators)."""
+    err = 0.0
+    for x in xs:
+        for mode in modes:
+            for cj in ((False, True) if conj else (False,)):
+                kw = {**MODE_KW[mode], **({"conj": True} if cj else {})}
+                got = launch(table, x, out=torch.zeros_like(x), **kw)
+                ref = plain(table, x, out=torch.zeros_like(x), **kw)
+                torch.cuda.synchronize()
+                r = 1 if x.ndim == 1 else x.shape[1]
+                err = max(err, rel_check(
+                    f"{label} {mode}{' conj' if cj else ''} {x.dtype} r={r} "
+                    f"vs its plain version", got, ref, tol))
+    return err
+
+
+def bucket_launch_check(label, op, xs, tol) -> dict:
+    """``op``'s B1 and element-pass launches (its diagonal layout forward
+    and transposed and its off-diagonal one in the symmetric mode, or its
+    one layout forward and transposed) against their plain versions."""
+    layouts = ([(op._dbuckets, op._dlayout, ("forward", "transpose")),
+                (op._obuckets, op._olayout, ("symmetric",))]
+               if hasattr(op, "_dlayout")
+               else [(op._buckets, op.layout, ("forward", "transpose"))])
+    errs = {"B1": 0.0, "B9 element": 0.0}
+    for staged, layout, modes in layouts:
+        tabs = bucket_tables(staged, layout)
+        for key, name, launch, plain in (
+                ("chunked", "B1", fused_spmm.multi_block_apply,
+                 fused_spmm.multi_block_apply_plain),
+                ("element", "B9 element", mask_select.element_apply,
+                 mask_select.element_apply_plain)):
+            if tabs[key] is not None:
+                errs[name] = max(errs[name], launch_vs_plain(
+                    f"{label} {name}", tabs[key], launch, plain, xs, modes,
+                    tol))
+    return errs
+
+
+def scattered_copy(op, perm, blocks=None, **kw):
+    """``op`` (a BSM) with every index renumbered through ``perm`` (and
+    ``blocks`` in place of its blocks, where given)."""
+    n = op.nblocks
+    return bt.BlockSparseMatrix(
+        blocks or [op.block(i) for i in range(n)],
+        [perm[op.blockrowindices(i)] for i in range(n)],
+        [perm[op.blockcolindices(i)] for i in range(n)], op.shape,
+        device=DEV, **kw)
+
+
+def instance_entry(name, src, replaces, launches, err, t, lib, card, timed_,
+                   **extra) -> dict:
+    """A kernel-summary entry of one stored / compute instance."""
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "graph_ms": t["graph_ms"],
+            "plain_ms": t["plain_ms"], "plain_graph_ms": t["plain_graph_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": lib, "library_graph_ms": getattr(lib, "graph", None),
+            "timed": timed_, "card": card, **extra}
+
+
+def owner_instances(A, fperm, fxs, fXs, out, lib, card) -> list:
+    """Every instance of B9's owner mode beside float32 (``OWNER_PAIRS``):
+    the sorted flagship (``A`` renumbered through ``fperm``) stored in each
+    dtype (complex: its blocks plus i times fresh ones), with each operand
+    dtype that reaches the instance (``fxs`` / ``fXs``, complex ones made
+    from them), through A @, A.T @ and, for complex values, A.H @ and
+    A.conj() @: the kernel against its plain version, exact launches by
+    entry point, each product twice bit-equal and against a dense
+    reference, times and the library call into ``out`` / ``lib``; returns
+    their keys."""
+    times, errs, launches = out["times"], out["errs"], out["launches"]
+    f64 = torch.float64
+    irng = np.random.default_rng(16)
+    imag = [irng.standard_normal(A.block(i).shape) for i in range(A.nblocks)]
+    cxs = torch.complex(fxs, torch.roll(fxs, 1))
+    cXs = torch.complex(fXs, torch.roll(fXs, 1, 0))
+    keys = []
+    for stored, operand in OWNER_PAIRS:
+        key = f"B9 owner {pair_name(stored, operand)}"
+        keys.append(key)
+        blocks = ([(A.block(i) + 1j * imag[i]).astype(np.complex128)
+                   for i in range(A.nblocks)] if stored.is_complex else None)
+        Op = scattered_copy(A, fperm, blocks, scatter="sorted", dtype=stored)
+        require(Op.dtype == stored, f"{key}: operator dtype {Op.dtype}")
+        wide = torch.complex128 if stored.is_complex else f64
+        D = dense_of(Op, wide)
+        vx, vX = ((cxs, cXs) if operand.is_complex else (fxs, fXs))
+        vx, vX = vx.to(operand), vX.to(operand)
+        table = bucket_tables(Op._buckets, Op.layout)["element"]
+        errs[f"{key} kernel"] = launch_vs_plain(
+            f"B9 owner mode {pair_name(stored, operand)}", table,
+            mask_select.owner_apply, mask_select.owner_apply_plain,
+            (vx, vX), ("forward", "transpose"), TOL[operand],
+            conj=stored.is_complex)
+        prods = {"A @": (lambda v: Op @ v, D),
+                 "A.T @": (lambda v: Op.T @ v, D.T)}
+        if stored.is_complex:
+            prods.update({"A.H @": (lambda v: Op.H @ v, D.conj().T),
+                          "A.conj() @": (lambda v: Op.conj() @ v, D.conj())})
+        reset_counts()
+        got = {(lbl, r): (f(v), f(v)) for lbl, (f, _) in prods.items()
+               for r, v in ((1, vx), (64, vX))}
+        torch.cuda.synchronize()
+        name = ("bst_element_owner_" + DT_NAME[stored] +
+                ("" if stored == operand else "_" + DT_NAME[operand]))
+        want = 4 * len(prods)
+        require(counts() == merged({"B9 owner": want}) and
+                entry_counts() == {name: want},
+                f"{key} products: launches {counts()}, {entry_counts()} "
+                f"(want {want} of {name} only)")
+        launches[key] = want
+        err = 0.0
+        for (lbl, r), (p1, p2) in got.items():
+            require(p1.dtype == operand, f"sorted {lbl} x ({key}): dtype "
+                    f"{p1.dtype}, want {operand}")
+            require(torch.equal(p1, p2), f"sorted {lbl} x ({key}) r={r}: "
+                    f"two products are not bit-identical")
+            v = vx if r == 1 else vX
+            err = max(err, rel_check(
+                f"sorted {lbl} x ({key}) r={r} vs its values dense in "
+                f"{DT_NAME[wide]}", p1, prods[lbl][1] @ v.to(wide),
+                TOL[operand]))
+        errs[key] = err
+        print(f"  {key}: {want} launches of {name} ({', '.join(prods)} at "
+              f"r = 1 and 64, each twice bit-identical)")
+        times[key] = timed(
+            f"sorted A @ x ({pair_name(stored, operand)}, B9 owner mode)",
+            lambda: Op @ vx, lambda: mask_select.owner_apply_plain(
+                table, vx, out=torch.zeros_like(vx)),
+            product_bound(Op, 1, operand), card, plain_graph=False)
+        lcsr = csr_of(Op, operand)
+        lib[key] = library_ms(f"sorted A @ x ({pair_name(stored, operand)}): "
+                              f"{DT_NAME[operand]} CSR (cuSPARSE)",
+                              lambda: lcsr @ vx, got[("A @", 1)][0], card)
+        del Op, D, table, got, lcsr
+    return keys
+
+
+def phase14(card: str) -> dict:
+    n, ncl, thresh, st = BEM_NPTS, BEM_CLUSTERS, BEM_THRESH, BEM_SELF_TERM
+    print(f"phase 14: options, dtype rules and interop: bf16 storage and "
+          f"mixed operands on the BEM operator (n={n}) and the flagship "
+          f"(4096^2, 200 x 64x64), scatter='sorted', save / load, to_bcoo, "
+          f"schedule='auto' [{card}]")
+    t_phase = time.perf_counter()
+    out = {"errs": {}, "times": {}, "launches": {}, "setup": {}}
+    times, errs, launches = out["times"], out["errs"], out["launches"]
+    f32, f64, c64, c128 = (torch.float32, torch.float64, torch.complex64,
+                           torch.complex128)
+    gen = torch.Generator().manual_seed(14)
+    x = torch.randn(n, generator=gen).to(DEV)
+    X = torch.randn((n, 64), generator=gen).to(DEV)
+    x64 = x.double()
+    perm = np.random.default_rng(14).permutation(n)
+    ip = torch.from_numpy(perm).to(DEV)
+
+    def renumbered(v):
+        w = torch.empty_like(v)
+        w[ip] = v
+        return w
+
+    # 1. bf16 storage: phase 12's BEM operator, contiguous (B1) and
+    # scattered (B9's element pass)
+    t = time.perf_counter()
+    args = bem_system(n, ncl, thresh, st)
+    S32 = bt.SymmetricBlockMatrix(*args, device=DEV)
+    S16 = bt.SymmetricBlockMatrix(*args, dtype=torch.bfloat16, device=DEV)
+    torch.cuda.synchronize()
+    out["setup"]["bf16 and f32 BEM operators"] = time.perf_counter() - t
+    require(S16.dtype == torch.bfloat16 and all(
+        b[0].dtype == torch.bfloat16 for b in S16._dbuckets + S16._obuckets),
+        "the bf16 operator must stage bf16 values")
+    mb16, mb32 = logical_nnz(S16) * 2 / 1e6, logical_nnz(S32) * 4 / 1e6
+    print(f"  {S16}: {mb16:.1f} MB of stored bf16 values ({mb32:.1f} MB as "
+          f"f32)")
+    out["stored_mb"] = {"bf16": mb16, "f32": mb32}
+    ref16 = csr_of(S16, f64)  # its bf16 values, exactly, in float64
+    errs.update({f"bf16 {k}": v for k, v in bucket_launch_check(
+        "bf16 BEM", S16, (x, X, x64), TOL32).items()})
+    reset_counts()
+    y1, Y, y64 = S16 @ x, S16 @ X, S16 @ x64
+    torch.cuda.synchronize()
+    want = merged({"B1": 6, "B1 sym": 3})
+    require(counts() == want, f"bf16 BEM products: launches {counts()}")
+    ent = entry_counts()
+    require(ent == {"bst_fused_spmm_multi_bf16_f32": 4,
+                    "bst_fused_spmm_multi_bf16_f64": 2},
+            f"bf16 BEM products: entry points {ent}")
+    launches["B1 bf16->f32"] = ent["bst_fused_spmm_multi_bf16_f32"]
+    launches["B1 bf16->f64"] = ent["bst_fused_spmm_multi_bf16_f64"]
+    print(f"  S16 @ x, S16 @ X, S16 @ x64: launches {ent} (2 B1 per product, "
+          f"one symmetric; no B3, B5 or B9)")
+    require((y1.dtype, Y.dtype, y64.dtype) == (f32, f32, f64),
+            f"bf16 products' dtypes {y1.dtype}, {Y.dtype}, {y64.dtype}")
+    errs["bf16 S @ x vs f32"] = rel_check("S16 @ x vs S32 @ x (bf16 storage)",
+                                          y1, S32 @ x, 2e-2)
+    errs["bf16 S @ X vs f32"] = rel_check("S16 @ X vs S32 @ X (bf16 storage)",
+                                          Y, S32 @ X, 2e-2)
+    errs["B1 bf16->f32"] = max(
+        rel_check("S16 @ x vs its bf16 values in float64", y1, ref16 @ x64,
+                  TOL32),
+        rel_check("S16 @ X vs its bf16 values in float64", Y,
+                  ref16 @ X.double(), TOL32))
+    errs["B1 bf16->f64"] = rel_check("S16 @ x64 vs its bf16 values in "
+                                     "float64", y64, ref16 @ x64, TOL[f64])
+    b16 = {r: product_bound(S16, r, f32) for r in (1, 64)}
+    times["B1 bf16->f32"] = timed(
+        "S16 @ x (bf16 -> f32, B1)", lambda: S16 @ x,
+        lambda: plain_buckets_sym(S16, x, dtype=f32), b16[1], card)
+    times["B1 bf16->f32 r=64"] = timed(
+        "S16 @ X r=64 (bf16 -> f32, B1)", lambda: S16 @ X,
+        lambda: plain_buckets_sym(S16, X, dtype=f32), b16[64], card)
+    times["B1 bf16->f64"] = timed(
+        "S16 @ x64 (bf16 -> f64, B1)", lambda: S16 @ x64,
+        lambda: plain_buckets_sym(S16, x64, dtype=f64),
+        product_bound(S16, 1, f64), card)
+    ref16_32 = csr_of(S16, f32)  # the same values, exactly, in float32
+    lib = {"B1 bf16->f32": library_ms(
+               "S16 @ x: its bf16 values in a float32 CSR (cuSPARSE)",
+               lambda: ref16_32 @ x, y1, card),
+           "B1 bf16->f64": library_ms(
+               "S16 @ x64: its bf16 values in a float64 CSR (cuSPARSE)",
+               lambda: ref16 @ x64, y64, card)}
+    del ref16_32
+    for label, fn, r in (("S32 @ x (the f32 route: B5)", lambda: S32 @ x, 1),
+                         ("S32 @ X r=64 (the f32 route: B3)",
+                          lambda: S32 @ X, 64)):
+        ms, gms = median_ms(fn), graph_ms(fn)
+        bnd = product_bound(S32, r)
+        times[f"f32 route r={r}"] = {"ms": ms, "graph_ms": gms, "bound": bnd}
+        print(f"  {label}: eager {ms:.4f} ms, graph {gms:.4f} ms, bound "
+              f"{bnd[0]:.4g} ms ({bnd[1]}) [{card}]")
+
+    t = time.perf_counter()
+    Ss16 = bt.SymmetricBlockMatrix(*bem_system(n, ncl, thresh, st, perm=perm),
+                                   dtype=torch.bfloat16, device=DEV,
+                                   schedule="serial")
+    torch.cuda.synchronize()
+    out["setup"]["scattered bf16 BEM operator"] = time.perf_counter() - t
+    require(all(b.chunk == 1 for lay in (Ss16._dlayout, Ss16._olayout)
+                for b in lay.buckets), "the scattered variant must have "
+            "element buckets only")
+    xs, Xs, xs64 = renumbered(x), renumbered(X), renumbered(x64)
+    errs.update({f"bf16 scattered {k}": v for k, v in bucket_launch_check(
+        "scattered bf16 BEM", Ss16, (xs, Xs, xs64), TOL32).items()})
+    reset_counts()
+    ys, Ys, ys64 = Ss16 @ xs, Ss16 @ Xs, Ss16 @ xs64
+    torch.cuda.synchronize()
+    require(counts() == merged({"B9 element": 6, "B9 element sym": 3}),
+            f"scattered bf16 BEM products: launches {counts()}")
+    ent = entry_counts()
+    require(ent == {"bst_element_pass_bf16_f32": 4,
+                    "bst_element_pass_bf16_f64": 2},
+            f"scattered bf16 BEM products: entry points {ent}")
+    launches["B9 element bf16->f32"] = ent["bst_element_pass_bf16_f32"]
+    launches["B9 element bf16->f64"] = ent["bst_element_pass_bf16_f64"]
+    print(f"  scattered S16 @ x, @ X, @ x64 (serial): launches {ent}")
+    errs["B9 element bf16->f32"] = max(
+        rel_check("scattered S16 @ x vs its bf16 values in float64", ys[ip],
+                  ref16 @ x64, TOL32),
+        rel_check("scattered S16 @ X vs its bf16 values in float64", Ys[ip],
+                  ref16 @ X.double(), TOL32))
+    errs["B9 element bf16->f64"] = rel_check(
+        "scattered S16 @ x64 vs its bf16 values in float64", ys64[ip],
+        ref16 @ x64, TOL[f64])
+    times["B9 element bf16->f32"] = timed(
+        "scattered S16 @ x (bf16 -> f32, B9 element pass)", lambda: Ss16 @ xs,
+        lambda: plain_buckets_sym(Ss16, xs, dtype=f32),
+        product_bound(Ss16, 1, f32), card)
+    times["B9 element bf16->f64"] = timed(
+        "scattered S16 @ x64 (bf16 -> f64, B9 element pass)",
+        lambda: Ss16 @ xs64, lambda: plain_buckets_sym(Ss16, xs64, dtype=f64),
+        product_bound(Ss16, 1, f64), card)
+    refs16, refs16_32 = csr_of(Ss16, f64), csr_of(Ss16, f32)
+    lib["B9 element bf16->f32"] = library_ms(
+        "scattered S16 @ x: its bf16 values in a float32 CSR (cuSPARSE)",
+        lambda: refs16_32 @ xs, ys, card)
+    lib["B9 element bf16->f64"] = library_ms(
+        "scattered S16 @ x64: its bf16 values in a float64 CSR (cuSPARSE)",
+        lambda: refs16 @ xs64, ys64, card)
+    del Ss16, ref16, refs16, refs16_32
+
+    # 2. mixed operands: an f64 operand on the f32 flagship (B1) and on its
+    # scattered copy (B9's element pass), a complex128 operand on the
+    # complex64 Helmholtz BEM (phase 13's recipe, both numberings)
+    A, rng = contiguous_operator(4096, 200, 64, seed=7, value_seed=None,
+                                 device=DEV)
+    fperm = np.random.default_rng(15).permutation(4096)
+    fip = torch.from_numpy(fperm).to(DEV)
+    As = scattered_copy(A, fperm)
+    require(all(b.chunk == 1 for b in As.layout.buckets),
+            "the scattered flagship must have element buckets only")
+    xn = rng.standard_normal(4096)
+    Xn = rng.standard_normal((4096, 64))
+    fx, fX = torch.from_numpy(xn).to(DEV), torch.from_numpy(Xn).to(DEV)
+    fxs, fXs = torch.empty_like(fx), torch.empty_like(fX)
+    fxs[fip], fXs[fip] = fx, fX
+    Sref = bt.to_scipy(A).astype(np.float64)
+    errs.update({f"f32->f64 {k}": v for k, v in bucket_launch_check(
+        "flagship f64 operand", A, (fx, fX), TOL[f64]).items()})
+    errs.update({f"f32->f64 scattered {k}": v for k, v in bucket_launch_check(
+        "scattered flagship f64 operand", As, (fxs, fXs), TOL[f64]).items()})
+    reset_counts()
+    y, yt, Yf = A @ fx, A.T @ fx, A @ fX
+    torch.cuda.synchronize()
+    require(counts() == merged({"B1": 3}) and entry_counts() == {
+        "bst_fused_spmm_multi_f32_f64": 3},
+        f"flagship f64 products: launches {counts()}, {entry_counts()} "
+        f"(the f32 -> f64 instance of B1, no B2 or B5)")
+    launches["B1 f32->f64"] = 3
+    reset_counts()
+    ys, Ys = As @ fxs, As @ fXs
+    torch.cuda.synchronize()
+    require(counts() == merged({"B9 element": 2}) and entry_counts() == {
+        "bst_element_pass_f32_f64": 2},
+        f"scattered flagship f64 products: launches {counts()}, "
+        f"{entry_counts()}")
+    launches["B9 element f32->f64"] = 2
+    print("  flagship A @ x64, A.T @ x64, A @ X64: 3 launches of "
+          "bst_fused_spmm_multi_f32_f64, no B2 or B5; scattered copy: 2 of "
+          "bst_element_pass_f32_f64")
+    require(all(v.dtype == f64 for v in (y, yt, Yf, ys, Ys)),
+            "f32 operator x f64 operand must give f64")
+    errs["B1 f32->f64"] = max(
+        rel_check("A @ x64 vs float64 scipy", y, Sref @ xn, TOL[f64]),
+        rel_check("A.T @ x64 vs float64 scipy", yt, Sref.T @ xn, TOL[f64]),
+        rel_check("A @ X64 vs float64 scipy", Yf, Sref @ Xn, TOL[f64]))
+    errs["B9 element f32->f64"] = max(
+        rel_check("scattered A @ x64 vs float64 scipy", ys[fip], Sref @ xn,
+                  TOL[f64]),
+        rel_check("scattered A @ X64 vs float64 scipy", Ys[fip], Sref @ Xn,
+                  TOL[f64]))
+    flag64 = csr_of(A, f64)
+    flag64s = csr_of(As, f64)
+    times["B1 f32->f64"] = timed(
+        "A @ x64 (f32 -> f64, B1)", lambda: A @ fx,
+        lambda: plain_buckets(A.layout, A._buckets, fx, 4096, f64),
+        product_bound(A, 1, f64), card)
+    times["B1 f32->f64 r=64"] = timed(
+        "A @ X64 r=64 (f32 -> f64, B1)", lambda: A @ fX,
+        lambda: plain_buckets(A.layout, A._buckets, fX, 4096, f64),
+        product_bound(A, 64, f64), card)
+    x32 = fx.float()
+    ms, gms = median_ms(lambda: A @ x32), graph_ms(lambda: A @ x32)
+    times["flagship f32 route r=1"] = {"ms": ms, "graph_ms": gms}
+    print(f"  A @ x (f32, the f32 instance of B1): eager {ms:.4f} ms, graph "
+          f"{gms:.4f} ms [{card}]")
+    times["B9 element f32->f64"] = timed(
+        "scattered A @ x64 (f32 -> f64, B9 element pass)", lambda: As @ fxs,
+        lambda: plain_buckets(As.layout, As._buckets, fxs, 4096, f64),
+        product_bound(As, 1, f64), card)
+    lib["B1 f32->f64"] = library_ms("A @ x64: float64 CSR (cuSPARSE)",
+                                    lambda: flag64 @ fx, y, card)
+    lib["B9 element f32->f64"] = library_ms(
+        "scattered A @ x64: float64 CSR (cuSPARSE)", lambda: flag64s @ fxs,
+        ys, card)
+
+    t = time.perf_counter()
+    argsc = bem_system(n, ncl, thresh, st, HELMHOLTZ_K, np.complex64)
+    Sc = bt.SymmetricBlockMatrix(*argsc, device=DEV)
+    Scs = bt.SymmetricBlockMatrix(
+        *bem_system(n, ncl, thresh, st, HELMHOLTZ_K, np.complex64,
+                    perm=perm), device=DEV, schedule="serial")
+    torch.cuda.synchronize()
+    out["setup"]["complex64 BEM operators"] = time.perf_counter() - t
+    refc = csr_of(Sc, c128)
+    xc = torch.randn(n, generator=gen, dtype=c128).to(DEV)
+    Xc = torch.randn((n, 64), generator=gen, dtype=c128).to(DEV)
+    xcs, Xcs = renumbered(xc), renumbered(Xc)
+    errs.update({f"c64->c128 {k}": v for k, v in bucket_launch_check(
+        "complex BEM c128 operand", Sc, (xc, Xc), TOL[c128]).items()})
+    errs.update({f"c64->c128 scattered {k}": v for k, v in
+                 bucket_launch_check("scattered complex BEM c128 operand",
+                                     Scs, (xcs, Xcs), TOL[c128]).items()})
+    reset_counts()
+    yc, Yc, yh = Sc @ xc, Sc @ Xc, Sc.H @ xc
+    torch.cuda.synchronize()
+    require(counts() == merged({"B1": 6, "B1 sym": 3}) and entry_counts() ==
+            {"bst_fused_spmm_multi_c64_c128": 6},
+            f"complex BEM c128 products: launches {counts()}, "
+            f"{entry_counts()}")
+    launches["B1 c64->c128"] = 6
+    reset_counts()
+    ycs, Ycs = Scs @ xcs, Scs @ Xcs
+    torch.cuda.synchronize()
+    require(counts() == merged({"B9 element": 4, "B9 element sym": 2}) and
+            entry_counts() == {"bst_element_pass_c64_c128": 4},
+            f"scattered complex BEM c128 products: launches {counts()}, "
+            f"{entry_counts()}")
+    launches["B9 element c64->c128"] = 4
+    print("  complex64 BEM @ complex128: 6 launches of "
+          "bst_fused_spmm_multi_c64_c128 (S @ x, S @ X, S.H @ x); scattered: "
+          "4 of bst_element_pass_c64_c128")
+    require(all(v.dtype == c128 for v in (yc, Yc, yh, ycs, Ycs)),
+            "complex64 operator x complex128 operand must give complex128")
+    errs["B1 c64->c128"] = max(
+        rel_check("Sc @ xc128 vs its values in complex128", yc, refc @ xc,
+                  TOL[c128]),
+        rel_check("Sc @ Xc128 vs its values in complex128", Yc, refc @ Xc,
+                  TOL[c128]),
+        rel_check("Sc.H @ xc128 vs its values in complex128", yh,
+                  (refc @ xc.conj()).conj(), TOL[c128]))
+    errs["B9 element c64->c128"] = max(
+        rel_check("scattered Sc @ xc128 vs its values in complex128",
+                  ycs[ip], refc @ xc, TOL[c128]),
+        rel_check("scattered Sc @ Xc128 vs its values in complex128",
+                  Ycs[ip], refc @ Xc, TOL[c128]))
+    times["B1 c64->c128"] = timed(
+        "Sc @ xc128 (c64 -> c128, B1)", lambda: Sc @ xc,
+        lambda: plain_buckets_sym(Sc, xc, dtype=c128),
+        product_bound(Sc, 1, c128), card)
+    times["B9 element c64->c128"] = timed(
+        "scattered Sc @ xc128 (c64 -> c128, B9 element pass)",
+        lambda: Scs @ xcs, lambda: plain_buckets_sym(Scs, xcs, dtype=c128),
+        product_bound(Scs, 1, c128), card)
+    lib["B1 c64->c128"] = library_ms("Sc @ xc128: complex128 CSR (cuSPARSE)",
+                                     lambda: refc @ xc, yc, card)
+    refcs = csr_of(Scs, c128)
+    lib["B9 element c64->c128"] = library_ms(
+        "scattered Sc @ xc128: complex128 CSR (cuSPARSE)",
+        lambda: refcs @ xcs, ycs, card)
+    del Sc, Scs, refc, refcs
+
+    # 3. scatter="sorted" on the scattered flagship: B9's owner mode
+    Ao = scattered_copy(A, fperm, scatter="sorted")
+    Aa = scattered_copy(A, fperm)
+    table = bucket_tables(Ao._buckets, Ao.layout)["element"]
+    require(bucket_tables(Ao._buckets, Ao.layout)["chunked"] is None,
+            "the sorted flagship must have element buckets only")
+    ox, oX = fxs.float(), fXs.float()
+    errs["B9 owner kernel"] = launch_vs_plain(
+        "B9 owner mode", table, mask_select.owner_apply,
+        mask_select.owner_apply_plain, (ox, oX), ("forward", "transpose"),
+        TOL32)
+    own = mask_select.owner_table(table, False, 4096)
+    print(f"  owner table: {own.n_rows} owned rows, {int(own.ptr[-1])} "
+          f"contributions, at most {int(own.lengths.max())} per row")
+    reset_counts()
+    runs = {label: [fn() for _ in range(3)]
+            for label, fn in (("A @ x", lambda: Ao @ ox),
+                              ("A @ X", lambda: Ao @ oX),
+                              ("A.T @ x", lambda: Ao.T @ ox))}
+    torch.cuda.synchronize()
+    require(counts() == merged({"B9 owner": 9}) and entry_counts() == {
+        "bst_element_owner_f32": 9}, f"sorted products: launches "
+        f"{counts()}, {entry_counts()} (the owner mode only)")
+    launches["B9 owner"] = 9
+    for label, (p1, p2, p3) in runs.items():
+        require(torch.equal(p1, p2) and torch.equal(p1, p3),
+                f"sorted {label}: three products are not bit-identical")
+    print("  sorted A @ x, A @ X, A.T @ x: each three times bit-identical "
+          "(torch.equal), 9 owner-mode launches, no element pass")
+    errs["B9 owner"] = max(
+        rel_check("sorted A @ x vs atomic", runs["A @ x"][0], Aa @ ox, TOL32),
+        rel_check("sorted A @ X vs atomic", runs["A @ X"][0], Aa @ oX, TOL32),
+        rel_check("sorted A.T @ x vs atomic", runs["A.T @ x"][0], Aa.T @ ox,
+                  TOL32),
+        rel_check("sorted A @ x vs float64 scipy", runs["A @ x"][0][fip],
+                  Sref @ xn, TOL32))
+    plain_own = (lambda v: mask_select.owner_apply_plain(
+        table, v, out=torch.zeros_like(v)))
+    for r, v in ((1, ox), (64, oX)):
+        times[f"B9 owner r={r}"] = timed(
+            f"sorted A @ x r={r} (B9 owner mode)", lambda v=v: Ao @ v,
+            lambda v=v: plain_own(v), product_bound(Ao, r), card,
+            plain_graph=False)
+        ms, gms = median_ms(lambda v=v: Aa @ v), graph_ms(lambda v=v: Aa @ v)
+        times[f"B9 atomic r={r}"] = {"ms": ms, "graph_ms": gms}
+        print(f"  atomic A @ x r={r} (B9 element pass) beside it: eager "
+              f"{ms:.4f} ms, graph {gms:.4f} ms [{card}]")
+    flag32s = csr_of(As, f32)
+    lib["B9 owner"] = library_ms("sorted A @ x: float32 CSR (cuSPARSE)",
+                                 lambda: flag32s @ ox, runs["A @ x"][0], card)
+    del runs, Ao, Aa, flag32s
+
+    owner_keys = owner_instances(A, fperm, fxs, fXs, out, lib, card)
+    del As
+
+    # 4. save / load of the BEM operator, and interop
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bem.npz")
+        t = time.perf_counter()
+        bt.save(path, S32)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        L = bt.load(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        mb = os.path.getsize(path) / 1e6
+        p16 = os.path.join(tmp, "bem16.npz")
+        bt.save(p16, S16)
+        L16 = bt.load(p16)
+    require(L.device == S32.device and L.dtype == f32, f"loaded {L}")
+    for a, b in zip(S32._dbuckets + S32._obuckets,
+                    L._dbuckets + L._obuckets):
+        require(all((u is None and v is None) or torch.equal(u, v)
+                    for u, v in zip(a, b)), "loaded staged tensors differ")
+    for a, b in zip(S16._dbuckets + S16._obuckets,
+                    L16._dbuckets + L16._obuckets):
+        require(b[0].dtype == torch.bfloat16 and torch.equal(
+            a[0].view(torch.int16), b[0].view(torch.int16)),
+            "loaded bf16 values differ")
+    errs["load"] = max(rel_check("loaded S @ x vs the original", L @ x,
+                                 S32 @ x, TOL32),
+                       rel_check("loaded S @ X vs the original", L @ X,
+                                 S32 @ X, TOL32))
+    out["setup"].update({"save_s": save_s, "load_s": load_s, "file_mb": mb})
+    print(f"  save {save_s:.2f} s, load onto the card {load_s:.2f} s "
+          f"({mb:.1f} MB .npz); staged values and tables torch.equal; the "
+          f"bf16 operator's values bit-equal after a round trip [{card}]")
+    del L, L16
+
+    M = bt.to_bcoo(S32)
+    require(M.device == S32.device and M.is_coalesced(),
+            "to_bcoo must give a coalesced tensor on the operator's card")
+    csr = bt.to_scipy(S32).tocsr()
+    csr.sum_duplicates()
+    csr.sort_indices()
+    rows = np.repeat(np.arange(n), np.diff(csr.indptr))
+    idx = M.indices().cpu().numpy()
+    require(np.array_equal(idx[0], rows) and np.array_equal(idx[1],
+                                                            csr.indices),
+            "to_bcoo's indices differ from to_scipy's")
+    errs["to_bcoo"] = rel_check("to_bcoo values vs to_scipy", M.values(),
+                                csr.data, TOL32)
+    Sa = bt.SymmetricBlockMatrix(*args, schedule="auto", device=DEV)
+    reset_counts()
+    ya, Ya = Sa @ x, Sa @ X
+    torch.cuda.synchronize()
+    got_a = counts()
+    reset_counts()
+    S32 @ x, S32 @ X
+    torch.cuda.synchronize()
+    require(got_a == counts(), f"schedule='auto' launches {got_a}, the "
+            f"colored operator's {counts()}")
+    errs["auto"] = max(rel_check("schedule='auto' S @ x vs colored", ya,
+                                 S32 @ x, TOL32),
+                       rel_check("schedule='auto' S @ X vs colored", Ya,
+                                 S32 @ X, TOL32))
+    print(f"  to_bcoo on the card equal to to_scipy; schedule='auto' builds "
+          f"and applies with the colored operator's launches "
+          f"{ {k: v for k, v in got_a.items() if v} }")
+    out["wall_s"] = time.perf_counter() - t_phase
+
+    kernels = []
+    specs = [
+        ("fused_spmm bf16->f32 (B1)", "B1 bf16->f32", B1_SRC, B1_REPLACES,
+         lib["B1 bf16->f32"], "S @ x, phase 12's BEM operator n=8192 stored bf16 (4251 "
+         "blocks of 64x64), f32 operand"),
+        ("fused_spmm bf16->f64 (B1)", "B1 bf16->f64", B1_SRC, B1_REPLACES,
+         lib["B1 bf16->f64"], "S @ x64, the bf16 BEM operator, f64 operand"),
+        ("fused_spmm f32->f64 (B1)", "B1 f32->f64", B1_SRC, B1_REPLACES,
+         lib["B1 f32->f64"], "A @ x64, the flagship 4096^2 f32, f64 operand"),
+        ("fused_spmm c64->c128 (B1)", "B1 c64->c128", B1_SRC, B1_REPLACES,
+         lib["B1 c64->c128"], "S @ x128, phase 13's complex64 Helmholtz BEM "
+         "n=8192, complex128 operand"),
+        ("mask_select element pass bf16->f32 (B9)", "B9 element bf16->f32",
+         B9_SRC, B9_SCATTER_REPLACES, lib["B9 element bf16->f32"], "S @ x, the bf16 BEM operator on "
+         "scattered index lists (serial), f32 operand"),
+        ("mask_select element pass bf16->f64 (B9)", "B9 element bf16->f64",
+         B9_SRC, B9_SCATTER_REPLACES, lib["B9 element bf16->f64"], "S @ x64, the scattered bf16 BEM "
+         "operator, f64 operand"),
+        ("mask_select element pass f32->f64 (B9)", "B9 element f32->f64",
+         B9_SRC, B9_SCATTER_REPLACES, lib["B9 element f32->f64"],
+         "A @ x64, the flagship on scattered index lists, f64 operand"),
+        ("mask_select element pass c64->c128 (B9)", "B9 element c64->c128",
+         B9_SRC, B9_SCATTER_REPLACES, lib["B9 element c64->c128"],
+         "S @ x128, the complex64 BEM on scattered index lists (serial)"),
+        ("mask_select owner mode (B9, scatter='sorted')", "B9 owner", B9_SRC,
+         B9_SCATTER_REPLACES, lib["B9 owner"], "A @ x, the flagship on "
+         "scattered index lists, scatter='sorted', f32; atomic_*: the "
+         "element pass of the same operator with scatter='atomic'"),
+    ]
+    for name, key, src, rep, lib_ms, what in specs:
+        t_ = times[key if key != "B9 owner" else "B9 owner r=1"]
+        extra = {"max_abs_err_kernel": errs[KERNEL_ERR[key]]}
+        if key == "B9 owner":
+            extra.update({"replaces_also": SORTED_REPLACES,
+                          "r64_ms": times["B9 owner r=64"]["ms"],
+                          "r64_graph_ms": times["B9 owner r=64"]["graph_ms"],
+                          "atomic_ms": times["B9 atomic r=1"]["ms"],
+                          "atomic_graph_ms": times["B9 atomic r=1"]["graph_ms"],
+                          "atomic_r64_ms": times["B9 atomic r=64"]["ms"],
+                          "atomic_r64_graph_ms":
+                              times["B9 atomic r=64"]["graph_ms"],
+                          "bit_identical_runs": 3})
+        if key == "B1 bf16->f32":
+            extra.update({"r64_ms": times["B1 bf16->f32 r=64"]["ms"],
+                          "r64_graph_ms":
+                              times["B1 bf16->f32 r=64"]["graph_ms"],
+                          "f32_route_ms": times["f32 route r=1"]["ms"],
+                          "f32_route_graph_ms":
+                              times["f32 route r=1"]["graph_ms"],
+                          "f32_route_r64_graph_ms":
+                              times["f32 route r=64"]["graph_ms"],
+                          "stored_mb": mb16, "stored_mb_f32": mb32})
+        if key == "B1 f32->f64":
+            extra.update({"r64_ms": times["B1 f32->f64 r=64"]["ms"],
+                          "r64_graph_ms":
+                              times["B1 f32->f64 r=64"]["graph_ms"],
+                          "f32_ms": times["flagship f32 route r=1"]["ms"],
+                          "f32_graph_ms":
+                              times["flagship f32 route r=1"]["graph_ms"]})
+        kernels.append(instance_entry(
+            name, src, rep, launches[key], errs[key], t_, lib_ms, card, what,
+            dtypes=["float32" if key == "B9 owner" else key.split(" ")[-1]],
+            **extra))
+    for key in owner_keys:
+        pair = key.split(" ")[-1]
+        kernels.append(instance_entry(
+            f"mask_select owner mode {pair} (B9, scatter='sorted')", B9_SRC,
+            B9_SCATTER_REPLACES, launches[key], errs[key], times[key],
+            lib[key], card, f"A @ x, the flagship on scattered index lists, "
+            f"scatter='sorted', stored {pair}", dtypes=[pair],
+            max_abs_err_kernel=errs[f"{key} kernel"],
+            replaces_also=SORTED_REPLACES))
+    out["kernels"] = kernels
+    print(f"  [phase 14 setup: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in out["setup"].items()) + "]")
     return out
 
 
@@ -4440,27 +5184,52 @@ def print_rooflines(summary: dict, card: str) -> None:
               f"{k.get('timed', '')}")
 
 
+def instance_types(args: str) -> str:
+    """The stored -> compute types of a tile-core instance from the
+    mangled template arguments before its column tile."""
+    if "bfloat16" in args:
+        return "bf16->f64" if args.endswith("d") else "bf16->f32"
+    if "cplxIf" in args:
+        return "c64->c128" if "IdEE" in args else "complex64"
+    if "cplxId" in args:
+        return "complex128"
+    return {"ff": "float32", "dd": "float64", "fd": "f32->f64"}.get(args,
+                                                                     args)
+
+
 def print_complex_builds(out: str) -> dict:
-    """ptxas's registers and spill stores of B1's and B9's complex
-    instances (tile_core.cuh::bucket_kernel over cplx<float> / cplx<double>),
-    one line per kernel, element type and column tile; returns them."""
+    """ptxas's registers and spill stores of B1's and B9's complex and
+    mixed instances (tile_core.cuh::bucket_kernel over cplx<float> /
+    cplx<double>, and the stored / compute pairs bf16 -> f32 / f64, f32 ->
+    f64, c64 -> c128), one line per kernel, types and column tile; returns
+    them."""
     found = {}
     for part in out.split("Compiling entry function")[1:]:
-        inst = re.match(r" '\w*bucket_kernelI\w*?cplxI([fd])EELi(\d+)E\w*?"
-                        r"(ChunkMap|ElemMap)", part)
+        inst = re.match(r" '\w*bucket_kernelI(\w+?)Li(\d+)ELb\dELb\dELb\dE"
+                        r"\w*?(ChunkMap|ElemMap)", part)
         used = re.search(r"Used (\d+) registers", part)
         if inst and used:
+            types = instance_types(inst.group(1))
+            if types in ("float32", "float64"):
+                continue
             spill = re.search(r"(\d+) bytes spill stores", part)
-            found.setdefault(inst.groups(), []).append(
+            found.setdefault((types, inst.group(2), inst.group(3)), []).append(
                 (int(used.group(1)), int(spill.group(1)) if spill else 0))
-    names = {"f": "complex64", "d": "complex128", "ChunkMap": "B1",
-             "ElemMap": "B9 element pass"}
+    names = {"ChunkMap": "B1", "ElemMap": "B9 element pass"}
     for (t, tr, kind), regs in sorted(found.items(),
                                       key=lambda kv: (kv[0][2], kv[0][0],
                                                       int(kv[0][1]))):
-        print(f"ptxas: {names[kind]} {names[t]} TR={tr}: {len(regs)} "
+        print(f"ptxas: {names[kind]} {t} TR={tr}: {len(regs)} "
               f"instances, {min(u for u, _ in regs)}-{max(u for u, _ in regs)}"
               f" registers, {sum(sp for _, sp in regs)} bytes of spill stores")
+    owners = [(int(u.group(1)), part.split("'")[1]) for part in
+              out.split("Compiling entry function")[1:]
+              if "owner_kernel" in part.split("\n")[0]
+              for u in [re.search(r"Used (\d+) registers", part)] if u]
+    if owners:
+        print(f"ptxas: B9 owner mode: {len(owners)} instances, "
+              f"{min(u for u, _ in owners)}-{max(u for u, _ in owners)} "
+              f"registers")
     return found
 
 
@@ -4517,6 +5286,13 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    if sys.argv[1:] == ["--options"]:
+        opts = phase14(card)
+        print(json.dumps({"kernels": opts["kernels"]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
     wall = {}
 
@@ -4543,6 +5319,7 @@ def main() -> None:
     b10 = run("phase 11", phase11, card, defaults, b7["library"])
     solve = run("phase 12", phase12, card)
     cx = run("phase 13", phase13, card)
+    opts = run("phase 14", phase14, card)
     print("phase wall times: " + ", ".join(f"{k} {v:.1f} s"
                                            for k, v in wall.items()))
     require(all(b7["launches"].values()) and all(b10["launches"].values()),
@@ -4958,6 +5735,10 @@ def main() -> None:
          **{f"{k}_library_ms": t["library_ms"]
             for k, t in b10["times"].items()}},
     ]}
+    summary["kernels"] += opts["kernels"]
+    require(all(k["launches"] for k in opts["kernels"]),
+            f"phase 14 skipped an instance: "
+            f"{ {k['name']: k['launches'] for k in opts['kernels']} }")
     for entry in summary["kernels"]:
         entry.setdefault("dtypes", ["float32"])
     print_rooflines(summary, card)

@@ -200,8 +200,12 @@ def test_device_dtype_and_unported_options_raise():
     with pytest.raises(ValueError, match="operand on cpu, operator on meta"):
         M @ torch.zeros(shape[1], dtype=torch.float64)
     P = bt.BlockSparseMatrix(blocks, rows, cols, shape, device="cpu")
-    with pytest.raises(TypeError, match="dtype"):
-        P @ torch.zeros(shape[1], dtype=torch.float32)
+    # an f32 operand on an f64 operator comes out f64, as in the JAX package
+    x32 = torch.from_numpy(np.random.default_rng(44).standard_normal(shape[1])
+                           .astype(np.float32))
+    got = P @ x32
+    assert got.dtype == torch.float64
+    assert relerr(got.numpy(), bt.to_scipy(P) @ x32.double().numpy()) <= TOL64
     # complex dtypes build and apply (tests/test_torch_complex.py covers them)
     C = bt.BlockSparseMatrix([b.astype(np.complex128) * (1 + 2j)
                               for b in blocks], rows, cols, shape, device="cpu")
@@ -210,8 +214,12 @@ def test_device_dtype_and_unported_options_raise():
     got = (C.H @ torch.from_numpy(xc[:shape[0]].copy())).numpy()
     want = bt.to_scipy(C).conj().T @ xc[:shape[0]]
     assert np.abs(got - want).max() <= TOL64 * max(1.0, np.abs(want).max())
+    # "auto" builds and runs the colored path (tests/test_torch_options.py)
+    Q = bt.BlockSparseMatrix(blocks, rows, cols, shape, schedule="auto",
+                             device="cpu")
+    assert Q.schedule == "auto" and Q.colors() != (tuple(range(Q.nblocks)),)
     with pytest.raises(ValueError, match="schedule"):
-        bt.BlockSparseMatrix(blocks, rows, cols, shape, schedule="auto",
+        bt.BlockSparseMatrix(blocks, rows, cols, shape, schedule="fast",
                              device="cpu")
     with pytest.raises(ValueError, match="precision"):
         bt.BlockSparseMatrix(blocks, rows, cols, shape, precision="fast",

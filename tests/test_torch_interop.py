@@ -108,8 +108,11 @@ def test_linear_operator_roundtrip():
         assert isinstance(got, np.ndarray) and got.flags.writeable
         assert relerr(got, ref) < 1e-10
         assert relerr(got, want) < TOL
-    with pytest.raises(TypeError):
-        L.matvec(x.astype(np.float32))
+    # an operand of another dtype comes out promoted, as the JAX package's
+    x32 = x.astype(np.float32)
+    got = L.matvec(x32)
+    assert got.dtype == np.float64
+    assert relerr(got, Lj.matvec(x32)) < TOL
 
 
 def test_linear_operator_in_scipy_solver():

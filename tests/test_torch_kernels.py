@@ -160,8 +160,10 @@ def test_wrappers_refuse_other_devices_and_bad_inputs():
         fused_spmm.chunked_block_apply(*meta[:3], C, meta[3], n)
     with pytest.raises(ValueError, match="different devices"):
         fused_spmm.chunked_block_apply(t(vals), t(rc), t(cc), C, meta[3], n)
+    # float32 values take a float32 or float64 operand, not a complex one
     with pytest.raises(TypeError, match="dtype"):
-        fused_spmm.chunked_block_apply(t(vals), t(rc), t(cc), C, x.double(), n)
+        fused_spmm.chunked_block_apply(t(vals), t(rc), t(cc), C,
+                                       x.to(torch.complex64), n)
     with pytest.raises(ValueError, match="square"):
         fused_spmm.chunked_block_apply(t(vals), t(rc), t(cc), C, x, n + 8,
                                        symmetric=True)

@@ -413,7 +413,11 @@ def test_zero_blocks_and_bad_inputs():
     with pytest.raises(ValueError, match="precision"):
         bt.SymmetricBlockMatrix(*args, precision="fast", device="cpu")
     P = bt.SymmetricBlockMatrix(*args, device="cpu")
-    with pytest.raises(TypeError, match="dtype"):
-        P @ torch.zeros(288, dtype=torch.float32)
+    # an operand of another dtype is promoted (tests/test_torch_options.py)
+    x32 = torch.from_numpy(np.random.default_rng(63).standard_normal(288)
+                           .astype(np.float32))
+    got = P @ x32
+    assert got.dtype == torch.float64
+    assert relerr(got, P @ x32.double()) == 0
     with pytest.raises(ValueError, match="operand length"):
         P @ torch.zeros(287, dtype=torch.float64)

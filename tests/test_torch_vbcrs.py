@@ -237,8 +237,12 @@ def test_repr_interop_and_empty():
 
 def test_bad_operands_and_options():
     V, *_ = build()
-    with pytest.raises(TypeError, match="dtype"):
-        V @ torch.zeros(1200, dtype=torch.float32)
+    # an operand of another dtype is promoted (tests/test_torch_options.py)
+    x32 = torch.from_numpy(np.random.default_rng(79).standard_normal(1200)
+                           .astype(np.float32))
+    got = V @ x32
+    assert got.dtype == torch.float64
+    assert relerr(got, V @ x32.double()) == 0
     with pytest.raises(ValueError, match="operand length"):
         V @ torch.zeros(1199, dtype=torch.float64)
     blocks, rs, cs, shape = random_vbcrs(3)
