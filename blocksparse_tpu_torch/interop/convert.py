@@ -15,7 +15,11 @@ returns) by its summands ``a`` and ``b``; and a ``ComplexSplitOperator``
 by its real children ``re_op`` and ``im_op``.  Complex operators of all
 three formats carry across as they are (their blocks are complex numpy),
 and so do bf16 ones (their blocks are ml_dtypes bf16 arrays, which the
-constructors read by their bits).  The JAX operator's ``schedule`` (``"auto"``
+constructors read by their bits).  A ``DistributedBlockOperator`` of
+``blocksparse_tpu/parallel/distributed.py`` carries across onto a port
+:class:`~..parallel.mesh.Mesh` of the same shard count (``mesh=``): its
+halo plans, send tables and stacked values and tables (its ``_arrays``
+and ``_meta``) as they are, not re-planned.  The JAX operator's ``schedule`` (``"auto"``
 included), ``backend``, ``optimize`` and, for the general and VBCRS
 formats, ``scatter`` are carried across unless ``kwargs`` give them.
 This module imports neither jax nor the JAX package.
@@ -24,12 +28,16 @@ This module imports neither jax nor the JAX package.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..complexops import ComplexSplitOperator
 from ..core.operator import SumOperator
-from ..formats.block_sparse import BlockSparseMatrix, _np_dtype
+from ..formats.block_sparse import (_DTYPES, BlockSparseMatrix, _np_dtype,
+                                   is_bf16)
 from ..formats.symmetric import SymmetricBlockMatrix
 from ..formats.vbcrs import VariableBlockCompressedRowStorage
+from ..parallel.distributed import DistributedBlockOperator, _Meta
+from ..parallel.partition import HaloPlan
 from ..precond import DiagonalOperator
 
 __all__ = ["from_reference"]
@@ -44,8 +52,13 @@ def from_reference(A, **kwargs):
     on ``kwargs["device"]`` (the card unless given) in ``kwargs["dtype"]``
     (its own unless given); a ``SumOperator`` the port's sum of its
     summands, and a ``ComplexSplitOperator`` the port's pair of its
-    children, each carried across with ``kwargs``."""
+    children, each carried across with ``kwargs``.  A
+    ``DistributedBlockOperator`` needs ``mesh=``, a port mesh with the
+    JAX operator's axis names and shard count, and takes no other
+    ``kwargs``."""
     kind = type(A).__name__
+    if kind == "DistributedBlockOperator":
+        return _distributed(A, **kwargs)
     if kind == "DiagonalOperator":
         return DiagonalOperator(np.array(A.d, dtype=_np_dtype(kwargs.get("dtype"))),
                                 device=kwargs.get("device"))
@@ -85,3 +98,37 @@ def from_reference(A, **kwargs):
         tuple(A.shape),
         **kwargs,
     )
+
+
+def _host(a) -> np.ndarray:
+    """A JAX array as numpy; bf16 as its exact float32 copy."""
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def _halo(plan) -> HaloPlan:
+    return HaloPlan(S=plan.S, per=plan.per, dists=tuple(plan.dists),
+                    send_idx=tuple(_host(t) for t in plan.send_idx),
+                    halo_chunks=plan.halo_chunks,
+                    chunk_pos=tuple(dict(p) for p in plan.chunk_pos))
+
+
+def _distributed(A, *, mesh) -> DistributedBlockOperator:
+    """The port's operator over ``mesh`` holding ``A``'s plans and arrays."""
+    m = A._meta
+    np_dtype = np.dtype(m.dtype)
+    dtype = torch.bfloat16 if is_bf16(np_dtype) else _DTYPES[np_dtype]
+    meta = _Meta(axis=m.axis, shape=tuple(m.shape), dtype=dtype,
+                 precision=m.precision, sym=m.sym, rows_per=m.rows_per,
+                 cols_per=m.cols_per, Hr=m.Hr, Hc=m.Hc,
+                 row_dists=tuple(m.row_dists), col_dists=tuple(m.col_dists),
+                 part_kinds=tuple(m.part_kinds),
+                 part_chunks=tuple(m.part_chunks), rhs_axis=m.rhs_axis)
+    row_send, col_send, parts = A._arrays
+    arrays = (tuple(_host(t) for t in row_send),
+              tuple(_host(t) for t in col_send),
+              tuple(tuple(tuple(None if grp is None else
+                                tuple(_host(a) for a in grp) for grp in row)
+                          for row in part) for part in parts))
+    return DistributedBlockOperator.from_arrays(
+        mesh, meta, _halo(A.row_halo), _halo(A.col_halo), arrays)

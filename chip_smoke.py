@@ -7,6 +7,8 @@
     python3 chip_smoke.py --solve        # phase 12 (the BEM solve) alone
     python3 chip_smoke.py --complex      # phase 13 (the complex BEM) alone
     python3 chip_smoke.py --options      # phase 14 (options, dtypes, interop)
+    python3 chip_smoke.py --distributed  # phase 15 (the distributed layer)
+    python3 chip_smoke.py --mesh         # phase 15's transports across cards
 
 Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
 
@@ -205,7 +207,27 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      bf16) through a temporary directory onto the card, staged tensors
      ``torch.equal`` and load seconds; ``to_bcoo`` on the card against
      ``to_scipy``; ``schedule="auto"`` with the colored operator's
-     launches.
+     launches;
+ 15. the distributed layer (``--distributed`` runs this phase alone):
+     block-row shards of one operator on this card (``parallel/``), each
+     shard's groups through B1 and B9's element pass: phase 12's BEM on 4
+     shards (``D @ x``, ``D.T @ x``, ``D @ X`` r = 64, ``cg`` through D
+     within one iteration of the single operator's and x within 1e-5 of
+     its solution, the float64 operator's ``D @ x`` against scipy at
+     1e-12), the same BEM on scattered lists (element groups: B9), phase
+     3's config 1 on 4 shards (``D @ x``, ``D.T @ x``, ``D @ X`` r = 128,
+     and a 4 x 2 rows x rhs mesh at r = 6: one ring per column group) and
+     phase 7's config 3 on 8 shards; each product against the single
+     operator and the float64 plain route at 1e-5, with exact launches (one
+     B1 per non-empty chunked table and one element pass per non-empty
+     element table of each shard, nothing else); per operand the halo
+     bytes, construction seconds, and ``D @ x`` eager and from a CUDA graph
+     beside the single operator's default route and its bound.  The
+     cross-device and NCCL transports run only where the process sees two
+     cards or more (``--mesh`` runs them alone: the BEM's shards on every
+     card of one process, then one process per card over NCCL,
+     ``--nccl-worker`` being that check's worker); otherwise the phase
+     says why they did not.
 
 Every timed kernel also gets its bound -- the larger of its logical bytes
 (stored values, operands and results, each once) over 3.35 TB/s and its
@@ -281,6 +303,9 @@ from blocksparse_tpu_torch.ops.kernels import (  # noqa: E402
 from blocksparse_tpu_torch.ops.kernels.fused_spmm import (  # noqa: E402
     BucketTable)
 from blocksparse_tpu_torch.ops.torch_spmv import bucket_apply  # noqa: E402
+from blocksparse_tpu_torch.parallel import multihost  # noqa: E402
+from blocksparse_tpu_torch.parallel.distributed import distribute  # noqa: E402
+from blocksparse_tpu_torch.parallel.mesh import Mesh  # noqa: E402
 from blocksparse_tpu_torch.utils import build  # noqa: E402
 from blocksparse_tpu_torch.utils.testmatrices import (  # noqa: E402
     random_block_sparse, random_symmetric)
@@ -5036,6 +5061,315 @@ def phase14(card: str) -> dict:
     return out
 
 
+# -- phase 15: the distributed layer (--distributed) ---------------------------
+
+DIST_SHARDS = {"bem": 4, "config 1": 4, "config 3": 8}
+DIST_CONFIG1 = (8192, 2000, 128)  # n, blocks, block size: phase 3's operand
+DIST_CONFIG3_N = 32768  # phase 7's operand
+
+
+def dist_want(D, rings: int = 1) -> dict:
+    """Exact launches of ``rings`` rings of ``D`` (a product, or one column
+    group each): per shard one B1 launch per chunked table and one B9
+    element pass per element table, nothing else."""
+    return merged({k: rings * v for k, v in D.tables().items()})
+
+
+def dist_product(label, D, x, refs, *, transpose=False, rings=1,
+                 tol=TOL32) -> dict:
+    """One product of ``D`` with its exact launches, held against each
+    ``(name, reference)`` within ``tol``."""
+    reset_counts()
+    y = D.apply(x, transpose=transpose)
+    torch.cuda.synchronize()
+    got = counts()
+    want = dist_want(D, rings)
+    require(got == want, f"{label}: launches {got}, expected {want}")
+    errs = [rel_check(f"{label} vs {name}", y, ref, tol) for name, ref in refs]
+    print(f"  {label}: launches { {k: v for k, v in got.items() if v} } "
+          f"(= the non-empty per-shard tables x {rings} ring(s))")
+    return {"launches": {k: v for k, v in got.items() if v},
+            "max_abs_err": max(errs)}
+
+
+def dist_times(label, D, single, x, card) -> dict:
+    """Eager and CUDA-graph ms of ``D @ x`` beside the single operator's
+    default route and its bound (``product_bound``)."""
+    eager = min(median_ms(lambda: D @ x), median_ms(lambda: D @ x))
+    single_eager = median_ms(lambda: single @ x)
+    try:
+        graph = graph_ms(lambda: D @ x)
+    except RuntimeError as e:
+        if isinstance(e, SmokeFailure):  # a replay off the eager product
+            raise
+        torch.cuda.synchronize()
+        graph = None
+        print(f"  {label}: D @ x does not capture in a CUDA graph "
+              f"({str(e).splitlines()[0][:120]})")
+    single_graph = graph_ms(lambda: single @ x)
+    bnd = product_bound(single)
+    print(f"  {label}: D @ x eager {eager:.4f} ms, graph "
+          + ("not captured" if graph is None else f"{graph:.4f} ms")
+          + f"; the single operator's default route ({stream_kernel(single)}"
+          f") eager {single_eager:.4f} ms, graph {single_graph:.4f} ms; bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}) [{card}]")
+    return {"ms": eager, "graph_ms": graph, "single_ms": single_eager,
+            "single_graph_ms": single_graph, "bound_ms": bnd[0],
+            "bound_by": bnd[1]}
+
+
+def wall_ms(fn, reps: int = 20) -> float:
+    """Median host-clock ms of ``fn`` ending in a synchronize of every
+    card this process sees (a product that spans cards: no single CUDA
+    event pair or graph covers it)."""
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def multi_device_paths(S_op, x, card) -> dict:
+    """The transports one card cannot run, on phase 12's BEM: its shards
+    on every card of this process (cross-device copies), and one process
+    per card over NCCL (NCCL refuses two ranks on one GPU).  They run where
+    ``torch.cuda.device_count() >= 2`` (``--mesh`` runs them alone);
+    otherwise they are reported as not run, with the reason."""
+    ndev = torch.cuda.device_count()
+    if ndev < 2:
+        why = (f"torch.cuda.device_count() = {ndev}: the cross-device "
+               "in-process copy needs two cards, and NCCL refuses two ranks "
+               "on one GPU; the process-group transport is held by "
+               "tests/test_torch_multihost.py over gloo on the CPU")
+        print(f"  not run: the cross-device and NCCL transports ({why})")
+        return {"cross_device": "not run", "nccl": "not run", "why": why}
+    out = {"cards": ndev}
+    D = distribute(S_op, Mesh([torch.device("cuda", i) for i in range(ndev)]))
+    X = torch.randn((S_op.shape[0], 64),
+                    generator=torch.Generator().manual_seed(16)).to(DEV)
+    for label, v, tr in (("D @ x", x, False), ("D.T @ x", x, True),
+                         ("D @ X r=64", X, False)):
+        reset_counts()
+        y = D.apply(v, transpose=tr)
+        for i in range(ndev):
+            torch.cuda.synchronize(i)
+        got = counts()
+        require(got == dist_want(D), f"BEM {label} over {ndev} cards: "
+                f"launches {got}, expected {dist_want(D)}")
+        out[label] = rel_check(f"BEM {label} over {ndev} cards in one "
+                               f"process", y, S_op.apply(v, transpose=tr),
+                               TOL32)
+    out["ms"] = wall_ms(lambda: D @ x)
+    out["single_ms"] = wall_ms(lambda: S_op @ x)
+    print(f"  BEM D @ x over {ndev} cards in one process: {out['ms']:.4f} ms "
+          f"eager (host clock to the last card's synchronize), the single "
+          f"operator {out['single_ms']:.4f} ms; {D.tables()} [{card}]")
+    del D
+    port = 29500 + os.getpid() % 1000
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--nccl-worker", str(rank), str(ndev),
+                               str(port)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for rank in range(ndev)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, o) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0 and f"rank {rank}: OK" in o,
+                f"NCCL worker {rank} failed:\n{o[-3000:]}")
+        print("  " + o.strip().splitlines()[-1])
+    out["nccl"] = outs[0].strip().splitlines()[-1]
+    return out
+
+
+def nccl_worker(rank: int, nproc: int, port: str) -> int:
+    """One rank of the NCCL check (``--nccl-worker``): phase 12's BEM
+    operator sharded over every rank's card, ``D @ x``, ``D.T @ x`` and
+    ``D @ X`` against the single operator on this rank's card, and the
+    eager ms of ``D @ x``."""
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    multihost.init(f"127.0.0.1:{port}", nproc, rank)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    S_op = bt.SymmetricBlockMatrix(
+        *bem_system(BEM_NPTS, BEM_CLUSTERS, BEM_THRESH, BEM_SELF_TERM),
+        device=dev)
+    D = distribute(S_op, multihost.global_row_mesh())
+    rng = np.random.default_rng(15)
+    x = multihost.replicate(rng.standard_normal(BEM_NPTS).astype(np.float32),
+                            D.mesh)
+    X = multihost.replicate(rng.standard_normal((BEM_NPTS, 64)).astype(
+        np.float32), D.mesh)
+    errs = [rel_check(f"rank {rank}: BEM {label} over NCCL",
+                      D.apply(v, transpose=tr), S_op.apply(v, transpose=tr),
+                      TOL32)
+            for label, v, tr in (("D @ x", x, False), ("D.T @ x", x, True),
+                                 ("D @ X r=64", X, False))]
+    ms = wall_ms(lambda: D @ x)
+    print(f"rank {rank}: OK (max_abs_err {max(errs):.3e}; D @ x {ms:.4f} ms "
+          f"eager over {nproc} processes, host clock)", flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase15(card: str) -> dict:
+    print("phase 15: the distributed layer (parallel/): block-row shards on "
+          f"{DEV}, each shard's groups through B1 and B9's element pass")
+    t_phase = time.perf_counter()
+    out = {"operands": {}, "launches": {"B1": 0, "B9 element": 0}}
+    gen = torch.Generator().manual_seed(15)
+    n = BEM_NPTS
+
+    def operand(key, single, S, build_s, mesh=None, **kw):
+        t = time.perf_counter()
+        D = distribute(single, mesh or Mesh([DEV] * S), **kw)
+        torch.cuda.synchronize()
+        ctor = time.perf_counter() - t
+        print(f"  {key}: {D}; {D.tables()} per ring; exchanged_bytes_per_"
+              f"call {D.exchanged_bytes_per_call}; construction {ctor:.2f} s "
+              f"(the single operator {build_s:.2f} s)")
+        rec = out["operands"].setdefault(key, {"products": {}})
+        rec.update(S=S, construction_s=ctor, single_construction_s=build_s,
+                   exchanged_bytes_per_call=D.exchanged_bytes_per_call)
+        return D, rec
+
+    def product(rec, label, D, x, refs, **kw):
+        res = dist_product(label, D, x, refs, **kw)
+        rec["products"][label] = res
+        for k in out["launches"]:
+            out["launches"][k] += res["launches"].get(k, 0)
+
+    def built(fn):
+        t = time.perf_counter()
+        op = fn()
+        torch.cuda.synchronize()
+        return op, time.perf_counter() - t
+
+    # BEM n = 8192 (phase 12's operator) on 4 shards
+    args = bem_system(BEM_NPTS, BEM_CLUSTERS, BEM_THRESH, BEM_SELF_TERM)
+    S_op, build_s = built(lambda: bt.SymmetricBlockMatrix(*args, device=DEV))
+    D, rec = operand("BEM n=8192", S_op, DIST_SHARDS["bem"], build_s)
+    x = torch.randn(n, generator=gen).to(DEV)
+    X = torch.randn((n, 64), generator=gen).to(DEV)
+    for label, v, tr in (("D @ x", x, False), ("D.T @ x", x, True),
+                         ("D @ X r=64", X, False)):
+        product(rec, f"BEM {label}", D, v, [
+            ("the single operator", S_op.apply(v, transpose=tr)),
+            ("float64 plain route", plain_route_sym(
+                S_op, v, transpose=tr, dtype=torch.float64))], transpose=tr)
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(n).astype(
+        np.float32)).to(DEV)
+    xs, info_s = bt.cg(S_op, b, tol=SOLVE_TOL)
+    reset_counts()
+    solvers.HOST_CHECKS = 0
+    xd, info_d = bt.cg(D, b, tol=SOLVE_TOL)
+    torch.cuda.synchronize()
+    got, reads = counts(), solvers.HOST_CHECKS
+    k, ks = int(info_d.iterations), int(info_s.iterations)
+    restart = inspect.signature(bt.gmres).parameters["restart"].default
+    want_reads, nS, _ = solve_products("cg", k, restart)
+    require(bool(info_d.converged) and abs(k - ks) <= 1,
+            f"cg through D: {k} iterations (converged {bool(info_d.converged)})"
+            f", the single operator {ks}")
+    require(reads == want_reads and got == dist_want(D, nS),
+            f"cg through D: {reads} reads, launches {got}; expected "
+            f"{want_reads} reads and {nS} products")
+    err = rel_check("cg through D: x vs the single operator's solution", xd,
+                    xs, TOL32)
+    print(f"  cg through D, tol {SOLVE_TOL}: {k} iterations (the single "
+          f"operator {ks}), {reads} host reads, {nS} products, launches "
+          f"{ {k_: v for k_, v in got.items() if v} }")
+    for key in out["launches"]:
+        out["launches"][key] += got[key]
+    rec["cg"] = {"iterations": k, "single_iterations": ks, "x_err": err,
+                 "launches": {k_: v for k_, v in got.items() if v}}
+    args64 = [[a.astype(np.float64) for a in args[0]], args[1],
+              [a.astype(np.float64) for a in args[2]], *args[3:]]
+    S64, build64 = built(lambda: bt.SymmetricBlockMatrix(*args64, device=DEV))
+    D64, rec64 = operand("BEM n=8192 float64", S64, DIST_SHARDS["bem"],
+                         build64)
+    x64 = torch.randn(n, generator=gen, dtype=torch.float64).to(DEV)
+    product(rec64, "BEM float64 D @ x", D64, x64, [
+        ("scipy", bt.to_scipy(S64) @ x64.cpu().numpy())],
+        tol=TOL[torch.float64])
+    rec["times"] = dist_times("BEM n=8192", D, S_op, x, card)
+    out["multi_device"] = multi_device_paths(S_op, x, card)
+    del D, D64, S64
+
+    # the same BEM on scattered index lists: element groups, B9
+    perm = np.random.default_rng(14).permutation(n)
+    Ss, build_s = built(lambda: bt.SymmetricBlockMatrix(
+        *bem_system(BEM_NPTS, BEM_CLUSTERS, BEM_THRESH, BEM_SELF_TERM,
+                    perm=perm), device=DEV, schedule="serial"))
+    Ds, recs = operand("BEM n=8192 scattered", Ss, DIST_SHARDS["bem"],
+                       build_s)
+    require(Ds.tables()["B9 element"] > 0, "the scattered BEM has no element "
+            "groups")
+    product(recs, "scattered BEM D @ x", Ds, x, [
+        ("the single operator", Ss @ x),
+        ("float64 plain route", plain_route_sym(Ss, x, dtype=torch.float64))])
+    recs["times"] = dist_times("scattered BEM", Ds, Ss, x, card)
+    del Ds, Ss, S_op
+
+    # config 1 (phase 3's operand) on 4 shards, and a 4 x 2 rhs mesh
+    A, build_s = built(lambda: contiguous_operator(
+        *DIST_CONFIG1, seed=7, value_seed=7 + 7777, device=DEV)[0])
+    n = A.shape[0]
+    x = torch.randn(n, generator=gen).to(DEV)
+    D, rec = operand("config 1", A, DIST_SHARDS["config 1"], build_s)
+    X = torch.randn((n, 128), generator=gen).to(DEV)
+    for label, v, tr in (("D @ x", x, False), ("D.T @ x", x, True),
+                         ("D @ X r=128", X, False)):
+        product(rec, f"config 1 {label}", D, v, [
+            ("the single operator", A.apply(v, transpose=tr)),
+            ("float64 plain route", plain_route(A, v, transpose=tr,
+                                                dtype=torch.float64))],
+            transpose=tr)
+    mesh2 = Mesh(np.array([DEV] * 8, dtype=object).reshape(4, 2),
+                 ("rows", "rhs"))
+    D2, rec2 = operand("config 1, 4 x 2 rhs mesh", A, 4, build_s,
+                       mesh=mesh2, rhs_axis="rhs")
+    X6 = torch.randn((n, 6), generator=gen).to(DEV)
+    for label, tr in (("D @ X r=6", False), ("D.T @ X r=6", True)):
+        product(rec2, f"config 1 on the 4 x 2 rhs mesh {label}", D2, X6, [
+            ("the single operator", A.apply(X6, transpose=tr)),
+            ("float64 plain route", plain_route(A, X6, transpose=tr,
+                                                dtype=torch.float64))],
+            transpose=tr, rings=2)
+    rec["times"] = dist_times("config 1", D, A, x, card)
+    del D, D2, A
+
+    # config 3 VBCRS n = 32768 on 8 shards
+    n3 = DIST_CONFIG3_N
+    blocks, rs, cs = config3_blocks(n3)
+    V, build_s = built(lambda: bt.VariableBlockCompressedRowStorage(
+        blocks, rs, cs, (n3, n3), granularity=(8, 128), device=DEV))
+    D, rec = operand("config 3", V, DIST_SHARDS["config 3"], build_s)
+    x3 = torch.randn(n3, generator=gen).to(DEV)
+    product(rec, "config 3 D @ x", D, x3, [
+        ("the single operator", V @ x3),
+        ("float64 plain route", plain_route(V, x3, dtype=torch.float64))])
+    rec["times"] = dist_times("config 3", D, V, x3, card)
+    del D, V
+    require(all(out["launches"].values()),
+            f"phase 15 skipped B1 or B9's element pass: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 15: launches {out['launches']}; {out['seconds']:.1f} s")
+    return out
+
+
 def transpose_times(card: str) -> dict:
     """The transposed products of this checkout's B2, timed alone (eager
     and from a CUDA graph, at both tiers): A.T @ X on phase 3's operand (an
@@ -5234,6 +5568,8 @@ def print_complex_builds(out: str) -> dict:
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--nccl-worker"]:
+        sys.exit(nccl_worker(*map(int, sys.argv[2:4]), sys.argv[4]))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()
@@ -5286,6 +5622,23 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    if sys.argv[1:] == ["--mesh"]:
+        S_op = bt.SymmetricBlockMatrix(
+            *bem_system(BEM_NPTS, BEM_CLUSTERS, BEM_THRESH, BEM_SELF_TERM),
+            device=DEV)
+        x = torch.randn(BEM_NPTS, generator=torch.Generator().manual_seed(
+            15)).to(DEV)
+        print(json.dumps({"mesh": multi_device_paths(S_op, x, card)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+    if sys.argv[1:] == ["--distributed"]:
+        print(json.dumps({"distributed": phase15(card)}, default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if sys.argv[1:] == ["--options"]:
         opts = phase14(card)
         print(json.dumps({"kernels": opts["kernels"]}))
@@ -5320,6 +5673,7 @@ def main() -> None:
     solve = run("phase 12", phase12, card)
     cx = run("phase 13", phase13, card)
     opts = run("phase 14", phase14, card)
+    dist = run("phase 15", phase15, card)
     print("phase wall times: " + ", ".join(f"{k} {v:.1f} s"
                                            for k, v in wall.items()))
     require(all(b7["launches"].values()) and all(b10["launches"].values()),
@@ -5376,13 +5730,17 @@ def main() -> None:
         cx["launches"]["native"])
     b1_launches["complex Helmholtz BEM gmres + block_jacobi (phase 13)"] = (
         cx["launches"]["gmres64"])
+    b1_launches["distributed products and cg: BEM, config 1, config 3 "
+                "(phase 15)"] = dist["launches"]["B1"]
     element_launches = {
         "scattered symmetric main path, serial (phase 4)":
             scattered["serial"]["B9 element"],
         "symmetric real size bucket route (phase 5)":
             launches5["B9 element"],
         "scattered complex Helmholtz BEM products, serial (phase 13)":
-            cx["launches"]["scattered"]}
+            cx["launches"]["scattered"],
+        "distributed scattered BEM product (phase 15)":
+            dist["launches"]["B9 element"]}
     cx_times = {f"complex{'' if r == 1 else '_r64'}_{key}": t[key]
                 for label, r in (("S @ x", 1), ("S @ X", 64))
                 for t in (cx["times"][label],)
@@ -5435,6 +5793,12 @@ def main() -> None:
                                     if not k_.startswith(("split",
                                                           "scattered"))),
          **cx_times,
+         "distributed_ms": {k: r["times"]["ms"]
+                            for k, r in dist["operands"].items()
+                            if "times" in r},
+         "distributed_graph_ms": {k: r["times"]["graph_ms"]
+                                  for k, r in dist["operands"].items()
+                                  if "times" in r},
          "complex_timed": "S @ x (r = 1) and S @ X (r = 64, _r64), the "
                           "complex64 Helmholtz BEM at n=8192 (phase 13): 2 "
                           "B1 launches; split: split_complex(S), four f32 "
