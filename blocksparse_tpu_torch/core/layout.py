@@ -4,9 +4,11 @@ numpy copy of ``build_layout`` from ``blocksparse_tpu/core/layout.py`` at
 its format defaults (automatic chunking, k-merge) with both bucket-key
 policies (power-of-two keys or ``(gm, gk)`` multiples); the port cannot
 import the JAX package, whose ``__init__`` imports jax.
-``tests/test_torch_layout.py`` holds the two bit-identical.  The JAX
-package's ``chunk``/``merge`` options, sparse (scipy) input blocks and its
-optional native packer are not carried.
+``tests/test_torch_layout.py`` holds the two bit-identical.  Sparse
+(scipy) input blocks are carried as there: densified into the buckets, their
+stored entry counts kept as ``block_nnz``.  The JAX package's
+``chunk``/``merge`` options and its optional native packer are not
+carried.
 
 Dense blocks are packed into a small number of *shape buckets*.  Every
 block in a bucket is zero-padded up to the bucket's tile shape ``(mp, kp)``
@@ -21,12 +23,19 @@ concat(x, [0])`` so padded lanes read zero and padded rows scatter into a
 dropped slot ``y_ext[M]`` -- no masks anywhere in the hot path.
 
 ``nnz`` keeps the reference's *logical* semantics (``prod(size)`` of the
-unpadded block, abstractblockmatrix.jl:65-71).
+unpadded block, the stored entry count of a sparse one,
+abstractblockmatrix.jl:65-71).
+
+``BlockLayout.digest`` is the JAX layout's content digest, computed at its
+first read and cached: the key of the population policy
+(``ops/dispatch.set_population_policy``).
 """
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
+from functools import cached_property
 from typing import Sequence
 
 import numpy as np
@@ -129,7 +138,8 @@ class BlockLayout:
     """Complete host-side layout for one block-sparse operand.
 
     Compared and hashed by identity: plan caches (``ops/colored.py``) key
-    on the layout object an operator holds."""
+    on the layout object an operator holds.  :attr:`digest` is the content
+    hash, computed only where it is read."""
 
     nrows: int
     ncols: int
@@ -143,11 +153,31 @@ class BlockLayout:
     # true (unpadded) data lives inside the bucket tile.  k-merged slots
     # (see _kmerge) hold several blocks at different col_off.
     block_loc: tuple[tuple[int, int, int, int, int, int], ...] = ()
+    # per-block logical nnz: prod(shape) for dense input blocks, the stored
+    # entry count for sparse (scipy) input blocks.  Empty tuple = all dense.
+    block_nnz: tuple[int, ...] = ()
+
+    @cached_property
+    def digest(self) -> str:
+        """SHA-256 hex digest of the shape, the block count and every
+        bucket's tile shape, chunk, values and index tables: the JAX
+        ``BlockLayout._digest``, over the same bytes."""
+        h = hashlib.sha256()
+        h.update(np.int64([self.nrows, self.ncols, self.nblocks]).tobytes())
+        for b in self.buckets:
+            h.update(np.int64([b.mp, b.kp, b.chunk]).tobytes())
+            h.update(np.ascontiguousarray(b.values).tobytes())
+            h.update(np.ascontiguousarray(b.row_idx).tobytes())
+            h.update(np.ascontiguousarray(b.col_idx).tobytes())
+        return h.hexdigest()
 
     @property
     def nnz(self) -> int:
-        """Logical nnz: sum of unpadded block areas -- invariant under
+        """Logical nnz: sum of unpadded block areas for dense blocks and of
+        stored entry counts for sparse input blocks -- invariant under
         bucketing, chunking and merging."""
+        if self.block_nnz:
+            return int(sum(self.block_nnz))
         return int(
             sum(int(r.size) * int(c.size)
                 for r, c in zip(self.rowindices, self.colindices))
@@ -438,7 +468,13 @@ def build_layout(
     n = len(blocks)
     if not (len(rowindices) == len(colindices) == n):
         raise ValueError("blocks, rowindices, colindices must have equal length")
-    blocks = [np.asarray(b) for b in blocks]
+    # a scipy.sparse block densifies into the buckets and keeps its stored
+    # entry count as its logical nnz (the reference's _nnz rule)
+    sparse = [hasattr(b, "toarray") and hasattr(b, "nnz") for b in blocks]
+    block_nnz = tuple(int(b.nnz) if sp else int(np.prod(np.shape(b)))
+                      for b, sp in zip(blocks, sparse))
+    blocks = [np.asarray(b.toarray() if sp else b)
+              for b, sp in zip(blocks, sparse)]
 
     if granularity == "pow2":
         key_of = lambda m, k: (pow2_ceil(m), pow2_ceil(k))
@@ -580,4 +616,5 @@ def build_layout(
         rowindices=tuple(rlists),
         colindices=tuple(clists),
         block_loc=tuple(loc_map[i] for i in range(n)),
+        block_nnz=block_nnz if any(sparse) else (),
     )

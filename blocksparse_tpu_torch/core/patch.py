@@ -1,11 +1,14 @@
 """Patch-merged layout: ragged row-window merge with chunk-exact column cover.
 
 numpy copy of ``build_patch_plan`` from ``blocksparse_tpu/core/patch.py``
-at its default plan bias ("auto"); ``tests/test_torch_layout.py`` holds the
-two bit-identical.  The plan's shape choices (canvas search, grid group
+with its plan bias ``optimize`` ("auto" | "latency" | "throughput" | None,
+the operators' ``optimize=``; None is "auto", the JAX ``BST_OPT`` variable
+is not read); ``tests/test_torch_layout.py`` holds the two bit-identical
+under each value.  The plan's shape choices (canvas search, grid group
 ``G``) are the JAX package's, kept as they are so the port's kernel
-consumes the very plan the reference kernel consumed.  Not carried: the
-forced-canvas and "throughput" options and the one-hot row tables of the
+consumes the very plan the reference kernel consumed; the bias moves only
+``G``, the number of zero slots that pad the plan.  Not carried: the
+forced-canvas and forced-``G`` options and the one-hot row tables of the
 r = 1 TPU path.
 
 Contiguous-range blocks are merged into **patch slots**:
@@ -85,7 +88,8 @@ class PatchPlan:
 
 def build_patch_plan(layout: BlockLayout,
                      extra_layout: BlockLayout | None = None,
-                     transpose_main: bool = False):
+                     transpose_main: bool = False,
+                     optimize: str | None = None):
     """Build a PatchPlan from one layout (or a diag+offdiag pair).
 
     ``extra_layout``: when given, ``layout`` is the DIAGONAL operand and
@@ -99,6 +103,12 @@ def build_patch_plan(layout: BlockLayout,
     transpose-invariant, only the diagonal operand transposes.  Plain
     operands do not need it -- their transpose swaps the gather/scatter
     roles over the same plan.
+
+    ``optimize``: the grid-group bias.  "auto" / "latency" (and None) pick
+    an even step count around 2-8 where the group fits the reference
+    kernel's step budget; "throughput" searches the step count for the
+    fewest padded bytes plus a per-step tax, which the other values also
+    fall back to when the even-step group does not fit.
     """
     dts = [b.values.dtype for b in layout.buckets]
     if extra_layout is not None:
@@ -219,7 +229,10 @@ def build_patch_plan(layout: BlockLayout,
     # any slot count; G only fixes how many zero slots pad the plan.
     canvas_b = MP * KP * 4
     nb_real = len(slot_rows)
-    if canvas_b * 8 <= 4 * _STEP_BYTES and (
+    if optimize not in ("auto", "latency", "throughput", None):
+        raise ValueError(f"unknown optimize={optimize!r}; expected 'auto', "
+                         "'latency', 'throughput' or None")
+    if optimize != "throughput" and canvas_b * 8 <= 4 * _STEP_BYTES and (
             round_up(max(1, -(-nb_real // 8)), 8) * canvas_b
             <= 4 * _STEP_BYTES):
         # an even step count around 2-8, zero-slot padding capped at ~25%
@@ -233,6 +246,21 @@ def build_patch_plan(layout: BlockLayout,
         if G is None:
             G = min(g_cap, round_up(nb_real, 8))
             steps = -(-nb_real // G)
+    elif canvas_b * 8 <= 4 * _STEP_BYTES:
+        # G a multiple of 8 within the step budget: the step count with the
+        # fewest padded bytes plus a per-step tax
+        g_cap = max(8, (4 * _STEP_BYTES // canvas_b) // 8 * 8)
+        steps_lo = max(1, -(-nb_real // g_cap))
+        steps_hi = max(steps_lo, -(-nb_real // 8))
+        best_g = None
+        for steps in range(steps_lo, steps_hi + 1):
+            g = round_up(-(-nb_real // steps), 8)
+            if g > g_cap:
+                continue
+            cost = steps * g * canvas_b + steps * 16_384
+            if best_g is None or cost < best_g[0]:
+                best_g = (cost, g, steps)
+        _, G, steps = best_g
     else:
         # canvas too large for a G that is a multiple of 8
         G = max(1, _STEP_BYTES // canvas_b)

@@ -9,7 +9,9 @@ The host layout (``core/layout.py``) packs the blocks into shape buckets
 operator's ``device`` at construction.  A product routes as the JAX
 package's ``_apply`` does, minus its split-complex route (a TPU
 workaround; ``split_complex`` stays as an explicit API,
-``complexops.py``):
+``complexops.py``), after the route the population policy records for the
+operator's blocks where one is open (``utils/autotune.py``,
+``formats/stream.py``):
 
   1. f32, a merged-patch plan exists and ``patch_wins`` -> the patch
      route: the SpMM kernel B2 for r > 1, the SpMV kernel B7 for r = 1
@@ -42,10 +44,10 @@ complex operator is cast.  Any product whose compute dtype or operator
 dtype is not float32 takes route 3.
 
 The JAX constructors' ``backend=`` ("auto" | "xla" | "pallas" |
-"pallas-interpret") and ``optimize=`` ("auto" | "latency" | "throughput" |
-None) chose TPU engines and a TPU plan shape; here they are validated,
-stored and saved (``interop/serialize.py``) and change no route
-(``ops/dispatch.py``).  ``scatter=`` ("atomic" | "sorted") picks the
+"pallas-interpret") chose a TPU engine; here it is validated, stored and
+saved (``interop/serialize.py``) and changes no route
+(``ops/dispatch.py``).  ``optimize=`` ("auto" | "latency" | "throughput" |
+None) is the merged-patch plan's grid-group bias, as there.  ``scatter=`` ("atomic" | "sorted") picks the
 element buckets' pass: B9's element pass, or its owner mode (bit-identical
 from run to run; the chunked buckets still add with B1's atomics).
 """
@@ -62,8 +64,7 @@ from ..core import schedule as sched
 from ..core.layout import BlockLayout, build_layout
 from ..core.operator import LinearOperator
 from ..ops.dispatch import (StagedBuckets, apply_operand, check_jax_options,
-                            check_route_options, patch_eligible, patch_wins,
-                            strip_eligible)
+                            check_route_options)
 from .stream import StreamRouted
 
 __all__ = ["BlockSparseMatrix"]
@@ -101,12 +102,13 @@ def is_bf16(dtype) -> bool:
 
 
 def _host_block(b) -> tuple[np.ndarray, bool]:
-    """(numpy block, was bf16).  A scipy block densifies; a torch tensor
-    comes to the host; a bf16 block (a torch bf16 tensor, an ml_dtypes bf16
-    array or raw 2-byte records, read by their bits) becomes its exact
-    float32 copy."""
+    """(numpy block, was bf16).  A scipy block stays as it is, for the
+    layout to densify and count (``core/layout.build_layout``); a torch
+    tensor comes to the host; a bf16 block (a torch bf16 tensor, an
+    ml_dtypes bf16 array or raw 2-byte records, read by their bits) becomes
+    its exact float32 copy."""
     if hasattr(b, "toarray"):
-        b = b.toarray()
+        return b, False
     if isinstance(b, torch.Tensor):
         b = b.detach().cpu()
         if b.dtype == torch.bfloat16:
@@ -137,6 +139,10 @@ def host_values(groups, dtype):
 
     def rounded(a, was_bf16):
         if was_bf16:
+            return a
+        if hasattr(a, "toarray"):  # scipy: round the stored entries
+            a = a.astype(np.float32)
+            a.data = rounded(a.data, False)
             return a
         t = torch.from_numpy(np.ascontiguousarray(a))
         return t.to(torch.bfloat16).float().numpy()
@@ -233,10 +239,10 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
     the JAX package).  ``scatter``: "atomic" (B9's element pass) or
     "sorted" (its owner mode: race-free by row ownership, the same bits on
     every run; the chunked buckets still add with B1's atomics, as the JAX
-    chunked path ignores ``scatter``).  ``backend`` and ``optimize``: the
-    JAX package's TPU engine and TPU plan-shape choices, validated, stored
-    and saved; they change no route on the card or the CPU (see
-    ``ops/dispatch.py``).  ``dtype``: the stored dtype, float32, float64,
+    chunked path ignores ``scatter``).  ``backend``: the JAX package's TPU
+    engine choice, validated, stored and saved; it changes no route on the
+    card or the CPU (see ``ops/dispatch.py``).  ``optimize``: the patch
+    plan's bias (``core/patch.build_patch_plan``).  ``dtype``: the stored dtype, float32, float64,
     complex64, complex128 or bfloat16 (see the module docstring).
     """
 
@@ -329,7 +335,8 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
 
     @property
     def nnz(self) -> int:
-        """Logical nnz: sum of unpadded block areas."""
+        """Logical nnz: sum of unpadded block areas, a scipy block's
+        stored entries in place of its area."""
         return self._layout.nnz
 
     # -- reference API parity ----------------------------------------------
@@ -356,43 +363,38 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
 
     # -- compute ------------------------------------------------------------
     def _patch_for(self):
-        """Lazy merged-patch plan and its device tensors; None if ineligible
-        (non-contiguous lists or non-f32).  Transpose products reuse the same
-        plan with the gather/scatter roles swapped."""
+        """Lazy merged-patch plan (shaped by ``optimize``) and its device
+        tensors; None if ineligible (non-contiguous lists or non-f32).
+        Transpose products reuse the same plan with the gather/scatter roles
+        swapped."""
         if self._patch is None:
             from ..core.patch import build_patch_plan
             from ..ops.patch_engine import patch_device_arrays
 
-            plan = build_patch_plan(self._layout)
+            plan = build_patch_plan(self._layout, optimize=self._optimize)
             self._patch = (plan, None if plan is None
                            else patch_device_arrays(plan, self._device))
         return None if self._patch[0] is None else self._patch
+
+    def _patch_entry(self, transpose: bool):
+        return self._patch_for()
+
+    def _patch_run(self, entry, x, transpose: bool):
+        from ..ops.patch_engine import patch_apply
+
+        return patch_apply(entry[0], entry[1], x, transpose=transpose,
+                           precision=self._precision)
 
     def _apply(self, x, transpose: bool, conj: bool):
         return promoted_apply(self._apply_routes, x, self._device,
                               self._dtype, transpose, conj)
 
-    def _apply_routes(self, x, transpose: bool, conj: bool):
-        """The product on ``x`` in a compute dtype of the values."""
-        out_len = self.shape[1] if transpose else self.shape[0]
-        r = 1 if x.ndim == 1 else x.shape[1]
-        if patch_eligible(x, self._dtype, self._patch_mode):
-            entry = self._patch_for()
-            if entry is not None and patch_wins(
-                    entry[0], [(self._layout, 1)], r, self._patch_mode):
-                from ..ops.patch_engine import patch_apply
-
-                return patch_apply(entry[0], entry[1], x, transpose=transpose,
-                                   precision=self._precision)
-        # the patch and stream routes are f32: conj changes nothing there
-        if strip_eligible(x, self._dtype):
-            y = self._stream_apply(x, transpose)
-            if y is not None:
-                return y
+    def _bucket_apply(self, x, transpose: bool, conj: bool):
         colors = None
         if not sched.isserial(self._schedule):
             colors = self._tcolors if transpose else self._colors
-        return apply_operand(self._buckets, self._layout, out_len, x,
+        return apply_operand(self._buckets, self._layout,
+                             self.shape[1] if transpose else self.shape[0], x,
                              transpose=transpose, conj=conj, colors=colors,
                              scatter=self._scatter)
 

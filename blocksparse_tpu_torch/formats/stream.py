@@ -1,36 +1,58 @@
-"""The stream route of the formats: lazy panel and slab plans, one launch.
+"""The routes of the formats' products: policy, patch, stream, buckets.
 
-Every format sends its f32 r = 1 products here before the bucket route, as
-the JAX package's formats do.  The host plans (``core/panel.py``,
-``core/strip.py``) are built at the first such product and cached per
-transpose; ``ops/dispatch.stream_plan_choice`` picks panel, slab or None
-(the bucket route) from the host plans alone, and only the chosen plan is
-staged on the operator's device.  The panel plan is built by the
-operator's ``panel`` option (``ops/panel_router.py``) and runs kernel B5
-(``ops/kernels/panel_spmv.py``) or, for a v2 plan, kernel B10
-(``ops/kernels/panel2_spmv.py``); the slab plan runs kernel B8
-(``ops/kernels/slab_spmv.py``).
+Every format sends a product through :meth:`StreamRouted._apply_routes`,
+in the JAX package's order, after the population policy:
+
+  0. the route recorded for the operator's population
+     (``ops/dispatch.population_route``, set by ``utils/autotune``), or the
+     route pinned on a copy the autotuner times (``_pinned``), where that
+     route is open to the product;
+  1. the patch route where ``patch_wins``;
+  2. the stream route (f32 r = 1) where ``stream_plan_choice`` picks a
+     plan;
+  3. the bucket route.
+
+The stream route's host plans (``core/panel.py``, ``core/strip.py``) are
+built at the first such product and cached per transpose;
+``ops/dispatch.stream_plan_choice`` picks panel, slab or None (the bucket
+route) from the host plans alone, and only a plan that runs is staged on
+the operator's device, once (a plan the policy picks and the rule's plan
+share it).  The panel plan is built by the operator's ``panel`` option
+(``ops/panel_router.py``) and runs kernel B5 (``ops/kernels/
+panel_spmv.py``) or, for a v2 plan, kernel B10 (``ops/kernels/
+panel2_spmv.py``); the slab plan runs kernel B8 (``ops/kernels/
+slab_spmv.py``).
 """
 
 from __future__ import annotations
 
+import torch
+
 from ..core.panel import PanelPlan
 from ..core.strip import plan_from_layout
-from ..ops.dispatch import stream_plan_choice
+from ..ops.dispatch import (patch_eligible, patch_wins, population_route,
+                            stream_plan_choice, strip_eligible)
 from ..ops.kernels.slab_spmv import plan_device_arrays, slab_apply
 from ..ops.panel_router import panel_arrays, panel_plan_general, panel_run
 
 __all__ = ["StreamRouted"]
 
+# the population policy's stream routes and their plans' names here
+_STREAM_PLANS = {"panel": "panel", "slab": "strip"}
+
 
 class StreamRouted:
-    """Mixin for an operator with ``_device``, ``_panel`` (the ``panel=``
-    option) and an empty dict ``_stream``.
+    """Mixin for an operator with ``_device``, ``_dtype``, ``_panel`` (the
+    ``panel=`` option), ``_patch_mode`` and an empty dict ``_stream``.
 
-    The plans and bucket-route reads default to one general layout,
-    ``_layout`` (BSM, VBCRS); the symmetric format overrides
-    ``_build_panel``, ``_build_strip``, ``_stream_reads`` and
-    ``_panel_bytes``."""
+    A format supplies ``_patch_entry(transpose)`` (its lazy patch plan and
+    device tensors, or None), ``_patch_run(entry, x, transpose)`` and
+    ``_bucket_apply(x, transpose, conj)``.  The plans and bucket-route reads
+    default to one general layout, ``_layout`` (BSM, VBCRS); the symmetric
+    format overrides ``_build_panel``, ``_build_strip``, ``_stream_reads``
+    and ``_panel_bytes``."""
+
+    _pinned = None  # a route forced on a copy (utils/autotune)
 
     def _build_panel(self, transpose: bool):
         return panel_plan_general(self._layout, transpose=transpose,
@@ -40,7 +62,7 @@ class StreamRouted:
         return plan_from_layout(self._layout, transpose=transpose)
 
     def _stream_reads(self):
-        """[(layout, value reads)] of the bucket route, for the decision."""
+        """[(layout, value reads)] of the bucket route, for the decisions."""
         return [(self._layout, 1)]
 
     def _panel_bytes(self, plan):
@@ -62,6 +84,28 @@ class StreamRouted:
         return self._cached(("strip", transpose),
                             lambda: self._build_strip(transpose))
 
+    def _stage(self, choice: str, transpose: bool):
+        """(plan, device tensors) of the "panel" or "strip" plan for A (or
+        A^T), reusing those :meth:`_staged` keeps; None where there is no
+        plan."""
+        staged = self._stream.get(("staged", choice, transpose))
+        if staged is not None:
+            return staged
+        if choice == "panel":
+            plan, stage = self._panel_for(transpose), panel_arrays
+        else:
+            plan, stage = self._strip_for(transpose), plan_device_arrays
+        return None if plan is None else (plan, stage(plan, self._device))
+
+    def _staged(self, choice: str, transpose: bool):
+        """:meth:`_stage` for a route the policy picks, sharing the rule's
+        staged plan where it is the same one."""
+        entry = self._stream.get(("route", transpose))
+        if entry is not None and entry[0] == choice:
+            return entry[1:]
+        return self._cached(("staged", choice, transpose),
+                            lambda: self._stage(choice, transpose))
+
     def _stream_entry(self, transpose: bool):
         """(choice, plan, device tensors); choice None = bucket route."""
         def build():
@@ -69,13 +113,9 @@ class StreamRouted:
             choice = stream_plan_choice(pplan, self._strip_for(transpose),
                                         self._stream_reads(),
                                         panel_bytes=self._panel_bytes(pplan))
-            if choice == "panel":
-                plan = self._panel_for(transpose)
-                return choice, plan, panel_arrays(plan, self._device)
-            if choice == "strip":
-                plan = self._strip_for(transpose)
-                return choice, plan, plan_device_arrays(plan, self._device)
-            return None, None, None
+            if choice is None:
+                return None, None, None
+            return (choice, *self._stage(choice, transpose))
         return self._cached(("route", transpose), build)
 
     def _staged_panel(self, transpose: bool):
@@ -87,11 +127,58 @@ class StreamRouted:
             return None
         return entry[2]
 
-    def _stream_apply(self, x, transpose: bool):
-        """The product through the chosen stream plan, or None."""
-        choice, plan, dev = self._stream_entry(transpose)
+    def _stream_apply(self, x, transpose: bool, choice: str | None = None):
+        """The product through the rule's stream plan, or through the
+        ``choice`` ("panel" | "strip") plan where given; None where there
+        is none (the bucket route)."""
+        if choice is None:
+            choice, plan, dev = self._stream_entry(transpose)
+        elif (staged := self._staged(choice, transpose)) is None:
+            return None
+        else:
+            plan, dev = staged
         if choice == "panel":
             return panel_run(plan, dev, x)
         if choice == "strip":
             return slab_apply(plan, dev, x)
         return None
+
+    def _on_route(self, route: str, x, transpose: bool, conj: bool):
+        """The product on the policy's ``route``, or None where that route
+        is not open to it (the rules then decide)."""
+        if route == "bucket":
+            return self._bucket_apply(x, transpose, conj)
+        if route == "patch":
+            if (self._patch_mode == "never" or self._dtype != torch.float32
+                    or x.dtype != torch.float32):
+                return None
+            entry = self._patch_entry(transpose)
+            return None if entry is None else self._patch_run(entry, x,
+                                                              transpose)
+        if not strip_eligible(x, self._dtype):
+            return None
+        return self._stream_apply(x, transpose, _STREAM_PLANS[route])
+
+    def _drop_patch(self) -> None:
+        """Forget the patch plans (a new ``_optimize`` shapes the next)."""
+        self._patch = {} if isinstance(self._patch, dict) else None
+
+    def _apply_routes(self, x, transpose: bool, conj: bool):
+        """The product on ``x`` in a compute dtype of the values."""
+        r = 1 if x.ndim == 1 else x.shape[1]
+        route = self._pinned or population_route(self, r)
+        if route is not None:
+            y = self._on_route(route, x, transpose, conj)
+            if y is not None:
+                return y
+        if patch_eligible(x, self._dtype, self._patch_mode):
+            entry = self._patch_entry(transpose)
+            if entry is not None and patch_wins(
+                    entry[0], self._stream_reads(), r, self._patch_mode):
+                return self._patch_run(entry, x, transpose)
+        # the patch and stream routes are f32: conj changes nothing there
+        if strip_eligible(x, self._dtype):
+            y = self._stream_apply(x, transpose)
+            if y is not None:
+                return y
+        return self._bucket_apply(x, transpose, conj)

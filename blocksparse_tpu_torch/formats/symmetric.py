@@ -22,7 +22,8 @@ not cover).
 As in the JAX package, all four color sets are computed at construction
 whatever the schedule, and the default schedule is "colored".  A product
 routes as the JAX package's ``_apply`` does, minus its split-complex route
-(``split_complex`` stays as an explicit API, ``complexops.py``):
+(``split_complex`` stays as an explicit API, ``complexops.py``), after the
+population policy's route where one is open (``formats/stream.py``):
 
   1. f32, a symmetric patch plan exists and ``patch_wins`` -> the
      symmetric patch route on the plan for S or, with the transposed
@@ -52,10 +53,9 @@ from ..core import schedule as sched
 from ..core.layout import build_layout
 from ..core.operator import LinearOperator
 from ..core.strip import plan_symmetric
-from ..ops.dispatch import (apply_symmetric, check_route_options,
-                            patch_eligible, patch_wins, strip_eligible)
+from ..ops.dispatch import (apply_symmetric, check_jax_options,
+                            check_route_options)
 from ..ops.panel_router import panel_plan_sym, route_bytes
-from ..ops.dispatch import check_jax_options
 from .block_sparse import (_PRECISIONS, BlockSparseMatrix, _colors_tuple,
                            _resolve_device, _stage, _torch_dtype, host_values,
                            promoted_apply)
@@ -213,7 +213,8 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
             from ..ops.patch_engine import patch_device_arrays
 
             plan = build_patch_plan(self._dlayout, extra_layout=self._olayout,
-                                    transpose_main=transpose)
+                                    transpose_main=transpose,
+                                    optimize=self._optimize)
             self._patch[transpose] = (
                 plan, None if plan is None
                 else patch_device_arrays(plan, self._device))
@@ -237,28 +238,19 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
         # package's cost model; the fused streams read it once
         return [(self._dlayout, 1), (self._olayout, 2)]
 
+    _patch_entry = _patch_for
+
+    def _patch_run(self, entry, x, transpose: bool):
+        from ..ops.patch_engine import patch_apply
+
+        # the plan embeds S or S^T; it is applied as it is
+        return patch_apply(entry[0], entry[1], x, precision=self._precision)
+
     def _apply(self, x, transpose: bool, conj: bool):
         return promoted_apply(self._apply_routes, x, self._device,
                               self._dtype, transpose, conj)
 
-    def _apply_routes(self, x, transpose: bool, conj: bool):
-        """The product on ``x`` in a compute dtype of the values."""
-        r = 1 if x.ndim == 1 else x.shape[1]
-        if patch_eligible(x, self._dtype, self._patch_mode):
-            entry = self._patch_for(transpose)
-            if entry is not None and patch_wins(
-                    entry[0], [(self._dlayout, 1), (self._olayout, 2)], r,
-                    self._patch_mode):
-                from ..ops.patch_engine import patch_apply
-
-                # the plan embeds S or S^T; it is applied as it is
-                return patch_apply(entry[0], entry[1], x,
-                                   precision=self._precision)
-        # the patch and stream routes are f32: conj changes nothing there
-        if strip_eligible(x, self._dtype):
-            y = self._stream_apply(x, transpose)
-            if y is not None:
-                return y
+    def _bucket_apply(self, x, transpose: bool, conj: bool):
         colored = not sched.isserial(self._schedule)
         return apply_symmetric(
             self._dbuckets, self._dlayout, self._obuckets, self._olayout,

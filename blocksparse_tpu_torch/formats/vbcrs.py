@@ -10,7 +10,8 @@ transposed).  Construction validates contiguity unless ``check=False``.
 
 A product routes as the JAX package's ``_apply`` does, minus its
 split-complex route (``split_complex`` stays as an explicit API,
-``complexops.py``):
+``complexops.py``), after the population policy's route where one is open
+(``formats/stream.py``):
 
   1. f32, a merged-patch plan exists and ``patch_wins`` -> the patch
      route: kernel B2 for r > 1, kernel B7 for r = 1 (``patch="always"``
@@ -27,7 +28,8 @@ float32, float64, complex64, complex128 and bfloat16 storage; a complex
 product takes route 3, whose conjugate mode carries ``V.conj()`` and
 ``V.H``.  Operands of another dtype, bf16 storage and the ``backend=`` /
 ``optimize=`` / ``scatter=`` options behave as in
-:class:`~.block_sparse.BlockSparseMatrix`.
+:class:`~.block_sparse.BlockSparseMatrix`; scipy.sparse blocks densify
+before the layout sees them (VBCRS counts dense extents, vbcrs.jl:290-296).
 """
 
 from __future__ import annotations
@@ -40,9 +42,8 @@ import torch
 from ..core import schedule as sched
 from ..core.layout import BlockLayout, build_layout, is_contiguous
 from ..core.operator import LinearOperator
-from ..ops.dispatch import (apply_operand, check_route_options,
-                            patch_eligible, patch_wins, strip_eligible)
-from ..ops.dispatch import check_jax_options
+from ..ops.dispatch import (apply_operand, check_jax_options,
+                            check_route_options)
 from .block_sparse import (_PRECISIONS, BlockSparseMatrix, _resolve_device,
                            _stage, _torch_dtype, host_values, promoted_apply)
 from .stream import StreamRouted
@@ -116,6 +117,10 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
         self._schedule = sched.normalize_schedule(schedule)
         self._precision = precision
         n = len(blocks)
+        # scipy blocks densify here: VBCRS counts dense extents
+        # (vbcrs.jl:290-296), as the JAX package does
+        blocks = [b.toarray() if hasattr(b, "toarray") else b
+                  for b in blocks]
         (blocks,), np_dtype, bf16 = host_values([blocks], dtype)
         rstarts = np.array(
             [_as_start(rowindices[i], blocks[i].shape[0], "row", i, check)
@@ -268,29 +273,16 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
     # the lazy merged-patch plan of the general format, on the same fields
     # (VBCRS ranges are contiguous by construction: only f32 gates it)
     _patch_for = BlockSparseMatrix._patch_for
+    _patch_entry = BlockSparseMatrix._patch_entry
+    _patch_run = BlockSparseMatrix._patch_run
 
     def _apply(self, x, transpose: bool, conj: bool):
         return promoted_apply(self._apply_routes, x, self._device,
                               self._dtype, transpose, conj)
 
-    def _apply_routes(self, x, transpose: bool, conj: bool):
-        """The product on ``x`` in a compute dtype of the values."""
-        out_len = self.shape[1] if transpose else self.shape[0]
-        r = 1 if x.ndim == 1 else x.shape[1]
-        if patch_eligible(x, self._dtype, self._patch_mode):
-            entry = self._patch_for()
-            if entry is not None and patch_wins(
-                    entry[0], [(self._layout, 1)], r, self._patch_mode):
-                from ..ops.patch_engine import patch_apply
-
-                return patch_apply(entry[0], entry[1], x, transpose=transpose,
-                                   precision=self._precision)
-        # the patch and stream routes are f32: conj changes nothing there
-        if strip_eligible(x, self._dtype):
-            y = self._stream_apply(x, transpose)
-            if y is not None:
-                return y
-        return apply_operand(self._buckets, self._layout, out_len, x,
+    def _bucket_apply(self, x, transpose: bool, conj: bool):
+        return apply_operand(self._buckets, self._layout,
+                             self.shape[1] if transpose else self.shape[0], x,
                              transpose=transpose, conj=conj,
                              scatter=self._scatter)
 

@@ -6,13 +6,19 @@ and index lists, ragged as ``<prefix>_count`` plus ``<prefix>_<i>``) and the
 settings ``kind``, ``shape``, ``schedule``, ``backend``, ``precision``
 ("none" for None), ``granularity`` (its ``repr``), ``scatter``,
 ``optimize`` ("none" for None) and, where the operator carries measured
-autotune winners, ``autotune`` (JSON ``{kind: winner}``).  The port also
-writes ``patch`` and ``panel``; the JAX ``load`` reads keys by name and
-ignores them.
+autotune winners of the JAX package, ``autotune`` (JSON ``{kind:
+winner}``).  The port also writes ``patch``, ``panel`` and, where it
+carries winners of its own ``utils/autotune``, ``autotune_torch`` (JSON
+``{kind: route}``); the JAX ``load`` reads keys by name and ignores them.
 
-``autotune``: the port reads it and keeps it on the loaded operator
-(``_autotune_reports``), so a round trip writes it back unchanged; it
-applies no policy (the port has one engine per device).
+``autotune`` names TPU engines ("xla" / "pallas"), which the JAX ``load``
+registers as its policy, so the port never writes its routes there: it
+reads the key, keeps it on the loaded operator (``_jax_autotune``, and
+unapplied in ``_autotune_reports``) and writes it back unchanged.
+``autotune_torch``: ``load`` registers each spmv / spmm winner as the
+population policy of the loaded operator's layouts
+(``ops/dispatch.set_population_policy``), so its products take the saved
+route, as the JAX ``load`` does with its key.
 
 bf16: numpy has no bf16, and the JAX package's ``save`` writes bf16 blocks
 as raw 2-byte records (``|V2``) that its own ``load`` refuses.  The port
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 
 from ..formats.block_sparse import BlockSparseMatrix
+from ..ops.dispatch import POLICY_KINDS, layouts_of, set_population_policy
 from ..formats.symmetric import SymmetricBlockMatrix
 from ..formats.vbcrs import VariableBlockCompressedRowStorage
 
@@ -51,6 +58,22 @@ def _pack_ragged(prefix: str, arrays, out: dict) -> None:
 
 def _unpack_ragged(prefix: str, data) -> list[np.ndarray]:
     return [data[f"{prefix}_{i}"] for i in range(int(data[f"{prefix}_count"]))]
+
+
+def _winners(op) -> tuple[dict, dict]:
+    """({kind: winner} of the ``autotune`` key, of ``autotune_torch``):
+    the JAX key as it was loaded plus reports naming a TPU engine, and
+    the port's own reports."""
+    jax_keyed = dict(getattr(op, "_jax_autotune", None) or {})
+    mine = {}
+    for kind, rep in (getattr(op, "_autotune_reports", None) or {}).items():
+        if rep.get("key") == "autotune":
+            continue  # loaded from the JAX key: kept in _jax_autotune
+        if rep["winner"] in ("xla", "pallas"):
+            jax_keyed[kind] = rep["winner"]
+        else:
+            mine[kind] = rep["winner"]
+    return jax_keyed, mine
 
 
 def save(path, op) -> None:
@@ -76,10 +99,9 @@ def save(path, op) -> None:
     )
     if op.dtype == torch.bfloat16:
         meta["dtype"] = np.str_("bfloat16")
-    reports = getattr(op, "_autotune_reports", None)
-    if reports:
-        meta["autotune"] = np.str_(json.dumps(
-            {kind_: rep["winner"] for kind_, rep in reports.items()}))
+    for key, winners in zip(("autotune", "autotune_torch"), _winners(op)):
+        if winners:
+            meta[key] = np.str_(json.dumps(winners))
     if isinstance(op, SymmetricBlockMatrix):
         nd, no = range(op.ndiagonals), range(op.noffdiagonals)
         _pack_ragged("diag", [op.diagonal(i) for i in nd], meta)
@@ -124,8 +146,8 @@ def load(path, *, device="cuda", **overrides):
         if "dtype" in data and str(data["dtype"]) == "bfloat16":
             kwargs["dtype"] = torch.bfloat16
         kwargs.update(overrides)
-        autotune = (json.loads(str(data["autotune"])) if "autotune" in data
-                    else None)
+        jax_keyed, mine = (json.loads(str(data[key])) if key in data else {}
+                           for key in ("autotune", "autotune_torch"))
         if kind == "SymmetricBlockMatrix":
             op = SymmetricBlockMatrix(
                 _unpack_ragged("diag", data), _unpack_ragged("diagidx", data),
@@ -135,9 +157,17 @@ def load(path, *, device="cuda", **overrides):
             op = _FORMATS[kind](
                 _unpack_ragged("blocks", data), _unpack_ragged("rows", data),
                 _unpack_ragged("cols", data), shape, **kwargs)
-    if autotune:
-        op._autotune_reports = {
-            kind_: {"kind": kind_, "winner": winner, "applied": False,
-                    "loaded": True}
-            for kind_, winner in autotune.items()}
+    reports = {kind: {"kind": kind, "winner": winner, "applied": False,
+                      "loaded": True, "key": "autotune"}
+               for kind, winner in jax_keyed.items()}
+    for kind, route in mine.items():
+        if kind in POLICY_KINDS:
+            for lay in layouts_of(op):
+                set_population_policy(lay, kind, route)
+        reports[kind] = {"kind": kind, "winner": route, "applied": True,
+                         "loaded": True}
+    if jax_keyed:
+        op._jax_autotune = jax_keyed
+    if reports:
+        op._autotune_reports = reports
     return op

@@ -52,16 +52,35 @@ buckets still add with B1's atomics, as the JAX chunked path ignores
 ``scatter``, so a sorted product is bit-reproducible only where the
 operand has no chunked buckets; full determinism is ROADMAP A5.
 
-``backend=`` and ``optimize=`` (the JAX constructors' options) are stored,
-validated (:func:`check_jax_options`) and saved, and change no route here:
-they chose TPU engines (Pallas, XLA or the interpreter) and a TPU plan
-shape (an even grid-step bias that pipelined the TPU's value DMA), and the
-port has one engine per device, the kernels on the card and their plain
-versions on the CPU.
+The population policy (the port of the JAX ``auto_policy``'s first
+source): ``utils/autotune.autotune_backend`` times the routes open to an
+operator on the card and records the winner per population, keyed by the
+layout's content digest (:func:`set_population_policy`).  A format consults
+it ahead of the rules (:func:`population_route`): ``ROUTES`` are
+
+  - "bucket": the bucket route above (B1 and B9's element pass);
+  - "panel": the stream route's panel plan (B5, or B10 on a ``panel="v2"``
+    operator);
+  - "slab": the stream route's slab plan (B8);
+  - "patch": the patch route, B7 at r = 1, B2 at r > 1 (B3 on a symmetric
+    operator), also at r = 1 under ``patch="auto"``.
+
+A route not open to a product (a non-f32 operand or operator, a matrix
+operand on "panel" / "slab", ``patch="never"``, no plan for that
+orientation) falls through to the rules.  While the table is empty a
+product pays one dict test and no digest is computed.
+
+``backend=`` (the JAX constructors' engine choice: Pallas, XLA or the
+interpreter) is stored, validated (:func:`check_jax_options`) and saved,
+and routes nothing: the port has one engine per device, the kernels on the
+card and their plain versions on the CPU; the population policy takes its
+place.  ``optimize=`` ("auto" | "latency" | "throughput" | None) is the
+patch plan's grid-group bias, passed to ``core/patch.build_patch_plan`` as
+in the JAX package; ``utils/autotune.autotune_optimize`` measures it.
 
 The rules (``patch_wins``, ``stream_plan_choice``, the planners' costs) are
 the JAX package's, measured on a TPU v5e and kept so the port routes as it
-does; re-measuring them on the H100 is queued (ROADMAP D).  The JAX
+does; re-measuring them on the H100 is queued (ROADMAP A1).  The JAX
 package's TPU guards (chunk >= 8, the scalar-memory table cap, bf16
 alignment, the on-chip memory budget, the r = 1 patch kernel's G % 8 rule,
 and the mask-select kernels' operand cap n <= 32768 and 4096-index minimum)
@@ -85,14 +104,22 @@ __all__ = ["apply_operand", "apply_symmetric", "bucket_tables",
            "check_route_options", "element_plan", "patch_eligible",
            "patch_wins", "strip_eligible", "stream_plan_choice",
            "check_jax_options", "StagedBuckets", "PATCH_MODES", "PANEL_IMPLS",
-           "BACKENDS", "OPTIMIZE_MODES", "SCATTER_MODES"]
+           "BACKENDS", "OPTIMIZE_MODES", "SCATTER_MODES", "ROUTES",
+           "layouts_of", "population_policy", "population_route",
+           "set_population_policy"]
 
 PATCH_MODES = ("auto", "always", "never")
 PANEL_IMPLS = ("v1", "v2")
-# the JAX constructors' values (see the module docstring: stored, no route)
+# the JAX constructors' values (see the module docstring)
 BACKENDS = ("auto", "xla", "pallas", "pallas-interpret")
 OPTIMIZE_MODES = ("auto", "latency", "throughput", None)
 SCATTER_MODES = ("atomic", "sorted")
+ROUTES = ("bucket", "panel", "slab", "patch")
+POLICY_KINDS = ("spmv", "spmm")
+
+# measured winners per population, {(layout digest, kind): route}; written
+# by utils/autotune.autotune_backend(set_policy=True) and interop/serialize
+_POPULATION_POLICY: dict = {}
 
 # The bucket engines of the JAX package re-stream values per 128-column RHS
 # slice, the patch mono-kernel per 256 columns; one bucket launch costs about
@@ -125,6 +152,45 @@ def check_jax_options(backend: str, optimize, scatter: str = "atomic"
         if value not in valid:
             raise ValueError(f"unknown {name}={value!r}; expected one of "
                              f"{valid}")
+
+
+def layouts_of(op) -> list:
+    """The host layouts of an operator: ``_layout`` (general, VBCRS), or
+    ``_dlayout`` and ``_olayout`` (symmetric)."""
+    return [lay for lay in (getattr(op, a, None)
+                            for a in ("_layout", "_dlayout", "_olayout"))
+            if lay is not None]
+
+
+def set_population_policy(layout, kind: str, route: str) -> None:
+    """Record ``route`` (one of :data:`ROUTES`) for the ``kind`` ("spmv":
+    r = 1, "spmm": r > 1) products of every operator whose layout has
+    ``layout``'s content."""
+    if kind not in POLICY_KINDS:
+        raise ValueError(f"unknown kind={kind!r}; expected one of "
+                         f"{POLICY_KINDS}")
+    if route not in ROUTES:
+        raise ValueError(f"unknown route={route!r}; expected one of "
+                         f"{ROUTES}")
+    _POPULATION_POLICY[(layout.digest, kind)] = route
+
+
+def population_policy(layout, kind: str) -> str | None:
+    """The route recorded for ``layout``'s population and ``kind``, or
+    None; no digest is computed while the table is empty."""
+    if not _POPULATION_POLICY:
+        return None
+    return _POPULATION_POLICY.get((layout.digest, kind))
+
+
+def population_route(op, r: int) -> str | None:
+    """The policy's route for an r-column product of ``op``: the route
+    recorded for every layout of ``op``, else None (the rules decide)."""
+    if not _POPULATION_POLICY:
+        return None
+    kind = "spmv" if r == 1 else "spmm"
+    routes = {population_policy(lay, kind) for lay in layouts_of(op)}
+    return routes.pop() if len(routes) == 1 else None
 
 
 def patch_eligible(x: torch.Tensor, dtype: torch.dtype,

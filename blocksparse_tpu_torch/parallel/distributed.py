@@ -526,6 +526,11 @@ class DistributedBlockOperator(LinearOperator):
         """Step 4: every halo region of ``acc`` back onto its owners, who
         add it in over G-chunks."""
         ops, pending, offset = [], [], out_per
+        # index_add_ keeps its source for the backward, and the owner's own
+        # adds bump the version of the accumulator a local halo views, even
+        # one that needs no grad itself (a shard with no blocks)
+        keep = torch.is_grad_enabled() and any(
+            a.requires_grad for a in acc.values())
         for k, d in enumerate(dists):
             E = self._send_host[side_name][k].shape[1]
             seg = slice(offset, offset + E * G)
@@ -535,9 +540,7 @@ class DistributedBlockOperator(LinearOperator):
                     idx = getattr(shards[t], side_name)[k]
                     if src in acc:
                         recv = acc[src][seg].to(devs[t], non_blocking=True)
-                        if recv.requires_grad and torch.is_grad_enabled():
-                            # index_add_ keeps its source for the backward;
-                            # the owner's own adds must not change it
+                        if keep:
                             recv = recv.clone()
                     else:
                         recv = acc[t].new_empty((E * G, r))

@@ -9,6 +9,7 @@
     python3 chip_smoke.py --options      # phase 14 (options, dtypes, interop)
     python3 chip_smoke.py --distributed  # phase 15 (the distributed layer)
     python3 chip_smoke.py --mesh         # phase 15's transports across cards
+    python3 chip_smoke.py --autotune     # phase 16 (the route autotuner)
 
 Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
 
@@ -227,7 +228,20 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      cards or more (``--mesh`` runs them alone: the BEM's shards on every
      card of one process, then one process per card over NCCL,
      ``--nccl-worker`` being that check's worker); otherwise the phase
-     says why they did not.
+     says why they did not;
+ 16. the route autotuner (``--autotune`` runs this phase alone;
+     ``utils/autotune.py``): ``autotune_backend`` on config 1 (n = 8192)
+     and the symmetric real size (n = 32768) at r = 1 and r = 128 and on
+     the VBCRS real size (n = 32768) at r = 1 -- every route open to the
+     operator (bucket, panel, slab, patch) timed by the chained timer and
+     from a CUDA graph, printed beside the route the v5e rules pick and the
+     winner -- then one product launching exactly the winner's kernels,
+     within 1e-5 of the float64 plain route, and a save / load of each
+     operator (the policy table emptied, as in a new process) whose
+     products launch the saved winners' kernels; ``autotune_optimize`` on
+     config 1 at r = 128 (G, steps and padding slots of both plans, B2
+     under each) and the product under the winning bias; the seconds the
+     tuning takes.
 
 Every timed kernel also gets its bound -- the larger of its logical bytes
 (stored values, operands and results, each once) over 3.35 TB/s and its
@@ -293,7 +307,8 @@ from blocksparse_tpu_torch.core.strip import (  # noqa: E402
 from blocksparse_tpu_torch.core import panel as core_panel  # noqa: E402
 from blocksparse_tpu_torch.formats import symmetric as symmetric_format  # noqa: E402
 from blocksparse_tpu_torch.formats import vbcrs as vbcrs_format  # noqa: E402
-from blocksparse_tpu_torch.ops import batched, panel_router, patch_engine  # noqa: E402
+from blocksparse_tpu_torch.ops import (  # noqa: E402
+    batched, dispatch, panel_router, patch_engine)
 from blocksparse_tpu_torch.ops.dispatch import (  # noqa: E402
     apply_operand, apply_symmetric, bucket_tables, element_plan,
     patch_eligible, patch_wins)
@@ -306,7 +321,7 @@ from blocksparse_tpu_torch.ops.torch_spmv import bucket_apply  # noqa: E402
 from blocksparse_tpu_torch.parallel import multihost  # noqa: E402
 from blocksparse_tpu_torch.parallel.distributed import distribute  # noqa: E402
 from blocksparse_tpu_torch.parallel.mesh import Mesh  # noqa: E402
-from blocksparse_tpu_torch.utils import build  # noqa: E402
+from blocksparse_tpu_torch.utils import autotune, build  # noqa: E402
 from blocksparse_tpu_torch.utils.testmatrices import (  # noqa: E402
     random_block_sparse, random_symmetric)
 
@@ -5370,6 +5385,160 @@ def phase15(card: str) -> dict:
     return out
 
 
+# -- phase 16 ------------------------------------------------------------------
+
+# the route a launched kernel belongs to ("B2 prologue" rides with B2)
+ROUTE_OF = {"B1": "bucket", "B9 element": "bucket", "B9 gather": "bucket",
+            "B9 owner": "bucket", "B5": "panel", "B10": "panel", "B8": "slab",
+            "B7": "patch", "B2": "patch", "B3": "patch"}
+AUTOTUNE_CASES = (("bsm", 1), ("bsm", 128), ("sym", 1), ("sym", 128),
+                  ("vbcrs", 1))
+
+
+def routes_run(grown: dict) -> set:
+    """The routes whose kernels a product launched."""
+    return {ROUTE_OF[k] for k, v in grown.items() if v and k in ROUTE_OF}
+
+
+def route_want(op, route: str, r: int) -> dict:
+    """Exact launches of the route's own kernels in one f32 product
+    ``op @ X[:, :r]`` that takes ``route``."""
+    if route == "bucket":
+        want = bucket_want(op)
+        return {k: want[k] for k in ("B1", "B1 sym", "B9 element",
+                                     "B9 element sym")}
+    if route in ("panel", "slab"):
+        plan = op._staged("panel" if route == "panel" else "strip",
+                          False)[0]
+        name = ("B8" if route == "slab" else
+                "B10" if isinstance(plan, panel2.Panel2Plan) else "B5")
+        return {name: 1, f"{name} mirror": int(bool(plan.mirror))}
+    if r == 1:
+        return {"B7": 1}
+    return {"B3": 1} if hasattr(op, "_dlayout") else {"B2": 1,
+                                                      "B2 prologue": 1}
+
+
+def routed_once(label, op, x, route, r) -> dict:
+    """One product of ``op`` with the counters reset: the launches, held
+    to exactly ``route``'s kernels."""
+    reset_counts()
+    op @ x
+    torch.cuda.synchronize()
+    grown = counts()
+    require(routes_run(grown) == {route},
+            f"{label}: the product ran {routes_run(grown)}, not {route}: "
+            f"{grown}")
+    require_counts(label, grown, route_want(op, route, r))
+    return grown
+
+
+def phase16(card: str, defaults: dict | None = None) -> dict:
+    print("phase 16: autotune -- every route open to an operator timed on "
+          "the card (utils/autotune.autotune_backend), the winner recorded "
+          "per population and routing the next product; config 1 (n = 8192) "
+          "and the symmetric real size (n = 32768) at r = 1 and 128, the "
+          "VBCRS real size (n = 32768) at r = 1; save / load of each; "
+          "autotune_optimize on config 1 at r = 128")
+    t_phase = time.perf_counter()
+    ops = {key: (defaults or {}).get(key) or real_operand(key)[0]
+           for key in ("bsm", "sym", "vbcrs")}
+    gen = torch.Generator().manual_seed(16)
+    out = {"cases": {}, "errs": {}, "launches": Counter(), "roundtrip": {}}
+    tune_s = 0.0
+    for key, r in AUTOTUNE_CASES:
+        op, label = ops[key], f"{REAL[key]}, r = {r}"
+        n = op.shape[1]
+        x = (real_x(key) if r == 1
+             else torch.randn((n, r), generator=gen).to(DEV))
+        reset_counts()
+        op @ x
+        torch.cuda.synchronize()
+        (rule,) = routes_run(counts())
+        t0 = time.perf_counter()
+        report = autotune.autotune_backend(op, r)
+        torch.cuda.synchronize()
+        tune_s += time.perf_counter() - t0
+        require(report["applied"] and len(report["times_us"]) > 1,
+                f"{label}: autotune did not apply: {report}")
+        graph = {route: graph_ms(lambda B=autotune._pinned_copy(op, route):
+                                 B @ x)
+                 for route in report["times_us"]}
+        winner = report["winner"]
+        for route, us in report["times_us"].items():
+            print(f"  {label}: {route:6s} chained {us:9.2f} us, graph "
+                  f"{graph[route]:.4f} ms"
+                  f"{' <- winner' if route == winner else ''}"
+                  f"{' <- v5e rules' if route == rule else ''} [{card}]")
+        grown = routed_once(f"{label}: tuned product", op, x, winner, r)
+        out["launches"].update(grown)
+        y = op @ x
+        out["errs"][f"{key} r={r}"] = rel_check(
+            f"{label}: the winner's product ({winner}) vs the float64 plain "
+            "route", y, float64_reference(op, x), TOL32)
+        out["cases"][f"{key} r={r}"] = {
+            "times_us": report["times_us"], "graph_ms": graph,
+            "rule": rule, "winner": winner, "differs": winner != rule}
+        print(f"  {label}: v5e rules pick {rule}, autotune picks {winner}"
+              f"{' (differs)' if winner != rule else ''}")
+    print(f"  autotune_backend: {tune_s:.1f} s for {len(AUTOTUNE_CASES)} "
+          "cases")
+    for key, op in ops.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, f"{key}.npz")
+            t0 = time.perf_counter()
+            bt.save(path, op)
+            t1 = time.perf_counter()
+            dispatch._POPULATION_POLICY.clear()  # as in a new process
+            loaded = bt.load(path, device=DEV)
+            t2 = time.perf_counter()
+        for k, r in AUTOTUNE_CASES:
+            if k != key:
+                continue
+            case = out["cases"][f"{key} r={r}"]
+            x = (real_x(key) if r == 1 else
+                 torch.randn((op.shape[1], r), generator=gen).to(DEV))
+            out["launches"].update(routed_once(
+                f"{REAL[key]}, r = {r}: loaded product", loaded, x,
+                case["winner"], r))
+        out["roundtrip"][key] = {"save_s": t1 - t0, "load_s": t2 - t1}
+        print(f"  {REAL[key]}: save {t1 - t0:.2f} s, load {t2 - t1:.2f} s; "
+              "the loaded operator routes to the saved winners")
+        del loaded
+    A = ops["bsm"]
+    X = torch.randn((A.shape[1], 128), generator=gen).to(DEV)
+    t0 = time.perf_counter()
+    rep = autotune.autotune_optimize(A, 128)
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    require(A._optimize == rep["winner"] and (
+        rep["applied"] or rep["plans"]["latency"]
+        == rep["plans"]["throughput"]), f"autotune_optimize: {rep}")
+    for opt, plan in rep["plans"].items():
+        us = rep[f"{opt}_us"]
+        print(f"  config 1 r = 128, optimize={opt!r}: G {plan['G']}, "
+              f"{plan['steps']} steps, {plan['slots']} slots of which "
+              f"{plan['padded_slots']} padding; B2 chained "
+              + (f"{us:.2f} us" if us is not None else "not timed (the "
+                 "latency plan's)") + f" [{card}]")
+    print(f"  autotune_optimize: winner {rep['winner']!r}, applied "
+          f"{rep['applied']}{'; ' + rep['note'] if 'note' in rep else ''}")
+    reset_counts()
+    Y = A @ X
+    torch.cuda.synchronize()
+    require_counts("config 1 r = 128 under the winning bias", counts(),
+                   {"B2": 1, "B2 prologue": 1})
+    out["errs"]["optimize"] = rel_check(
+        f"config 1 r = 128 under optimize={rep['winner']!r} vs the float64 "
+        "plain route", Y, float64_reference(A, X), TOL32)
+    out["optimize"] = {**rep, "seconds": opt_s}
+    out["tune_s"] = tune_s
+    print(f"  autotune_optimize: {opt_s:.1f} s; phase 16 "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    dispatch._POPULATION_POLICY.clear()
+    return out
+
+
 def transpose_times(card: str) -> dict:
     """The transposed products of this checkout's B2, timed alone (eager
     and from a CUDA graph, at both tiers): A.T @ X on phase 3's operand (an
@@ -5639,6 +5808,12 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    if sys.argv[1:] == ["--autotune"]:
+        print(json.dumps({"autotune": phase16(card)}, default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if sys.argv[1:] == ["--options"]:
         opts = phase14(card)
         print(json.dumps({"kernels": opts["kernels"]}))
@@ -5674,6 +5849,7 @@ def main() -> None:
     cx = run("phase 13", phase13, card)
     opts = run("phase 14", phase14, card)
     dist = run("phase 15", phase15, card)
+    tuned = run("phase 16", phase16, card, defaults)
     print("phase wall times: " + ", ".join(f"{k} {v:.1f} s"
                                            for k, v in wall.items()))
     require(all(b7["launches"].values()) and all(b10["launches"].values()),
@@ -6105,6 +6281,10 @@ def main() -> None:
             f"{ {k['name']: k['launches'] for k in opts['kernels']} }")
     for entry in summary["kernels"]:
         entry.setdefault("dtypes", ["float32"])
+        kernel = re.search(r"\((B\d+)[) ]", entry["name"])
+        if kernel and tuned["launches"].get(kernel.group(1)):
+            # the tuned and the loaded products of phase 16
+            entry["launches_autotune"] = tuned["launches"][kernel.group(1)]
     print_rooflines(summary, card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -266,6 +266,49 @@ def test_gradient_matches_the_single_operator(fmt, rng):
         assert relerr(grads[0], grads[1].numpy()) < TOL
 
 
+EMPTY_SHARD_ARGS = {
+    "BlockSparseMatrix": lambda: random_block_sparse(
+        15, shape=(519, 519), nblocks=40, max_block=50, dtype=np.float64),
+    "SymmetricBlockMatrix": lambda: random_symmetric(
+        15, n=500, ngroups=12, noffdiag=20, dtype=np.float64),
+    "VariableBlockCompressedRowStorage": lambda: random_vbcrs(
+        10, shape=(500, 500), nrowgroups=10, ncolgroups=10),
+}
+
+
+@pytest.mark.parametrize("fmt", sorted(EMPTY_SHARD_ARGS))
+@pytest.mark.parametrize("rhs", [None, 2], ids=["1d", "2d"])
+def test_gradient_with_an_empty_shard(fmt, rhs, rng):
+    """x's gradient through D and D.T when the last of 3 shards holds no
+    blocks (its rows all padding, or none of the blocks'), against
+    ``jax.grad`` through the JAX ``distribute`` on a mesh of the same
+    shape and against scipy: on a 1-D mesh with x [n], and on a 3 x 2 mesh
+    with the RHS axis and x [n, 4]."""
+    Aj, At, _ = both(fmt, *EMPTY_SHARD_ARGS[fmt]())
+    n = At.shape[1]
+    if rhs is None:
+        mesh, jm, kw, cols = tmesh(3), jmesh(3), {}, ()
+    else:
+        mesh = Mesh(np.array(["cpu"] * 3 * rhs).reshape(3, rhs),
+                    ("rows", "rhs"))
+        jm = JaxMesh(np.array(jax.devices()[:3 * rhs]).reshape(3, rhs),
+                     ("rows", "rhs"))
+        kw, cols = {"rhs_axis": "rhs"}, (2 * rhs,)
+    D = distribute(At, mesh, **kw)
+    assert any(not shard.groups for shard in D._shards.values())
+    Dj = jdistribute(Aj, jm, **kw)
+    S = bst.to_scipy(Aj)
+    for op, jop, ref in ((D, Dj, S.T), (D.T, Dj.T, S)):
+        w = rng.standard_normal((n,) + cols)
+        x0 = rng.standard_normal((n,) + cols)
+        x = t(x0).requires_grad_()
+        (t(w) * (op @ x)).sum().backward()
+        want = jax.grad(lambda v: jnp.sum(jnp.asarray(w) * (jop @ v)))(
+            jnp.asarray(x0))
+        assert relerr(x.grad, want) < TOL
+        assert relerr(x.grad, ref @ w) < TOL
+
+
 def test_shard_groups_route_to_b1_and_b9(monkeypatch, rng):
     """Per shard, a chunked group goes to B1's multi-bucket wrapper and an
     element group to B9's element pass: counted on the plain path, one

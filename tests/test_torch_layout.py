@@ -97,7 +97,9 @@ def assert_same_layout(mine, ref):
         for f in _BUCKET_FIELDS:
             assert_same_array(getattr(bm, f), getattr(br, f), f"bucket {i} {f}")
     assert mine.block_loc == ref.block_loc
+    assert mine.block_nnz == ref.block_nnz
     assert mine.nnz == ref.nnz and mine.padded_nnz == ref.padded_nnz
+    assert mine.digest == ref._digest
     for a, b in zip(mine.rowindices + mine.colindices,
                     ref.rowindices + ref.colindices):
         assert_same_array(a, b, "index lists")
@@ -118,6 +120,39 @@ def test_layout_bit_identical(kind, dtype):
         assert any(b.chunk > 1 and not b.all_contiguous for b in mine.buckets)
     if kind == "element-scattered":
         assert any(b.chunk == 1 for b in mine.buckets)
+
+
+@pytest.mark.parametrize("fmt", ["csr", "csc", "coo"])
+@pytest.mark.parametrize("kind", ["contiguous", "element-scattered"])
+def test_layout_from_scipy_blocks_bit_identical(kind, fmt):
+    """scipy.sparse blocks beside dense ones: densified into the same
+    buckets, their stored entry counts kept as ``block_nnz`` and summed by
+    ``nnz`` (the reference's rule), byte-equal to the JAX layout."""
+    import scipy.sparse as sp
+
+    blocks, rows, cols, shape = fixture(kind)
+    blocks = [sp.random(*b.shape, density=0.3, format=fmt, random_state=i)
+              if i % 3 == 0 else b for i, b in enumerate(blocks)]
+    mine = build_layout(blocks, rows, cols, shape)
+    ref = jax_build_layout(blocks, rows, cols, shape, granularity="pow2")
+    assert_same_layout(mine, ref)
+    assert mine.block_nnz[0] == blocks[0].nnz < np.prod(blocks[0].shape)
+    assert mine.nnz < sum(r.size * c.size for r, c in zip(rows, cols))
+
+
+def test_digest_is_computed_where_read():
+    """The digest is the JAX one, computed at its first read and cached;
+    layouts of equal content digest equal, and a changed value changes
+    it."""
+    blocks, rows, cols, shape = fixture("mixed")
+    mine = build_layout(blocks, rows, cols, shape)
+    assert "digest" not in vars(mine)
+    assert mine.digest == jax_build_layout(blocks, rows, cols, shape,
+                                           granularity="pow2")._digest
+    assert vars(mine)["digest"] == mine.digest
+    assert build_layout(blocks, rows, cols, shape).digest == mine.digest
+    blocks[0] = blocks[0] + 1.0
+    assert build_layout(blocks, rows, cols, shape).digest != mine.digest
 
 
 @pytest.mark.parametrize("seed", [11, 12, 13])
@@ -195,6 +230,58 @@ def test_patch_plan_symmetric_bit_identical(transpose_main):
     assert_same_plan(mine, jax_build_patch_plan(
         ref_d, extra_layout=ref_o, transpose_main=transpose_main,
         optimize="auto"))
+
+
+@pytest.mark.parametrize("optimize", ["auto", "latency", "throughput", None])
+@pytest.mark.parametrize("kind", ["contiguous", "aligned", "symmetric",
+                                  "wide"])
+def test_patch_plan_bias_bit_identical(kind, optimize):
+    """``optimize=`` shapes the plan as in the JAX planner: byte-equal
+    under every value (None is "auto"; the JAX side gets the value itself,
+    so its ``BST_OPT`` fallback is never read)."""
+    if kind == "symmetric":
+        d, di, o, ri, ci, shape = tm.random_symmetric(
+            8, n=320, ngroups=6, noffdiag=8, dtype=np.float32,
+            contiguous=True)
+        mine = build_patch_plan(build_layout(d, di, di, shape),
+                                extra_layout=build_layout(o, ri, ci, shape),
+                                optimize=optimize)
+        ref = jax_build_patch_plan(
+            jax_build_layout(d, di, di, shape, granularity="pow2"),
+            extra_layout=jax_build_layout(o, ri, ci, shape,
+                                          granularity="pow2"),
+            optimize=optimize or "auto")
+    else:
+        if kind == "wide":  # many slots: the search differs from auto
+            blocks, rows, cols, shape = tm.random_block_sparse(
+                9, shape=(2048, 2048), nblocks=160, max_block=48,
+                dtype=np.float32, contiguous=True)
+        else:
+            blocks, rows, cols, shape = fixture(kind)
+            blocks = [b.astype(np.float32) for b in blocks]
+        mine = build_patch_plan(build_layout(blocks, rows, cols, shape),
+                                optimize=optimize)
+        ref = jax_build_patch_plan(
+            jax_build_layout(blocks, rows, cols, shape, granularity="pow2"),
+            optimize=optimize or "auto")
+    assert_same_plan(mine, ref)
+
+
+def test_patch_plan_throughput_moves_only_g():
+    """On a population with many slots the throughput bias picks another
+    grid group than "auto": the same slots, other zero padding."""
+    blocks, rows, cols, shape = tm.random_block_sparse(
+        9, shape=(2048, 2048), nblocks=160, max_block=48, dtype=np.float32,
+        contiguous=True)
+    lay = build_layout(blocks, rows, cols, shape)
+    auto, thr = (build_patch_plan(lay, optimize=o)
+                 for o in ("auto", "throughput"))
+    a, t = auto.buckets[0], thr.buckets[0]
+    assert (a.MP, a.KP) == (t.MP, t.KP) and a.G != t.G
+    real = int((a.vals != 0).any(axis=(1, 2)).sum())
+    assert real == int((t.vals != 0).any(axis=(1, 2)).sum())
+    with pytest.raises(ValueError, match="optimize"):
+        build_patch_plan(lay, optimize="fast")
 
 
 def test_patch_plan_transpose_main_rectangular():

@@ -234,6 +234,112 @@ def test_port_file_loads_in_jax(fmt, dtype, tmp_path):
     assert (Q.patch, Q.panel) == ("never", "v2")
 
 
+TUNED = {"general": lambda: random_block_sparse(
+              85, shape=(256, 256), nblocks=12, max_block=40,
+              dtype=np.float32, contiguous=True),
+          "symmetric": lambda: random_symmetric(
+              86, n=256, ngroups=8, noffdiag=8, dtype=np.float32,
+              contiguous=True),
+          "vbcrs": lambda: random_vbcrs(87, shape=(256, 256), nrowgroups=8,
+                                        ncolgroups=8, dtype=np.float32)}
+
+
+def ran_routes(op, x):
+    """The routes the entry points of which ``op @ x`` ran."""
+    from blocksparse_tpu_torch.formats import block_sparse, stream, symmetric
+    from blocksparse_tpu_torch.formats import vbcrs
+    from blocksparse_tpu_torch.ops import patch_engine
+
+    ran, origs = [], []
+    for mod, name, route in (
+            (stream, "panel_run", "panel"), (stream, "slab_apply", "slab"),
+            (patch_engine, "patch_apply", "patch"),
+            (block_sparse, "apply_operand", "bucket"),
+            (vbcrs, "apply_operand", "bucket"),
+            (symmetric, "apply_symmetric", "bucket")):
+        fn = getattr(mod, name)
+        origs.append((mod, name, fn))
+        setattr(mod, name, lambda *a, _f=fn, _r=route, **k: (
+            ran.append(_r), _f(*a, **k))[1])
+    try:
+        op @ x
+    finally:
+        for mod, name, fn in origs:
+            setattr(mod, name, fn)
+    return ran
+
+
+@pytest.mark.parametrize("fmt", list(KINDS))
+def test_tuned_files_cross_load(fmt, tmp_path):
+    """A port-tuned file: the winners go under ``autotune_torch``, the port's
+    ``load`` registers them (a fresh process's policy: the table emptied)
+    and the loaded operator's products take the saved routes; the JAX
+    ``load`` reads the file and registers nothing of it.  A JAX-tuned file
+    (engine winners under ``autotune``) loads in the port, keeps its key
+    through a port tuning and a second save, and loads back in the JAX
+    package with its winners registered."""
+    from blocksparse_tpu.ops import dispatch as jdispatch
+    from blocksparse_tpu.utils.autotune import _layouts_of
+    from blocksparse_tpu_torch.ops import dispatch
+    from blocksparse_tpu_torch.utils.autotune import decide
+
+    args = TUNED[fmt]()
+    A = getattr(bt, KINDS[fmt])(*args, device="cpu")
+    n = A.shape[1]
+    x = torch.from_numpy(np.random.default_rng(88).standard_normal(
+        n).astype(np.float32))
+    X = torch.from_numpy(np.random.default_rng(89).standard_normal(
+        (n, 3)).astype(np.float32))
+    untuned = ran_routes(A, x)
+    p, q = tmp_path / "tuned.npz", tmp_path / "jax_tuned.npz"
+    dispatch._POPULATION_POLICY.clear()
+    jdispatch._POPULATION_POLICY.clear()
+    try:
+        winner = "slab" if untuned != ["slab"] else "panel"
+        decide(A, "spmv", {"bucket": 3.0, winner: 1.0})
+        decide(A, "spmm", {"bucket": 1.0, "patch": 2.0})
+        bt.save(p, A)
+        with np.load(p) as data:
+            assert "autotune" not in data
+            assert json.loads(str(data["autotune_torch"])) == {
+                "spmv": winner, "spmm": "bucket"}
+        dispatch._POPULATION_POLICY.clear()
+        B = bt.load(p, device="cpu")
+        assert B._autotune_reports["spmv"] == {
+            "kind": "spmv", "winner": winner, "applied": True,
+            "loaded": True}
+        assert ran_routes(B, x) == [winner]
+        assert ran_routes(B, X) == ["bucket"]
+        J = bst.load(p)
+        assert not jdispatch._POPULATION_POLICY
+        assert relerr(B @ x, J @ jnp.asarray(x.numpy())) < 1e-6
+
+        Jt = getattr(bst, KINDS[fmt])(*args)
+        Jt._autotune_reports = {
+            "spmv": {"kind": "spmv", "winner": "pallas", "applied": True},
+            "optimize": {"kind": "optimize", "winner": "latency",
+                         "applied": True}}
+        bst.save(q, Jt)
+        dispatch._POPULATION_POLICY.clear()
+        P = bt.load(q, device="cpu")
+        assert P._jax_autotune == {"spmv": "pallas", "optimize": "latency"}
+        assert not dispatch._POPULATION_POLICY
+        assert ran_routes(P, x) == untuned
+        decide(P, "spmv", {"bucket": 1.0, "panel": 2.0})
+        bt.save(q, P)
+        with np.load(q) as data:
+            assert json.loads(str(data["autotune"])) == {
+                "spmv": "pallas", "optimize": "latency"}
+            assert json.loads(str(data["autotune_torch"])) == {
+                "spmv": "bucket"}
+        jdispatch._POPULATION_POLICY.clear()
+        J2 = bst.load(q)
+        assert jdispatch.auto_policy("spmv", _layouts_of(J2)[0]) == "pallas"
+    finally:
+        dispatch._POPULATION_POLICY.clear()
+        jdispatch._POPULATION_POLICY.clear()
+
+
 @pytest.mark.parametrize("fmt", ["general", "vbcrs"])
 def test_bf16_files_cross_load(fmt, tmp_path):
     """The port writes bf16 as float32 values plus ``dtype = "bfloat16"``:
