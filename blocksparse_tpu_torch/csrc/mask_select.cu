@@ -48,26 +48,9 @@
 // c128: values read in their stored type, computed in the wider one), named
 // bst_element_pass_<stored>_<compute>.
 //
-// The owner mode (bst_element_owner_*): the element pass of an operator
-// built with scatter="sorted", the port of the JAX engine's sorted
-// scatter (blocksparse_tpu/ops/xla_spmv.py: each element bucket's products
-// permuted by a stable argsort of their targets and summed with
-// segment_sum(indices_are_sorted=True)).  Race-freedom by row ownership:
-// the host builds, per output row that any element bucket reaches, the
-// list of its contributions (bucket, entry) in the JAX order (buckets in
-// order, then each bucket's entries in the stable-sorted order, which is
-// ascending entry order among equal targets); one warp owns one output
-// row, walks its list, forms each contribution V[b, i, :] . x[col_idx[b,
-// :]] (transpose: V[b, :, k] . x[row_idx[b, :]]) and writes y[row] once,
-// y[row] + sum, with no atomics.  Every sum is taken in a fixed order (at
-// r = 1 the lanes split the contraction, each lane sums its share of every
-// contribution in list order and a fixed shuffle tree adds the lanes; at
-// r > 1 a lane owns one output column and sums in list order), so the
-// result is bit-identical from run to run.  What bounds it: each
-// contribution reads its row of V and its gathered x once; a row's warp
-// runs its contributions one after another, so a row with many of them is
-// latency-bound, and at 1 < r < 32 most lanes idle.  This is the simple,
-// deterministic kernel; its speed is later work.
+// The owner mode of the element pass (scatter="sorted", the port of the JAX
+// engine's sorted scatter) is owner_pass.cu: two passes at every r,
+// race-free by row ownership and bit-identical from run to run.
 #include "tile_core.cuh"
 
 namespace {
@@ -142,116 +125,6 @@ static int element_pass(const void* table, int n, long long items,
                                                  y_rows, mode, stream);
 }
 
-namespace {
-
-constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float shfl_down(float v, int off) {
-  return __shfl_down_sync(0xffffffffu, v, off);
-}
-__device__ __forceinline__ double shfl_down(double v, int off) {
-  return __shfl_down_sync(0xffffffffu, v, off);
-}
-template <typename R>
-__device__ __forceinline__ bst::cplx<R> shfl_down(bst::cplx<R> v, int off) {
-  return bst::cplx<R>(shfl_down(v.re, off), shfl_down(v.im, off));
-}
-
-// One warp per owned row: rows[w] is the output row, its contributions are
-// ent[ptr[w] .. ptr[w + 1]) as (bucket, entry) pairs, entry = b * mp + i
-// (forward) or b * kp + k (transpose).
-template <typename V, typename T, bool TRANS, bool CONJ>
-__global__ void __launch_bounds__(kThreads)
-    owner_kernel(const bst::BucketDesc* __restrict__ tab,
-                 const int* __restrict__ rows,
-                 const long long* __restrict__ ptr,
-                 const int2* __restrict__ ent, long long n_rows,
-                 const T* __restrict__ x, long long x_rows,
-                 T* __restrict__ y, long long y_rows, int r) {
-  const long long w = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (w >= n_rows) return;
-  const long long row = rows[w];
-  if (row < 0 || row >= y_rows) return;
-  const long long e0 = ptr[w], e1 = ptr[w + 1];
-  // acc + A[pos][j] * x[in row j, column c]: one step of a contribution
-  auto step = [&](const bst::BucketDesc& d, int b, int pos, int j, int c,
-                  T acc) -> T {
-    const int mp = (int)d.mp, kp = (int)d.kp;
-    const V* vb = static_cast<const V*>(d.vals) + (long long)b * mp * kp;
-    const V v = TRANS ? vb[(long long)j * kp + pos] : vb[(long long)pos * kp + j];
-    const long long in = TRANS ? d.row_tab[(long long)b * mp + j]
-                               : d.col_tab[(long long)b * kp + j];
-    const T xv = (in >= 0 && in < x_rows) ? x[in * r + c] : T(0);
-    return bst::mac(bst::conj_if<CONJ>(bst::Widen<T, V>::of(v)), xv, acc);
-  };
-  if (r == 1) {
-    T acc = T(0);
-    for (long long e = e0; e < e1; ++e) {
-      const int2 q = ent[e];
-      const bst::BucketDesc d = tab[q.x];
-      const int extent = TRANS ? (int)d.kp : (int)d.mp;
-      const int K = TRANS ? (int)d.mp : (int)d.kp;
-      const int b = q.y / extent, pos = q.y % extent;
-      for (int j = lane; j < K; j += 32) acc = step(d, b, pos, j, 0, acc);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) acc = acc + shfl_down(acc, off);
-    if (lane == 0) y[row] = y[row] + acc;
-    return;
-  }
-  for (int c0 = 0; c0 < r; c0 += 32) {
-    const int c = c0 + lane;
-    if (c >= r) break;
-    T acc = T(0);
-    for (long long e = e0; e < e1; ++e) {
-      const int2 q = ent[e];
-      const bst::BucketDesc d = tab[q.x];
-      const int extent = TRANS ? (int)d.kp : (int)d.mp;
-      const int K = TRANS ? (int)d.mp : (int)d.kp;
-      const int b = q.y / extent, pos = q.y % extent;
-      for (int j = 0; j < K; ++j) acc = step(d, b, pos, j, c, acc);
-    }
-    y[row * r + c] = y[row * r + c] + acc;
-  }
-}
-
-}  // namespace
-
-// The owner mode: table as for the element pass (n descriptors of element
-// buckets), rows [n_rows] int32 the owned output rows, ptr [n_rows + 1]
-// int64 the offsets of their contributions in ent, ent [ptr[n_rows], 2]
-// int32 (bucket, entry); mode 0 forward or 1 transpose, plus bst::kConj.
-// y is added into, one write per owned row.
-template <typename V, typename T>
-static int owner_pass(const void* table, int n, const int* rows,
-                      const long long* ptr, const int* ent, long long n_rows,
-                      const T* x, T* y, int r, long long x_rows,
-                      long long y_rows, int mode, void* stream) {
-  const bool conj = bst::kComplex<T> && (mode & bst::kConj) != 0;
-  mode &= ~bst::kConj;
-  if (n < 0 || n_rows < 0 || (mode != 0 && mode != 1) ||
-      (n_rows + kWarps - 1) / kWarps > 0x7fffffffLL)
-    return (int)cudaErrorInvalidValue;
-  if (n_rows == 0 || r <= 0 || y_rows == 0) return 0;
-  const dim3 grid((unsigned)((n_rows + kWarps - 1) / kWarps));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* tab = static_cast<const bst::BucketDesc*>(table);
-  const auto* e2 = reinterpret_cast<const int2*>(ent);
-#define BST_OWNER_LAUNCH(TR_, CJ_)                                            \
-  owner_kernel<V, T, TR_, CJ_><<<grid, kThreads, 0, s>>>(                     \
-      tab, rows, ptr, e2, n_rows, x, x_rows, y, y_rows, r)
-  if (mode == 0) {
-    if (conj) BST_OWNER_LAUNCH(false, bst::kComplex<T>);
-    else BST_OWNER_LAUNCH(false, false);
-  } else {
-    if (conj) BST_OWNER_LAUNCH(true, bst::kComplex<T>);
-    else BST_OWNER_LAUNCH(true, false);
-  }
-#undef BST_OWNER_LAUNCH
-  return (int)cudaGetLastError();
-}
-
 using bf16 = __nv_bfloat16;
 using c64 = bst::cplx<float>;
 using c128 = bst::cplx<double>;
@@ -262,13 +135,6 @@ using c128 = bst::cplx<double>;
       long long x_rows, long long y_rows, int mode, void* stream) {           \
     return element_pass<V, T>(table, n, items, x, y, r, x_rows, y_rows,       \
                               mode, stream);                                  \
-  }                                                                           \
-  extern "C" int bst_element_owner_##SUFFIX(                                  \
-      const void* table, int n, const int* rows, const long long* ptr,        \
-      const int* ent, long long n_rows, const T* x, T* y, int r,              \
-      long long x_rows, long long y_rows, int mode, void* stream) {           \
-    return owner_pass<V, T>(table, n, rows, ptr, ent, n_rows, x, y, r,        \
-                            x_rows, y_rows, mode, stream);                    \
   }
 
 BST_B9_ENTRIES(f32, float, float)

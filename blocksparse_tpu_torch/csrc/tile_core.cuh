@@ -57,6 +57,10 @@
 // MIRROR (TR <= 32, B1's symmetric mode) adds the transposed contribution
 // of the same shared-memory tile (y[in rows] += A^T x[out rows]) for every
 // row, one read of V feeding two products.
+//
+// STORE (B9's owner mode, owner_pass.cu) writes each finished row instead of
+// adding it: the output is a scratch of one row per (block, row) (FlatMap),
+// so every entry has exactly one writer and needs no atomic.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -186,6 +190,17 @@ struct ElemMap {
   }
 };
 
+// B9's owner products: row i of block b of a bucket at row base + b * M + i
+// of a scratch that holds every (block, row) of every bucket in this
+// direction (base: the bucket's first row; M: mp forward, kp transposed)
+struct FlatMap {
+  long long base;
+  int M;
+  __device__ __forceinline__ long long operator()(int b, int i) const {
+    return base + (long long)b * M + i;
+  }
+};
+
 // One bucket of a launch; the wrapper writes these as rows of an int64
 // tensor [n, 9] (ops/kernels/fused_spmm.py::BucketTable).  first[0] numbers
 // the work items of the forward and symmetric modes (M = mp), first[1]
@@ -205,14 +220,10 @@ struct DescTable {
   BucketDesc one;
 };
 
-// The bucket that owns work item g (the last whose first item is <= g) and
-// the item's number inside it.
-__device__ __forceinline__ BucketDesc locate(const DescTable& t, long long g,
-                                             int side, long long& item) {
-  if (t.dev == nullptr) {
-    item = g;
-    return t.one;
-  }
+// The index of the bucket that owns work item g of a device table: the last
+// whose first item is <= g.
+__device__ __forceinline__ int locate_index(const DescTable& t, long long g,
+                                            int side) {
   int lo = 0, hi = t.n - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) / 2;
@@ -221,16 +232,27 @@ __device__ __forceinline__ BucketDesc locate(const DescTable& t, long long g,
     else
       hi = mid - 1;
   }
-  const BucketDesc d = t.dev[lo];
+  return lo;
+}
+
+// The bucket that owns work item g and the item's number inside it.
+__device__ __forceinline__ BucketDesc locate(const DescTable& t, long long g,
+                                             int side, long long& item) {
+  if (t.dev == nullptr) {
+    item = g;
+    return t.one;
+  }
+  const BucketDesc d = t.dev[locate_index(t, g, side)];
   item = g - d.first[side];
   return d;
 }
 
 // A = V (TRANS false, [mp, kp]) or V^T (TRANS true, [kp, mp]) of block b;
 // item = b * ceil(M / kMT) + (output tile).  grid: y = ceil(r / TR); block:
-// kThreads.  VS: the stored type of the values, T the compute type.
+// kThreads.  VS: the stored type of the values, T the compute type.  STORE:
+// write each output entry instead of adding it (see the header).
 template <typename VS, typename T, int TR, bool TRANS, bool MIRROR, bool CONJ,
-          class OutMap, class InMap>
+          class OutMap, class InMap, bool STORE = false>
 __device__ __forceinline__ void tile_product(
     const VS* __restrict__ vals, int mp, int kp, OutMap out_row,
     InMap in_row, const T* __restrict__ x, long long x_rows,
@@ -238,6 +260,7 @@ __device__ __forceinline__ void tile_product(
   static_assert(TR == 1 || TR == 32 || TR == 64 || TR == 128,
                 "column tile is 1, 32, 64 or 128");
   static_assert(!MIRROR || TR <= 32, "mirror pass takes column tiles <= 32");
+  static_assert(!(MIRROR && STORE), "a stored tile has one writer per entry");
   constexpr int KT = stage_depth<T, TR>();
   const int M = TRANS ? kp : mp;  // output extent of A
   const int K = TRANS ? mp : kp;  // contraction extent
@@ -257,7 +280,11 @@ __device__ __forceinline__ void tile_product(
                                                     : T(0);
   };
   auto add_y = [&](long long row, int c, T v) {
-    if (row >= 0 && row < y_rows && c0 + c < r) atomic_add(&y[row * r + c0 + c], v);
+    if (row < 0 || row >= y_rows || c0 + c >= r) return;
+    if constexpr (STORE)
+      y[row * r + c0 + c] = v;
+    else
+      atomic_add(&y[row * r + c0 + c], v);
   };
 
   if constexpr (MIRROR) {

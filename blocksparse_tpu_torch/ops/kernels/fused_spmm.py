@@ -26,24 +26,38 @@ kernel (its descriptor passed by value) into a fresh zeroed output.
 :class:`BucketTable` also serves the element pass of kernel B9
 (``ops/kernels/mask_select.py``), which reads the same descriptors.
 
+Two instances serve a table (:func:`b1_instance`, a pure function of the
+stored and compute dtypes, r and the table's deepest block side):
+complex64 values with a complex64 operand at ``r >= MMA_MIN_R`` and blocks
+at most ``MMA_MAX_DEPTH`` deep run the tensor-core instance
+(``csrc/complex_mma.cu``, entry ``bst_fused_spmm_mma_c64``: the real
+embedding ``view_as_real(V) [M, 2K] @ B [2K, 2r]``, B's rows ``(Xr, Xi)``
+and ``(-Xi, Xr)``, one real GEMM in 3xTF32 that gives the interleaved
+complex product; its plain version :func:`complex_mma_apply_plain` is that
+embedding in torch); every other table and r the FMA tile core
+(``csrc/tile_core.cuh``).
+
 Race-freedom: thread blocks run concurrently and blocks may share output
 rows, so the kernel adds into a zeroed output (or the partial sum of the
 launches before it) with fp32/fp64 ``atomicAdd`` (a complex value as two,
-one per part).  The summation order varies from run to run; compare with a
+one per part, or as one float2 ``atomicAdd`` whose parts are atomic on
+their own).  The summation order varies from run to run; compare with a
 tolerance, not bit for bit.
 
-Precision: every tier (``"highest"``, ``"high"``, ``None``) runs in IEEE
-fp32/fp64 FMA (four per complex multiply-add), with no TF32, which meets
-the ``"highest"`` tolerance.
-Faster tiers are later work.
+Precision: the FMA instances run in IEEE fp32/fp64 FMA (four per complex
+multiply-add) at every tier (``"highest"``, ``"high"``, ``None``); the
+complex64 tensor-core instance runs 3xTF32 at every tier.  Both meet the
+``"highest"`` tolerance.  Faster tiers are later work.
 
-Routing: a CPU tensor takes the plain version
+Routing: a CPU tensor takes the plain version of the instance
 (:func:`chunked_block_apply_plain`, and for a table
-:func:`multi_block_apply_plain`, the loop of it over the buckets); a CUDA
-tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel
-launches, ``SYM_LAUNCHES`` those of them in the symmetric mode, and
-``ENTRY_LAUNCHES`` every launch of B1 and B9 by entry point (so by stored
-and compute dtype: ``bst_fused_spmm_multi_f32_f64``, ...).
+:func:`multi_block_apply_plain`, the loop of it over the buckets, or
+:func:`complex_mma_apply_plain`); a CUDA tensor launches the kernel or
+raises.  ``LAUNCHES`` counts kernel launches, ``SYM_LAUNCHES`` those of
+them in the symmetric mode, ``MMA_LAUNCHES`` those of the tensor-core
+instance, and ``ENTRY_LAUNCHES`` every launch of B1 and B9 by entry point
+(so by stored and compute dtype: ``bst_fused_spmm_multi_f32_f64``,
+``bst_fused_spmm_mma_c64``, ...).
 """
 
 from __future__ import annotations
@@ -53,18 +67,27 @@ from collections import Counter
 import torch
 
 from ...utils import build
-from ..torch_spmv import chunk_rows, chunked_bucket_apply, values_grad
+from ..torch_spmv import (chunk_rows, chunked_bucket_apply, gather_rows,
+                          scatter_rows, values_grad)
 
-__all__ = ["BucketTable", "COMPUTE_TYPES", "ENTRY_LAUNCHES", "check_table_call",
-           "chunked_block_apply",
-           "chunked_block_apply_plain", "entry_point", "launch_mode",
-           "launch_table", "multi_block_apply",
+__all__ = ["BucketTable", "COMPUTE_TYPES", "ENTRY_LAUNCHES", "MMA_MAX_DEPTH",
+           "MMA_MIN_R",
+           "b1_instance", "check_table_call", "chunked_block_apply",
+           "chunked_block_apply_plain", "complex_mma_apply_plain",
+           "entry_point", "launch_mode", "launch_table", "multi_block_apply",
            "multi_block_apply_plain", "multi_fused_apply", "TableApply",
-           "LAUNCHES", "SYM_LAUNCHES"]
+           "LAUNCHES", "MMA_LAUNCHES", "SYM_LAUNCHES"]
 
 LAUNCHES = 0
 SYM_LAUNCHES = 0
+MMA_LAUNCHES = 0
 ENTRY_LAUNCHES: Counter = Counter()  # cleared, never rebound
+# the least r at which complex64 tables take the tensor-core instance, and
+# the deepest contraction (complex columns or rows of a block) it takes: it
+# sums each product in the tensor core's fp32 over the whole contraction,
+# an error that grows with the depth
+MMA_MIN_R = 2
+MMA_MAX_DEPTH = 2048
 
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2}
 _CONJ = 4  # mode bit: read conj(V) (tile_core.cuh kConj)
@@ -90,6 +113,19 @@ def launch_mode(transpose: bool, symmetric: bool, conj: bool = False) -> int:
         raise ValueError(
             "symmetric fused pass is transpose-invariant; use transpose=False")
     return _MODES[(transpose, symmetric)] | (_CONJ if conj else 0)
+
+
+def b1_instance(stored: torch.dtype, compute: torch.dtype, r: int,
+                depth: int = 0) -> str:
+    """The instance of B1 that runs a table of ``stored`` values on an
+    operand of ``compute`` dtype with r columns, whose blocks are at most
+    ``depth`` rows or columns deep: ``"mma"`` (the complex64 tensor-core
+    instance) for complex64 values and operand at ``r >= MMA_MIN_R`` and
+    ``depth <= MMA_MAX_DEPTH``, else ``"fma"`` (the FMA tile core)."""
+    if (stored == compute == torch.complex64 and r >= MMA_MIN_R
+            and depth <= MMA_MAX_DEPTH):
+        return "mma"
+    return "fma"
 
 
 def entry_point(prefix: str, dtype: torch.dtype,
@@ -167,6 +203,8 @@ class BucketTable:
         self.owners = {}  # B9's owner tables (mask_select.owner_table)
         self.first = (tuple(first[0]), tuple(first[1]))
         self.items = tuple(items)
+        # the deepest block side: the longest contraction of any mode
+        self.depth = max(max(b[0].shape[1:]) for b in self.buckets)
         self.table = torch.tensor(rows, dtype=torch.int64, device=self.device)
 
     @property
@@ -230,22 +268,85 @@ def multi_block_apply_plain(table: BucketTable, x, *, out,
     return out
 
 
+def _embedded(xg: torch.Tensor, conj: bool) -> torch.Tensor:
+    """The real embedding's B of gathered complex rows ``xg`` [nb, K, r]:
+    real [nb, 2K, 2r], row 2k x's row k as (Xr, Xi) per column, row
+    2k + 1 (-Xi, Xr) ((Xi, -Xr) under ``conj``)."""
+    nb, K, r = xg.shape
+    xr = torch.view_as_real(xg.resolve_conj())
+    odd = torch.stack([-xr[..., 1], xr[..., 0]], dim=-1)
+    if conj:
+        odd = -odd
+    return torch.stack([xr, odd], dim=2).reshape(nb, 2 * K, 2 * r)
+
+
+def complex_mma_apply_plain(table: BucketTable, x, *, out,
+                            transpose: bool = False, symmetric: bool = False,
+                            conj: bool = False) -> torch.Tensor:
+    """Plain version of the complex tensor-core instance: per bucket, the
+    real embedding ``view_as_real(V) [nb, M, 2K] @ B [nb, 2K, 2r]``
+    (:func:`_embedded`; transposed, ``view_as_real(V^T)``) read as the
+    interleaved complex product and added into ``out`` in place through
+    the row tables; returns ``out``.  Any complex dtype (complex128 is its
+    float64 analogue)."""
+    xm = x[:, None] if x.ndim == 1 else x
+    om = out[:, None] if out.ndim == 1 else out
+    r = xm.shape[1]
+    for vals, rtab, ctab, chunk in table.buckets:
+        vals = vals.to(x.dtype).resolve_conj()
+        rows, cols = chunk_rows(rtab, chunk), chunk_rows(ctab, chunk)
+        nb = vals.shape[0]
+        parts = [(vals, cols, rows)] if not transpose else []
+        if transpose or symmetric:
+            parts.append((vals.transpose(1, 2), rows, cols))
+        for v, src, dst in parts:
+            a = torch.view_as_real(v.contiguous()).reshape(nb, v.shape[1], -1)
+            y = torch.bmm(a, _embedded(gather_rows(xm, src), conj))
+            y = torch.view_as_complex(y.reshape(nb, v.shape[1], r, 2))
+            om += scatter_rows(om.shape[0], dst, y)
+    return out
+
+
+def _launch_mma(table: BucketTable, x, out, mode: int) -> bool:
+    """One launch of the complex64 tensor-core instance over ``table``
+    (CUDA tensors, checked by the caller), adding into ``out``; False
+    where there was nothing to launch."""
+    name = "bst_fused_spmm_mma_c64"
+    xm = x.resolve_conj().contiguous()
+    r = 1 if x.ndim == 1 else x.shape[1]
+    if not (any(table.items) and r and out.shape[0]):
+        return False
+    build.launch(name, x.device, table.table.data_ptr(), len(table),
+                 table.items[0], table.items[1], xm.data_ptr(),
+                 out.data_ptr(), r, xm.shape[0], out.shape[0], mode)
+    ENTRY_LAUNCHES[name] += 1
+    return True
+
+
 def multi_block_apply(table: BucketTable, x, *, out, transpose: bool = False,
                       symmetric: bool = False,
                       conj: bool = False) -> torch.Tensor:
     """Add every bucket of ``table`` applied to ``x`` ([n] or [n, r]) into
-    ``out`` ([out_len] or [out_len, r]) in one launch; returns ``out``.
-    ``conj``: the buckets' conjugates (nothing changes for real values)."""
-    global LAUNCHES, SYM_LAUNCHES
+    ``out`` ([out_len] or [out_len, r]) in one launch of the instance
+    :func:`b1_instance` picks; returns ``out``.  ``conj``: the buckets'
+    conjugates (nothing changes for real values)."""
+    global LAUNCHES, SYM_LAUNCHES, MMA_LAUNCHES
     conj = conj and table.dtype.is_complex
     mode = launch_mode(transpose, symmetric, conj)
     check_table_call(table, x, out, symmetric)
+    mma = b1_instance(table.dtype, x.dtype, 1 if x.ndim == 1 else x.shape[1],
+                      table.depth) == "mma"
     if x.device.type == "cpu":
-        return multi_block_apply_plain(table, x, out=out, transpose=transpose,
-                                       symmetric=symmetric, conj=conj)
-    if launch_table("bst_fused_spmm_multi", table, x, out, mode):
+        plain = complex_mma_apply_plain if mma else multi_block_apply_plain
+        return plain(table, x, out=out, transpose=transpose,
+                     symmetric=symmetric, conj=conj)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if _launch_mma(table, x, out, mode) if mma else \
+            launch_table("bst_fused_spmm_multi", table, x, out, mode):
         LAUNCHES += 1
         SYM_LAUNCHES += symmetric
+        MMA_LAUNCHES += mma
     return out
 
 

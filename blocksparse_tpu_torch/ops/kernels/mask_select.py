@@ -26,10 +26,17 @@ The kernels (``csrc/mask_select.cu``) replace
   :func:`sorted_scatter_info`, the numpy counterpart of the JAX
   ``_sorted_scatter_info``, and kept on the :class:`~.fused_spmm.
   BucketTable`) list, per output row, the contributions (bucket, entry) in
-  the JAX order; one warp owns a row and writes it once, no atomics, so the
-  result is bit-identical from run to run.  Its plain version,
-  :func:`owner_apply_plain`, forms the same contributions, permutes them by
-  the table and sums each row's with ``torch.segment_reduce``.
+  the JAX order, and each one's flat row in the scratch of products.
+  Every owned row is written once, no atomics, every sum in a fixed order,
+  so the result is bit-identical from run to run.  Two launches
+  (``csrc/owner_pass.cu``, :func:`owner_two_pass`): the products of every
+  (block, row) into a scratch ``[rows of every block, r]`` that the
+  wrapper allocates (``bst_element_owner_products_*``, the element pass's
+  tile core writing instead of adding), then each owned row's sum of its
+  scratch rows in list order (``bst_element_owner_sum_*``).  Its plain
+  version, :func:`owner_apply_plain`, is those two passes in the same
+  layout and order (:func:`owner_products_plain`,
+  :func:`owner_sum_plain`).
 
 The element pass and the owner mode take the stored / compute dtype pairs
 of B1 (``fused_spmm.COMPUTE_TYPES``: values widened in registers, ``x`` and
@@ -46,8 +53,9 @@ part); the summation order varies from run to run.
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  ``GATHER_LAUNCHES``, ``SCATTER_LAUNCHES``,
-``ELEMENT_LAUNCHES`` and ``OWNER_LAUNCHES`` count kernel launches,
-``ELEMENT_SYM_LAUNCHES`` the element passes in the symmetric mode
+``ELEMENT_LAUNCHES`` and ``OWNER_LAUNCHES`` count kernel launches (the
+owner mode's each pass), ``ELEMENT_SYM_LAUNCHES`` the element passes in
+the symmetric mode
 (``fused_spmm.ENTRY_LAUNCHES`` counts the element pass and the owner mode
 by entry point too).  :func:`gather_apply` and
 :func:`scatter_apply` add autograd (each is the other's adjoint, so a
@@ -71,7 +79,9 @@ __all__ = ["element_apply", "element_apply_plain", "element_fused_apply",
            "mask_gather", "mask_gather_plain", "mask_scatter_add",
            "mask_scatter_add_plain", "gather_apply", "scatter_apply",
            "OwnerTable", "owner_apply", "owner_apply_plain",
-           "owner_fused_apply", "owner_table", "sorted_scatter_info",
+           "owner_fused_apply", "owner_products", "owner_products_plain",
+           "owner_sum", "owner_sum_plain", "owner_two_pass",
+           "owner_table", "sorted_scatter_info",
            "ELEMENT_LAUNCHES", "ELEMENT_SYM_LAUNCHES", "GATHER_LAUNCHES",
            "OWNER_LAUNCHES", "SCATTER_LAUNCHES"]
 
@@ -291,9 +301,12 @@ class OwnerTable:
     entry is ``b * mp + i`` forward and ``b * kp + k`` transposed).  A row's
     contributions run bucket by bucket in table order and, inside a bucket,
     in the order of :func:`sorted_scatter_info`'s permutation: the JAX
-    sorted scatter's order.  ``lengths`` (int64 [n_rows]) and ``offsets``
-    (each bucket's first flat entry among all buckets' products) serve the
-    plain version."""
+    sorted scatter's order.  ``offsets`` (int64 [n buckets]) is each
+    bucket's first row in the scratch of products, which holds every
+    bucket's ``[nb * extent]`` rows in table order (``p_rows`` in all;
+    extent ``mp`` forward, ``kp`` transposed), and ``flat`` (int64 [nnz])
+    each contribution's row there, ``offsets[bucket] + entry``.
+    ``lengths`` (int64 [n_rows]) serves the plain version."""
 
     def __init__(self, table: BucketTable, transpose: bool, out_len: int):
         targets = [(c if transpose else r).cpu().numpy()
@@ -313,15 +326,18 @@ class OwnerTable:
             else np.zeros((0, 2), np.int32)
         rows, starts = np.unique(tgt, return_index=True)
         ptr = np.append(starts, len(tgt)).astype(np.int64)
+        extents = [v.shape[0] * v.shape[2 if transpose else 1]
+                   for v, *_ in table.buckets]
+        offsets = np.cumsum([0] + extents[:-1]).astype(np.int64)
+        flat = offsets[ent[:, 0]] + ent[:, 1].astype(np.int64)
         dev = table.device
         self.rows = torch.from_numpy(rows.astype(np.int32)).to(dev)
         self.ptr = torch.from_numpy(ptr).to(dev)
         self.ent = torch.from_numpy(np.ascontiguousarray(ent, np.int32)).to(dev)
+        self.flat = torch.from_numpy(flat).to(dev)
         self.lengths = torch.from_numpy(np.diff(ptr)).to(dev)
-        extents = [v.shape[0] * v.shape[2 if transpose else 1]
-                   for v, *_ in table.buckets]
-        self.offsets = torch.from_numpy(
-            np.cumsum([0] + extents[:-1]).astype(np.int64)).to(dev)
+        self.offsets = torch.from_numpy(offsets).to(dev)
+        self.p_rows = int(sum(extents))
 
     @property
     def n_rows(self) -> int:
@@ -338,18 +354,16 @@ def owner_table(table: BucketTable, transpose: bool, out_len: int
     return table.owners[key]
 
 
-def owner_apply_plain(table: BucketTable, x: torch.Tensor, *, out,
-                      transpose: bool = False, symmetric: bool = False,
-                      conj: bool = False) -> torch.Tensor:
-    """Plain version of the owner mode on the same tables: every bucket's
-    products (values widened to ``x``'s dtype), permuted by the owner table
-    and summed per row with ``torch.segment_reduce``, added into ``out`` in
-    place; returns ``out``."""
-    if symmetric:
-        raise ValueError("the owner mode has no symmetric mode")
-    own = owner_table(table, transpose, out.shape[0])
+def owner_products_plain(table: BucketTable, x: torch.Tensor, *,
+                         transpose: bool = False,
+                         conj: bool = False) -> torch.Tensor:
+    """Plain version of the owner mode's products pass: the scratch
+    ``[p_rows, r]`` of :class:`OwnerTable`'s layout, every bucket's
+    products (values widened to ``x``'s dtype; ``conj(V)`` under
+    ``conj``), row ``offsets[bucket] + b * mp + i`` holding ``(V_b @
+    x[col_idx_b])[i]`` (transposed: ``b * kp + k``, ``(V_b^T @
+    x[row_idx_b])[k]``)."""
     xm = x[:, None] if x.ndim == 1 else x
-    r = xm.shape[1]
     parts = []
     for vals, ridx, cidx, _chunk in table.buckets:
         vals = widened(vals, xm.dtype)
@@ -359,29 +373,49 @@ def owner_apply_plain(table: BucketTable, x: torch.Tensor, *, out,
             yp = torch.einsum("bmk,bmr->bkr", vals, gather_rows(xm, ridx))
         else:
             yp = torch.einsum("bmk,bkr->bmr", vals, gather_rows(xm, cidx))
-        parts.append(yp.reshape(-1, r))
+        parts.append(yp.reshape(-1, xm.shape[1]))
+    return torch.cat(parts)
+
+
+def owner_sum_plain(own: OwnerTable, P: torch.Tensor, *, out) -> torch.Tensor:
+    """Plain version of the owner mode's sum pass: each owned row's
+    scratch rows ``P[flat]`` summed in list order from zero, as the kernel
+    does, then added into its row of ``out`` ([out_len] or [out_len, r])
+    once, in place; returns ``out``."""
     if not own.n_rows:
         return out
-    flat = torch.cat(parts)[own.offsets[own.ent[:, 0].long()]
-                            + own.ent[:, 1].long()]
-    data = torch.view_as_real(flat) if flat.is_complex() else flat
-    sums = torch.segment_reduce(data, "sum", lengths=own.lengths, axis=0)
-    if flat.is_complex():
-        sums = torch.view_as_complex(sums.contiguous())
     om = out[:, None] if out.ndim == 1 else out
+    sums = P.new_zeros((own.n_rows, P.shape[1]))
+    starts, lengths = own.ptr[:-1], own.lengths
+    for j in range(int(lengths.max())):
+        live = lengths > j
+        sums[live] = sums[live] + P[own.flat[starts[live] + j]]
     om.index_add_(0, own.rows.long(), sums)  # rows are unique: one add each
     return out
+
+
+def owner_apply_plain(table: BucketTable, x: torch.Tensor, *, out,
+                      transpose: bool = False, symmetric: bool = False,
+                      conj: bool = False) -> torch.Tensor:
+    """Plain version of the owner mode on the same tables: the products
+    pass into the scratch, then the sum pass into ``out`` in place
+    (:func:`owner_products_plain`, :func:`owner_sum_plain`); returns
+    ``out``."""
+    if symmetric:
+        raise ValueError("the owner mode has no symmetric mode")
+    own = owner_table(table, transpose, out.shape[0])
+    P = owner_products_plain(table, x, transpose=transpose, conj=conj)
+    return owner_sum_plain(own, P, out=out)
 
 
 def owner_apply(table: BucketTable, x: torch.Tensor, *, out,
                 transpose: bool = False, symmetric: bool = False,
                 conj: bool = False) -> torch.Tensor:
     """Add every element bucket of ``table`` applied to ``x`` ([n] or [n,
-    r]) into ``out`` ([out_len] or [out_len, r]) in one launch of the owner
-    mode; returns ``out``.  Forward or ``transpose``, with ``conj`` (the
-    buckets' conjugates); there is no symmetric mode, as the JAX sorted
-    scatter has none."""
-    global OWNER_LAUNCHES
+    r]) into ``out`` ([out_len] or [out_len, r]) in the owner mode's two
+    launches; returns ``out``.  Forward or ``transpose``, with ``conj``
+    (the buckets' conjugates); there is no symmetric mode, as the JAX
+    sorted scatter has none."""
     if symmetric:
         raise ValueError("the owner mode has no symmetric mode")
     conj = conj and table.dtype.is_complex
@@ -394,18 +428,50 @@ def owner_apply(table: BucketTable, x: torch.Tensor, *, out,
                                  conj=conj)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    name = entry_point("bst_element_owner", table.dtype, x.dtype)
     own = owner_table(table, transpose, out.shape[0])
-    xm = x.resolve_conj().contiguous()
-    r = 1 if x.ndim == 1 else x.shape[1]
-    if own.n_rows and r:
-        build.launch(name, x.device, table.table.data_ptr(), len(table),
-                     own.rows.data_ptr(), own.ptr.data_ptr(),
-                     own.ent.data_ptr(), own.n_rows, xm.data_ptr(),
-                     out.data_ptr(), r, xm.shape[0], out.shape[0], mode)
-        ENTRY_LAUNCHES[name] += 1
-        OWNER_LAUNCHES += 1
+    if not (own.n_rows and (x.ndim == 1 or x.shape[1])):
+        return out
+    return owner_two_pass(table, own, x.resolve_conj().contiguous(), out,
+                          mode, transpose)
+
+
+def owner_products(table: BucketTable, own: OwnerTable, xm, P, mode: int,
+                   transpose: bool) -> torch.Tensor:
+    """The owner mode's first launch (CUDA tensors, checked by the caller):
+    every (block, row) product of ``xm`` ([n, r]) into the scratch ``P``
+    ([own.p_rows, r], written); returns ``P``."""
+    global OWNER_LAUNCHES
+    name = entry_point("bst_element_owner_products", table.dtype, xm.dtype)
+    build.launch(name, xm.device, table.table.data_ptr(), len(table),
+                 table.items[transpose], own.offsets.data_ptr(),
+                 xm.data_ptr(), P.data_ptr(), P.shape[1], xm.shape[0],
+                 own.p_rows, mode)
+    ENTRY_LAUNCHES[name] += 1
+    OWNER_LAUNCHES += 1
+    return P
+
+
+def owner_sum(own: OwnerTable, P, out) -> torch.Tensor:
+    """The owner mode's second launch: each owned row of ``out`` plus its
+    scratch rows of ``P`` in list order, written once; returns ``out``."""
+    global OWNER_LAUNCHES
+    name = entry_point("bst_element_owner_sum", P.dtype)
+    build.launch(name, P.device, own.rows.data_ptr(), own.ptr.data_ptr(),
+                 own.flat.data_ptr(), own.n_rows, P.data_ptr(),
+                 out.data_ptr(), P.shape[1], out.shape[0])
+    ENTRY_LAUNCHES[name] += 1
+    OWNER_LAUNCHES += 1
     return out
+
+
+def owner_two_pass(table: BucketTable, own: OwnerTable, xm, out, mode: int,
+                   transpose: bool) -> torch.Tensor:
+    """Both launches of the owner mode, through a scratch allocated
+    here."""
+    r = 1 if xm.ndim == 1 else xm.shape[1]
+    P = torch.empty((own.p_rows, r), dtype=xm.dtype, device=xm.device)
+    owner_products(table, own, xm, P, mode, transpose)
+    return owner_sum(own, P, out)
 
 
 def owner_fused_apply(table: BucketTable, x: torch.Tensor, *, out,

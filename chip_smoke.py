@@ -60,7 +60,12 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      32, plain, transposed, fused mirror (two), a mirror plan of its
      direct mode and one with a last segment past ncols, at one tile per
      block, the whole stream in one block, ranges that split slabs and its
-     own geometry (printed), every seg driving the three modes;
+     own geometry (printed), every seg driving the three modes; B9's owner
+     mode (its two passes), every stored / compute pair x forward,
+     transpose (x conj for complex values) x r in {1, 3, 64, 128}, two
+     launches bit-equal; B1's complex64 tensor-core instance, forward, transpose,
+     symmetric x conj off / on x r in {2, 16, 64}, against its plain
+     version (the real embedding) and the FMA instance;
   2. the flagship operator (4096^2, 200 contiguous 64x64 f32 blocks, r = 64):
      a constructor without ``device=`` lands on the card; kernels against
      plain versions at its shapes, then the main path once
@@ -175,12 +180,16 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      139.3 MB); ``S @ x``, ``S.T @ x``, ``S.H @ x``, ``S.conj() @ x`` and
      ``S @ X`` (r = 64) against an independent dense complex128 assembly of
      the recipe (rounded through complex64, as the values are), each with
-     exactly 2 B1 launches (one symmetric) and nothing else; the same recipe
+     exactly 2 B1 launches (one symmetric) and nothing else, and ``S @ X``
+     at r = 16 too (r > 1: both launches on the complex64 tensor-core
+     instance, counted under "B1 mma"); the same recipe
      on scattered index lists (schedule "serial"): 2 B9 element passes per
-     product; ``S @ x`` and ``S @ X`` timed eager and from a CUDA graph
-     beside their bound, a complex64 CSR call of torch.sparse and the same
-     products through ``split_complex(S)`` (four f32 products on the real
-     routes); GMRES(20) + ``block_jacobi`` in complex64 at tol 1e-5 (held
+     product; ``S @ x`` and ``S @ X`` (r = 16 and 64) timed eager and from
+     a CUDA graph beside their bound, a complex64 CSR call of torch.sparse,
+     the same products through ``split_complex(S)`` (four f32 products on
+     the real routes) and, at r > 1, B1's FMA instance on the same tables;
+     both complex64 instances of B1 at r in {2, 4, 8, 16, 32, 64} (graph
+     ms, where the tensor cores take over beside ``MMA_MIN_R``); GMRES(20) + ``block_jacobi`` in complex64 at tol 1e-5 (held
      to its preconditioned residual on the assembly, exact launches and
      host reads, its iterations within 3 of scipy's GMRES(20) with the same
      block inverses), complex128 GMRES at tol 1e-12 against scipy's
@@ -198,13 +207,22 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      ``S.H`` included); every new instance against its plain version on
      the card, with exact launches by entry point; ``scatter="sorted"``
      on the scattered flagship (B9's owner mode: three products
-     ``torch.equal`` per kind, within f32 tolerance of the atomic element
-     pass, timed beside it), and every other owner instance on that
+     ``torch.equal`` per kind at r = 1, 64 and 128, within f32 tolerance of
+     the atomic element pass and float64 scipy, timed beside it and beside
+     a float32 CSR call at r = 1 and 64, each of its two passes alone at
+     r = 64), the same on config 1 renumbered (n = 8192, 2000 x 128^2 f32,
+     256,000 contributions: its bucket route in the owner mode at r = 1
+     and 128, two products bit-equal, timed beside the atomic pass, the
+     CSR call and the bound), phase 12's BEM operator with an f64 operand
+     (B1 f32 -> f64) and its scattered copy's element pass in f32 and f32
+     -> f64, each beside the CSR call of its compute type, and every
+     other owner instance on that
      flagship stored f64, bf16, complex64 and complex128 (A @, A.T @ and
      for complex A.H @ and A.conj() @ with each operand dtype that
-     reaches it: against its plain version, exact launches by entry point,
-     two products bit-equal, against a dense float64 / complex128 copy of
-     its values); save / load of the BEM operator (f32 and
+     reaches it: against its plain version, exact launches by entry point
+     (at r = 64 the two passes), two products bit-equal, against a dense
+     float64 / complex128 copy of its values), bf16 ``S @ X``'s values in
+     an f32 CSR ``@ X``; save / load of the BEM operator (f32 and
      bf16) through a temporary directory onto the card, staged tensors
      ``torch.equal`` and load seconds; ``to_bcoo`` on the card against
      ``to_scipy``; ``schedule="auto"`` with the colored operator's
@@ -348,6 +366,8 @@ PEAK_FLOPS = {"highest": TF32_FLOPS_PER_S / 3, "high": TF32_FLOPS_PER_S / 3,
               "bf16 x f32": BF16_FLOPS_PER_S / 3}
 TIER_TOL = {"highest": TOL32, None: TOL_TF32}
 B1_SRC = "blocksparse_tpu_torch/csrc/fused_spmm.cu"
+B1_MMA_SRC = "blocksparse_tpu_torch/csrc/complex_mma.cu"
+B9_OWNER_SRC = "blocksparse_tpu_torch/csrc/owner_pass.cu"
 B2_SRC = "blocksparse_tpu_torch/csrc/patch_spmm.cu"
 B1_REPLACES = "blocksparse_tpu/ops/pallas/fused_spmm.py:81"
 B2_REPLACES = "blocksparse_tpu/ops/patch_engine.py:329"
@@ -507,6 +527,7 @@ def logical_nnz(op) -> int:
 def reset_counts() -> None:
     fused_spmm.LAUNCHES = 0
     fused_spmm.SYM_LAUNCHES = 0
+    fused_spmm.MMA_LAUNCHES = 0
     patch_engine.LAUNCHES = 0
     patch_engine.TR_LAUNCHES = 0
     patch_engine.XT_LAUNCHES = 0
@@ -530,13 +551,15 @@ def reset_counts() -> None:
 
 def counts() -> dict:
     """Kernel launches since the last reset ("B1 sym": those of B1 in its
-    symmetric mode, also counted under "B1"; "B9 element": B9's element
+    symmetric mode, also counted under "B1"; "B1 mma": those of its
+    complex64 tensor-core instance, also under "B1"; "B9 element": B9's element
     passes, "B9 element sym" those in the symmetric mode, "B9 owner" its
     owner mode (scatter="sorted"); "B2": B2's
     forward, "B2 transpose" its transposed product, "B2 prologue" its X^T
     launches, one per launch of either; "B5 mirror", "B6 mirror",
     "B8 mirror" and "B10 mirror" those on a mirror plan)."""
     return {"B1": fused_spmm.LAUNCHES, "B1 sym": fused_spmm.SYM_LAUNCHES,
+            "B1 mma": fused_spmm.MMA_LAUNCHES,
             "B2": patch_engine.LAUNCHES,
             "B2 transpose": patch_engine.TR_LAUNCHES,
             "B2 prologue": patch_engine.XT_LAUNCHES,
@@ -1096,6 +1119,89 @@ def complex_vs_plain(gen) -> dict:
     return errs
 
 
+# every stored / compute pair of B1 and B9 (fused_spmm.COMPUTE_TYPES)
+VALUE_PAIRS = tuple((stored, compute)
+                    for stored, computes in fused_spmm.COMPUTE_TYPES.items()
+                    for compute in computes)
+
+
+def element_table_typed(stored: torch.dtype, n: int) -> BucketTable:
+    """``element_table_on_card``'s buckets with values stored in
+    ``stored`` (bf16: rounded from float32)."""
+    np_dt = (np.float32 if stored == torch.bfloat16
+             else torch.empty(0, dtype=stored).numpy().dtype)
+    table = element_table_on_card(np_dt, n)
+    return BucketTable([(v.to(stored).contiguous(), ri, ci, c)
+                        for v, ri, ci, c in table.buckets])
+
+
+def owner_vs_plain(gen) -> dict:
+    """B9's owner mode (its two passes) against its plain version, every
+    stored / compute pair x forward, transpose (x conj for complex values)
+    x r in {1, 3, 64, 128}, adding into an output that holds a partial
+    sum, on element buckets with repeated rows and sentinel lanes; two
+    launches bit-equal."""
+    errs = {"B9 owner": 0.0}
+    n = 5000
+    for stored, compute in VALUE_PAIRS:
+        table = element_table_typed(stored, n)
+        for r in (1, 3, 64, 128):
+            X = torch.randn((n, r), generator=gen, dtype=compute).to(DEV)
+            x = X[:, 0].contiguous() if r == 1 else X
+            prior = torch.randn(x.shape, generator=gen, dtype=compute).to(DEV)
+            for mode in ("forward", "transpose"):
+                for conj in ((False, True) if stored.is_complex else (False,)):
+                    kw = {**MODE_KW[mode], "conj": conj}
+                    got = mask_select.owner_apply(table, x, out=prior.clone(),
+                                                  **kw)
+                    again = mask_select.owner_apply(table, x,
+                                                    out=prior.clone(), **kw)
+                    ref = mask_select.owner_apply_plain(table, x,
+                                                        out=prior.clone(), **kw)
+                    torch.cuda.synchronize()
+                    label = (f"B9 owner {pair_name(stored, compute)} {mode}"
+                             f"{' conj' if conj else ''} r={r}")
+                    require(torch.equal(got, again),
+                            f"{label}: two launches differ")
+                    errs["B9 owner"] = max(errs["B9 owner"], rel_check(
+                        f"{label} vs its plain version", got, ref,
+                        TOL[compute]))
+    return errs
+
+
+def complex_mma_vs_plain(gen) -> dict:
+    """B1's complex64 tensor-core instance over a table of chunked buckets
+    (mixed chunks, chunk ids past n that read zero and scatter nowhere)
+    against its plain version (the real embedding) and against the FMA
+    instance on the same table, forward, transpose, symmetric x conj off /
+    on x r in {2, 16, 64}, adding into an output that holds a partial
+    sum."""
+    errs = {"B1 mma": 0.0, "B1 mma vs fma": 0.0}
+    table, n = b1_table(np.complex64)
+    for r in (2, 16, 64):
+        x = torch.randn((n, r), generator=gen, dtype=torch.complex64).to(DEV)
+        prior = torch.randn(x.shape, generator=gen,
+                            dtype=torch.complex64).to(DEV)
+        for mode, kw in MODE_KW.items():
+            for conj in (False, True):
+                mode_ = fused_spmm.launch_mode(mode == "transpose",
+                                               mode == "symmetric", conj)
+                got, fma = prior.clone(), prior.clone()
+                fused_spmm._launch_mma(table, x, got, mode_)
+                fused_spmm.launch_table("bst_fused_spmm_multi", table, x, fma,
+                                        mode_)
+                ref = fused_spmm.complex_mma_apply_plain(
+                    table, x, out=prior.clone(), conj=conj, **kw)
+                torch.cuda.synchronize()
+                label = (f"B1 complex64 tensor cores {len(table)} buckets "
+                         f"{mode}{' conj' if conj else ''} r={r}")
+                errs["B1 mma"] = max(errs["B1 mma"], rel_check(
+                    f"{label} vs its plain version", got, ref, TOL32))
+                errs["B1 mma vs fma"] = max(errs["B1 mma vs fma"], rel_check(
+                    f"{label} vs the FMA instance", got, fma, TOL32))
+    return errs
+
+
 def phase1():
     print("phase 1: kernels against their plain versions")
     errs = {"B1": 0.0}
@@ -1172,6 +1278,8 @@ def phase1():
             errs[f"B9 {kind}"] = max(errs[f"B9 {kind}"], err)
     errs.update(element_vs_plain(gen))
     errs.update(complex_vs_plain(gen))
+    errs.update(owner_vs_plain(gen))
+    errs.update(complex_mma_vs_plain(gen))
     stream_errs, panel_plans = stream_kernels_vs_plain(gen)
     errs.update(stream_errs)
     errs.update(batched_kernels_vs_plain(gen, patch_bucket, panel_plans))
@@ -4145,6 +4253,40 @@ def complex_csr_on_card(op) -> torch.Tensor:
     return coo.to_sparse_csr()
 
 
+def sym_b1_tables(S) -> tuple:
+    """A contiguous symmetric operator's two chunked tables: the diagonal
+    layout's (forward) and the off-diagonal layout's (symmetric mode)."""
+    return (bucket_tables(S._dbuckets, S._dlayout)["chunked"],
+            bucket_tables(S._obuckets, S._olayout)["chunked"])
+
+
+def b1_instance_product(S, v, instance: str) -> torch.Tensor:
+    """``S @ v`` through one instance of B1 driven directly on ``S``'s two
+    chunked tables ("mma": the complex64 tensor-core instance, "fma": the
+    FMA tile core), two launches that no counter sees."""
+    out = torch.zeros_like(v)
+    for table, mode in zip(sym_b1_tables(S), (0, 2)):
+        if instance == "mma":
+            fused_spmm._launch_mma(table, v, out, mode)
+        else:
+            fused_spmm.launch_table("bst_fused_spmm_multi", table, v, out,
+                                    mode)
+    return out
+
+
+def mma_plain_sym(S, v) -> torch.Tensor:
+    """``S @ v`` through the tensor-core instance's plain version (the real
+    embedding) on ``S``'s two chunked tables."""
+    out = torch.zeros_like(v)
+    for table, sym in zip(sym_b1_tables(S), (False, True)):
+        fused_spmm.complex_mma_apply_plain(table, v, out=out, symmetric=sym)
+    return out
+
+
+# r of the phase 13 scan that puts B1's two complex64 instances side by side
+MMA_SCAN_R = (2, 4, 8, 16, 32, 64)
+
+
 def phase13(card: str) -> dict:
     n, ncl, thresh = BEM_NPTS, BEM_CLUSTERS, BEM_THRESH
     k, st = HELMHOLTZ_K, BEM_SELF_TERM
@@ -4174,7 +4316,13 @@ def phase13(card: str) -> dict:
     gen = torch.Generator().manual_seed(13)
     x = torch.randn(n, generator=gen, dtype=torch.complex64).to(DEV)
     X = torch.randn((n, 64), generator=gen, dtype=torch.complex64).to(DEV)
+    X16 = torch.randn((n, 16), generator=gen, dtype=torch.complex64).to(DEV)
     want = merged({"B1": 2, "B1 sym": 1})
+
+    def want_r(r):  # r > 1: the tensor-core instance where the rule says
+        mma = fused_spmm.b1_instance(torch.complex64, torch.complex64, r,
+                                     max(t.depth for t in sym_b1_tables(S)))
+        return merged({"B1": 2, "B1 sym": 1, "B1 mma": 2 * (mma == "mma")})
 
     # 1. products against the oracle, exact launches
     refs = {"S @ x": A_dev, "S.T @ x": A_dev.T, "S.H @ x": A_dev.conj().T,
@@ -4190,18 +4338,26 @@ def phase13(card: str) -> dict:
         out["errs"][label] = rel_check(f"{label} (native) vs the independent "
                                        f"assembly", got, refs[label] @
                                        x.to(torch.complex128), TOL32)
-    reset_counts()
-    Y = S @ X
-    torch.cuda.synchronize()
-    require(counts() == want, f"S @ X: launches {counts()}")
-    b1_total += counts()["B1"]
-    out["errs"]["S @ X"] = rel_check("S @ X (native, r=64) vs the independent "
-                                     "assembly", Y, A_dev @ X.to(
-                                         torch.complex128), TOL32)
+    mma_total = 0
+    for label, v in (("S @ X", X), ("S @ X r=16", X16)):
+        reset_counts()
+        Y = S @ v
+        torch.cuda.synchronize()
+        want_v = want_r(v.shape[1])
+        require(counts() == want_v, f"{label}: launches {counts()}, expected "
+                f"{ {k_: c for k_, c in want_v.items() if c} }")
+        b1_total += counts()["B1"]
+        mma_total += counts()["B1 mma"]
+        out["errs"][label] = rel_check(
+            f"{label} (native, r={v.shape[1]}) vs the independent assembly",
+            Y, A_dev @ v.to(torch.complex128), TOL32)
     out["launches"]["native"] = b1_total
+    out["launches"]["mma"] = mma_total
     print(f"  each native product: launches "
-          f"{ {k_: v for k_, v in want.items() if v} } (2 B1, one of them in "
-          f"the symmetric mode; no B2-B10)")
+          f"{ {k_: v for k_, v in want.items() if v} } at r = 1, "
+          f"{ {k_: v for k_, v in want_r(64).items() if v} } at r = 16 and 64 "
+          f"(2 B1, one of them in the symmetric mode, r > 1 on the complex64 "
+          f"tensor-core instance; no B2-B10)")
 
     # 2. the scattered variant: element buckets, B9's element pass
     perm = np.random.default_rng(14).permutation(n)
@@ -4240,7 +4396,8 @@ def phase13(card: str) -> dict:
     torch.cuda.synchronize()
     setup["split_complex and its plans"] = time.perf_counter() - t
     csr = complex_csr_on_card(S)
-    for label, v, r in (("S @ x", x, 1), ("S @ X", X, 64)):
+    for label, v, r in (("S @ x", x, 1), ("S @ X r=16", X16, 16),
+                        ("S @ X", X, 64)):
         bnd = product_bound(S, r)
         native = (lambda v=v: S @ v)
         split = (lambda v=v: P @ v)
@@ -4253,7 +4410,11 @@ def phase13(card: str) -> dict:
         out["errs"][f"split {label}"] = rel_check(
             f"split {label} vs the assembly", ys,
             A_dev @ v.to(torch.complex128), TOL32)
-        plain = (lambda v=v: plain_buckets_sym(S, v))
+        mma = fused_spmm.b1_instance(
+            S.dtype, v.dtype, r,
+            max(t.depth for t in sym_b1_tables(S))) == "mma"
+        plain = ((lambda v=v: mma_plain_sym(S, v)) if mma
+                 else (lambda v=v: plain_buckets_sym(S, v)))
         rel_check(f"{label}: the plain versions vs the kernels", plain(),
                   native(), TOL32)
         n1, s1, s2, n2 = (median_ms(native), median_ms(split),
@@ -4268,13 +4429,42 @@ def phase13(card: str) -> dict:
             "split_graph_ms": sg, "split_launches": split_launches,
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib,
             "library_graph_ms": lib.graph}
-        print(f"  {label}: native (2 B1) eager {n1:.4f} / {n2:.4f} ms, graph "
+        if mma:  # the FMA instance on the same tables, beside it
+            fma = (lambda v=v: b1_instance_product(S, v, "fma"))
+            rel_check(f"{label}: the FMA instance vs the tensor cores", fma(),
+                      native(), TOL32)
+            out["times"][label].update(fma_ms=median_ms(fma),
+                                       fma_graph_ms=graph_ms(fma))
+        print(f"  {label}: native (2 B1{', tensor cores' if mma else ''}) "
+              f"eager {n1:.4f} / {n2:.4f} ms, graph "
               f"{ng:.4f} ms; split_complex (4 real products, {split_launches}) "
               f"eager {s1:.4f} / {s2:.4f} ms, graph {sg:.4f} ms; bound "
               f"{bnd[0]:.4f} ms ({bnd[1]}) = {100 * bnd[0] / ng:.1f}% of the "
               f"native graph time; plain versions {pm:.4f} ms eager, "
-              f"{pg:.4f} ms graph [{card}]")
+              f"{pg:.4f} ms graph"
+              + (f"; the FMA instance on the same tables eager "
+                 f"{out['times'][label]['fma_ms']:.4f}, graph "
+                 f"{out['times'][label]['fma_graph_ms']:.4f} ms" if mma
+                 else "") + f" [{card}]")
     del csr
+    # where the tensor-core instance takes over: both instances on S's
+    # tables, graph ms, (mma, fma, mma, fma) at each r
+    scan = {}
+    for r in MMA_SCAN_R:
+        v = torch.randn((n, r), generator=gen, dtype=torch.complex64).to(DEV)
+        m1, f1, m2, f2 = (graph_ms(lambda v=v, k=k: b1_instance_product(
+            S, v, k)) for k in ("mma", "fma", "mma", "fma"))
+        scan[r] = {"mma_graph_ms": min(m1, m2), "fma_graph_ms": min(f1, f2)}
+    takes = min((r for r in MMA_SCAN_R
+                 if all(scan[q]["mma_graph_ms"] < scan[q]["fma_graph_ms"]
+                        for q in MMA_SCAN_R if q >= r)), default=None)
+    out["times"]["instance scan"] = scan
+    print(f"  B1's complex64 instances on S's tables, graph ms (tensor cores "
+          f"/ FMA): " + ", ".join(
+              f"r={r} {t['mma_graph_ms']:.4f} / {t['fma_graph_ms']:.4f}"
+              for r, t in scan.items())
+          + f"; the tensor cores win from r = {takes} of the scan on; "
+          f"fused_spmm.MMA_MIN_R = {fused_spmm.MMA_MIN_R} [{card}]")
 
     # 4. solves: GMRES(20) + block_jacobi in complex64, complex128 vs scipy
     t = time.perf_counter()
@@ -4557,13 +4747,16 @@ def owner_instances(A, fperm, fxs, fXs, out, lib, card) -> list:
         got = {(lbl, r): (f(v), f(v)) for lbl, (f, _) in prods.items()
                for r, v in ((1, vx), (64, vX))}
         torch.cuda.synchronize()
-        name = ("bst_element_owner_" + DT_NAME[stored] +
-                ("" if stored == operand else "_" + DT_NAME[operand]))
-        want = 4 * len(prods)
+        # two products per kind and r, each the two passes
+        want_e = {fused_spmm.entry_point("bst_element_owner_products",
+                                         stored, operand): 4 * len(prods),
+                  fused_spmm.entry_point("bst_element_owner_sum",
+                                         operand): 4 * len(prods)}
+        want = sum(want_e.values())
         require(counts() == merged({"B9 owner": want}) and
-                entry_counts() == {name: want},
+                entry_counts() == want_e,
                 f"{key} products: launches {counts()}, {entry_counts()} "
-                f"(want {want} of {name} only)")
+                f"(want {want_e})")
         launches[key] = want
         err = 0.0
         for (lbl, r), (p1, p2) in got.items():
@@ -4577,8 +4770,8 @@ def owner_instances(A, fperm, fxs, fXs, out, lib, card) -> list:
                 f"{DT_NAME[wide]}", p1, prods[lbl][1] @ v.to(wide),
                 TOL[operand]))
         errs[key] = err
-        print(f"  {key}: {want} launches of {name} ({', '.join(prods)} at "
-              f"r = 1 and 64, each twice bit-identical)")
+        print(f"  {key}: launches {want_e} ({', '.join(prods)} at r = 1 and "
+              f"64, each twice bit-identical)")
         times[key] = timed(
             f"sorted A @ x ({pair_name(stored, operand)}, B9 owner mode)",
             lambda: Op @ vx, lambda: mask_select.owner_apply_plain(
@@ -4590,6 +4783,158 @@ def owner_instances(A, fperm, fxs, fXs, out, lib, card) -> list:
                               lambda: lcsr @ vx, got[("A @", 1)][0], card)
         del Op, D, table, got, lcsr
     return keys
+
+
+def real_size_rule2(S32, args, perm, x, x64, renumbered, card) -> dict:
+    """Phase 12's BEM operator (f32, n = 8192) with an f64 operand (B1 f32
+    -> f64) and its scattered copy (schedule "serial") through its bucket
+    route in f32 and with an f64 operand (B9's element pass f32 and f32 ->
+    f64): exact launches by entry point, against float64 CSR products of
+    the same values, timed beside a float32 / float64 CSR call."""
+    f32, f64 = torch.float32, torch.float64
+    out = {"times": {}, "lib": {}, "errs": {}, "launches": {}}
+    n = S32.shape[0]
+    Ss = bt.SymmetricBlockMatrix(*bem_system(n, BEM_CLUSTERS, BEM_THRESH,
+                                             BEM_SELF_TERM, perm=perm),
+                                 device=DEV, schedule="serial")
+    require(all(b.chunk == 1 for lay in (Ss._dlayout, Ss._olayout)
+                for b in lay.buckets), "the scattered BEM must have element "
+            "buckets only")
+    xs, xs64 = renumbered(x), renumbered(x64)
+    ref64, refs64, refs32 = csr_of(S32, f64), csr_of(Ss, f64), csr_of(Ss, f32)
+    cases = (
+        ("B1 f32->f64 BEM", lambda: S32 @ x64,
+         lambda: plain_buckets_sym(S32, x64, dtype=f64), S32, f64,
+         {"B1": 2, "B1 sym": 1}, "bst_fused_spmm_multi_f32_f64",
+         ref64, x64, (("float64 CSR", ref64, x64),)),
+        ("B9 element f32 BEM", lambda: bucket_route_sym(Ss, xs),
+         lambda: plain_buckets_sym(Ss, xs, dtype=f32), Ss, f32,
+         {"B9 element": 2, "B9 element sym": 1}, "bst_element_pass_f32",
+         refs64, xs, (("float32 CSR", refs32, xs),
+                      ("float64 CSR", refs64, xs64))),
+        ("B9 element f32->f64 BEM", lambda: Ss @ xs64,
+         lambda: plain_buckets_sym(Ss, xs64, dtype=f64), Ss, f64,
+         {"B9 element": 2, "B9 element sym": 1}, "bst_element_pass_f32_f64",
+         refs64, xs64, (("float64 CSR", refs64, xs64),)))
+    for key, fn, plain, op, compute, want, entry, ref, v, libs in cases:
+        reset_counts()
+        y = fn()
+        torch.cuda.synchronize()
+        require(counts() == merged(want) and entry_counts() == {entry: 2},
+                f"{key}: launches {counts()}, {entry_counts()}")
+        out["launches"][key] = 2
+        out["errs"][key] = rel_check(f"{key} (n={n}) vs its values in a "
+                                     f"float64 CSR", y, ref @ v.double(),
+                                     TOL[compute])
+        out["times"][key] = timed(f"{key} (n={n}, r=1)", fn, plain,
+                                  product_bound(op, 1, compute), card)
+        out["lib"][key] = {label: library_ms(f"{key}: {label} (cuSPARSE)",
+                                             lambda c=c, u=u: c @ u, y, card)
+                           for label, c, u in libs}
+    del Ss, ref64, refs64, refs32
+    return out
+
+
+def pass_split(label, table, own, X, card) -> dict:
+    """Graph ms of each of the owner mode's two launches alone, with the
+    bound of each: the products pass's values, gathered x (each row once)
+    and scratch written, 2 operations per multiply-add; the sum pass's
+    scratch read and y read and written."""
+    P = torch.empty((own.p_rows, X.shape[1]), dtype=X.dtype, device=DEV)
+    products = (lambda: mask_select.owner_products(table, own, X, P, 0,
+                                                   False))
+    sums = (lambda: mask_select.owner_sum(own, P, torch.zeros_like(X)))
+    products()
+    p_ms, s_ms = graph_ms(products), graph_ms(sums)
+    esz = X.element_size()
+    vals = sum(v.numel() * v.element_size() for v in table.values)
+    flops = 2.0 * sum(v.numel() for v in table.values) * X.shape[1]
+    p_bnd = bound(vals + X.numel() * esz + own.p_rows * X.shape[1] * esz,
+                  flops)
+    s_bnd = bound((int(own.ptr[-1]) + 2 * own.n_rows) * X.shape[1] * esz, 0)
+    print(f"  {label}: products pass alone {p_ms:.4f} ms graph (bound "
+          f"{p_bnd[0]:.4g} ms, {p_bnd[1]}), sum pass alone {s_ms:.4f} ms "
+          f"(bound {s_bnd[0]:.4g} ms, {s_bnd[1]}); scratch "
+          f"{own.p_rows * X.shape[1] * esz / 1e6:.1f} MB [{card}]")
+    return {"products_graph_ms": p_ms, "sum_graph_ms": s_ms,
+            "products_bound_ms": p_bnd[0], "sum_bound_ms": s_bnd[0],
+            "scratch_mb": own.p_rows * X.shape[1] * esz / 1e6}
+
+
+def sorted_real_size(card, n=8192, nblocks=2000, bs=128, r_wide=128) -> dict:
+    """Config 1 (phase 3's operand, n = 8192, 2000 x 128^2 f32) renumbered
+    through a permutation with ``scatter="sorted"``: its bucket route
+    driven explicitly at r = 1 and 128 in the owner mode (its own route
+    printed beside), two products bit-equal, against the atomic element
+    pass on the same buckets and a float64 CSR of the values, timed with
+    the atomic pass, the f32 CSR call and the bound."""
+    t = time.perf_counter()
+    A, _ = contiguous_operator(n, nblocks, bs, seed=7, value_seed=7 + 7777,
+                               device=DEV)
+    perm = np.random.default_rng(17).permutation(n)
+    O = scattered_copy(A, perm, scatter="sorted")
+    del A
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    tabs = bucket_tables(O._buckets, O.layout)
+    require(tabs["chunked"] is None, "the sorted config 1 must have element "
+            "buckets only")
+    table, n = tabs["element"], O.shape[0]
+    own = mask_select.owner_table(table, False, n)
+    nnz = int(own.ptr[-1])
+    print(f"  sorted config 1 (n={n}, {nblocks} x {bs}x{bs} f32 on scattered "
+          f"indices, {logical_nnz(O) * 4 / 1e6:.1f} MB of values): "
+          f"{own.n_rows} owned rows, {nnz} contributions, at most "
+          f"{int(own.lengths.max())} per row; construction {setup_s:.2f} s")
+    gen = torch.Generator().manual_seed(17)
+    sorted_ = (lambda v: apply_operand(O._buckets, O.layout, n, v,
+                                       scatter="sorted"))
+    atomic = (lambda v: apply_operand(O._buckets, O.layout, n, v))
+    csr32, csr64 = csr_of(O, torch.float32), csr_of(O, torch.float64)
+    out = {"times": {}, "lib": {}, "errs": {}, "owned_rows": own.n_rows,
+           "contributions": nnz, "setup_s": setup_s}
+    for r in (1, r_wide):
+        v = torch.randn((n, r), generator=gen).to(DEV)
+        v = v[:, 0].contiguous() if r == 1 else v
+        reset_counts()
+        y1, y2 = sorted_(v), sorted_(v)
+        torch.cuda.synchronize()
+        k = 2  # the two passes
+        require(counts() == merged({"B9 owner": 2 * k}),
+                f"sorted config 1 r={r}: launches {counts()}")
+        require(torch.equal(y1, y2), f"sorted config 1 r={r}: two products "
+                f"are not bit-identical")
+        reset_counts()
+        O @ v
+        torch.cuda.synchronize()
+        print(f"  sorted config 1 r={r}: the bucket route driven in the "
+              f"owner mode ({k} launches, two products bit-identical); "
+              f"the operator's own route launches "
+              f"{ {k_: c for k_, c in counts().items() if c} }")
+        key = "r=1" if r == 1 else "r=128"
+        out["errs"][key] = max(
+            rel_check(f"sorted config 1 r={r} vs atomic", y1, atomic(v),
+                      TOL32),
+            rel_check(f"sorted config 1 r={r} vs float64 CSR", y1,
+                      csr64 @ v.double(), TOL32))
+        out["times"][key] = timed(
+            f"sorted config 1 r={r} (B9 owner mode)", lambda v=v: sorted_(v),
+            lambda v=v: mask_select.owner_apply_plain(
+                table, v, out=torch.zeros_like(v)),
+            product_bound(O, r), card, plain_graph=False)
+        a_ms, a_gms = median_ms(lambda v=v: atomic(v)), graph_ms(
+            lambda v=v: atomic(v))
+        out["times"][f"atomic {key}"] = {"ms": a_ms, "graph_ms": a_gms}
+        print(f"  atomic config 1 r={r} (B9 element pass) beside it: eager "
+              f"{a_ms:.4f} ms, graph {a_gms:.4f} ms [{card}]")
+        out["lib"][key] = library_ms(
+            f"sorted config 1 r={r}: float32 CSR (cuSPARSE)",
+            lambda v=v: csr32 @ v, y1, card)
+        if r > 1:
+            out["times"]["passes r=128"] = pass_split(
+                f"sorted config 1 r={r}", table, own, v, card)
+    del O, csr32, csr64
+    return out
 
 
 def phase14(card: str) -> dict:
@@ -4677,6 +5022,9 @@ def phase14(card: str) -> dict:
            "B1 bf16->f64": library_ms(
                "S16 @ x64: its bf16 values in a float64 CSR (cuSPARSE)",
                lambda: ref16 @ x64, y64, card)}
+    lib["B1 bf16->f32 r=64"] = library_ms(
+        "S16 @ X r=64: its bf16 values in a float32 CSR @ X (cuSPARSE)",
+        lambda: ref16_32 @ X, Y, card)
     del ref16_32
     for label, fn, r in (("S32 @ x (the f32 route: B5)", lambda: S32 @ x, 1),
                          ("S32 @ X r=64 (the f32 route: B3)",
@@ -4686,6 +5034,16 @@ def phase14(card: str) -> dict:
         times[f"f32 route r={r}"] = {"ms": ms, "graph_ms": gms, "bound": bnd}
         print(f"  {label}: eager {ms:.4f} ms, graph {gms:.4f} ms, bound "
               f"{bnd[0]:.4g} ms ({bnd[1]}) [{card}]")
+
+    # the BEM operator with an f64 operand (B1 f32 -> f64), and its
+    # scattered copy's element pass in f32 and f32 -> f64, each beside the
+    # CSR call of its compute type: the real-size rows of the comparisons
+    # that sit at the replay floor on the flagship
+    rule2 = real_size_rule2(S32, args, perm, x, x64, renumbered, card)
+    times.update(rule2["times"])
+    lib.update(rule2["lib"])
+    errs.update(rule2["errs"])
+    launches.update(rule2["launches"])
 
     t = time.perf_counter()
     Ss16 = bt.SymmetricBlockMatrix(*bem_system(n, ncl, thresh, st, perm=perm),
@@ -4891,28 +5249,44 @@ def phase14(card: str) -> dict:
     own = mask_select.owner_table(table, False, 4096)
     print(f"  owner table: {own.n_rows} owned rows, {int(own.ptr[-1])} "
           f"contributions, at most {int(own.lengths.max())} per row")
+    oX128 = torch.randn((4096, 128), generator=gen).to(DEV)
     reset_counts()
     runs = {label: [fn() for _ in range(3)]
             for label, fn in (("A @ x", lambda: Ao @ ox),
                               ("A @ X", lambda: Ao @ oX),
-                              ("A.T @ x", lambda: Ao.T @ ox))}
+                              ("A.T @ x", lambda: Ao.T @ ox),
+                              ("A @ X r=128", lambda: Ao @ oX128))}
     torch.cuda.synchronize()
-    require(counts() == merged({"B9 owner": 9}) and entry_counts() == {
-        "bst_element_owner_f32": 9}, f"sorted products: launches "
-        f"{counts()}, {entry_counts()} (the owner mode only)")
-    launches["B9 owner"] = 9
+    # each product the two passes
+    want_entries = {"bst_element_owner_products_f32": 12,
+                    "bst_element_owner_sum_f32": 12}
+    require(counts() == merged({"B9 owner": 24}) and
+            entry_counts() == want_entries, f"sorted products: launches "
+            f"{counts()}, {entry_counts()} (the owner mode only: "
+            f"{want_entries})")
+    launches["B9 owner"] = 24
     for label, (p1, p2, p3) in runs.items():
         require(torch.equal(p1, p2) and torch.equal(p1, p3),
                 f"sorted {label}: three products are not bit-identical")
-    print("  sorted A @ x, A @ X, A.T @ x: each three times bit-identical "
-          "(torch.equal), 9 owner-mode launches, no element pass")
+    print(f"  sorted A @ x, A @ X (r = 64), A.T @ x, A @ X (r = 128): each "
+          f"three times bit-identical (torch.equal); launches "
+          f"{want_entries}, no element pass")
+    Sref64 = torch.from_numpy(Sref.toarray()).to(DEV)
     errs["B9 owner"] = max(
         rel_check("sorted A @ x vs atomic", runs["A @ x"][0], Aa @ ox, TOL32),
-        rel_check("sorted A @ X vs atomic", runs["A @ X"][0], Aa @ oX, TOL32),
         rel_check("sorted A.T @ x vs atomic", runs["A.T @ x"][0], Aa.T @ ox,
                   TOL32),
         rel_check("sorted A @ x vs float64 scipy", runs["A @ x"][0][fip],
-                  Sref @ xn, TOL32))
+                  Sref @ xn, TOL32),
+        rel_check("sorted A @ X vs atomic", runs["A @ X"][0], Aa @ oX, TOL32),
+        rel_check("sorted A @ X r=128 vs atomic", runs["A @ X r=128"][0],
+                  Aa @ oX128, TOL32),
+        rel_check("sorted A @ X vs float64 scipy", runs["A @ X"][0][fip],
+                  Sref64 @ oX[fip].double(), TOL32),
+        rel_check("sorted A @ X r=128 vs float64 scipy",
+                  runs["A @ X r=128"][0][fip],
+                  Sref64 @ oX128[fip].double(), TOL32))
+    del Sref64
     plain_own = (lambda v: mask_select.owner_apply_plain(
         table, v, out=torch.zeros_like(v)))
     for r, v in ((1, ox), (64, oX)):
@@ -4927,7 +5301,13 @@ def phase14(card: str) -> dict:
     flag32s = csr_of(As, f32)
     lib["B9 owner"] = library_ms("sorted A @ x: float32 CSR (cuSPARSE)",
                                  lambda: flag32s @ ox, runs["A @ x"][0], card)
+    lib["B9 owner r=64"] = library_ms(
+        "sorted A @ X r=64: float32 CSR @ X (cuSPARSE)",
+        lambda: flag32s @ oX, runs["A @ X"][0], card)
+    times["B9 owner passes r=64"] = pass_split(
+        "sorted A @ X r=64", table, own, oX, card)
     del runs, Ao, Aa, flag32s
+    out["sorted config 1"] = sorted_real_size(card)
 
     owner_keys = owner_instances(A, fperm, fxs, fXs, out, lib, card)
     del As
@@ -5022,34 +5402,79 @@ def phase14(card: str) -> dict:
         ("mask_select element pass c64->c128 (B9)", "B9 element c64->c128",
          B9_SRC, B9_SCATTER_REPLACES, lib["B9 element c64->c128"],
          "S @ x128, the complex64 BEM on scattered index lists (serial)"),
-        ("mask_select owner mode (B9, scatter='sorted')", "B9 owner", B9_SRC,
-         B9_SCATTER_REPLACES, lib["B9 owner"], "A @ x, the flagship on "
-         "scattered index lists, scatter='sorted', f32; atomic_*: the "
-         "element pass of the same operator with scatter='atomic'"),
+        ("mask_select owner mode (B9, scatter='sorted')", "B9 owner",
+         B9_OWNER_SRC, B9_SCATTER_REPLACES, lib["B9 owner"], "A @ x, the "
+         "flagship on scattered index lists, scatter='sorted', f32, both "
+         "launches (r64: A @ X); atomic_*: the element pass of the same "
+         "operator with scatter='atomic'; cfg1_*: config 1 (n=8192, 2000 x "
+         "128x128) renumbered, sorted, its bucket route at r = 128 (r1: "
+         "r = 1)"),
     ]
+    rule2_of = {"B1 f32->f64": "B1 f32->f64 BEM",
+                "B9 element f32->f64": "B9 element f32->f64 BEM"}
     for name, key, src, rep, lib_ms, what in specs:
         t_ = times[key if key != "B9 owner" else "B9 owner r=1"]
         extra = {"max_abs_err_kernel": errs[KERNEL_ERR[key]]}
         if key == "B9 owner":
-            extra.update({"replaces_also": SORTED_REPLACES,
-                          "r64_ms": times["B9 owner r=64"]["ms"],
-                          "r64_graph_ms": times["B9 owner r=64"]["graph_ms"],
-                          "atomic_ms": times["B9 atomic r=1"]["ms"],
-                          "atomic_graph_ms": times["B9 atomic r=1"]["graph_ms"],
-                          "atomic_r64_ms": times["B9 atomic r=64"]["ms"],
-                          "atomic_r64_graph_ms":
-                              times["B9 atomic r=64"]["graph_ms"],
-                          "bit_identical_runs": 3})
+            cfg1 = out["sorted config 1"]
+            extra.update({
+                "replaces_also": SORTED_REPLACES,
+                "entry_points": ["bst_element_owner_products_<pair>",
+                                 "bst_element_owner_sum_<compute>"],
+                "r64_ms": times["B9 owner r=64"]["ms"],
+                "r64_graph_ms": times["B9 owner r=64"]["graph_ms"],
+                "r64_library_ms": lib["B9 owner r=64"],
+                "r64_library_graph_ms": lib["B9 owner r=64"].graph,
+                "r64_bound_ms": times["B9 owner r=64"]["bound"][0],
+                **{f"r64_{k}": v
+                   for k, v in times["B9 owner passes r=64"].items()},
+                "atomic_ms": times["B9 atomic r=1"]["ms"],
+                "atomic_graph_ms": times["B9 atomic r=1"]["graph_ms"],
+                "atomic_r64_ms": times["B9 atomic r=64"]["ms"],
+                "atomic_r64_graph_ms": times["B9 atomic r=64"]["graph_ms"],
+                "bit_identical_runs": 3,
+                **{f"cfg1_{k}": cfg1["times"]["r=128"][k]
+                   for k in ("ms", "graph_ms", "plain_ms")},
+                "cfg1_bound_ms": cfg1["times"]["r=128"]["bound"][0],
+                "cfg1_atomic_ms": cfg1["times"]["atomic r=128"]["ms"],
+                "cfg1_atomic_graph_ms":
+                    cfg1["times"]["atomic r=128"]["graph_ms"],
+                "cfg1_library_ms": cfg1["lib"]["r=128"],
+                "cfg1_library_graph_ms": cfg1["lib"]["r=128"].graph,
+                "cfg1_max_abs_err": max(cfg1["errs"].values()),
+                **{f"cfg1_{k}": v
+                   for k, v in cfg1["times"]["passes r=128"].items()},
+                "cfg1_r1_ms": cfg1["times"]["r=1"]["ms"],
+                "cfg1_r1_graph_ms": cfg1["times"]["r=1"]["graph_ms"],
+                "cfg1_r1_bound_ms": cfg1["times"]["r=1"]["bound"][0],
+                "cfg1_r1_atomic_graph_ms":
+                    cfg1["times"]["atomic r=1"]["graph_ms"],
+                "cfg1_r1_library_graph_ms": cfg1["lib"]["r=1"].graph})
         if key == "B1 bf16->f32":
             extra.update({"r64_ms": times["B1 bf16->f32 r=64"]["ms"],
                           "r64_graph_ms":
                               times["B1 bf16->f32 r=64"]["graph_ms"],
+                          "r64_library_ms": lib["B1 bf16->f32 r=64"],
+                          "r64_library_graph_ms":
+                              lib["B1 bf16->f32 r=64"].graph,
                           "f32_route_ms": times["f32 route r=1"]["ms"],
                           "f32_route_graph_ms":
                               times["f32 route r=1"]["graph_ms"],
                           "f32_route_r64_graph_ms":
                               times["f32 route r=64"]["graph_ms"],
                           "stored_mb": mb16, "stored_mb_f32": mb32})
+        if key in rule2_of:  # its real-size row on the BEM operator
+            t2 = times[rule2_of[key]]
+            extra.update({"bem_ms": t2["ms"], "bem_graph_ms": t2["graph_ms"],
+                          "bem_plain_ms": t2["plain_ms"],
+                          "bem_bound_ms": t2["bound"][0],
+                          "bem_max_abs_err": errs[rule2_of[key]],
+                          **{f"bem_library_{lbl.split()[0]}_{k}": v
+                             for lbl, lt in lib[rule2_of[key]].items()
+                             for k, v in (("ms", float(lt)),
+                                          ("graph_ms", lt.graph))},
+                          "bem_timed": "phase 12's BEM operator n=8192 "
+                                       "(scattered copy, serial, for B9)"})
         if key == "B1 f32->f64":
             extra.update({"r64_ms": times["B1 f32->f64 r=64"]["ms"],
                           "r64_graph_ms":
@@ -5059,8 +5484,19 @@ def phase14(card: str) -> dict:
                               times["flagship f32 route r=1"]["graph_ms"]})
         kernels.append(instance_entry(
             name, src, rep, launches[key], errs[key], t_, lib_ms, card, what,
-            dtypes=["float32" if key == "B9 owner" else key.split(" ")[-1]],
+            dtypes=([pair_name(s_, c_) for s_, c_ in VALUE_PAIRS]
+                    if key == "B9 owner" else [key.split(" ")[-1]]),
             **extra))
+    t2 = times["B9 element f32 BEM"]
+    rows = lib["B9 element f32 BEM"]
+    kernels.append(instance_entry(
+        "mask_select element pass f32 on the BEM (B9)", B9_SRC,
+        B9_SCATTER_REPLACES, launches["B9 element f32 BEM"],
+        errs["B9 element f32 BEM"], t2, rows["float32 CSR"], card,
+        "S @ x, phase 12's BEM n=8192 on scattered index lists (serial), "
+        "its bucket route driven explicitly, f32",
+        library_f64_ms=float(rows["float64 CSR"]),
+        library_f64_graph_ms=rows["float64 CSR"].graph))
     for key in owner_keys:
         pair = key.split(" ")[-1]
         kernels.append(instance_entry(
@@ -5725,14 +6161,24 @@ def print_complex_builds(out: str) -> dict:
         print(f"ptxas: {names[kind]} {t} TR={tr}: {len(regs)} "
               f"instances, {min(u for u, _ in regs)}-{max(u for u, _ in regs)}"
               f" registers, {sum(sp for _, sp in regs)} bytes of spill stores")
-    owners = [(int(u.group(1)), part.split("'")[1]) for part in
-              out.split("Compiling entry function")[1:]
-              if "owner_kernel" in part.split("\n")[0]
-              for u in [re.search(r"Used (\d+) registers", part)] if u]
-    if owners:
-        print(f"ptxas: B9 owner mode: {len(owners)} instances, "
-              f"{min(u for u, _ in owners)}-{max(u for u, _ in owners)} "
-              f"registers")
+    for label, pat in (("B9 owner products pass", "owner_products_kernel"),
+                       ("B9 owner sum pass", "owner_sum_kernel"),
+                       ("B1 complex64 tensor cores", "complex_mma_kernel")):
+        regs = [(int(u.group(1)), int(sp.group(1)) if sp else 0,
+                 part.split("\n")[0])
+                for part in out.split("Compiling entry function")[1:]
+                if pat in part.split("\n")[0]
+                for u, sp in [(re.search(r"Used (\d+) registers", part),
+                               re.search(r"(\d+) bytes spill stores", part))]
+                if u]
+        if not regs:
+            continue
+        wn = sorted({m.group(1) for _, _, h in regs
+                     for m in [re.search(r"kernelILi(\d)E", h)] if m})
+        print(f"ptxas: {label}: {len(regs)} instances, "
+              f"{min(u for u, _, _ in regs)}-{max(u for u, _, _ in regs)} "
+              f"registers, {sum(sp for _, sp, _ in regs)} bytes of spill "
+              f"stores" + (f" (WN {', '.join(wn)})" if wn else ""))
     return found
 
 
@@ -5917,13 +6363,16 @@ def main() -> None:
             cx["launches"]["scattered"],
         "distributed scattered BEM product (phase 15)":
             dist["launches"]["B9 element"]}
-    cx_times = {f"complex{'' if r == 1 else '_r64'}_{key}": t[key]
-                for label, r in (("S @ x", 1), ("S @ X", 64))
+    cx_times = {f"complex{suffix}_{key}": t[key]
+                for label, suffix in (("S @ x", ""), ("S @ X r=16", "_r16"),
+                                      ("S @ X", "_r64"))
                 for t in (cx["times"][label],)
                 for key in ("ms", "graph_ms", "plain_ms", "plain_graph_ms",
                             "split_ms", "split_graph_ms",
                             "split_launches", "bound_ms", "bound_by",
-                            "library_ms", "library_graph_ms")}
+                            "library_ms", "library_graph_ms", "fma_ms",
+                            "fma_graph_ms") if key in t}
+    mma_t, mma16 = cx["times"]["S @ X"], cx["times"]["S @ X r=16"]
     require(all(b1_launches.values()) and all(element_launches.values()),
             f"a path skipped B1 or B9's element pass: {b1_launches}, "
             f"{element_launches}")
@@ -5975,10 +6424,48 @@ def main() -> None:
          "distributed_graph_ms": {k: r["times"]["graph_ms"]
                                   for k, r in dist["operands"].items()
                                   if "times" in r},
-         "complex_timed": "S @ x (r = 1) and S @ X (r = 64, _r64), the "
-                          "complex64 Helmholtz BEM at n=8192 (phase 13): 2 "
-                          "B1 launches; split: split_complex(S), four f32 "
+         "complex_timed": "S @ x (r = 1), S @ X (r = 16, _r16; r = 64, "
+                          "_r64), the complex64 Helmholtz BEM at n=8192 "
+                          "(phase 13): 2 B1 launches (r > 1: the tensor-core "
+                          "instance; fma: the FMA instance on the same "
+                          "tables); split: split_complex(S), four f32 "
                           "products"},
+        {"name": "fused_spmm complex64 tensor cores (B1)", "route": "cuda",
+         "source": B1_MMA_SRC, "replaces": B1_REPLACES,
+         "entry_points": ["bst_fused_spmm_mma_c64"],
+         "launches": cx["launches"]["mma"],
+         "launches_by_path": {
+             "complex Helmholtz BEM S @ X at r = 64 and 16 (phase 13)":
+                 cx["launches"]["mma"]},
+         "design": "the real embedding: view_as_real(V) [M, 2K] @ B [2K, "
+                   "2r], B's rows (Xr, Xi) and (-Xi, Xr) formed from the "
+                   "staged x row at fragment load; mma.sync m16n8k8 3xTF32, "
+                   "a three-deep cp.async ring of 16 complex rows, float2 "
+                   "atomics; the symmetric mode reads V twice",
+         "max_abs_err": cx["errs"]["S @ X"],
+         "max_abs_err_r16": cx["errs"]["S @ X r=16"],
+         "max_abs_err_phase1": errs1["B1 mma"],
+         "max_abs_err_vs_fma_phase1": errs1["B1 mma vs fma"],
+         "ms": mma_t["ms"], "graph_ms": mma_t["graph_ms"],
+         "plain_ms": mma_t["plain_ms"],
+         "plain_graph_ms": mma_t["plain_graph_ms"],
+         "bound_ms": mma_t["bound_ms"], "bound_by": mma_t["bound_by"],
+         "library_ms": mma_t["library_ms"],
+         "library_graph_ms": mma_t["library_graph_ms"],
+         "fma_ms": mma_t["fma_ms"], "fma_graph_ms": mma_t["fma_graph_ms"],
+         "split_ms": mma_t["split_ms"],
+         "split_graph_ms": mma_t["split_graph_ms"],
+         **{f"r16_{k}": mma16[k] for k in (
+             "ms", "graph_ms", "plain_ms", "bound_ms", "library_ms",
+             "library_graph_ms", "fma_ms", "fma_graph_ms", "split_ms",
+             "split_graph_ms")},
+         "instance_scan_graph_ms": cx["times"]["instance scan"],
+         "mma_min_r": fused_spmm.MMA_MIN_R,
+         "timed": "S @ X, r = 64, the complex64 Helmholtz BEM at n=8192 "
+                  "(phase 13), both launches; library: a complex64 CSR "
+                  "@ X (torch.sparse); fma / split: the FMA instance on the "
+                  "same tables / split_complex(S)",
+         "card": card, "dtypes": ["complex64"]},
         {"name": "patch_spmm forward (B2)", "route": "cuda", "source": B2_SRC,
          "replaces": B2_REPLACES, "launches": launches["B2 forward"],
          "launches_main_path": launches["B2"],
