@@ -26,16 +26,31 @@ kernel (its descriptor passed by value) into a fresh zeroed output.
 :class:`BucketTable` also serves the element pass of kernel B9
 (``ops/kernels/mask_select.py``), which reads the same descriptors.
 
-Two instances serve a table (:func:`b1_instance`, a pure function of the
-stored and compute dtypes, r and the table's deepest block side):
-complex64 values with a complex64 operand at ``r >= MMA_MIN_R`` and blocks
-at most ``MMA_MAX_DEPTH`` deep run the tensor-core instance
-(``csrc/complex_mma.cu``, entry ``bst_fused_spmm_mma_c64``: the real
-embedding ``view_as_real(V) [M, 2K] @ B [2K, 2r]``, B's rows ``(Xr, Xi)``
-and ``(-Xi, Xr)``, one real GEMM in 3xTF32 that gives the interleaved
-complex product; its plain version :func:`complex_mma_apply_plain` is that
-embedding in torch); every other table and r the FMA tile core
-(``csrc/tile_core.cuh``).
+Two kinds of instance serve a table (:func:`b1_instance`, a pure function
+of the stored and compute dtypes, r and the table's deepest block side).
+The tensor-core instances (:data:`MMA_RULES`: the pair, its entry, the
+least r and the deepest block the rule sends to it) share one skeleton
+(``csrc/b1_mma.cuh``: work items, cp.async ring, modes) and differ in
+their arithmetic:
+
+- complex64 values, complex64 operand (``csrc/complex_mma.cu``, entry
+  ``bst_fused_spmm_mma_c64``): the real embedding ``view_as_real(V) [M,
+  2K] @ B [2K, 2r]``, B's rows ``(Xr, Xi)`` and ``(-Xi, Xr)``, one real
+  GEMM in 3xTF32 that gives the interleaved complex product;
+- float64 and complex128 (``csrc/dmma.cu``, ``bst_fused_spmm_mma_f64`` /
+  ``_c128``): the block's GEMM, or the same embedding, on f64 ``mma.sync``
+  (IEEE f64 FMAs: no split, no depth cap);
+- bf16 values, float32 operand (``csrc/bf16_mma.cu``,
+  ``bst_fused_spmm_mma_bf16_f32``): x split exactly into three bf16 parts,
+  three bf16 ``mma.sync`` passes with float32 sums (the product of the
+  exact bf16 values with the unrounded operand).
+
+Their plain version is :func:`mma_apply_plain` (the embedding in
+:func:`complex_mma_apply_plain`, the GEMM per block, the three-part split
+of x with float32 products and sums).  Every other table, pair and r runs
+the FMA tile core (``csrc/tile_core.cuh``): r = 1, the mixed pairs (bf16 ->
+float64, float32 -> float64, complex64 -> complex128) and float32 (whose r
+> 1 products take the patch route, B2 / B3).
 
 Race-freedom: thread blocks run concurrently and blocks may share output
 rows, so the kernel adds into a zeroed output (or the partial sum of the
@@ -46,23 +61,26 @@ tolerance, not bit for bit.
 
 Precision: the FMA instances run in IEEE fp32/fp64 FMA (four per complex
 multiply-add) at every tier (``"highest"``, ``"high"``, ``None``); the
-complex64 tensor-core instance runs 3xTF32 at every tier.  Both meet the
+complex64 tensor-core instance runs 3xTF32 and the bf16 one three exact
+bf16 passes at every tier; the f64 one is IEEE f64.  All meet the
 ``"highest"`` tolerance.  Faster tiers are later work.
 
 Routing: a CPU tensor takes the plain version of the instance
 (:func:`chunked_block_apply_plain`, and for a table
 :func:`multi_block_apply_plain`, the loop of it over the buckets, or
-:func:`complex_mma_apply_plain`); a CUDA tensor launches the kernel or
-raises.  ``LAUNCHES`` counts kernel launches, ``SYM_LAUNCHES`` those of
-them in the symmetric mode, ``MMA_LAUNCHES`` those of the tensor-core
-instance, and ``ENTRY_LAUNCHES`` every launch of B1 and B9 by entry point
-(so by stored and compute dtype: ``bst_fused_spmm_multi_f32_f64``,
-``bst_fused_spmm_mma_c64``, ...).
+:func:`mma_apply_plain`); a CUDA tensor launches the kernel or raises,
+with no fallback from one instance to another.  ``LAUNCHES`` counts
+kernel launches, ``SYM_LAUNCHES`` those of them in the symmetric mode,
+``MMA_LAUNCHES`` those of the tensor-core instances, and
+``ENTRY_LAUNCHES`` every launch of B1 and B9 by entry point (so by stored
+and compute dtype: ``bst_fused_spmm_multi_f32_f64``,
+``bst_fused_spmm_mma_c64``, ``bst_fused_spmm_mma_bf16_f32``, ...).
 """
 
 from __future__ import annotations
 
 from collections import Counter
+from typing import NamedTuple
 
 import torch
 
@@ -70,24 +88,48 @@ from ...utils import build
 from ..torch_spmv import (chunk_rows, chunked_bucket_apply, gather_rows,
                           scatter_rows, values_grad)
 
-__all__ = ["BucketTable", "COMPUTE_TYPES", "ENTRY_LAUNCHES", "MMA_MAX_DEPTH",
-           "MMA_MIN_R",
-           "b1_instance", "check_table_call", "chunked_block_apply",
+__all__ = ["BucketTable", "COMPUTE_TYPES", "ENTRY_LAUNCHES", "MMA_RULES",
+           "MmaRule", "b1_instance", "check_table_call", "chunked_block_apply",
            "chunked_block_apply_plain", "complex_mma_apply_plain",
-           "entry_point", "launch_mode", "launch_table", "multi_block_apply",
-           "multi_block_apply_plain", "multi_fused_apply", "TableApply",
+           "entry_point", "launch_mode", "launch_table", "mma_apply_plain",
+           "multi_block_apply", "multi_block_apply_plain",
+           "multi_fused_apply", "split3", "TableApply",
            "LAUNCHES", "MMA_LAUNCHES", "SYM_LAUNCHES"]
 
 LAUNCHES = 0
 SYM_LAUNCHES = 0
 MMA_LAUNCHES = 0
 ENTRY_LAUNCHES: Counter = Counter()  # cleared, never rebound
-# the least r at which complex64 tables take the tensor-core instance, and
-# the deepest contraction (complex columns or rows of a block) it takes: it
-# sums each product in the tensor core's fp32 over the whole contraction,
-# an error that grows with the depth
-MMA_MIN_R = 2
-MMA_MAX_DEPTH = 2048
+
+
+class MmaRule(NamedTuple):
+    """Where a pair's tensor-core instance takes a table: its entry, the
+    least r, and the deepest block side (complex columns or rows) it takes,
+    or None for any depth."""
+    entry: str
+    min_r: int
+    max_depth: int | None
+
+
+# (stored, compute) -> the rule of its tensor-core instance.  Each least r
+# is the smallest of chip_smoke.py's instance scan (r in 2, 4, ..., 64)
+# from which the instance beat the FMA tile core at every larger r of the
+# scan on the H100.  The tensor core rounds its float32 sums toward zero,
+# an error that grows with the contraction's depth: each cap is the
+# deepest block of chip_smoke.py's depth check (64 to 8192, normal values)
+# whose error stayed within the 1e-5 tolerance of max|y| on the H100
+# (complex64: 7.0e-6 to 8.5e-6 at 512, 1.3e-5 to 1.6e-5 at 1024; bf16:
+# 6.4e-6 to 8.0e-6 at 2048, 2.6e-5 at 8192).  f64 sums are IEEE: no cap.
+MMA_RULES = {
+    (torch.complex64, torch.complex64): MmaRule("bst_fused_spmm_mma_c64", 2,
+                                                512),
+    (torch.float64, torch.float64): MmaRule("bst_fused_spmm_mma_f64", 2,
+                                            None),
+    (torch.complex128, torch.complex128): MmaRule("bst_fused_spmm_mma_c128",
+                                                  2, None),
+    (torch.bfloat16, torch.float32): MmaRule("bst_fused_spmm_mma_bf16_f32", 2,
+                                             2048),
+}
 
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2}
 _CONJ = 4  # mode bit: read conj(V) (tile_core.cuh kConj)
@@ -119,11 +161,12 @@ def b1_instance(stored: torch.dtype, compute: torch.dtype, r: int,
                 depth: int = 0) -> str:
     """The instance of B1 that runs a table of ``stored`` values on an
     operand of ``compute`` dtype with r columns, whose blocks are at most
-    ``depth`` rows or columns deep: ``"mma"`` (the complex64 tensor-core
-    instance) for complex64 values and operand at ``r >= MMA_MIN_R`` and
-    ``depth <= MMA_MAX_DEPTH``, else ``"fma"`` (the FMA tile core)."""
-    if (stored == compute == torch.complex64 and r >= MMA_MIN_R
-            and depth <= MMA_MAX_DEPTH):
+    ``depth`` rows or columns deep: ``"mma"`` (the pair's tensor-core
+    instance) where :data:`MMA_RULES` has the pair, ``r >= min_r`` and the
+    depth is within its cap, else ``"fma"`` (the FMA tile core)."""
+    rule = MMA_RULES.get((stored, compute))
+    if rule is not None and r >= rule.min_r and (
+            rule.max_depth is None or depth <= rule.max_depth):
         return "mma"
     return "fma"
 
@@ -280,38 +323,82 @@ def _embedded(xg: torch.Tensor, conj: bool) -> torch.Tensor:
     return torch.stack([xr, odd], dim=2).reshape(nb, 2 * K, 2 * r)
 
 
+def _halves(table: BucketTable, dtype: torch.dtype, transpose: bool,
+            symmetric: bool):
+    """Per bucket and half of its product: (values in ``dtype`` as the
+    contraction's A [nb, M, K], the element rows of x it reads, those of y
+    it adds into)."""
+    for vals, rtab, ctab, chunk in table.buckets:
+        vals = vals.to(dtype).resolve_conj()
+        rows, cols = chunk_rows(rtab, chunk), chunk_rows(ctab, chunk)
+        if not transpose:
+            yield vals, cols, rows
+        if transpose or symmetric:
+            yield vals.transpose(1, 2), rows, cols
+
+
 def complex_mma_apply_plain(table: BucketTable, x, *, out,
                             transpose: bool = False, symmetric: bool = False,
                             conj: bool = False) -> torch.Tensor:
-    """Plain version of the complex tensor-core instance: per bucket, the
+    """Plain version of the complex tensor-core instances: per bucket, the
     real embedding ``view_as_real(V) [nb, M, 2K] @ B [nb, 2K, 2r]``
     (:func:`_embedded`; transposed, ``view_as_real(V^T)``) read as the
     interleaved complex product and added into ``out`` in place through
-    the row tables; returns ``out``.  Any complex dtype (complex128 is its
-    float64 analogue)."""
+    the row tables; returns ``out``.  Any complex dtype: complex64's
+    instance, and complex128's, its float64 analogue."""
     xm = x[:, None] if x.ndim == 1 else x
     om = out[:, None] if out.ndim == 1 else out
     r = xm.shape[1]
-    for vals, rtab, ctab, chunk in table.buckets:
-        vals = vals.to(x.dtype).resolve_conj()
-        rows, cols = chunk_rows(rtab, chunk), chunk_rows(ctab, chunk)
-        nb = vals.shape[0]
-        parts = [(vals, cols, rows)] if not transpose else []
-        if transpose or symmetric:
-            parts.append((vals.transpose(1, 2), rows, cols))
-        for v, src, dst in parts:
-            a = torch.view_as_real(v.contiguous()).reshape(nb, v.shape[1], -1)
-            y = torch.bmm(a, _embedded(gather_rows(xm, src), conj))
-            y = torch.view_as_complex(y.reshape(nb, v.shape[1], r, 2))
-            om += scatter_rows(om.shape[0], dst, y)
+    for v, src, dst in _halves(table, x.dtype, transpose, symmetric):
+        nb = v.shape[0]
+        a = torch.view_as_real(v.contiguous()).reshape(nb, v.shape[1], -1)
+        y = torch.bmm(a, _embedded(gather_rows(xm, src), conj))
+        y = torch.view_as_complex(y.reshape(nb, v.shape[1], r, 2))
+        om += scatter_rows(om.shape[0], dst, y)
+    return out
+
+
+def split3(x: torch.Tensor) -> tuple:
+    """float32 ``x`` as three bf16 tensors ``(h, m, l)`` whose sum is x
+    exactly: ``h = bf16(x)``, ``m = bf16(x - h)``, ``l = bf16(x - h - m)``
+    (round to nearest even; 8 + 8 + 8 significant bits of x's 24)."""
+    h = x.to(torch.bfloat16)
+    rest = x - h.float()
+    m = rest.to(torch.bfloat16)
+    return h, m, (rest - m.float()).to(torch.bfloat16)
+
+
+def mma_apply_plain(table: BucketTable, x, *, out, transpose: bool = False,
+                    symmetric: bool = False,
+                    conj: bool = False) -> torch.Tensor:
+    """Plain version of the tensor-core instance of ``table``'s values and
+    ``x``'s dtype (:data:`MMA_RULES`), adding into ``out`` in place through
+    the row tables; returns ``out``.  Complex values: the real embedding
+    (:func:`complex_mma_apply_plain`); bf16 values with a float32 operand:
+    the three bf16 parts of x (:func:`split3`), each part's product with
+    the exact values in float32, summed in float32; float64: the GEMM per
+    block."""
+    if table.dtype.is_complex:
+        return complex_mma_apply_plain(table, x, out=out, transpose=transpose,
+                                       symmetric=symmetric, conj=conj)
+    xm = x[:, None] if x.ndim == 1 else x
+    om = out[:, None] if out.ndim == 1 else out
+    parts = ([p.to(x.dtype) for p in split3(xm)]
+             if table.dtype == torch.bfloat16 else [xm])
+    for v, src, dst in _halves(table, x.dtype, transpose, symmetric):
+        y = torch.bmm(v, gather_rows(parts[0], src))
+        for part in parts[1:]:
+            y += torch.bmm(v, gather_rows(part, src))
+        om += scatter_rows(om.shape[0], dst, y)
     return out
 
 
 def _launch_mma(table: BucketTable, x, out, mode: int) -> bool:
-    """One launch of the complex64 tensor-core instance over ``table``
-    (CUDA tensors, checked by the caller), adding into ``out``; False
-    where there was nothing to launch."""
-    name = "bst_fused_spmm_mma_c64"
+    """One launch of the tensor-core instance of ``table``'s values and
+    ``x``'s dtype (:data:`MMA_RULES`; CUDA tensors, checked by the caller)
+    over ``table``, adding into ``out``; False where there was nothing to
+    launch."""
+    name = MMA_RULES[(table.dtype, x.dtype)].entry
     xm = x.resolve_conj().contiguous()
     r = 1 if x.ndim == 1 else x.shape[1]
     if not (any(table.items) and r and out.shape[0]):
@@ -337,7 +424,7 @@ def multi_block_apply(table: BucketTable, x, *, out, transpose: bool = False,
     mma = b1_instance(table.dtype, x.dtype, 1 if x.ndim == 1 else x.shape[1],
                       table.depth) == "mma"
     if x.device.type == "cpu":
-        plain = complex_mma_apply_plain if mma else multi_block_apply_plain
+        plain = mma_apply_plain if mma else multi_block_apply_plain
         return plain(table, x, out=out, transpose=transpose,
                      symmetric=symmetric, conj=conj)
     if x.device.type != "cuda":

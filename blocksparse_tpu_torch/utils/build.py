@@ -59,8 +59,11 @@ _SIGNATURES = {
     # rows, ptr, flat, n_rows, P, y, r, y_rows, stream
     **{f"bst_element_owner_sum_{suffix}": (_P, _P, _P, _L, _P, _P, _I, _L, _P)
        for suffix in ("f32", "f64", "c64", "c128")},
-    # table, n, items_f, items_t, x, y, r, x_rows, y_rows, mode, stream
-    "bst_fused_spmm_mma_c64": (_P, _I, _L, _L, _P, _P, _I, _L, _L, _I, _P),
+    # B1's tensor-core instances: table, n, items_f, items_t, x, y, r,
+    # x_rows, y_rows, mode, stream
+    **{f"bst_fused_spmm_mma_{suffix}": (_P, _I, _L, _L, _P, _P, _I, _L, _L,
+                                        _I, _P)
+       for suffix in ("c64", "f64", "c128", "bf16_f32")},
     # x, hi, lo, P, n, r, ld, stream
     "bst_patch_xt_f32": (_P, _P, _P, _I, _L, _I, _L, _P),
     # vals, cc, rs, xt_hi, xt_lo, y, nb, MP, KP, r, x_rows, ld, y_rows, tier,

@@ -63,9 +63,13 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      own geometry (printed), every seg driving the three modes; B9's owner
      mode (its two passes), every stored / compute pair x forward,
      transpose (x conj for complex values) x r in {1, 3, 64, 128}, two
-     launches bit-equal; B1's complex64 tensor-core instance, forward, transpose,
-     symmetric x conj off / on x r in {2, 16, 64}, against its plain
-     version (the real embedding) and the FMA instance;
+     launches bit-equal; B1's tensor-core instances (complex64, float64,
+     complex128, bf16 -> float32), forward, transpose, symmetric (x conj
+     for complex values) x r in {2, 16, 64, 200}, against their plain
+     version and the FMA instance on a table with sentinel chunks and the
+     deepest block the rule admits, and the bf16 and complex64 instances'
+     error by contraction depth (64 to 8192) against a float64 product,
+     which sets their depth caps;
   2. the flagship operator (4096^2, 200 contiguous 64x64 f32 blocks, r = 64):
      a constructor without ``device=`` lands on the card; kernels against
      plain versions at its shapes, then the main path once
@@ -189,18 +193,26 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      the same products through ``split_complex(S)`` (four f32 products on
      the real routes) and, at r > 1, B1's FMA instance on the same tables;
      both complex64 instances of B1 at r in {2, 4, 8, 16, 32, 64} (graph
-     ms, where the tensor cores take over beside ``MMA_MIN_R``); GMRES(20) + ``block_jacobi`` in complex64 at tol 1e-5 (held
+     ms, where the tensor cores take over beside the least r of
+     ``fused_spmm.MMA_RULES``); GMRES(20) + ``block_jacobi`` in complex64 at tol 1e-5 (held
      to its preconditioned residual on the assembly, exact launches and
      host reads, its iterations within 3 of scipy's GMRES(20) with the same
      block inverses), complex128 GMRES at tol 1e-12 against scipy's
-     solution within 1e-10, and eager ms per GMRES iteration beside its
-     products' CUDA-graph floor;
+     solution within 1e-10, the complex128 operator's ``S @ X`` at r = 16
+     and 64 (B1's complex128 tensor-core instance: exact launches by entry
+     point, within 1e-12 of the complex128 assembly) timed eager and from
+     a CUDA graph beside the FMA instance on the same tables, a complex128
+     CSR call and the bound, both complex128 instances scanned over r, and
+     eager ms per GMRES iteration beside its products' CUDA-graph floor;
  14. options, dtype rules and interop (``--options`` runs this phase
      alone): phase 12's BEM operator stored bf16 (``dtype=torch.bfloat16``)
      with f32 and f64 operands, contiguous (B1's bf16 -> f32 / f64
      instances) and on scattered index lists (B9's element pass), against
      the f32 operator within 2e-2 and against its own bf16 values in
-     float64 within 1e-5 (f32 results) or 1e-12 (f64); an f64 operand on
+     float64 within 1e-5 (f32 results) or 1e-12 (f64), ``S @ X`` (r = 64)
+     on B1's bf16 -> f32 tensor-core instance timed beside the FMA
+     instance on the same tables, the f32 operator's B3 and the CSR call,
+     both bf16 instances scanned over r; an f64 operand on
      the flagship and on its scattered copy (f32 -> f64 instances, f64
      results within 1e-12 of float64 scipy, no B2 or B5), a complex128
      operand on phase 13's complex64 BEM, both numberings (c64 -> c128,
@@ -222,7 +234,11 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      reaches it: against its plain version, exact launches by entry point
      (at r = 64 the two passes), two products bit-equal, against a dense
      float64 / complex128 copy of its values), bf16 ``S @ X``'s values in
-     an f32 CSR ``@ X``; save / load of the BEM operator (f32 and
+     an f32 CSR ``@ X``; config 1 stored float64, ``A @ X`` and ``A.T @
+     X`` at r = 128 on B1's float64 tensor-core instance against float64
+     scipy (1e-12), exact launches by entry point, timed beside the FMA
+     instance, a float64 CSR call and the bound, both float64 instances
+     scanned over r (to 128); save / load of the BEM operator (f32 and
      bf16) through a temporary directory onto the card, staged tensors
      ``torch.equal`` and load seconds; ``to_bcoo`` on the card against
      ``to_scipy``; ``schedule="auto"`` with the colored operator's
@@ -367,6 +383,8 @@ PEAK_FLOPS = {"highest": TF32_FLOPS_PER_S / 3, "high": TF32_FLOPS_PER_S / 3,
 TIER_TOL = {"highest": TOL32, None: TOL_TF32}
 B1_SRC = "blocksparse_tpu_torch/csrc/fused_spmm.cu"
 B1_MMA_SRC = "blocksparse_tpu_torch/csrc/complex_mma.cu"
+B1_DMMA_SRC = "blocksparse_tpu_torch/csrc/dmma.cu"
+B1_BF16_MMA_SRC = "blocksparse_tpu_torch/csrc/bf16_mma.cu"
 B9_OWNER_SRC = "blocksparse_tpu_torch/csrc/owner_pass.cu"
 B2_SRC = "blocksparse_tpu_torch/csrc/patch_spmm.cu"
 B1_REPLACES = "blocksparse_tpu/ops/pallas/fused_spmm.py:81"
@@ -552,7 +570,7 @@ def reset_counts() -> None:
 def counts() -> dict:
     """Kernel launches since the last reset ("B1 sym": those of B1 in its
     symmetric mode, also counted under "B1"; "B1 mma": those of its
-    complex64 tensor-core instance, also under "B1"; "B9 element": B9's element
+    tensor-core instances (``fused_spmm.MMA_RULES``), also under "B1"; "B9 element": B9's element
     passes, "B9 element sym" those in the symmetric mode, "B9 owner" its
     owner mode (scatter="sorted"); "B2": B2's
     forward, "B2 transpose" its transposed product, "B2 prologue" its X^T
@@ -1169,36 +1187,117 @@ def owner_vs_plain(gen) -> dict:
     return errs
 
 
-def complex_mma_vs_plain(gen) -> dict:
-    """B1's complex64 tensor-core instance over a table of chunked buckets
-    (mixed chunks, chunk ids past n that read zero and scatter nowhere)
-    against its plain version (the real embedding) and against the FMA
-    instance on the same table, forward, transpose, symmetric x conj off /
-    on x r in {2, 16, 64}, adding into an output that holds a partial
-    sum."""
-    errs = {"B1 mma": 0.0, "B1 mma vs fma": 0.0}
-    table, n = b1_table(np.complex64)
-    for r in (2, 16, 64):
-        x = torch.randn((n, r), generator=gen, dtype=torch.complex64).to(DEV)
-        prior = torch.randn(x.shape, generator=gen,
-                            dtype=torch.complex64).to(DEV)
-        for mode, kw in MODE_KW.items():
-            for conj in (False, True):
-                mode_ = fused_spmm.launch_mode(mode == "transpose",
-                                               mode == "symmetric", conj)
-                got, fma = prior.clone(), prior.clone()
-                fused_spmm._launch_mma(table, x, got, mode_)
-                fused_spmm.launch_table("bst_fused_spmm_multi", table, x, fma,
-                                        mode_)
-                ref = fused_spmm.complex_mma_apply_plain(
-                    table, x, out=prior.clone(), conj=conj, **kw)
+# B1's tensor-core instances, as (key, numpy dtype of the values, stored,
+# compute)
+MMA_PAIRS = (("B1 mma", np.complex64, torch.complex64, torch.complex64),
+             ("B1 mma f64", np.float64, torch.float64, torch.float64),
+             ("B1 mma c128", np.complex128, torch.complex128,
+              torch.complex128),
+             ("B1 mma bf16->f32", np.float32, torch.bfloat16, torch.float32))
+# the contraction depths of the depth check of the instances that sum in
+# the tensor core's float32 (bf16 -> f32, complex64)
+MMA_DEPTHS = (64, 256, 512, 1024, 2048, 8192)
+
+
+def mma_table(np_dtype, stored, deep: int) -> tuple:
+    """(table, n): ``b1_table``'s buckets (mixed chunks, sentinel chunk
+    ids) in ``stored``, and a bucket of four 64 x ``deep`` blocks whose
+    column chunks repeat and reach one chunk past n."""
+    table, n = b1_table(np_dtype)
+    rng = np.random.default_rng(12)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+    buckets = list(table.buckets) + [(
+        t(values_of(np_dtype, rng, (4, 64, deep))),
+        t(rng.integers(0, n // 64, (4, 1)).astype(np.int32)),
+        t(rng.integers(0, n // 64 + 1, (4, deep // 64)).astype(np.int32)),
+        64)]
+    return BucketTable([(v.to(stored).contiguous(), rt, ct, c)
+                        for v, rt, ct, c in buckets]), n
+
+
+def mma_instances_vs_plain(gen) -> dict:
+    """B1's tensor-core instances (complex64, float64, complex128, bf16 ->
+    float32) over a table of chunked buckets (mixed chunks, chunk ids past
+    n, and the deepest block the rule admits: its cap where it has one,
+    else 4096 columns) against their plain version and the FMA instance on
+    the same table, forward, transpose, symmetric (x conj for complex
+    values) x r in {2, 16, 64, 200}, adding into an output that holds a
+    partial sum; then the bf16 and complex64 instances' error against a
+    float64 product by contraction depth (``MMA_DEPTHS``), within 1e-5 at
+    every depth up to each cap of ``fused_spmm.MMA_RULES`` (each cap: the
+    deepest depth of the check within that)."""
+    errs = {}
+    for key, np_dtype, stored, compute in MMA_PAIRS:
+        cap = fused_spmm.MMA_RULES[(stored, compute)].max_depth
+        table, n = mma_table(np_dtype, stored, cap or 4096)
+        require(fused_spmm.b1_instance(stored, compute, 2, table.depth) ==
+                "mma", f"{key}: the rule must admit the table's depth")
+        errs[key] = errs[f"{key} vs fma"] = 0.0
+        for r in (2, 16, 64, 200):
+            x = torch.randn((n, r), generator=gen, dtype=compute).to(DEV)
+            prior = torch.randn(x.shape, generator=gen, dtype=compute).to(DEV)
+            for mode, kw in MODE_KW.items():
+                for conj in ((False, True) if stored.is_complex else (False,)):
+                    mode_ = fused_spmm.launch_mode(mode == "transpose",
+                                                   mode == "symmetric", conj)
+                    got, fma = prior.clone(), prior.clone()
+                    fused_spmm._launch_mma(table, x, got, mode_)
+                    fused_spmm.launch_table("bst_fused_spmm_multi", table, x,
+                                            fma, mode_)
+                    ref = fused_spmm.mma_apply_plain(
+                        table, x, out=prior.clone(), conj=conj, **kw)
+                    torch.cuda.synchronize()
+                    label = (f"{key} {len(table)} buckets (depth "
+                             f"{table.depth}) {mode}{' conj' if conj else ''}"
+                             f" r={r}")
+                    errs[key] = max(errs[key], rel_check(
+                        f"{label} vs its plain version", got, ref,
+                        TOL[compute]))
+                    errs[f"{key} vs fma"] = max(errs[f"{key} vs fma"],
+                                                rel_check(
+                        f"{label} vs the FMA instance", got, fma,
+                        TOL[compute]))
+    depth = {}
+    for stored, compute in ((torch.bfloat16, torch.float32),
+                            (torch.complex64, torch.complex64)):
+        np_dt = np.complex64 if stored.is_complex else np.float32
+        wide = torch.complex128 if stored.is_complex else torch.float64
+        cap = fused_spmm.MMA_RULES[(stored, compute)].max_depth
+        for D in MMA_DEPTHS:
+            rng = np.random.default_rng(D)
+            vals = torch.from_numpy(values_of(np_dt, rng, (16, 64, D))).to(
+                stored).to(DEV).contiguous()
+            rc = torch.from_numpy(rng.integers(0, 64, (16, 1)).astype(
+                np.int32)).to(DEV)
+            cc = torch.from_numpy(rng.integers(0, 64, (16, D // 64)).astype(
+                np.int32)).to(DEV)
+            table = BucketTable([(vals, rc, cc, 64)])
+            wtable = BucketTable([(vals.to(wide), rc, cc, 64)])
+            x = torch.randn((4096, 64), generator=gen, dtype=compute).to(DEV)
+            for transpose in (False, True):
+                got = torch.zeros_like(x)
+                fused_spmm._launch_mma(table, x, got, int(transpose))
+                ref = fused_spmm.multi_block_apply_plain(
+                    wtable, x.to(wide), out=torch.zeros(x.shape, dtype=wide,
+                                                        device=DEV),
+                    transpose=transpose)
                 torch.cuda.synchronize()
-                label = (f"B1 complex64 tensor cores {len(table)} buckets "
-                         f"{mode}{' conj' if conj else ''} r={r}")
-                errs["B1 mma"] = max(errs["B1 mma"], rel_check(
-                    f"{label} vs its plain version", got, ref, TOL32))
-                errs["B1 mma vs fma"] = max(errs["B1 mma vs fma"], rel_check(
-                    f"{label} vs the FMA instance", got, fma, TOL32))
+                e, _ = abs_err(f"{pair_name(stored, compute)} depth {D}",
+                               got, ref, TOL[compute] if D <= cap
+                               else float("inf"))
+                rel = e / max(1.0, float(ref.abs().max()))
+                depth[(pair_name(stored, compute), D, transpose)] = rel
+    print("  tensor-core instances' error against a float64 product by "
+          "contraction depth (of max|y|; forward / transpose, r = 64): "
+          + "; ".join(f"{p} {D}: {depth[(p, D, False)]:.2e} / "
+                      f"{depth[(p, D, True)]:.2e}"
+                      for p, D, t in depth if not t)
+          + "; caps: " + ", ".join(
+              f"{pair_name(s_, c_)} {r_.max_depth}"
+              for (s_, c_), r_ in fused_spmm.MMA_RULES.items()
+              if r_.max_depth is not None))
+    errs["mma depth"] = {f"{p} {D}{' transpose' if t else ''}": v
+                         for (p, D, t), v in depth.items()}
     return errs
 
 
@@ -1279,7 +1378,7 @@ def phase1():
     errs.update(element_vs_plain(gen))
     errs.update(complex_vs_plain(gen))
     errs.update(owner_vs_plain(gen))
-    errs.update(complex_mma_vs_plain(gen))
+    errs.update(mma_instances_vs_plain(gen))
     stream_errs, panel_plans = stream_kernels_vs_plain(gen)
     errs.update(stream_errs)
     errs.update(batched_kernels_vs_plain(gen, patch_bucket, panel_plans))
@@ -4260,12 +4359,13 @@ def sym_b1_tables(S) -> tuple:
             bucket_tables(S._obuckets, S._olayout)["chunked"])
 
 
-def b1_instance_product(S, v, instance: str) -> torch.Tensor:
-    """``S @ v`` through one instance of B1 driven directly on ``S``'s two
-    chunked tables ("mma": the complex64 tensor-core instance, "fma": the
-    FMA tile core), two launches that no counter sees."""
+def tables_product(tables, v, instance: str) -> torch.Tensor:
+    """One product through one instance of B1 driven directly on
+    ``tables``, (table, mode) pairs ("mma": the pair's tensor-core
+    instance, "fma": the FMA tile core), one launch each that no counter
+    sees."""
     out = torch.zeros_like(v)
-    for table, mode in zip(sym_b1_tables(S), (0, 2)):
+    for table, mode in tables:
         if instance == "mma":
             fused_spmm._launch_mma(table, v, out, mode)
         else:
@@ -4274,17 +4374,108 @@ def b1_instance_product(S, v, instance: str) -> torch.Tensor:
     return out
 
 
+def b1_instance_product(S, v, instance: str) -> torch.Tensor:
+    """``S @ v`` through one instance of B1 driven directly on ``S``'s two
+    chunked tables (``tables_product``)."""
+    return tables_product(zip(sym_b1_tables(S), (0, 2)), v, instance)
+
+
+def mma_tables(S, compute, r: int) -> int:
+    """How many of ``S``'s two chunked tables the rule sends to the
+    tensor-core instance of their values and ``compute`` at r columns
+    (each table by its own deepest block)."""
+    return sum(fused_spmm.b1_instance(t.dtype, compute, r, t.depth) == "mma"
+               for t in sym_b1_tables(S))
+
+
 def mma_plain_sym(S, v) -> torch.Tensor:
-    """``S @ v`` through the tensor-core instance's plain version (the real
-    embedding) on ``S``'s two chunked tables."""
+    """``S @ v`` through the tensor-core instances' plain version on ``S``'s
+    two chunked tables."""
     out = torch.zeros_like(v)
     for table, sym in zip(sym_b1_tables(S), (False, True)):
-        fused_spmm.complex_mma_apply_plain(table, v, out=out, symmetric=sym)
+        fused_spmm.mma_apply_plain(table, v, out=out, symmetric=sym)
     return out
 
 
-# r of the phase 13 scan that puts B1's two complex64 instances side by side
+# r of the instance scans that put B1's two instances of a pair side by side
 MMA_SCAN_R = (2, 4, 8, 16, 32, 64)
+
+
+def instance_scan(label, tables, dtype, n, card, rs=MMA_SCAN_R) -> dict:
+    """Graph ms of B1's tensor-core and FMA instances on ``tables`` ((table,
+    mode) pairs: one product) with a random [n, r] operand of ``dtype`` at
+    each r of ``rs``, in turns (tensor cores, FMA, tensor cores, FMA), and
+    ``takes``: the least r of the scan from which the tensor cores win at
+    every larger r (None where they lose at its last), printed beside the
+    rule's least r."""
+    gen = torch.Generator().manual_seed(18)
+    tables = list(tables)
+    scan = {}
+    for r in rs:
+        v = torch.randn((n, r), generator=gen, dtype=dtype).to(DEV)
+        m1, f1, m2, f2 = (graph_ms(lambda v=v, k=k: tables_product(
+            tables, v, k)) for k in ("mma", "fma", "mma", "fma"))
+        scan[r] = {"mma_graph_ms": min(m1, m2), "fma_graph_ms": min(f1, f2)}
+    takes = min((r for r in rs
+                 if all(scan[q]["mma_graph_ms"] < scan[q]["fma_graph_ms"]
+                        for q in rs if q >= r)), default=None)
+    rule = fused_spmm.MMA_RULES[(tables[0][0].dtype, dtype)]
+    print(f"  B1's {label} instances, graph ms (tensor cores / FMA): "
+          + ", ".join(f"r={r} {t['mma_graph_ms']:.4f} / "
+                      f"{t['fma_graph_ms']:.4f}" for r, t in scan.items())
+          + f"; the tensor cores win from r = {takes} of the scan on; the "
+          f"rule's least r {rule.min_r} [{card}]")
+    return {"scan": scan, "takes": takes, "min_r": rule.min_r}
+
+
+def c128_spmm(S, A128, gen, card) -> dict:
+    """The complex128 BEM's ``S @ X`` at r = 16 and 64 (B1's complex128
+    tensor-core instance where the rule says) against the complex128
+    assembly, exact launches by entry point, timed eager and from a CUDA
+    graph beside the FMA instance on the same tables, a complex128 CSR @ X
+    call and the bound; both instances scanned over r."""
+    c128 = torch.complex128
+    n = S.shape[0]
+    A = torch.from_numpy(A128).to(DEV)
+    res = {"errs": {}, "times": {}, "launches": 0}
+    csr = complex_csr_on_card(S)
+    for label, r in (("S @ X r=16", 16), ("S @ X", 64)):
+        v = torch.randn((n, r), generator=gen, dtype=c128).to(DEV)
+        k = mma_tables(S, c128, r)
+        mma = k == 2
+        reset_counts()
+        Y = S @ v
+        torch.cuda.synchronize()
+        want = merged({"B1": 2, "B1 sym": 1, "B1 mma": k})
+        want_e = {e: c for e, c in (
+            (fused_spmm.MMA_RULES[(c128, c128)].entry, k),
+            ("bst_fused_spmm_multi_c128", 2 - k)) if c}
+        require(counts() == want and entry_counts() == want_e,
+                f"complex128 {label}: launches {counts()}, {entry_counts()}")
+        res["launches"] += counts()["B1 mma"]
+        res["errs"][label] = rel_check(
+            f"complex128 {label} vs the complex128 assembly", Y, A @ v,
+            TOL[c128])
+        fma = (lambda v=v: b1_instance_product(S, v, "fma"))
+        rel_check(f"complex128 {label}: the FMA instance vs the product", fma(),
+                  Y, TOL[c128])
+        t = timed(f"complex128 {label} (2 B1{' on the tensor cores' if mma else ''})",
+                  lambda v=v: S @ v,
+                  (lambda v=v: mma_plain_sym(S, v)) if mma
+                  else (lambda v=v: plain_buckets_sym(S, v)),
+                  product_bound(S, r), card)
+        t["fma_ms"], t["fma_graph_ms"] = median_ms(fma), graph_ms(fma)
+        lib = library_ms(f"complex128 {label}: complex128 CSR @ X "
+                         f"(torch.sparse)", lambda v=v: csr @ v, Y, card)
+        t["library_ms"], t["library_graph_ms"] = lib, lib.graph
+        print(f"  complex128 {label}: the FMA instance on the same tables "
+              f"eager {t['fma_ms']:.4f}, graph {t['fma_graph_ms']:.4f} ms "
+              f"[{card}]")
+        res["times"][label] = t
+    del csr, A
+    res["scan"] = instance_scan("complex128", zip(sym_b1_tables(S), (0, 2)),
+                                c128, n, card)
+    return res
 
 
 def phase13(card: str) -> dict:
@@ -4320,9 +4511,8 @@ def phase13(card: str) -> dict:
     want = merged({"B1": 2, "B1 sym": 1})
 
     def want_r(r):  # r > 1: the tensor-core instance where the rule says
-        mma = fused_spmm.b1_instance(torch.complex64, torch.complex64, r,
-                                     max(t.depth for t in sym_b1_tables(S)))
-        return merged({"B1": 2, "B1 sym": 1, "B1 mma": 2 * (mma == "mma")})
+        return merged({"B1": 2, "B1 sym": 1,
+                       "B1 mma": mma_tables(S, torch.complex64, r)})
 
     # 1. products against the oracle, exact launches
     refs = {"S @ x": A_dev, "S.T @ x": A_dev.T, "S.H @ x": A_dev.conj().T,
@@ -4410,9 +4600,7 @@ def phase13(card: str) -> dict:
         out["errs"][f"split {label}"] = rel_check(
             f"split {label} vs the assembly", ys,
             A_dev @ v.to(torch.complex128), TOL32)
-        mma = fused_spmm.b1_instance(
-            S.dtype, v.dtype, r,
-            max(t.depth for t in sym_b1_tables(S))) == "mma"
+        mma = r > 1 and mma_tables(S, v.dtype, r) == 2
         plain = ((lambda v=v: mma_plain_sym(S, v)) if mma
                  else (lambda v=v: plain_buckets_sym(S, v)))
         rel_check(f"{label}: the plain versions vs the kernels", plain(),
@@ -4448,23 +4636,9 @@ def phase13(card: str) -> dict:
                  else "") + f" [{card}]")
     del csr
     # where the tensor-core instance takes over: both instances on S's
-    # tables, graph ms, (mma, fma, mma, fma) at each r
-    scan = {}
-    for r in MMA_SCAN_R:
-        v = torch.randn((n, r), generator=gen, dtype=torch.complex64).to(DEV)
-        m1, f1, m2, f2 = (graph_ms(lambda v=v, k=k: b1_instance_product(
-            S, v, k)) for k in ("mma", "fma", "mma", "fma"))
-        scan[r] = {"mma_graph_ms": min(m1, m2), "fma_graph_ms": min(f1, f2)}
-    takes = min((r for r in MMA_SCAN_R
-                 if all(scan[q]["mma_graph_ms"] < scan[q]["fma_graph_ms"]
-                        for q in MMA_SCAN_R if q >= r)), default=None)
-    out["times"]["instance scan"] = scan
-    print(f"  B1's complex64 instances on S's tables, graph ms (tensor cores "
-          f"/ FMA): " + ", ".join(
-              f"r={r} {t['mma_graph_ms']:.4f} / {t['fma_graph_ms']:.4f}"
-              for r, t in scan.items())
-          + f"; the tensor cores win from r = {takes} of the scan on; "
-          f"fused_spmm.MMA_MIN_R = {fused_spmm.MMA_MIN_R} [{card}]")
+    # tables at each r of the scan
+    out["times"]["instance scan"] = instance_scan(
+        "complex64", zip(sym_b1_tables(S), (0, 2)), torch.complex64, n, card)
 
     # 4. solves: GMRES(20) + block_jacobi in complex64, complex128 vs scipy
     t = time.perf_counter()
@@ -4539,7 +4713,10 @@ def phase13(card: str) -> dict:
     print(f"  complex128 gmres({COMPLEX_RESTART}) + block_jacobi at tol 1e-12:"
           f" {k128} iterations, scipy {sp_it[0]}; |x - x_scipy| / |x_scipy| "
           f"{rel128:.3e}")
-    del S128, M128, A_dev
+    del M128, A_dev
+    # 5. complex128 S @ X on B1's f64 tensor-core instance
+    out["c128"] = c128_spmm(S128, A128, gen, card)
+    del S128
 
     # eager ms per GMRES iteration beside its products' graph floor
     p = torch.randn(n, generator=gen, dtype=torch.complex64).to(DEV)
@@ -4937,6 +5114,83 @@ def sorted_real_size(card, n=8192, nblocks=2000, bs=128, r_wide=128) -> dict:
     return out
 
 
+def config1_f64(card) -> dict:
+    """Config 1 (phase 3's operand: n = 8192, 2000 x 128^2) stored float64:
+    ``A @ X`` and ``A.T @ X`` at r = 128 (B1's float64 tensor-core
+    instance where the rule says) against float64 scipy, exact launches by
+    entry point, timed eager and from a CUDA graph beside the FMA instance
+    on the same table, a float64 CSR @ X call and the bound; both
+    instances scanned over r."""
+    f64 = torch.float64
+    t = time.perf_counter()
+    A32, _ = contiguous_operator(8192, 2000, 128, seed=7, value_seed=7 + 7777,
+                                 device="cpu")
+    nb = A32.nblocks
+    A = bt.BlockSparseMatrix(
+        [A32.block(i).astype(np.float64) for i in range(nb)],
+        [A32.blockrowindices(i) for i in range(nb)],
+        [A32.blockcolindices(i) for i in range(nb)], A32.shape, device=DEV)
+    del A32
+    torch.cuda.synchronize()
+    res = {"errs": {}, "times": {}, "launches": 0,
+           "setup_s": time.perf_counter() - t}
+    n = A.shape[0]
+    table = bucket_tables(A._buckets, A._layout)["chunked"]
+    require(bucket_tables(A._buckets, A._layout)["element"] is None,
+            "config 1 must have chunked buckets only")
+    sref = bt.to_scipy(A).tocsr()
+    X = torch.randn((n, 128), generator=torch.Generator().manual_seed(19),
+                    dtype=f64).to(DEV)
+    Xn = X.cpu().numpy()
+    mma = fused_spmm.b1_instance(f64, f64, 128, table.depth) == "mma"
+    entry = fused_spmm.MMA_RULES[(f64, f64)].entry if mma else \
+        "bst_fused_spmm_multi_f64"
+    r_, c_, v_ = bt.rowcolvals(A)
+    ij = torch.from_numpy(np.stack([r_, c_])).to(DEV)
+    vals = torch.from_numpy(np.asarray(v_, np.float64)).to(DEV)
+    csrs = {mode: torch.sparse_coo_tensor(ij.flip(0) if mode else ij, vals,
+                                          (n, n)).coalesce().to_sparse_csr()
+            for mode in (0, 1)}
+    del ij, vals
+    for label, fn, ref, mode in (
+            ("A @ X", lambda: A @ X, lambda: sref @ Xn, 0),
+            ("A.T @ X", lambda: A.T @ X, lambda: sref.T @ Xn, 1)):
+        reset_counts()
+        Y = fn()
+        torch.cuda.synchronize()
+        require(counts() == merged({"B1": 1, "B1 mma": int(mma)}) and
+                entry_counts() == {entry: 1},
+                f"config 1 f64 {label}: launches {counts()}, "
+                f"{entry_counts()}")
+        res["launches"] += counts()["B1 mma"]
+        res["errs"][label] = rel_check(
+            f"config 1 stored f64 {label} r=128 vs float64 scipy", Y, ref(),
+            TOL[f64])
+        fma = (lambda mode=mode: tables_product([(table, mode)], X, "fma"))
+        rel_check(f"config 1 f64 {label}: the FMA instance vs the product",
+                  fma(), Y, TOL[f64])
+        plain = fused_spmm.mma_apply_plain if mma else \
+            fused_spmm.multi_block_apply_plain
+        tm = timed(f"config 1 stored f64 {label} r=128 (1 B1"
+                   f"{' on the tensor cores' if mma else ''})", fn,
+                   lambda mode=mode: plain(table, X, out=torch.zeros_like(X),
+                                           transpose=bool(mode)),
+                   product_bound(A, 128, f64), card)
+        tm["fma_ms"], tm["fma_graph_ms"] = median_ms(fma), graph_ms(fma)
+        lib = library_ms(f"config 1 f64 {label}: float64 CSR @ X "
+                         f"(torch.sparse)", lambda c=csrs[mode]: c @ X, Y,
+                         card)
+        tm["library_ms"], tm["library_graph_ms"] = lib, lib.graph
+        print(f"  config 1 f64 {label}: the FMA instance on the same table "
+              f"eager {tm['fma_ms']:.4f}, graph {tm['fma_graph_ms']:.4f} ms "
+              f"[{card}]")
+        res["times"][label] = tm
+    del csrs, sref
+    res["scan"] = instance_scan("float64", [(table, 0)], f64, n, card,
+                                MMA_SCAN_R + (128,))
+    return res
+
+
 def phase14(card: str) -> dict:
     n, ncl, thresh, st = BEM_NPTS, BEM_CLUSTERS, BEM_THRESH, BEM_SELF_TERM
     print(f"phase 14: options, dtype rules and interop: bf16 storage and "
@@ -4978,19 +5232,28 @@ def phase14(card: str) -> dict:
     ref16 = csr_of(S16, f64)  # its bf16 values, exactly, in float64
     errs.update({f"bf16 {k}": v for k, v in bucket_launch_check(
         "bf16 BEM", S16, (x, X, x64), TOL32).items()})
+    # S16 @ X (r = 64) on B1's bf16 -> f32 tensor-core instance where the
+    # rule says, the r = 1 products on the FMA instances
+    k16 = mma_tables(S16, f32, 64)
+    mma16 = k16 == 2
+    mma16_entry = fused_spmm.MMA_RULES[(torch.bfloat16, f32)].entry
     reset_counts()
     y1, Y, y64 = S16 @ x, S16 @ X, S16 @ x64
     torch.cuda.synchronize()
-    want = merged({"B1": 6, "B1 sym": 3})
+    want = merged({"B1": 6, "B1 sym": 3, "B1 mma": k16})
     require(counts() == want, f"bf16 BEM products: launches {counts()}")
     ent = entry_counts()
-    require(ent == {"bst_fused_spmm_multi_bf16_f32": 4,
-                    "bst_fused_spmm_multi_bf16_f64": 2},
-            f"bf16 BEM products: entry points {ent}")
+    want_ent = {"bst_fused_spmm_multi_bf16_f32": 4 - k16,
+                "bst_fused_spmm_multi_bf16_f64": 2,
+                **({mma16_entry: k16} if k16 else {})}
+    require(ent == want_ent, f"bf16 BEM products: entry points {ent}, want "
+            f"{want_ent}")
     launches["B1 bf16->f32"] = ent["bst_fused_spmm_multi_bf16_f32"]
     launches["B1 bf16->f64"] = ent["bst_fused_spmm_multi_bf16_f64"]
+    launches["B1 mma bf16->f32"] = ent.get(mma16_entry, 0)
     print(f"  S16 @ x, S16 @ X, S16 @ x64: launches {ent} (2 B1 per product, "
-          f"one symmetric; no B3, B5 or B9)")
+          f"one symmetric; S16 @ X on the tensor cores: {mma16}; no B3, B5 "
+          f"or B9)")
     require((y1.dtype, Y.dtype, y64.dtype) == (f32, f32, f64),
             f"bf16 products' dtypes {y1.dtype}, {Y.dtype}, {y64.dtype}")
     errs["bf16 S @ x vs f32"] = rel_check("S16 @ x vs S32 @ x (bf16 storage)",
@@ -5009,8 +5272,20 @@ def phase14(card: str) -> dict:
         "S16 @ x (bf16 -> f32, B1)", lambda: S16 @ x,
         lambda: plain_buckets_sym(S16, x, dtype=f32), b16[1], card)
     times["B1 bf16->f32 r=64"] = timed(
-        "S16 @ X r=64 (bf16 -> f32, B1)", lambda: S16 @ X,
-        lambda: plain_buckets_sym(S16, X, dtype=f32), b16[64], card)
+        f"S16 @ X r=64 (bf16 -> f32, B1{' tensor cores' if mma16 else ''})",
+        lambda: S16 @ X,
+        (lambda: mma_plain_sym(S16, X)) if mma16
+        else (lambda: plain_buckets_sym(S16, X, dtype=f32)), b16[64], card)
+    fma16 = (lambda: b1_instance_product(S16, X, "fma"))
+    rel_check("S16 @ X: the FMA instance vs the product", fma16(), Y, TOL32)
+    times["B1 bf16->f32 r=64"].update(fma_ms=median_ms(fma16),
+                                      fma_graph_ms=graph_ms(fma16))
+    print(f"  S16 @ X r=64: the FMA instance on the same tables eager "
+          f"{times['B1 bf16->f32 r=64']['fma_ms']:.4f}, graph "
+          f"{times['B1 bf16->f32 r=64']['fma_graph_ms']:.4f} ms [{card}]")
+    out["bf16 scan"] = instance_scan("bf16 -> f32",
+                                     zip(sym_b1_tables(S16), (0, 2)), f32, n,
+                                     card)
     times["B1 bf16->f64"] = timed(
         "S16 @ x64 (bf16 -> f64, B1)", lambda: S16 @ x64,
         lambda: plain_buckets_sym(S16, x64, dtype=f64),
@@ -5311,6 +5586,7 @@ def phase14(card: str) -> dict:
 
     owner_keys = owner_instances(A, fperm, fxs, fXs, out, lib, card)
     del As
+    out["config 1 f64"] = config1_f64(card)
 
     # 4. save / load of the BEM operator, and interop
     with tempfile.TemporaryDirectory() as tmp:
@@ -5451,17 +5727,9 @@ def phase14(card: str) -> dict:
                     cfg1["times"]["atomic r=1"]["graph_ms"],
                 "cfg1_r1_library_graph_ms": cfg1["lib"]["r=1"].graph})
         if key == "B1 bf16->f32":
-            extra.update({"r64_ms": times["B1 bf16->f32 r=64"]["ms"],
-                          "r64_graph_ms":
-                              times["B1 bf16->f32 r=64"]["graph_ms"],
-                          "r64_library_ms": lib["B1 bf16->f32 r=64"],
-                          "r64_library_graph_ms":
-                              lib["B1 bf16->f32 r=64"].graph,
-                          "f32_route_ms": times["f32 route r=1"]["ms"],
+            extra.update({"f32_route_ms": times["f32 route r=1"]["ms"],
                           "f32_route_graph_ms":
                               times["f32 route r=1"]["graph_ms"],
-                          "f32_route_r64_graph_ms":
-                              times["f32 route r=64"]["graph_ms"],
                           "stored_mb": mb16, "stored_mb_f32": mb32})
         if key in rule2_of:  # its real-size row on the BEM operator
             t2 = times[rule2_of[key]]
@@ -5487,6 +5755,45 @@ def phase14(card: str) -> dict:
             dtypes=([pair_name(s_, c_) for s_, c_ in VALUE_PAIRS]
                     if key == "B9 owner" else [key.split(" ")[-1]]),
             **extra))
+    t16 = times["B1 bf16->f32 r=64"]
+    kernels.append(instance_entry(
+        "fused_spmm bf16->f32 tensor cores (B1)", B1_BF16_MMA_SRC,
+        B1_REPLACES, launches["B1 mma bf16->f32"], errs["B1 bf16->f32"], t16,
+        lib["B1 bf16->f32 r=64"], card, "S @ X r=64, phase 12's BEM operator "
+        "n=8192 stored bf16, f32 operand, both launches; fma: the FMA "
+        "instance on the same tables; f32_b3: the f32 operator's S @ X (B3); "
+        "library: its bf16 values in an f32 CSR @ X", dtypes=["bf16->f32"],
+        entry_points=[fused_spmm.MMA_RULES[(torch.bfloat16, f32)].entry],
+        launches_by_path={"bf16 BEM S @ X r=64 (phase 14)":
+                          launches["B1 mma bf16->f32"]},
+        max_abs_err_vs_f32=errs["bf16 S @ X vs f32"],
+        fma_ms=t16["fma_ms"], fma_graph_ms=t16["fma_graph_ms"],
+        f32_b3_ms=times["f32 route r=64"]["ms"],
+        f32_b3_graph_ms=times["f32 route r=64"]["graph_ms"],
+        instance_scan_graph_ms=out["bf16 scan"]["scan"],
+        scan_takes_from_r=out["bf16 scan"]["takes"],
+        min_r=out["bf16 scan"]["min_r"],
+        max_depth=fused_spmm.MMA_RULES[(torch.bfloat16, f32)].max_depth))
+    c1 = out["config 1 f64"]
+    kernels.append(instance_entry(
+        "fused_spmm float64 tensor cores (B1)", B1_DMMA_SRC, B1_REPLACES,
+        c1["launches"], max(c1["errs"].values()), c1["times"]["A @ X"],
+        c1["times"]["A @ X"]["library_ms"], card, "A @ X r=128, config 1 "
+        "(n=8192, 2000 x 128x128) stored f64; t_: A.T @ X; fma: the FMA "
+        "instance on the same table; library: a float64 CSR @ X",
+        dtypes=["float64"], entry_points=[fused_spmm.MMA_RULES[(f64, f64)]
+                                          .entry],
+        launches_by_path={"config 1 stored f64, A @ X and A.T @ X r=128 "
+                          "(phase 14)": c1["launches"]},
+        fma_ms=c1["times"]["A @ X"]["fma_ms"],
+        fma_graph_ms=c1["times"]["A @ X"]["fma_graph_ms"],
+        **{f"t_{k}": c1["times"]["A.T @ X"][k] for k in (
+            "ms", "graph_ms", "plain_ms", "fma_ms", "fma_graph_ms")},
+        t_library_ms=c1["times"]["A.T @ X"]["library_ms"],
+        t_library_graph_ms=c1["times"]["A.T @ X"]["library_graph_ms"],
+        instance_scan_graph_ms=c1["scan"]["scan"],
+        scan_takes_from_r=c1["scan"]["takes"], min_r=c1["scan"]["min_r"],
+        setup_s=c1["setup_s"]))
     t2 = times["B9 element f32 BEM"]
     rows = lib["B9 element f32 BEM"]
     kernels.append(instance_entry(
@@ -6163,7 +6470,10 @@ def print_complex_builds(out: str) -> dict:
               f" registers, {sum(sp for _, sp in regs)} bytes of spill stores")
     for label, pat in (("B9 owner products pass", "owner_products_kernel"),
                        ("B9 owner sum pass", "owner_sum_kernel"),
-                       ("B1 complex64 tensor cores", "complex_mma_kernel")):
+                       ("B1 complex64 tensor cores", "PolicyC64"),
+                       ("B1 float64 tensor cores", "PolicyF64"),
+                       ("B1 complex128 tensor cores", "PolicyC128"),
+                       ("B1 bf16->f32 tensor cores", "PolicyBF16")):
         regs = [(int(u.group(1)), int(sp.group(1)) if sp else 0,
                  part.split("\n")[0])
                 for part in out.split("Compiling entry function")[1:]
@@ -6174,7 +6484,7 @@ def print_complex_builds(out: str) -> dict:
         if not regs:
             continue
         wn = sorted({m.group(1) for _, _, h in regs
-                     for m in [re.search(r"kernelILi(\d)E", h)] if m})
+                     for m in [re.search(r"Policy\w+?ELi(\d)E", h)] if m})
         print(f"ptxas: {label}: {len(regs)} instances, "
               f"{min(u for u, _, _ in regs)}-{max(u for u, _, _ in regs)} "
               f"registers, {sum(sp for _, sp, _ in regs)} bytes of spill "
@@ -6459,8 +6769,9 @@ def main() -> None:
              "ms", "graph_ms", "plain_ms", "bound_ms", "library_ms",
              "library_graph_ms", "fma_ms", "fma_graph_ms", "split_ms",
              "split_graph_ms")},
-         "instance_scan_graph_ms": cx["times"]["instance scan"],
-         "mma_min_r": fused_spmm.MMA_MIN_R,
+         "instance_scan_graph_ms": cx["times"]["instance scan"]["scan"],
+         "scan_takes_from_r": cx["times"]["instance scan"]["takes"],
+         "mma_min_r": cx["times"]["instance scan"]["min_r"],
          "timed": "S @ X, r = 64, the complex64 Helmholtz BEM at n=8192 "
                   "(phase 13), both launches; library: a complex64 CSR "
                   "@ X (torch.sparse); fma / split: the FMA instance on the "
@@ -6762,6 +7073,55 @@ def main() -> None:
          **{f"{k}_library_ms": t["library_ms"]
             for k, t in b10["times"].items()}},
     ]}
+    c1 = cx["c128"]
+    t128 = c1["times"]["S @ X"]
+    summary["kernels"].append(
+        {"name": "fused_spmm complex128 tensor cores (B1)", "route": "cuda",
+         "source": B1_DMMA_SRC, "replaces": B1_REPLACES,
+         "entry_points": [fused_spmm.MMA_RULES[(torch.complex128,
+                                                torch.complex128)].entry],
+         "launches": c1["launches"],
+         "launches_by_path": {
+             "complex128 Helmholtz BEM S @ X at r = 64 and 16 (phase 13)":
+                 c1["launches"]},
+         "design": "the real embedding of the complex64 instance on f64 "
+                   "mma.sync m16n8k8 (IEEE f64: no split, no depth cap); "
+                   "eight warps (2 x 4) of 32 rows x 8 WN real columns, "
+                   "the b1_mma.cuh ring of 8 complex rows (16 below WN = "
+                   "4), 16-byte copies, two double atomics per complex "
+                   "value",
+         "max_abs_err": c1["errs"]["S @ X"],
+         "max_abs_err_r16": c1["errs"]["S @ X r=16"],
+         "max_abs_err_phase1": errs1["B1 mma c128"],
+         "max_abs_err_vs_fma_phase1": errs1["B1 mma c128 vs fma"],
+         "ms": t128["ms"], "graph_ms": t128["graph_ms"],
+         "plain_ms": t128["plain_ms"],
+         "plain_graph_ms": t128["plain_graph_ms"],
+         "bound_ms": t128["bound"][0], "bound_by": t128["bound"][1],
+         "library_ms": t128["library_ms"],
+         "library_graph_ms": t128["library_graph_ms"],
+         "fma_ms": t128["fma_ms"], "fma_graph_ms": t128["fma_graph_ms"],
+         **{f"r16_{k}": c1["times"]["S @ X r=16"][k] for k in (
+             "ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms",
+             "fma_ms", "fma_graph_ms")},
+         "r16_bound_ms": c1["times"]["S @ X r=16"]["bound"][0],
+         "instance_scan_graph_ms": c1["scan"]["scan"],
+         "scan_takes_from_r": c1["scan"]["takes"],
+         "mma_min_r": c1["scan"]["min_r"],
+         "timed": "S @ X, r = 64, the complex128 Helmholtz BEM at n=8192 "
+                  "(phase 13), both launches; library: a complex128 CSR @ X "
+                  "(torch.sparse); fma: the FMA instance on the same tables",
+         "card": card, "dtypes": ["complex128"]})
+    phase1_keys = {"fused_spmm bf16->f32 tensor cores (B1)":
+                   "B1 mma bf16->f32",
+                   "fused_spmm float64 tensor cores (B1)": "B1 mma f64"}
+    for entry in opts["kernels"]:
+        if entry["name"] in phase1_keys:
+            key = phase1_keys[entry["name"]]
+            entry.update(max_abs_err_phase1=errs1[key],
+                         max_abs_err_vs_fma_phase1=errs1[f"{key} vs fma"])
+            if key == "B1 mma bf16->f32":  # and complex64's, beside it
+                entry["depth_err_of_max_y"] = errs1["mma depth"]
     summary["kernels"] += opts["kernels"]
     require(all(k["launches"] for k in opts["kernels"]),
             f"phase 14 skipped an instance: "

@@ -262,8 +262,8 @@ def test_element_pass_gradcheck(mode):
     assert torch.autograd.gradcheck(fn, (x, *vals))
 
 
-def spy(monkeypatch, module, name):
-    calls = []
+def spy(monkeypatch, module, name, calls=None):
+    calls = [] if calls is None else calls
     orig = getattr(module, name)
 
     def wrapped(*a, **k):
@@ -290,8 +290,13 @@ def test_one_launch_of_each_kind_per_layout(monkeypatch, kind, r):
     """f64 products take the bucket route on every format: one multi B1
     call and one element pass per layout and product (the symmetric
     format: the diagonal's, then the off-diagonals' in symmetric mode),
-    and the product matches scipy."""
-    b1 = spy(monkeypatch, fused_spmm, "multi_block_apply_plain")
+    and the product matches scipy.  A B1 call is the plain version of the
+    instance ``fused_spmm.b1_instance`` picks: the FMA tile core's at r =
+    1, the f64 tensor-core instance's at r > 1."""
+    b1 = []
+    for name in ("multi_block_apply_plain", "mma_apply_plain"):
+        spy(monkeypatch, fused_spmm, name, b1)
+    mma = spy(monkeypatch, fused_spmm, "mma_apply_plain")
     b9 = spy(monkeypatch, mask_select, "element_apply_plain")
     if kind == "symmetric":
         d, di, o, ri, ci, shape = random_symmetric(
@@ -310,6 +315,7 @@ def test_one_launch_of_each_kind_per_layout(monkeypatch, kind, r):
     want_b9 = [any(hb.chunk == 1 for hb in lay.buckets) for lay in layouts]
     assert all(want_b1) and any(want_b9)
     assert len(b1) == len(layouts) and len(b9) == sum(want_b9)
+    assert len(mma) == (len(layouts) if r > 1 else 0)
     if kind == "symmetric":
         assert [c["symmetric"] for c in b1] == [False, True][-len(b1):]
     S = bt.to_scipy(op).toarray()

@@ -2,8 +2,8 @@
 real embedding) held to the JAX package and scipy, and the rule that
 routes a table to it.
 
-On the card, complex64 values with a complex64 operand at r >=
-``fused_spmm.MMA_MIN_R`` run ``csrc/complex_mma.cu``: the interleaved V
+On the card, complex64 values with a complex64 operand at r >= the least
+r of ``fused_spmm.MMA_RULES`` run ``csrc/complex_mma.cu``: the interleaved V
 [M, K] read as a real [M, 2K] times a real B [2K, 2r] whose row 2k is x's
 row k as (Xr, Xi) per column and whose row 2k + 1 is (-Xi, Xr) (conj:
 (Xi, -Xr)), one real GEMM giving the interleaved complex product.  Its
@@ -180,11 +180,14 @@ def test_sentinel_chunks_match_the_fma_plain_version(mode, r):
 
 
 def test_routing_rule():
-    """The tensor-core instance takes complex64 values with a complex64
-    operand at r >= MMA_MIN_R on blocks at most MMA_MAX_DEPTH deep; every
-    other pair, r and depth keeps the FMA tile core."""
+    """The tensor-core instances take the pairs of ``MMA_RULES`` (complex64,
+    and since the f64 / complex128 and bf16 -> f32 instances those too) at
+    r >= their least r on blocks at most their cap deep; complex64 values
+    take them only with a complex64 operand, and every other pair, r = 1
+    and deeper blocks keep the FMA tile core."""
     c64, c128 = torch.complex64, torch.complex128
-    lo, deep = fused_spmm.MMA_MIN_R, fused_spmm.MMA_MAX_DEPTH
+    rule = fused_spmm.MMA_RULES[(c64, c64)]
+    lo, deep = rule.min_r, rule.max_depth
     assert lo >= 2
     assert fused_spmm.b1_instance(c64, c64, lo) == "mma"
     assert fused_spmm.b1_instance(c64, c64, 512, deep) == "mma"
@@ -198,11 +201,18 @@ def test_routing_rule():
                           torch.zeros(1, 2, dtype=torch.int32),
                           torch.zeros(1, 1, dtype=torch.int32), 32)])
     assert table.depth == 64
-    for stored, compute in ((c64, c128), (c128, c128),
-                            (torch.float32, torch.float32),
+    for (stored, compute), rule in fused_spmm.MMA_RULES.items():
+        assert fused_spmm.b1_instance(stored, compute, 1) == "fma"
+        for r in (rule.min_r, 64, 200):
+            assert fused_spmm.b1_instance(stored, compute, r, 64) == "mma"
+        # past its cap (float64 and complex128 have none: IEEE sums)
+        over = (rule.max_depth or 1 << 20) + 1
+        want = "fma" if rule.max_depth is not None else "mma"
+        assert fused_spmm.b1_instance(stored, compute, 64, over) == want
+    assert fused_spmm.MMA_RULES[(torch.float64, torch.float64)].max_depth \
+        is None
+    for stored, compute in ((c64, c128), (torch.float32, torch.float32),
                             (torch.float32, torch.float64),
-                            (torch.float64, torch.float64),
-                            (torch.bfloat16, torch.float32),
                             (torch.bfloat16, torch.float64)):
         for r in (1, lo, 64, 200):
             assert fused_spmm.b1_instance(stored, compute, r) == "fma"
