@@ -32,8 +32,11 @@
 // only because its grid ran in order; here every write to y is an atomicAdd
 // into the zeroed output (or the partial sum of the launches before it), so
 // the summation order varies between runs.  Any r is taken directly, with
-// no RHS slicing and no on-chip memory budget.
-#include "tile_core.cuh"
+// no RHS slicing and no on-chip memory budget.  At r = 1 the row-stream
+// body (row_stream.cuh, bst_fused_spmm_rows_<pair>) reads the same table
+// in stored row order, several blocks per SM, where the Python rule table
+// (ops/kernels/fused_spmm.py::R1_RULES) picks it over the tile core.
+#include "row_stream.cuh"
 
 namespace {
 
@@ -63,6 +66,17 @@ int run_many(const void* table, int n, long long items, const T* x, T* y,
                                                   y_rows, mode, stream);
 }
 
+template <typename V, typename T>
+int run_rows(const void* table, int n, long long items, const T* x, T* y,
+             int r, long long x_rows, long long y_rows, int mode,
+             void* stream) {
+  if (n < 0 || (n == 0 && items != 0)) return (int)cudaErrorInvalidValue;
+  const bst::DescTable tab{static_cast<const bst::BucketDesc*>(table), n, {}};
+  return bst::launch_row_stream<V, T, bst::ChunkMap>(tab, items, x, y, r,
+                                                     x_rows, y_rows, mode,
+                                                     stream);
+}
+
 using bf16 = __nv_bfloat16;
 using c64 = bst::cplx<float>;
 using c128 = bst::cplx<double>;
@@ -74,7 +88,9 @@ using c128 = bst::cplx<double>;
 // symmetric, plus bst::kConj (4) for conj(V) (the complex entries).  y is
 // added into.  Many buckets (bst_fused_spmm_multi_<suffix>): table is n
 // descriptors (int64 [n, 9] on the card, see tile_core.cuh::BucketDesc),
-// items their work items in this mode.
+// items their work items in this mode.  The row-stream body at r = 1
+// (bst_fused_spmm_rows_<suffix>, row_stream.cuh): the same table, items its
+// forward work items in every mode.
 #define BST_B1_ENTRIES(SUFFIX, V, T)                                          \
   extern "C" int bst_fused_spmm_##SUFFIX(                                     \
       const V* vals, const int* row_tab, const int* col_tab, const T* x,      \
@@ -87,6 +103,12 @@ using c128 = bst::cplx<double>;
       const void* table, int n, long long items, const T* x, T* y, int r,     \
       long long x_rows, long long y_rows, int mode, void* stream) {           \
     return run_many<V, T>(table, n, items, x, y, r, x_rows, y_rows, mode,     \
+                          stream);                                            \
+  }                                                                           \
+  extern "C" int bst_fused_spmm_rows_##SUFFIX(                                \
+      const void* table, int n, long long items, const T* x, T* y, int r,     \
+      long long x_rows, long long y_rows, int mode, void* stream) {           \
+    return run_rows<V, T>(table, n, items, x, y, r, x_rows, y_rows, mode,     \
                           stream);                                            \
   }
 

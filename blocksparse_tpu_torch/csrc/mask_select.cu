@@ -46,12 +46,14 @@
 // as the TPU kernels they replace.  The element pass also has the mixed
 // instances of the tile core (bf16 -> f32, bf16 -> f64, f32 -> f64, c64 ->
 // c128: values read in their stored type, computed in the wider one), named
-// bst_element_pass_<stored>_<compute>.
+// bst_element_pass_<stored>_<compute>.  At r = 1 the element pass runs the
+// row-stream body (row_stream.cuh, bst_element_pass_rows_<pair>) where the
+// Python rule table (ops/kernels/fused_spmm.py::R1_RULES) picks it.
 //
 // The owner mode of the element pass (scatter="sorted", the port of the JAX
 // engine's sorted scatter) is owner_pass.cu: two passes at every r,
 // race-free by row ownership and bit-identical from run to run.
-#include "tile_core.cuh"
+#include "row_stream.cuh"
 
 namespace {
 
@@ -125,6 +127,19 @@ static int element_pass(const void* table, int n, long long items,
                                                  y_rows, mode, stream);
 }
 
+// The element pass at r = 1 on the row-stream body (row_stream.cuh): the
+// same table, items its forward work items in every mode.
+template <typename V, typename T>
+static int element_rows(const void* table, int n, long long items,
+                        const T* x, T* y, int r, long long x_rows,
+                        long long y_rows, int mode, void* stream) {
+  if (n < 0 || (n == 0 && items != 0)) return (int)cudaErrorInvalidValue;
+  const bst::DescTable tab{static_cast<const bst::BucketDesc*>(table), n, {}};
+  return bst::launch_row_stream<V, T, bst::ElemMap>(tab, items, x, y, r,
+                                                    x_rows, y_rows, mode,
+                                                    stream);
+}
+
 using bf16 = __nv_bfloat16;
 using c64 = bst::cplx<float>;
 using c128 = bst::cplx<double>;
@@ -134,6 +149,12 @@ using c128 = bst::cplx<double>;
       const void* table, int n, long long items, const T* x, T* y, int r,     \
       long long x_rows, long long y_rows, int mode, void* stream) {           \
     return element_pass<V, T>(table, n, items, x, y, r, x_rows, y_rows,       \
+                              mode, stream);                                  \
+  }                                                                           \
+  extern "C" int bst_element_pass_rows_##SUFFIX(                              \
+      const void* table, int n, long long items, const T* x, T* y, int r,     \
+      long long x_rows, long long y_rows, int mode, void* stream) {           \
+    return element_rows<V, T>(table, n, items, x, y, r, x_rows, y_rows,       \
                               mode, stream);                                  \
   }
 

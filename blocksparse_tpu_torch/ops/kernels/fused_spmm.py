@@ -47,10 +47,18 @@ their arithmetic:
 
 Their plain version is :func:`mma_apply_plain` (the embedding in
 :func:`complex_mma_apply_plain`, the GEMM per block, the three-part split
-of x with float32 products and sums).  Every other table, pair and r runs
-the FMA tile core (``csrc/tile_core.cuh``): r = 1, the mixed pairs (bf16 ->
-float64, float32 -> float64, complex64 -> complex128) and float32 (whose r
-> 1 products take the patch route, B2 / B3).
+of x with float32 products and sums).  At r = 1 the pair's entry of
+:data:`R1_RULES` (:func:`r1_body`) picks the row-stream body
+(``csrc/row_stream.cuh``, entry ``bst_fused_spmm_rows_<pair>``: each
+block's values read once in stored row order by persistent blocks that
+issue the next work item's loads before this one's reductions, warp
+shuffles, one atomic per row or column) or the FMA tile core; B9's element
+pass reads its own column of the same table.  Every other table, pair and
+r runs the FMA tile core (``csrc/tile_core.cuh``): the mixed pairs (bf16
+-> float64, float32 -> float64, complex64 -> complex128) and float32
+(whose r > 1 products take the patch route, B2 / B3).  Every instance
+computes the same function, so :func:`multi_block_apply_plain` is the
+plain version of the row-stream body and the tile core alike.
 
 Race-freedom: thread blocks run concurrently and blocks may share output
 rows, so the kernel adds into a zeroed output (or the partial sum of the
@@ -71,10 +79,11 @@ Routing: a CPU tensor takes the plain version of the instance
 :func:`mma_apply_plain`); a CUDA tensor launches the kernel or raises,
 with no fallback from one instance to another.  ``LAUNCHES`` counts
 kernel launches, ``SYM_LAUNCHES`` those of them in the symmetric mode,
-``MMA_LAUNCHES`` those of the tensor-core instances, and
+``MMA_LAUNCHES`` those of the tensor-core instances, ``ROW_LAUNCHES``
+those of the row-stream body, and
 ``ENTRY_LAUNCHES`` every launch of B1 and B9 by entry point (so by stored
 and compute dtype: ``bst_fused_spmm_multi_f32_f64``,
-``bst_fused_spmm_mma_c64``, ``bst_fused_spmm_mma_bf16_f32``, ...).
+``bst_fused_spmm_rows_c64``, ``bst_fused_spmm_mma_bf16_f32``, ...).
 """
 
 from __future__ import annotations
@@ -88,17 +97,20 @@ from ...utils import build
 from ..torch_spmv import (chunk_rows, chunked_bucket_apply, gather_rows,
                           scatter_rows, values_grad)
 
-__all__ = ["BucketTable", "COMPUTE_TYPES", "ENTRY_LAUNCHES", "MMA_RULES",
-           "MmaRule", "b1_instance", "check_table_call", "chunked_block_apply",
+__all__ = ["BucketTable", "COMPUTE_TYPES", "ENTRY_LAUNCHES", "FMA_PREFIXES",
+           "MMA_RULES", "MmaRule", "R1Rule", "R1_RULES", "b1_instance",
+           "check_table_call", "chunked_block_apply",
            "chunked_block_apply_plain", "complex_mma_apply_plain",
-           "entry_point", "launch_mode", "launch_table", "mma_apply_plain",
+           "entry_point", "fma_launch", "launch_items", "launch_mode",
+           "launch_table", "mma_apply_plain",
            "multi_block_apply", "multi_block_apply_plain",
-           "multi_fused_apply", "split3", "TableApply",
-           "LAUNCHES", "MMA_LAUNCHES", "SYM_LAUNCHES"]
+           "multi_fused_apply", "r1_body", "split3", "TableApply",
+           "LAUNCHES", "MMA_LAUNCHES", "ROW_LAUNCHES", "SYM_LAUNCHES"]
 
 LAUNCHES = 0
 SYM_LAUNCHES = 0
 MMA_LAUNCHES = 0
+ROW_LAUNCHES = 0
 ENTRY_LAUNCHES: Counter = Counter()  # cleared, never rebound
 
 
@@ -130,6 +142,35 @@ MMA_RULES = {
     (torch.bfloat16, torch.float32): MmaRule("bst_fused_spmm_mma_bf16_f32", 2,
                                              2048),
 }
+
+
+class R1Rule(NamedTuple):
+    """The bodies of a pair's r = 1 launches, ``"rows"`` (the row-stream
+    body, ``csrc/row_stream.cuh``) or ``"tile"`` (the FMA tile core): B1's
+    over chunked buckets and B9's element pass's over element buckets."""
+    b1: str
+    b9: str
+
+
+# (stored, compute) -> the bodies of its r = 1 launches.  Each entry
+# follows chip_smoke.py's r = 1 rule scan on the H100 (both bodies on the
+# BEM at n = 8192, contiguous for B1, on scattered index lists for B9;
+# PERF.md section 6): the row-stream body where it was the faster.
+R1_RULES = {
+    (torch.float32, torch.float32): R1Rule("rows", "rows"),
+    (torch.float64, torch.float64): R1Rule("rows", "rows"),
+    (torch.complex64, torch.complex64): R1Rule("rows", "rows"),
+    (torch.complex128, torch.complex128): R1Rule("rows", "rows"),
+    (torch.bfloat16, torch.float32): R1Rule("rows", "tile"),
+    (torch.bfloat16, torch.float64): R1Rule("rows", "rows"),
+    (torch.float32, torch.float64): R1Rule("rows", "rows"),
+    (torch.complex64, torch.complex128): R1Rule("rows", "rows"),
+}
+
+# the entry prefixes of B1 ("B1") and of B9's element pass ("B9") off the
+# tensor cores: (the tile core's, the row-stream body's)
+FMA_PREFIXES = {"B1": ("bst_fused_spmm_multi", "bst_fused_spmm_rows"),
+                "B9": ("bst_element_pass", "bst_element_pass_rows")}
 
 _MODES = {(False, False): 0, (True, False): 1, (False, True): 2}
 _CONJ = 4  # mode bit: read conj(V) (tile_core.cuh kConj)
@@ -169,6 +210,31 @@ def b1_instance(stored: torch.dtype, compute: torch.dtype, r: int,
             rule.max_depth is None or depth <= rule.max_depth):
         return "mma"
     return "fma"
+
+
+def r1_body(kind: str, stored: torch.dtype, compute: torch.dtype) -> str:
+    """The body that runs a table of ``stored`` values on an operand of
+    ``compute`` dtype at r = 1 in B1 (``kind`` "B1") or B9's element pass
+    ("B9"): :data:`R1_RULES`' entry, ``"rows"`` or ``"tile"``."""
+    return R1_RULES[(stored, compute)][kind == "B9"]
+
+
+def fma_launch(kind: str, stored: torch.dtype, compute: torch.dtype,
+               r: int) -> tuple:
+    """``(entry, rows)`` of a launch of B1 (``kind`` "B1") or of B9's
+    element pass ("B9") off the tensor cores at r columns: ``rows`` where
+    it takes the row-stream body (r = 1 and :func:`r1_body` says
+    ``"rows"``), else the tile core, and that body's entry point."""
+    rows = r == 1 and r1_body(kind, stored, compute) == "rows"
+    return entry_point(FMA_PREFIXES[kind][rows], stored, compute), rows
+
+
+def launch_items(table: "BucketTable", mode: int, rows: bool) -> int:
+    """The work items of a launch over ``table`` in ``mode``: the
+    row-stream body numbers the forward items (64 stored rows of a block)
+    in every mode; the tile core numbers the transpose mode's by 64
+    columns."""
+    return table.items[0 if rows else int((mode & ~_CONJ) == 1)]
 
 
 def entry_point(prefix: str, dtype: torch.dtype,
@@ -279,17 +345,19 @@ def check_table_call(table: BucketTable, x, out, symmetric: bool) -> None:
             f"!= out_len {out.shape[0]}")
 
 
-def launch_table(prefix: str, table: BucketTable, x, out, mode: int) -> bool:
+def launch_table(prefix: str, table: BucketTable, x, out, mode: int,
+                 rows: bool = False) -> bool:
     """Launch the entry point of ``prefix`` for the table's values and
     ``x``'s dtype (:func:`entry_point`) over every bucket of ``table`` on
     CUDA tensors (checked by the caller), adding into ``out``; False where
-    there was nothing to launch."""
+    there was nothing to launch.  ``rows``: ``prefix`` names a row-stream
+    entry (r = 1), whose work items are the forward ones in every mode."""
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     name = entry_point(prefix, table.dtype, x.dtype)
     xm = x.resolve_conj().contiguous()
     r = 1 if x.ndim == 1 else x.shape[1]
-    items = table.items[(mode & ~_CONJ) == 1]
+    items = launch_items(table, mode, rows)
     if not (items and r and out.shape[0]):
         return False
     build.launch(name, x.device, table.table.data_ptr(),
@@ -415,25 +483,28 @@ def multi_block_apply(table: BucketTable, x, *, out, transpose: bool = False,
                       conj: bool = False) -> torch.Tensor:
     """Add every bucket of ``table`` applied to ``x`` ([n] or [n, r]) into
     ``out`` ([out_len] or [out_len, r]) in one launch of the instance
-    :func:`b1_instance` picks; returns ``out``.  ``conj``: the buckets'
-    conjugates (nothing changes for real values)."""
-    global LAUNCHES, SYM_LAUNCHES, MMA_LAUNCHES
+    :func:`b1_instance` picks (at r = 1 the body :func:`r1_body` picks);
+    returns ``out``.  ``conj``: the buckets' conjugates (nothing changes for
+    real values)."""
+    global LAUNCHES, SYM_LAUNCHES, MMA_LAUNCHES, ROW_LAUNCHES
     conj = conj and table.dtype.is_complex
     mode = launch_mode(transpose, symmetric, conj)
     check_table_call(table, x, out, symmetric)
-    mma = b1_instance(table.dtype, x.dtype, 1 if x.ndim == 1 else x.shape[1],
-                      table.depth) == "mma"
+    r = 1 if x.ndim == 1 else x.shape[1]
+    mma = b1_instance(table.dtype, x.dtype, r, table.depth) == "mma"
     if x.device.type == "cpu":
         plain = mma_apply_plain if mma else multi_block_apply_plain
         return plain(table, x, out=out, transpose=transpose,
                      symmetric=symmetric, conj=conj)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    if _launch_mma(table, x, out, mode) if mma else \
-            launch_table("bst_fused_spmm_multi", table, x, out, mode):
+    rows = fma_launch("B1", table.dtype, x.dtype, r)[1]
+    if _launch_mma(table, x, out, mode) if mma else launch_table(
+            FMA_PREFIXES["B1"][rows], table, x, out, mode, rows=rows):
         LAUNCHES += 1
         SYM_LAUNCHES += symmetric
         MMA_LAUNCHES += mma
+        ROW_LAUNCHES += rows
     return out
 
 

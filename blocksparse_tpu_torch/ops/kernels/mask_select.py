@@ -13,7 +13,10 @@ The kernels (``csrc/mask_select.cu``) replace
   complex128, forward, transpose or symmetric (``V @ x[cols]`` into
   ``y[rows]``, ``V^T @ x[rows]`` into ``y[cols]``, or both from one read
   of V), each also with ``conj`` (complex: ``conj(V)`` in place of V),
-  adding into a given output.  Its plain version, :func:`element_apply_plain`, is the
+  adding into a given output; at r = 1 on the body
+  ``fused_spmm.r1_body`` picks for the pair (the row-stream body,
+  ``csrc/row_stream.cuh``, entry ``bst_element_pass_rows_<pair>``, or the
+  tile core).  Its plain version, :func:`element_apply_plain`, is the
   per-bucket gather -> einsum -> scatter-add chain
   (:func:`mask_gather_plain` / :func:`mask_scatter_add_plain` on vectors).
 - :func:`mask_gather` / :func:`mask_scatter_add`: one gather or one
@@ -55,7 +58,7 @@ Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  ``GATHER_LAUNCHES``, ``SCATTER_LAUNCHES``,
 ``ELEMENT_LAUNCHES`` and ``OWNER_LAUNCHES`` count kernel launches (the
 owner mode's each pass), ``ELEMENT_SYM_LAUNCHES`` the element passes in
-the symmetric mode
+the symmetric mode, ``ELEMENT_ROW_LAUNCHES`` those on the row-stream body
 (``fused_spmm.ENTRY_LAUNCHES`` counts the element pass and the owner mode
 by entry point too).  :func:`gather_apply` and
 :func:`scatter_apply` add autograd (each is the other's adjoint, so a
@@ -73,7 +76,7 @@ from ...utils import build
 from ..torch_spmv import gather_rows, scatter_rows, widened
 from .fused_spmm import (ENTRY_LAUNCHES, BucketTable, TableApply,
                          check_table_call, entry_point, launch_mode,
-                         launch_table)
+                         FMA_PREFIXES, fma_launch, launch_table)
 
 __all__ = ["element_apply", "element_apply_plain", "element_fused_apply",
            "mask_gather", "mask_gather_plain", "mask_scatter_add",
@@ -82,13 +85,15 @@ __all__ = ["element_apply", "element_apply_plain", "element_fused_apply",
            "owner_fused_apply", "owner_products", "owner_products_plain",
            "owner_sum", "owner_sum_plain", "owner_two_pass",
            "owner_table", "sorted_scatter_info",
-           "ELEMENT_LAUNCHES", "ELEMENT_SYM_LAUNCHES", "GATHER_LAUNCHES",
+           "ELEMENT_LAUNCHES", "ELEMENT_ROW_LAUNCHES", "ELEMENT_SYM_LAUNCHES",
+           "GATHER_LAUNCHES",
            "OWNER_LAUNCHES", "SCATTER_LAUNCHES"]
 
 GATHER_LAUNCHES = 0
 SCATTER_LAUNCHES = 0
 ELEMENT_LAUNCHES = 0
 ELEMENT_SYM_LAUNCHES = 0
+ELEMENT_ROW_LAUNCHES = 0
 OWNER_LAUNCHES = 0
 
 
@@ -248,9 +253,10 @@ def element_apply(table: BucketTable, x: torch.Tensor, *, out,
                   conj: bool = False) -> torch.Tensor:
     """Add every element bucket of ``table`` (chunk 1: element index
     tables) applied to ``x`` ([n] or [n, r]) into ``out`` ([out_len] or
-    [out_len, r]) in one launch; returns ``out``.  ``conj``: the buckets'
+    [out_len, r]) in one launch (at r = 1 on the body
+    ``fused_spmm.r1_body`` picks); returns ``out``.  ``conj``: the buckets'
     conjugates (nothing changes for real values)."""
-    global ELEMENT_LAUNCHES, ELEMENT_SYM_LAUNCHES
+    global ELEMENT_LAUNCHES, ELEMENT_SYM_LAUNCHES, ELEMENT_ROW_LAUNCHES
     conj = conj and table.dtype.is_complex
     mode = launch_mode(transpose, symmetric, conj)
     if any(b[3] != 1 for b in table.buckets):
@@ -259,9 +265,13 @@ def element_apply(table: BucketTable, x: torch.Tensor, *, out,
     if x.device.type == "cpu":
         return element_apply_plain(table, x, out=out, transpose=transpose,
                                    symmetric=symmetric, conj=conj)
-    if launch_table("bst_element_pass", table, x, out, mode):
+    rows = fma_launch("B9", table.dtype, x.dtype,
+                      1 if x.ndim == 1 else x.shape[1])[1]
+    if launch_table(FMA_PREFIXES["B9"][rows], table, x, out, mode,
+                    rows=rows):
         ELEMENT_LAUNCHES += 1
         ELEMENT_SYM_LAUNCHES += symmetric
+        ELEMENT_ROW_LAUNCHES += rows
     return out
 
 

@@ -50,7 +50,8 @@ _SIGNATURES = {
        for suffix in _VALUE_SUFFIXES},
     # table, n, items, x, y, r, x_rows, y_rows, mode, stream
     **{f"{entry}_{suffix}": (_P, _I, _L, _P, _P, _I, _L, _L, _I, _P)
-       for entry in ("bst_fused_spmm_multi", "bst_element_pass")
+       for entry in ("bst_fused_spmm_multi", "bst_element_pass",
+                     "bst_fused_spmm_rows", "bst_element_pass_rows")
        for suffix in _VALUE_SUFFIXES},
     # table, n, items, poff, x, P, r, x_rows, p_rows, mode, stream
     **{f"bst_element_owner_products_{suffix}": (_P, _I, _L, _P, _P, _P, _I,

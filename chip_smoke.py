@@ -23,7 +23,12 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      and scatter-add; B1 (one-bucket and multi-bucket, the latter also
      against the sum of one-bucket launches) and B9's element pass at
      complex64 / complex128 x forward, transpose, symmetric x conj off / on
-     x r in {1, 64}; B2: its prologue
+     x r in {1, 64}; the r = 1 row-stream body of B1 and of B9's element
+     pass (``csrc/row_stream.cuh``), launched directly, against its plain
+     version and the tile core, every stored / compute pair x mode x conj,
+     on 8-row chunked tiles, 64 x 512 and 64 x 1536 blocks, one block, an
+     empty bucket, rows of 27 values and of one, a 96-row tile and
+     single-row element blocks; B2: its prologue
      (hi bit-equal to the plain tf32(X)^T, hi + lo == X, one launch for P
      products), forward and transpose x r in {6, 8, 64, 128, 300, 302}
      (r % 4 != 0: the transpose's atomicAdd epilogue) x both
@@ -277,6 +282,13 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      under each) and the product under the winning bias; the seconds the
      tuning takes.
 
+Phases 3, 5, 7, 12, 13 and 14 also put the two r = 1 bodies of B1 and
+B9's element pass (the row-stream body and the tile core) side by side on
+the operands they time ("r = 1 bodies" lines: graph and eager ms, the zero
+fill of y and the launches alone), and phase 14 scans both bodies on the
+BEM stored in every dtype (B1 contiguous, B9 scattered), the measurement
+behind ``fused_spmm.R1_RULES``.
+
 Every timed kernel also gets its bound -- the larger of its logical bytes
 (stored values, operands and results, each once) over 3.35 TB/s and its
 operations over the peak rate of the tier's arithmetic: 495 / 3 = 165
@@ -386,6 +398,7 @@ B1_MMA_SRC = "blocksparse_tpu_torch/csrc/complex_mma.cu"
 B1_DMMA_SRC = "blocksparse_tpu_torch/csrc/dmma.cu"
 B1_BF16_MMA_SRC = "blocksparse_tpu_torch/csrc/bf16_mma.cu"
 B9_OWNER_SRC = "blocksparse_tpu_torch/csrc/owner_pass.cu"
+ROWS_SRC = "blocksparse_tpu_torch/csrc/row_stream.cuh"
 B2_SRC = "blocksparse_tpu_torch/csrc/patch_spmm.cu"
 B1_REPLACES = "blocksparse_tpu/ops/pallas/fused_spmm.py:81"
 B2_REPLACES = "blocksparse_tpu/ops/patch_engine.py:329"
@@ -546,6 +559,8 @@ def reset_counts() -> None:
     fused_spmm.LAUNCHES = 0
     fused_spmm.SYM_LAUNCHES = 0
     fused_spmm.MMA_LAUNCHES = 0
+    fused_spmm.ROW_LAUNCHES = 0
+    mask_select.ELEMENT_ROW_LAUNCHES = 0
     patch_engine.LAUNCHES = 0
     patch_engine.TR_LAUNCHES = 0
     patch_engine.XT_LAUNCHES = 0
@@ -1187,6 +1202,87 @@ def owner_vs_plain(gen) -> dict:
     return errs
 
 
+# (nb, mp, kp, chunk) of the buckets the row-stream body is checked on: 8-row
+# chunked tiles, a 64 x 512 and a 64 x 1536 block (two column chunks of
+# row_stream.cuh's kColChunk), one block, no block, rows of 27 and of 1
+# values (not a multiple of 16 bytes: bf16 rows of odd length), a tile of
+# 96 rows (a second item of 32) and single-row blocks; chunk 1 makes them
+# element buckets (B9)
+ROW_SHAPES = ((40, 8, 128, 8), (3, 64, 512, 64), (2, 64, 1536, 64),
+              (1, 64, 64, 16), (0, 64, 64, 64), (12, 9, 27, 3),
+              (5, 96, 48, 16), (30, 64, 64, 64))
+ROW_ELEM_SHAPES = ((200, 128, 1), (64, 1, 256))
+
+
+def row_tables(stored, n: int) -> dict:
+    """The row-stream body's check tables in ``stored``: "B1" chunked
+    buckets of ``ROW_SHAPES`` whose chunk ids repeat and reach one chunk
+    past n, "B9" element buckets of the same shapes and ``ROW_ELEM_SHAPES``
+    with repeated rows and sentinel lanes (index n)."""
+    rng = np.random.default_rng(19)
+    np_dt = (np.float32 if stored == torch.bfloat16
+             else torch.empty(0, dtype=stored).numpy().dtype)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+    chunked, element = [], []
+    for nb, mp, kp, C in ROW_SHAPES:
+        vals = t(values_of(np_dt, rng, (nb, mp, kp))).to(stored).contiguous()
+        chunked.append((vals, t(rng.integers(0, n // C + 1, (nb, mp // C))
+                                .astype(np.int32)),
+                        t(rng.integers(0, n // C + 1, (nb, kp // C))
+                          .astype(np.int32)), C))
+    for nb, mp, kp in [s_[:3] for s_ in ROW_SHAPES] + list(ROW_ELEM_SHAPES):
+        ridx = rng.integers(0, n, (nb, mp)).astype(np.int32)
+        cidx = rng.integers(0, n, (nb, kp)).astype(np.int32)
+        ridx[::3, -1] = n
+        cidx[1::4, 0] = n
+        vals = t(values_of(np_dt, rng, (nb, mp, kp))).to(stored).contiguous()
+        element.append((vals, t(ridx), t(cidx), 1))
+    return {"B1": BucketTable(chunked), "B9": BucketTable(element)}
+
+
+def rows_vs_plain(gen) -> dict:
+    """The row-stream body (r = 1) of B1 and of B9's element pass, launched
+    directly, against its plain version and against the tile core on the
+    same tables (``row_tables``), every stored / compute pair x forward,
+    transpose, symmetric (x conj for complex values), adding into an output
+    that holds a partial sum."""
+    errs = {"rows B1": 0.0, "rows B9": 0.0, "rows vs tile": 0.0}
+    n = 2048
+    plain = {"B1": fused_spmm.multi_block_apply_plain,
+             "B9": mask_select.element_apply_plain}
+    for stored, compute in VALUE_PAIRS:
+        tables = row_tables(stored, n)
+        x = torch.randn(n, generator=gen, dtype=compute).to(DEV)
+        prior = torch.randn(n, generator=gen, dtype=compute).to(DEV)
+        for kind, table in tables.items():
+            for mode, kw in MODE_KW.items():
+                for conj in ((False, True) if stored.is_complex else (False,)):
+                    m = fused_spmm.launch_mode(mode == "transpose",
+                                               mode == "symmetric", conj)
+                    got, tile = prior.clone(), prior.clone()
+                    tile_entry, rows_entry = fused_spmm.FMA_PREFIXES[kind]
+                    fused_spmm.launch_table(rows_entry, table, x, got, m,
+                                            rows=True)
+                    fused_spmm.launch_table(tile_entry, table, x, tile, m)
+                    ref = plain[kind](table, x, out=prior.clone(), conj=conj,
+                                      **kw)
+                    torch.cuda.synchronize()
+                    label = (f"row-stream body {kind} "
+                             f"{pair_name(stored, compute)} {len(table)} "
+                             f"buckets {mode}"
+                             f"{' conj' if conj else ''}")
+                    errs[f"rows {kind}"] = max(errs[f"rows {kind}"], rel_check(
+                        f"{label} vs its plain version", got, ref,
+                        TOL[compute]))
+                    errs["rows vs tile"] = max(errs["rows vs tile"], rel_check(
+                        f"{label} vs the tile core", got, tile, TOL[compute]))
+    print(f"  row-stream body (r = 1) against its plain version and the tile "
+          f"core: every pair, mode and conj, B1 on {len(ROW_SHAPES)} chunked "
+          f"buckets, B9 on {len(ROW_SHAPES) + len(ROW_ELEM_SHAPES)} element "
+          f"buckets (tile shapes {ROW_SHAPES}, {ROW_ELEM_SHAPES})")
+    return errs
+
+
 # B1's tensor-core instances, as (key, numpy dtype of the values, stored,
 # compute)
 MMA_PAIRS = (("B1 mma", np.complex64, torch.complex64, torch.complex64),
@@ -1377,6 +1473,7 @@ def phase1():
             errs[f"B9 {kind}"] = max(errs[f"B9 {kind}"], err)
     errs.update(element_vs_plain(gen))
     errs.update(complex_vs_plain(gen))
+    errs.update(rows_vs_plain(gen))
     errs.update(owner_vs_plain(gen))
     errs.update(mma_instances_vs_plain(gen))
     stream_errs, panel_plans = stream_kernels_vs_plain(gen)
@@ -2123,6 +2220,7 @@ def phase2():
         require(per[name][kernel] > 0, f"{name}: kernel {kernel} was not launched")
     torch.cuda.synchronize()
     launches = counts()
+    launches["B1 rows"] = fused_spmm.ROW_LAUNCHES  # also under "B1"
     print(f"  main-path launches: {launches}")
     # B2's forward and its transpose each run the prologue first
     require(per["A @ X"]["B2 prologue"] == per["A @ X"]["B2"]
@@ -2409,6 +2507,8 @@ def phase3(card: str):
             lambda: patch_engine.patch_xt_plain(X, 1)[0], card),
         "setup": setup, "launches": launched["B5"], "op": A,
         "bucket launches": bucket_launched,
+        "r1 bodies": r1_compare("config 1 A @ x, bucket route",
+                                op_tables(A), x, card),
     }
 
 
@@ -2956,6 +3056,8 @@ def phase5(card: str):
             2 * 128 * (int(hb.vals.size) + mirrored), card),
         "setup": setup, "launches": launched["B5"], "B9 single": b9_single,
         "op": S, "rule": rule, "grad": grad_times("symmetric", S, x, card),
+        "r1 bodies": r1_compare("symmetric real size S @ x, bucket route",
+                                op_tables(S), x, card),
     }
     csr = csr_on_card([S])
     times["library"] = {
@@ -3061,6 +3163,9 @@ def bucket_split(S, x, card) -> dict:
     cbytes = sum(v.numel() * v.element_size() + (rc.numel() + cc.numel()) * 4
                  for v, rc, cc, _c in ctab.buckets) + 2 * n * 4
     out = {"errs": errs, "split": split,
+           "r1 pass": r1_compare("symmetric real size, the off-diagonal B1 "
+                                 "symmetric pass alone", [(ctab, 2, "B1")], x,
+                                 card),
            "B1 pass bound": bound(cbytes, 4 * sum(v.numel()
                                                   for v in ctab.values)),
            "element bound": bound(ebytes, eflops),
@@ -3259,6 +3364,8 @@ def phase7(card: str):
         "setup": setup, "launches": launched["B5"], "op": V,
         "bucket launches": bucket_launched,
         "grad": grad_times("VBCRS", V, x, card),
+        "r1 bodies": r1_compare("VBCRS A @ x, bucket route", op_tables(V), x,
+                                card),
     }
     csr = csr_on_card([V])
     times["library"] = {"SpMV": library_ms(
@@ -4291,6 +4398,18 @@ def phase12(card: str) -> dict:
           f"{floor_ms:.4f} ms (S alone {s_ms:.4f}); bound {s_bound + m_bound:.4f}"
           f" ms (S {s_bound:.4f}, M {m_bound:.4f}) [{card}]")
     out["floor_ms"], out["s_graph_ms"] = floor_ms, s_ms
+    out["r1 bodies"] = r1_compare("the solve's M @ p (block_jacobi)",
+                                  op_tables(M), p, card)
+    # the products' floor with M's launch on each r = 1 body, in turns
+    m_tables = op_tables(M)
+    floors = [graph_ms(lambda body=body: body_into(
+                  m_tables, S @ p, torch.zeros_like(p), body))
+              for body in ("rows", "tile", "rows", "tile")]
+    out["floor_rows_ms"], out["floor_tile_ms"] = (min(floors[0::2]),
+                                                  min(floors[1::2]))
+    print(f"  one S and one M product replayed, M on the row-stream body "
+          f"{floors[0]:.4f} / {floors[2]:.4f} ms, on the tile core "
+          f"{floors[1]:.4f} / {floors[3]:.4f} ms [{card}]")
     out["bound_ms"] = {"S": s_bound, "M": m_bound}
     per_iteration = {"cg": 1, "bicgstab": 2, "gmres": 1}
     out["per_iteration"] = {}
@@ -4380,6 +4499,64 @@ def b1_instance_product(S, v, instance: str) -> torch.Tensor:
     return tables_product(zip(sym_b1_tables(S), (0, 2)), v, instance)
 
 
+def op_tables(op) -> list:
+    """``op``'s bucket-route passes of a forward product as (table, mode,
+    kind) triples: a symmetric operator's diagonal layout forward and its
+    off-diagonal one in the symmetric mode, any other's one layout forward;
+    kind "B1" for its chunked buckets, "B9" for its element buckets."""
+    parts = ([(op._dbuckets, op._dlayout, 0), (op._obuckets, op._olayout, 2)]
+             if hasattr(op, "_dlayout") else [(op._buckets, op.layout, 0)])
+    out = []
+    for staged, layout, mode in parts:
+        tabs = bucket_tables(staged, layout)
+        for key, kind in (("chunked", "B1"), ("element", "B9")):
+            if tabs[key] is not None:
+                out.append((tabs[key], mode, kind))
+    return out
+
+
+def body_into(tables, v, out, body: str) -> torch.Tensor:
+    """``out`` plus one product through one r = 1 body ("rows": the
+    row-stream body; "tile": the tile core) driven directly on ``tables``
+    (``op_tables``' triples), one launch each that no counter sees."""
+    rows = body == "rows"
+    for table, mode, kind in tables:
+        fused_spmm.launch_table(fused_spmm.FMA_PREFIXES[kind][rows], table,
+                                v, out, mode, rows=rows)
+    return out
+
+
+def r1_compare(label, tables, v, card) -> dict:
+    """Both r = 1 bodies on ``tables`` with the operand ``v``, each product
+    held to the other: eager ms, and graph ms in turns (rows, tile, rows,
+    tile); the parts of the row-stream body's product: the zero fill of y
+    alone and the launches into a standing output; printed beside the
+    pair's rule (``fused_spmm.R1_RULES``)."""
+    stored = tables[0][0].dtype
+    rows = (lambda: body_into(tables, v, torch.zeros_like(v), "rows"))
+    tile = (lambda: body_into(tables, v, torch.zeros_like(v), "tile"))
+    rel_check(f"{label}: the row-stream body vs the tile core", rows(), tile(),
+              TOL[v.dtype])
+    r1, t1, r2, t2 = (graph_ms(f) for f in (rows, tile, rows, tile))
+    standing = torch.zeros_like(v)
+    res = {"rows_graph_ms": min(r1, r2), "tile_graph_ms": min(t1, t2),
+           "rows_ms": median_ms(rows), "tile_ms": median_ms(tile),
+           "fill_graph_ms": graph_ms(lambda: torch.zeros_like(v)),
+           "rows_launch_graph_ms": graph_ms(
+               lambda: body_into(tables, v, standing, "rows")),
+           "rule": {kind: fused_spmm.r1_body(kind, stored, v.dtype)
+                    for _t, _m, kind in tables}}
+    print(f"  r = 1 bodies, {label} ({pair_name(stored, v.dtype)}, "
+          f"{len(tables)} launches): row-stream graph {r1:.4f} / {r2:.4f}, "
+          f"eager {res['rows_ms']:.4f} ms; tile core graph {t1:.4f} / "
+          f"{t2:.4f}, eager {res['tile_ms']:.4f} ms; row-stream parts: "
+          f"zero fill {res['fill_graph_ms']:.4f}, launches alone "
+          f"{res['rows_launch_graph_ms']:.4f} ms; the rule picks "
+          + ", ".join(f"{k} {b}" for k, b in res["rule"].items())
+          + f" [{card}]")
+    return res
+
+
 def mma_tables(S, compute, r: int) -> int:
     """How many of ``S``'s two chunked tables the rule sends to the
     tensor-core instance of their values and ``compute`` at r columns
@@ -4429,27 +4606,28 @@ def instance_scan(label, tables, dtype, n, card, rs=MMA_SCAN_R) -> dict:
 
 
 def c128_spmm(S, A128, gen, card) -> dict:
-    """The complex128 BEM's ``S @ X`` at r = 16 and 64 (B1's complex128
-    tensor-core instance where the rule says) against the complex128
-    assembly, exact launches by entry point, timed eager and from a CUDA
-    graph beside the FMA instance on the same tables, a complex128 CSR @ X
-    call and the bound; both instances scanned over r."""
+    """The complex128 BEM's ``S @ x`` (r = 1: both r = 1 bodies timed) and
+    ``S @ X`` at r = 16 and 64 (B1's complex128 tensor-core instance where
+    the rule says) against the complex128 assembly, exact launches by entry
+    point, timed eager and from a CUDA graph beside the FMA instance on the
+    same tables, a complex128 CSR call and the bound; both instances
+    scanned over r."""
     c128 = torch.complex128
     n = S.shape[0]
     A = torch.from_numpy(A128).to(DEV)
     res = {"errs": {}, "times": {}, "launches": 0}
     csr = complex_csr_on_card(S)
-    for label, r in (("S @ X r=16", 16), ("S @ X", 64)):
-        v = torch.randn((n, r), generator=gen, dtype=c128).to(DEV)
+    for label, r in (("S @ x", 1), ("S @ X r=16", 16), ("S @ X", 64)):
+        v = torch.randn((n, r) if r > 1 else (n,), generator=gen,
+                        dtype=c128).to(DEV)
         k = mma_tables(S, c128, r)
         mma = k == 2
         reset_counts()
         Y = S @ v
         torch.cuda.synchronize()
         want = merged({"B1": 2, "B1 sym": 1, "B1 mma": k})
-        want_e = {e: c for e, c in (
-            (fused_spmm.MMA_RULES[(c128, c128)].entry, k),
-            ("bst_fused_spmm_multi_c128", 2 - k)) if c}
+        want_e = entries((fused_spmm.MMA_RULES[(c128, c128)].entry, k),
+                         (fma_entry("B1", c128, c128, r), 2 - k))
         require(counts() == want and entry_counts() == want_e,
                 f"complex128 {label}: launches {counts()}, {entry_counts()}")
         res["launches"] += counts()["B1 mma"]
@@ -4464,13 +4642,16 @@ def c128_spmm(S, A128, gen, card) -> dict:
                   (lambda v=v: mma_plain_sym(S, v)) if mma
                   else (lambda v=v: plain_buckets_sym(S, v)),
                   product_bound(S, r), card)
-        t["fma_ms"], t["fma_graph_ms"] = median_ms(fma), graph_ms(fma)
-        lib = library_ms(f"complex128 {label}: complex128 CSR @ X "
+        lib = library_ms(f"complex128 {label}: complex128 CSR "
                          f"(torch.sparse)", lambda v=v: csr @ v, Y, card)
         t["library_ms"], t["library_graph_ms"] = lib, lib.graph
-        print(f"  complex128 {label}: the FMA instance on the same tables "
-              f"eager {t['fma_ms']:.4f}, graph {t['fma_graph_ms']:.4f} ms "
-              f"[{card}]")
+        if r == 1:
+            t["r1"] = r1_compare("complex128 BEM S @ x", op_tables(S), v, card)
+        else:
+            t["fma_ms"], t["fma_graph_ms"] = median_ms(fma), graph_ms(fma)
+            print(f"  complex128 {label}: the FMA instance on the same tables"
+                  f" eager {t['fma_ms']:.4f}, graph {t['fma_graph_ms']:.4f} "
+                  f"ms [{card}]")
         res["times"][label] = t
     del csr, A
     res["scan"] = instance_scan("complex128", zip(sym_b1_tables(S), (0, 2)),
@@ -4517,7 +4698,7 @@ def phase13(card: str) -> dict:
     # 1. products against the oracle, exact launches
     refs = {"S @ x": A_dev, "S.T @ x": A_dev.T, "S.H @ x": A_dev.conj().T,
             "S.conj() @ x": A_dev.conj()}
-    b1_total = 0
+    b1_total = rows_total = 0
     for label, kw in COMPLEX_KINDS.items():
         reset_counts()
         got = S.apply(x, **kw)
@@ -4525,6 +4706,7 @@ def phase13(card: str) -> dict:
         require(counts() == want, f"{label}: launches {counts()}, expected "
                 f"{ {k_: v for k_, v in want.items() if v} }")
         b1_total += counts()["B1"]
+        rows_total += fused_spmm.ROW_LAUNCHES
         out["errs"][label] = rel_check(f"{label} (native) vs the independent "
                                        f"assembly", got, refs[label] @
                                        x.to(torch.complex128), TOL32)
@@ -4564,17 +4746,20 @@ def phase13(card: str) -> dict:
     xs[torch.from_numpy(perm).to(DEV)] = x  # the same x, renumbered
     want_s = merged({"B9 element": 2, "B9 element sym": 1})
     ip = torch.from_numpy(perm).to(DEV)
-    b9_total = 0
+    b9_total = erows_total = 0
     for label, kw in COMPLEX_KINDS.items():
         reset_counts()
         got = Ss.apply(xs, **kw)[ip]
         torch.cuda.synchronize()
         require(counts() == want_s, f"scattered {label}: launches {counts()}")
         b9_total += counts()["B9 element"]
+        erows_total += mask_select.ELEMENT_ROW_LAUNCHES
         out["errs"][f"scattered {label}"] = rel_check(
             f"scattered {label} (serial) vs the assembly", got,
             refs[label] @ x.to(torch.complex128), TOL32)
     out["launches"]["scattered"] = b9_total
+    out["launches"]["rows"] = rows_total
+    out["launches"]["element rows"] = erows_total
     print(f"  each scattered product: launches "
           f"{ {k_: v for k_, v in want_s.items() if v} }")
     del Ss
@@ -4635,6 +4820,8 @@ def phase13(card: str) -> dict:
                  f"{out['times'][label]['fma_graph_ms']:.4f} ms" if mma
                  else "") + f" [{card}]")
     del csr
+    out["times"]["S @ x"]["r1"] = r1_compare("complex64 BEM S @ x",
+                                             op_tables(S), x, card)
     # where the tensor-core instance takes over: both instances on S's
     # tables at each r of the scan
     out["times"]["instance scan"] = instance_scan(
@@ -4786,6 +4973,23 @@ def dense_of(op, dtype) -> torch.Tensor:
 def entry_counts() -> dict:
     """B1's and B9's launches since the last reset, by entry point."""
     return {k: v for k, v in fused_spmm.ENTRY_LAUNCHES.items() if v}
+
+
+def fma_entry(kind: str, stored, compute, r: int = 1) -> str:
+    """The entry point a launch of B1 (``kind`` "B1") or of B9's element
+    pass ("B9") off the tensor cores takes at r columns: the row-stream
+    body at r = 1 where ``fused_spmm.r1_body`` says "rows", else the tile
+    core."""
+    return fused_spmm.fma_launch(kind, stored, compute, r)[0]
+
+
+def entries(*named) -> dict:
+    """``{entry: launches}`` of (entry, launches) pairs, summed, zeros
+    dropped: the shape of ``entry_counts()``."""
+    out = Counter()
+    for name, k in named:
+        out[name] += k
+    return {k: v for k, v in out.items() if v}
 
 
 def csr_of(op, dtype) -> torch.Tensor:
@@ -4979,20 +5183,30 @@ def real_size_rule2(S32, args, perm, x, x64, renumbered, card) -> dict:
             "buckets only")
     xs, xs64 = renumbered(x), renumbered(x64)
     ref64, refs64, refs32 = csr_of(S32, f64), csr_of(Ss, f64), csr_of(Ss, f32)
+    # the BEM stored in float64 (its values computed in complex128, their
+    # real parts kept in float64)
+    S64 = bt.SymmetricBlockMatrix(*bem_system(n, BEM_CLUSTERS, BEM_THRESH,
+                                              BEM_SELF_TERM, dtype=np.float64),
+                                  device=DEV)
+    ref64s = csr_of(S64, f64)
     cases = (
         ("B1 f32->f64 BEM", lambda: S32 @ x64,
          lambda: plain_buckets_sym(S32, x64, dtype=f64), S32, f64,
-         {"B1": 2, "B1 sym": 1}, "bst_fused_spmm_multi_f32_f64",
+         {"B1": 2, "B1 sym": 1}, fma_entry("B1", f32, f64),
          ref64, x64, (("float64 CSR", ref64, x64),)),
         ("B9 element f32 BEM", lambda: bucket_route_sym(Ss, xs),
          lambda: plain_buckets_sym(Ss, xs, dtype=f32), Ss, f32,
-         {"B9 element": 2, "B9 element sym": 1}, "bst_element_pass_f32",
+         {"B9 element": 2, "B9 element sym": 1}, fma_entry("B9", f32, f32),
          refs64, xs, (("float32 CSR", refs32, xs),
                       ("float64 CSR", refs64, xs64))),
         ("B9 element f32->f64 BEM", lambda: Ss @ xs64,
          lambda: plain_buckets_sym(Ss, xs64, dtype=f64), Ss, f64,
-         {"B9 element": 2, "B9 element sym": 1}, "bst_element_pass_f32_f64",
-         refs64, xs64, (("float64 CSR", refs64, xs64),)))
+         {"B9 element": 2, "B9 element sym": 1}, fma_entry("B9", f32, f64),
+         refs64, xs64, (("float64 CSR", refs64, xs64),)),
+        ("B1 f64 BEM", lambda: S64 @ x64,
+         lambda: plain_buckets_sym(S64, x64, dtype=f64), S64, f64,
+         {"B1": 2, "B1 sym": 1}, fma_entry("B1", f64, f64), ref64s, x64,
+         (("float64 CSR", ref64s, x64),)))
     for key, fn, plain, op, compute, want, entry, ref, v, libs in cases:
         reset_counts()
         y = fn()
@@ -5008,7 +5222,55 @@ def real_size_rule2(S32, args, perm, x, x64, renumbered, card) -> dict:
         out["lib"][key] = {label: library_ms(f"{key}: {label} (cuSPARSE)",
                                              lambda c=c, u=u: c @ u, y, card)
                            for label, c, u in libs}
-    del Ss, ref64, refs64, refs32
+    out["ops"] = {(f32, "B9"): Ss, (f64, "B1"): S64}  # for the rule scan
+    del ref64, refs64, refs32, ref64s
+    return out
+
+
+# the BEM in each stored dtype: (numpy dtype of bem_system, torch dtype of
+# the constructor, wavenumber)
+R1_SCAN_STORED = {torch.float32: (np.float32, None, 0.0),
+                  torch.float64: (np.float64, None, 0.0),
+                  torch.complex64: (np.complex64, None, HELMHOLTZ_K),
+                  torch.complex128: (np.complex128, None, HELMHOLTZ_K),
+                  torch.bfloat16: (np.float32, torch.bfloat16, 0.0)}
+
+
+def r1_rule_scan(ops: dict, perm, card) -> dict:
+    """The measurement behind ``fused_spmm.R1_RULES``: for every stored /
+    compute pair, both r = 1 bodies on the BEM at n = 8192 stored in that
+    dtype, B1 on its contiguous operator's chunked tables and B9's element
+    pass on its copy on scattered index lists (``perm``, schedule
+    "serial"), with a random operand of the compute dtype.  ``ops``: the
+    operators already built, by (stored dtype, "B1" or "B9"); the others
+    are built here.  Per cell ``r1_compare``'s numbers; the faster body
+    printed beside the rule's."""
+    n = BEM_NPTS
+    gen = torch.Generator().manual_seed(19)
+    out = {}
+    for stored, (np_dt, cast, k) in R1_SCAN_STORED.items():
+        args = (n, BEM_CLUSTERS, BEM_THRESH, BEM_SELF_TERM, k, np_dt)
+        built = {kind: ops.get((stored, kind)) or bt.SymmetricBlockMatrix(
+                     *bem_system(*args, perm=perm if kind == "B9" else None),
+                     dtype=cast, device=DEV,
+                     **({"schedule": "serial"} if kind == "B9" else {}))
+                 for kind in ("B1", "B9")}
+        for compute in fused_spmm.COMPUTE_TYPES[stored]:
+            v = torch.randn(n, generator=gen, dtype=compute).to(DEV)
+            for kind, op in built.items():
+                key = f"{kind} {pair_name(stored, compute)}"
+                res = r1_compare(f"rule scan {key}", [
+                    t_ for t_ in op_tables(op) if t_[2] == kind], v, card)
+                res["rule"] = res["rule"][kind]
+                res["faster"] = ("rows" if res["rows_graph_ms"] <
+                                 res["tile_graph_ms"] else "tile")
+                out[key] = res
+        del built
+    print(f"  r = 1 rule scan, the BEM n={n} (B1 contiguous, B9 scattered), "
+          f"graph ms row-stream / tile core -> faster (rule): " + "; ".join(
+              f"{key} {r_['rows_graph_ms']:.4f} / {r_['tile_graph_ms']:.4f} "
+              f"-> {r_['faster']} ({r_['rule']})" for key, r_ in out.items())
+          + f" [{card}]")
     return out
 
 
@@ -5243,13 +5505,14 @@ def phase14(card: str) -> dict:
     want = merged({"B1": 6, "B1 sym": 3, "B1 mma": k16})
     require(counts() == want, f"bf16 BEM products: launches {counts()}")
     ent = entry_counts()
-    want_ent = {"bst_fused_spmm_multi_bf16_f32": 4 - k16,
-                "bst_fused_spmm_multi_bf16_f64": 2,
-                **({mma16_entry: k16} if k16 else {})}
+    bf16 = torch.bfloat16
+    want_ent = entries((fma_entry("B1", bf16, f32), 2),
+                       (fma_entry("B1", bf16, f32, 64), 2 - k16),
+                       (fma_entry("B1", bf16, f64), 2), (mma16_entry, k16))
     require(ent == want_ent, f"bf16 BEM products: entry points {ent}, want "
             f"{want_ent}")
-    launches["B1 bf16->f32"] = ent["bst_fused_spmm_multi_bf16_f32"]
-    launches["B1 bf16->f64"] = ent["bst_fused_spmm_multi_bf16_f64"]
+    launches["B1 bf16->f32"] = ent[fma_entry("B1", bf16, f32)]
+    launches["B1 bf16->f64"] = ent[fma_entry("B1", bf16, f64)]
     launches["B1 mma bf16->f32"] = ent.get(mma16_entry, 0)
     print(f"  S16 @ x, S16 @ X, S16 @ x64: launches {ent} (2 B1 per product, "
           f"one symmetric; S16 @ X on the tensor cores: {mma16}; no B3, B5 "
@@ -5338,11 +5601,12 @@ def phase14(card: str) -> dict:
     require(counts() == merged({"B9 element": 6, "B9 element sym": 3}),
             f"scattered bf16 BEM products: launches {counts()}")
     ent = entry_counts()
-    require(ent == {"bst_element_pass_bf16_f32": 4,
-                    "bst_element_pass_bf16_f64": 2},
+    require(ent == entries((fma_entry("B9", bf16, f32), 2),
+                           (fma_entry("B9", bf16, f32, 64), 2),
+                           (fma_entry("B9", bf16, f64), 2)),
             f"scattered bf16 BEM products: entry points {ent}")
-    launches["B9 element bf16->f32"] = ent["bst_element_pass_bf16_f32"]
-    launches["B9 element bf16->f64"] = ent["bst_element_pass_bf16_f64"]
+    launches["B9 element bf16->f32"] = ent[fma_entry("B9", bf16, f32)]
+    launches["B9 element bf16->f64"] = ent[fma_entry("B9", bf16, f64)]
     print(f"  scattered S16 @ x, @ X, @ x64 (serial): launches {ent}")
     errs["B9 element bf16->f32"] = max(
         rel_check("scattered S16 @ x vs its bf16 values in float64", ys[ip],
@@ -5367,7 +5631,7 @@ def phase14(card: str) -> dict:
     lib["B9 element bf16->f64"] = library_ms(
         "scattered S16 @ x64: its bf16 values in a float64 CSR (cuSPARSE)",
         lambda: refs16 @ xs64, ys64, card)
-    del Ss16, ref16, refs16, refs16_32
+    del ref16, refs16, refs16_32
 
     # 2. mixed operands: an f64 operand on the f32 flagship (B1) and on its
     # scattered copy (B9's element pass), a complex128 operand on the
@@ -5392,22 +5656,23 @@ def phase14(card: str) -> dict:
     reset_counts()
     y, yt, Yf = A @ fx, A.T @ fx, A @ fX
     torch.cuda.synchronize()
-    require(counts() == merged({"B1": 3}) and entry_counts() == {
-        "bst_fused_spmm_multi_f32_f64": 3},
+    require(counts() == merged({"B1": 3}) and entry_counts() == entries(
+        (fma_entry("B1", f32, f64), 2), (fma_entry("B1", f32, f64, 64), 1)),
         f"flagship f64 products: launches {counts()}, {entry_counts()} "
         f"(the f32 -> f64 instance of B1, no B2 or B5)")
     launches["B1 f32->f64"] = 3
     reset_counts()
     ys, Ys = As @ fxs, As @ fXs
     torch.cuda.synchronize()
-    require(counts() == merged({"B9 element": 2}) and entry_counts() == {
-        "bst_element_pass_f32_f64": 2},
+    require(counts() == merged({"B9 element": 2}) and entry_counts() ==
+            entries((fma_entry("B9", f32, f64), 1),
+                    (fma_entry("B9", f32, f64, 64), 1)),
         f"scattered flagship f64 products: launches {counts()}, "
         f"{entry_counts()}")
     launches["B9 element f32->f64"] = 2
-    print("  flagship A @ x64, A.T @ x64, A @ X64: 3 launches of "
-          "bst_fused_spmm_multi_f32_f64, no B2 or B5; scattered copy: 2 of "
-          "bst_element_pass_f32_f64")
+    print(f"  flagship A @ x64, A.T @ x64, A @ X64: 3 launches of B1's f32 -> "
+          f"f64 instances (r = 1: {fma_entry('B1', f32, f64)}), no B2 or B5; "
+          f"scattered copy: 2 of B9's ({fma_entry('B9', f32, f64)} at r = 1)")
     require(all(v.dtype == f64 for v in (y, yt, Yf, ys, Ys)),
             "f32 operator x f64 operand must give f64")
     errs["B1 f32->f64"] = max(
@@ -5425,6 +5690,8 @@ def phase14(card: str) -> dict:
         "A @ x64 (f32 -> f64, B1)", lambda: A @ fx,
         lambda: plain_buckets(A.layout, A._buckets, fx, 4096, f64),
         product_bound(A, 1, f64), card)
+    times["B1 f32->f64"]["r1"] = r1_compare("flagship A @ x64", op_tables(A),
+                                            fx, card)
     times["B1 f32->f64 r=64"] = timed(
         "A @ X64 r=64 (f32 -> f64, B1)", lambda: A @ fX,
         lambda: plain_buckets(A.layout, A._buckets, fX, 4096, f64),
@@ -5438,6 +5705,8 @@ def phase14(card: str) -> dict:
         "scattered A @ x64 (f32 -> f64, B9 element pass)", lambda: As @ fxs,
         lambda: plain_buckets(As.layout, As._buckets, fxs, 4096, f64),
         product_bound(As, 1, f64), card)
+    times["B9 element f32->f64"]["r1"] = r1_compare(
+        "scattered flagship A @ x64", op_tables(As), fxs, card)
     lib["B1 f32->f64"] = library_ms("A @ x64: float64 CSR (cuSPARSE)",
                                     lambda: flag64 @ fx, y, card)
     lib["B9 element f32->f64"] = library_ms(
@@ -5465,7 +5734,8 @@ def phase14(card: str) -> dict:
     yc, Yc, yh = Sc @ xc, Sc @ Xc, Sc.H @ xc
     torch.cuda.synchronize()
     require(counts() == merged({"B1": 6, "B1 sym": 3}) and entry_counts() ==
-            {"bst_fused_spmm_multi_c64_c128": 6},
+            entries((fma_entry("B1", c64, c128), 4),
+                    (fma_entry("B1", c64, c128, 64), 2)),
             f"complex BEM c128 products: launches {counts()}, "
             f"{entry_counts()}")
     launches["B1 c64->c128"] = 6
@@ -5473,13 +5743,15 @@ def phase14(card: str) -> dict:
     ycs, Ycs = Scs @ xcs, Scs @ Xcs
     torch.cuda.synchronize()
     require(counts() == merged({"B9 element": 4, "B9 element sym": 2}) and
-            entry_counts() == {"bst_element_pass_c64_c128": 4},
+            entry_counts() == entries((fma_entry("B9", c64, c128), 2),
+                                      (fma_entry("B9", c64, c128, 64), 2)),
             f"scattered complex BEM c128 products: launches {counts()}, "
             f"{entry_counts()}")
     launches["B9 element c64->c128"] = 4
-    print("  complex64 BEM @ complex128: 6 launches of "
-          "bst_fused_spmm_multi_c64_c128 (S @ x, S @ X, S.H @ x); scattered: "
-          "4 of bst_element_pass_c64_c128")
+    print(f"  complex64 BEM @ complex128: 6 launches of B1's c64 -> c128 "
+          f"instances (S @ x, S @ X, S.H @ x; r = 1: "
+          f"{fma_entry('B1', c64, c128)}); scattered: 4 of B9's "
+          f"({fma_entry('B9', c64, c128)} at r = 1)")
     require(all(v.dtype == c128 for v in (yc, Yc, yh, ycs, Ycs)),
             "complex64 operator x complex128 operand must give complex128")
     errs["B1 c64->c128"] = max(
@@ -5508,7 +5780,14 @@ def phase14(card: str) -> dict:
     lib["B9 element c64->c128"] = library_ms(
         "scattered Sc @ xc128: complex128 CSR (cuSPARSE)",
         lambda: refcs @ xcs, ycs, card)
-    del Sc, Scs, refc, refcs
+    del refc, refcs
+    # both r = 1 bodies on the BEM in every stored dtype, on the operators
+    # built above where they exist
+    out["r1 scan"] = r1_rule_scan(
+        {**rule2["ops"], (f32, "B1"): S32, (torch.bfloat16, "B1"): S16,
+         (torch.bfloat16, "B9"): Ss16, (c64, "B1"): Sc, (c64, "B9"): Scs},
+        perm, card)
+    del Sc, Scs, Ss16, rule2["ops"]
 
     # 3. scatter="sorted" on the scattered flagship: B9's owner mode
     Ao = scattered_copy(A, fperm, scatter="sorted")
@@ -5814,6 +6093,7 @@ def phase14(card: str) -> dict:
             max_abs_err_kernel=errs[f"{key} kernel"],
             replaces_also=SORTED_REPLACES))
     out["kernels"] = kernels
+    out["rows library"] = lib["B9 element f32 BEM"]["float32 CSR"]
     print(f"  [phase 14 setup: "
           + ", ".join(f"{k} {v:.2f}" for k, v in out["setup"].items()) + "]")
     return out
@@ -6447,8 +6727,10 @@ def print_complex_builds(out: str) -> dict:
     """ptxas's registers and spill stores of B1's and B9's complex and
     mixed instances (tile_core.cuh::bucket_kernel over cplx<float> /
     cplx<double>, and the stored / compute pairs bf16 -> f32 / f64, f32 ->
-    f64, c64 -> c128), one line per kernel, types and column tile; returns
-    them."""
+    f64, c64 -> c128), one line per kernel, types and column tile, of the
+    tensor-core instances and the owner passes, and (registers, spills and
+    stack) of the row-stream body's kernels (row_stream.cuh::row_kernel,
+    every pair and mode, one line per map); returns them."""
     found = {}
     for part in out.split("Compiling entry function")[1:]:
         inst = re.match(r" '\w*bucket_kernelI(\w+?)Li(\d+)ELb\dELb\dELb\dE"
@@ -6489,6 +6771,28 @@ def print_complex_builds(out: str) -> dict:
               f"{min(u for u, _, _ in regs)}-{max(u for u, _, _ in regs)} "
               f"registers, {sum(sp for _, sp, _ in regs)} bytes of spill "
               f"stores" + (f" (WN {', '.join(wn)})" if wn else ""))
+    rows = {}
+    for part in out.split("Compiling entry function")[1:]:
+        inst = re.match(r" '\w*row_kernelI(\w+?)Li(\d)ELb(\d)E\w*?"
+                        r"(ChunkMap|ElemMap)", part)
+        used = re.search(r"Used (\d+) registers", part)
+        if inst and used:
+            spill = re.search(r"(\d+) bytes spill stores", part)
+            stack = re.search(r"(\d+) bytes stack frame", part)
+            rows[(inst.group(4), instance_types(inst.group(1)),
+                   int(inst.group(2)), inst.group(3))] = (
+                int(used.group(1)), int(spill.group(1)) if spill else 0,
+                int(stack.group(1)) if stack else 0)
+    names = {"ChunkMap": "B1", "ElemMap": "B9 element pass"}
+    for kind in ("ChunkMap", "ElemMap"):
+        per = sorted((k[1:], v) for k, v in rows.items() if k[0] == kind)
+        if per:
+            print(f"ptxas: row-stream body, {names[kind]}: " + "; ".join(
+                f"{t} mode {m}{' conj' if c == '1' else ''} {u} registers"
+                f"{f', {sp} bytes spilled' if sp else ''}"
+                f"{f', {st} bytes of stack' if st else ''}"
+                for (t, m, c), (u, sp, st) in per))
+    found["row-stream"] = rows
     return found
 
 
@@ -7112,6 +7416,71 @@ def main() -> None:
                   "(phase 13), both launches; library: a complex128 CSR @ X "
                   "(torch.sparse); fma: the FMA instance on the same tables",
          "card": card, "dtypes": ["complex128"]})
+    # the row-stream body (r = 1): its launches on the main paths, its
+    # timed product beside the tile core's on the same tables, and every
+    # r = 1 comparison of the run
+    r1_rows = {"config 1 A @ x (phase 3)": times["r1 bodies"],
+               "symmetric real size S @ x (phase 5)": sym_times["r1 bodies"],
+               "symmetric real size, B1 symmetric pass alone (phase 5)":
+                   sym_times["r1 pass"],
+               "VBCRS real size A @ x (phase 7)": v_times["r1 bodies"],
+               "BEM solve M @ p (phase 12)": solve["r1 bodies"],
+               "complex64 BEM S @ x (phase 13)": cx["times"]["S @ x"]["r1"],
+               "complex128 BEM S @ x (phase 13)":
+                   cx["c128"]["times"]["S @ x"]["r1"],
+               **{f"{k} (phase 14)": t_["r1"]
+                  for k, t_ in opts["times"].items()
+                  if isinstance(t_, dict) and "r1" in t_}}
+    rows_b1 = {"flagship main path (phase 2)": launches["B1 rows"],
+               "complex Helmholtz BEM products (phase 13)":
+                   cx["launches"]["rows"]}
+    rows_b9 = {"scattered complex Helmholtz BEM products, serial (phase 13)":
+               cx["launches"]["element rows"]}
+    require(sum(rows_b1.values()) and sum(rows_b9.values()),
+            f"a main path skipped the row-stream body: {rows_b1}, {rows_b9}")
+    cx1, r1c = cx["times"]["S @ x"], cx["times"]["S @ x"]["r1"]
+    b9t, b9s = opts["times"]["B9 element f32 BEM"], opts["r1 scan"]["B9 f32"]
+    summary["kernels"] += [
+        {"name": "fused_spmm row-stream body (B1, r = 1)", "route": "cuda",
+         "source": ROWS_SRC, "replaces": B1_REPLACES,
+         "launches": sum(rows_b1.values()), "launches_by_path": rows_b1,
+         "max_abs_err": errs1["rows B1"],
+         "max_abs_err_vs_tile": errs1["rows vs tile"],
+         "ms": r1c["rows_ms"], "graph_ms": r1c["rows_graph_ms"],
+         "plain_ms": cx1["plain_ms"], "plain_graph_ms": cx1["plain_graph_ms"],
+         "bound_ms": cx1["bound_ms"], "bound_by": cx1["bound_by"],
+         "library_ms": cx1["library_ms"],
+         "library_graph_ms": cx1["library_graph_ms"],
+         "tile_ms": r1c["tile_ms"], "tile_graph_ms": r1c["tile_graph_ms"],
+         "rules": {pair_name(s_, c_): b_._asdict()
+                   for (s_, c_), b_ in fused_spmm.R1_RULES.items()},
+         "rule_scan": opts["r1 scan"],
+         "r1_comparisons": r1_rows,
+         "entry_points": ["bst_fused_spmm_rows_<pair>"],
+         "timed": "S @ x, the complex64 Helmholtz BEM at n=8192 (phase 13), "
+                  "both launches driven directly on its tables; tile: the "
+                  "tile core on the same tables; library: a complex64 CSR "
+                  "call (torch.sparse)",
+         "card": card,
+         "dtypes": [pair_name(s_, c_) for s_, c_ in VALUE_PAIRS]},
+        {"name": "mask_select element pass row-stream body (B9, r = 1)",
+         "route": "cuda", "source": ROWS_SRC, "replaces": B9_SCATTER_REPLACES,
+         "replaces_also": B9_GATHER_REPLACES,
+         "launches": sum(rows_b9.values()), "launches_by_path": rows_b9,
+         "max_abs_err": errs1["rows B9"],
+         "ms": b9s["rows_ms"], "graph_ms": b9s["rows_graph_ms"],
+         "plain_ms": b9t["plain_ms"], "plain_graph_ms": b9t["plain_graph_ms"],
+         "bound_ms": b9t["bound"][0], "bound_by": b9t["bound"][1],
+         "library_ms": opts["rows library"],
+         "library_graph_ms": opts["rows library"].graph,
+         "tile_ms": b9s["tile_ms"], "tile_graph_ms": b9s["tile_graph_ms"],
+         "entry_points": ["bst_element_pass_rows_<pair>"],
+         "timed": "S @ x, phase 12's BEM n=8192 on scattered index lists "
+                  "(serial), f32, both launches driven directly on its "
+                  "tables (phase 14's rule scan); tile: the tile core on "
+                  "the same tables; library: a float32 CSR call (cuSPARSE)",
+         "card": card,
+         "dtypes": [pair_name(s_, c_) for s_, c_ in VALUE_PAIRS]}]
     phase1_keys = {"fused_spmm bf16->f32 tensor cores (B1)":
                    "B1 mma bf16->f32",
                    "fused_spmm float64 tensor cores (B1)": "B1 mma f64"}

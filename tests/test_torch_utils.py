@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import blocksparse_tpu_torch as bt
+from blocksparse_tpu_torch.utils import timing
 from blocksparse_tpu_torch.utils.profiling import annotate, trace
 from blocksparse_tpu_torch.utils.testmatrices import random_block_sparse
 from blocksparse_tpu_torch.utils.timing import chained_time_per_iter
@@ -45,22 +46,32 @@ def test_chained_time_is_positive_and_finite(reduce):
     assert isinstance(sec, float) and np.isfinite(sec) and sec > 0
 
 
-def test_chained_time_stats_and_structures():
+def test_chained_time_stats_and_structures(monkeypatch):
     A = operator()
-    calls = []
 
     def step(state):
-        calls.append(1)
         return {"x": step_of(A)(state["x"]), "k": state["k"]}
 
-    stats = chained_time_per_iter(
-        step, {"x": torch.ones(256, dtype=torch.float64), "k": (1, 2)},
-        iters_lo=1, iters_hi=3, repeats=4, reduce="stats")
+    x0 = {"x": torch.ones(256, dtype=torch.float64), "k": (1, 2)}
+    stats = chained_time_per_iter(step, x0, iters_lo=1, iters_hi=3,
+                                  repeats=4, reduce="stats")
     assert set(stats) == {"min", "median", "max", "n"}
     assert 0 < stats["min"] <= stats["median"] <= stats["max"]
     assert 1 <= stats["n"] <= 4
-    # a window this short on a fast step grows the chain lengths
-    assert len(calls) > 4 * (1 + 3) + 2 * (1 + 3)
+    # a window too short to resolve grows the chain lengths: on a clock
+    # that gives each iteration 1 us, (1, 3) spans 2 us < TARGET_WINDOW / 4,
+    # so both lengths scale by min(0.02 / 2e-6, 20000 / 3) = 6666, and
+    # (6666, 19998) spans 13.3 ms, which resolves
+    lengths = []
+
+    def fake_chain_seconds(step_fn, x, iters):
+        lengths.append(iters)
+        return iters * 1e-6
+
+    monkeypatch.setattr(timing, "_chain_seconds", fake_chain_seconds)
+    sec = chained_time_per_iter(step, x0, iters_lo=1, iters_hi=3, repeats=4)
+    assert sec == pytest.approx(1e-6)
+    assert lengths == [1, 3] + [3, 1] * 4 + [6666, 19998] + [19998, 6666] * 4
 
 
 def test_chained_time_rejects_bad_arguments():
