@@ -6,7 +6,7 @@ The general :class:`BlockSparseMatrix`, the half-stored
 algebra (``@``, ``.T``, ``.H``, ``axpby``, composition) on torch tensors,
 in float32, float64, complex64 and complex128 and with bfloat16 storage,
 operands of any dtype promoted as in the JAX package, DSATUR coloring and
-the colored gather-round plan (``schedule="colored"`` or ``"auto"``), the
+the colored element route (``schedule="colored"`` or ``"auto"``), the
 sorted scatter (``scatter="sorted"``); :func:`split_complex` gives a
 complex operator's split-real form (:class:`ComplexSplitOperator`);
 :func:`save` / :func:`load` read and write the JAX package's ``.npz``
@@ -15,8 +15,9 @@ sparse COO tensor, :func:`spy`, :func:`show` and :func:`blocksummary` draw
 the pattern.  The block products run
 in hand-written CUDA kernels for Hopper (``csrc/``): the chunk-table kernel
 (SpMV and SpMM of chunked buckets, plain or symmetric), the merged-patch
-SpMM kernel (f32, r > 1) and its symmetric counterpart, the element gather
-and scatter-add, and the one-launch stream SpMV kernels over panel and slab
+SpMM kernel (f32, r > 1) and its symmetric counterpart, the element pass
+with its owner mode and colored rounds, the one-call gather and
+scatter-add, and the one-launch stream SpMV kernels over panel and slab
 plans (f32, r = 1), and the batched products of P same-structure operators
 in one launch (:func:`batched_mm`, :func:`batched_mv`).  The Krylov
 solvers :func:`cg`, :func:`bicgstab` and :func:`gmres` and the

@@ -5,10 +5,11 @@ Counterpart of ``blocksparse_tpu/core/schedule.py``:
   SERIAL   -- one color holding every block; the element engine scatters
               with ``index_add_`` and the CUDA kernels add with atomics.
   COLORED  -- conflict-free colors from DSATUR (``coloring/``); the element
-              engine may run the scatter-free colored gather rounds
-              (``ops/colored.py``), whose result depends on the coloring
-              being right.  The CUDA kernels still add with atomics: using
-              the colors as their launch schedule is later work (ROADMAP A8).
+              buckets may run the colored element route (``ops/colored.py``:
+              a products pass, then B9's colored rounds summing every color
+              in one launch, without atomics), whose result depends on the
+              coloring being right.  The chunked buckets (B1) still add
+              with atomics.
   AUTO     -- as in the JAX package, not serial: an "auto" operator builds
               its colors and takes the colored path exactly as a "colored"
               one does (``isserial("auto")`` is False), so its products

@@ -16,15 +16,20 @@
 // KB for the element buckets) stay in the 50 MB L2, so the kernels are bound
 // by the streamed index and value bytes and by the launch itself.  The TPU
 // kernels turned each random access into one-hot matrix products because
-// the TPU has no fast scalar gather; on the GPU a thread per element does
-// the access directly: one thread per index, neighbouring threads on
-// neighbouring indices (coalesced index and value streams), a grid-stride
-// loop.
+// the TPU has no fast scalar gather; on the GPU a thread does the access
+// directly: four indices per thread and step (one 16-byte index load, and
+// a 16-byte value load or store) where the streams are 16-byte aligned, one
+// otherwise, neighbouring threads on neighbouring indices, in a grid of at
+// most 8 blocks per SM of the card and a grid-stride loop.
 //
 // Race-freedom: indices repeat (blocks share rows), so the scatter adds with
 // fp32 atomicAdd into the output the wrapper zeroed; the summation order
 // varies between runs.  The TPU kernel summed in a fixed order through its
-// sequential grid.
+// sequential grid.  No product route of the port calls these two kernels:
+// the colored element route, their caller until the colored rounds
+// (colored_rounds.cu), runs a products pass and one rounds launch, without
+// atomics; they stay as the one-call gather and scatter-add of
+// mask_select.py.
 //
 // The element pass (bst_element_pass_*): the element engine's whole
 // gather -> per-block product -> scatter-add over every element bucket of a
@@ -58,35 +63,90 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132LL * 16;  // 16 blocks per SM, then stride
+constexpr int kBlocksPerSm = 8;  // 2048 threads: a full SM
 
+// as many blocks as needed for one quad of indices per thread, at most
+// kBlocksPerSm per SM of the current card, then a grid-stride loop
+int grid_for(long long quads) {
+  static int sms[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int n = dev >= 0 && dev < 64 ? sms[dev] : 0;
+  if (n == 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 1;
+    if (dev >= 0 && dev < 64) sms[dev] = n;
+  }
+  const long long need = (quads + kThreads - 1) / kThreads;
+  const long long cap = (long long)n * kBlocksPerSm;
+  return (int)(need < 1 ? 1 : need < cap ? need : cap);
+}
+
+__device__ __forceinline__ float gathered(const float* __restrict__ x,
+                                          long long n, int i) {
+  return (i >= 0 && i < n) ? __ldg(x + i) : 0.0f;
+}
+
+__device__ __forceinline__ void scattered(float* __restrict__ y,
+                                          long long out_len, int i, float v) {
+  if (i >= 0 && i < out_len) atomicAdd(y + i, v);
+}
+
+// VEC: idx and out 16-byte aligned, four indices per thread and step (one
+// int4 load, one float4 store); the K % 4 tail by the first threads of
+// block 0.  Without VEC one index per thread and step.
+template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
     mask_gather_kernel(const float* __restrict__ x, long long n,
                        const int* __restrict__ idx, long long K,
                        float* __restrict__ out) {
   const long long stride = (long long)gridDim.x * kThreads;
-  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < K;
-       e += stride) {
-    const int i = idx[e];
-    out[e] = (i >= 0 && i < n) ? __ldg(x + i) : 0.0f;
+  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (!VEC) {
+    for (long long e = first; e < K; e += stride)
+      out[e] = gathered(x, n, idx[e]);
+    return;
   }
+  const long long quads = K / 4;
+  for (long long q = first; q < quads; q += stride) {
+    const int4 i = __ldg(reinterpret_cast<const int4*>(idx) + q);
+    reinterpret_cast<float4*>(out)[q] =
+        make_float4(gathered(x, n, i.x), gathered(x, n, i.y),
+                    gathered(x, n, i.z), gathered(x, n, i.w));
+  }
+  const long long e = quads * 4 + first;
+  if (e < K) out[e] = gathered(x, n, idx[e]);
 }
 
+// VEC: idx and v 16-byte aligned, four indices per thread and step
+template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
     mask_scatter_kernel(const float* __restrict__ v,
                         const int* __restrict__ idx, long long K,
                         float* __restrict__ y, long long out_len) {
   const long long stride = (long long)gridDim.x * kThreads;
-  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < K;
-       e += stride) {
-    const int i = idx[e];
-    if (i >= 0 && i < out_len) atomicAdd(y + i, v[e]);
+  const long long first = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (!VEC) {
+    for (long long e = first; e < K; e += stride)
+      scattered(y, out_len, idx[e], v[e]);
+    return;
   }
+  const long long quads = K / 4;
+  for (long long q = first; q < quads; q += stride) {
+    const int4 i = __ldg(reinterpret_cast<const int4*>(idx) + q);
+    const float4 w = __ldg(reinterpret_cast<const float4*>(v) + q);
+    scattered(y, out_len, i.x, w.x);
+    scattered(y, out_len, i.y, w.y);
+    scattered(y, out_len, i.z, w.z);
+    scattered(y, out_len, i.w, w.w);
+  }
+  const long long e = quads * 4 + first;
+  if (e < K) scattered(y, out_len, idx[e], v[e]);
 }
 
-dim3 grid_for(long long K) {
-  const long long blocks = (K + kThreads - 1) / kThreads;
-  return dim3((unsigned)(blocks < kMaxBlocks ? blocks : kMaxBlocks));
+bool aligned16(const void* a, const void* b) {
+  return (reinterpret_cast<unsigned long long>(a) |
+          reinterpret_cast<unsigned long long>(b)) % 16 == 0;
 }
 
 }  // namespace
@@ -96,8 +156,13 @@ extern "C" int bst_mask_gather_f32(const float* x, long long n, const int* idx,
                                    long long K, float* out, void* stream) {
   if (n < 0 || K < 0) return (int)cudaErrorInvalidValue;
   if (K == 0) return 0;
-  mask_gather_kernel<<<grid_for(K), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(x, n, idx, K, out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (aligned16(idx, out))
+    mask_gather_kernel<true><<<grid_for(K / 4), kThreads, 0, s>>>(x, n, idx,
+                                                                  K, out);
+  else
+    mask_gather_kernel<false><<<grid_for((K + 3) / 4), kThreads, 0, s>>>(
+        x, n, idx, K, out);
   return (int)cudaGetLastError();
 }
 
@@ -107,9 +172,13 @@ extern "C" int bst_mask_scatter_add_f32(const float* v, const int* idx,
                                         long long out_len, void* stream) {
   if (out_len < 0 || K < 0) return (int)cudaErrorInvalidValue;
   if (K == 0 || out_len == 0) return 0;
-  mask_scatter_kernel<<<grid_for(K), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(v, idx, K, y,
-                                                             out_len);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (aligned16(idx, v))
+    mask_scatter_kernel<true><<<grid_for(K / 4), kThreads, 0, s>>>(
+        v, idx, K, y, out_len);
+  else
+    mask_scatter_kernel<false><<<grid_for((K + 3) / 4), kThreads, 0, s>>>(
+        v, idx, K, y, out_len);
   return (int)cudaGetLastError();
 }
 

@@ -21,9 +21,10 @@ operator's blocks where one is open (``utils/autotune.py``,
      v2 plan under ``panel="v2"``) or the slab plan (kernel B8) for A or
      A^T;
   3. otherwise ``apply_operand``: chunked buckets -> one launch of kernel
-     B1, element buckets -> one launch of B9's element pass (colored
-     gather rounds under ``schedule="colored"`` where they win, with
-     ``colors`` forward and ``transposecolors`` for transpose products).
+     B1, element buckets -> one launch of B9's element pass (the colored
+     element route under ``schedule="colored"`` where its plan wins: a
+     products pass and one launch of B9's colored rounds, with ``colors``
+     forward and ``transposecolors`` for transpose products).
 
 Dtypes: float32, float64, complex64, complex128 and bfloat16 storage.  A
 complex product takes route 3 (the others are f32), in B1's and the
@@ -390,13 +391,14 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
                               self._dtype, transpose, conj)
 
     def _bucket_apply(self, x, transpose: bool, conj: bool):
-        colors = None
+        colors = adjoint = None
         if not sched.isserial(self._schedule):
-            colors = self._tcolors if transpose else self._colors
+            colors, adjoint = ((self._tcolors, self._colors) if transpose
+                               else (self._colors, self._tcolors))
         return apply_operand(self._buckets, self._layout,
                              self.shape[1] if transpose else self.shape[0], x,
                              transpose=transpose, conj=conj, colors=colors,
-                             scatter=self._scatter)
+                             adjoint_colors=adjoint, scatter=self._scatter)
 
     def __repr__(self):
         m, n = self.shape

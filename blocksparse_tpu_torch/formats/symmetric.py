@@ -37,8 +37,8 @@ population policy's route where one is open (``formats/stream.py``):
   3. otherwise ``apply_symmetric``: the diagonal -> ``apply_operand``,
      chunked off-diagonal buckets -> one launch of kernel B1 in symmetric
      mode, element off-diagonal buckets -> one launch of B9's element pass
-     in symmetric mode (colored gather rounds over ``fusedcolors`` where
-     they win).
+     in symmetric mode (the colored element route over ``fusedcolors``
+     where its plan wins: two products launches and one rounds launch).
 """
 
 from __future__ import annotations

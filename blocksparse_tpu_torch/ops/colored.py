@@ -4,15 +4,19 @@ Counterpart of ``blocksparse_tpu/ops/colored.py``.  Within one color the
 map (output row -> contribution) is injective, so a color round's
 scatter-add can be replaced by its inverse, a dense gather
 ``y += contrib[src_table]`` with a host-built table.  Under
-``schedule="colored"`` the element engine (``ops/torch_spmv.bucket_apply``)
-runs one gather per color where :func:`colored_wins` holds; a wrong
-coloring then gives a wrong product, which is what makes the serial vs
-colored duality test meaningful.
+``schedule="colored"`` the bucket route runs a pass's element buckets as
+the colored element route where :func:`colored_wins` holds
+(``ops/kernels/mask_select.colored_apply``: one products pass into a
+scratch in the plan's flat order, then every color round summed in one
+launch of kernel B9's colored rounds, ``csrc/colored_rounds.cu``, race-free
+by the colors and without atomics; ``ops/torch_spmv.bucket_apply`` keeps
+the per-bucket chain of the JAX engine as the reference).  A wrong coloring
+then gives a wrong product, which is what makes the serial vs colored
+duality test meaningful.
 
-Host tables are numpy; the plan keeps them on the device, cached per
-(layout, colors, roles, device), so a product copies nothing to the device.
-The gather rounds are torch ops.  Using the colors as a race-free launch
-schedule for the CUDA scatter kernels is later work (ROADMAP A8).
+Host tables are numpy; the plan keeps them on the device as one int32
+``[ncolors, out_len]`` tensor, cached per (layout, colors, roles, device),
+so a product copies nothing to the device.
 """
 
 from __future__ import annotations
@@ -100,9 +104,10 @@ def plan_tables(layout, colors, out_len: int, transpose: bool,
 def build_colored_plan(layout, colors, out_len: int, transpose: bool,
                        bucket_sel: tuple[int, ...], symmetric: bool = False,
                        *, device):
-    """``(tables, total)`` with the tables as int64 tensors on ``device``
-    (the ``colored_plan`` argument of ``bucket_apply``; no default: the
-    caller names the operand's device), or None.  Cached:
+    """``(tables, total)`` with the tables as one int32 ``[ncolors,
+    out_len]`` tensor on ``device`` (row k: color k's table; the
+    ``colored_plan`` of ``mask_select.colored_apply`` and ``bucket_apply``;
+    no default: the caller names the operand's device), or None.  Cached:
     the layout is keyed by identity, ``colors`` and ``bucket_sel`` must be
     tuples."""
     plan = plan_tables(layout, colors, out_len, transpose, bucket_sel,
@@ -110,5 +115,6 @@ def build_colored_plan(layout, colors, out_len: int, transpose: bool,
     if plan is None:
         return None
     tables, total = plan
-    return tuple(torch.from_numpy(t).to(device, torch.int64)
-                 for t in tables), total
+    dense = (np.stack(tables) if tables
+             else np.zeros((0, out_len), dtype=np.int32))
+    return torch.from_numpy(dense).to(device), total

@@ -21,8 +21,14 @@ tries, in the JAX package's order:
   - the element buckets (``chunk == 1``) in one launch of kernel B9's
     element pass (``ops/kernels/mask_select.element_apply``), or, under
     ``schedule="colored"`` where ``colored_wins`` holds, through the
-    element engine's colored gather rounds (``ops/torch_spmv.bucket_apply``
-    over ``ops/colored.py``, its f32 SpMV gathers on B9's one-call gather).
+    colored element route (``ops/kernels/mask_select.colored_apply`` over
+    the plan of ``ops/colored.py``): one products pass into a scratch in
+    the plan's order (at r > 1 two launches on the symmetric pass), then
+    every color round summed in one launch of B9's colored rounds,
+    race-free by the colors (no atomics, the same bits on every run; the
+    chunked buckets before it still add with B1's atomics, so a colored
+    product is bit-reproducible only where the operand has no chunked
+    buckets); every dtype pair and r.
 
   CPU tensors run the kernels' plain versions through the same calls.  The
   launches read descriptor tables of the staged buckets
@@ -97,8 +103,8 @@ import torch
 
 from .colored import build_colored_plan, colored_wins
 from .kernels.fused_spmm import BucketTable, multi_fused_apply
-from .kernels.mask_select import element_fused_apply, owner_fused_apply
-from .torch_spmv import bucket_apply
+from .kernels.mask_select import (colored_fused_apply, element_fused_apply,
+                                  owner_fused_apply)
 
 __all__ = ["apply_operand", "apply_symmetric", "bucket_tables",
            "check_route_options", "element_plan", "patch_eligible",
@@ -320,12 +326,13 @@ def bucket_tables(staged: StagedBuckets, layout) -> dict:
 
 
 def _add_buckets(dev_buckets, layout, x, y, *, transpose, symmetric, conj,
-                 colors, scatter="atomic"):
-    """``y`` plus ``layout``'s bucketed product with ``x`` (in place where
-    the launches add): one B1 launch over the chunked buckets, then one
-    element pass over the element buckets (the owner mode under
-    ``scatter="sorted"`` off the symmetric pass), or their colored gather
-    rounds where ``colors`` are given and the plan wins."""
+                 colors, adjoint_colors=None, scatter="atomic"):
+    """``y`` plus ``layout``'s bucketed product with ``x``, in place: one
+    B1 launch over the chunked buckets, then one element pass over the
+    element buckets (the owner mode under ``scatter="sorted"`` off the
+    symmetric pass), or their colored element route where ``colors`` are
+    given and the plan wins.  ``adjoint_colors``: the colors of the
+    transposed pass, whose plan (where it wins) x's cotangent runs."""
     tables = bucket_tables(dev_buckets, layout)
     if tables["chunked"] is not None:
         y = multi_fused_apply(tables["chunked"], x, out=y,
@@ -343,24 +350,32 @@ def _add_buckets(dev_buckets, layout, x, y, *, transpose, symmetric, conj,
         return element_fused_apply(tables["element"], x, out=y,
                                    transpose=transpose, symmetric=symmetric,
                                    conj=conj)
-    return y + bucket_apply([dev_buckets[i][:3] for i in elem_ids],
-                            y.shape[0], x, transpose=transpose,
-                            symmetric=symmetric, conj=conj,
-                            colored_plan=plan, mask_gs=True)
+
+    def adjoint_plan():
+        return element_plan(layout, elem_ids, x.shape[0], adjoint_colors,
+                            x.device, transpose=not transpose,
+                            symmetric=False)
+
+    return colored_fused_apply(tables["element"], plan, x, out=y,
+                               transpose=transpose, symmetric=symmetric,
+                               conj=conj, adjoint_plan=adjoint_plan)
 
 
 def apply_operand(dev_buckets, layout, out_len: int, x: torch.Tensor, *,
                   transpose: bool = False, conj: bool = False,
-                  colors=None, scatter: str = "atomic") -> torch.Tensor:
+                  colors=None, adjoint_colors=None,
+                  scatter: str = "atomic") -> torch.Tensor:
     """Apply a bucketed operand: one B1 launch over its chunked buckets and
-    one element pass (or the colored gather rounds) over its element
+    one element pass (or the colored element route) over its element
     buckets, into one zeroed output.
 
     ``dev_buckets``: the layout's :class:`StagedBuckets`.  ``conj``: the
     conjugate of the values (complex; real values are unchanged), so
     ``transpose`` and ``conj`` together apply the adjoint.  ``colors``: the
     color sets (tuple of tuples of block ids) when the operator's schedule
-    is "colored" or "auto", else None.  ``scatter``: "atomic" (the element
+    is "colored" or "auto", else None; ``adjoint_colors`` those of the
+    other direction (the transposed product's), for x's cotangent.
+    ``scatter``: "atomic" (the element
     pass) or "sorted" (B9's owner mode for the element buckets, no colored
     plan).  ``x`` is of a compute dtype of the values (``fused_spmm.
     COMPUTE_TYPES``), and so is the result.
@@ -368,7 +383,8 @@ def apply_operand(dev_buckets, layout, out_len: int, x: torch.Tensor, *,
     shape = (out_len,) if x.ndim == 1 else (out_len, x.shape[1])
     return _add_buckets(dev_buckets, layout, x, x.new_zeros(shape),
                         transpose=transpose, symmetric=False, conj=conj,
-                        colors=colors, scatter=scatter)
+                        colors=colors, adjoint_colors=adjoint_colors,
+                        scatter=scatter)
 
 
 def apply_symmetric(diag_buckets, diag_layout, off_buckets, off_layout,
@@ -383,9 +399,11 @@ def apply_symmetric(diag_buckets, diag_layout, off_buckets, off_layout,
     passes honor ``conj``: S is complex symmetric, so ``S^H = conj(S)`` and
     ``S^H x`` is the diagonal's adjoint plus the off-diagonal pair's
     conjugate.  ``fused_colors`` (union row+col conflicts) and
-    ``diag_colors`` drive the colored gather rounds of the element engine.
+    ``diag_colors`` drive the colored element route (a diagonal block's
+    rows are its columns, so ``diag_colors`` serve both directions).
     """
     y = apply_operand(diag_buckets, diag_layout, n, x, transpose=transpose,
-                      conj=conj, colors=diag_colors)
+                      conj=conj, colors=diag_colors,
+                      adjoint_colors=diag_colors)
     return _add_buckets(off_buckets, off_layout, x, y, transpose=False,
                         symmetric=True, conj=conj, colors=fused_colors)

@@ -310,6 +310,7 @@ class BucketTable:
                 items[side] += nb * -(-extent // _ROW_TILE)
         self.compute_dtypes = COMPUTE_TYPES.get(self.dtype, ())
         self.owners = {}  # B9's owner tables (mask_select.owner_table)
+        self.offsets = {}  # B9's scratch offsets (mask_select.scratch_offsets)
         self.first = (tuple(first[0]), tuple(first[1]))
         self.items = tuple(items)
         # the deepest block side: the longest contraction of any mode
@@ -510,40 +511,42 @@ def multi_block_apply(table: BucketTable, x, *, out, transpose: bool = False,
 
 class TableApply(torch.autograd.Function):
     """``out += (every bucket of table) @ x`` in place through ``launch``
-    (:func:`multi_block_apply`, or B9's ``element_apply``), with exact
-    cotangents in torch's convention (``y = M x`` gives ``M^H g``):
-    ``out``'s is the output's, x's the same launch in the other mode with
-    the conj flag flipped (the symmetric mode is its own transpose, so its
-    adjoint is its conjugate), each bucket's values' the torch ops on the
-    gathered rows (``torch_spmv.values_grad``)."""
+    (:func:`multi_block_apply`, or B9's ``element_apply`` or colored
+    route), with exact cotangents in torch's convention (``y = M x`` gives
+    ``M^H g``): ``out``'s is the output's, x's the launch ``adjoint``
+    (None: ``launch`` itself) in the other mode with the conj flag flipped
+    (the symmetric mode is its own transpose, so its adjoint is its
+    conjugate), whose own adjoint is ``launch``; each bucket's values' the
+    torch ops on the gathered rows (``torch_spmv.values_grad``)."""
 
     @staticmethod
-    def forward(ctx, out, x, table, launch, transpose, symmetric, conj,
-                *vals):
+    def forward(ctx, out, x, table, launch, adjoint, transpose, symmetric,
+                conj, *vals):
         ctx.mark_dirty(out)
         ctx.save_for_backward(x, *vals)
-        ctx.cfg = (table, launch, transpose, symmetric, conj)
+        ctx.cfg = (table, launch, adjoint or launch, transpose, symmetric,
+                   conj)
         return launch(table, x, out=out, transpose=transpose,
                       symmetric=symmetric, conj=conj)
 
     @staticmethod
     def backward(ctx, g):
         x, *vals = ctx.saved_tensors
-        table, launch, transpose, symmetric, conj = ctx.cfg
+        table, launch, adjoint, transpose, symmetric, conj = ctx.cfg
         g = g.contiguous()
         dx = None
         if ctx.needs_input_grad[1]:
-            dx = TableApply.apply(g.new_zeros(x.shape), g, table, launch,
-                                  not transpose and not symmetric, symmetric,
-                                  not conj, *vals)
+            dx = TableApply.apply(g.new_zeros(x.shape), g, table, adjoint,
+                                  launch, not transpose and not symmetric,
+                                  symmetric, not conj, *vals)
         # in the compute dtype, returned in each value's stored dtype
         dvals = [values_grad(g, x, chunk_rows(rtab, chunk),
                              chunk_rows(ctab, chunk), transpose=transpose,
                              symmetric=symmetric, conj=conj).to(v.dtype)
-                 if ctx.needs_input_grad[7 + i] else None
+                 if ctx.needs_input_grad[8 + i] else None
                  for i, (v, rtab, ctab, chunk) in enumerate(table.buckets)]
         return (g if ctx.needs_input_grad[0] else None, dx, None, None, None,
-                None, None, *dvals)
+                None, None, None, *dvals)
 
 
 def multi_fused_apply(table: BucketTable, x, *, out, transpose: bool = False,
@@ -551,8 +554,8 @@ def multi_fused_apply(table: BucketTable, x, *, out, transpose: bool = False,
                       conj: bool = False) -> torch.Tensor:
     """:func:`multi_block_apply` with autograd (in ``x``, ``out`` and the
     table's values)."""
-    return TableApply.apply(out, x, table, multi_block_apply, transpose,
-                            symmetric, conj, *table.values)
+    return TableApply.apply(out, x, table, multi_block_apply, None,
+                            transpose, symmetric, conj, *table.values)
 
 
 def chunked_block_apply_plain(vals, row_chunk, col_chunk, chunk: int, x,

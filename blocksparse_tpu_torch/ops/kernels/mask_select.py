@@ -19,9 +19,28 @@ The kernels (``csrc/mask_select.cu``) replace
   tile core).  Its plain version, :func:`element_apply_plain`, is the
   per-bucket gather -> einsum -> scatter-add chain
   (:func:`mask_gather_plain` / :func:`mask_scatter_add_plain` on vectors).
+- :func:`colored_apply`: the colored element route, the element buckets of
+  a pass under a colored plan (``schedule="colored"`` where
+  ``ops/colored.colored_wins`` holds), every stored / compute pair and r,
+  forward, transpose or symmetric, with ``conj``.  Two launches, at r > 1
+  three on the symmetric pass: the products pass of the owner mode
+  (``bst_element_owner_products_*``; at r = 1 the one-read kernel
+  ``bst_colored_products_r1_*`` of ``csrc/colored_rounds.cu``, one launch
+  also on the symmetric pass) writes every (block, row) product into a
+  scratch ``[total, r]`` in the plan's flat order (on the symmetric pass
+  the forward parts, then the mirror parts at their offsets,
+  :func:`scratch_offsets`), then one launch of the rounds
+  (``csrc/colored_rounds.cu``, ``bst_colored_rounds_<compute>``) adds,
+  for every output row, its color rounds' scratch rows summed in color
+  order into ``out``, one write per entry, no atomics.  It replaces the
+  JAX engine's colored chain, which gathered with the mask-select kernel
+  per bucket (and scattered with it in its backward).  Its plain version,
+  :func:`colored_apply_plain`, is those two passes in the same layout and
+  order (:func:`colored_products_plain`, :func:`colored_rounds_plain`).
 - :func:`mask_gather` / :func:`mask_scatter_add`: one gather or one
-  scatter-add of f32 vectors (f32 only, as the TPU kernels); the colored element pass
-  (``ops/torch_spmv.bucket_apply`` with ``mask_gs=True``) gathers with them.
+  scatter-add of f32 vectors (f32 only, as the TPU kernels).  No product
+  route calls them; ``ops/torch_spmv.bucket_apply(mask_gs=True)``, the
+  colored route as it ran before the rounds, does.
 - :func:`owner_apply`: the owner mode, the element pass of an operator
   built with ``scatter="sorted"`` (forward or transpose, with ``conj``):
   the port of the JAX engine's sort + sorted-segment-sum scatter.  Its
@@ -57,14 +76,19 @@ part); the summation order varies from run to run.
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.  ``GATHER_LAUNCHES``, ``SCATTER_LAUNCHES``,
 ``ELEMENT_LAUNCHES`` and ``OWNER_LAUNCHES`` count kernel launches (the
-owner mode's each pass), ``ELEMENT_SYM_LAUNCHES`` the element passes in
+owner mode's each pass), ``COLORED_LAUNCHES`` the colored route's products
+launches and ``ROUNDS_LAUNCHES`` its rounds launches,
+``ELEMENT_SYM_LAUNCHES`` the element passes in
 the symmetric mode, ``ELEMENT_ROW_LAUNCHES`` those on the row-stream body
 (``fused_spmm.ENTRY_LAUNCHES`` counts the element pass and the owner mode
 by entry point too).  :func:`gather_apply` and
 :func:`scatter_apply` add autograd (each is the other's adjoint, so a
 backward pass runs the other kernel), :func:`element_fused_apply` too (its
 x cotangent is the element pass in the transposed mode with the conj flag
-flipped; the symmetric mode is its own transpose).
+flipped; the symmetric mode is its own transpose), and
+:func:`colored_fused_apply` (x's cotangent the colored route of the
+transposed pass where its plan wins, else the element pass transposed;
+the symmetric pass its own colored route with the conj flag flipped).
 """
 
 from __future__ import annotations
@@ -78,16 +102,19 @@ from .fused_spmm import (ENTRY_LAUNCHES, BucketTable, TableApply,
                          check_table_call, entry_point, launch_mode,
                          FMA_PREFIXES, fma_launch, launch_table)
 
-__all__ = ["element_apply", "element_apply_plain", "element_fused_apply",
+__all__ = ["ColoredLaunch", "colored_apply", "colored_apply_plain",
+           "colored_fused_apply", "colored_products_plain", "colored_rounds",
+           "colored_rounds_plain", "check_colored_plan", "scratch_offsets",
+           "element_apply", "element_apply_plain", "element_fused_apply",
            "mask_gather", "mask_gather_plain", "mask_scatter_add",
            "mask_scatter_add_plain", "gather_apply", "scatter_apply",
            "OwnerTable", "owner_apply", "owner_apply_plain",
            "owner_fused_apply", "owner_products", "owner_products_plain",
            "owner_sum", "owner_sum_plain", "owner_two_pass",
            "owner_table", "sorted_scatter_info",
-           "ELEMENT_LAUNCHES", "ELEMENT_ROW_LAUNCHES", "ELEMENT_SYM_LAUNCHES",
-           "GATHER_LAUNCHES",
-           "OWNER_LAUNCHES", "SCATTER_LAUNCHES"]
+           "COLORED_LAUNCHES", "ELEMENT_LAUNCHES", "ELEMENT_ROW_LAUNCHES",
+           "ELEMENT_SYM_LAUNCHES", "GATHER_LAUNCHES", "OWNER_LAUNCHES",
+           "ROUNDS_LAUNCHES", "SCATTER_LAUNCHES"]
 
 GATHER_LAUNCHES = 0
 SCATTER_LAUNCHES = 0
@@ -95,6 +122,10 @@ ELEMENT_LAUNCHES = 0
 ELEMENT_SYM_LAUNCHES = 0
 ELEMENT_ROW_LAUNCHES = 0
 OWNER_LAUNCHES = 0
+COLORED_LAUNCHES = 0
+ROUNDS_LAUNCHES = 0
+_R1_TILE_ROWS = 64  # rows of a work item of bst_colored_products_r1_*
+
 
 
 def mask_gather_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -281,7 +312,7 @@ def element_fused_apply(table: BucketTable, x: torch.Tensor, *, out,
     """:func:`element_apply` with autograd (in ``x``, ``out`` and the
     table's values; x's cotangent is the element pass in the transposed
     mode with the conj flag flipped)."""
-    return TableApply.apply(out, x, table, element_apply, transpose,
+    return TableApply.apply(out, x, table, element_apply, None, transpose,
                             symmetric, conj, *table.values)
 
 
@@ -445,18 +476,26 @@ def owner_apply(table: BucketTable, x: torch.Tensor, *, out,
                           mode, transpose)
 
 
+def _products_launch(table: BucketTable, offsets, xm, P, mode: int,
+                     transpose: bool) -> None:
+    """One launch of the products pass (``csrc/owner_pass.cu``; CUDA
+    tensors, checked by the caller): every (block, row) product of ``xm``
+    ([n, r]) in this direction written into the scratch ``P`` at bucket
+    q's first row ``offsets[q]`` (int64 [n buckets] on the card)."""
+    name = entry_point("bst_element_owner_products", table.dtype, xm.dtype)
+    build.launch(name, xm.device, table.table.data_ptr(), len(table),
+                 table.items[transpose], offsets.data_ptr(), xm.data_ptr(),
+                 P.data_ptr(), P.shape[1], xm.shape[0], P.shape[0], mode)
+    ENTRY_LAUNCHES[name] += 1
+
+
 def owner_products(table: BucketTable, own: OwnerTable, xm, P, mode: int,
                    transpose: bool) -> torch.Tensor:
     """The owner mode's first launch (CUDA tensors, checked by the caller):
     every (block, row) product of ``xm`` ([n, r]) into the scratch ``P``
     ([own.p_rows, r], written); returns ``P``."""
     global OWNER_LAUNCHES
-    name = entry_point("bst_element_owner_products", table.dtype, xm.dtype)
-    build.launch(name, xm.device, table.table.data_ptr(), len(table),
-                 table.items[transpose], own.offsets.data_ptr(),
-                 xm.data_ptr(), P.data_ptr(), P.shape[1], xm.shape[0],
-                 own.p_rows, mode)
-    ENTRY_LAUNCHES[name] += 1
+    _products_launch(table, own.offsets, xm, P, mode, transpose)
     OWNER_LAUNCHES += 1
     return P
 
@@ -489,5 +528,249 @@ def owner_fused_apply(table: BucketTable, x: torch.Tensor, *, out,
                       conj: bool = False) -> torch.Tensor:
     """:func:`owner_apply` with autograd (x's cotangent is the owner mode in
     the other direction with the conj flag flipped)."""
-    return TableApply.apply(out, x, table, owner_apply, transpose, False,
-                            conj, *table.values)
+    return TableApply.apply(out, x, table, owner_apply, None, transpose,
+                            False, conj, *table.values)
+
+
+# -- the colored element route (schedule="colored") ----------------------------
+
+
+def scratch_offsets(table: BucketTable, transpose: bool,
+                    base: int = 0) -> torch.Tensor:
+    """int64 [n buckets] on the table's device: each bucket's first row in
+    a scratch that holds, from row ``base``, every bucket's ``nb *
+    extent`` product rows in table order (extent ``mp`` forward, ``kp``
+    transposed); built at first use and kept on the table."""
+    key = (bool(transpose), int(base))
+    if key not in table.offsets:
+        extents = [v.shape[0] * v.shape[2 if transpose else 1]
+                   for v, *_ in table.buckets]
+        starts = np.cumsum([base] + extents[:-1]).astype(np.int64)
+        table.offsets[key] = torch.from_numpy(starts).to(table.device)
+    return table.offsets[key]
+
+
+def _r1_workspace(table: BucketTable) -> tuple:
+    """The one-read products kernel's tables, built at first use and kept
+    on the table: ``(owner, ifirst, bstart, woff, w_elems)``: int32
+    [items] each work item's bucket (an item: a stored block's 64-row
+    tile, buckets in table order), int64 [n buckets] each bucket's first
+    item, its first stored block and its first element of the workspace of
+    tile partials (blocks of more than one tile: nb * tiles * kp
+    elements), and the workspace's length."""
+    if "r1" not in table.offsets:
+        nbs, tiles, sizes = [], [], []
+        for v in table.values:
+            nb, mp, kp = v.shape
+            tiles.append(nb * -(-mp // _R1_TILE_ROWS))
+            nbs.append(nb)
+            sizes.append(tiles[-1] * kp if mp > _R1_TILE_ROWS else 0)
+        dev = table.device
+        starts = lambda a: torch.from_numpy(np.cumsum(
+            [0] + a[:-1]).astype(np.int64)).to(dev)
+        owner = np.repeat(np.arange(len(tiles), dtype=np.int32), tiles)
+        table.offsets["r1"] = (torch.from_numpy(owner).to(dev),
+                               starts(tiles), starts(nbs), starts(sizes),
+                               sum(sizes))
+    return table.offsets["r1"]
+
+
+def _products_r1(table: BucketTable, xm, P, conj_bit: int, transpose: bool,
+                 symmetric: bool) -> None:
+    """The colored route's products at r = 1 in one launch of
+    ``bst_colored_products_r1_*`` (CUDA tensors, checked by the caller):
+    the parts of :func:`_scratch_parts` from one read of every block,
+    through a workspace of tile partials and zeroed counters (one per
+    stored block) allocated here."""
+    offsets = {tr: scratch_offsets(table, tr, base)
+               for tr, base in _scratch_parts(table, transpose, symmetric)}
+    fwd = offsets.get(False, offsets.get(True))
+    mir = offsets.get(True, fwd)
+    owner, ifirst, bstart, woff, w_elems = _r1_workspace(table)
+    if symmetric or transpose:
+        W = torch.empty(max(w_elems, 1), dtype=xm.dtype, device=xm.device)
+        cnt = torch.zeros(sum(v.shape[0] for v in table.values),
+                          dtype=torch.int32, device=xm.device)
+    else:  # no transposed parts: the kernel reads neither
+        W = torch.empty(1, dtype=xm.dtype, device=xm.device)
+        cnt = torch.empty(1, dtype=torch.int32, device=xm.device)
+    name = entry_point("bst_colored_products_r1", table.dtype, xm.dtype)
+    build.launch(name, xm.device, table.table.data_ptr(), len(table),
+                 owner.numel(), owner.data_ptr(), ifirst.data_ptr(),
+                 bstart.data_ptr(), fwd.data_ptr(), mir.data_ptr(),
+                 woff.data_ptr(), W.data_ptr(), cnt.data_ptr(), xm.data_ptr(),
+                 xm.shape[0], P.data_ptr(),
+                 (2 if symmetric else int(transpose)) | conj_bit)
+    ENTRY_LAUNCHES[name] += 1
+
+
+def _scratch_parts(table: BucketTable, transpose: bool, symmetric: bool):
+    """``(transpose, first row)`` of each products launch of a colored pass,
+    in the plan's flat order (``ops/colored.py::plan_tables``): the
+    forward parts (transposed parts in a transposed pass), then on the
+    symmetric pass the mirror parts ``V^T @ x[row_idx]`` after them."""
+    if not symmetric:
+        return ((transpose, 0),)
+    return ((False, 0), (True, sum(v.shape[0] * v.shape[1]
+                                   for v in table.values)))
+
+
+def check_colored_plan(table: BucketTable, plan, out, transpose: bool,
+                       symmetric: bool) -> None:
+    """Raise where ``plan`` (``(tables, total)``) does not fit ``table``'s
+    pass into ``out``."""
+    tables, total = plan
+    want = sum(v.shape[0] * v.shape[2 if transpose and not symmetric else 1]
+               + (v.shape[0] * v.shape[2] if symmetric else 0)
+               for v in table.values)
+    if total != want:
+        raise ValueError(f"colored plan of {total} contribution rows for a "
+                         f"pass of {want}")
+    if tables.ndim != 2 or tables.shape[1] != out.shape[0]:
+        raise ValueError(f"colored tables {tuple(tables.shape)} do not match "
+                         f"out_len {out.shape[0]}")
+    if tables.dtype != torch.int32 or not tables.is_contiguous():
+        raise TypeError("colored tables must be contiguous int32")
+    if tables.device != out.device:
+        raise ValueError(f"colored tables on {tables.device}, out on "
+                         f"{out.device}")
+
+
+def colored_products_plain(table: BucketTable, x: torch.Tensor, *,
+                           transpose: bool = False, symmetric: bool = False,
+                           conj: bool = False) -> torch.Tensor:
+    """Plain version of the colored route's products pass: the scratch
+    ``[total, r]`` in the plan's flat order (:func:`owner_products_plain`
+    per part of :func:`_scratch_parts`)."""
+    return torch.cat([owner_products_plain(table, x, transpose=tr, conj=conj)
+                      for tr, _ in _scratch_parts(table, transpose,
+                                                  symmetric)])
+
+
+def colored_rounds_plain(plan, P: torch.Tensor, *, out) -> torch.Tensor:
+    """Plain version of the rounds: per row, its color rounds' rows of
+    ``P`` (the sentinel ``total`` reads 0) summed in color order from zero,
+    then added into ``out`` ([out_len] or [out_len, r]) once, in place;
+    returns ``out``."""
+    tables, _total = plan
+    om = out[:, None] if out.ndim == 1 else out
+    ext = torch.cat([P, P.new_zeros((1, P.shape[1]))])
+    acc = P.new_zeros(om.shape)
+    for t in tables:
+        acc = acc + ext[t.long()]
+    om += acc
+    return out
+
+
+def colored_apply_plain(table: BucketTable, plan, x: torch.Tensor, *, out,
+                        transpose: bool = False, symmetric: bool = False,
+                        conj: bool = False) -> torch.Tensor:
+    """Plain version of the colored route on the same tables: the products
+    pass into the scratch, then the rounds into ``out`` in place
+    (:func:`colored_products_plain`, :func:`colored_rounds_plain`)."""
+    P = colored_products_plain(table, x, transpose=transpose,
+                               symmetric=symmetric, conj=conj)
+    return colored_rounds_plain(plan, P, out=out)
+
+
+def colored_rounds(plan, P: torch.Tensor, out) -> torch.Tensor:
+    """The rounds launch (``csrc/colored_rounds.cu``; CUDA tensors, checked
+    by the caller): ``out`` plus every color round of ``plan`` over the
+    scratch ``P`` ([total, r]), one write per entry; returns ``out``."""
+    global ROUNDS_LAUNCHES
+    tables, total = plan
+    name = entry_point("bst_colored_rounds", P.dtype)
+    build.launch(name, P.device, tables.data_ptr(), tables.shape[0],
+                 out.shape[0], total, P.data_ptr(), out.data_ptr(),
+                 P.shape[1])
+    ROUNDS_LAUNCHES += 1
+    return out
+
+
+def colored_apply(table: BucketTable, plan, x: torch.Tensor, *, out,
+                  transpose: bool = False, symmetric: bool = False,
+                  conj: bool = False) -> torch.Tensor:
+    """Add every element bucket of ``table`` applied to ``x`` ([n] or [n,
+    r]) into ``out`` ([out_len] or [out_len, r]) through the colored plan
+    ``plan`` (``ops/colored.build_colored_plan``: ``(tables, total)``, the
+    tables int32 ``[ncolors, out_len]`` on the card); returns ``out``.
+
+    Forward, ``transpose`` or ``symmetric`` (both contributions of every
+    block), each with ``conj``; every stored / compute pair of
+    ``fused_spmm.COMPUTE_TYPES`` and every r.  Launches: the products pass
+    into a scratch ``[total, r]`` allocated here, then one launch of the
+    rounds (:func:`colored_rounds`).  The products pass: at r = 1 one
+    launch of ``bst_colored_products_r1_*`` (both parts of the symmetric
+    pass from one read of the values; faster than the owner mode's
+    products pass at r = 1 on the H100, ``chip_smoke.py`` phase 4), at r >
+    1 the owner mode's products pass, one launch per direction (two on
+    the symmetric pass: the forward parts, then the mirror parts at their
+    offsets).  No
+    atomics: the pass's sum is the same bits on every run.  (The chunked
+    buckets of the same operand still add through B1's atomics before
+    this pass, so a product is bit-identical from run to run only where
+    the operand has no chunked buckets.)"""
+    global COLORED_LAUNCHES
+    conj = conj and table.dtype.is_complex
+    launch_mode(transpose, symmetric)  # raises on transpose and symmetric
+    conj_bit = launch_mode(False, False, conj)
+    if any(b[3] != 1 for b in table.buckets):
+        raise ValueError("the colored route takes element buckets (chunk 1)")
+    check_table_call(table, x, out, symmetric)
+    check_colored_plan(table, plan, out, transpose, symmetric)
+    if x.device.type == "cpu":
+        return colored_apply_plain(table, plan, x, out=out,
+                                   transpose=transpose, symmetric=symmetric,
+                                   conj=conj)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    xm = x.resolve_conj().contiguous()
+    xm = xm[:, None] if xm.ndim == 1 else xm
+    tables, total = plan
+    if not (xm.shape[1] and out.shape[0] and tables.shape[0] and total):
+        return out
+    P = torch.empty((total, xm.shape[1]), dtype=x.dtype, device=x.device)
+    if xm.shape[1] == 1:
+        _products_r1(table, xm, P, conj_bit, transpose, symmetric)
+        COLORED_LAUNCHES += 1
+    else:
+        for tr, base in _scratch_parts(table, transpose, symmetric):
+            _products_launch(table, scratch_offsets(table, tr, base), xm, P,
+                             conj_bit | int(tr), tr)
+            COLORED_LAUNCHES += 1
+    return colored_rounds(plan, P, out)
+
+
+class ColoredLaunch:
+    """:func:`colored_apply` over one plan as a ``TableApply`` launch;
+    ``plan`` may be a callable that gives the plan at the first call, and
+    where the plan is None the launch is the element pass
+    (:func:`element_apply`)."""
+
+    def __init__(self, plan):
+        self.plan = plan
+
+    def __call__(self, table, x, *, out, transpose, symmetric, conj):
+        if callable(self.plan):
+            self.plan = self.plan()
+        if self.plan is None:
+            return element_apply(table, x, out=out, transpose=transpose,
+                                 symmetric=symmetric, conj=conj)
+        return colored_apply(table, self.plan, x, out=out, transpose=transpose,
+                             symmetric=symmetric, conj=conj)
+
+
+def colored_fused_apply(table: BucketTable, plan, x: torch.Tensor, *, out,
+                        transpose: bool = False, symmetric: bool = False,
+                        conj: bool = False,
+                        adjoint_plan=None) -> torch.Tensor:
+    """:func:`colored_apply` with autograd (in ``x``, ``out`` and the
+    table's values).  ``adjoint_plan``: a callable giving the colored plan
+    of the transposed pass (or None), asked at the first backward; x's
+    cotangent runs that plan, or the element pass in the transposed mode
+    where there is none; on the symmetric pass, this same plan (the pass
+    is its own transpose; ``TableApply`` flips the conj flag)."""
+    launch = ColoredLaunch(plan)
+    adjoint = launch if symmetric else ColoredLaunch(adjoint_plan)
+    return TableApply.apply(out, x, table, launch, adjoint, transpose,
+                            symmetric, conj, *table.values)

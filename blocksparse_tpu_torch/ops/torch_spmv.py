@@ -17,11 +17,16 @@ in one launch of B9's element pass (``ops/kernels/mask_select.
 element_apply``; its plain version is the per-bucket gather -> einsum ->
 scatter-add chain of ``bucket_apply``) and its chunked buckets in one
 multi-bucket launch of B1 (the port of the JAX engine's
-``chunked_multi_apply`` chain).  ``bucket_apply`` serves the element
-buckets that run a colored plan; with ``mask_gs=True`` the gathers and
-scatter-adds of an f32 SpMV go through B9's one-call kernels
-(``mask_gather`` / ``mask_scatter_add``), as the JAX engine sent them to its
-mask-select kernels.  The sorted-segment scatter (``scatter="sorted"``) is
+``chunked_multi_apply`` chain).  Element buckets under a colored plan run
+the colored element route (``ops/kernels/mask_select.colored_apply``: a
+products pass, then every color round in one launch of B9's colored
+rounds); ``bucket_apply(colored_plan=...)`` keeps the JAX engine's
+per-bucket chain (a gather, an einsum per bucket, a concatenation, one
+gather and one add per color) as the reference those are held to, and with
+``mask_gs=True`` sends the gathers and scatter-adds of an f32 SpMV through
+B9's one-call kernels (``mask_gather`` / ``mask_scatter_add``), as the JAX
+engine sent them to its mask-select kernels: the route as it ran before
+the rounds, timed beside them on the card.  The sorted-segment scatter (``scatter="sorted"``) is
 B9's owner mode (``ops/kernels/mask_select.owner_apply``), whose plain
 version is a segment sum over the same tables.
 

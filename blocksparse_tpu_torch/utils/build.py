@@ -39,7 +39,8 @@ _info: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# the (stored, compute) instances of B1 and B9's element pass and owner mode
+# the (stored, compute) instances of B1 and B9's element pass, owner mode
+# and colored products pass
 _VALUE_SUFFIXES = ("f32", "f64", "c64", "c128", "bf16_f32", "bf16_f64",
                   "f32_f64", "c64_c128")
 _SIGNATURES = {
@@ -59,6 +60,14 @@ _SIGNATURES = {
        for suffix in _VALUE_SUFFIXES},
     # rows, ptr, flat, n_rows, P, y, r, y_rows, stream
     **{f"bst_element_owner_sum_{suffix}": (_P, _P, _P, _L, _P, _P, _I, _L, _P)
+       for suffix in ("f32", "f64", "c64", "c128")},
+    # table, n, items, owner, ifirst, bstart, poff_f, poff_m, woff, W, cnt,
+    # x, x_rows, P, mode, stream
+    **{f"bst_colored_products_r1_{suffix}": (_P, _I, _L, _P, _P, _P, _P, _P,
+                                             _P, _P, _P, _P, _L, _P, _I, _P)
+       for suffix in _VALUE_SUFFIXES},
+    # tables, ncolors, out_len, total, P, y, r, stream
+    **{f"bst_colored_rounds_{suffix}": (_P, _I, _L, _L, _P, _P, _I, _P)
        for suffix in ("f32", "f64", "c64", "c128")},
     # B1's tensor-core instances: table, n, items_f, items_t, x, y, r,
     # x_rows, y_rows, mode, stream

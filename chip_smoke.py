@@ -10,6 +10,7 @@
     python3 chip_smoke.py --distributed  # phase 15 (the distributed layer)
     python3 chip_smoke.py --mesh         # phase 15's transports across cards
     python3 chip_smoke.py --autotune     # phase 16 (the route autotuner)
+    python3 chip_smoke.py --colored      # the colored element route alone
 
 Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
 
@@ -68,7 +69,14 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      own geometry (printed), every seg driving the three modes; B9's owner
      mode (its two passes), every stored / compute pair x forward,
      transpose (x conj for complex values) x r in {1, 3, 64, 128}, two
-     launches bit-equal; B1's tensor-core instances (complex64, float64,
+     launches bit-equal; B9's colored rounds (``csrc/colored_rounds.cu``)
+     against the plain rounds on the same scratch, every compute dtype x r
+     in {1, 3, 33, 64} x one and 64 colors, with sentinel targets and rows
+     no color reaches, two launches bit-equal; the colored element route
+     (products pass + rounds) against its plain version, every stored /
+     compute pair x forward, transpose, symmetric (x conj) x r in {1, 64}
+     (the one-read products at r = 1), two products bit-equal; B1's
+     tensor-core instances (complex64, float64,
      complex128, bf16 -> float32), forward, transpose, symmetric (x conj
      for complex values) x r in {2, 16, 64, 200}, against their plain
      version and the FMA instance on a table with sentinel chunks and the
@@ -101,8 +109,13 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      driven explicitly, and gradients; then the same recipe with scattered
      groups, whose r = 1 products no stream plan takes, as a main path:
      under the colored schedule its element buckets run the colored
-     gather rounds (B9's one-call gathers, the backward's scatter-adds),
-     under "serial" one B9 element pass per layout, with exact counts;
+     element route (per pass a products launch and one B9 rounds launch;
+     no one-call gather or scatter-add, forward or backward), under
+     "serial" one B9 element pass per layout, with exact counts; S @ X at
+     r = 64 through the bucket route; the cell at r = 1 and 64 timed eager
+     and from a CUDA graph: the colored route, the serial route, the old
+     chain (the per-bucket one-call gathers, einsums and torch rounds) and
+     the expanded CSR call; the rounds and the products pass each alone;
   5. the symmetric real size (config-2 recipe x8, n = 32768): construction
      split (layout, coloring, panel plan, slab plan, patch plan), B9 against
      its plain version on every element bucket, SpMV through B5 on the plan
@@ -115,7 +128,9 @@ Builds the port's CUDA kernels from ``blocksparse_tpu_torch/csrc`` and runs:
      all timed eager and from a CUDA graph, and the bucket route's device
      time split (each pass in one launch beside one launch per
      bucket), the element pass beside its bound and a CSR library call;
-     B9's one-call kernels also on 2^20 indices;
+     B9's one-call kernels also on 2^20 indices; then the real-size
+     colored cell (the same recipe with scattered groups, both passes on
+     colored plans) timed as phase 4's scattered cell;
      B3's owner tables, and B3 at precision=None (a second operator), in
      its adjoint mode (the dX of S @ X) and with an empty owner table (its
      forward blocks alone), timed;
@@ -321,6 +336,7 @@ Needs one CUDA card, nvcc, torch and scipy; imports no jax.
 from __future__ import annotations
 
 import inspect
+import itertools
 import json
 import os
 import re
@@ -398,6 +414,8 @@ B1_MMA_SRC = "blocksparse_tpu_torch/csrc/complex_mma.cu"
 B1_DMMA_SRC = "blocksparse_tpu_torch/csrc/dmma.cu"
 B1_BF16_MMA_SRC = "blocksparse_tpu_torch/csrc/bf16_mma.cu"
 B9_OWNER_SRC = "blocksparse_tpu_torch/csrc/owner_pass.cu"
+B9_ROUNDS_SRC = "blocksparse_tpu_torch/csrc/colored_rounds.cu"
+B9_COLORED_REPLACES = "blocksparse_tpu/ops/xla_spmv.py:159"
 ROWS_SRC = "blocksparse_tpu_torch/csrc/row_stream.cuh"
 B2_SRC = "blocksparse_tpu_torch/csrc/patch_spmm.cu"
 B1_REPLACES = "blocksparse_tpu/ops/pallas/fused_spmm.py:81"
@@ -570,6 +588,8 @@ def reset_counts() -> None:
     mask_select.ELEMENT_LAUNCHES = 0
     mask_select.ELEMENT_SYM_LAUNCHES = 0
     mask_select.OWNER_LAUNCHES = 0
+    mask_select.COLORED_LAUNCHES = 0
+    mask_select.ROUNDS_LAUNCHES = 0
     fused_spmm.ENTRY_LAUNCHES.clear()
     for mod in (panel_spmv, slab_spmv):
         mod.LAUNCHES = 0
@@ -587,7 +607,10 @@ def counts() -> dict:
     symmetric mode, also counted under "B1"; "B1 mma": those of its
     tensor-core instances (``fused_spmm.MMA_RULES``), also under "B1"; "B9 element": B9's element
     passes, "B9 element sym" those in the symmetric mode, "B9 owner" its
-    owner mode (scatter="sorted"); "B2": B2's
+    owner mode (scatter="sorted"), "B9 colored" the colored element route's
+    products launches and "B9 rounds" its rounds launches (the colored
+    rounds, ``csrc/colored_rounds.cu``); "B9 gather" / "B9 scatter" the
+    one-call kernels; "B2": B2's
     forward, "B2 transpose" its transposed product, "B2 prologue" its X^T
     launches, one per launch of either; "B5 mirror", "B6 mirror",
     "B8 mirror" and "B10 mirror" those on a mirror plan)."""
@@ -602,6 +625,8 @@ def counts() -> dict:
             "B9 element": mask_select.ELEMENT_LAUNCHES,
             "B9 element sym": mask_select.ELEMENT_SYM_LAUNCHES,
             "B9 owner": mask_select.OWNER_LAUNCHES,
+            "B9 colored": mask_select.COLORED_LAUNCHES,
+            "B9 rounds": mask_select.ROUNDS_LAUNCHES,
             "B5": panel_spmv.LAUNCHES,
             "B5 mirror": panel_spmv.MIRROR_LAUNCHES,
             "B8": slab_spmv.LAUNCHES, "B8 mirror": slab_spmv.MIRROR_LAUNCHES,
@@ -630,7 +655,7 @@ def stream_want(op, transpose=False, k=1) -> dict:
     plan = op._stream_entry(transpose)[1]
     name = stream_kernel(op, transpose)
     want = {"B1": 0, "B1 sym": 0, "B9 gather": 0, "B9 scatter": 0,
-            "B9 element": 0, "B7": 0}
+            "B9 element": 0, "B9 colored": 0, "B9 rounds": 0, "B7": 0}
     for kern in ("B5", "B8", "B10"):
         want[kern] = k * (name == kern)
         want[f"{kern} mirror"] = k * (name == kern and plan.mirror)
@@ -763,55 +788,73 @@ def elem_ids(layout) -> list:
 
 def passes_of(op, transpose=False) -> list:
     """The bucket route's passes of one product of ``op``: per layout
-    (layout, colors, out_len, transpose, symmetric)."""
+    (layout, colors, out_len, transpose, symmetric, adjoint colors, in_len),
+    the adjoint colors those of the transposed pass (x's cotangent)."""
+    n = op.shape[0]
     if hasattr(op, "_dlayout"):
         colored = not bt.isserial(op.schedule)
-        n = op.shape[0]
-        return [(op._dlayout, op.diagonalcolors() if colored else None, n,
-                 transpose, False),
-                (op._olayout, op.fusedcolors() if colored else None, n,
-                 False, True)]
-    colors = None
+        dcol = op.diagonalcolors() if colored else None
+        fcol = op.fusedcolors() if colored else None
+        return [(op._dlayout, dcol, n, transpose, False, dcol, n),
+                (op._olayout, fcol, n, False, True, fcol, n)]
+    colors = adjoint = None
     if isinstance(op, bt.BlockSparseMatrix) and not bt.isserial(op.schedule):
-        colors = op.transposecolors() if transpose else op.colors()
-    return [(op.layout, colors, op.shape[1] if transpose else op.shape[0],
-             transpose, False)]
+        colors, adjoint = ((op.transposecolors(), op.colors()) if transpose
+                           else (op.colors(), op.transposecolors()))
+    m, k = op.shape[::-1] if transpose else op.shape
+    return [(op.layout, colors, m, transpose, False, adjoint, k)]
+
+
+def pass_plan(lay, colors, n, tr, sym):
+    """The colored plan a pass's element buckets run, or None."""
+    return element_plan(lay, elem_ids(lay), n, colors, DEV, transpose=tr,
+                        symmetric=sym)
 
 
 def colored_passes(op, transpose=False) -> list:
     """Per pass with element buckets: True where they run the colored
-    gather rounds (B9's one-call gathers), False where the element pass."""
-    return [element_plan(lay, elem_ids(lay), n, colors, DEV, transpose=tr,
-                         symmetric=sym) is not None
-            for lay, colors, n, tr, sym in passes_of(op, transpose)
+    element route (a products pass and B9's colored rounds), False where
+    the element pass."""
+    return [pass_plan(lay, colors, n, tr, sym) is not None
+            for lay, colors, n, tr, sym, _a, _k in passes_of(op, transpose)
             if elem_ids(lay)]
 
 
-def bucket_want(op, transpose=False, backward=False) -> dict:
-    """Exact launches of one f32 r = 1 bucket-route product of ``op``: per
-    layout one B1 launch over its chunked buckets (symmetric mode on the
-    off-diagonal pass), one element pass over its element buckets, or,
-    under a colored plan, one B9 gather per element bucket and gathered
-    table.  ``backward``: with the product's backward, which repeats every
-    B1 launch and element pass (in the adjoint mode) and turns each gather
-    into a scatter-add."""
+def bucket_want(op, transpose=False, backward=False, r=1) -> dict:
+    """Exact launches of one bucket-route product of ``op`` with r columns:
+    per layout one B1 launch over its chunked buckets (symmetric mode on
+    the off-diagonal pass), and over its element buckets one element pass,
+    or, under a colored plan, the colored element route: one products
+    launch (at r > 1 two on the symmetric pass) and one rounds launch;
+    never B9's one-call gather or scatter-add.  ``backward``: with the product's backward, which
+    repeats every B1 launch (in the adjoint mode), every element pass and
+    the symmetric pass's colored route, and runs a colored general pass's
+    cotangent through the transposed pass's plan where it wins (else one
+    element pass)."""
     want = {"B1": 0, "B1 sym": 0, "B9 element": 0, "B9 element sym": 0,
-            "B9 gather": 0, "B9 scatter": 0}
-    for lay, colors, n, tr, sym in passes_of(op, transpose):
-        ids = elem_ids(lay)
-        if n_chunked(lay):
-            want["B1"] += 1
-            want["B1 sym"] += sym
-        if ids and element_plan(lay, ids, n, colors, DEV, transpose=tr,
-                                symmetric=sym) is None:
+            "B9 colored": 0, "B9 rounds": 0, "B9 gather": 0,
+            "B9 scatter": 0}
+
+    def element_work(lay, colors, n, tr, sym):
+        if pass_plan(lay, colors, n, tr, sym) is None:
             want["B9 element"] += 1
             want["B9 element sym"] += sym
-        elif ids:
-            want["B9 gather"] += len(ids) * (2 if sym else 1)
-    if backward:
-        for k in ("B1", "B1 sym", "B9 element", "B9 element sym"):
-            want[k] *= 2
-        want["B9 scatter"] = want["B9 gather"]
+        else:
+            want["B9 colored"] += 2 if sym and r > 1 else 1
+            want["B9 rounds"] += 1
+
+    for lay, colors, n, tr, sym, adjoint, k in passes_of(op, transpose):
+        steps = [(colors, n, tr)]
+        if backward:  # the cotangent's pass: colored only after a colored one
+            colored = pass_plan(lay, colors, n, tr, sym) is not None
+            steps.append((adjoint if colored else None, k,
+                          tr if sym else not tr))
+        for colors_, n_, tr_ in steps:
+            if n_chunked(lay):
+                want["B1"] += 1
+                want["B1 sym"] += sym
+            if elem_ids(lay):
+                element_work(lay, colors_, n_, tr_, sym)
     return want
 
 
@@ -1083,6 +1126,110 @@ def element_vs_plain(gen) -> dict:
     return errs
 
 
+COMPUTE_DTYPES = (torch.float32, torch.float64, torch.complex64,
+                  torch.complex128)
+
+
+def random_plan(gen, ncolors: int, out_len: int, total: int):
+    """A colored plan's shape with random contents: int32 [ncolors,
+    out_len] tables on the card whose entries name scratch rows in [0,
+    total) or the sentinel total (about a third), rows 0-9 reached by no
+    color."""
+    t = torch.randint(0, total + 1, (ncolors, out_len), generator=gen,
+                      dtype=torch.int32)
+    t[torch.rand((ncolors, out_len), generator=gen) < 0.33] = total
+    t[:, :10] = total
+    return t.to(DEV).contiguous(), total
+
+
+def rounds_vs_plain(gen) -> dict:
+    """B9's colored rounds against the plain rounds on the same scratch,
+    every compute dtype x r in {1, 3, 33, 64} x one and 64 colors, on
+    tables with sentinel targets and rows no color reaches, out_len 5000
+    and 5003; adding into an output that holds a partial sum; two launches
+    bit-equal."""
+    errs = {"B9 rounds": 0.0}
+    bits = []
+    for dtype in COMPUTE_DTYPES:
+        for r in (1, 3, 33, 64):
+            for ncolors in (1, 64):
+                for out_len in (5000, 5003):
+                    plan = random_plan(gen, ncolors, out_len, 7001)
+                    P = torch.randn((7001, r), generator=gen,
+                                    dtype=dtype).to(DEV)
+                    prior = torch.randn((out_len, r), generator=gen,
+                                        dtype=dtype).to(DEV)
+                    ref = mask_select.colored_rounds_plain(
+                        plan, P, out=prior.clone())
+                    got = mask_select.colored_rounds(plan, P, prior.clone())
+                    again = mask_select.colored_rounds(plan, P,
+                                                       prior.clone())
+                    torch.cuda.synchronize()
+                    label = (f"B9 rounds {dtype} r={r} {ncolors} colors "
+                             f"out_len={out_len}")
+                    require(torch.equal(got, again),
+                            f"{label}: two launches differ")
+                    bits.append(bool(torch.equal(got, ref)))
+                    err, _ = abs_err(label, got, ref, TOL[dtype])
+                    errs["B9 rounds"] = max(errs["B9 rounds"], err)
+    print(f"  B9 rounds vs the plain rounds: {len(bits)} cases, max_abs_err "
+          f"{errs['B9 rounds']:.3e}, bit-equal in {sum(bits)}; two launches "
+          f"bit-equal in all")
+    return errs
+
+
+def colored_vs_plain(gen) -> dict:
+    """B9's colored route (products pass + rounds) against its plain
+    version, every stored / compute pair x forward, transpose, symmetric (x
+    conj for complex values) x r in {1, 64} (the one-read products at r =
+    1, the owner mode's at 64), on element buckets with
+    repeated rows and sentinel lanes (blocks of 64 x 64, 2 x 128, 128 x 1,
+    1 x 256), under a random plan of 40 colors; two products bit-equal.
+    At r = 1 also on the same values as views one element past a 16-byte
+    boundary (``unaligned_table``: the one-read kernel then loads value by
+    value)."""
+    errs = {"B9 colored": 0.0, "B9 colored one-read": 0.0}
+    n = 5000
+    for stored, compute in VALUE_PAIRS:
+        aligned = element_table_typed(stored, n)
+        for r in (1, 64):
+            X = torch.randn((n, r), generator=gen, dtype=compute).to(DEV)
+            x = X[:, 0].contiguous() if r == 1 else X
+            prior = torch.randn(x.shape, generator=gen, dtype=compute).to(DEV)
+            tables = {"": aligned}
+            if r == 1:
+                tables[" unaligned values"] = unaligned_table(aligned)
+            for mode, (where, table) in itertools.product(
+                    ("forward", "transpose", "symmetric"), tables.items()):
+                tr, sym = mode == "transpose", mode == "symmetric"
+                total = sum(v.shape[0] * (v.shape[1] + v.shape[2] if sym
+                                          else v.shape[2 if tr else 1])
+                            for v in table.values)
+                plan = random_plan(gen, 40, n, total)
+                for conj in ((False, True) if stored.is_complex else (False,)):
+                    kw = {**MODE_KW[mode], "conj": conj}
+                    ref = mask_select.colored_apply_plain(
+                        table, plan, x, out=prior.clone(), **kw)
+                    got = mask_select.colored_apply(table, plan, x,
+                                                    out=prior.clone(), **kw)
+                    again = mask_select.colored_apply(table, plan, x,
+                                                      out=prior.clone(), **kw)
+                    torch.cuda.synchronize()
+                    label = (f"B9 colored {pair_name(stored, compute)} {mode}"
+                             f"{' conj' if conj else ''} r={r}{where}")
+                    require(torch.equal(got, again),
+                            f"{label}: two products differ")
+                    err, _ = abs_err(label, got, ref, TOL[compute])
+                    key = "B9 colored" + (" one-read" if r == 1 else "")
+                    errs[key] = max(errs[key], err)
+    print(f"  B9 colored route vs its plain version: every pair, mode and "
+          f"conj, max_abs_err r = 1 (one-read products) "
+          f"{errs['B9 colored one-read']:.3e}, r = 64 (the owner mode's "
+          f"products) {errs['B9 colored']:.3e}, r = 1 also on values one "
+          f"element past a 16-byte boundary; two products bit-equal in all")
+    return errs
+
+
 ALL_DTYPES = ["float32", "float64", "complex64", "complex128"]
 COMPLEX_DTYPES = ((np.complex64, torch.complex64),
                   (np.complex128, torch.complex128))
@@ -1165,6 +1312,18 @@ def element_table_typed(stored: torch.dtype, n: int) -> BucketTable:
              else torch.empty(0, dtype=stored).numpy().dtype)
     table = element_table_on_card(np_dt, n)
     return BucketTable([(v.to(stored).contiguous(), ri, ci, c)
+                        for v, ri, ci, c in table.buckets])
+
+
+def unaligned_table(table: BucketTable) -> BucketTable:
+    """``table``'s buckets with each values tensor copied into a view that
+    starts one element past a 16-byte boundary (still contiguous)."""
+    def shifted(v):
+        buf = torch.empty(v.numel() + 1, dtype=v.dtype, device=v.device)
+        out = buf[1:].view(v.shape)
+        out.copy_(v)
+        return out
+    return BucketTable([(shifted(v), ri, ci, c)
                         for v, ri, ci, c in table.buckets])
 
 
@@ -1475,6 +1634,8 @@ def phase1():
     errs.update(complex_vs_plain(gen))
     errs.update(rows_vs_plain(gen))
     errs.update(owner_vs_plain(gen))
+    errs.update(rounds_vs_plain(gen))
+    errs.update(colored_vs_plain(gen))
     errs.update(mma_instances_vs_plain(gen))
     stream_errs, panel_plans = stream_kernels_vs_plain(gen)
     errs.update(stream_errs)
@@ -2661,7 +2822,7 @@ def phase4(card: str):
         require(grown["B3"] >= 2 if r > 1 else grown["B5 mirror"] == 1,
                 f"{name}: the product did not run the kernel ({grown})")
     launches["setup"] = setup
-    launches["scattered"] = scattered_main_path()
+    launches["scattered"] = scattered_main_path(card)
     mplan = S._stream_entry(False)[1]
     vbytes = value_bytes_of(S._dlayout, S._olayout)
     launches["times"] = {
@@ -2677,29 +2838,271 @@ def phase4(card: str):
     return errs, launches
 
 
-def scattered_main_path() -> dict:
+def old_colored_chain(S, x):
+    """S's bucket route as it ran before the colored rounds: per layout one
+    B1 launch, and a colored pass's element buckets through
+    ``bucket_apply``'s per-bucket chain (a gather per bucket, B9's one-call
+    gather at f32 r = 1, an einsum each, a concatenation, one index and one
+    add per color); an uncolored pass's through the element pass."""
+    y = x.new_zeros((S.shape[0],) + tuple(x.shape[1:]))
+    for (lay, colors, n, tr, sym, _a, _k), bk in zip(
+            passes_of(S), (S._dbuckets, S._obuckets)):
+        tabs = bucket_tables(bk, lay)
+        if tabs["chunked"] is not None:
+            y = fused_spmm.multi_block_apply(tabs["chunked"], x, out=y,
+                                             transpose=tr, symmetric=sym)
+        if tabs["element"] is None:
+            continue
+        plan = pass_plan(lay, colors, n, tr, sym)
+        if plan is None:
+            y = mask_select.element_apply(tabs["element"], x, out=y,
+                                          transpose=tr, symmetric=sym)
+        else:
+            y = y + bucket_apply([bk[i][:3] for i in elem_ids(lay)], n, x,
+                                 transpose=tr, symmetric=sym,
+                                 colored_plan=plan, mask_gs=True)
+    return y
+
+
+def colored_route_plain(S, x):
+    """S's colored bucket route with every kernel replaced by its plain
+    version (B1's, and the colored route's or the element pass's)."""
+    y = x.new_zeros((S.shape[0],) + tuple(x.shape[1:]))
+    for (lay, colors, n, tr, sym, _a, _k), bk in zip(
+            passes_of(S), (S._dbuckets, S._obuckets)):
+        tabs = bucket_tables(bk, lay)
+        if tabs["chunked"] is not None:
+            y = fused_spmm.multi_block_apply_plain(
+                tabs["chunked"], x, out=y, transpose=tr, symmetric=sym)
+        if tabs["element"] is None:
+            continue
+        plan = pass_plan(lay, colors, n, tr, sym)
+        if plan is None:
+            y = mask_select.element_apply_plain(tabs["element"], x, out=y,
+                                                transpose=tr, symmetric=sym)
+        else:
+            y = mask_select.colored_apply_plain(tabs["element"], plan, x,
+                                                out=y, transpose=tr,
+                                                symmetric=sym)
+    return y
+
+
+def rounds_alone(label, S, card) -> dict:
+    """The off-diagonal pass's rounds launch alone (r = 1, on the scratch of
+    its products) against the plain rounds (the same bits expected), two
+    launches bit-equal, timed beside its plain version, its bound (tables,
+    the scratch rows they name, y read and written) and one PyTorch call
+    computing the same sums (the 0/1 gather matrix of the tables in CSR,
+    times the scratch)."""
+    lay, colors, n = S._olayout, S.fusedcolors(), S.shape[0]
+    plan = pass_plan(lay, colors, n, False, True)
+    require(plan is not None, f"{label}: the off-diagonal pass has no plan")
+    tables, total = plan
+    etab = bucket_tables(S._obuckets, lay)["element"]
+    x = torch.randn(n, generator=torch.Generator().manual_seed(41)).to(DEV)
+    P = mask_select.colored_products_plain(etab, x, symmetric=True)
+    ref = mask_select.colored_rounds_plain(plan, P, out=x.new_zeros(n))
+    kern = lambda: mask_select.colored_rounds(plan, P, x.new_zeros(n))
+    plain = lambda: mask_select.colored_rounds_plain(plan, P,
+                                                     out=x.new_zeros(n))
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    require(torch.equal(got, again), f"{label}: two rounds launches differ")
+    out = {"colors": int(tables.shape[0]), "total": int(total),
+           "bit_equal_plain": bool(torch.equal(got, ref)),
+           "err": rel_check(f"{label}: rounds vs the plain rounds", got, ref,
+                            TOL32)}
+    p1, k1, k2, p2 = (median_ms(plain), median_ms(kern), median_ms(kern),
+                      median_ms(plain))
+    live = tables < total
+    nlive = int(live.sum())
+    nbytes = tables.numel() * 4 + nlive * 4 + 2 * n * 4
+    out.update(ms=min(k1, k2), plain_ms=min(p1, p2), graph_ms=graph_ms(kern),
+               plain_graph_ms=graph_ms(plain), live=nlive,
+               bound=bound(nbytes, nlive))
+    rows = torch.arange(n, device=DEV).expand_as(tables)[live]
+    gmat = torch.sparse_coo_tensor(
+        torch.stack([rows, tables[live].long()]),
+        torch.ones(nlive, device=DEV), (n, total)).coalesce().to_sparse_csr()
+    out["library"] = library_ms(f"{label}: rounds, the gather matrix in CSR "
+                                f"@ the scratch", lambda: torch.mv(
+                                    gmat, P[:, 0]), got, card)
+    print(f"  {label}: rounds alone, {out['colors']} colors, {n} rows, "
+          f"{nlive} live table entries: eager {out['ms']:.4f} ms, graph "
+          f"{out['graph_ms']:.4f} ms, bit-equal to the plain rounds "
+          f"{out['bit_equal_plain']}; plain {out['plain_ms']:.4f} / "
+          f"{out['plain_graph_ms']:.4f} ms; bound "
+          f"{out['bound'][0] * 1e3:.3f} us ({out['bound'][1]}) [{card}]")
+    return out
+
+
+def products_matrix(etab, n: int) -> torch.Tensor:
+    """The symmetric pass's products as one sparse matrix ``M [total, n]``
+    in CSR on the card, ``P = M @ x`` in the scratch's flat order: forward
+    row ``b * mp + i`` of a bucket holds ``V_b[i, :]`` at its column
+    indices, mirror row ``b * kp + k`` (after every forward part) holds
+    ``V_b[:, k]`` at its row indices; entries in a sentinel row or column
+    (index >= n) left out."""
+    fwd = sum(v.shape[0] * v.shape[1] for v in etab.values)
+    rows, cols, vals, fbase, mbase = [], [], [], 0, fwd
+    for v, ridx, cidx, _chunk in etab.buckets:
+        nb, mp, kp = v.shape
+        ri = ridx.long()[:, :, None].expand(nb, mp, kp)
+        ci = cidx.long()[:, None, :].expand(nb, mp, kp)
+        keep = (ri < n) & (ci < n)
+        frow = fbase + torch.arange(nb * mp, device=DEV).view(nb, mp, 1)
+        mrow = mbase + torch.arange(nb * kp, device=DEV).view(nb, 1, kp)
+        for prow, col in ((frow, ci), (mrow, ri)):
+            rows.append(prow.expand(nb, mp, kp)[keep])
+            cols.append(col[keep])
+            vals.append(v.float()[keep])
+        fbase, mbase = fbase + nb * mp, mbase + nb * kp
+    return torch.sparse_coo_tensor(
+        torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+        (mbase, n)).coalesce().to_sparse_csr()
+
+
+def products_alone(label, S, card) -> dict:
+    """The off-diagonal (symmetric) pass's products at r = 1 alone: the
+    one-read kernel (one launch) against the tile core's two launches and
+    the plain version on the same scratch layout, each timed eager and
+    from a CUDA graph, beside its bound (the bucket values as stored, x and
+    the scratch once each; 4 operations per value) and one PyTorch call
+    computing the same scratch (``products_matrix`` in CSR times x)."""
+    lay, n = S._olayout, S.shape[0]
+    etab = bucket_tables(S._obuckets, lay)["element"]
+    x = torch.randn(n, generator=torch.Generator().manual_seed(42)).to(DEV)
+    total = sum(v.shape[0] * (v.shape[1] + v.shape[2]) for v in etab.values)
+    xm = x[:, None]
+
+    def scratch(body):
+        P = torch.empty((total, 1), device=DEV)
+        if body == "one-read":
+            mask_select._products_r1(etab, xm, P, 0, False, True)
+        else:
+            for tr, base in mask_select._scratch_parts(etab, False, True):
+                mask_select._products_launch(
+                    etab, mask_select.scratch_offsets(etab, tr, base), xm, P,
+                    int(tr), tr)
+        return P
+
+    plain = lambda: mask_select.colored_products_plain(etab, x,
+                                                       symmetric=True)
+    ref = plain()
+    out = {"err": max(rel_check(f"{label}: {body} products vs plain",
+                                scratch(body), ref, TOL32)
+                      for body in ("one-read", "tile"))}
+    one, again = scratch("one-read"), scratch("one-read")
+    torch.cuda.synchronize()
+    require(torch.equal(one, again), f"{label}: two one-read products "
+            f"launches differ")
+    for body in ("one-read", "tile", "one-read", "tile"):
+        fn = lambda body=body: scratch(body)
+        out[f"{body} ms"] = min(out.get(f"{body} ms", 1e9), median_ms(fn))
+        out[f"{body} graph"] = min(out.get(f"{body} graph", 1e9),
+                                   graph_ms(fn))
+    out["plain ms"], out["plain graph"] = median_ms(plain), graph_ms(plain)
+    vbytes = sum(v.numel() * v.element_size() for v in etab.values)
+    out["bound"] = bound(vbytes + n * 4 + total * 4,
+                         4 * sum(v.numel() for v in etab.values))
+    mat = products_matrix(etab, n)
+    out["library"] = library_ms(f"{label}: symmetric products, their "
+                                f"matrix in CSR @ x", lambda: torch.mv(mat, x),
+                                one[:, 0], card)
+    del mat
+    print(f"  {label}: symmetric products pass alone, r = 1 ({total} "
+          f"scratch rows, {vbytes / 1e6:.1f} MB of bucket values): one-read "
+          f"{out['one-read graph']:.4f} ms graph / {out['one-read ms']:.4f} "
+          f"eager, tile core (two launches) {out['tile graph']:.4f} / "
+          f"{out['tile ms']:.4f}, plain {out['plain graph']:.4f} / "
+          f"{out['plain ms']:.4f}; bound {out['bound'][0]:.4f} ms "
+          f"({out['bound'][1]}) [{card}]")
+    return out
+
+
+def colored_cell(label, Sc, Ss, Ssc, card) -> dict:
+    """A colored cell's products at r = 1 and r = 64: the new route (the
+    bucket route of the colored operator: per colored pass a products pass
+    and one rounds launch) with exact launches and against float64 scipy,
+    timed eager and from a CUDA graph beside its plain version, the serial
+    route on the same operands (element passes), the old chain
+    (``old_colored_chain``) and the expanded CSR library call."""
+    n = Sc.shape[0]
+    csr = csr_on_card([Sc])
+    out = {}
+    for r in (1, 64):
+        g = torch.Generator().manual_seed(40 + r)
+        X = torch.randn((n, r) if r > 1 else n, generator=g).to(DEV)
+        X64 = X.double().cpu().numpy()
+        routes = {"colored": lambda: bucket_route_sym(Sc, X),
+                  "serial": lambda: bucket_route_sym(Ss, X),
+                  "old chain": lambda: old_colored_chain(Sc, X),
+                  "plain": lambda: colored_route_plain(Sc, X)}
+
+        reset_counts()
+        y = routes["colored"]()
+        torch.cuda.synchronize()
+        got = counts()
+        require_counts(f"{label} r={r} colored route", got,
+                       bucket_want(Sc, r=r))
+        res = {"launches": {k: v for k, v in got.items() if v},
+               "err": rel_check(f"{label} r={r} colored route vs float64 "
+                                f"scipy", y, Ssc @ X64, TOL32)}
+        rel_check(f"{label} r={r} old chain vs the colored route",
+                  routes["old chain"](), y, TOL32)
+        rel_check(f"{label} r={r} serial route vs the colored route",
+                  routes["serial"](), y, TOL32)
+        turns = [k for k in routes if k != "plain"]
+        for name in turns + ["plain"]:
+            res[f"{name} eager"] = median_ms(routes[name])
+        for name in turns + turns[::-1] + ["plain"]:
+            ms = graph_ms(routes[name])
+            res[f"{name} graph"] = min(res.get(f"{name} graph", ms), ms)
+        res["bound"] = product_bound(Sc, r)
+        res["library"] = library_ms(
+            f"{label} r={r}, expanded CSR" + (" @ X" if r > 1 else " mv"),
+            (lambda: csr @ X) if r > 1 else (lambda: torch.mv(csr, X)), y,
+            card)
+        print(f"  {label} r={r}: graph ms colored {res['colored graph']:.4f}"
+              f", serial {res['serial graph']:.4f}, old chain "
+              f"{res['old chain graph']:.4f}, plain {res['plain graph']:.4f}"
+              f", CSR {res['library'].graph}; eager colored "
+              f"{res['colored eager']:.4f}, serial {res['serial eager']:.4f}"
+              f", old chain {res['old chain eager']:.4f}, CSR "
+              f"{float(res['library']):.4f}; bound {res['bound'][0]:.4f} "
+              f"({res['bound'][1]}); launches {res['launches']} [{card}]")
+        out[r] = res
+    return out
+
+
+def scattered_main_path(card: str) -> dict:
     """The bucket route as a main path: the config-2 recipe at n = 4096
     with scattered groups, whose f32 r = 1 products no stream plan takes.
     Under the default colored schedule both element passes win their
-    colored plans (B9's one-call gathers; the backward's scatter-adds);
-    under schedule="serial" each layout runs one B9 element pass.  S @ x
-    and its gradient, counted exactly, against float64 scipy; returns the
-    launches of each schedule's run."""
+    colored plans and run the colored element route (per pass a products
+    launch, two on the symmetric pass, and one B9 rounds launch; no
+    one-call gather or scatter-add, forward or backward); under
+    schedule="serial" each layout runs one B9 element pass.  S @ x and its
+    gradient, counted exactly, against float64 scipy; S @ X at r = 64
+    through the bucket route; then the cell timed (``colored_cell``) and
+    the rounds alone (``rounds_alone``).  Returns the launches of each
+    schedule's run and the times."""
     d, di, o, ri, ci, shape = random_symmetric(
         8, n=4096, ngroups=48, noffdiag=160, dtype=np.float32,
         contiguous=False)
     rng = np.random.default_rng(14)
     xn, wn = (rng.standard_normal(4096).astype(np.float32) for _ in range(2))
     x, w = torch.from_numpy(xn).to(DEV), torch.from_numpy(wn).to(DEV)
-    out = {}
+    out, ops = {}, {}
     for schedule in ("colored", "serial"):
-        S = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape, device=DEV,
-                                    schedule=schedule)
+        S = ops[schedule] = bt.SymmetricBlockMatrix(
+            d, di, o, ri, ci, shape, device=DEV, schedule=schedule)
         require(stream_kernel(S) == "B1", f"scattered {schedule}: no stream "
                 f"plan should take S @ x ({stream_kernel(S)})")
         Ssc = bt.to_scipy(S).astype(np.float64)
         print(f"  scattered groups, schedule={schedule}: {S}; element passes "
-              f"colored (diagonal, off-diagonal): {colored_passes(S)}")
+              f"colored (diagonal, off-diagonal): {colored_passes(S)}; "
+              f"{describe_passes(S)}")
         reset_counts()
         y = S @ x
         torch.cuda.synchronize()
@@ -2707,6 +3110,8 @@ def scattered_main_path() -> dict:
         print(f"  scattered {schedule} S @ x: launches "
               f"{ {k: v for k, v in got.items() if v} }")
         require_counts(f"scattered {schedule} S @ x", got, bucket_want(S))
+        out[schedule] = dict(got)
+        out[f"{schedule} entries"] = dict(fused_spmm.ENTRY_LAUNCHES)
         rel_check(f"scattered {schedule} S @ x vs float64 scipy", y,
                   Ssc @ xn.astype(np.float64), TOL32)
         before = counts()
@@ -2717,12 +3122,62 @@ def scattered_main_path() -> dict:
                        grown_since(before), bucket_want(S, backward=True))
         rel_check(f"scattered {schedule} d(w . S @ x)/dx vs float64 scipy",
                   xg.grad, Ssc.T @ wn.astype(np.float64), TOL32)
-        out[schedule] = counts()
-    require(out["colored"]["B9 gather"] > 0 and
-            out["colored"]["B9 scatter"] > 0 and
+        X = torch.from_numpy(rng.standard_normal((4096, 64)).astype(
+            np.float32)).to(DEV)
+        before = counts()
+        Y = bucket_route_sym(S, X)
+        torch.cuda.synchronize()
+        require_counts(f"scattered {schedule} bucket-route S @ X r=64",
+                       grown_since(before), bucket_want(S, r=64))
+        rel_check(f"scattered {schedule} bucket-route S @ X r=64 vs float64 "
+                  f"scipy", Y, Ssc @ X.double().cpu().numpy(), TOL32)
+        out[f"{schedule} with backward"] = counts()
+    col = out["colored"]
+    require(col["B9 rounds"] > 0 and col["B9 colored"] > 0 and
+            col["B9 gather"] == col["B9 scatter"] == 0 and
+            out["colored with backward"]["B9 gather"] == 0 and
+            out["colored with backward"]["B9 scatter"] == 0 and
             out["serial"]["B9 element"] > 0,
-            f"the scattered main paths skipped a B9 kernel: {out}")
+            f"the scattered main paths ran the wrong B9 kernels: {out}")
+    Ssc = bt.to_scipy(ops["colored"]).astype(np.float64)
+    out["times"] = colored_cell("scattered flagship", ops["colored"],
+                                ops["serial"], Ssc, card)
+    out["rounds"] = rounds_alone("scattered flagship", ops["colored"], card)
+    out["products"] = products_alone("scattered flagship", ops["colored"],
+                                     card)
     return out
+
+
+# grown until both passes of the real-size colored cell take a plan
+COLORED_REAL_NOFFDIAG = 4096
+
+
+def colored_real_size(card: str) -> dict:
+    """The real-size colored cell: phase 5's symmetric recipe (n = 32768,
+    384 diagonal groups, ``COLORED_REAL_NOFFDIAG`` off-diagonal blocks)
+    with scattered groups, under the default (colored) schedule: its
+    passes (``describe_passes``), both taking a colored plan; its products
+    at r = 1 and 64 through the bucket route timed (``colored_cell``) and
+    the rounds alone (``rounds_alone``)."""
+    args = random_symmetric(8, n=32768, ngroups=384,
+                            noffdiag=COLORED_REAL_NOFFDIAG,
+                            dtype=np.float32, contiguous=False)
+    t0 = time.perf_counter()
+    Sc = bt.SymmetricBlockMatrix(*args, device=DEV)
+    torch.cuda.synchronize()
+    t_ctor = time.perf_counter() - t0
+    Ss = bt.SymmetricBlockMatrix(*args, device=DEV, schedule="serial")
+    print(f"  real-size colored cell: {Sc}; constructor {t_ctor:.2f} s; "
+          f"{describe_passes(Sc)}; S @ x's default route: "
+          f"{stream_kernel(Sc)}")
+    require(all(colored_passes(Sc)), "the real-size colored cell: a pass "
+            "has no colored plan")
+    Ssc = bt.to_scipy(Sc).astype(np.float64)
+    return {"times": colored_cell("real-size colored cell", Sc, Ss, Ssc,
+                                  card),
+            "rounds": rounds_alone("real-size colored cell", Sc, card),
+            "products": products_alone("real-size colored cell", Sc, card),
+            "passes": describe_passes(Sc), "ctor_s": t_ctor}
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -2760,6 +3215,10 @@ def b9_single_calls(S, x, gen, card) -> dict:
         }
         for kind, (kern, plain, lib, bnd) in calls.items():
             label = f"B9 {kind}, one call on {K} indices (n={n})"
+            before = counts()
+            kern()
+            torch.cuda.synchronize()
+            launched = grown_since(before)[f"B9 {kind}"]
             p1, k1, k2, p2 = (median_ms(plain), median_ms(kern),
                               median_ms(kern), median_ms(plain))
             graph = graph_ms(kern)
@@ -2768,6 +3227,7 @@ def b9_single_calls(S, x, gen, card) -> dict:
                   f"{bnd[0] * 1e3:.3f} us ({bnd[1]}) [{card}]")
             out[kind + tag] = {"ms": min(k1, k2), "graph_ms": graph,
                                "plain_ms": min(p1, p2), "indices": K,
+                               "launches": launched,
                                "library_ms": library_ms(label, lib, kern(),
                                                         card),
                                "bound": bnd}
@@ -3088,14 +3548,16 @@ def describe_passes(op) -> str:
     out = []
     names = (("diagonal", "off-diagonal") if hasattr(op, "_dlayout")
              else ("one layout",))
-    for (lay, colors, n, tr, sym), name in zip(passes_of(op), names):
+    for (lay, colors, n, tr, sym, _a, _k), name in zip(passes_of(op), names):
         ids = elem_ids(lay)
         kind = "no element bucket"
         if ids:
-            kind = ("colored gather rounds (B9 one-call gathers)"
-                    if element_plan(lay, ids, n, colors, DEV, transpose=tr,
-                                    symmetric=sym) is not None
-                    else "one B9 element pass")
+            plan = pass_plan(lay, colors, n, tr, sym)
+            kind = ("one B9 element pass" if plan is None else
+                    f"the colored element route ({len(plan[0])} colors, "
+                    f"{plan[1]} contribution rows: a products launch"
+                    f"{' (two at r > 1)' if sym else ''} and a B9 rounds "
+                    f"launch)")
         out.append(f"{name}: {n_chunked(lay)} chunked buckets in one B1 "
                    f"launch{' (symmetric)' if sym else ''}, {len(ids)} "
                    f"element buckets as {kind}")
@@ -6412,7 +6874,8 @@ def phase15(card: str) -> dict:
 
 # the route a launched kernel belongs to ("B2 prologue" rides with B2)
 ROUTE_OF = {"B1": "bucket", "B9 element": "bucket", "B9 gather": "bucket",
-            "B9 owner": "bucket", "B5": "panel", "B10": "panel", "B8": "slab",
+            "B9 owner": "bucket", "B9 colored": "bucket",
+            "B9 rounds": "bucket", "B5": "panel", "B10": "panel", "B8": "slab",
             "B7": "patch", "B2": "patch", "B3": "patch"}
 AUTOTUNE_CASES = (("bsm", 1), ("bsm", 128), ("sym", 1), ("sym", 128),
                   ("vbcrs", 1))
@@ -6427,9 +6890,10 @@ def route_want(op, route: str, r: int) -> dict:
     """Exact launches of the route's own kernels in one f32 product
     ``op @ X[:, :r]`` that takes ``route``."""
     if route == "bucket":
-        want = bucket_want(op)
+        want = bucket_want(op, r=r)
         return {k: want[k] for k in ("B1", "B1 sym", "B9 element",
-                                     "B9 element sym")}
+                                     "B9 element sym", "B9 colored",
+                                     "B9 rounds")}
     if route in ("panel", "slab"):
         plan = op._staged("panel" if route == "panel" else "strip",
                           False)[0]
@@ -6874,6 +7338,31 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return
+    for part in out.split("Compiling entry function")[1:]:
+        name = re.match(r" '\w*?((?:products_r1|rounds)_kernel\w*)'", part)
+        used = re.search(r"Used (\d+) registers", part)
+        if name and used:
+            spill = re.search(r"(\d+) bytes spill stores", part)
+            print(f"ptxas: B9 colored {name.group(1)[:56]}: {used.group(1)} "
+                  f"registers, {spill.group(1) if spill else 0} bytes "
+                  f"spilled")
+    if sys.argv[1:] == ["--colored"]:
+        gen = torch.Generator(device="cpu").manual_seed(5)
+        errs = {**rounds_vs_plain(gen), **colored_vs_plain(gen)}
+        sc = scattered_main_path(card)
+        x = torch.randn(4096, generator=gen).to(DEV)
+        Sf = bt.SymmetricBlockMatrix(*random_symmetric(
+            8, n=4096, ngroups=48, noffdiag=160, dtype=np.float32,
+            contiguous=False), device=DEV)
+        single = b9_single_calls(Sf, x, gen, card)
+        real = colored_real_size(card)
+        print(json.dumps({"colored": {"errs": errs, "flagship": sc,
+                                      "real": real, "single": single}},
+                         default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if sys.argv[1:] == ["--options"]:
         opts = phase14(card)
         print(json.dumps({"kernels": opts["kernels"]}))
@@ -6897,6 +7386,7 @@ def main() -> None:
     b2 = times["B2"]
     errs4, launches4 = run("phase 4", phase4, card)
     sym_times, errs5, launches5 = run("phase 5", phase5, card)
+    colored_real = run("phase 5 colored", colored_real_size, card)
     errs6, launches6 = run("phase 6", phase6)
     v_times, errs7 = run("phase 7", phase7, card)
     slab_times, errs8 = run("phase 8", phase8, card)
@@ -7227,12 +7717,100 @@ def main() -> None:
          "max_abs_err_complex": max(v for k_, v in cx["errs"].items()
                                     if k_.startswith("scattered"))},
     ] + [
-        {"name": f"mask_select {kind} (B9)", "route": "cuda", "source": B9_SRC,
-         "replaces": rep_,
-         "launches": scattered["colored"][f"B9 {kind}"],
+        {"name": "mask_select colored rounds (B9)", "route": "cuda",
+         "source": B9_ROUNDS_SRC, "replaces": B9_GATHER_REPLACES,
+         "replaces_also": [B9_SCATTER_REPLACES, B9_COLORED_REPLACES],
+         "launches": scattered["colored"]["B9 rounds"],
          "launches_by_path": {
-             "scattered symmetric main path, colored, with its backward "
-             "(phase 4)": scattered["colored"][f"B9 {kind}"]},
+             "scattered symmetric main path S @ x, colored (phase 4)":
+                 scattered["colored"]["B9 rounds"],
+             "the same with its backward and the bucket-route S @ X r=64 "
+             "(phase 4)": scattered["colored with backward"]["B9 rounds"]},
+         "launches_products": scattered["colored"]["B9 colored"],
+         "design": "the colored element route: a products pass writes "
+                   "every (block, row) product into a scratch in the plan's "
+                   "flat order (at r = 1 one launch of the "
+                   "one-read products kernel, both symmetric parts from one "
+                   "read of V; at r > 1 the tile core, two launches on the "
+                   "symmetric pass), then one launch sums every color round "
+                   "per output row in color order in registers (int32 "
+                   "[colors, out_len] tables, one thread per (row, column)), "
+                   "one write per entry, no atomics",
+         "max_abs_err": scattered["times"][1]["err"],
+         "max_abs_err_r64": scattered["times"][64]["err"],
+         "max_abs_err_phase1": errs1["B9 rounds"],
+         "max_abs_err_route_phase1": errs1["B9 colored"],
+         "max_abs_err_one_read_phase1": errs1["B9 colored one-read"],
+         "max_abs_err_real": colored_real["times"][1]["err"],
+         "ms": colored_real["rounds"]["ms"],
+         "graph_ms": colored_real["rounds"]["graph_ms"],
+         "plain_ms": colored_real["rounds"]["plain_ms"],
+         "plain_graph_ms": colored_real["rounds"]["plain_graph_ms"],
+         **measured(colored_real["rounds"]["bound"],
+                    colored_real["rounds"]["library"]),
+         "timed": "the rounds launch alone on the off-diagonal pass of the "
+                  "real-size colored cell (n=32768, scattered groups, "
+                  f"{colored_real['rounds']['colors']} colors), r = 1; "
+                  "library: its gather matrix in CSR times the scratch "
+                  "(torch.sparse); cells: the whole colored route beside "
+                  "the serial route, the old chain and the expanded CSR, "
+                  "graph ms",
+         "cells": {
+             f"{cell} r={r}": {k: (v if not isinstance(v, tuple) else v[0])
+                               for k, v in t_.items()
+                               if k.endswith(("graph", "eager", "bound"))}
+             | {"library_ms": float(t_["library"]),
+                "library_graph_ms": t_["library"].graph}
+             for cell, tt in (("scattered flagship", scattered["times"]),
+                              ("real size", colored_real["times"]))
+             for r, t_ in tt.items()},
+         "card": card},
+        {"name": "mask_select colored products, one read (B9, r = 1)",
+         "route": "cuda", "source": B9_ROUNDS_SRC,
+         "replaces": B9_GATHER_REPLACES,
+         "replaces_also": [B9_COLORED_REPLACES],
+         "launches": sum(v for k, v in scattered["colored entries"].items()
+                         if k.startswith("bst_colored_products_r1")),
+         "launches_by_path": {
+             "scattered symmetric main path S @ x, colored (phase 4)":
+                 sum(v for k, v in scattered["colored entries"].items()
+                     if k.startswith("bst_colored_products_r1"))},
+         "entry_points": ["bst_colored_products_r1_<pair>"],
+         "design": "a thread block per (stored block, 64-row tile), each "
+                   "value read once in stored row order; forward rows "
+                   "summed by warp shuffles, mirror columns by lane "
+                   "partials then the 8 warps in order, and for blocks of "
+                   "several tiles by the block's last tile from the tile "
+                   "partials in tile order; both parts of the symmetric "
+                   "pass from one read; every scratch row one writer",
+         "max_abs_err": colored_real["products"]["err"],
+         "max_abs_err_phase1": errs1["B9 colored one-read"],
+         "ms": colored_real["products"]["one-read ms"],
+         "graph_ms": colored_real["products"]["one-read graph"],
+         "plain_ms": colored_real["products"]["plain ms"],
+         "plain_graph_ms": colored_real["products"]["plain graph"],
+         "tile_ms": colored_real["products"]["tile ms"],
+         "tile_graph_ms": colored_real["products"]["tile graph"],
+         **measured(colored_real["products"]["bound"],
+                    colored_real["products"]["library"]),
+         "flagship_graph_ms": scattered["products"]["one-read graph"],
+         "flagship_tile_graph_ms": scattered["products"]["tile graph"],
+         "timed": "the symmetric pass's products alone at r = 1 on the "
+                  "real-size colored cell (n=32768, scattered groups); "
+                  "tile: the owner mode's products pass, two launches, on "
+                  "the same tables; library: the pass's products as one "
+                  "matrix in CSR times x (torch.sparse)",
+         "card": card,
+         "dtypes": [pair_name(s_, c_) for s_, c_ in VALUE_PAIRS]},
+    ] + [
+        {"name": f"mask_select {kind} (B9, one call)", "route": "cuda",
+         "source": B9_SRC, "replaces": rep_,
+         "launches": single[kind]["launches"] + single[kind + " 1M"][
+             "launches"],
+         "launches_by_path": {
+             "called directly on phase 5's index tables (no product route "
+             "runs it: the colored route runs the rounds)":
+                 single[kind]["launches"] + single[kind + " 1M"]["launches"]},
          "max_abs_err": errs5[f"B9 {kind}"],
          "max_abs_err_phase1": errs1[f"B9 {kind}"],
          "ms": single[kind]["ms"], "graph_ms": single[kind]["graph_ms"],

@@ -322,6 +322,43 @@ def test_one_launch_of_each_kind_per_layout(monkeypatch, kind, r):
     assert relerr(got, S @ x.numpy()) <= TOL[np.float64]
 
 
+@pytest.mark.parametrize("r", [1, 4])
+@pytest.mark.parametrize("kind", ["bsm", "symmetric"])
+def test_one_launch_of_each_kind_per_layout_colored(monkeypatch, kind, r):
+    """Under schedule="colored", with the colored plan made to win: per
+    layout one multi B1 call, and the element buckets of each layout in the
+    colored element route (one ``colored_apply``: its products pass and one
+    rounds launch on the card) in place of the element pass; the product
+    matches scipy."""
+    b1 = spy(monkeypatch, fused_spmm, "multi_block_apply_plain")
+    spy(monkeypatch, fused_spmm, "mma_apply_plain", b1)
+    b9 = spy(monkeypatch, mask_select, "element_apply_plain")
+    colored = spy(monkeypatch, mask_select, "colored_apply_plain")
+    monkeypatch.setattr(dispatch, "colored_wins", lambda *a: True)
+    if kind == "symmetric":
+        d, di, o, ri, ci, shape = random_symmetric(
+            86, n=160, ngroups=5, noffdiag=6, dtype=np.float64,
+            contiguous=True)
+        op = bt.SymmetricBlockMatrix(d, di, o, ri, ci, shape, device="cpu")
+        layouts = [op._dlayout, op._olayout]
+    else:
+        blocks, rows, cols, shape = random_block_sparse(
+            88, shape=(220, 190), nblocks=16, max_block=40, dtype=np.float64,
+            contiguous=True)
+        op = bt.BlockSparseMatrix(blocks, rows, cols, shape, device="cpu",
+                                  schedule="colored")
+        layouts = [op.layout]
+    x = torch.randn((op.shape[1], r) if r > 1 else op.shape[1],
+                    dtype=torch.float64)
+    got = op @ x
+    want_b9 = [any(hb.chunk == 1 for hb in lay.buckets) for lay in layouts]
+    assert any(want_b9)
+    assert len(b1) == len(layouts) and not b9
+    assert len(colored) == sum(want_b9)
+    assert relerr(got, bt.to_scipy(op).toarray() @ x.numpy()) <= \
+        TOL[np.float64]
+
+
 def test_multi_calls_refuse_bad_inputs():
     rng = np.random.default_rng(91)
     hbs = chunked_buckets(rng, np.float32, (8,), 64, 64)

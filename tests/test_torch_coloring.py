@@ -4,7 +4,10 @@
 graph, heap of candidates); its assignments must equal the JAX package's
 pure-Python path byte for byte, and the colored gather tables built from
 them must equal the JAX planner's.  The colored plan's result depends on
-the coloring: a broken coloring gives a wrong product.
+the coloring: a broken coloring gives a wrong product.  Colored products
+run the colored element route (``mask_select.colored_apply``: the products
+pass, then the color rounds), held to the per-bucket chain of
+``bucket_apply`` on the same plan.
 """
 
 import numpy as np
@@ -22,6 +25,8 @@ from blocksparse_tpu_torch import coloring
 from blocksparse_tpu_torch.core.layout import build_layout
 from blocksparse_tpu_torch.ops.colored import (build_colored_plan,
                                                colored_wins, plan_tables)
+from blocksparse_tpu_torch.ops.kernels import mask_select
+from blocksparse_tpu_torch.ops.kernels.fused_spmm import BucketTable
 from blocksparse_tpu_torch.ops.torch_spmv import bucket_apply
 from blocksparse_tpu_torch.utils.testmatrices import (random_block_sparse,
                                                       random_symmetric)
@@ -159,10 +164,19 @@ def colored_product(layout, dev_buckets, colors, out_len, x, transpose=False,
     plan = build_colored_plan(layout, tuple(colors), out_len, transpose,
                               sel, symmetric=symmetric, device=x.device)
     assert plan is not None
-    elem = [(v, ri, ci) for i, (v, ri, ci, _, _) in enumerate(dev_buckets)
-            if i in sel]
-    return bucket_apply(elem, out_len, x, transpose=transpose,
-                        symmetric=symmetric, colored_plan=plan)
+    table = BucketTable([(v, ri, ci, 1)
+                         for i, (v, ri, ci, _, _) in enumerate(dev_buckets)
+                         if i in sel])
+    # the colored element route (B9's products pass and colored rounds),
+    # held to the JAX engine's per-bucket chain on the same plan
+    got = mask_select.colored_apply(
+        table, plan, x, out=x.new_zeros((out_len,) + x.shape[1:]),
+        transpose=transpose, symmetric=symmetric)
+    chain = bucket_apply([b[:3] for b in table.buckets], out_len, x,
+                         transpose=transpose, symmetric=symmetric,
+                         colored_plan=plan)
+    assert torch.allclose(got, chain, rtol=0, atol=1e-13)
+    return got
 
 
 def test_broken_coloring_detected():
