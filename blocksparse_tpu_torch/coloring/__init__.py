@@ -23,6 +23,8 @@ from typing import Sequence
 
 import numpy as np
 
+from ..utils.profiling import annotate
+
 __all__ = [
     "ColorInfo",
     "conflict_adjacency",
@@ -111,12 +113,14 @@ def dsatur_color(adj: Sequence[set[int]]) -> np.ndarray:
 
 def color_blocks(indexlists: Sequence[np.ndarray]):
     """Group block ids into conflict-free colors: a tuple of int32 arrays,
-    blocks within one color share no output index."""
-    assignment = _dsatur(_neighbours(indexlists))
-    ncolors = int(assignment.max()) + 1 if assignment.size else 0
-    return tuple(
-        np.nonzero(assignment == c)[0].astype(np.int32) for c in range(ncolors)
-    )
+    blocks within one color share no output index (span
+    ``bsp.coloring``)."""
+    with annotate("bsp.coloring", blocks=len(indexlists)) as span:
+        assignment = _dsatur(_neighbours(indexlists))
+        ncolors = int(assignment.max()) + 1 if assignment.size else 0
+        span.set(colors=ncolors)
+        return tuple(np.nonzero(assignment == c)[0].astype(np.int32)
+                     for c in range(ncolors))
 
 
 def validate_coloring(

@@ -40,6 +40,8 @@ from typing import Sequence
 
 import numpy as np
 
+from ..utils.profiling import annotate
+
 __all__ = [
     "BlockLayout",
     "Bucket",
@@ -203,6 +205,17 @@ class BlockLayout:
     @property
     def padded_nnz(self) -> int:
         return int(sum(b.nblocks * b.mp * b.kp for b in self.buckets))
+
+    @cached_property
+    def stored_by_bucket(self) -> tuple[int, ...]:
+        """Per bucket, the stored entries of the blocks it holds (the
+        products of their index lists' lengths): with the tiles' entries
+        (``nb * mp * kp``), what a launch over the bucket counts."""
+        out = [0] * len(self.buckets)
+        for loc, r, c in zip(self.block_loc, self.rowindices,
+                             self.colindices):
+            out[loc[0]] += int(r.size) * int(c.size)
+        return tuple(out)
 
 
 CHUNK_CANDIDATES = (128, 64, 32, 16, 8, 4)
@@ -462,8 +475,25 @@ def build_layout(
     else element granularity.
 
     The k-merge stage (see _kmerge) then concatenates blocks sharing an
-    output row window along k.
+    output row window along k.  Span ``bsp.layout``.
     """
+    with annotate("bsp.layout", blocks=len(blocks)) as span:
+        layout = _build_layout(blocks, rowindices, colindices, shape,
+                               granularity=granularity, dtype=dtype)
+        span.set(buckets=len(layout.buckets))
+        return layout
+
+
+def _build_layout(
+    blocks: Sequence[np.ndarray],
+    rowindices: Sequence[np.ndarray],
+    colindices: Sequence[np.ndarray],
+    shape: tuple[int, int],
+    *,
+    granularity="pow2",
+    dtype=None,
+) -> BlockLayout:
+    """:func:`build_layout`'s work."""
     nrows, ncols = map(int, shape)
     n = len(blocks)
     if not (len(rowindices) == len(colindices) == n):

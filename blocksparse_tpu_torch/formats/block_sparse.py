@@ -66,6 +66,7 @@ from ..core.layout import BlockLayout, build_layout
 from ..core.operator import LinearOperator
 from ..ops.dispatch import (StagedBuckets, apply_operand, check_jax_options,
                             check_route_options)
+from ..utils.profiling import annotate
 from .stream import StreamRouted
 
 __all__ = ["BlockSparseMatrix"]
@@ -130,7 +131,12 @@ def host_values(groups, dtype):
     it, or ``dtype`` is None and every block is bf16.  A bf16 operator's
     blocks are rounded to bf16 and kept as their exact float32 copies:
     numpy has no bf16, and the layout's buckets depend only on shapes and
-    indices."""
+    indices.  Span ``bsp.host_values``."""
+    with annotate("bsp.host_values", blocks=sum(len(g) for g in groups)):
+        return _host_values(groups, dtype)
+
+
+def _host_values(groups, dtype):
     conv = [[_host_block(b) for b in g] for g in groups]
     flags = [f for g in conv for _, f in g]
     bf16 = is_bf16(dtype) if dtype is not None else (bool(flags)
@@ -209,16 +215,18 @@ def promoted_apply(apply, x: torch.Tensor, device, dtype: torch.dtype,
 def _stage(layout: BlockLayout, device, dtype=None) -> StagedBuckets:
     """Per bucket: (values, row_idx, col_idx, row_chunk, col_chunk) on
     ``device`` (the chunk tables None for element buckets); the values cast
-    to ``dtype`` on the host first where given (bf16 storage)."""
+    to ``dtype`` on the host first where given (bf16 storage).  Span
+    ``bsp.stage``."""
     def dev(a, cast=None):
         if a is None:
             return None
         t = torch.from_numpy(np.ascontiguousarray(a))
         return (t if cast is None else t.to(cast)).to(device)
-    return StagedBuckets((dev(b.values, dtype), dev(b.row_idx),
-                          dev(b.col_idx), dev(b.row_chunk_idx),
-                          dev(b.col_chunk_idx))
-                         for b in layout.buckets)
+    with annotate("bsp.stage", buckets=len(layout.buckets)):
+        return StagedBuckets((dev(b.values, dtype), dev(b.row_idx),
+                              dev(b.col_idx), dev(b.row_chunk_idx),
+                              dev(b.col_chunk_idx))
+                             for b in layout.buckets)
 
 
 class BlockSparseMatrix(StreamRouted, LinearOperator):
@@ -275,25 +283,27 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
         self._patch_mode, self._panel = patch, panel
         self._backend, self._scatter = backend, scatter
         self._optimize, self._granularity = optimize, granularity
-        self._device = _resolve_device(device)
         self._schedule = sched.normalize_schedule(schedule)
         self._precision = precision
-        (blocks,), np_dtype, bf16 = host_values([blocks], dtype)
-        self._layout = build_layout(blocks, rowindices, colindices, shape,
-                                    granularity=granularity, dtype=np_dtype)
-        self._dtype = _torch_dtype([self._layout], dtype, bf16)
-        self._buckets = _stage(self._layout, self._device,
-                               torch.bfloat16 if bf16 else None)
-        if sched.isserial(self._schedule):
-            all_ids = tuple(range(self._layout.nblocks))
-            self._colors = self._tcolors = (all_ids,) if all_ids else ()
-        else:
-            self._colors = _colors_tuple(
-                coloring.color_blocks(self._layout.rowindices))
-            self._tcolors = _colors_tuple(
-                coloring.color_blocks(self._layout.colindices))
-        self._patch = None
-        self._stream = {}
+        with annotate("bsp.construct", format="general", blocks=len(blocks)):
+            self._device = _resolve_device(device)
+            (blocks,), np_dtype, bf16 = host_values([blocks], dtype)
+            self._layout = build_layout(blocks, rowindices, colindices,
+                                        shape, granularity=granularity,
+                                        dtype=np_dtype)
+            self._dtype = _torch_dtype([self._layout], dtype, bf16)
+            self._buckets = _stage(self._layout, self._device,
+                                   torch.bfloat16 if bf16 else None)
+            if sched.isserial(self._schedule):
+                all_ids = tuple(range(self._layout.nblocks))
+                self._colors = self._tcolors = (all_ids,) if all_ids else ()
+            else:
+                self._colors = _colors_tuple(
+                    coloring.color_blocks(self._layout.rowindices))
+                self._tcolors = _colors_tuple(
+                    coloring.color_blocks(self._layout.colindices))
+            self._patch = None
+            self._stream = {}
 
     # -- properties ---------------------------------------------------------
     @property
@@ -367,14 +377,15 @@ class BlockSparseMatrix(StreamRouted, LinearOperator):
         """Lazy merged-patch plan (shaped by ``optimize``) and its device
         tensors; None if ineligible (non-contiguous lists or non-f32).
         Transpose products reuse the same plan with the gather/scatter roles
-        swapped."""
+        swapped.  Span ``bsp.plan.patch``."""
         if self._patch is None:
             from ..core.patch import build_patch_plan
             from ..ops.patch_engine import patch_device_arrays
 
-            plan = build_patch_plan(self._layout, optimize=self._optimize)
-            self._patch = (plan, None if plan is None
-                           else patch_device_arrays(plan, self._device))
+            with annotate("bsp.plan.patch", blocks=self._layout.nblocks):
+                plan = build_patch_plan(self._layout, optimize=self._optimize)
+                self._patch = (plan, None if plan is None
+                               else patch_device_arrays(plan, self._device))
         return None if self._patch[0] is None else self._patch
 
     def _patch_entry(self, transpose: bool):

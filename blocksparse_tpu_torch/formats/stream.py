@@ -22,6 +22,11 @@ share it).  The panel plan is built by the operator's ``panel`` option
 panel_spmv.py``) or, for a v2 plan, kernel B10 (``ops/kernels/
 panel2_spmv.py``); the slab plan runs kernel B8 (``ops/kernels/
 slab_spmv.py``).
+
+Spans (``utils/profiling.py``): building a stream plan and staging it are
+``bsp.plan.panel`` / ``bsp.plan.strip`` (set-up spans, always recorded);
+while a profiler records, each product is ``bsp.apply.<route>`` with the
+route it took ("patch", "panel", "slab" or "bucket") and ``r``.
 """
 
 from __future__ import annotations
@@ -34,11 +39,18 @@ from ..ops.dispatch import (patch_eligible, patch_wins, population_route,
                             stream_plan_choice, strip_eligible)
 from ..ops.kernels.slab_spmv import plan_device_arrays, slab_apply
 from ..ops.panel_router import panel_arrays, panel_plan_general, panel_run
+from ..utils.profiling import NOOP, annotate, recording
 
 __all__ = ["StreamRouted"]
 
 # the population policy's stream routes and their plans' names here
 _STREAM_PLANS = {"panel": "panel", "slab": "strip"}
+
+
+def _route_span(route: str, r: int):
+    """The span ``bsp.apply.<route>`` of a product with r columns while a
+    profiler records, else the shared no-op context."""
+    return annotate(f"bsp.apply.{route}", r=r) if recording() else NOOP
 
 
 class StreamRouted:
@@ -74,15 +86,19 @@ class StreamRouted:
             self._stream[key] = build()
         return self._stream[key]
 
+    def _planned(self, kind: str, build, transpose: bool):
+        with annotate(f"bsp.plan.{kind}", transpose=int(transpose)):
+            return build(transpose)
+
     def _panel_for(self, transpose: bool):
         """Lazy host panel plan for A (or A^T); None if ineligible."""
-        return self._cached(("panel", transpose),
-                            lambda: self._build_panel(transpose))
+        return self._cached(("panel", transpose), lambda: self._planned(
+            "panel", self._build_panel, transpose))
 
     def _strip_for(self, transpose: bool):
         """Lazy host slab plan for A (or A^T); None if ineligible."""
-        return self._cached(("strip", transpose),
-                            lambda: self._build_strip(transpose))
+        return self._cached(("strip", transpose), lambda: self._planned(
+            "strip", self._build_strip, transpose))
 
     def _stage(self, choice: str, transpose: bool):
         """(plan, device tensors) of the "panel" or "strip" plan for A (or
@@ -95,7 +111,11 @@ class StreamRouted:
             plan, stage = self._panel_for(transpose), panel_arrays
         else:
             plan, stage = self._strip_for(transpose), plan_device_arrays
-        return None if plan is None else (plan, stage(plan, self._device))
+        if plan is None:
+            return None
+        with annotate(f"bsp.plan.{choice}", transpose=int(transpose),
+                      staged=1):
+            return plan, stage(plan, self._device)
 
     def _staged(self, choice: str, transpose: bool):
         """:meth:`_stage` for a route the policy picks, sharing the rule's
@@ -138,23 +158,29 @@ class StreamRouted:
         else:
             plan, dev = staged
         if choice == "panel":
-            return panel_run(plan, dev, x)
+            with _route_span("panel", 1):
+                return panel_run(plan, dev, x)
         if choice == "strip":
-            return slab_apply(plan, dev, x)
+            with _route_span("slab", 1):
+                return slab_apply(plan, dev, x)
         return None
 
     def _on_route(self, route: str, x, transpose: bool, conj: bool):
         """The product on the policy's ``route``, or None where that route
         is not open to it (the rules then decide)."""
+        r = 1 if x.ndim == 1 else x.shape[1]
         if route == "bucket":
-            return self._bucket_apply(x, transpose, conj)
+            with _route_span("bucket", r):
+                return self._bucket_apply(x, transpose, conj)
         if route == "patch":
             if (self._patch_mode == "never" or self._dtype != torch.float32
                     or x.dtype != torch.float32):
                 return None
             entry = self._patch_entry(transpose)
-            return None if entry is None else self._patch_run(entry, x,
-                                                              transpose)
+            if entry is None:
+                return None
+            with _route_span("patch", r):
+                return self._patch_run(entry, x, transpose)
         if not strip_eligible(x, self._dtype):
             return None
         return self._stream_apply(x, transpose, _STREAM_PLANS[route])
@@ -175,10 +201,12 @@ class StreamRouted:
             entry = self._patch_entry(transpose)
             if entry is not None and patch_wins(
                     entry[0], self._stream_reads(), r, self._patch_mode):
-                return self._patch_run(entry, x, transpose)
+                with _route_span("patch", r):
+                    return self._patch_run(entry, x, transpose)
         # the patch and stream routes are f32: conj changes nothing there
         if strip_eligible(x, self._dtype):
             y = self._stream_apply(x, transpose)
             if y is not None:
                 return y
-        return self._bucket_apply(x, transpose, conj)
+        with _route_span("bucket", r):
+            return self._bucket_apply(x, transpose, conj)

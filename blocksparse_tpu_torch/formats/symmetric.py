@@ -60,6 +60,7 @@ from .block_sparse import (_PRECISIONS, BlockSparseMatrix, _colors_tuple,
                            _resolve_device, _stage, _torch_dtype, host_values,
                            promoted_apply)
 from .stream import StreamRouted
+from ..utils.profiling import annotate
 
 __all__ = ["SymmetricBlockMatrix"]
 
@@ -109,33 +110,37 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
         self._patch_mode, self._panel = patch, panel
         self._backend, self._optimize = backend, optimize
         self._granularity = granularity
-        self._device = _resolve_device(device)
         self._schedule = sched.normalize_schedule(schedule)
         self._precision = precision
-        (diagonals, offdiagonals), np_dtype, bf16 = host_values(
-            [diagonals, offdiagonals], dtype)
-        self._dlayout = build_layout(diagonals, diagonalindices,
-                                     diagonalindices, shape,
-                                     granularity=granularity, dtype=np_dtype)
-        self._olayout = build_layout(offdiagonals, rowindices, colindices,
-                                     shape, granularity=granularity,
-                                     dtype=np_dtype)
-        self._dtype = _torch_dtype([self._dlayout, self._olayout], dtype, bf16)
-        stored = torch.bfloat16 if bf16 else None
-        self._dbuckets = _stage(self._dlayout, self._device, stored)
-        self._obuckets = _stage(self._olayout, self._device, stored)
-        self._dcolors = _colors_tuple(
-            coloring.color_blocks(self._dlayout.rowindices))
-        self._ocolors = _colors_tuple(
-            coloring.color_blocks(self._olayout.rowindices))
-        self._tocolors = _colors_tuple(
-            coloring.color_blocks(self._olayout.colindices))
-        # union row+col conflicts: the one-read pass scatters into both
-        self._fused_colors = _colors_tuple(coloring.color_blocks(
-            [np.concatenate([r, c]) for r, c in
-             zip(self._olayout.rowindices, self._olayout.colindices)]))
-        self._patch = {}
-        self._stream = {}
+        with annotate("bsp.construct", format="symmetric",
+                      blocks=len(diagonals) + len(offdiagonals)):
+            self._device = _resolve_device(device)
+            (diagonals, offdiagonals), np_dtype, bf16 = host_values(
+                [diagonals, offdiagonals], dtype)
+            self._dlayout = build_layout(diagonals, diagonalindices,
+                                         diagonalindices, shape,
+                                         granularity=granularity,
+                                         dtype=np_dtype)
+            self._olayout = build_layout(offdiagonals, rowindices, colindices,
+                                         shape, granularity=granularity,
+                                         dtype=np_dtype)
+            self._dtype = _torch_dtype([self._dlayout, self._olayout], dtype,
+                                       bf16)
+            stored = torch.bfloat16 if bf16 else None
+            self._dbuckets = _stage(self._dlayout, self._device, stored)
+            self._obuckets = _stage(self._olayout, self._device, stored)
+            self._dcolors = _colors_tuple(
+                coloring.color_blocks(self._dlayout.rowindices))
+            self._ocolors = _colors_tuple(
+                coloring.color_blocks(self._olayout.rowindices))
+            self._tocolors = _colors_tuple(
+                coloring.color_blocks(self._olayout.colindices))
+            # union row+col conflicts: the one-read pass scatters into both
+            self._fused_colors = _colors_tuple(coloring.color_blocks(
+                [np.concatenate([r, c]) for r, c in
+                 zip(self._olayout.rowindices, self._olayout.colindices)]))
+            self._patch = {}
+            self._stream = {}
 
     # -- properties ---------------------------------------------------------
     @property
@@ -207,17 +212,22 @@ class SymmetricBlockMatrix(StreamRouted, LinearOperator):
     def _patch_for(self, transpose: bool):
         """Lazy symmetric merged-patch plan for S (``transpose`` False) or
         S^T (the transposed diagonal embedded) and its device tensors; None
-        if ineligible (non-contiguous lists or non-f32)."""
+        if ineligible (non-contiguous lists or non-f32).  Span
+        ``bsp.plan.patch``."""
         if transpose not in self._patch:
             from ..core.patch import build_patch_plan
             from ..ops.patch_engine import patch_device_arrays
 
-            plan = build_patch_plan(self._dlayout, extra_layout=self._olayout,
-                                    transpose_main=transpose,
-                                    optimize=self._optimize)
-            self._patch[transpose] = (
-                plan, None if plan is None
-                else patch_device_arrays(plan, self._device))
+            with annotate("bsp.plan.patch", transpose=int(transpose),
+                          blocks=self._dlayout.nblocks
+                          + self._olayout.nblocks):
+                plan = build_patch_plan(self._dlayout,
+                                        extra_layout=self._olayout,
+                                        transpose_main=transpose,
+                                        optimize=self._optimize)
+                self._patch[transpose] = (
+                    plan, None if plan is None
+                    else patch_device_arrays(plan, self._device))
         entry = self._patch[transpose]
         return None if entry[0] is None else entry
 

@@ -47,6 +47,7 @@ from ..ops.dispatch import (apply_operand, check_jax_options,
 from .block_sparse import (_PRECISIONS, BlockSparseMatrix, _resolve_device,
                            _stage, _torch_dtype, host_values, promoted_apply)
 from .stream import StreamRouted
+from ..utils.profiling import annotate
 
 __all__ = ["VariableBlockCompressedRowStorage"]
 
@@ -113,47 +114,51 @@ class VariableBlockCompressedRowStorage(StreamRouted, LinearOperator):
         self._patch_mode, self._panel = patch, panel
         self._backend, self._scatter = backend, scatter
         self._optimize, self._granularity = optimize, granularity
-        self._device = _resolve_device(device)
         self._schedule = sched.normalize_schedule(schedule)
         self._precision = precision
         n = len(blocks)
-        # scipy blocks densify here: VBCRS counts dense extents
-        # (vbcrs.jl:290-296), as the JAX package does
-        blocks = [b.toarray() if hasattr(b, "toarray") else b
-                  for b in blocks]
-        (blocks,), np_dtype, bf16 = host_values([blocks], dtype)
-        rstarts = np.array(
-            [_as_start(rowindices[i], blocks[i].shape[0], "row", i, check)
-             for i in range(n)], dtype=np.int64)
-        cstarts = np.array(
-            [_as_start(colindices[i], blocks[i].shape[1], "col", i, check)
-             for i in range(n)], dtype=np.int64)
+        with annotate("bsp.construct", format="vbcrs", blocks=n):
+            self._device = _resolve_device(device)
+            # scipy blocks densify here: VBCRS counts dense extents
+            # (vbcrs.jl:290-296), as the JAX package does
+            blocks = [b.toarray() if hasattr(b, "toarray") else b
+                      for b in blocks]
+            (blocks,), np_dtype, bf16 = host_values([blocks], dtype)
+            rstarts = np.array(
+                [_as_start(rowindices[i], blocks[i].shape[0], "row", i, check)
+                 for i in range(n)], dtype=np.int64)
+            cstarts = np.array(
+                [_as_start(colindices[i], blocks[i].shape[1], "col", i, check)
+                 for i in range(n)], dtype=np.int64)
 
-        # sort blocks by (row, col) and build rowptr in one pass
-        perm = np.lexsort((cstarts, rstarts))
-        blocks = [blocks[i] for i in perm]
-        rstarts, cstarts = rstarts[perm], cstarts[perm]
-        rowptr, blockrow_starts = [0], []
-        for i in range(n):
-            if i == 0 or rstarts[i] != rstarts[i - 1]:
-                if i:
-                    rowptr.append(i)
-                blockrow_starts.append(int(rstarts[i]))
-        rowptr.append(n)
-        self._rowptr = tuple(rowptr)
-        self._blockrow_starts = tuple(blockrow_starts)
-        self._row_starts = tuple(int(v) for v in rstarts)
-        self._col_starts = tuple(int(v) for v in cstarts)
+            # sort blocks by (row, col) and build rowptr in one pass
+            perm = np.lexsort((cstarts, rstarts))
+            blocks = [blocks[i] for i in perm]
+            rstarts, cstarts = rstarts[perm], cstarts[perm]
+            rowptr, blockrow_starts = [0], []
+            for i in range(n):
+                if i == 0 or rstarts[i] != rstarts[i - 1]:
+                    if i:
+                        rowptr.append(i)
+                    blockrow_starts.append(int(rstarts[i]))
+            rowptr.append(n)
+            self._rowptr = tuple(rowptr)
+            self._blockrow_starts = tuple(blockrow_starts)
+            self._row_starts = tuple(int(v) for v in rstarts)
+            self._col_starts = tuple(int(v) for v in cstarts)
 
-        rlists = [np.arange(r, r + b.shape[0]) for r, b in zip(rstarts, blocks)]
-        clists = [np.arange(c, c + b.shape[1]) for c, b in zip(cstarts, blocks)]
-        self._layout = build_layout(blocks, rlists, clists, shape,
-                                    granularity=granularity, dtype=np_dtype)
-        self._dtype = _torch_dtype([self._layout], dtype, bf16)
-        self._buckets = _stage(self._layout, self._device,
-                               torch.bfloat16 if bf16 else None)
-        self._patch = None
-        self._stream = {}
+            rlists = [np.arange(r, r + b.shape[0])
+                      for r, b in zip(rstarts, blocks)]
+            clists = [np.arange(c, c + b.shape[1])
+                      for c, b in zip(cstarts, blocks)]
+            self._layout = build_layout(blocks, rlists, clists, shape,
+                                        granularity=granularity,
+                                        dtype=np_dtype)
+            self._dtype = _torch_dtype([self._layout], dtype, bf16)
+            self._buckets = _stage(self._layout, self._device,
+                                   torch.bfloat16 if bf16 else None)
+            self._patch = None
+            self._stream = {}
 
     # -- converters ---------------------------------------------------------
     @classmethod

@@ -311,17 +311,20 @@ class StagedBuckets(tuple):
 def bucket_tables(staged: StagedBuckets, layout) -> dict:
     """``{"chunked": BucketTable | None, "element": BucketTable | None}``
     over ``layout``'s chunked and element buckets (None where it has none),
-    built at the first product and kept on ``staged``."""
+    built at the first product and kept on ``staged``, each with the stored
+    entries of its blocks (``layout.stored_by_bucket``)."""
     if not staged.tables:
-        chunked, elem = [], []
-        for hb, (vals, ridx, cidx, rc, cc) in zip(layout.buckets, staged):
+        chunked, elem, stored = [], [], [0, 0]
+        for hb, (vals, ridx, cidx, rc, cc), n in zip(
+                layout.buckets, staged, layout.stored_by_bucket):
             if hb.chunk > 1:
                 chunked.append((vals, rc, cc, hb.chunk))
             else:
                 elem.append((vals, ridx, cidx, 1))
+            stored[hb.chunk == 1] += n
         staged.tables.update(
-            chunked=BucketTable(chunked) if chunked else None,
-            element=BucketTable(elem) if elem else None)
+            chunked=BucketTable(chunked, stored[0]) if chunked else None,
+            element=BucketTable(elem, stored[1]) if elem else None)
     return staged.tables
 
 

@@ -79,16 +79,16 @@ Routing: a CPU tensor takes the plain version of the instance
 :func:`mma_apply_plain`); a CUDA tensor launches the kernel or raises,
 with no fallback from one instance to another.  ``LAUNCHES`` counts
 kernel launches, ``SYM_LAUNCHES`` those of them in the symmetric mode,
-``MMA_LAUNCHES`` those of the tensor-core instances, ``ROW_LAUNCHES``
-those of the row-stream body, and
-``ENTRY_LAUNCHES`` every launch of B1 and B9 by entry point (so by stored
-and compute dtype: ``bst_fused_spmm_multi_f32_f64``,
-``bst_fused_spmm_rows_c64``, ``bst_fused_spmm_mma_bf16_f32``, ...).
+``MMA_LAUNCHES`` those of the tensor-core instances and ``ROW_LAUNCHES``
+those of the row-stream body; ``utils/build.launch_counts`` counts every
+launch by entry point (so by stored and compute dtype:
+``bst_fused_spmm_multi_f32_f64``, ``bst_fused_spmm_rows_c64``,
+``bst_fused_spmm_mma_bf16_f32``, ...), with the tile and stored entries of
+the table each launch iterates (:attr:`BucketTable.entries`).
 """
 
 from __future__ import annotations
 
-from collections import Counter
 from typing import NamedTuple
 
 import torch
@@ -97,7 +97,7 @@ from ...utils import build
 from ..torch_spmv import (chunk_rows, chunked_bucket_apply, gather_rows,
                           scatter_rows, values_grad)
 
-__all__ = ["BucketTable", "COMPUTE_TYPES", "ENTRY_LAUNCHES", "FMA_PREFIXES",
+__all__ = ["BucketTable", "COMPUTE_TYPES", "FMA_PREFIXES",
            "MMA_RULES", "MmaRule", "R1Rule", "R1_RULES", "b1_instance",
            "check_table_call", "chunked_block_apply",
            "chunked_block_apply_plain", "complex_mma_apply_plain",
@@ -105,13 +105,13 @@ __all__ = ["BucketTable", "COMPUTE_TYPES", "ENTRY_LAUNCHES", "FMA_PREFIXES",
            "launch_table", "mma_apply_plain",
            "multi_block_apply", "multi_block_apply_plain",
            "multi_fused_apply", "r1_body", "split3", "TableApply",
+           "table_apply",
            "LAUNCHES", "MMA_LAUNCHES", "ROW_LAUNCHES", "SYM_LAUNCHES"]
 
 LAUNCHES = 0
 SYM_LAUNCHES = 0
 MMA_LAUNCHES = 0
 ROW_LAUNCHES = 0
-ENTRY_LAUNCHES: Counter = Counter()  # cleared, never rebound
 
 
 class MmaRule(NamedTuple):
@@ -270,13 +270,19 @@ class BucketTable:
     C, nb.  A work item is one (block, 64-row output tile); ``items`` holds
     the totals of the two numberings.
 
+    ``entries``: ``(tile entries, stored entries)``, which a launch over
+    the table counts (``utils/build.launch``): the value entries of its
+    tiles, padding included (``sum nb * mp * kp``), and ``stored``, the
+    stored entries of the blocks in them (a layout's
+    ``stored_by_bucket``); None where the caller gives no ``stored``.
+
     The table holds raw addresses, so it keeps the tensors alive
     (``buckets``); an operator builds it once, at its first bucket-route
     product (eager, before any CUDA-graph capture of the product), and a
     re-staged bucket set gets a table of its own (``ops/dispatch.py``).
     """
 
-    def __init__(self, buckets):
+    def __init__(self, buckets, stored: int | None = None):
         self.buckets = tuple(buckets)
         if not self.buckets:
             raise ValueError("a bucket table needs at least one bucket")
@@ -315,6 +321,8 @@ class BucketTable:
         self.items = tuple(items)
         # the deepest block side: the longest contraction of any mode
         self.depth = max(max(b[0].shape[1:]) for b in self.buckets)
+        self.entries = None if stored is None else (
+            sum(b[0].numel() for b in self.buckets), int(stored))
         self.table = torch.tensor(rows, dtype=torch.int64, device=self.device)
 
     @property
@@ -363,8 +371,7 @@ def launch_table(prefix: str, table: BucketTable, x, out, mode: int,
         return False
     build.launch(name, x.device, table.table.data_ptr(),
                  len(table), items, xm.data_ptr(), out.data_ptr(), r,
-                 xm.shape[0], out.shape[0], mode)
-    ENTRY_LAUNCHES[name] += 1
+                 xm.shape[0], out.shape[0], mode, entries=table.entries)
     return True
 
 
@@ -474,8 +481,8 @@ def _launch_mma(table: BucketTable, x, out, mode: int) -> bool:
         return False
     build.launch(name, x.device, table.table.data_ptr(), len(table),
                  table.items[0], table.items[1], xm.data_ptr(),
-                 out.data_ptr(), r, xm.shape[0], out.shape[0], mode)
-    ENTRY_LAUNCHES[name] += 1
+                 out.data_ptr(), r, xm.shape[0], out.shape[0], mode,
+                 entries=table.entries)
     return True
 
 
@@ -549,13 +556,28 @@ class TableApply(torch.autograd.Function):
                 None, None, None, *dvals)
 
 
+def table_apply(out, x, table: BucketTable, launch, adjoint, transpose: bool,
+                symmetric: bool, conj: bool) -> torch.Tensor:
+    """``launch`` over ``table`` adding into ``out``, through
+    :class:`TableApply` where a gradient can flow (grad mode on, and
+    ``out``, ``x`` or a value of the table requiring one), else called as
+    it is: a product no gradient flows through makes no autograd node."""
+    if torch.is_grad_enabled() and (
+            out.requires_grad or x.requires_grad
+            or any(v.requires_grad for v in table.values)):
+        return TableApply.apply(out, x, table, launch, adjoint, transpose,
+                                symmetric, conj, *table.values)
+    return launch(table, x, out=out, transpose=transpose,
+                  symmetric=symmetric, conj=conj)
+
+
 def multi_fused_apply(table: BucketTable, x, *, out, transpose: bool = False,
                       symmetric: bool = False,
                       conj: bool = False) -> torch.Tensor:
     """:func:`multi_block_apply` with autograd (in ``x``, ``out`` and the
     table's values)."""
-    return TableApply.apply(out, x, table, multi_block_apply, None,
-                            transpose, symmetric, conj, *table.values)
+    return table_apply(out, x, table, multi_block_apply, None, transpose,
+                       symmetric, conj)
 
 
 def chunked_block_apply_plain(vals, row_chunk, col_chunk, chunk: int, x,
@@ -624,7 +646,6 @@ def chunked_block_apply(vals, row_chunk, col_chunk, chunk: int, x,
         build.launch(fn_name, x.device, vals.data_ptr(), row_chunk.data_ptr(),
                      col_chunk.data_ptr(), xm.data_ptr(), y.data_ptr(), nb, mp,
                      kp, chunk, r, n_in, out_len, mode)
-        ENTRY_LAUNCHES[fn_name] += 1
         LAUNCHES += 1
         SYM_LAUNCHES += symmetric
     return y[:, 0] if vec else y

@@ -80,8 +80,9 @@ owner mode's each pass), ``COLORED_LAUNCHES`` the colored route's products
 launches and ``ROUNDS_LAUNCHES`` its rounds launches,
 ``ELEMENT_SYM_LAUNCHES`` the element passes in
 the symmetric mode, ``ELEMENT_ROW_LAUNCHES`` those on the row-stream body
-(``fused_spmm.ENTRY_LAUNCHES`` counts the element pass and the owner mode
-by entry point too).  :func:`gather_apply` and
+(``utils/build.launch_counts`` counts every launch by entry point too, with
+the tile and stored entries of the table the element pass, the owner
+mode's products and the colored products iterate).  :func:`gather_apply` and
 :func:`scatter_apply` add autograd (each is the other's adjoint, so a
 backward pass runs the other kernel), :func:`element_fused_apply` too (its
 x cotangent is the element pass in the transposed mode with the conj flag
@@ -98,9 +99,9 @@ import torch
 
 from ...utils import build
 from ..torch_spmv import gather_rows, scatter_rows, widened
-from .fused_spmm import (ENTRY_LAUNCHES, BucketTable, TableApply,
-                         check_table_call, entry_point, launch_mode,
-                         FMA_PREFIXES, fma_launch, launch_table)
+from .fused_spmm import (BucketTable, check_table_call, entry_point,
+                         launch_mode, FMA_PREFIXES, fma_launch, launch_table,
+                         table_apply)
 
 __all__ = ["ColoredLaunch", "colored_apply", "colored_apply_plain",
            "colored_fused_apply", "colored_products_plain", "colored_rounds",
@@ -312,8 +313,8 @@ def element_fused_apply(table: BucketTable, x: torch.Tensor, *, out,
     """:func:`element_apply` with autograd (in ``x``, ``out`` and the
     table's values; x's cotangent is the element pass in the transposed
     mode with the conj flag flipped)."""
-    return TableApply.apply(out, x, table, element_apply, None, transpose,
-                            symmetric, conj, *table.values)
+    return table_apply(out, x, table, element_apply, None, transpose,
+                       symmetric, conj)
 
 
 # -- the owner mode (scatter="sorted") -----------------------------------------
@@ -485,8 +486,8 @@ def _products_launch(table: BucketTable, offsets, xm, P, mode: int,
     name = entry_point("bst_element_owner_products", table.dtype, xm.dtype)
     build.launch(name, xm.device, table.table.data_ptr(), len(table),
                  table.items[transpose], offsets.data_ptr(), xm.data_ptr(),
-                 P.data_ptr(), P.shape[1], xm.shape[0], P.shape[0], mode)
-    ENTRY_LAUNCHES[name] += 1
+                 P.data_ptr(), P.shape[1], xm.shape[0], P.shape[0], mode,
+                 entries=table.entries)
 
 
 def owner_products(table: BucketTable, own: OwnerTable, xm, P, mode: int,
@@ -508,7 +509,6 @@ def owner_sum(own: OwnerTable, P, out) -> torch.Tensor:
     build.launch(name, P.device, own.rows.data_ptr(), own.ptr.data_ptr(),
                  own.flat.data_ptr(), own.n_rows, P.data_ptr(),
                  out.data_ptr(), P.shape[1], out.shape[0])
-    ENTRY_LAUNCHES[name] += 1
     OWNER_LAUNCHES += 1
     return out
 
@@ -528,8 +528,8 @@ def owner_fused_apply(table: BucketTable, x: torch.Tensor, *, out,
                       conj: bool = False) -> torch.Tensor:
     """:func:`owner_apply` with autograd (x's cotangent is the owner mode in
     the other direction with the conj flag flipped)."""
-    return TableApply.apply(out, x, table, owner_apply, None, transpose,
-                            False, conj, *table.values)
+    return table_apply(out, x, table, owner_apply, None, transpose, False,
+                       conj)
 
 
 # -- the colored element route (schedule="colored") ----------------------------
@@ -600,8 +600,8 @@ def _products_r1(table: BucketTable, xm, P, conj_bit: int, transpose: bool,
                  bstart.data_ptr(), fwd.data_ptr(), mir.data_ptr(),
                  woff.data_ptr(), W.data_ptr(), cnt.data_ptr(), xm.data_ptr(),
                  xm.shape[0], P.data_ptr(),
-                 (2 if symmetric else int(transpose)) | conj_bit)
-    ENTRY_LAUNCHES[name] += 1
+                 (2 if symmetric else int(transpose)) | conj_bit,
+                 entries=table.entries)
 
 
 def _scratch_parts(table: BucketTable, transpose: bool, symmetric: bool):
@@ -742,10 +742,10 @@ def colored_apply(table: BucketTable, plan, x: torch.Tensor, *, out,
 
 
 class ColoredLaunch:
-    """:func:`colored_apply` over one plan as a ``TableApply`` launch;
-    ``plan`` may be a callable that gives the plan at the first call, and
-    where the plan is None the launch is the element pass
-    (:func:`element_apply`)."""
+    """:func:`colored_apply` over one plan as a launch of
+    ``fused_spmm.table_apply``; ``plan`` may be a callable that gives the
+    plan at the first call, and where the plan is None the launch is the
+    element pass (:func:`element_apply`)."""
 
     def __init__(self, plan):
         self.plan = plan
@@ -772,5 +772,5 @@ def colored_fused_apply(table: BucketTable, plan, x: torch.Tensor, *, out,
     is its own transpose; ``TableApply`` flips the conj flag)."""
     launch = ColoredLaunch(plan)
     adjoint = launch if symmetric else ColoredLaunch(adjoint_plan)
-    return TableApply.apply(out, x, table, launch, adjoint, transpose,
-                            symmetric, conj, *table.values)
+    return table_apply(out, x, table, launch, adjoint, transpose, symmetric,
+                       conj)

@@ -204,12 +204,15 @@ def _check(vals, cc, rs, mk, x, mode: str) -> bool:
 
 
 def patch_spmv1(vals, cc, rs, mk, x, n_out: int, mode: str, *, tiles=None,
-                tiles_per_block: int | None = None) -> torch.Tensor:
+                tiles_per_block: int | None = None,
+                entries=None) -> torch.Tensor:
     """y [n_out] = one patch bucket applied to x [n_in] in ``mode``: kernel
     B7 for CUDA tensors, its plain version for CPU tensors.  ``tiles``: the
     bucket's live row-tile table (:func:`live_row_tiles`, int32 on the
     device; built from ``vals`` when None); ``tiles_per_block``: the range
-    of the table each block takes (default: the kernel's geometry)."""
+    of the table each block takes (default: the kernel's geometry).
+    ``entries``: the bucket's ``(tile, stored)`` entries, counted with the
+    launch (``BucketArrays.entries``)."""
     global LAUNCHES
     if not _check(vals, cc, rs, mk, x, mode):
         return patch_spmv1_plain(vals, cc, rs, mk, x, n_out, mode)
@@ -231,7 +234,8 @@ def patch_spmv1(vals, cc, rs, mk, x, n_out: int, mode: str, *, tiles=None,
                      cc.data_ptr(), rs.data_ptr(),
                      None if mk is None else mk.data_ptr(), tiles.data_ptr(),
                      tiles.shape[0], x.data_ptr(), y.data_ptr(), nb, MP, KP,
-                     x.shape[0], n_out, MODES[mode], tiles_per_block or 0)
+                     x.shape[0], n_out, MODES[mode], tiles_per_block or 0,
+                     entries=entries)
         LAUNCHES += 1
     return y
 
@@ -242,10 +246,12 @@ class _PatchSpmv1(torch.autograd.Function):
     dvals torch ops on the gathered vectors."""
 
     @staticmethod
-    def forward(ctx, vals, cc, rs, mk, x, n_out, mode, tiles=None):
+    def forward(ctx, vals, cc, rs, mk, x, n_out, mode, tiles=None,
+                entries=None):
         ctx.save_for_backward(vals, cc, rs, mk, x)
-        ctx.mode, ctx.tiles = mode, tiles
-        return patch_spmv1(vals, cc, rs, mk, x, n_out, mode, tiles=tiles)
+        ctx.mode, ctx.tiles, ctx.entries = mode, tiles, entries
+        return patch_spmv1(vals, cc, rs, mk, x, n_out, mode, tiles=tiles,
+                           entries=entries)
 
     @staticmethod
     def backward(ctx, g):
@@ -254,7 +260,8 @@ class _PatchSpmv1(torch.autograd.Function):
         dvals = dx = None
         if ctx.needs_input_grad[4]:
             dx = _PatchSpmv1.apply(vals, cc, rs, mk, g, x.shape[0],
-                                   _ADJOINT[ctx.mode], ctx.tiles)
+                                   _ADJOINT[ctx.mode], ctx.tiles,
+                                   ctx.entries)
         if ctx.needs_input_grad[0]:
             win, fcols, tcols = _sides(vals, cc, rs, mk, ctx.mode)
             dvals = torch.zeros_like(vals)
@@ -264,10 +271,11 @@ class _PatchSpmv1(torch.autograd.Function):
             if tcols is not None:   # y[tcols] += V^T x[win]
                 dvals = dvals + _gather(x, win)[:, :, None] * \
                     _gather(g, tcols)[:, None, :]
-        return dvals, None, None, None, dx, None, None, None
+        return dvals, None, None, None, dx, None, None, None, None
 
 
 def patch_spmv1_apply(vals, cc, rs, mk, x, n_out: int, mode: str, *,
-                      tiles=None):
+                      tiles=None, entries=None):
     """:func:`patch_spmv1` with autograd in ``x`` and ``vals``."""
-    return _PatchSpmv1.apply(vals, cc, rs, mk, x, n_out, mode, tiles)
+    return _PatchSpmv1.apply(vals, cc, rs, mk, x, n_out, mode, tiles,
+                             entries)

@@ -70,8 +70,8 @@ from .kernels.patch_spmv1 import (live_row_tiles, patch_spmv1_apply,
                                   patch_spmv1_plain)
 from .torch_spmv import chunk_rows, gather_rows, scatter_rows
 
-__all__ = ["patch_device_arrays", "patch_apply", "patch_spmm",
-           "patch_spmm_plain", "patch_spmv", "patch_spmv_plain",
+__all__ = ["patch_device_arrays", "plan_entries", "patch_apply",
+           "patch_spmm", "patch_spmm_plain", "patch_spmv", "patch_spmv_plain",
            "bucket_spmm", "bucket_spmm_plain", "patch_xt", "patch_xt_plain",
            "patch_tr", "transpose_spmm", "tr_geometry", "tf32_round",
            "bucket_spmm_sym", "bucket_spmm_sym_plain", "owner_tables",
@@ -100,13 +100,27 @@ class BucketArrays(tuple):
     symmetric plan, kernel B3's owner tables of the symmetric (index
     False) and adjoint (index True) modes, each ``(chunk, ptr, pair)``
     int32 tensors; None otherwise.  ``tiles``: kernel B7's live row-tile
-    table (``patch_spmv1.live_row_tiles``), int32 [ntiles, 2], or None."""
+    table (``patch_spmv1.live_row_tiles``), int32 [ntiles, 2], or None.
+    ``entries``: ``(tile, stored)`` entries a launch over the bucket counts
+    (``utils/build.launch``; :func:`plan_entries`), or None."""
 
-    def __new__(cls, arrays, owners=None, tiles=None):
+    def __new__(cls, arrays, owners=None, tiles=None, entries=None):
         self = super().__new__(cls, arrays)
         self.owners = owners
         self.tiles = tiles
+        self.entries = entries
         return self
+
+
+def plan_entries(plan: PatchPlan) -> list:
+    """Per bucket of ``plan``, ``(tile entries, stored entries)``: its
+    tiles' value entries, padding included (``nb * MP * KP``), and the
+    plan's stored entries (``logical_nnz``: each stored block once,
+    off-diagonals too) on its first bucket (``build_patch_plan`` emits
+    one), so the sums over a product, which launches every bucket, are
+    exact."""
+    return [(b.nb * b.MP * b.KP, plan.logical_nnz if i == 0 else 0)
+            for i, b in enumerate(plan.buckets)]
 
 
 def owner_tables(col_chunk: np.ndarray, mirror_kc: np.ndarray, nchunks: int,
@@ -146,7 +160,7 @@ def patch_device_arrays(plan: PatchPlan, device) -> tuple:
     symmetric plan, B3's owner tables."""
     nchunks = -(-plan.ncols // CC)
     out = []
-    for b in plan.buckets:
+    for b, entries in zip(plan.buckets, plan_entries(plan)):
         owners = None
         if plan.symmetric:
             owners = tuple(
@@ -158,7 +172,7 @@ def patch_device_arrays(plan: PatchPlan, device) -> tuple:
              torch.from_numpy(b.col_chunk).to(device),
              torch.from_numpy(b.row_start).to(device),
              torch.from_numpy(b.mirror_kc).to(device)), owners,
-            torch.from_numpy(live_row_tiles(b.vals)).to(device)))
+            torch.from_numpy(live_row_tiles(b.vals)).to(device), entries))
     return tuple(out)
 
 
@@ -254,7 +268,7 @@ def tr_geometry(P: int, nb: int, MP: int, KP: int, r: int, tier: int,
 
 
 def patch_tr(vals, cc, rs, hi, lo, n_in: int, n_out: int,
-             tier: int) -> torch.Tensor:
+             tier: int, entries=None) -> torch.Tensor:
     """B2's transposed kernel alone, on CUDA tensors: Y [P, n_out, r] =
     the chunks cc[b, j] of each product's Y += V[p, b]^T @ X[p, window b],
     with X given as the prologue's hi / lo [P, r, ld] of X [P, n_in, r]
@@ -262,7 +276,8 @@ def patch_tr(vals, cc, rs, hi, lo, n_in: int, n_out: int,
     int32, all contiguous.  The tiles go into Y by the TMA unit's
     reduce-add (atomicAdd where r % 4 != 0); the kernel picks its launch
     geometry (:func:`tr_geometry`).  CPU tensors take the plain version on
-    X = (hi + lo)^T."""
+    X = (hi + lo)^T.  ``entries``: the launch's ``(tile, stored)`` entries,
+    counted with it."""
     global TR_LAUNCHES
     P, nb, MP, KP = vals.shape
     r = hi.shape[1]
@@ -276,12 +291,14 @@ def patch_tr(vals, cc, rs, hi, lo, n_in: int, n_out: int,
         build.launch("bst_patch_spmm_tr_f32", hi.device, vals.data_ptr(),
                      cc.data_ptr(), rs.data_ptr(), hi.data_ptr(),
                      None if lo is None else lo.data_ptr(), Y.data_ptr(), P,
-                     nb, MP, KP, r, n_in, hi.shape[-1], n_out, tier)
+                     nb, MP, KP, r, n_in, hi.shape[-1], n_out, tier,
+                     entries=entries)
         TR_LAUNCHES += 1
     return Y
 
 
-def transpose_spmm(vals, cc, rs, X, n_out: int, tier: int) -> torch.Tensor:
+def transpose_spmm(vals, cc, rs, X, n_out: int, tier: int,
+                   entries=None) -> torch.Tensor:
     """Y [P, n_out, r] = the transposed products of P value stacks vals
     [P, nb, MP, KP] sharing one plan's tables with X [P, n_in, r]: one
     prologue launch and one :func:`patch_tr` launch, for CUDA tensors the
@@ -294,7 +311,7 @@ def transpose_spmm(vals, cc, rs, X, n_out: int, tier: int) -> torch.Tensor:
                            device=X.device)
     hi, lo = patch_xt(X, tier)
     return patch_tr(vals, cc.contiguous(), rs.contiguous(), hi, lo, n_in,
-                    n_out, tier)
+                    n_out, tier, entries)
 
 
 def _check_bucket(vals, cc, rs, X, *extra) -> bool:
@@ -329,17 +346,19 @@ def _check_bucket(vals, cc, rs, X, *extra) -> bool:
 
 
 def bucket_spmm(vals, cc, rs, X, n_out: int, *, transpose: bool = False,
-                precision="highest") -> torch.Tensor:
+                precision="highest", entries=None) -> torch.Tensor:
     """Y [n_out, r] = one patch bucket applied to X [n_in, r]: kernel B2 at
     ``precision``'s tier for CUDA tensors (the forward or the transpose,
     each after its prologue), its plain version (exact at every tier, any
-    floating dtype) for CPU tensors."""
+    floating dtype) for CPU tensors.  ``entries``: the bucket's ``(tile,
+    stored)`` entries, counted with the launch (``BucketArrays.entries``)."""
     global LAUNCHES
     tier = precision_tier(precision)
     if not _check_bucket(vals, cc, rs, X):
         return bucket_spmm_plain(vals, cc, rs, X, n_out, transpose=transpose)
     if transpose:
-        return transpose_spmm(vals[None], cc, rs, X[None], n_out, tier)[0]
+        return transpose_spmm(vals[None], cc, rs, X[None], n_out, tier,
+                              entries)[0]
     nb, MP, KP = vals.shape
     X = _aligned(X.contiguous())
     vals = _aligned(vals.contiguous())
@@ -352,7 +371,8 @@ def bucket_spmm(vals, cc, rs, X, n_out: int, *, transpose: bool = False,
     build.launch("bst_patch_spmm_f32", X.device, vals.data_ptr(),
                  cc.data_ptr(), rs.data_ptr(), hi.data_ptr(),
                  None if lo is None else lo.data_ptr(), Y.data_ptr(),
-                 nb, MP, KP, r, n_in, hi.shape[1], n_out, tier)
+                 nb, MP, KP, r, n_in, hi.shape[1], n_out, tier,
+                 entries=entries)
     LAUNCHES += 1
     return Y
 
@@ -399,12 +419,14 @@ def bucket_spmm_sym_plain(vals, cc, rs, mk, X, *, adjoint: bool = False,
 
 
 def bucket_spmm_sym(vals, cc, rs, mk, X, *, adjoint: bool = False,
-                    owners=None, precision="highest") -> torch.Tensor:
+                    owners=None, precision="highest",
+                    entries=None) -> torch.Tensor:
     """Y [n, r] = one bucket of a symmetric plan applied to X [n, r] (its
     transpose when ``adjoint``): kernel B3 at ``precision``'s tier for CUDA
     tensors, its plain version (exact at every tier) for CPU tensors.
     ``owners``: the owner tables of this mode (``BucketArrays.owners
-    [adjoint]``), built from ``cc`` and ``mk`` when None."""
+    [adjoint]``), built from ``cc`` and ``mk`` when None; ``entries``: the
+    bucket's ``(tile, stored)`` entries, counted with the launch."""
     global SYM_LAUNCHES
     tier = precision_tier(precision)
     if tuple(mk.shape) != tuple(rs.shape):
@@ -429,7 +451,7 @@ def bucket_spmm_sym(vals, cc, rs, mk, X, *, adjoint: bool = False,
                      cc.data_ptr(), rs.data_ptr(), mk.data_ptr(),
                      chunk.data_ptr(), ptr.data_ptr(), pair.data_ptr(),
                      chunk.numel(), X.data_ptr(), Y.data_ptr(), nb, MP, KP, r,
-                     n, int(adjoint), tier)
+                     n, int(adjoint), tier, entries=entries)
         SYM_LAUNCHES += 1
     return Y
 
@@ -445,16 +467,19 @@ class _PatchSpmmSym(torch.autograd.Function):
     JAX package's ``patch_engine._spmm_vjp_bwd``): dX is the same kernel
     in its adjoint mode at the same tier, dvals is torch ops on the
     gathered rows.  ``owners``: the bucket's owner tables of both modes
-    (``BucketArrays.owners``) or None."""
+    (``BucketArrays.owners``) or None; ``entries``: its ``(tile, stored)``
+    entries or None."""
 
     @staticmethod
     def forward(ctx, vals, cc, rs, mk, X, adjoint, owners=None,
-                precision="highest"):
+                precision="highest", entries=None):
         ctx.save_for_backward(vals, cc, rs, mk, X)
         ctx.adjoint, ctx.owners, ctx.precision = adjoint, owners, precision
+        ctx.entries = entries
         return bucket_spmm_sym(
             vals, cc, rs, mk, X, adjoint=adjoint, precision=precision,
-            owners=None if owners is None else owners[adjoint])
+            owners=None if owners is None else owners[adjoint],
+            entries=entries)
 
     @staticmethod
     def backward(ctx, g):
@@ -463,7 +488,7 @@ class _PatchSpmmSym(torch.autograd.Function):
         dvals = dX = None
         if ctx.needs_input_grad[4]:
             dX = _PatchSpmmSym.apply(vals, cc, rs, mk, g, not ctx.adjoint,
-                                     ctx.owners, ctx.precision)
+                                     ctx.owners, ctx.precision, ctx.entries)
         if ctx.needs_input_grad[0]:
             win = _window_rows(rs, vals.shape[1])
             cols, mir = chunk_rows(cc, CC), _mirror_rows(cc, mk)
@@ -474,7 +499,7 @@ class _PatchSpmmSym(torch.autograd.Function):
                                   gather_rows(b, cols))
                      + torch.einsum("bmr,bkr->bmk", gather_rows(b, win),
                                     gather_rows(a, mir)))
-        return dvals, None, None, None, dX, None, None, None
+        return dvals, None, None, None, dX, None, None, None, None
 
 
 class _PatchSpmm(torch.autograd.Function):
@@ -483,11 +508,13 @@ class _PatchSpmm(torch.autograd.Function):
     mode at the same tier, dvals is torch ops on the gathered rows."""
 
     @staticmethod
-    def forward(ctx, vals, cc, rs, X, n_out, transpose, precision="highest"):
+    def forward(ctx, vals, cc, rs, X, n_out, transpose, precision="highest",
+                entries=None):
         ctx.save_for_backward(vals, cc, rs, X)
         ctx.transpose, ctx.precision = transpose, precision
+        ctx.entries = entries
         return bucket_spmm(vals, cc, rs, X, n_out, transpose=transpose,
-                           precision=precision)
+                           precision=precision, entries=entries)
 
     @staticmethod
     def backward(ctx, g):
@@ -496,7 +523,8 @@ class _PatchSpmm(torch.autograd.Function):
         dvals = dX = None
         if ctx.needs_input_grad[3]:
             dX = _PatchSpmm.apply(vals, cc, rs, g, X.shape[0],
-                                  not ctx.transpose, ctx.precision)
+                                  not ctx.transpose, ctx.precision,
+                                  ctx.entries)
         if ctx.needs_input_grad[0]:
             win, cols = _window_rows(rs, vals.shape[1]), chunk_rows(cc, CC)
             if ctx.transpose:
@@ -505,7 +533,7 @@ class _PatchSpmm(torch.autograd.Function):
             else:
                 dvals = torch.einsum("bmr,bkr->bmk", gather_rows(g, win),
                                      gather_rows(X, cols))
-        return dvals, None, None, dX, None, None, None
+        return dvals, None, None, dX, None, None, None, None
 
 
 def _n_out(plan: PatchPlan, transpose: bool) -> int:
@@ -524,13 +552,14 @@ def patch_spmm(plan: PatchPlan, dev, X, *, transpose: bool = False,
     Y = None
     for bucket in dev:
         vals, cc, rs, mk = bucket
+        entries = getattr(bucket, "entries", None)
         if plan.symmetric:
             part = _PatchSpmmSym.apply(vals, cc, rs, mk, X, False,
                                        getattr(bucket, "owners", None),
-                                       precision)
+                                       precision, entries)
         else:
             part = _PatchSpmm.apply(vals, cc, rs, X, n_out, transpose,
-                                    precision)
+                                    precision, entries)
         Y = part if Y is None else Y + part
     if Y is None:
         return X.new_zeros((n_out, X.shape[1]))
@@ -570,7 +599,8 @@ def patch_spmv(plan: PatchPlan, dev, x, *, transpose: bool = False):
     for bucket in dev:
         vals, cc, rs, mk = bucket
         part = patch_spmv1_apply(vals, cc, rs, mk, x, n_out, mode,
-                                 tiles=getattr(bucket, "tiles", None))
+                                 tiles=getattr(bucket, "tiles", None),
+                                 entries=getattr(bucket, "entries", None))
         y = part if y is None else y + part
     return x.new_zeros(n_out) if y is None else y
 

@@ -7,6 +7,15 @@ plain C interface, at first kernel use (never at import), into
 sources and flags, so an edit to any source rebuilds it.  It is loaded with
 ctypes; every entry point returns the ``cudaError_t`` of its launch.
 
+Every kernel launch goes through :func:`launch`, which counts it by entry
+point, always (:func:`launch_counts`): launches, and where the caller
+passes them, the value entries of the tiles the launch iterates (padding
+included) and the stored entries of the blocks in it, two integers that
+each table or plan computes once, when it is built.  While a
+``torch.profiler`` records, each launch is also a span
+``bsp.launch.<entry>`` (``utils/profiling.py``), under which the kernel's
+device time hangs in the trace.
+
 A missing ``nvcc`` or a failed build raises with the compiler's output:
 there is no fallback.
 """
@@ -24,7 +33,10 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["load_library", "build_info", "check", "launch"]
+from . import profiling
+
+__all__ = ["load_library", "build_info", "check", "launch", "launch_counts",
+           "reset_launch_counts"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _SRC_DIR = _PKG / "csrc"
@@ -35,6 +47,8 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _lib = None
 _info: dict = {}
+# entry point -> [launches, tile entries, stored entries]
+_counts: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -218,13 +232,43 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: torch.device, *args, entries=None) -> None:
     """Call entry point ``name`` with ``args`` and the current stream of
-    ``device`` (a CUDA device), with ``device`` current; raise on error."""
+    ``device`` (a CUDA device), with ``device`` current; raise on error.
+    ``entries``: ``(tile entries, stored entries)`` of the table or plan
+    the launch iterates, counted with it; None where it iterates none."""
     fn = getattr(load_library(), name)
-    if device.index != torch.cuda.current_device():
-        with torch.cuda.device(device):
+    with (_launch_span(name, entries) if profiling.recording()
+          else profiling.NOOP):
+        if device.index != torch.cuda.current_device():
+            with torch.cuda.device(device):
+                err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        else:
             err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
     check(err, name)
+    count = _counts.get(name)
+    if count is None:
+        count = _counts[name] = [0, 0, 0]
+    count[0] += 1
+    if entries is not None:
+        count[1] += entries[0]
+        count[2] += entries[1]
+
+
+def _launch_span(name: str, entries):
+    attrs = {} if entries is None else {"tile_entries": entries[0],
+                                        "stored_entries": entries[1]}
+    return profiling.annotate(f"bsp.launch.{name}", **attrs)
+
+
+def launch_counts() -> dict:
+    """``{entry point: {"launches", "tile_entries", "stored_entries"}}``
+    of every launch since the last :func:`reset_launch_counts` (entries
+    summed over the launches that passed them)."""
+    return {name: {"launches": c[0], "tile_entries": c[1],
+                   "stored_entries": c[2]} for name, c in _counts.items()}
+
+
+def reset_launch_counts() -> None:
+    """Zero the launch counts."""
+    _counts.clear()

@@ -590,7 +590,7 @@ def reset_counts() -> None:
     mask_select.OWNER_LAUNCHES = 0
     mask_select.COLORED_LAUNCHES = 0
     mask_select.ROUNDS_LAUNCHES = 0
-    fused_spmm.ENTRY_LAUNCHES.clear()
+    build.reset_launch_counts()
     for mod in (panel_spmv, slab_spmv):
         mod.LAUNCHES = 0
         mod.MIRROR_LAUNCHES = 0
@@ -3111,7 +3111,7 @@ def scattered_main_path(card: str) -> dict:
               f"{ {k: v for k, v in got.items() if v} }")
         require_counts(f"scattered {schedule} S @ x", got, bucket_want(S))
         out[schedule] = dict(got)
-        out[f"{schedule} entries"] = dict(fused_spmm.ENTRY_LAUNCHES)
+        out[f"{schedule} entries"] = entry_counts()
         rel_check(f"scattered {schedule} S @ x vs float64 scipy", y,
                   Ssc @ xn.astype(np.float64), TOL32)
         before = counts()
@@ -5432,9 +5432,15 @@ def dense_of(op, dtype) -> torch.Tensor:
     return d
 
 
+# the entry points of B1 and of B9's element pass, owner mode and colored
+# products
+B1_B9_ENTRIES = ("bst_fused_spmm", "bst_element_", "bst_colored_products_")
+
+
 def entry_counts() -> dict:
     """B1's and B9's launches since the last reset, by entry point."""
-    return {k: v for k, v in fused_spmm.ENTRY_LAUNCHES.items() if v}
+    return {k: c["launches"] for k, c in build.launch_counts().items()
+            if k.startswith(B1_B9_ENTRIES) and c["launches"]}
 
 
 def fma_entry(kind: str, stored, compute, r: int = 1) -> str:
